@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's zero-shot dual-encoder path once on one NVIDIA
-GPU, through the kernels written for Hopper, and check it.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU, through the
+kernels written for Hopper, and check them: the zero-shot dual encoder
+(serving) and the dual-encoder pretraining step.
 
     python3 chip_smoke.py
 
@@ -13,6 +14,9 @@ and prints no result. Phases, each printing JSON lines:
   3. kernels: K1 (spatial phase), K2 (temporal phase, F=4 and F=16) and
      K3 (LayerNorm) against their plain PyTorch versions on seeded
      inputs, fp32 and bf16, with errors, tolerances and CUDA-event times.
+     kernel_bwd: the same for their backward kernels, on strided qkv
+     views, errors relative to the reference's largest value, and two
+     calls checked bit-identical.
   4. model: CLIP_OPENAI_TIMESFORMER_BASE from a seeded generator, time
      attention given seeded noise (its zero init would make K2's check
      vacuous), embeddings on the kernel path against the plain functions
@@ -20,8 +24,16 @@ and prints no result. Phases, each printing JSON lines:
      clips/s at batch 32 in bf16 on both paths.
   5. entry point: the port CLI's ``load_model_from_checkpoint`` (BASE,
      bf16) and ``embed_dataset`` over the synthetic dataset, scored by
-     ``lavila_tpu.eval.metrics`` on an identity relevancy matrix. The
-     launch counts of this run go into the kernel summary line.
+     ``lavila_tpu.eval.metrics`` on an identity relevancy matrix.
+  6. train_step: 2 AdamW steps of BASE at full depth (``norm_embed``),
+     fp32 and bf16, kernel path against the plain path from the same
+     weights and batch (losses and every gradient), launches per step,
+     then train clips/s and peak memory at batch 16 and 48 in bf16 on
+     both paths.
+  7. pretrain_cli: the port's pretraining CLI for 5 steps (BASE, bf16,
+     batch 16, synthetic data), then the zero-shot loader reads its
+     checkpoint and embeds a batch. The launch counts of this run, the
+     training path's, go into the kernel summary line.
 
 TF32 is off for matmuls and cuDNN convolutions, so fp32 comparisons are
 fp32. Any failed check exits non-zero without the final line; the final
@@ -31,6 +43,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,7 +59,7 @@ SEED = 0
 DEVICE = "cuda"
 # the model of the path: TSF-B video tower (12 blocks) + CLIP text tower
 MODEL = {"name": "CLIP_OPENAI_TIMESFORMER_BASE", "img": 224, "depth": 12,
-         "embed": 256}
+         "text_depth": 12, "embed": 256}
 # Each kernel case is held against the plain version run in fp32 on the
 # same input values, so the bound is the kernel's own error. fp32:
 # summation order only; bf16: the kernels compute in fp32 and round the
@@ -96,18 +109,27 @@ def plain_path():
         yield
 
 
-def launch_counts() -> dict:
+# kernel name -> (module's launch counter, its key)
+COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
+            "K3": ("layernorm", "layernorm"),
+            "K1 bwd": ("divided", "space_bwd"),
+            "K2 bwd": ("divided", "time_bwd"),
+            "K3 bwd": ("layernorm", "layernorm_bwd")}
+
+
+def _counter(module: str) -> dict:
     from lavila_tpu_torch.kernels import divided as KD
     from lavila_tpu_torch.kernels import layernorm as KL
-    return {"K1": KD.launches["space"], "K2": KD.launches["time"],
-            "K3": KL.launches["layernorm"]}
+    return {"divided": KD, "layernorm": KL}[module].launches
+
+
+def launch_counts() -> dict:
+    return {name: _counter(m)[key] for name, (m, key) in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    from lavila_tpu_torch.kernels import divided as KD
-    from lavila_tpu_torch.kernels import layernorm as KL
-    KD.launches.update(space=0, time=0)
-    KL.launches.update(layernorm=0)
+    for m, key in COUNTERS.values():
+        _counter(m)[key] = 0
 
 
 # ---------------------------------------------------------------- phases
@@ -207,6 +229,100 @@ def phase_kernels() -> dict:
             main_shape = {"K1": 4, "K2": 4}.get(name)
             if dtype == torch.bfloat16 and (
                     shape[1] == main_shape or shape == (8 * 4 * 196, 768)):
+                s.update(ms=res["ms"], plain_ms=res["plain_ms"],
+                         at=list(shape))
+    return summary
+
+
+def _rel_err(got, ref) -> float:
+    """Largest error relative to the reference's largest magnitude."""
+    return max_err(got, ref) / max(ref.float().abs().max().item(), 1e-30)
+
+
+def _all_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
+    """K1/K2 bwd on strided q/k/v views, out and lse from the forward
+    kernel, against the plain backward in fp32 on the same values."""
+    from lavila_tpu_torch.kernels import divided as KD
+    qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
+        dtype)
+    cls = torch.randn(B, 3 * D, generator=gen, device=DEVICE).to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    _, ck, cv = cls.chunk(3, dim=-1)
+    scale = (D // H) ** -0.5
+    out, lse = KD.divided_phase(q, k, v, ck, cv, axis, H, scale)
+    do = torch.randn(B, F, N, D, generator=gen, device=DEVICE).to(dtype)
+    args = (q, k, v, ck, cv, do, out, lse, axis, H, scale)
+    got = KD.divided_phase_bwd(*args)
+    again = KD.divided_phase_bwd(*args)
+    ref = KD.divided_phase_bwd_reference(
+        *(t.float() for t in args[:8]), *args[8:])
+    torch.cuda.synchronize()
+    errs = {n: _rel_err(a, b) for n, a, b in
+            zip(("dq", "dk", "dv", "dck", "dcv"), got, ref)}
+    tol = TOL[dtype]
+    return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
+            "tol": tol, "deterministic": _all_equal(got, again),
+            "ok": max(errs.values()) <= tol and _all_equal(got, again),
+            "ms": time_ms(lambda: KD.divided_phase_bwd(*args)),
+            "plain_ms": time_ms(
+                lambda: KD.divided_phase_bwd_reference(*args))}
+
+
+def _ln_bwd_case(shape, dtype, gen) -> dict:
+    from lavila_tpu_torch.kernels import layernorm as KL
+    D = shape[-1]
+    x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    dy = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    got = KL.layer_norm_bwd(x, w, dy, 1e-6)
+    again = KL.layer_norm_bwd(x, w, dy, 1e-6)
+    ref = KL.layer_norm_bwd_reference(x.float(), w.float(), dy.float(), 1e-6)
+    torch.cuda.synchronize()
+    errs = {n: _rel_err(a, b) for n, a, b in
+            zip(("dx", "dweight", "dbias"), got, ref)}
+    tol = TOL[dtype]
+    return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
+            "tol": tol, "deterministic": _all_equal(got, again),
+            "ok": max(errs.values()) <= tol and _all_equal(got, again),
+            "ms": time_ms(lambda: KL.layer_norm_bwd(x, w, dy, 1e-6)),
+            "plain_ms": time_ms(
+                lambda: KL.layer_norm_bwd_reference(x, w, dy, 1e-6))}
+
+
+def phase_kernels_bwd() -> dict:
+    """Every backward kernel case, as :func:`phase_kernels`. Errors are
+    relative to the reference's largest magnitude (dck/dcv and dγ/dβ are
+    sums over many rows); two calls must give the same bits."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [("K1 bwd", "space", (8, 4, 196, 768, 12), dtype),
+                  ("K2 bwd", "time", (8, 4, 196, 768, 12), dtype),
+                  ("K2 bwd", "time", (8, 16, 196, 768, 12), dtype),
+                  ("K3 bwd", "ln", (8, 77, 512), dtype),
+                  ("K3 bwd", "ln", (8 * 4 * 196, 768), dtype)]
+    summary = {}
+    with torch.no_grad():
+        for name, kind, shape, dtype in cases:
+            if kind == "ln":
+                res = _ln_bwd_case(shape, dtype, gen)
+            else:
+                res = _phase_bwd_case(kind, *shape[:3], shape[3], shape[4],
+                                      dtype, gen)
+            emit("kernel_bwd", kernel=name, shape=list(shape),
+                 dtype=str(dtype).removeprefix("torch."), **res)
+            check(res["ok"], f"{name} {shape} {dtype}: relative errors "
+                  f"{res['rel_err']} > {res['tol']} or not deterministic "
+                  f"({res['deterministic']})")
+            s = summary.setdefault(name, {"max_abs_err": 0.0})
+            s["max_abs_err"] = max(s["max_abs_err"], res["abs_err"])
+            if dtype == torch.bfloat16 and (
+                    (kind != "ln" and shape[1] == 4)
+                    or shape == (8 * 4 * 196, 768)):
                 s.update(ms=res["ms"], plain_ms=res["plain_ms"],
                          at=list(shape))
     return summary
@@ -357,6 +473,195 @@ def phase_cli() -> dict:
     return counts
 
 
+def _step_launches() -> dict:
+    """Kernel launches of one train step. LayerNorms of one forward: per
+    video block norm3, norm1 and norm2, each on the CLS row and on the
+    patches; ln_pre on both and the final norm; per text block ln_1 and
+    ln_2; ln_final (100 for BASE). The tower returns only the CLS row, so
+    the last block's patch outputs never reach the loss: autograd runs
+    no backward for its spatial phase (K1) or its norm2 on the patches
+    (K3)."""
+    depth = MODEL["depth"]
+    norms = 6 * depth + 3 + 2 * MODEL["text_depth"] + 1
+    return {"K1": depth, "K2": depth, "K3": norms, "K1 bwd": depth - 1,
+            "K2 bwd": depth, "K3 bwd": norms - 1}
+
+
+def _make_state(model, dtype):
+    """A TrainState with the CLI's default AdamW recipe (warm-up from
+    1e-6 over 100-step epochs)."""
+    from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
+    from lavila_tpu_torch.train.step import TrainState
+    schedule = cosine_schedule(3e-5, 1e-5, 5, 100, warmup_epochs=1,
+                               start_warmup_lr=1e-6)
+    return TrainState.create(
+        model, lambda params: make_optimizer(params, schedule), dtype=dtype)
+
+
+def _train_batch(B, gen):
+    frames, text = _inputs(B, gen)
+    return {"frames": frames, "text": text}
+
+
+def _run_steps(base, dtype, batch, plain: bool, steps: int = 2):
+    """``steps`` train steps from a copy of ``base``: the losses, each
+    step's fp32 gradients and the launch counts of each step."""
+    import copy
+
+    from lavila_tpu_torch.train.step import make_clip_train_step
+    state = _make_state(copy.deepcopy(base).train(), dtype)
+    # normalised embeddings (--norm-embed) keep the logits within
+    # ±logit_scale; raw random-init embeddings give logits in the
+    # hundreds, where bf16 rounding alone moves the loss by percents
+    step_fn = make_clip_train_step(norm_embed=True)
+    losses, grads, counts = [], [], []
+    with plain_path() if plain else nullcontext():
+        for _ in range(steps):
+            reset_launch_counts()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            counts.append(launch_counts())
+            losses.append(metrics["loss"].item())
+            grads.append({k: p.grad.clone() for k, p in state.params.items()})
+    return losses, grads, counts
+
+
+def phase_train_step() -> None:
+    """The train step on BASE at full depth, kernel path against the
+    plain path from the same weights and batch; then train clips/s."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    base = _base_model()
+    batch = _train_batch(4, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        k_loss, k_grads, counts = _run_steps(base, dtype, batch, False)
+        p_loss, p_grads, _ = _run_steps(base, dtype, batch, True)
+        rel_loss = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+        # cosines: every weight matrix (2-D, and the 4-D patch-embed
+        # kernel) is held to the bound; the 3-D embeddings (cls_token,
+        # pos_embed, temporal_embed) are reported beside them
+        worst_err = 0.0
+        worst = {"matrices": (1.0, None), "embeddings": (1.0, None)}
+        for step, (kg, pg) in enumerate(zip(k_grads, p_grads)):
+            for name, g in pg.items():
+                a = kg[name]
+                scale = g.abs().max().item()
+                if scale > 0:
+                    worst_err = max(worst_err, max_err(a, g) / scale)
+                if g.dim() >= 2 and scale > 0:
+                    cos = torch.nn.functional.cosine_similarity(
+                        a.flatten(), g.flatten(), dim=0).item()
+                    kind = "embeddings" if g.dim() == 3 else "matrices"
+                    if cos < worst[kind][0]:
+                        worst[kind] = (cos, f"step {step}: {name}")
+        worst_cos = worst["matrices"][0]
+        name = str(dtype).removeprefix("torch.")
+        emit("train_step", model=MODEL["name"], dtype=name, batch=4,
+             steps=2, loss_kernels=k_loss, loss_plain=p_loss,
+             loss_rel_err=rel_loss, grad_rel_err_max=worst_err,
+             grad_cos_min=worst_cos, grad_cos_min_at=worst["matrices"][1],
+             embed_grad_cos_min=worst["embeddings"][0],
+             embed_grad_cos_min_at=worst["embeddings"][1],
+             launches_per_step=counts)
+        check(all(math.isfinite(x) for x in k_loss + p_loss),
+              f"train step {name}: non-finite loss {k_loss} {p_loss}")
+        want = _step_launches()
+        check(all(c == want for c in counts),
+              f"train step {name}: launches {counts}, want {want}")
+        if dtype == torch.float32:
+            check(rel_loss <= 1e-5 and worst_err <= 1e-4,
+                  f"train step fp32 kernels vs plain: loss {rel_loss}, "
+                  f"gradient {worst_err}")
+        else:
+            check(rel_loss <= 1e-2 and worst_cos >= 0.99,
+                  f"train step bf16 kernels vs plain: loss {rel_loss}, "
+                  f"cosine {worst_cos}")
+    del k_grads, p_grads
+    _train_throughput(base, gen)
+
+
+def _train_throughput(base, gen, iters: int = 10) -> None:
+    """Train clips/s, bf16, kernel and plain path in alternating order:
+    at batch 16 (bench.py's TSF-B batch), where the host's issue time
+    bounds the step, and at batch 48, where the device does."""
+    from lavila_tpu_torch.train.step import make_clip_train_step
+    state = _make_state(base.train(), torch.bfloat16)
+    step_fn = make_clip_train_step()
+    for batch in (16, 48):
+        data = _train_batch(batch, gen)
+        rates, peaks = {}, {}
+        for path in ("kernels", "plain", "plain", "kernels"):
+            with plain_path() if path == "plain" else nullcontext():
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(3):
+                    step_fn(state, data)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    step_fn(state, data)
+                torch.cuda.synchronize()
+                rates.setdefault(path, []).append(
+                    batch * iters / (time.perf_counter() - t0))
+                peaks.setdefault(path, []).append(
+                    torch.cuda.max_memory_allocated() / 2**30)
+        emit("train_throughput", what="train step clips/s",
+             model=MODEL["name"], dtype="bfloat16", batch=batch, frames=4,
+             iters=iters, order="kernels, plain, plain, kernels",
+             clips_per_s=rates, peak_memory_gib=peaks)
+        del data
+
+
+def phase_pretrain_cli() -> dict:
+    """The port's pretraining CLI for 5 steps on the synthetic dataset
+    (BASE, bf16, batch 16), then the port's zero-shot loader reads the
+    checkpoint and embeds a batch: train → save → serve. Returns the
+    launch counts of the training run, the main path's."""
+    import tempfile
+
+    from lavila_tpu.config import parse_config
+    from lavila_tpu_torch.cli import eval_zeroshot as ez
+    from lavila_tpu_torch.cli import main_pretrain as cli
+    with tempfile.TemporaryDirectory() as out:
+        cfg = parse_config(cli.TorchPretrainConfig, [
+            "--dataset", "synthetic", "--model", MODEL["name"], "--steps",
+            "5", "--batch-size", "16", "--workers", "4", "--print-freq",
+            "1", "--device", DEVICE, "--output-dir", out])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = cli.main(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(os.path.join(out, "log.txt")) as f:
+            log = json.loads(f.readlines()[-1])
+        files = sorted(os.listdir(out))
+        args = ez.get_args_parser().parse_args(
+            ["--checkpoint", os.path.join(out, "checkpoint_latest.pt"),
+             "--device", DEVICE, "--bf16"])
+        model, _, name = ez.load_model_from_checkpoint(args)
+    same = all(torch.equal(p, state.params[k].to(p.dtype))
+               for k, p in model.named_parameters())
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    frames, text = _inputs(2, gen)
+    with torch.inference_mode():
+        img, txt = model.encode_image(frames), model.encode_text(text)
+    emit("pretrain_cli", model=name, dtype="bfloat16", batch=16, steps=5,
+         seconds=seconds, step=state.step, train_loss=log["train_loss"],
+         files=files, launches=counts, reloaded_equal=same,
+         embed_shape=[list(img.shape), list(txt.shape)])
+    check(math.isfinite(log["train_loss"]) and state.step == 5,
+          f"pretrain CLI: loss {log['train_loss']}, step {state.step}")
+    check({"checkpoint_latest.pt", "checkpoint_latest.pt.json",
+           "checkpoint_0000.pt", "checkpoint_0000.pt.json"} <= set(files),
+          f"pretrain CLI wrote {files}")
+    check(same, "the served model differs from the trained masters")
+    check(img.shape == (2, MODEL["embed"]) and txt.shape == (2, MODEL["embed"])
+          and bool(torch.isfinite(img).all() and torch.isfinite(txt).all()),
+          f"served embeddings {img.shape} {txt.shape} not finite")
+    check(counts == {k: 5 * n for k, n in _step_launches().items()},
+          f"pretrain CLI launches {counts} for 5 steps")
+    return counts
+
+
 KERNELS = [
     ("K1", "divided_space_fwd", "cuda", "lavila_tpu_torch/csrc/divided_fwd.cu",
      "lavila_tpu/ops/pallas/divided.py:47"),
@@ -364,6 +669,15 @@ KERNELS = [
      "lavila_tpu/ops/pallas/divided.py:178"),
     ("K3", "layernorm_fwd", "triton", "lavila_tpu_torch/kernels/layernorm.py",
      "lavila_tpu/ops/pallas/layernorm.py:64"),
+    ("K1 bwd", "divided_space_bwd", "cuda",
+     "lavila_tpu_torch/csrc/divided_bwd.cu",
+     "lavila_tpu/ops/pallas/divided.py:77"),
+    ("K2 bwd", "divided_time_bwd", "cuda",
+     "lavila_tpu_torch/csrc/divided_bwd.cu",
+     "lavila_tpu/ops/pallas/divided.py:207"),
+    ("K3 bwd", "layernorm_bwd", "triton",
+     "lavila_tpu_torch/kernels/layernorm.py",
+     "lavila_tpu/ops/pallas/layernorm.py:82"),
 ]
 
 
@@ -382,17 +696,20 @@ def main() -> int:
     device = phase_device()
     phase_build()
     summary, counts = {}, {}
-    for name, phase in (("kernels", phase_kernels), ("model", phase_model),
-                        ("cli", phase_cli)):
+    for name, phase in (("kernels", phase_kernels),
+                        ("kernel_bwd", phase_kernels_bwd),
+                        ("model", phase_model), ("cli", phase_cli),
+                        ("train_step", phase_train_step),
+                        ("pretrain_cli", phase_pretrain_cli)):
         try:
             out = phase()
         except Exception:  # report every phase, then fail at the end
             traceback.print_exc()
             check(False, f"phase {name} raised")
             continue
-        if name == "kernels":
-            summary = out
-        elif name == "cli":
+        if name in ("kernels", "kernel_bwd"):
+            summary.update(out)
+        elif name == "pretrain_cli":
             counts = out
     rows = []
     for key, name, route, source, replaces in KERNELS:

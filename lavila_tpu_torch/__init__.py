@@ -10,11 +10,14 @@ same layout:
   * ops/     — LayerNorm, QuickGELU, MLP and the attention primitives.
   * models/  — TimeSformer video tower, CLIP text tower, the VideoCLIP
                dual encoder, the model zoo and the weight bridge.
-  * cli/     — entry points (zero-shot evaluation).
+  * losses.py — the contrastive loss.
+  * train/   — AdamW, the LR schedule and the dual-encoder train step.
+  * utils/   — checkpoints.
+  * cli/     — entry points (zero-shot evaluation, pretraining).
 
 It imports ``torch`` and never jax, flax, optax or orbax; from
-``lavila_tpu`` it reuses only the framework-free data, eval and config
-modules.
+``lavila_tpu`` it reuses only the framework-free data, eval, config and
+meter modules.
 """
 
 __version__ = "0.1.0"

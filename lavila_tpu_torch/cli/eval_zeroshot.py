@@ -9,8 +9,10 @@ tokenisation and metrics are the framework-free modules of
 
 ``--device`` (default ``cuda``) names the device; with ``cuda`` and no
 card it raises. ``--bf16`` casts the model to bf16. Checkpoints are
-reference ``.pt``/``.pth`` files; the JAX package's Orbax checkpoints and
-the DistilBERT text tower are not ported yet (ROADMAP).
+reference ``.pt``/``.pth`` files or the port's own from
+``main_pretrain`` (their JSON sidecar names the model); the JAX
+package's Orbax checkpoints and the DistilBERT text tower are not ported
+yet (ROADMAP).
 
     python -m lavila_tpu_torch.cli.eval_zeroshot --dataset ek100_mir \\
         --root ... --metadata ... --model CLIP_OPENAI_TIMESFORMER_BASE

@@ -39,43 +39,22 @@
 // reductions and the softmax is online, so F is only bounded by the loop
 // (16 frames, the fine-tune clip length, runs the same code as 4).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "common.cuh"
 
 namespace {
 
+using lavila::from_float;
+using lavila::ld32;
+using lavila::mma_16816;
+using lavila::pack_bf16;
+using lavila::to_float;
+using lavila::warp_max;
+using lavila::warp_sum;
+
 constexpr int kWarps = 8;           // warps per block, both kernels
 constexpr int kMaxDimsPerLane = 4;  // head_dim <= 128
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 size_t space_smem_bytes(int N, int d) {
   const size_t L = (size_t)N + 1;
@@ -170,25 +149,6 @@ constexpr int kVtStride = kMmaKeys + 8; // bf16 per V^T row in shared memory
 size_t space_mma_smem_bytes() {
   return ((size_t)kMmaKeys * kKsStride + (size_t)kMmaD * kVtStride) *
          sizeof(__nv_bfloat16);
-}
-
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// D += A (16x16 bf16, row-major) * B (16x8 bf16, col-major), fp32 D
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // max / sum over the 4 lanes of a quad, which share one fragment row
@@ -434,11 +394,9 @@ bool space_mma_fits(const void* q, const void* k, const void* v,
                     const void* ck, const void* cv, int N, int d,
                     long long q_rs, long long k_rs, long long v_rs,
                     long long ck_rs, long long cv_rs) {
-  const unsigned long long ptrs =
-      (unsigned long long)q | (unsigned long long)k | (unsigned long long)v |
-      (unsigned long long)ck | (unsigned long long)cv;
-  return d == kMmaD && N + 1 <= kMmaKeys && (ptrs & 3ull) == 0 &&
-         ((q_rs | k_rs | v_rs | ck_rs | cv_rs) & 1ll) == 0;
+  return d == kMmaD && N + 1 <= kMmaKeys &&
+         lavila::bf16_pairs_ok({q, k, v, ck, cv},
+                               {q_rs, k_rs, v_rs, ck_rs, cv_rs});
 }
 
 cudaError_t launch_space_mma(const void* q, const void* k, const void* v,

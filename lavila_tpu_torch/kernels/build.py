@@ -1,9 +1,10 @@
 """Build and load the CUDA C++ kernels of ``lavila_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` (one process per
+source, all started together) and links the objects into one shared
 library with a plain C interface under ``build/kernels/`` at the root of
-the checkout (git-ignored), named after a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one is reused. The
+the checkout (git-ignored), named after a hash of the sources, headers
+and flags, so an edited source rebuilds and an unchanged one is reused. The
 library is loaded with ``ctypes``: every pointer and the stream go as
 ``c_void_p``, and every C entry point returns the ``cudaError_t`` of its
 launch, which :func:`check` turns into an exception.
@@ -24,18 +25,21 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC",
+              "-Xcompiler", "-fPIC",
               "-Xptxas=-v")  # registers, shared memory, spills per kernel
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # argtypes of each C entry point; ctypes would cut an undeclared pointer
 # to 32 bits
+_FWD = ([_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int)
 _SIGNATURES = {
-    "lavila_divided_space_fwd": (
-        [_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
-    "lavila_divided_time_fwd": (
-        [_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
+    "lavila_divided_space_fwd": _FWD,
+    "lavila_divided_time_fwd": _FWD,
+    "lavila_divided_space_bwd": (
+        [_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
+    "lavila_divided_time_bwd": (
+        [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
 }
 
 # set by the build in this process: its wall time and nvcc's output
@@ -61,7 +65,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblavila_kernels_{h.hexdigest()[:16]}.so"
@@ -75,23 +79,40 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}"
-                               f"{proc.stderr}")
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o")
+                for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        # compile every source at once, then link
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        logs = []
+        for cmd, proc in zip(cmds, procs):
+            logs.append(proc.communicate()[0])
+            _raise_if_failed(cmd, proc.returncode, logs[-1])
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        _raise_if_failed(cmds[-1], link.returncode,
+                         link.stdout + link.stderr)
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
+        build_log = "".join(logs)
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def _raise_if_failed(cmd: list[str], code: int, log: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
 
 
 def check(err: int, what: str) -> None:

@@ -1,10 +1,12 @@
-"""Divided space-time attention phases (K1 spatial, K2 temporal), forward.
+"""Divided space-time attention phases (K1 spatial, K2 temporal),
+forward and backward.
 
-Replaces ``lavila_tpu/ops/pallas/divided.py:divided_phase`` (Pallas
-bodies ``_space_fwd_kernel`` and ``_time_fwd_kernel``) with the CUDA C++
-kernels of ``lavila_tpu_torch/csrc/divided_fwd.cu``; the header there
-says what bounds each phase on the H100 and how the kernel is laid out
-for it. The contract is the JAX function's: patch tokens token-major
+Replaces ``lavila_tpu/ops/pallas/divided.py:divided_phase`` and its
+custom VJP (Pallas bodies ``_space_fwd_kernel``/``_time_fwd_kernel`` and
+``_space_bwd_kernel``/``_time_bwd_kernel``) with the CUDA C++ kernels of
+``lavila_tpu_torch/csrc/divided_fwd.cu`` and ``divided_bwd.cu``; the
+headers there say what bounds each phase on the H100 and how the kernels
+are laid out for it. The contract is the JAX function's: patch tokens token-major
 ``(B, F, N, D = heads * head_dim)``, the CLS token's key/value rows
 ``(B, D)`` folded into every group's softmax, outputs ``(B, F, N, D)``
 and the per-row log-sum-exp ``(B, F, N, heads)`` in fp32.
@@ -13,9 +15,15 @@ q/k/v may be row views with any row stride (the column blocks of one
 ``(B, F, N, 3D)`` qkv projection output), so the attention block makes
 no ``.contiguous()`` copies.
 
-:func:`divided_phase` takes :func:`divided_phase_reference`, the plain
-PyTorch version, only for CPU tensors; on a CUDA tensor it launches the
-kernel or raises.
+When autograd needs it, :func:`divided_phase` runs through
+:class:`_DividedPhase`: the forward saves ``(q, k, v, ck, cv, out, lse)``
+and the backward recomputes the probabilities from ``lse``, as the Pallas
+VJP does, returning contiguous ``dq/dk/dv`` and the CLS rows' ``dck/dcv``
+summed over every group.
+
+Each direction takes its plain PyTorch version
+(:func:`divided_phase_reference`, :func:`divided_phase_bwd_reference`)
+only for CPU tensors; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from lavila_tpu_torch.kernels import build
 
 # kernel launches in this process, a plain int per kernel; a caller
 # zeroes them to count one run
-launches = {"space": 0, "time": 0}
+launches = {"space": 0, "time": 0, "space_bwd": 0, "time_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SPACE_TOKENS = 256  # larger frames belong to K6 (spatial_phase_big)
@@ -60,6 +68,48 @@ def divided_phase_reference(qp, kp, vp, ck, cv, axis: str, heads: int,
     else:
         lse = lse.permute(0, 2, 3, 1)
     return out.reshape(B, F, N, D).contiguous(), lse.contiguous()
+
+
+def divided_phase_bwd_reference(qp, kp, vp, ck, cv, do, out, lse,
+                                axis: str, heads: int, scale: float):
+    """Plain PyTorch backward with the kernel's signature: P recomputed in
+    fp32 from the saved ``lse`` (as the Pallas kernel does), dS = P·(dP −
+    delta) with delta = rowsum(dO·O). Returns ``(dq, dk, dv)`` in the
+    input dtype and ``(dck, dcv)`` summed over the groups, in ck's."""
+    B, F, N, D = qp.shape
+    d = D // heads
+
+    def grouped(t):
+        t = t.float().reshape(B, F, N, heads, d)
+        return t.transpose(1, 2) if axis == "time" else t  # (B, G, S, H, d)
+
+    q, k, v, g, o = map(grouped, (qp, kp, vp, do, out))
+    G = q.shape[1]
+
+    def with_cls(c, t):
+        c = c.float().reshape(B, 1, 1, heads, d).expand(B, G, 1, heads, d)
+        return torch.cat([c, t], dim=2)
+
+    kg, vg = with_cls(ck, k), with_cls(cv, v)
+    # lse (B, F, N, H) → (B, H, G, S), the layout of the scores
+    lse_g = lse.permute(0, 3, 2, 1) if axis == "time" else \
+        lse.permute(0, 3, 1, 2)
+    s = torch.einsum("bgqhd,bgkhd->bhgqk", q, kg) * scale
+    p = torch.exp(s - lse_g[..., None])
+    dp = torch.einsum("bgqhd,bgkhd->bhgqk", g, vg)
+    delta = (g * o).sum(-1).permute(0, 3, 1, 2)             # (B, H, G, S)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhgqk,bgkhd->bgqhd", ds, kg) * scale
+    dkg = torch.einsum("bhgqk,bgqhd->bgkhd", ds, q) * scale
+    dvg = torch.einsum("bhgqk,bgqhd->bgkhd", p, g)
+
+    def ungrouped(t):
+        t = t.transpose(1, 2) if axis == "time" else t
+        return t.reshape(B, F, N, D).to(qp.dtype).contiguous()
+
+    return (ungrouped(dq), ungrouped(dkg[:, :, 1:]), ungrouped(dvg[:, :, 1:]),
+            dkg[:, :, 0].sum(1).reshape(B, D).to(ck.dtype),
+            dvg[:, :, 0].sum(1).reshape(B, D).to(cv.dtype))
 
 
 def _row_stride(t: torch.Tensor, name: str) -> int:
@@ -100,32 +150,25 @@ def _check(qp, kp, vp, ck, cv, axis, heads):
         raise ValueError("q/k/v/ck/cv must be on one device")
 
 
-def divided_phase(qp, kp, vp, ck, cv, axis: str, heads: int, scale: float):
-    """One divided-attention phase over the patch tokens.
+def _check_kernel_shape(qp, axis, heads):
+    B, F, N, D = qp.shape
+    if D // heads > 128:
+        raise ValueError(f"head_dim {D // heads} > 128 is not supported")
+    if axis == "space" and N > _MAX_SPACE_TOKENS:
+        raise NotImplementedError(
+            f"N={N} > {_MAX_SPACE_TOKENS}: large frames are K6 "
+            "(spatial_phase_big), ROADMAP queue 2")
 
-    qp/kp/vp: (B, F, N, D) token-major; ck/cv: (B, D). ``axis`` is
-    'space' (group = frame, N+1 keys) or 'time' (group = position, F+1
-    keys). Returns ``(out (B, F, N, D), lse (B, F, N, heads) fp32)``.
-    """
-    _check(qp, kp, vp, ck, cv, axis, heads)
+
+def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
+    """Forward on the tensors' device: (out, lse)."""
     if qp.device.type == "cpu":
         return divided_phase_reference(qp, kp, vp, ck, cv, axis, heads,
                                        scale)
     if qp.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for {qp.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (qp, kp, vp, ck, cv)):
-        raise NotImplementedError(
-            "backward kernel: ROADMAP queue 2 (K1/K2 backward, the "
-            "training slice); run under torch.inference_mode()")
+    _check_kernel_shape(qp, axis, heads)
     B, F, N, D = qp.shape
-    d = D // heads
-    if d > 128:
-        raise ValueError(f"head_dim {d} > 128 is not supported")
-    if axis == "space" and N > _MAX_SPACE_TOKENS:
-        raise NotImplementedError(
-            f"N={N} > {_MAX_SPACE_TOKENS}: large frames are K6 "
-            "(spatial_phase_big), ROADMAP queue 2")
     strides = [_row_stride(t, n) for t, n in
                ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
     lib = build.library()
@@ -135,10 +178,97 @@ def divided_phase(qp, kp, vp, ck, cv, axis: str, heads: int, scale: float):
     fn = (lib.lavila_divided_space_fwd if axis == "space"
           else lib.lavila_divided_time_fwd)
     with torch.cuda.device(qp.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), ck.data_ptr(),
                  cv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, F, N,
-                 heads, d, *strides, float(scale), _DTYPES[qp.dtype], stream)
+                 heads, D // heads, *strides, float(scale),
+                 _DTYPES[qp.dtype], torch.cuda.current_stream().cuda_stream)
     build.check(err, f"divided_{axis}_fwd")
     launches[axis] += 1
     return out, lse
+
+
+def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
+                      heads: int, scale: float):
+    """Backward of one phase on the tensors' device: ``(dq, dk, dv, dck,
+    dcv)``. q/k/v/ck/cv as the forward took them (row views); do, out and
+    lse contiguous, out/do in the inputs' dtype and lse (B, F, N, heads)
+    fp32 as the forward wrote it."""
+    _check(qp, kp, vp, ck, cv, axis, heads)
+    B, F, N, D = qp.shape
+    if do.shape != qp.shape or out.shape != qp.shape \
+            or lse.shape != (B, F, N, heads):
+        raise ValueError(f"do/out must be {tuple(qp.shape)} and lse "
+                         f"{(B, F, N, heads)}, got {tuple(do.shape)} "
+                         f"{tuple(out.shape)} {tuple(lse.shape)}")
+    if do.dtype != qp.dtype or out.dtype != qp.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"do/out must be {qp.dtype} and lse float32, got "
+                        f"{do.dtype} {out.dtype} {lse.dtype}")
+    if any(t.device != qp.device for t in (do, out, lse)):
+        raise ValueError("do/out/lse must be on the inputs' device")
+    if qp.device.type == "cpu":
+        return divided_phase_bwd_reference(qp, kp, vp, ck, cv, do, out, lse,
+                                           axis, heads, scale)
+    if qp.device.type != "cuda":
+        raise ValueError(f"no divided-attention kernel for {qp.device}")
+    _check_kernel_shape(qp, axis, heads)
+    if not (do.is_contiguous() and out.is_contiguous()
+            and lse.is_contiguous()):
+        raise ValueError("do/out/lse must be contiguous")
+    strides = [_row_stride(t, n) for t, n in
+               ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
+    lib = build.library()
+    grads = [torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
+             for _ in range(3)]
+    grads += [torch.empty((B, D), dtype=ck.dtype, device=qp.device)
+              for _ in range(2)]
+    # fp32 per-group partials of dck/dcv, summed by a second pass
+    groups = F if axis == "space" else N
+    parts = [torch.empty((B, groups, D), dtype=torch.float32,
+                         device=qp.device) for _ in range(2)]
+    if axis == "space":  # + rowsum(dO·O) per (row, head), fp32 scratch
+        fn, scratch = lib.lavila_divided_space_bwd, [torch.empty_like(lse)]
+    else:
+        fn, scratch = lib.lavila_divided_time_bwd, []
+    with torch.cuda.device(qp.device):
+        err = fn(*(t.data_ptr() for t in (qp, kp, vp, ck, cv, do, out, lse,
+                                          *scratch, *grads, *parts)),
+                 B, F, N, heads, D // heads, *strides, float(scale),
+                 _DTYPES[qp.dtype], torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"divided_{axis}_bwd")
+    launches[f"{axis}_bwd"] += 1
+    return tuple(grads)
+
+
+class _DividedPhase(torch.autograd.Function):
+    """The phase with its backward kernel (the Pallas custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, qp, kp, vp, ck, cv, axis, heads, scale):
+        out, lse = _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale)
+        ctx.save_for_backward(qp, kp, vp, ck, cv, out, lse)
+        ctx.phase = (axis, heads, scale)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        qp, kp, vp, ck, cv, out, lse = ctx.saved_tensors
+        grads = divided_phase_bwd(qp, kp, vp, ck, cv, dout.contiguous(), out,
+                                  lse, *ctx.phase)
+        return (*grads, None, None, None)
+
+
+def divided_phase(qp, kp, vp, ck, cv, axis: str, heads: int, scale: float):
+    """One divided-attention phase over the patch tokens.
+
+    qp/kp/vp: (B, F, N, D) token-major; ck/cv: (B, D). ``axis`` is
+    'space' (group = frame, N+1 keys) or 'time' (group = position, F+1
+    keys). Returns ``(out (B, F, N, D), lse (B, F, N, heads) fp32)``;
+    differentiable in q/k/v/ck/cv through the backward kernel.
+    """
+    _check(qp, kp, vp, ck, cv, axis, heads)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qp, kp, vp, ck, cv)):
+        return _DividedPhase.apply(qp, kp, vp, ck, cv, axis, heads, scale)
+    return _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale)

@@ -48,7 +48,7 @@ _LEAF = {"kernel": ("weight", "dense"), "bias": ("bias", None),
 _TEXT_RENAMES = {"fc1": "c_fc", "fc2": "c_proj"}
 
 
-def _torch_key(path: tuple) -> tuple[str, str | None]:
+def torch_key(path: tuple) -> tuple[str, str | None]:
     """Map one flax path to (reference key, layout), or raise KeyError."""
     top, rest = path[0], list(path[1:])
     if top in ("image_projection", "logit_scale") and not rest:
@@ -86,7 +86,7 @@ def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     out, leftover = {}, []
     for path, arr in _flatten(params).items():
         try:
-            key, layout = _torch_key(path)
+            key, layout = torch_key(path)
         except (KeyError, IndexError):
             leftover.append("/".join(path))
             continue

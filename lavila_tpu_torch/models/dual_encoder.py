@@ -52,15 +52,21 @@ class VideoCLIP(nn.Module):
         nn.init.normal_(self.image_projection, 0.0, width ** -0.5,
                         generator=generator)
 
-    def encode_image(self, image: torch.Tensor) -> torch.Tensor:
-        return self.visual(image) @ self.image_projection
+    def encode_image(self, image: torch.Tensor,
+                     generator: torch.Generator | None = None
+                     ) -> torch.Tensor:
+        """``generator`` draws the video tower's drop-path masks (train
+        mode only)."""
+        return self.visual(image, generator=generator) @ \
+            self.image_projection
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         return encode_text(self, text)
 
     def forward(self, image: torch.Tensor, text: torch.Tensor,
-                norm_embed: bool = False) -> dict:
-        image_embed = self.encode_image(image)
+                norm_embed: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+        image_embed = self.encode_image(image, generator)
         text_embed = self.encode_text(text)
         if norm_embed:
             image_embed = l2_normalize(image_embed)

@@ -9,7 +9,10 @@ piece and none of the TPU layout variants:
   * :func:`causal_mask`: the additive ``(1, 1, L, L)`` causal bias.
   * :func:`cls_row_attention`: the CLS token's global attention row over
     ``[itself; all F·N patches]``. The JAX package writes it in XLA ops,
-    not Pallas, so it is plain PyTorch here too.
+    not Pallas, so it is plain PyTorch here too, and autograd gives its
+    gradient (held against the JAX package's hand-written VJP). Autograd
+    keeps its fp32 copies of k/v for the backward (~115 MB per clip over
+    the tower's 24 phases at TSF-B width).
   * :func:`divided_attention_split`: divided space-time attention in the
     CLS-separate layout. The patch tokens of each phase go through
     :func:`kernels.divided.divided_phase`, its single dispatch site: the

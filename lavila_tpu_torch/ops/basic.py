@@ -9,6 +9,8 @@ Counterpart of ``lavila_tpu/ops/basic.py``:
     CUDA tensor, the plain version on a CPU tensor, for any shape.
   * :func:`quick_gelu` is CLIP's ``x · sigmoid(1.702 x)``.
   * :class:`Mlp` is fc1 → QuickGELU → fc2.
+  * :func:`drop_path` is timm's stochastic depth, ``x / keep · mask``
+    with one 0/1 draw per sample (:func:`drop_path_mask`).
 """
 
 from __future__ import annotations
@@ -52,6 +54,25 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(quick_gelu(self.fc1(x)))
+
+
+def drop_path_mask(batch: int, rate: float,
+                   generator: torch.Generator | None, device,
+                   dtype) -> torch.Tensor:
+    """One keep (1) / drop (0) draw per sample, kept with probability
+    ``1 - rate``, from ``generator`` (torch's default generator when
+    None), returned on ``device`` in ``dtype``."""
+    where = generator.device if generator is not None else device
+    u = torch.rand(batch, generator=generator, device=where)
+    return (u < 1.0 - rate).to(device=device, dtype=dtype)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Stochastic depth on the batch dim (timm DropPath semantics,
+    ``lavila_tpu/ops/basic.py:drop_path``): ``x / keep · mask`` with
+    ``mask`` (B,) from :func:`drop_path_mask`."""
+    return x / (1.0 - rate) * mask.reshape((-1,) + (1,) * (x.dim() - 1))
 
 
 @torch.no_grad()

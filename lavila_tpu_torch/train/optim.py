@@ -1,0 +1,137 @@
+"""Optimizer, LR schedule and weight-decay grouping.
+
+Counterpart of ``lavila_tpu/train/optim.py`` (the reference recipe,
+main_pretrain.py:199-222, scheduler.py:10-21), with ``torch.optim.AdamW``
+in place of the optax chain:
+
+  * two parameter groups: weight decay only where :func:`no_decay` is
+    False (matrices whose name holds no ``bias``/``ln``/``bn``);
+  * the cosine schedule with linear warm-up, indexed like optax: the
+    first update uses ``schedule(0)``;
+  * optional clipping, by global norm with optax's formula
+    ``g·c / max(‖g‖, c)`` or by value;
+  * :func:`clamp_logit_scale` after each update.
+
+SGD and gradient accumulation (``update_freq > 1``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable
+
+import torch
+
+from lavila_tpu_torch.losses import LOGIT_SCALE_MAX
+
+
+def cosine_schedule(base_lr: float, final_lr: float, epochs: int,
+                    steps_per_epoch: int, warmup_epochs: int = 0,
+                    start_warmup_lr: float = 0.0) -> Callable[[int], float]:
+    """Linear warm-up then cosine decay, the JAX package's curve."""
+    warmup_steps = warmup_epochs * steps_per_epoch
+    decay_steps = max(epochs * steps_per_epoch - warmup_steps, 1)
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return start_warmup_lr + (base_lr - start_warmup_lr) * (
+                step / max(warmup_steps, 1))
+        t = (step - warmup_steps) / decay_steps
+        return final_lr + 0.5 * (base_lr - final_lr) * (
+            1.0 + math.cos(math.pi * t))
+
+    return schedule
+
+
+def no_decay(name: str, param: torch.Tensor) -> bool:
+    """The reference grouping (main_pretrain.py:199-206): no weight decay
+    for ndim < 2 or a name holding ``bias``/``ln``/``bn``."""
+    return param.dim() < 2 or any(tag in name.lower()
+                                  for tag in ("bias", "ln", "bn"))
+
+
+def wd_mask(named_params: Iterable) -> dict[str, bool]:
+    """True where weight decay applies."""
+    return {n: not no_decay(n, p) for n, p in named_params}
+
+
+def clamp_logit_scale(named_params: Iterable) -> None:
+    """Clamp every ``logit_scale`` parameter into [0, log 100], in
+    place."""
+    with torch.no_grad():
+        for name, p in named_params:
+            if "logit_scale" in name.rsplit(".", 1)[-1]:
+                p.clamp_(0.0, LOGIT_SCALE_MAX)
+
+
+class Optimizer:
+    """Clipping, then AdamW at the scheduled rate: one :meth:`step` is
+    one optax update of the JAX chain. ``adamw``/``scheduler`` are the
+    torch objects; :meth:`state_dict` holds both."""
+
+    def __init__(self, named_params, lr: float | Callable[[int], float],
+                 weight_decay: float, betas, eps: float,
+                 clip_grad_value: float | None, clip_grad_type: str):
+        named = list(named_params)
+        self.params = [p for _, p in named]
+        decay = wd_mask(named)
+        groups = [{"params": [p for n, p in named if decay[n]],
+                   "weight_decay": weight_decay},
+                  {"params": [p for n, p in named if not decay[n]],
+                   "weight_decay": 0.0}]
+        # lr 1.0 scaled by the schedule: the rate is schedule(count)
+        self.adamw = torch.optim.AdamW(groups, lr=1.0, betas=tuple(betas),
+                                       eps=eps)
+        schedule = lr if callable(lr) else (lambda _: lr)
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.adamw,
+                                                           schedule)
+        self.clip_grad_value = clip_grad_value
+        self.clip_grad_type = clip_grad_type
+
+    @torch.no_grad()
+    def _clip(self) -> None:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        c = self.clip_grad_value
+        if self.clip_grad_type == "value":
+            for g in grads:
+                g.clamp_(-c, c)
+            return
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        factor = c / torch.maximum(norm, torch.as_tensor(c, device=norm.device))
+        for g in grads:
+            g.mul_(factor.to(g.dtype))
+
+    def step(self) -> None:
+        if self.clip_grad_value is not None:
+            self._clip()
+        self.adamw.step()
+        self.scheduler.step()
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.adamw.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+
+
+def make_optimizer(named_params, lr: float | Callable[[int], float],
+                   weight_decay: float = 0.01,
+                   betas: tuple[float, float] = (0.9, 0.999),
+                   eps: float = 1e-8, clip_grad_value: float | None = None,
+                   clip_grad_type: str = "norm", update_freq: int = 1,
+                   use_sgd: bool = False) -> Optimizer:
+    """AdamW over ``named_params`` ((name, tensor) pairs), as the JAX
+    package's ``make_optimizer``."""
+    if clip_grad_type not in ("norm", "value"):
+        raise ValueError(clip_grad_type)
+    if use_sgd:
+        raise NotImplementedError("SGD is not ported yet: ROADMAP queue 1")
+    if update_freq > 1:
+        raise NotImplementedError(
+            "gradient accumulation (--update-freq > 1) is not ported yet: "
+            "ROADMAP queue 1")
+    return Optimizer(named_params, lr, weight_decay, betas, eps,
+                     clip_grad_value, clip_grad_type)

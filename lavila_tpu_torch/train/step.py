@@ -1,0 +1,152 @@
+"""The dual-encoder pretraining step.
+
+Counterpart of ``lavila_tpu/train/step.py`` (``TrainState``,
+``make_clip_train_step``) on one device. JAX's step is a pure function
+of an immutable state; here the step updates the state in place (the
+parameters, the optimizer's moments, the step count) and returns it, so
+no second copy of the model or its moments is ever held.
+
+Mixed precision follows the JAX package's ``dtype=bf16`` (parameters and
+optimizer state fp32, the towers computing in bf16 with a bf16 residual
+stream, LayerNorm statistics, softmax and the loss in fp32,
+``logit_scale`` fp32), not ``torch.autocast``, which would promote the
+residual stream to fp32 at the first fp32 add:
+
+  * :attr:`TrainState.params` are the fp32 masters, the only tensors the
+    optimizer sees;
+  * :attr:`TrainState.model` is the working copy that runs forward and
+    backward: every parameter in the compute dtype except the LayerNorm
+    weights/biases and ``logit_scale``, which stay fp32 as flax keeps
+    them (the LayerNorm kernels read fp32 γ/β beside bf16 rows);
+  * after backward the gradients are cast to fp32 onto the masters, the
+    optimizer updates the masters, and the masters are copied back into
+    the working copy.
+
+With an fp32 compute dtype the model is its own master: no copy is made.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable
+
+import torch
+from torch import nn
+
+from lavila_tpu_torch import losses
+from lavila_tpu_torch.ops.basic import LayerNorm
+from lavila_tpu_torch.train.optim import Optimizer, clamp_logit_scale
+
+
+def working_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``model`` in ``dtype``, LayerNorm γ/β and ``logit_scale``
+    kept fp32."""
+    work = copy.deepcopy(model)
+    keep = {f"{m_name}.{p_name}".lstrip(".")
+            for m_name, m in work.named_modules() if isinstance(m, LayerNorm)
+            for p_name, _ in m.named_parameters(recurse=False)}
+    for name, p in work.named_parameters():
+        if name not in keep and not name.endswith("logit_scale"):
+            p.data = p.data.to(dtype)
+    return work
+
+
+class TrainState:
+    """What one step reads and writes: the working copy ``model``, the
+    fp32 masters ``params`` (by parameter name), ``optimizer`` over the
+    masters, the step count, and the generator of the drop-path masks."""
+
+    def __init__(self, model: nn.Module, params: dict[str, torch.Tensor],
+                 optimizer: Optimizer, step: int = 0,
+                 generator: torch.Generator | None = None):
+        self.model = model
+        self.params = params
+        self.optimizer = optimizer
+        self.step = step
+        self.generator = generator
+
+    @classmethod
+    def create(cls, model: nn.Module,
+               make_optimizer: Callable[..., Optimizer],
+               dtype: torch.dtype = torch.bfloat16,
+               generator: torch.Generator | None = None) -> "TrainState":
+        """``model`` in fp32 becomes the masters; ``make_optimizer`` takes
+        the masters' (name, parameter) pairs."""
+        params = dict(model.named_parameters())
+        if any(p.dtype != torch.float32 for p in params.values()):
+            raise TypeError("TrainState.create takes an fp32 model: its "
+                            "parameters become the fp32 masters")
+        work = model if dtype == torch.float32 else working_copy(model,
+                                                                 dtype)
+        return cls(work, params, make_optimizer(params.items()), 0,
+                   generator)
+
+    @property
+    def has_copy(self) -> bool:
+        return next(iter(self.params.values())) is not next(
+            self.model.parameters())
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the fp32 masters under the model's
+        parameter names, the optimizer and schedule states, the step."""
+        opt = self.optimizer.state_dict()
+        return {"state_dict": {k: p.detach() for k, p in self.params.items()},
+                "optimizer": opt["optimizer"],
+                "scheduler": opt["scheduler"], "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, ckpt: dict) -> None:
+        for k, p in self.params.items():
+            p.copy_(ckpt["state_dict"][k])
+        self.optimizer.load_state_dict({"optimizer": ckpt["optimizer"],
+                                        "scheduler": ckpt["scheduler"]})
+        self.step = int(ckpt["step"])
+        self._copy_masters()
+
+    @torch.no_grad()
+    def _copy_masters(self) -> None:
+        if self.has_copy:
+            for name, p in self.model.named_parameters():
+                p.copy_(self.params[name])
+
+
+def make_clip_train_step(norm_embed: bool = False,
+                         loss_fn: Callable = losses.clip_loss,
+                         use_ssl: bool = False, local_loss_mesh=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch``: ``frames`` (B, T, H, W, C) and ``text`` (B, L) on the
+    model's device. One step: forward, ``loss_fn``, backward, the
+    optimizer's update of the fp32 masters, ``logit_scale`` clamped,
+    ``step += 1``. ``metrics`` are the loss function's, as detached fp32
+    tensors (reading them synchronises; the step itself does not).
+    """
+    if use_ssl:
+        raise NotImplementedError(
+            "the SSL step (--metadata-aux) is ROADMAP queue 1, slice 4")
+    if local_loss_mesh is not None:
+        raise NotImplementedError(
+            "the local loss over a mesh is ROADMAP queue 1, slice 5")
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.model
+        for p in model.parameters():
+            p.grad = None
+        out = model(batch["frames"], batch["text"], norm_embed=norm_embed,
+                    generator=state.generator)
+        metrics = loss_fn(out["image_embed"], out["text_embed"],
+                          out["logit_scale"])
+        metrics["loss"].backward()
+        for name, p in model.named_parameters():
+            master = state.params[name]
+            # a parameter the loss did not reach still decays, as in optax
+            master.grad = (torch.zeros_like(master) if p.grad is None
+                           else p.grad.float() if state.has_copy
+                           else p.grad)
+        state.optimizer.step()
+        clamp_logit_scale(state.params.items())
+        state._copy_masters()
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step

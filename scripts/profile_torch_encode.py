@@ -2,10 +2,12 @@
 """Where the time of the PyTorch port's zero-shot encoders goes, on one
 NVIDIA GPU: ``encode_image`` and ``encode_text`` of a zoo model with seeded
 weights, timed with CUDA events, then traced with ``torch.profiler`` for a
-per-kernel breakdown of device time and the device's idle share.
+per-kernel breakdown of device time and the device's idle share. With
+``--train``, the same for one dual-encoder train step (AdamW, the
+CLI's defaults) instead.
 
     python3 scripts/profile_torch_encode.py [--batch 32] [--bf16] \\
-        [--out profile.json]
+        [--train] [--out profile.json]
 
 Prints one JSON object (also written to ``--out``). Needs a CUDA device.
 """
@@ -51,12 +53,15 @@ def profile(fn, iters: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
-    rows = [r for r in rows if r[1] > 0]
-    # device kernels only: CPU-side ops also carry device time totals,
-    # and the profiler's own "Command Buffer Full" markers are no kernels
-    kernels = [r for r in rows if not r[0].startswith(
-        ("aten::", "cuda", "Command Buffer"))]
+    from torch.autograd import DeviceType
+    # device kernels only: CPU-side ops and ranges (aten::, autograd
+    # nodes) and annotations mirrored on the device's timeline
+    # (Optimizer.step) also carry their kernels' device time, and the
+    # profiler's own "Command Buffer Full" markers are no kernels
+    kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Command Buffer")]
     busy = sum(r[1] for r in kernels)
     kernels.sort(key=lambda r: -r[1])
     return {"ms_per_call": ms, "traced_wall_ms_per_call": wall_us / iters
@@ -64,7 +69,7 @@ def profile(fn, iters: int) -> dict:
             "idle_share": max(0.0, 1 - busy / wall_us),
             "top_kernels": [{"kernel": k[:120], "ms_per_call": t / iters
                              / 1e3, "share": t / busy, "calls": c / iters}
-                            for k, t, c in kernels[:15]]}
+                            for k, t, c in kernels[:25]]}
 
 
 def main():
@@ -74,15 +79,19 @@ def main():
     p.add_argument("--frames", type=int, default=4)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--train", action="store_true",
+                   help="profile the train step, not the encoders")
     p.add_argument("--out", default="")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_encode: needs a CUDA device")
     from lavila_tpu_torch.models import build_model
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = build_model(args.model, device="cuda", dtype=dtype,
+    # the train step keeps fp32 masters and makes its own working copy
+    model = build_model(args.model, device="cuda",
+                        dtype=torch.float32 if args.train else dtype,
                         generator=torch.Generator().manual_seed(0),
-                        num_frames=args.frames)
+                        num_frames=args.frames, train=args.train)
     size = model.visual.patch_embed.proj.kernel_size[0] * int(
         model.visual.num_patches ** 0.5)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -95,13 +104,26 @@ def main():
                          text=True).stdout.strip()
     out = {"device": smi, "model": args.model, "batch": args.batch,
            "frames": args.frames, "dtype": str(dtype)}
-    with torch.inference_mode():
-        out["encode_image"] = profile(lambda: model.encode_image(frames),
-                                      args.iters)
-        out["encode_text"] = profile(lambda: model.encode_text(text),
-                                     args.iters)
-    out["encode_image"]["clips_per_s"] = (
-        args.batch / out["encode_image"]["ms_per_call"] * 1e3)
+    if args.train:
+        from lavila_tpu_torch.train.optim import make_optimizer
+        from lavila_tpu_torch.train.step import (TrainState,
+                                                 make_clip_train_step)
+        state = TrainState.create(
+            model, lambda params: make_optimizer(params, 3e-5), dtype=dtype)
+        step = make_clip_train_step()
+        batch = {"frames": frames, "text": text}
+        out["train_step"] = profile(lambda: step(state, batch), args.iters)
+        out["train_step"]["clips_per_s"] = (
+            args.batch / out["train_step"]["ms_per_call"] * 1e3)
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    else:
+        with torch.inference_mode():
+            out["encode_image"] = profile(
+                lambda: model.encode_image(frames), args.iters)
+            out["encode_text"] = profile(lambda: model.encode_text(text),
+                                         args.iters)
+        out["encode_image"]["clips_per_s"] = (
+            args.batch / out["encode_image"]["ms_per_call"] * 1e3)
     text_out = json.dumps(out, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

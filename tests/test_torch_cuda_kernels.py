@@ -57,7 +57,8 @@ def test_divided_phase_kernel(gen, axis, B, F, N, H, d, dtype):
 
 def test_space_kernel_odd_row_stride(gen):
     """bf16 rows an odd number of elements apart cannot be read as bf16
-    pairs; the SIMT kernel takes them, with the same result."""
+    pairs; the SIMT kernels take them (forward and backward), with the
+    same result."""
     B, F, N, H, d = 2, 2, 196, 4, 64
     D = H * d
     base = torch.randn(B, F, N, 3 * D + 1, generator=gen,
@@ -73,6 +74,13 @@ def test_space_kernel_odd_row_stride(gen):
                                atol=TOL[torch.bfloat16])
     torch.testing.assert_close(lse, ref_lse, rtol=0,
                                atol=TOL[torch.bfloat16])
+    do = torch.randn(B, F, N, D, generator=gen, device="cuda").bfloat16()
+    bwd = (q, k, v, ck, cv, do, out, lse, "space", H, d ** -0.5)
+    got = KD.divided_phase_bwd(*bwd)
+    want = KD.divided_phase_bwd_reference(*(t.float() for t in bwd[:8]),
+                                          *bwd[8:])
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -89,17 +97,117 @@ def test_layernorm_kernel(gen, shape, dtype):
     torch.testing.assert_close(y.float(), ref, rtol=0, atol=TOL[dtype])
 
 
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis,B,F,N,H,d", [
+    ("space", 2, 4, 196, 12, 64),   # bf16: the tensor-core kernels
+    ("space", 2, 2, 50, 3, 64),     # tensor cores, padded rows and keys
+    ("space", 1, 3, 37, 4, 32),     # SIMT kernels (head_dim 32)
+    ("space", 1, 2, 256, 2, 64),    # SIMT kernels (N + 1 > 208)
+    ("time", 2, 4, 196, 12, 64),
+    ("time", 1, 16, 50, 12, 64),
+    ("time", 3, 5, 7, 2, 96),
+])
+def test_divided_phase_bwd_kernel(gen, axis, B, F, N, H, d, dtype):
+    """K1/K2 bwd on strided qkv views against the plain backward in fp32
+    on the same values (errors relative to the largest gradient: dck/dcv
+    sum over every group), bit-identical on a second call."""
+    D = H * d
+    qkv = torch.randn(B, F, N, 3 * D, generator=gen, device="cuda").to(
+        dtype)
+    cls = torch.randn(B, 3 * D, generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    _, ck, cv = cls.chunk(3, dim=-1)
+    out, lse = KD.divided_phase(q, k, v, ck, cv, axis, H, d ** -0.5)
+    do = torch.randn(B, F, N, D, generator=gen, device="cuda").to(dtype)
+    args = (q, k, v, ck, cv, do, out, lse, axis, H, d ** -0.5)
+    before = KD.launches[f"{axis}_bwd"]
+    got = KD.divided_phase_bwd(*args)
+    assert KD.launches[f"{axis}_bwd"] == before + 1
+    again = KD.divided_phase_bwd(*args)
+    ref = KD.divided_phase_bwd_reference(
+        *(t.float() for t in args[:8]), *args[8:])
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == dtype
+        assert torch.equal(g, a)
+        assert _rel_err(g, r) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_divided_phase_autograd_uses_bwd_kernel(gen, dtype):
+    """On CUDA tensors that require grad, the phase runs through its
+    Function: the forward and backward kernels, no fallback."""
+    B, F, N, H, d = 2, 4, 196, 12, 64
+    D = H * d
+    qkv = torch.randn(B, F, N, 3 * D, generator=gen, device="cuda").to(
+        dtype).requires_grad_()
+    cls = torch.randn(B, 3 * D, generator=gen, device="cuda").to(
+        dtype).requires_grad_()
+    for axis in ("space", "time"):
+        before = dict(KD.launches)
+        q, k, v = qkv.chunk(3, dim=-1)
+        _, ck, cv = cls.chunk(3, dim=-1)
+        out, _ = KD.divided_phase(q, k, v, ck, cv, axis, H, d ** -0.5)
+        out.float().square().sum().backward()
+        assert KD.launches[axis] == before[axis] + 1
+        assert KD.launches[f"{axis}_bwd"] == before[f"{axis}_bwd"] + 1
+        assert qkv.grad.dtype == dtype and torch.isfinite(qkv.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 77, 512), (6272, 768), (5, 3, 200)])
+def test_layernorm_bwd_kernel(gen, shape, dtype):
+    D = shape[-1]
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    before = KL.launches["layernorm_bwd"]
+    got = KL.layer_norm_bwd(x, w, dy, 1e-5)
+    assert KL.launches["layernorm_bwd"] == before + 1
+    again = KL.layer_norm_bwd(x, w, dy, 1e-5)
+    ref = KL.layer_norm_bwd_reference(x.float(), w.float(), dy.float(), 1e-5)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert _rel_err(g, r) <= TOL[dtype]
+
+
+def test_layernorm_autograd_mixed_dtypes(gen):
+    """bf16 rows with fp32 γ/β (the bf16 train step's working copy)."""
+    x = torch.randn(8, 77, 512, generator=gen, device="cuda").bfloat16()
+    x.requires_grad_()
+    w = torch.ones(512, device="cuda", requires_grad=True)
+    b = torch.zeros(512, device="cuda", requires_grad=True)
+    before = KL.launches["layernorm_bwd"]
+    KL.layer_norm(x, w, b, 1e-5).float().square().sum().backward()
+    assert KL.launches["layernorm_bwd"] == before + 1
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+
+
 def test_wrappers_raise_instead_of_falling_back(gen):
     q = torch.randn(1, 2, 300, 64, generator=gen, device="cuda")
     ck = torch.randn(1, 64, generator=gen, device="cuda")
     with pytest.raises(NotImplementedError, match="K6"):
         KD.divided_phase(q, q, q, ck, ck, "space", 1, 0.125)
-    qg = q[:, :, :8].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        KD.divided_phase(qg, qg, qg, ck, ck, "time", 1, 0.125)
-    w = torch.ones(64, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        KL.layer_norm(ck, w, torch.zeros(64, device="cuda"), 1e-5)
+    lse = torch.zeros(1, 2, 300, 1, device="cuda")
+    with pytest.raises(NotImplementedError, match="K6"):
+        KD.divided_phase_bwd(q, q, q, ck, ck, q, q, lse, "space", 1, 0.125)
+    qh = q[:, :, :8].half()
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        KD.divided_phase_bwd(qh, qh, qh, ck.half(), ck.half(), qh, qh,
+                             lse[:, :, :8], "time", 1, 0.125)
+    qs = q[:, :, :8].contiguous()
+    do = torch.randn(1, 2, 64, 8, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        KD.divided_phase_bwd(qs, qs, qs, ck, ck, do, qs,
+                             lse[:, :, :8].contiguous(), "time", 1, 0.125)
     with pytest.raises(ValueError, match="contiguous"):
         KL.layer_norm(q.transpose(2, 3), torch.ones(300, device="cuda"),
                       torch.zeros(300, device="cuda"), 1e-5)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        KL.layer_norm_bwd(ck.half(), torch.ones(64, device="cuda"),
+                          ck.half(), 1e-5)

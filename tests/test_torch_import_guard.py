@@ -22,6 +22,11 @@ names = [m.name for m in pkgutil.walk_packages(lavila_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert "lavila_tpu_torch.cli.eval_zeroshot" in names, names
+assert "lavila_tpu_torch.cli.main_pretrain" in names, names
+# reused framework-free modules of lavila_tpu, imported without jax
+for reused in ("lavila_tpu.utils.meters", "lavila_tpu.config",
+               "lavila_tpu.data.loader", "lavila_tpu.utils.random"):
+    assert reused in sys.modules, reused
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
              or m == "lavila_tpu.models" or m.startswith("lavila_tpu.models."))
@@ -40,6 +45,7 @@ def test_port_imports_no_jax():
 
 def _port_sources():
     return (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+            + sorted(PORT.rglob("*.cuh"))
             + [REPO / "chip_smoke.py", REPO / "scripts/profile_torch_encode.py"])
 
 

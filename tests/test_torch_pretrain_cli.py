@@ -1,0 +1,100 @@
+"""The port's pretraining CLI on the CPU: MINI for 2 steps on the
+synthetic dataset writes a checkpoint that the port's zero-shot loader
+serves, resumes from its output directory, and refuses every option
+that is not ported yet."""
+
+import json
+
+import pytest
+import torch
+
+from lavila_tpu.config import parse_config
+from lavila_tpu_torch.cli import eval_zeroshot as ez
+from lavila_tpu_torch.cli import main_pretrain as cli
+
+torch.set_num_threads(1)
+
+
+def _cfg(out, *extra):
+    return parse_config(cli.TorchPretrainConfig, [
+        "--dataset", "synthetic", "--model", "CLIP_OPENAI_TIMESFORMER_MINI",
+        "--steps", "2", "--batch-size", "4", "--workers", "2",
+        "--device", "cpu", "--output-dir", str(out), *extra])
+
+
+def test_cli_trains_saves_and_serves(tmp_path, capsys):
+    state = cli.main(_cfg(tmp_path, "--print-freq", "1"))
+    assert state.step == 2
+    printed = capsys.readouterr().out
+    assert "compute dtype bfloat16" in printed and "=> done" in printed
+    files = {p.name for p in tmp_path.iterdir()}
+    assert {"checkpoint_0000.pt", "checkpoint_0000.pt.json",
+            "checkpoint_latest.pt", "checkpoint_latest.pt.json",
+            "log.txt"} <= files
+    log = json.loads((tmp_path / "log.txt").read_text().splitlines()[-1])
+    assert log["epoch"] == 0 and log["train_loss"] > 0
+    meta = json.loads((tmp_path / "checkpoint_latest.pt.json").read_text())
+    assert meta["config"]["model"] == "CLIP_OPENAI_TIMESFORMER_MINI"
+    ckpt = torch.load(tmp_path / "checkpoint_latest.pt", weights_only=True)
+    assert set(ckpt) == {"state_dict", "optimizer", "scheduler", "step"}
+    assert ckpt["step"] == 2
+
+    args = ez.get_args_parser().parse_args(
+        ["--checkpoint", str(tmp_path / "checkpoint_latest.pt"),
+         "--device", "cpu"])
+    model, _, name = ez.load_model_from_checkpoint(args)
+    assert name == "CLIP_OPENAI_TIMESFORMER_MINI" and not model.training
+    for k, p in model.named_parameters():
+        assert torch.equal(p, state.params[k]), k
+    with torch.inference_mode():
+        emb = model.encode_image(torch.randn(2, 4, 64, 64, 3))
+    assert emb.shape == (2, 256) and torch.isfinite(emb).all()
+
+
+def test_cli_resumes_from_output_dir(tmp_path):
+    """A checkpoint in --output-dir wins over --resume and starts the
+    next epoch from the saved step."""
+    cli.main(_cfg(tmp_path, "--steps", "1", "--epochs", "2"))
+    state = cli.main(_cfg(tmp_path, "--steps", "1", "--epochs", "2",
+                          "--resume", str(tmp_path / "nowhere.pt"),
+                          "--disable-amp"))
+    assert state.step == 2
+    assert not state.has_copy  # --disable-amp: fp32 throughout
+    meta = json.loads((tmp_path / "checkpoint_latest.pt.json").read_text())
+    assert meta["epoch"] == 1
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path):
+    """--profile-dir traces steps 5-10, as the JAX CLI does."""
+    cli.main(_cfg(tmp_path / "run", "--steps", "11", "--batch-size", "2",
+                  "--profile-dir", str(tmp_path / "prof")))
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--model", "VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI"], "slice 3"),
+    (["--metadata-aux", "aux.pkl"], "slice 4"),
+    (["--contrastive-use-vissl"], "slice 5"),
+    (["--mesh-model", "2"], "slice 5"),
+    (["--mesh-data", "4"], "slice 5"),
+    (["--use-checkpoint"], "remat"),
+    (["--freeze-temperature"], "freeze"),
+    (["--timesformer-freeze-space"], "freeze"),
+    (["--val-metadata", "val.csv"], "probe"),
+    (["--wandb"], "wandb"),
+    (["--update-freq", "2"], "update-freq"),
+    (["--timesformer-gated-xattn"], "gated"),
+])
+def test_cli_options_not_ported_raise(tmp_path, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(_cfg(tmp_path, *flags))
+
+
+def test_cli_cuda_without_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    cfg = parse_config(cli.TorchPretrainConfig, [
+        "--dataset", "synthetic", "--output-dir", str(tmp_path)])
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(cfg)

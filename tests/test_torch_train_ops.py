@@ -1,0 +1,199 @@
+"""The pieces of the port's train step against the JAX package on the same
+numpy inputs (fp32): the CLS row's gradient, ``clip_loss`` and its
+gradient, the cosine schedule, the weight-decay mask leaf for leaf,
+``clamp_logit_scale``; and stochastic depth, which has no JAX
+counterpart to compare draws with (the two frameworks' random streams
+differ), against its contract."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lavila_tpu import losses as JL
+from lavila_tpu.models import build_model as jax_build_model
+from lavila_tpu.ops import attention as JA
+from lavila_tpu.train import optim as JO
+from lavila_tpu_torch import losses as L
+from lavila_tpu_torch.models import build_model
+from lavila_tpu_torch.models.convert import torch_key
+from lavila_tpu_torch.models.timesformer import SpaceTimeBlock
+from lavila_tpu_torch.ops.attention import cls_row_attention
+from lavila_tpu_torch.ops.basic import drop_path, drop_path_mask
+from lavila_tpu_torch.train import optim as O
+
+torch.set_num_threads(1)
+
+
+def test_cls_row_grad_matches_jax_vjp():
+    """Autograd of the port's fp32 CLS row against the JAX package's
+    hand-written VJP (``_cls_row_vjp_bwd``), atol 1e-5."""
+    rng = np.random.default_rng(0)
+    B, F, N, H, d = 2, 4, 6, 3, 16
+    cls = [rng.normal(size=(B, 1, H, d)).astype(np.float32)
+           for _ in range(3)]
+    pat = [rng.normal(size=(B, F, N, H, d)).astype(np.float32)
+           for _ in range(2)]
+    g = rng.normal(size=(B, 1, H, d)).astype(np.float32)
+    _, res = JA._cls_row_vjp_fwd(*map(jnp.asarray, cls + pat))
+    want = JA._cls_row_vjp_bwd(res, jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in cls + pat]
+    out = cls_row_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for name, a, w in zip(("dcls_q", "dcls_k", "dcls_v", "dkp", "dvp"),
+                          got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+def test_clip_loss_value_and_grad_match_jax():
+    rng = np.random.default_rng(1)
+    img = rng.normal(size=(6, 16)).astype(np.float32)
+    txt = rng.normal(size=(6, 16)).astype(np.float32)
+    txt[2] = img[2]  # one clear match, so the accuracy is not all-or-none
+    scale = np.float32(3.0)
+    want = JL.clip_loss(jnp.asarray(img), jnp.asarray(txt),
+                        jnp.asarray(scale))
+    jgrads = jax.grad(lambda a, b, s: JL.clip_loss(a, b, s)["loss"],
+                      argnums=(0, 1, 2))(jnp.asarray(img), jnp.asarray(txt),
+                                         jnp.asarray(scale))
+    leaves = [torch.from_numpy(img).requires_grad_(),
+              torch.from_numpy(txt).requires_grad_(),
+              torch.tensor(scale, requires_grad=True)]
+    got = L.clip_loss(*leaves)
+    for k in ("loss", "clip_loss", "clip_acc"):
+        np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-6,
+                                   err_msg=k)
+    for a, w in zip(torch.autograd.grad(got["loss"], leaves), jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-6,
+                                   rtol=0)
+
+
+def test_other_losses_raise():
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        L.ssl_clip_loss()
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        L.clip_loss_local()
+
+
+@pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 25, 39, 40])
+def test_cosine_schedule_matches_jax(step):
+    """Warm-up (steps 0-9), the boundary (10) and the cosine to the end
+    (40 = epochs · steps_per_epoch)."""
+    args = (3e-4, 1e-5, 4, 10)
+    kw = dict(warmup_epochs=1, start_warmup_lr=1e-6)
+    want = float(JO.cosine_schedule(*args, **kw)(step))
+    assert O.cosine_schedule(*args, **kw)(step) == pytest.approx(
+        want, rel=1e-6)
+
+
+def _mini_jax_params():
+    jm = jax_build_model("CLIP_OPENAI_TIMESFORMER_MINI")
+    return jm.init(jax.random.key(0), jnp.zeros((1, 4, 64, 64, 3)),
+                   jnp.zeros((1, 77), jnp.int32))["params"]
+
+
+def test_wd_mask_matches_jax_leaf_for_leaf():
+    params = _mini_jax_params()
+    want = {}
+    for path, decay in jax.tree_util.tree_flatten_with_path(
+            JO.wd_mask(params))[0]:
+        key, _ = torch_key(tuple(str(k.key) for k in path))
+        want[key] = bool(decay)
+    model = build_model("CLIP_OPENAI_TIMESFORMER_MINI", device="cpu")
+    got = O.wd_mask(model.named_parameters())
+    assert got == want
+    assert any(got.values()) and not all(got.values())
+
+
+def test_clamp_logit_scale_matches_jax():
+    for v in (-1.0, 2.0, 7.0):
+        p = {"logit_scale": torch.nn.Parameter(torch.tensor(v)),
+             "visual.pos_embed": torch.nn.Parameter(torch.full((2,), v))}
+        O.clamp_logit_scale(p.items())
+        want = JO.clamp_logit_scale({"logit_scale": jnp.asarray(v)})
+        assert p["logit_scale"].item() == pytest.approx(
+            float(want["logit_scale"]))
+        assert (p["visual.pos_embed"] == v).all()  # only logit_scale
+
+
+def test_optimizer_options_that_raise():
+    p = [("w", torch.nn.Parameter(torch.zeros(2, 2)))]
+    with pytest.raises(NotImplementedError, match="update-freq"):
+        O.make_optimizer(p, 1e-3, update_freq=2)
+    with pytest.raises(NotImplementedError, match="SGD"):
+        O.make_optimizer(p, 1e-3, use_sgd=True)
+    with pytest.raises(ValueError):
+        O.make_optimizer(p, 1e-3, clip_grad_type="max")
+
+
+@pytest.mark.parametrize("kind,value", [("norm", 0.5), ("value", 0.05)])
+def test_clipping_matches_optax(kind, value):
+    """One clipped AdamW update equals optax's ``clip_by_global_norm`` /
+    ``clip`` followed by ``adamw``."""
+    rng = np.random.default_rng(2)
+    w = rng.normal(size=(3, 4)).astype(np.float32)
+    b = rng.normal(size=(4,)).astype(np.float32)
+    gw = rng.normal(size=(3, 4)).astype(np.float32)
+    gb = rng.normal(size=(4,)).astype(np.float32)
+    tx = JO.make_optimizer(1e-2, weight_decay=0.1, clip_grad_value=value,
+                           clip_grad_type=kind)
+    jp = {"w": jnp.asarray(w), "bias": jnp.asarray(b)}
+    upd, _ = tx.update({"w": jnp.asarray(gw), "bias": jnp.asarray(gb)},
+                       tx.init(jp), jp)
+    want = jax.tree.map(lambda p, u: p + u, jp, upd)
+    tp = {"w": torch.nn.Parameter(torch.from_numpy(w.copy())),
+          "bias": torch.nn.Parameter(torch.from_numpy(b.copy()))}
+    tp["w"].grad, tp["bias"].grad = torch.from_numpy(gw), torch.from_numpy(gb)
+    opt = O.make_optimizer(tp.items(), 1e-2, weight_decay=0.1,
+                           clip_grad_value=value, clip_grad_type=kind)
+    opt.step()
+    for k in tp:
+        np.testing.assert_allclose(tp[k].detach().numpy(),
+                                   np.asarray(want[k]), atol=1e-6, rtol=0)
+
+
+def test_drop_path_shares_one_mask_for_cls_and_patches():
+    blk = SpaceTimeBlock(16, 2, drop_path_rate=0.5).train()
+    cls, pat = torch.ones(64, 1, 16), torch.ones(64, 3, 5, 16)
+    gen = torch.Generator().manual_seed(0)
+    a, b = blk._drop_path((cls, pat), gen)
+    kept_cls = a.flatten(1).amax(1) > 0
+    kept_pat = b.flatten(1).amax(1) > 0
+    assert torch.equal(kept_cls, kept_pat)
+    assert 0 < int(kept_cls.sum()) < 64  # some dropped, some kept
+    # kept samples are rescaled by 1 / keep, dropped ones are zero
+    assert set(a.unique().tolist()) == {0.0, 2.0}
+
+
+def test_drop_path_is_identity_in_eval_mode_and_at_rate_zero():
+    x = torch.randn(4, 1, 8)
+    blk = SpaceTimeBlock(8, 2, drop_path_rate=0.3).eval()
+    assert blk._drop_path((x, x), None)[0] is x
+    blk0 = SpaceTimeBlock(8, 2).train()
+    assert blk0._drop_path((x, x), None)[1] is x
+    mask = drop_path_mask(4, 0.25, torch.Generator().manual_seed(1), "cpu",
+                          torch.float32)
+    torch.testing.assert_close(drop_path(x, 0.25, mask),
+                               x / 0.75 * mask[:, None, None])
+
+
+def test_drop_path_rate_rule_is_linear_and_model_uses_it():
+    m = build_model("CLIP_OPENAI_TIMESFORMER_MINI", device="cpu",
+                    drop_path_rate=0.2, train=True)
+    depth = len(m.visual.blocks)
+    assert [b.drop_path_rate for b in m.visual.blocks] == pytest.approx(
+        [0.2 * i / (depth - 1) for i in range(depth)])
+    assert m.training
+    frames = torch.randn(8, 4, 64, 64, 3)
+    a = m.encode_image(frames, torch.Generator().manual_seed(0))
+    b = m.encode_image(frames, torch.Generator().manual_seed(0))
+    c = m.encode_image(frames, torch.Generator().manual_seed(1))
+    torch.testing.assert_close(a, b)  # the generator decides the masks
+    assert not torch.allclose(a, c)
+    m.eval()
+    torch.testing.assert_close(m.encode_image(frames),
+                               m.encode_image(frames, torch.Generator()))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model("CLIP_OPENAI_TIMESFORMER_MINI", device="cpu", remat=True)
