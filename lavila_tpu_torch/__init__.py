@@ -12,12 +12,15 @@ same layout:
                dual encoder, the model zoo and the weight bridge.
   * losses.py — the contrastive loss.
   * train/   — AdamW, the LR schedule and the dual-encoder train step.
-  * utils/   — checkpoints.
-  * cli/     — entry points (zero-shot evaluation, pretraining).
+  * utils/   — checkpoints, meters, seeding.
+  * data/, eval/, config.py — copies of the framework-free data, metric
+               and config modules of ``lavila_tpu`` (imports rewritten;
+               ``utils/meters.py`` syncs through ``torch.distributed``).
+  * cli/     — entry points (zero-shot evaluation, pretraining, narrator
+               inference and demo).
 
-It imports ``torch`` and never jax, flax, optax or orbax; from
-``lavila_tpu`` it reuses only the framework-free data, eval, config and
-meter modules.
+It imports ``torch`` and never jax, flax, optax or orbax, and no module
+of ``lavila_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,9 @@ Counterpart of ``cli/eval_zeroshot.py``, with the same flags and
 functions: EK-100 MIR retrieval (graded mAP/nDCG), EK-100 CLS / EGTEA /
 Charades-Ego zero-shot classification from prompt-ensembled label
 embeddings with multi-view logit pooling, and EgoMCQ. Data loading,
-tokenisation and metrics are the framework-free modules of
-``lavila_tpu``. Everything runs under ``torch.inference_mode()``.
+tokenisation and metrics are the port's own copies of the framework-free
+modules of ``lavila_tpu`` (``lavila_tpu_torch.data``, ``.eval``).
+Everything runs under ``torch.inference_mode()``.
 
 ``--device`` (default ``cuda``) names the device; with ``cuda`` and no
 card it raises. ``--bf16`` casts the model to bf16. Checkpoints are
@@ -27,13 +28,15 @@ import os.path as osp
 import numpy as np
 import torch
 
-from lavila_tpu.config import model_kwargs_from_config
-from lavila_tpu.data import transforms as T
-from lavila_tpu.data.datasets import (DatasetConfig, VideoCaptionDataset,
-                                      VideoClassyDataset, VideoMcqDataset)
-from lavila_tpu.data.loader import DataLoader
-from lavila_tpu.data.tokenizers import generate_tokenizer
-from lavila_tpu.eval import metrics as M
+from lavila_tpu_torch.config import model_kwargs_from_config
+from lavila_tpu_torch.data import transforms as T
+from lavila_tpu_torch.data.datasets import (DatasetConfig,
+                                            VideoCaptionDataset,
+                                            VideoClassyDataset,
+                                            VideoMcqDataset)
+from lavila_tpu_torch.data.loader import DataLoader
+from lavila_tpu_torch.data.tokenizers import generate_tokenizer
+from lavila_tpu_torch.eval import metrics as M
 from lavila_tpu_torch.models import build_model
 from lavila_tpu_torch.models.convert import load_reference_checkpoint
 
@@ -206,8 +209,8 @@ def eval_ek100_mir(model, tokenizer, model_name, *, root, metadata,
     (n_videos × n_videos) similarity matrix, columns selected through the
     sentence csv onto the (n_videos × n_sentences) relevancy matrix, then
     graded mAP and nDCG."""
-    from lavila_tpu.data.datasets import (load_ek100_mir_relevancy,
-                                          load_ek100_video_ids)
+    from lavila_tpu_torch.data.datasets import (load_ek100_mir_relevancy,
+                                                load_ek100_video_ids)
     mean, std = T.normalization_for_model(model_name)
     crop = crop_shape(model_name)[0]
     transform = T.EvalTransform(crop, mean, std,
@@ -358,7 +361,7 @@ def main(args):
     elif args.dataset == "ego4d_mcq":
         out = eval_mcq(args, model, tokenizer, model_name)
     else:
-        from lavila_tpu.data.label_maps import generate_label_map
+        from lavila_tpu_torch.data.label_maps import generate_label_map
         labels, mapping = generate_label_map(args.dataset,
                                              metadata=args.metadata)
         out = eval_classification(

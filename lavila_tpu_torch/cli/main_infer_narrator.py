@@ -1,0 +1,210 @@
+"""Narrator inference with the PyTorch port: pseudo-label clips.
+
+Counterpart of ``cli/main_infer_narrator.py`` with its flags for sampled
+decoding plus ``--device`` (default ``cuda``; with ``cuda`` and no card
+it raises).
+Each batch of clips is encoded, then captioned by sampled decoding
+(``VCLM.generate``: KV cache, K9 for the decoder's self-attention), and
+the records ``(video_uid, t_start, t_end, captions, ppls)`` are written
+to ``cache.0.pkl`` and, merged, to ``total.pkl``: the output contract
+of the JAX CLI and of the reference, which the pretraining's SSL path
+reads. One process, so ``total.pkl`` holds rank 0's records; the JAX
+CLI's sharding across processes and its round-robin merge are ROADMAP
+slice 5.
+
+Weights are seeded random (``--seed``, drawn on ``--device``) unless
+``--checkpoint`` names a released narrator ``.pt``/``.pth``, whose tower
+depths must match ``--model``. Without the GPT-2 BPE files (looked up
+under ``$LAVILA_TOKENIZER_DIR``) captions are printed as raw token ids,
+as the JAX CLI does. ``--decoding beam_sample`` and ``group_beam`` are
+not ported yet and raise; their flags (``--num-beams``,
+``--num-beam-groups``, ``--length-penalty``) are not taken, nor is
+``--early-stop``, which changes nothing in the JAX CLI (decoding always
+stops once every row has sampled EOS).
+
+    python -m lavila_tpu_torch.cli.main_infer_narrator --dataset synthetic \\
+        --model VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL --bf16
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from lavila_tpu_torch.cli.eval_zeroshot import crop_shape, resolve_device
+from lavila_tpu_torch.data import transforms as T
+from lavila_tpu_torch.data.datasets import DatasetConfig, VideoCaptionDataset
+from lavila_tpu_torch.data.loader import DataLoader
+from lavila_tpu_torch.data.tokenizers import generate_tokenizer
+from lavila_tpu_torch.kernels.decode import HEAD_DIM
+from lavila_tpu_torch.models import build_model
+from lavila_tpu_torch.models.convert import (count_layers,
+                                             load_reference_checkpoint,
+                                             narrator_state_dict)
+
+BEAMS_NOT_PORTED = ("beam decoding (models/beam.py BeamDecoder) is not "
+                    "ported yet: ROADMAP queue 1, slice 3 leftovers")
+
+
+def get_args_parser():
+    p = argparse.ArgumentParser("narrator inference (PyTorch port)")
+    p.add_argument("--dataset", default="ego4d")
+    p.add_argument("--root", default="datasets/Ego4D/video_288px")
+    p.add_argument("--metadata", default="datasets/Ego4D/ego4d_train.pkl")
+    p.add_argument("--checkpoint", "--resume", dest="checkpoint",
+                   default="", help="released narrator .pt/.pth")
+    p.add_argument("--model",
+                   default="VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI")
+    p.add_argument("--clip-length", type=int, default=4)
+    p.add_argument("--clip-stride", type=int, default=16)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--decoding", default="sample",
+                   choices=["sample", "beam_sample", "group_beam"])
+    p.add_argument("--num-return-sequences", type=int, default=10)
+    p.add_argument("--temperature", type=float, default=0.7)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--max-text-length", type=int, default=77)
+    p.add_argument("--print-freq", type=int, default=10)
+    p.add_argument("--max-samples", type=int, default=0)
+    p.add_argument("--output-dir", default="narrator_out")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 weights and compute (the reference's "
+                        "--use-half)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on, e.g. cuda, cuda:1, cpu")
+    return p
+
+
+def check_decode_device(model_name: str, head_dim: int,
+                        device: torch.device) -> None:
+    """The decode kernel on the card takes one head width; a narrator
+    with another (the MINI one's 16) decodes only on the CPU."""
+    if device.type == "cuda" and head_dim != HEAD_DIM:
+        raise ValueError(
+            f"{model_name}: its decoder's heads are {head_dim} wide and the "
+            f"CUDA decode kernel takes {HEAD_DIM}; run it with --device "
+            "cpu, or pick a GPT-2 narrator (--model "
+            "VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL)")
+
+
+def load_narrator(args):
+    """Build ``--model`` (gated cross-attention, as the JAX CLI builds
+    it) on ``--device`` from a generator seeded ``--seed`` there, load
+    ``--checkpoint`` when given (strict), cast to bf16 with ``--bf16``.
+    Returns the model in eval mode."""
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = build_model(args.model, device=device,
+                        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                        generator=gen, num_frames=args.clip_length,
+                        gated_xattn=True)
+    check_decode_device(args.model, model.text_decoder.cfg.head_dim, device)
+    if args.checkpoint:
+        if not args.checkpoint.endswith((".pt", ".pth")):
+            raise NotImplementedError(
+                f"{args.checkpoint}: only reference .pt/.pth checkpoints "
+                "load into the port; Orbax checkpoints are ROADMAP work")
+        sd = narrator_state_dict(load_reference_checkpoint(
+            args.checkpoint, num_frames=args.clip_length))
+        # depths come from the checkpoint, never from the model name
+        depths = {"visual.blocks.": len(model.visual.blocks),
+                  "text_decoder.transformer.h.":
+                      len(model.text_decoder.transformer.h)}
+        for prefix, want in depths.items():
+            if count_layers(sd, prefix) != want:
+                raise ValueError(
+                    f"{args.checkpoint}: {count_layers(sd, prefix)} layers "
+                    f"under {prefix!r}, {args.model} has {want}")
+        model.load_state_dict(sd, strict=True)
+    return model
+
+
+def tokenizer_ids(model_name: str):
+    """``(decode, bos, eos, pad)``: the GPT-2 tokenizer's, or raw ids and
+    GPT-2's ids when its BPE files are absent."""
+    try:
+        tok = generate_tokenizer(model_name)
+        return (tok.decode, tok.bos_token_id, tok.eos_token_id,
+                tok.pad_token_id)
+    except (FileNotFoundError, OSError):
+        return (lambda ids: " ".join(map(str, ids))), 50256, 50256, 0
+
+
+def captions(ids: np.ndarray, eos: int, decode) -> list[str]:
+    """Each row's text after BOS, up to its first EOS."""
+    out = []
+    for row in ids:
+        row = list(row[1:])
+        if eos in row:
+            row = row[:row.index(eos)]
+        out.append(decode(row))
+    return out
+
+
+def main(args):
+    if args.decoding != "sample":
+        raise NotImplementedError(f"--decoding {args.decoding}: "
+                                  + BEAMS_NOT_PORTED)
+    os.makedirs(args.output_dir, exist_ok=True)
+    model = load_narrator(args)
+    device = next(model.parameters()).device
+    crop = crop_shape(args.model)[0]
+    transform = T.EvalTransform(crop, *T.normalization_for_model(args.model))
+    dcfg = DatasetConfig(dataset=args.dataset, root=args.root,
+                         metadata=args.metadata,
+                         clip_length=args.clip_length,
+                         clip_stride=args.clip_stride)
+    ds = VideoCaptionDataset(dcfg, transform, tokenizer=None,
+                             is_training=False)
+    if args.max_samples:
+        ds.samples = ds.samples[:args.max_samples]
+    samples_meta = ds.samples
+    # each batch carries the global indices of its samples, so the
+    # (video_uid, captions) pairing does not depend on the sampler
+    loader = DataLoader(ds, args.batch_size, shuffle=False, drop_last=False,
+                        num_workers=args.workers, with_indices=True)
+    decode, bos, eos, pad = tokenizer_ids(args.model)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    nrs = args.num_return_sequences
+    records = []
+    t0 = time.perf_counter()
+    for bi, batch in enumerate(loader):
+        frames = torch.from_numpy(np.ascontiguousarray(batch["frames"]))
+        with torch.inference_mode():
+            toks = model.encode_image(frames.to(device))
+            ids, ppls = model.generate(
+                toks, generator=gen, bos_id=bos, eos_id=eos, pad_id=pad,
+                max_text_length=args.max_text_length,
+                temperature=args.temperature, top_k=args.top_k or None,
+                top_p=args.top_p, num_return_sequences=nrs)
+        ids, ppls = ids.cpu().numpy(), ppls.float().cpu().numpy()
+        for j in range(frames.shape[0]):
+            meta = samples_meta[int(batch["index"][j])]
+            rows = slice(j * nrs, (j + 1) * nrs)
+            records.append((meta[0], meta[1], meta[2],
+                            captions(ids[rows], eos, decode),
+                            ppls[rows].tolist()))
+        if bi % args.print_freq == 0:
+            print(f"{bi}/{len(loader)} {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+
+    # rank 0's shard, and the merge of the one shard: the same records
+    for name in ("cache.0.pkl", "total.pkl"):
+        with open(osp.join(args.output_dir, name), "wb") as f:
+            pickle.dump(records, f)
+    print(f"wrote {len(records)} records -> {args.output_dir}/"
+          "{cache.0,total}.pkl")
+    return records
+
+
+if __name__ == "__main__":
+    main(get_args_parser().parse_args())

@@ -1,10 +1,10 @@
 """Dual-encoder pretraining with the PyTorch port, on one device.
 
 Counterpart of ``cli/main_pretrain.py`` with the same flags
-(``lavila_tpu.config.PretrainConfig``) plus ``--device`` (default
+(``lavila_tpu_torch.config.PretrainConfig``) plus ``--device`` (default
 ``cuda``; with ``cuda`` and no card it raises). Data loading,
-transforms and the tokenizer are the framework-free modules of
-``lavila_tpu``; each host batch is staged one step ahead by
+transforms and the tokenizer are the port's copies of the framework-free
+modules of ``lavila_tpu``; each host batch is staged one step ahead by
 ``device_prefetch`` into pinned memory and copied without blocking. The
 step is ``lavila_tpu_torch.train.step`` (bf16 compute on fp32 masters,
 ``--disable-amp`` for fp32 throughout); checkpoints are torch files with
@@ -32,20 +32,20 @@ import sys
 import numpy as np
 import torch
 
-from lavila_tpu.config import (PretrainConfig, model_kwargs_from_config,
-                               parse_config)
-from lavila_tpu.data import transforms as T
-from lavila_tpu.data.datasets import DatasetConfig, get_dataset
-from lavila_tpu.data.loader import DataLoader, device_prefetch
-from lavila_tpu.data.tokenizers import generate_tokenizer
-from lavila_tpu.utils.meters import AverageMeter, ProgressMeter, Timer
-from lavila_tpu.utils.random import random_seed
 from lavila_tpu_torch.cli.eval_zeroshot import crop_shape, resolve_device
+from lavila_tpu_torch.config import (PretrainConfig, model_kwargs_from_config,
+                                     parse_config)
+from lavila_tpu_torch.data import transforms as T
+from lavila_tpu_torch.data.datasets import DatasetConfig, get_dataset
+from lavila_tpu_torch.data.loader import DataLoader, device_prefetch
+from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.models import build_model
 from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
 from lavila_tpu_torch.train.step import TrainState, make_clip_train_step
 from lavila_tpu_torch.utils.checkpoints import (CheckpointManager,
                                                 resolve_resume)
+from lavila_tpu_torch.utils.meters import AverageMeter, ProgressMeter, Timer
+from lavila_tpu_torch.utils.random import random_seed
 
 
 @dataclasses.dataclass
@@ -55,8 +55,9 @@ class TorchPretrainConfig(PretrainConfig):
 
 # option → (is it set, the ROADMAP slice that ports it)
 _NOT_PORTED = (
-    (lambda c: c.model.startswith("VCLM"), "--model VCLM_* (the narrator)",
-     "slice 3"),
+    (lambda c: c.model.startswith("VCLM"),
+     "--model VCLM_* (the narrator's caption loss and step)",
+     "slice 3 leftovers"),
     (lambda c: c.metadata_aux is not None, "--metadata-aux (the SSL loss)",
      "slice 4"),
     (lambda c: c.contrastive_use_vissl, "--contrastive-use-vissl",

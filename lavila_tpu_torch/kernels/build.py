@@ -40,6 +40,8 @@ _SIGNATURES = {
         [_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
     "lavila_divided_time_bwd": (
         [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
+    "lavila_decode_attention": (
+        [_P] * 6 + [_I] * 4 + [_LL] * 3 + [_F, _I, _P], ctypes.c_int),
 }
 
 # set by the build in this process: its wall time and nvcc's output

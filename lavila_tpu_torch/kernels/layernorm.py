@@ -8,7 +8,7 @@ device memory.
 
 * Forward: one read of x and one write of y, 2·R·D·itemsize bytes (19.3
   MB for the video tower's (8·4·196, 768) bf16 rows). One program per row
-  holds the whole row in registers (D in {512, 768} masked to a
+  holds the whole row in registers (D in {512, 768, 1600} masked to a
   power-of-two block), takes fp32 statistics with the one-pass variance
   ``max(E[x²] − E[x]², 0)`` of ``lavila_tpu/ops/basic.py:150-153``, and
   writes y in the input dtype. No statistics land in device memory.

@@ -6,11 +6,17 @@ The port names its parameters after the reference LaViLa state-dict keys
 checkpoint loads with ``load_state_dict(strict=True)`` once ``module.``
 is stripped and ``temporal_embed`` fits the clip length.
 
-  * :func:`state_dict_from_jax` maps a ``lavila_tpu`` ``VideoCLIP``
-    parameter tree onto those keys: Dense kernels ``(in, out) → (out,
-    in)``, Conv kernels ``(kh, kw, I, O) → (O, I, kh, kw)``. Every JAX
-    leaf must be consumed; a leftover raises.
-  * :func:`load_reference_checkpoint` reads a reference ``.pt``/``.pth``.
+  * :func:`state_dict_from_jax` maps a ``lavila_tpu`` ``VideoCLIP`` or
+    ``VCLM`` parameter tree onto those keys: Dense kernels ``(in, out) →
+    (out, in)``, Conv kernels ``(kh, kw, I, O) → (O, I, kh, kw)``,
+    ``h_{i}`` → ``h.{i}``, the pooler's LN ``scale`` → ``gamma``. Every
+    JAX leaf must be consumed; a leftover raises.
+  * :func:`load_reference_checkpoint` reads a reference ``.pt``/``.pth``;
+    :func:`narrator_state_dict` turns a released narrator's keys into
+    the port's (HF Conv1D ``(in, out)`` weights transposed, the tied
+    ``lm_head`` and the attention-mask buffers dropped, the CoCa norms'
+    zero ``beta`` buffers checked and dropped), and
+    :func:`count_layers` reads a tower's depth from the checkpoint.
 
 Numpy and torch only: ``import_torch`` itself is not imported, because
 importing anything under ``lavila_tpu.models`` pulls in jax.
@@ -76,12 +82,27 @@ def torch_key(path: tuple) -> tuple[str, str | None]:
         parts = [_TEXT_RENAMES.get(p, p) for p in parts]
         suffix, layout = _LEAF[parts[-1]]
         return ".".join([*parts[:-1], suffix]), layout
+    if top == "img_queries" and not rest:
+        return top, None
+    if top in ("img_attn_pool", "img_attn_pool_norm"):
+        if rest[-1] == "scale":  # CoCa's bias-free LayerNorm
+            return ".".join([top, *rest[:-1], "gamma"]), None
+        return ".".join([top, *rest[:-1], "weight"]), "dense"
+    if top == "text_decoder":
+        if rest[0] in ("wte", "wpe"):  # [name, "embedding"]
+            return f"text_decoder.transformer.{rest[0]}.weight", None
+        parts = [_block_index(p, "h") for p in rest]
+        if parts[-1].startswith("alpha_"):
+            return ".".join(["text_decoder.transformer", *parts]), None
+        suffix, layout = _LEAF[parts[-1]]
+        return ".".join(["text_decoder.transformer", *parts[:-1], suffix]), \
+            layout
     raise KeyError(top)
 
 
 def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """``lavila_tpu`` ``VideoCLIP`` params (a nested dict of arrays, the
-    ``'params'`` collection) → the port's fp32 state dict. Raises
+    """``lavila_tpu`` ``VideoCLIP`` or ``VCLM`` params (a nested dict of
+    arrays, the ``'params'`` collection) → the port's fp32 state dict. Raises
     ``KeyError`` naming every leaf that has no counterpart."""
     out, leftover = {}, []
     for path, arr in _flatten(params).items():
@@ -135,3 +156,40 @@ def load_reference_checkpoint(path: str, num_frames: int | None = None
         sd["visual.temporal_embed"] = inflate_temporal_embed(
             sd["visual.temporal_embed"], num_frames)
     return sd
+
+
+# HF GPT-2 Conv1D projections: weights stored (in, out)
+_CONV1D = re.compile(r"text_decoder\.transformer\.h\.\d+\."
+                     r"(attn|crossattention|mlp|mlp_crossattention)\."
+                     r"(c_attn|c_proj|c_fc|q_attn)\.weight")
+# buffers of the reference modules that the port does not keep
+_DROPPED = re.compile(r"text_decoder\.lm_head\.weight"
+                      r"|.*\.(attn|crossattention)\.(bias|masked_bias)")
+
+
+def count_layers(sd: Mapping[str, torch.Tensor], prefix: str) -> int:
+    """The number of distinct layer indices ``i`` among keys
+    ``{prefix}{i}.*``."""
+    return len({int(k[len(prefix):].split(".")[0]) for k in sd
+                if k.startswith(prefix)
+                and k[len(prefix):].split(".")[0].isdigit()})
+
+
+def narrator_state_dict(sd: Mapping[str, torch.Tensor]
+                        ) -> dict[str, torch.Tensor]:
+    """A released narrator (``VCLM_*``) state dict, as
+    :func:`load_reference_checkpoint` returns it, → the port's keys:
+    Conv1D weights ``(in, out) → (out, in)``; ``lm_head.weight`` (tied to
+    ``wte``) and the causal-mask buffers dropped; the CoCa norms' ``beta``
+    buffers, which must be zero, dropped."""
+    out = {}
+    for k, v in sd.items():
+        if _DROPPED.fullmatch(k):
+            continue
+        if k.endswith(".beta") and k.startswith("img_attn_pool"):
+            if torch.count_nonzero(v):
+                raise ValueError(f"{k}: a non-zero CoCa beta has no place "
+                                 "in the port's bias-free LayerNorm")
+            continue
+        out[k] = v.T.contiguous() if _CONV1D.fullmatch(k) else v
+    return out

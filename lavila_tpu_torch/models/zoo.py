@@ -1,12 +1,20 @@
 """Model zoo: the reference factory names the port supports so far.
 
 Counterpart of ``lavila_tpu/models/zoo.py``. Each factory builds the
-module on the CPU, draws its initial weights from an explicit
-``torch.Generator`` (the JAX package's initialisers, so one seed gives
-the same weights whatever the device), then moves it to ``device`` in
-``dtype``. Unlike the JAX zoo, an unknown keyword argument raises; of
-the training options, ``drop_path_rate`` is taken and ``remat`` raises
-unless False (not ported yet).
+module on the generator's device, draws its initial weights from that
+explicit ``torch.Generator`` (the JAX package's initialisers), then moves
+it to ``device`` in ``dtype``. A CPU generator (the default) gives the
+same weights whatever the target device; a generator on the target
+device initialises a GPT-2 XL narrator there in seconds instead of
+minutes on the host, with other (equally seeded) values. Unlike the JAX
+zoo, an unknown keyword argument raises; of the training options,
+``drop_path_rate`` is taken and ``remat`` raises unless False (not
+ported yet).
+
+The narrators (``VCLM_*``) are the TimeSformer ones of slice 3: MINI
+(CI), TSF-B with GPT-2 (12 layers, cross-attention on every layer) and
+TSF-B with GPT-2 XL (48 layers, cross-attention on every second). As in
+the JAX CLIs, the narrator CLIs build them with ``gated_xattn=True``.
 """
 
 from __future__ import annotations
@@ -17,10 +25,13 @@ import torch
 from torch import nn
 
 from lavila_tpu_torch.models.dual_encoder import VideoCLIP
+from lavila_tpu_torch.models.gpt2 import (PRESETS, GPT2Config, GPT2LMHead,
+                                          augment_config)
+from lavila_tpu_torch.models.narrator import VCLM
 from lavila_tpu_torch.models.openai_clip import TextTransformer
 from lavila_tpu_torch.models.timesformer import SpaceTimeTransformer
 
-_REGISTRY: dict[str, Callable[..., VideoCLIP]] = {}
+_REGISTRY: dict[str, Callable[..., nn.Module]] = {}
 
 
 def register(fn):
@@ -35,14 +46,16 @@ def available_models() -> list[str]:
 def build_model(name: str, *, device, dtype: torch.dtype = torch.float32,
                 generator: torch.Generator | None = None,
                 train: bool = False, **kwargs) -> nn.Module:
-    """Build ``name`` with weights drawn from ``generator`` (seed 0 when
-    None), on ``device`` in ``dtype``, in train mode when ``train`` and
-    eval mode otherwise."""
+    """Build ``name`` with weights drawn from ``generator`` (a CPU one
+    seeded 0 when None) on the generator's device, then move it to
+    ``device`` in ``dtype``, in train mode when ``train`` and eval mode
+    otherwise."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {available_models()}")
-    model = _REGISTRY[name](**kwargs)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    with torch.device(generator.device):
+        model = _REGISTRY[name](**kwargs)
     model.init_weights(generator)
     return model.to(device=device, dtype=dtype).train(train)
 
@@ -77,3 +90,62 @@ def CLIP_OPENAI_TIMESFORMER_BASE(num_frames: int = 4,
     text = TextTransformer(width=512, heads=8, layers=12,
                            embed_dim=project_embed_dim)
     return VideoCLIP(vision, text, project_embed_dim, temperature_init)
+
+
+def _vclm(vision: SpaceTimeTransformer, gpt2: GPT2Config,
+          cross_attn_freq: int, gated_xattn: bool, remat: bool,
+          heads: int, num_img_queries: int = 256, dim_head: int = 64):
+    cfg = augment_config(gpt2, cross_attn_freq=cross_attn_freq,
+                         gated_xattn=gated_xattn, remat=remat)
+    return VCLM(vision, GPT2LMHead(cfg), vision_width=vision.embed_dim,
+                text_width=cfg.n_embd, num_img_queries=num_img_queries,
+                dim_head=dim_head, heads=heads)
+
+
+def _tsf_base(num_frames: int, timesformer_gated_xattn: bool,
+              remat: bool) -> SpaceTimeTransformer:
+    if timesformer_gated_xattn:
+        raise NotImplementedError(
+            "timesformer_gated_xattn is not ported: ROADMAP queue 1, "
+            "slice 1 leftovers")
+    return SpaceTimeTransformer(
+        img_size=224, patch_size=16, embed_dim=768, depth=12, num_heads=12,
+        num_frames=num_frames, remat=remat)
+
+
+@register
+def VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI(num_frames: int = 4,
+                                           gated_xattn: bool = False,
+                                           remat: bool = False):
+    """Tiny debug/CI narrator (not in the reference zoo): the MINI video
+    tower, a 2-layer GPT-2 64 wide with cross-attention on every layer,
+    16 image queries of 4 heads × 16."""
+    vision = SpaceTimeTransformer(
+        img_size=64, patch_size=16, embed_dim=64, depth=2, num_heads=4,
+        num_frames=num_frames, remat=remat)
+    gpt2 = GPT2Config(vocab_size=50257, n_positions=128, n_embd=64,
+                      n_layer=2, n_head=4)
+    return _vclm(vision, gpt2, 1, gated_xattn, remat, heads=4,
+                 num_img_queries=16, dim_head=16)
+
+
+@register
+def VCLM_OPENAI_TIMESFORMER_BASE_GPT2(num_frames: int = 4,
+                                      gated_xattn: bool = False,
+                                      timesformer_gated_xattn: bool = False,
+                                      remat: bool = False):
+    """TSF-B video tower with GPT-2 (12 layers, 768 wide, 12 heads),
+    cross-attention on every layer."""
+    return _vclm(_tsf_base(num_frames, timesformer_gated_xattn, remat),
+                 PRESETS["gpt2"], 1, gated_xattn, remat, heads=12)
+
+
+@register
+def VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL(num_frames: int = 4,
+                                         gated_xattn: bool = False,
+                                         timesformer_gated_xattn: bool = False,
+                                         remat: bool = False):
+    """TSF-B video tower with GPT-2 XL (48 layers, 1600 wide, 25 heads of
+    64), cross-attention on every second layer (24 of them)."""
+    return _vclm(_tsf_base(num_frames, timesformer_gated_xattn, remat),
+                 PRESETS["gpt2-xl"], 2, gated_xattn, remat, heads=25)

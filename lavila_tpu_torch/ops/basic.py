@@ -7,7 +7,11 @@ Counterpart of ``lavila_tpu/ops/basic.py``:
     LayerNorm of the port goes through :func:`kernels.layernorm.
     layer_norm`, its single dispatch site: the Triton kernel (K3) on a
     CUDA tensor, the plain version on a CPU tensor, for any shape.
-  * :func:`quick_gelu` is CLIP's ``x · sigmoid(1.702 x)``.
+    :class:`BiasFreeLayerNorm` (CoCa's, ``use_bias=False`` in the JAX
+    package) goes through the same site with a zero bias.
+  * :func:`quick_gelu` is CLIP's ``x · sigmoid(1.702 x)``;
+    :func:`gelu_new` GPT-2's tanh-approximated GELU; :func:`squared_relu`
+    Primer's ``relu(x)²`` (the narrator's cross-attention MLP).
   * :class:`Mlp` is fc1 → QuickGELU → fc2.
   * :func:`drop_path` is timm's stochastic depth, ``x / keep · mask``
     with one 0/1 draw per sample (:func:`drop_path_mask`).
@@ -27,6 +31,16 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """GPT-2's tanh-approximated GELU (HF 'gelu_new')."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    r = torch.relu(x)
+    return r * r
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with fp32 statistics.
 
@@ -42,6 +56,21 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class BiasFreeLayerNorm(nn.Module):
+    """LayerNorm with a learned scale and no bias, named as the
+    reference's CoCa LayerNorm (``gamma``). Its ``beta`` is a zero buffer
+    outside the state dict, handed to :func:`layer_norm` as the bias."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.register_buffer("beta", torch.zeros(dim), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.gamma, self.beta, self.eps)
 
 
 class Mlp(nn.Module):

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Time one PyTorch library call per ported kernel, as a yardstick.
+
+For each hand-written kernel of ``lavila_tpu_torch`` this builds the
+single PyTorch call that computes the same function on the same inputs
+and times it on the card (CUDA events):
+
+  * K1/K2 forward: ``F.scaled_dot_product_attention`` over each group
+    with the CLS key/value row concatenated in front of its keys (space:
+    a group is one frame, N + 1 keys; time: one position, F + 1 keys);
+    backward: ``torch.autograd.grad`` of that call.
+  * K3 forward: ``F.layer_norm``; backward: ``torch.autograd.grad`` of it.
+  * K9: ``F.scaled_dot_product_attention`` of a ``(B, H, 1, d)`` query
+    over the ``num_valid`` cache rows with the current token appended.
+
+The port never calls these: ``chip_smoke.py`` imports the builders below
+to report ``library_ms`` beside each kernel, and run alone the script
+prints the times at the shapes of the port's main paths, one JSON line
+each, after the card's name and power limit:
+
+    python3 scripts/time_library_calls.py [--out chiprun_out/lib.json]
+
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+from torch.nn import functional as F
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _grouped_qkv(qp, kp, vp, ck, cv, axis: str, heads: int):
+    """K1/K2's inputs ``(B, F, N, D)`` and CLS rows ``(B, D)`` as SDPA's
+    ``(groups, H, S, d)`` query and ``(groups, H, S + 1, d)`` keys and
+    values, the CLS row first."""
+    B, F_, N, D = qp.shape
+    d = D // heads
+
+    def grouped(t):  # (B, G, S, H, d) → (B·G, H, S, d)
+        t = t.reshape(B, F_, N, heads, d)
+        t = t.transpose(1, 2) if axis == "time" else t
+        return t.reshape(-1, t.shape[2], heads, d).transpose(1, 2)
+
+    q, k, v = grouped(qp), grouped(kp), grouped(vp)
+    G = q.shape[0] // B
+
+    def with_cls(c, t):
+        c = c.reshape(B, 1, heads, 1, d).expand(B, G, heads, 1, d)
+        return torch.cat([c.reshape(B * G, heads, 1, d), t], dim=2)
+
+    return (q.contiguous(), with_cls(ck, k).contiguous(),
+            with_cls(cv, v).contiguous())
+
+
+def divided_fwd_call(qp, kp, vp, ck, cv, axis: str, heads: int):
+    """K1 (space) / K2 (time) forward as one SDPA call."""
+    q, k, v = _grouped_qkv(qp, kp, vp, ck, cv, axis, heads)
+    return lambda: F.scaled_dot_product_attention(q, k, v)
+
+
+def divided_bwd_call(qp, kp, vp, ck, cv, do, axis: str, heads: int):
+    """K1/K2 backward: the gradient of that SDPA call for ``do``."""
+    q, k, v = (t.detach().requires_grad_()
+               for t in _grouped_qkv(qp, kp, vp, ck, cv, axis, heads))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(q, k, v)
+    g = _grouped_qkv(do, do, do, ck, cv, axis, heads)[0]
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
+def layer_norm_call(x, w, b, eps: float):
+    return lambda: F.layer_norm(x, (x.shape[-1],), w, b, eps)
+
+
+def layer_norm_bwd_call(x, w, b, dy, eps: float):
+    x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+    with torch.enable_grad():
+        y = F.layer_norm(x, (x.shape[-1],), w, b, eps)
+    return lambda: torch.autograd.grad(y, (x, w, b), dy, retain_graph=True)
+
+
+def decode_call(q, k_cache, v_cache, k_new, v_new, num_valid: int,
+                heads: int):
+    """K9 as SDPA: a ``(B, H, 1, d)`` query over the valid cache rows
+    and the current token."""
+    B, D = q.shape
+    d = D // heads
+
+    def heads_major(t):  # (B, L, D) → (B, H, L, d)
+        return t.reshape(B, -1, heads, d).transpose(1, 2)
+
+    k = heads_major(torch.cat([k_cache[:, :num_valid], k_new[:, None]], 1))
+    v = heads_major(torch.cat([v_cache[:, :num_valid], v_new[:, None]], 1))
+    qh = heads_major(q[:, None])
+    return lambda: F.scaled_dot_product_attention(qh, k, v)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="also write the lines here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_library_calls: needs a CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lines = []
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for axis, shape in (("space", (8, 4, 196, 768)),
+                            ("time", (8, 4, 196, 768)),
+                            ("time", (8, 16, 196, 768))):
+            qp, kp, vp, do = (rand(*shape, dtype=dtype) for _ in range(4))
+            ck, cv = (rand(shape[0], shape[3], dtype=dtype) for _ in range(2))
+            kern = "K1" if axis == "space" else "K2"
+            lines.append({"kernel": kern, "shape": list(shape), "dtype": name,
+                          "library_ms": time_ms(divided_fwd_call(
+                              qp, kp, vp, ck, cv, axis, 12))})
+            lines.append({"kernel": f"{kern} bwd", "shape": list(shape),
+                          "dtype": name, "library_ms": time_ms(
+                              divided_bwd_call(qp, kp, vp, ck, cv, do, axis,
+                                               12))})
+        for shape in ((8 * 4 * 196, 768), (8, 77, 512), (160, 1, 1600)):
+            x, dy = rand(*shape, dtype=dtype), rand(*shape, dtype=dtype)
+            w, b = rand(shape[-1], dtype=dtype), rand(shape[-1], dtype=dtype)
+            lines.append({"kernel": "K3", "shape": list(shape), "dtype": name,
+                          "library_ms": time_ms(layer_norm_call(x, w, b,
+                                                                1e-6))})
+            lines.append({"kernel": "K3 bwd", "shape": list(shape),
+                          "dtype": name, "library_ms": time_ms(
+                              layer_norm_bwd_call(x, w, b, dy, 1e-6))})
+        for B, K, D, H in ((160, 77, 1600, 25), (16, 77, 768, 12)):
+            q, kn, vn = (rand(B, D, dtype=dtype) for _ in range(3))
+            kc, vc = (rand(B, K, D, dtype=dtype) for _ in range(2))
+            for nv in (1, 15, 77):
+                lines.append({"kernel": "K9", "shape": [B, K, D, H],
+                              "num_valid": nv, "dtype": name,
+                              "library_ms": time_ms(decode_call(
+                                  q, kc, vc, kn, vn, nv, H))})
+    for line in lines:
+        print(json.dumps({"device": smi, **line}), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            for line in lines:
+                f.write(json.dumps({"device": smi, **line}) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,6 +9,7 @@ runs on a machine with an H100 (nvcc and triton installed) with
 import pytest
 import torch
 
+from lavila_tpu_torch.kernels import decode as KDec
 from lavila_tpu_torch.kernels import divided as KD
 from lavila_tpu_torch.kernels import layernorm as KL
 
@@ -84,7 +85,8 @@ def test_space_kernel_odd_row_stride(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 77, 512), (6272, 768), (5, 3, 200)])
+@pytest.mark.parametrize("shape", [(4, 77, 512), (6272, 768), (5, 3, 200),
+                                   (160, 1, 1600)])
 def test_layernorm_kernel(gen, shape, dtype):
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -94,6 +96,25 @@ def test_layernorm_kernel(gen, shape, dtype):
     y = KL.layer_norm(x, w, b, 1e-5)
     assert KL.launches["layernorm"] == before + 1
     ref = KL.layer_norm_reference(x.float(), w.float(), b.float(), 1e-5)
+    torch.testing.assert_close(y.float(), ref, rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_free_layernorm_kernel(gen, dtype):
+    """The pooler's norm (no bias: K3 with a zero bias) on 16 clips' 256
+    GPT-2 XL-wide queries, D = 1600 masked to a 2048 block."""
+    from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm
+    ln = BiasFreeLayerNorm(1600).to("cuda", dtype)
+    with torch.no_grad():
+        ln.gamma.copy_(1 + 0.1 * torch.randn(1600, generator=gen,
+                                             device="cuda"))
+    x = torch.randn(16, 256, 1600, generator=gen, device="cuda").to(dtype)
+    before = KL.launches["layernorm"]
+    with torch.no_grad():
+        y = ln(x)
+    assert KL.launches["layernorm"] == before + 1
+    ref = KL.layer_norm_reference(x.float(), ln.gamma.float(),
+                                  torch.zeros(1600, device="cuda"), 1e-5)
     torch.testing.assert_close(y.float(), ref, rtol=0, atol=TOL[dtype])
 
 
@@ -160,7 +181,8 @@ def test_divided_phase_autograd_uses_bwd_kernel(gen, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 77, 512), (6272, 768), (5, 3, 200)])
+@pytest.mark.parametrize("shape", [(4, 77, 512), (6272, 768), (5, 3, 200),
+                                   (160, 1, 1600)])
 def test_layernorm_bwd_kernel(gen, shape, dtype):
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -211,3 +233,42 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError, match="float32/bfloat16"):
         KL.layer_norm_bwd(ck.half(), torch.ones(64, device="cuda"),
                           ck.half(), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,H", [(160, 77, 25), (16, 77, 12), (3, 9, 2)])
+@pytest.mark.parametrize("nv", [0, 1, 15, -1])
+def test_decode_attention_kernel(gen, B, K, H, nv, dtype):
+    """K9 on q/k_new/v_new as the column blocks of one (B, 3D) c_attn
+    output (row stride 3D), against the plain version in fp32."""
+    nv = K if nv == -1 else min(nv, K)
+    D = 64 * H
+    qkv = torch.randn(B, 3 * D, generator=gen, device="cuda").to(dtype)
+    q, kn, vn = qkv.chunk(3, dim=-1)
+    kc, vc = (torch.randn(B, K, D, generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    before = KDec.launches["decode"]
+    out = KDec.decode_attention(q, kc, vc, kn, vn, nv, H)
+    assert KDec.launches["decode"] == before + 1
+    ref = KDec.decode_attention_reference(
+        *(t.float() for t in (q, kc, vc, kn, vn)), nv, H)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (B, D)
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=TOL[dtype])
+    if nv == 0:
+        assert torch.equal(out, vn)
+
+
+def test_decode_attention_kernel_raises(gen):
+    q = torch.randn(2, 96, generator=gen, device="cuda")
+    kc = torch.randn(2, 5, 96, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 64"):
+        KDec.decode_attention(q, kc, kc, q, q, 3, 3)  # head_dim 32
+    q = torch.randn(2, 128, generator=gen, device="cuda")
+    kc = torch.randn(2, 5, 128, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        KDec.decode_attention(q, kc.transpose(0, 1).contiguous()
+                              .transpose(0, 1), kc, q, q, 3, 2)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        KDec.decode_attention(q.half(), kc.half(), kc.half(), q.half(),
+                              q.half(), 3, 2)
