@@ -2,7 +2,8 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU, through the
 kernels written for Hopper, and check them: the zero-shot dual encoder
 (serving), the dual-encoder pretraining step and the narrator's sampled
-decoding.
+decoding, at TSF-B width and with the 336px TSF-L towers (the
+high-resolution dual encoder and LaViLa's flagship narrator).
 
     python3 chip_smoke.py
 
@@ -12,12 +13,14 @@ and prints no result. Phases, each printing JSON lines:
 
   1. device: ``nvidia-smi`` name and power limit, torch's device name.
   2. build: nvcc builds ``lavila_tpu_torch/csrc/*.cu`` (timed).
-  3. kernels: K1 (spatial phase), K2 (temporal phase, F=4 and F=16), K3
-     (LayerNorm; the towers' widths and the narrator's: a decode step's
-     (160, 1, 1600) and the pooler's bias-free (4096, 1600)) and K9
-     (decode attention; GPT-2 XL and TSF-B widths, ``num_valid`` 0, 1,
-     15 and 77) against their plain PyTorch versions
-     on seeded inputs, fp32 and bf16, with errors, tolerances,
+  3. kernels: K1 (spatial phase; TSF-B's N = 196 and TSF-L@224's 256),
+     K2 (temporal phase, F=4 and F=16, and at TSF-L@336), K3 (LayerNorm;
+     the towers' widths and the narrator's: a decode step's (160, 1,
+     1600) and the pooler's bias-free (4096, 1600)), K4/K5 (add +
+     LayerNorm at TSF-L@336's and TSF-B's patch rows), K6 (spatial phase
+     over 576 patches) and K9 (decode attention; GPT-2 XL and TSF-B
+     widths, ``num_valid`` 0, 1, 15 and 77) against their plain PyTorch
+     versions on seeded inputs, fp32 and bf16, with errors, tolerances,
      CUDA-event times, the card's bound for the same work and the time
      of one PyTorch library call computing it
      (``scripts/time_library_calls.py``). kernel_bwd: the same for the
@@ -28,10 +31,9 @@ and prints no result. Phases, each printing JSON lines:
      vacuous), embeddings on the kernel path against the plain functions
      on the same weights, launch counts per call, and encode_image
      clips/s at batch 32 in bf16 on both paths.
-  5. entry point: the port CLI's ``load_model_from_checkpoint`` (BASE,
-     bf16) and ``embed_dataset`` over the synthetic dataset, scored by
-     the port's ``lavila_tpu_torch.eval.metrics`` on an identity
-     relevancy matrix.
+  5. cli: the port CLI's ``load_model_from_checkpoint`` (BASE, bf16) and
+     ``embed_dataset`` over the synthetic dataset, scored by the port's
+     ``lavila_tpu_torch.eval.metrics`` on an identity relevancy matrix.
   6. train_step: 2 AdamW steps of BASE at full depth (``norm_embed``),
      fp32 and bf16, kernel path against the plain path from the same
      weights and batch (losses and every gradient), launches per step,
@@ -39,8 +41,7 @@ and prints no result. Phases, each printing JSON lines:
      both paths.
   7. pretrain_cli: the port's pretraining CLI for 5 steps (BASE, bf16,
      batch 16, synthetic data), then the zero-shot loader reads its
-     checkpoint and embeds a batch. The launch counts of this run, the
-     training path's, go into the kernel summary line for K1-K3.
+     checkpoint and embeds a batch.
   8. narrator: VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL (48 layers, 1600
      wide) initialised on the card from a seeded generator, its
      cross-attention gates and time attention given seeded non-zero
@@ -54,9 +55,25 @@ and prints no result. Phases, each printing JSON lines:
      kernels/plain/plain/kernels.
   9. infer_narrator_cli: the port's ``main_infer_narrator`` on one batch
      of the synthetic dataset (GPT-2 XL narrator, bf16); checks
-     ``total.pkl``. Its launch counts go into the summary line for K9,
-     and for K3 under ``narrator``.
+     ``total.pkl``.
+ 10. large_model, large_cli: phases 4 and 5 with
+     CLIP_OPENAI_TIMESFORMER_LARGE_336PX (24 blocks 1024 wide, 576
+     patches a frame: K6, K4, K5 in every block), encode_image clips/s
+     at batch 8.
+ 11. large_train_step: 2 AdamW steps of TSF-L@336 at batch 2 in fp32,
+     kernel path against plain path; the same with remat against
+     without, drop-path 0.1 from one seeded generator; then bf16 train
+     clips/s and peak memory at batch 8 (kernels/plain/plain/kernels,
+     remat off), and with remat at batch 8 and at the largest of 32 and
+     16 that fits.
+ 12. large_pretrain_cli: phase 7 with TSF-L@336, ``--use-checkpoint``,
+     3 steps at batch 8.
+ 13. flagship_narrator, flagship_infer_narrator_cli: phases 8 and 9 with
+     VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL (cross-attention on 16
+     of the 48 layers, 4·576 + 1 image tokens into the pooler).
 
+Every path phase (5, 7, 9, 10-13) zeroes the launch counters before it
+runs and reads them after; the kernel summary line sums those runs' counts.
 TF32 is off for matmuls and cuDNN convolutions, so fp32 comparisons are
 fp32. Any failed check exits non-zero without the final line; the final
 line is ``{"ok": true, "device": {...}}``.
@@ -64,6 +81,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import math
@@ -80,19 +98,29 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DEVICE = "cuda"
-# the model of the path: TSF-B video tower (12 blocks) + CLIP text tower
+# the dual encoders of the paths: TSF-B (12 blocks, N = 196: K1) and
+# TSF-L@336 (24 blocks 1024 wide, N = 576: K6), each with the CLIP text
+# tower; "space" names the spatial phase's kernel
 MODEL = {"name": "CLIP_OPENAI_TIMESFORMER_BASE", "img": 224, "depth": 12,
-         "text_depth": 12, "embed": 256}
+         "text_depth": 12, "embed": 256, "space": "K1", "serve_batch": 32}
+LARGE = {"name": "CLIP_OPENAI_TIMESFORMER_LARGE_336PX", "img": 336,
+         "depth": 24, "text_depth": 12, "embed": 256, "space": "K6",
+         "serve_batch": 8}
 # Each kernel case is held against the plain version run in fp32 on the
 # same input values, so the bound is the kernel's own error. fp32:
 # summation order only; bf16: the kernels compute in fp32 and round the
 # output to bf16 once, half an ulp (<= 1/64 below 8 for unit-scale data).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FAILURES: list[str] = []
-# the narrator of the decode path: TSF-B + GPT-2 XL (48 layers, 24 with
+# the narrators of the decode path: TSF-B + GPT-2 XL (48 layers, 24 with
+# cross-attention) and the flagship TSF-L@336 + GPT-2 XL (16 with
 # cross-attention); BOS = EOS = GPT-2's <|endoftext|>
 NARRATOR = {"name": "VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL", "layers": 48,
-            "cross": 24, "bos": 50256, "eos": 50256}
+            "cross": 24, "bos": 50256, "eos": 50256, "img": 224,
+            "depth": 12, "space": "K1"}
+FLAGSHIP = {"name": "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL",
+            "layers": 48, "cross": 16, "bos": 50256, "eos": 50256,
+            "img": 336, "depth": 24, "space": "K6"}
 # the least time the card could take: bytes over HBM3's 3.35 TB/s, or
 # operations over the dense peak of their type (bf16 tensor cores, fp32
 # outside them); NVIDIA's H100 SXM data sheet, at the 700 W limit
@@ -147,9 +175,13 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def dname(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 @contextmanager
 def plain_path():
-    """Route the model's single dispatch sites to the plain versions."""
+    """Route the model's dispatch sites to the plain versions."""
     from lavila_tpu_torch.kernels import decode as KDec
     from lavila_tpu_torch.kernels import divided as KD
     from lavila_tpu_torch.kernels import layernorm as KL
@@ -157,6 +189,8 @@ def plain_path():
                     KD.divided_phase_reference), \
             mock.patch("lavila_tpu_torch.ops.basic.layer_norm",
                        KL.layer_norm_reference), \
+            mock.patch("lavila_tpu_torch.ops.basic.add_layer_norm",
+                       KL.add_layer_norm_reference), \
             mock.patch("lavila_tpu_torch.models.gpt2.decode_attention",
                        KDec.decode_attention_reference):
         yield
@@ -165,9 +199,15 @@ def plain_path():
 # kernel name -> (module's launch counter, its key)
 COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
             "K3": ("layernorm", "layernorm"),
+            "K4": ("layernorm", "add_layernorm"),
+            "K5": ("layernorm", "add_layernorm_nosum"),
+            "K6": ("divided", "space_big"),
             "K1 bwd": ("divided", "space_bwd"),
             "K2 bwd": ("divided", "time_bwd"),
             "K3 bwd": ("layernorm", "layernorm_bwd"),
+            "K4 bwd": ("layernorm", "add_layernorm_bwd"),
+            "K5 bwd": ("layernorm", "add_layernorm_nosum_bwd"),
+            "K6 bwd": ("divided", "space_big_bwd"),
             "K9": ("decode", "decode")}
 
 
@@ -185,6 +225,37 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for m, key in COUNTERS.values():
         _counter(m)[key] = 0
+
+
+def _encode_launches(m) -> dict:
+    """Kernel launches of one ``encode_image`` of tower ``m``: per block
+    the two phases, K3 on norm3 (both halves), norm1 and norm2 (CLS
+    half), K5 (norm1) and K4 (norm2) on the patch half; ln_pre on both
+    halves and the final norm."""
+    depth = m["depth"]
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({m["space"]: depth, "K2": depth, "K3": 4 * depth + 3,
+                 "K4": depth, "K5": depth})
+    return want
+
+
+def _step_launches(m, remat: bool = False) -> dict:
+    """Kernel launches of one train step of dual encoder ``m``: the
+    encode's, the text tower's LayerNorms (ln_1, ln_2 per block,
+    ln_final), and one backward each, except that the tower returns only
+    the CLS row, so the last block's patch outputs never reach the loss:
+    autograd runs no backward for its spatial phase or its K4. With remat
+    every block runs its forward again in the backward."""
+    depth = m["depth"]
+    want = _encode_launches(m)
+    text = 2 * m["text_depth"] + 1
+    r = 2 if remat else 1
+    blocks = {k: v * r for k, v in want.items()}
+    blocks["K3"] = 4 * depth * r + 3 + text
+    blocks.update({f"{m['space']} bwd": depth - 1, "K2 bwd": depth,
+                   "K3 bwd": 4 * depth + 3 + text, "K4 bwd": depth - 1,
+                   "K5 bwd": depth})
+    return blocks
 
 
 # ---------------------------------------------------------------- phases
@@ -221,8 +292,8 @@ def _keys(axis, F, N) -> int:
 
 
 def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
-    """One K1/K2 case on strided q/k/v views of a (B, F, N, 3D) tensor,
-    as the attention block hands them over."""
+    """One K1/K2/K6 case on strided q/k/v views of a (B, F, N, 3D)
+    tensor, as the attention block hands them over."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
         dtype)
@@ -235,6 +306,7 @@ def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
         *(t.float() for t in args[:5]), *args[5:])
     torch.cuda.synchronize()
     err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    del ref, ref_lse
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
     return {"out_err": err, "lse_err": lse_err, "tol": tol,
@@ -271,6 +343,33 @@ def _ln_case(shape, dtype, gen, bias: bool = True) -> dict:
             "library_ms": time_ms(library().layer_norm_call(x, w, b, 1e-6))}
 
 
+def _add_ln_case(shape, dtype, gen, return_sum: bool) -> dict:
+    """One K4 (``return_sum``) or K5 case: LN(a + b), and the sum."""
+    from lavila_tpu_torch.kernels import layernorm as KL
+    D = shape[-1]
+    a, b = (torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+            for _ in range(2))
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    bias = (0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    args = (a, b, w, bias, 1e-6, return_sum)
+    got = KL.add_layer_norm(*args)
+    ref = KL.add_layer_norm_reference(*(t.float() for t in args[:4]),
+                                      *args[4:])
+    torch.cuda.synchronize()
+    got, ref = (got, ref) if return_sum else ((got,), (ref,))
+    err, tol = max(map(max_err, got, ref)), TOL[dtype]
+    # reads a, b, w, bias; writes y (and the sum); ~9 fp32 operations
+    # per element (the add, statistics, normalise, scale, shift)
+    return {"out_err": err, "tol": tol, "ok": err <= tol,
+            "ms": time_ms(lambda: KL.add_layer_norm(*args)),
+            "plain_ms": time_ms(
+                lambda: KL.add_layer_norm_reference(*args)),
+            **bound(((4 if return_sum else 3) * a.numel() + 2 * D)
+                    * a.element_size(), 9 * a.numel(), torch.float32),
+            "library_ms": time_ms(library().add_layer_norm_call(*args)),
+            "library_calls": 2}
+
+
 def _decode_case(B, K, D, H, nv, dtype, gen) -> dict:
     """One K9 case: q/k_new/v_new as the column blocks of one (B, 3D)
     c_attn output, a (B, K, D) cache of which ``nv`` rows are valid."""
@@ -297,13 +396,18 @@ def _decode_case(B, K, D, H, nv, dtype, gen) -> dict:
             "library_ms": time_ms(library().decode_call(*args))}
 
 
-# the main-path case of each kernel, whose numbers go into the summary
+# the main-path case of each kernel, whose numbers go into the summary:
+# TSF-B at batch 8 for K1/K2/K3, TSF-L@336 at batch 8 for K4/K5/K6
 MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
-             "K3": (8 * 4 * 196, 768), "K9": (160, 77, 1600, 25, 15)}
-# K3 runs on the training path (MAIN_CASE) and on the narrator's decode
-# path, whose case (one decode step's 160 GPT-2 XL rows) the summary
-# keeps under "narrator"
-NARRATOR_CASE = {"K3": (160, 1, 1600)}
+             "K3": (8 * 4 * 196, 768), "K4": (8 * 4 * 576, 1024),
+             "K5": (8 * 4 * 576, 1024), "K6": (8, 4, 576, 1024, 16),
+             "K9": (160, 77, 1600, 25, 15)}
+# further cases a kernel's summary keeps under a name: K3 on the
+# narrator's decode path (one decode step's 160 GPT-2 XL rows), K1 at
+# TSF-L@224 (N = 256, its SIMT branch even in bf16), K2 at TSF-L@336
+SIDE_CASES = {"K3": ("narrator", (160, 1, 1600)),
+              "K1": ("tsf_l_224", (8, 4, 256, 1024, 16)),
+              "K2": ("tsf_l_336", (8, 4, 576, 1024, 16))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -314,21 +418,25 @@ def _summarise(summary, name, shape, dtype, res, err_keys) -> None:
     if dtype != torch.bfloat16:
         return
     main = {k: res[k] for k in _SUMMARY_KEYS} | {"at": list(shape)}
-    if shape == MAIN_CASE[name.removesuffix(" bwd")]:
+    base = name.removesuffix(" bwd")
+    if shape == MAIN_CASE[base]:
         s.update(main)
-    if shape == NARRATOR_CASE.get(name):
-        s["narrator"] = main
+    side = SIDE_CASES.get(base)
+    if side is not None and shape == side[1]:
+        s[side[0]] = main
 
 
 def phase_kernels() -> dict:
     """Every kernel case; returns the main-path (bf16) case per kernel
     and each kernel's largest error over its cases."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    bf16 = torch.bfloat16
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, bf16):
         cases += [("K1", "space", (8, 4, 196, 768, 12), dtype),
                   ("K2", "time", (8, 4, 196, 768, 12), dtype),
                   ("K2", "time", (8, 16, 196, 768, 12), dtype),
+                  ("K6", "space", (2, 4, 576, 1024, 16), dtype),
                   ("K3", "ln", (8, 77, 512), dtype),
                   ("K3", "ln", (8 * 4 * 196, 768), dtype),
                   # the narrator's: a decode step's GPT-2 XL norms (D =
@@ -336,14 +444,23 @@ def phase_kernels() -> dict:
                   # norms on 16 clips' 256 queries
                   ("K3", "ln", (160, 1, 1600), dtype),
                   ("K3", "ln_nobias", (16 * 256, 1600), dtype)]
+        cases += [(k, kind, shape, dtype)
+                  for k, kind in (("K4", "add_ln"), ("K5", "add_ln_nosum"))
+                  for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768))]
         # K9: the narrator's 160 rows of GPT-2 XL, and TSF-B width
         cases += [("K9", "decode", (B, 77, D, H, nv), dtype)
                   for B, D, H in ((160, 1600, 25), (16, 768, 12))
                   for nv in (0, 1, 15, 77)]
+    # the 336px path's main cases, and K1 at TSF-L@224
+    cases += [("K6", "space", (8, 4, 576, 1024, 16), bf16),
+              ("K2", "time", (8, 4, 576, 1024, 16), bf16),
+              ("K1", "space", (8, 4, 256, 1024, 16), bf16)]
     summary = {}
     with torch.inference_mode():
         for name, kind, shape, dtype in cases:
-            if kind.startswith("ln"):
+            if kind.startswith("add_ln"):
+                res = _add_ln_case(shape, dtype, gen, kind == "add_ln")
+            elif kind.startswith("ln"):
                 res = _ln_case(shape, dtype, gen, bias=kind == "ln")
             elif kind == "decode":
                 res = _decode_case(*shape, dtype, gen)
@@ -351,12 +468,13 @@ def phase_kernels() -> dict:
                 res = _phase_case(kind, *shape[:3], shape[3], shape[4],
                                   dtype, gen)
             emit("kernel", kernel=name, case=kind, shape=list(shape),
-                 dtype=str(dtype).removeprefix("torch."), **res)
+                 dtype=dname(dtype), **res)
             check(res["ok"], f"{name} {kind} {shape} {dtype}: error "
                   f"{res['out_err']} (lse {res.get('lse_err')}) > "
                   f"{res['tol']}")
             _summarise(summary, name, shape, dtype, res,
                        ("out_err", "lse_err"))
+            torch.cuda.empty_cache()
     return summary
 
 
@@ -370,7 +488,7 @@ def _all_equal(a, b) -> bool:
 
 
 def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
-    """K1/K2 bwd on strided q/k/v views, out and lse from the forward
+    """K1/K2/K6 bwd on strided q/k/v views, out and lse from the forward
     kernel, against the plain backward in fp32 on the same values."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
@@ -389,13 +507,16 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     torch.cuda.synchronize()
     errs = {n: _rel_err(a, b) for n, a, b in
             zip(("dq", "dk", "dv", "dck", "dcv"), got, ref)}
+    abs_err = max(map(max_err, got, ref))
+    deterministic = _all_equal(got, again)
+    del ref, again
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
     # reads q, k, v, do, out, ck, cv, lse; writes dq, dk, dv, dck, dcv;
     # five products (S, dP, dV, dQ, dK) of 2 operations per term
-    return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
-            "tol": tol, "deterministic": _all_equal(got, again),
-            "ok": max(errs.values()) <= tol and _all_equal(got, again),
+    return {"rel_err": errs, "abs_err": abs_err, "tol": tol,
+            "deterministic": deterministic,
+            "ok": max(errs.values()) <= tol and deterministic,
             "ms": time_ms(lambda: KD.divided_phase_bwd(*args)),
             "plain_ms": time_ms(
                 lambda: KD.divided_phase_bwd_reference(*args)),
@@ -432,6 +553,39 @@ def _ln_bwd_case(shape, dtype, gen) -> dict:
                 x, w, b, dy, 1e-6))}
 
 
+def _add_ln_bwd_case(shape, dtype, gen, return_sum: bool) -> dict:
+    """K4 bwd (``return_sum``: from the saved sum, d(sum) folded into dx)
+    or K5 bwd (the pair re-added)."""
+    from lavila_tpu_torch.kernels import layernorm as KL
+    D = shape[-1]
+    a, b, dy, ds = (torch.randn(*shape, generator=gen, device=DEVICE)
+                    .to(dtype) for _ in range(4))
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    args = ((a, None, w, dy, ds, 1e-6) if return_sum
+            else (a, b, w, dy, None, 1e-6))
+    got = KL.add_layer_norm_bwd(*args)
+    again = KL.add_layer_norm_bwd(*args)
+    ref = KL.add_layer_norm_bwd_reference(
+        *(None if t is None else t.float() for t in args[:5]), 1e-6)
+    torch.cuda.synchronize()
+    errs = {n: _rel_err(x, y) for n, x, y in
+            zip(("dx", "dweight", "dbias"), got, ref)}
+    tol = TOL[dtype]
+    # reads the sum, dy, d(sum) (K4) or a, b, dy (K5), and w; writes dx,
+    # dw, db; ~13 fp32 operations per element
+    return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
+            "tol": tol, "deterministic": _all_equal(got, again),
+            "ok": max(errs.values()) <= tol and _all_equal(got, again),
+            "ms": time_ms(lambda: KL.add_layer_norm_bwd(*args)),
+            "plain_ms": time_ms(
+                lambda: KL.add_layer_norm_bwd_reference(*args)),
+            **bound((4 * a.numel() + 3 * D) * a.element_size(),
+                    13 * a.numel(), torch.float32),
+            "library_ms": time_ms(library().add_layer_norm_bwd_call(
+                a, b, w, torch.zeros_like(w), dy,
+                ds if return_sum else None, 1e-6))}
+
+
 def phase_kernels_bwd() -> dict:
     """Every backward kernel case, as :func:`phase_kernels`. Errors are
     relative to the reference's largest magnitude (dck/dcv and dγ/dβ are
@@ -442,42 +596,51 @@ def phase_kernels_bwd() -> dict:
         cases += [("K1 bwd", "space", (8, 4, 196, 768, 12), dtype),
                   ("K2 bwd", "time", (8, 4, 196, 768, 12), dtype),
                   ("K2 bwd", "time", (8, 16, 196, 768, 12), dtype),
+                  ("K6 bwd", "space", (2, 4, 576, 1024, 16), dtype),
                   ("K3 bwd", "ln", (8, 77, 512), dtype),
                   ("K3 bwd", "ln", (8 * 4 * 196, 768), dtype)]
+        cases += [(k, kind, shape, dtype)
+                  for k, kind in (("K4 bwd", "add_ln"),
+                                  ("K5 bwd", "add_ln_nosum"))
+                  for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768))]
+    cases += [("K6 bwd", "space", (8, 4, 576, 1024, 16), torch.bfloat16),
+              ("K2 bwd", "time", (8, 4, 576, 1024, 16), torch.bfloat16)]
     summary = {}
     for name, kind, shape, dtype in cases:
         with torch.no_grad():
-            if kind == "ln":
+            if kind.startswith("add_ln"):
+                res = _add_ln_bwd_case(shape, dtype, gen, kind == "add_ln")
+            elif kind == "ln":
                 res = _ln_bwd_case(shape, dtype, gen)
             else:
                 res = _phase_bwd_case(kind, *shape[:3], shape[3], shape[4],
                                       dtype, gen)
         emit("kernel_bwd", kernel=name, shape=list(shape),
-             dtype=str(dtype).removeprefix("torch."), **res)
+             dtype=dname(dtype), **res)
         check(res["ok"], f"{name} {shape} {dtype}: relative errors "
               f"{res['rel_err']} > {res['tol']} or not deterministic "
               f"({res['deterministic']})")
         _summarise(summary, name, shape, dtype, res, ("abs_err",))
+        torch.cuda.empty_cache()
     return summary
 
 
-def _base_model():
+def _clip_model(m, **kw):
+    """Dual encoder ``m`` initialised on the card from a seeded generator,
+    its time attention given seeded noise."""
     from lavila_tpu_torch.models import build_model
-    gen = torch.Generator().manual_seed(SEED)
-    model = build_model(MODEL["name"], device=DEVICE, generator=gen)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = build_model(m["name"], device=DEVICE, generator=gen, **kw)
     with torch.no_grad():
         for blk in model.visual.blocks:
             for lin in (blk.timeattn.qkv, blk.timeattn.proj):
-                std = lin.in_features ** -0.5
-                lin.weight.copy_(torch.randn(lin.weight.shape,
-                                             generator=gen) * std)
-                lin.bias.copy_(torch.randn(lin.bias.shape,
-                                           generator=gen) * 0.02)
+                lin.weight.normal_(0.0, lin.in_features ** -0.5,
+                                   generator=gen)
+                lin.bias.normal_(0.0, 0.02, generator=gen)
     return model
 
 
-def _inputs(B, gen):
-    size = MODEL["img"]
+def _inputs(B, gen, size: int = 224):
     frames = torch.randn(B, 4, size, size, 3, generator=gen, device=DEVICE)
     text = torch.randint(1, 49407, (B, 77), generator=gen, device=DEVICE)
     eot = torch.randint(5, 77, (B,), generator=gen, device=DEVICE)
@@ -485,11 +648,14 @@ def _inputs(B, gen):
     return frames, text
 
 
-def phase_model() -> None:
+def phase_model(m) -> None:
+    """Dual encoder ``m``: embeddings on the kernel path against the plain
+    path on the same weights (fp32, then bf16), launches per call, then
+    encode_image clips/s."""
     from lavila_tpu_torch.models.dual_encoder import l2_normalize
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    frames, text = _inputs(4, gen)
-    model = _base_model()
+    frames, text = _inputs(4, gen, m["img"])
+    model = _clip_model(m)
     for dtype in (torch.float32, torch.bfloat16):
         model = model.to(dtype)
         with torch.inference_mode():
@@ -510,30 +676,30 @@ def phase_model() -> None:
             res[f"{name}_max_err"] = max_err(a, b)
             res[f"{name}_cos_min"] = (a * b).sum(-1).min().item()
             res[f"{name}_finite"] = bool(torch.isfinite(a).all())
-        emit("model", model=MODEL["name"],
-             dtype=str(dtype).removeprefix("torch."), batch=4,
+        emit("model", model=m["name"], dtype=dname(dtype), batch=4,
              launches_per_encode_image=per_image,
              launches_per_encode_text=per_text, **res)
         check(res["image_finite"] and res["text_finite"],
-              f"BASE {dtype}: non-finite embeddings")
-        depth = MODEL["depth"]
-        check(per_image["K1"] == depth and per_image["K2"] == depth
-              and per_image["K3"] > 0 and per_text["K3"] > 0,
-              f"BASE {dtype}: launches image {per_image} text {per_text}")
+              f"{m['name']} {dtype}: non-finite embeddings")
+        want_text = dict.fromkeys(COUNTERS, 0)
+        want_text["K3"] = 2 * m["text_depth"] + 1
+        check(per_image == _encode_launches(m) and per_text == want_text,
+              f"{m['name']} {dtype}: launches image {per_image} text "
+              f"{per_text}")
         if dtype == torch.float32:
             check(res["image_max_err"] <= 1e-3 and
                   res["text_max_err"] <= 1e-3,
-                  f"BASE fp32 kernel vs plain: {res}")
+                  f"{m['name']} fp32 kernel vs plain: {res}")
         else:
             check(res["image_cos_min"] >= 0.999 and
                   res["text_cos_min"] >= 0.999,
-                  f"BASE bf16 kernel vs plain: {res}")
-            _throughput(model, gen)
+                  f"{m['name']} bf16 kernel vs plain: {res}")
+            _throughput(model, gen, m)
 
 
-def _throughput(model, gen, batch: int = 32, iters: int = 5) -> None:
-    size = MODEL["img"]
-    frames = torch.randn(batch, 4, size, size, 3, generator=gen,
+def _throughput(model, gen, m, iters: int = 5) -> None:
+    batch = m["serve_batch"]
+    frames = torch.randn(batch, 4, m["img"], m["img"], 3, generator=gen,
                          device=DEVICE)
     rates = {}
     with torch.inference_mode():
@@ -548,15 +714,15 @@ def _throughput(model, gen, batch: int = 32, iters: int = 5) -> None:
                 torch.cuda.synchronize()
                 rate = batch * iters / (time.perf_counter() - t0)
             rates.setdefault(path, []).append(rate)
-    emit("throughput", what="encode_image clips/s", model=MODEL["name"],
+    emit("throughput", what="encode_image clips/s", model=m["name"],
          dtype="bfloat16", batch=batch,
          frames=4, iters=iters, order="kernels, plain, plain, kernels",
          clips_per_s=rates)
 
 
-def phase_cli() -> dict:
+def phase_cli(m) -> dict:
     """The port CLI's functions on the synthetic dataset. Returns the
-    launch counts of this run, the main path's."""
+    launch counts of this run, the serving path's."""
     import numpy as np
 
     from lavila_tpu_torch.data import transforms as T
@@ -567,10 +733,12 @@ def phase_cli() -> dict:
     from lavila_tpu_torch.cli import eval_zeroshot as cli
 
     args = cli.get_args_parser().parse_args(
-        ["--model", MODEL["name"], "--bf16", "--device",
+        ["--model", m["name"], "--bf16", "--device",
          DEVICE, "--clip-length", "4", "--batch-size", "8", "--workers",
          "4"])
+    t0 = time.perf_counter()
     model, tokenizer, name = cli.load_model_from_checkpoint(args)
+    load_seconds = time.perf_counter() - t0
     mean, std = T.normalization_for_model(name)
     transform = T.EvalTransform(cli.crop_shape(name)[0], mean, std)
     ds = VideoCaptionDataset(
@@ -593,55 +761,43 @@ def phase_cli() -> dict:
                "nDCG_avg": avg_ndcg}
     emit("cli", model=name, dtype="bfloat16", clips=len(v),
          embed_shape=[list(v.shape), list(t.shape)], seconds=seconds,
-         launches=counts, metrics=metrics)
-    dim = MODEL["embed"]
+         load_seconds=load_seconds, launches=counts, metrics=metrics)
+    dim = m["embed"]
     check(v.shape == (len(ds), dim) and t.shape == (len(ds), dim)
           and bool(np.isfinite(v).all() and np.isfinite(t).all()),
-          f"CLI embeddings {v.shape} {t.shape} not finite or misshapen")
+          f"CLI {name} embeddings {v.shape} {t.shape} not finite or "
+          "misshapen")
     check(all(0.0 <= x <= 1.0 for x in metrics.values()),
           f"CLI metrics out of range: {metrics}")
     batches = -(-len(ds) // args.batch_size)
-    check(counts["K1"] == counts["K2"] == MODEL["depth"] * batches
-          and counts["K3"] > 0,
-          f"CLI launches {counts} for {batches} batches")
+    per_batch = _encode_launches(m)
+    per_batch["K3"] += 2 * m["text_depth"] + 1
+    check(counts == {k: n * batches for k, n in per_batch.items()},
+          f"CLI {name} launches {counts} for {batches} batches")
     return counts
 
 
-def _step_launches() -> dict:
-    """Kernel launches of one train step. LayerNorms of one forward: per
-    video block norm3, norm1 and norm2, each on the CLS row and on the
-    patches; ln_pre on both and the final norm; per text block ln_1 and
-    ln_2; ln_final (100 for BASE). The tower returns only the CLS row, so
-    the last block's patch outputs never reach the loss: autograd runs
-    no backward for its spatial phase (K1) or its norm2 on the patches
-    (K3)."""
-    depth = MODEL["depth"]
-    norms = 6 * depth + 3 + 2 * MODEL["text_depth"] + 1
-    return {"K1": depth, "K2": depth, "K3": norms, "K1 bwd": depth - 1,
-            "K2 bwd": depth, "K3 bwd": norms - 1, "K9": 0}
-
-
-def _make_state(model, dtype):
+def _make_state(model, dtype, seed: int = SEED + 8):
     """A TrainState with the CLI's default AdamW recipe (warm-up from
-    1e-6 over 100-step epochs)."""
+    1e-6 over 100-step epochs); drop-path masks from a seeded
+    generator."""
     from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
     from lavila_tpu_torch.train.step import TrainState
     schedule = cosine_schedule(3e-5, 1e-5, 5, 100, warmup_epochs=1,
                                start_warmup_lr=1e-6)
     return TrainState.create(
-        model, lambda params: make_optimizer(params, schedule), dtype=dtype)
+        model, lambda params: make_optimizer(params, schedule), dtype=dtype,
+        generator=torch.Generator(device=DEVICE).manual_seed(seed))
 
 
-def _train_batch(B, gen):
-    frames, text = _inputs(B, gen)
+def _train_batch(B, gen, size: int = 224):
+    frames, text = _inputs(B, gen, size)
     return {"frames": frames, "text": text}
 
 
 def _run_steps(base, dtype, batch, plain: bool, steps: int = 2):
     """``steps`` train steps from a copy of ``base``: the losses, each
     step's fp32 gradients and the launch counts of each step."""
-    import copy
-
     from lavila_tpu_torch.train.step import make_clip_train_step
     state = _make_state(copy.deepcopy(base).train(), dtype)
     # normalised embeddings (--norm-embed) keep the logits within
@@ -657,98 +813,196 @@ def _run_steps(base, dtype, batch, plain: bool, steps: int = 2):
             counts.append(launch_counts())
             losses.append(metrics["loss"].item())
             grads.append({k: p.grad.clone() for k, p in state.params.items()})
+    del state
     return losses, grads, counts
+
+
+def _compare_steps(a, b) -> dict:
+    """Two runs of :func:`_run_steps`: the largest relative loss gap, the
+    largest gradient error relative to its tensor's largest value, and
+    the smallest cosine of a weight matrix's (2-D, and the 4-D patch-embed
+    kernel's) gradient; the 3-D embeddings (cls_token, pos_embed,
+    temporal_embed) are reported beside them."""
+    (a_loss, a_grads, _), (b_loss, b_grads, _) = a, b
+    rel_loss = max(abs(x - y) / abs(y) for x, y in zip(a_loss, b_loss))
+    worst_err = 0.0
+    worst = {"matrices": (1.0, None), "embeddings": (1.0, None)}
+    for step, (ag, bg) in enumerate(zip(a_grads, b_grads)):
+        for name, g in bg.items():
+            x = ag[name]
+            scale = g.abs().max().item()
+            if scale > 0:
+                worst_err = max(worst_err, max_err(x, g) / scale)
+            if g.dim() >= 2 and scale > 0:
+                cos = torch.nn.functional.cosine_similarity(
+                    x.flatten(), g.flatten(), dim=0).item()
+                kind = "embeddings" if g.dim() == 3 else "matrices"
+                if cos < worst[kind][0]:
+                    worst[kind] = (cos, f"step {step}: {name}")
+    return {"loss_rel_err": rel_loss, "grad_rel_err_max": worst_err,
+            "grad_cos_min": worst["matrices"][0],
+            "grad_cos_min_at": worst["matrices"][1],
+            "embed_grad_cos_min": worst["embeddings"][0],
+            "embed_grad_cos_min_at": worst["embeddings"][1]}
 
 
 def phase_train_step() -> None:
     """The train step on BASE at full depth, kernel path against the
     plain path from the same weights and batch; then train clips/s."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    base = _base_model()
+    base = _clip_model(MODEL)
     batch = _train_batch(4, gen)
     for dtype in (torch.float32, torch.bfloat16):
-        k_loss, k_grads, counts = _run_steps(base, dtype, batch, False)
-        p_loss, p_grads, _ = _run_steps(base, dtype, batch, True)
-        rel_loss = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
-        # cosines: every weight matrix (2-D, and the 4-D patch-embed
-        # kernel) is held to the bound; the 3-D embeddings (cls_token,
-        # pos_embed, temporal_embed) are reported beside them
-        worst_err = 0.0
-        worst = {"matrices": (1.0, None), "embeddings": (1.0, None)}
-        for step, (kg, pg) in enumerate(zip(k_grads, p_grads)):
-            for name, g in pg.items():
-                a = kg[name]
-                scale = g.abs().max().item()
-                if scale > 0:
-                    worst_err = max(worst_err, max_err(a, g) / scale)
-                if g.dim() >= 2 and scale > 0:
-                    cos = torch.nn.functional.cosine_similarity(
-                        a.flatten(), g.flatten(), dim=0).item()
-                    kind = "embeddings" if g.dim() == 3 else "matrices"
-                    if cos < worst[kind][0]:
-                        worst[kind] = (cos, f"step {step}: {name}")
-        worst_cos = worst["matrices"][0]
-        name = str(dtype).removeprefix("torch.")
+        k_run = _run_steps(base, dtype, batch, False)
+        p_run = _run_steps(base, dtype, batch, True)
+        res = _compare_steps(k_run, p_run)
+        name = dname(dtype)
         emit("train_step", model=MODEL["name"], dtype=name, batch=4,
-             steps=2, loss_kernels=k_loss, loss_plain=p_loss,
-             loss_rel_err=rel_loss, grad_rel_err_max=worst_err,
-             grad_cos_min=worst_cos, grad_cos_min_at=worst["matrices"][1],
-             embed_grad_cos_min=worst["embeddings"][0],
-             embed_grad_cos_min_at=worst["embeddings"][1],
-             launches_per_step=counts)
-        check(all(math.isfinite(x) for x in k_loss + p_loss),
-              f"train step {name}: non-finite loss {k_loss} {p_loss}")
-        want = _step_launches()
-        check(all(c == want for c in counts),
-              f"train step {name}: launches {counts}, want {want}")
+             steps=2, loss_kernels=k_run[0], loss_plain=p_run[0],
+             launches_per_step=k_run[2], **res)
+        check(all(math.isfinite(x) for x in k_run[0] + p_run[0]),
+              f"train step {name}: non-finite loss {k_run[0]} {p_run[0]}")
+        want = _step_launches(MODEL)
+        check(all(c == want for c in k_run[2]),
+              f"train step {name}: launches {k_run[2]}, want {want}")
         if dtype == torch.float32:
-            check(rel_loss <= 1e-5 and worst_err <= 1e-4,
-                  f"train step fp32 kernels vs plain: loss {rel_loss}, "
-                  f"gradient {worst_err}")
+            check(res["loss_rel_err"] <= 1e-5
+                  and res["grad_rel_err_max"] <= 1e-4,
+                  f"train step fp32 kernels vs plain: {res}")
         else:
-            check(rel_loss <= 1e-2 and worst_cos >= 0.99,
-                  f"train step bf16 kernels vs plain: loss {rel_loss}, "
-                  f"cosine {worst_cos}")
-    del k_grads, p_grads
-    _train_throughput(base, gen)
+            check(res["loss_rel_err"] <= 1e-2 and res["grad_cos_min"] >= 0.99,
+                  f"train step bf16 kernels vs plain: {res}")
+        del k_run, p_run
+    _train_throughput(base, gen, MODEL, (16, 48))
 
 
-def _train_throughput(base, gen, iters: int = 10) -> None:
+def _time_steps(state, step_fn, data, iters: int) -> tuple:
+    """Train clips/s over ``iters`` steps after 2 warm-up steps, and the
+    peak device memory in GiB."""
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step_fn(state, data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step_fn(state, data)
+    torch.cuda.synchronize()
+    return (data["frames"].shape[0] * iters / (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _train_throughput(base, gen, m, batches, iters: int = 10) -> None:
     """Train clips/s, bf16, kernel and plain path in alternating order:
-    at batch 16 (bench.py's TSF-B batch), where the host's issue time
-    bounds the step, and at batch 48, where the device does."""
+    for TSF-B at batch 16 (bench.py's TSF-B batch), where the host's
+    issue time bounds the step, and at batch 48, where the device does."""
     from lavila_tpu_torch.train.step import make_clip_train_step
     state = _make_state(base.train(), torch.bfloat16)
     step_fn = make_clip_train_step()
-    for batch in (16, 48):
-        data = _train_batch(batch, gen)
+    for batch in batches:
+        data = _train_batch(batch, gen, m["img"])
         rates, peaks = {}, {}
         for path in ("kernels", "plain", "plain", "kernels"):
             with plain_path() if path == "plain" else nullcontext():
-                torch.cuda.reset_peak_memory_stats()
-                for _ in range(3):
-                    step_fn(state, data)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(iters):
-                    step_fn(state, data)
-                torch.cuda.synchronize()
-                rates.setdefault(path, []).append(
-                    batch * iters / (time.perf_counter() - t0))
-                peaks.setdefault(path, []).append(
-                    torch.cuda.max_memory_allocated() / 2**30)
+                rate, peak = _time_steps(state, step_fn, data, iters)
+            rates.setdefault(path, []).append(rate)
+            peaks.setdefault(path, []).append(peak)
         emit("train_throughput", what="train step clips/s",
-             model=MODEL["name"], dtype="bfloat16", batch=batch, frames=4,
-             iters=iters, order="kernels, plain, plain, kernels",
-             clips_per_s=rates, peak_memory_gib=peaks)
+             model=m["name"], dtype="bfloat16", batch=batch, frames=4,
+             iters=iters, remat=False, order="kernels, plain, plain, "
+             "kernels", clips_per_s=rates, peak_memory_gib=peaks)
         del data
 
 
-def phase_pretrain_cli() -> dict:
-    """The port's pretraining CLI for 5 steps on the synthetic dataset
-    (BASE, bf16, batch 16), then the port's zero-shot loader reads the
-    checkpoint and embeds a batch: train → save → serve. Returns the
-    launch counts of the training run, the main path's."""
+def phase_large_train_step() -> None:
+    """TSF-L@336's train step: kernels against plain (fp32, batch 2),
+    remat against no remat with drop-path 0.1 (fp32, batch 2, both on the
+    kernels), then bf16 clips/s and peak memory with and without remat."""
+    from lavila_tpu_torch.train.step import make_clip_train_step
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    batch = _train_batch(2, gen, LARGE["img"])
+    fp32 = torch.float32
+    base = _clip_model(LARGE)
+    k_run = _run_steps(base, fp32, batch, False)
+    p_run = _run_steps(base, fp32, batch, True)
+    res = _compare_steps(k_run, p_run)
+    emit("large_train_step", model=LARGE["name"], dtype="float32", batch=2,
+         steps=2, what="kernels vs plain", loss_kernels=k_run[0],
+         loss_plain=p_run[0], launches_per_step=k_run[2], **res)
+    check(all(math.isfinite(x) for x in k_run[0] + p_run[0])
+          and res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
+          f"TSF-L@336 train step fp32 kernels vs plain: {res}")
+    want = _step_launches(LARGE)
+    check(all(c == want for c in k_run[2]),
+          f"TSF-L@336 train step launches {k_run[2]}, want {want}")
+    del k_run, p_run
+
+    # remat: the same weights, drop-path 0.1, masks from one seeded
+    # generator (the TrainState's), remat off against on
+    runs = {}
+    for remat in (False, True):
+        model = _clip_model(LARGE, drop_path_rate=0.1, remat=remat)
+        model.load_state_dict(base.state_dict())
+        runs[remat] = _run_steps(model, fp32, batch, False)
+        del model
+    res = _compare_steps(runs[True], runs[False])
+    emit("large_train_step", model=LARGE["name"], dtype="float32", batch=2,
+         steps=2, what="remat vs no remat, drop_path_rate 0.1",
+         loss_remat=runs[True][0], loss_no_remat=runs[False][0],
+         launches_per_step_remat=runs[True][2], **res)
+    check(res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
+          f"TSF-L@336 train step remat vs no remat: {res}")
+    want = _step_launches(LARGE, remat=True)
+    check(all(c == want for c in runs[True][2]),
+          f"TSF-L@336 remat step launches {runs[True][2]}, want {want}")
+    del runs
+
+    # bf16 clips/s and peak memory at batch 8, in turns: remat off (first
+    # and last) against on, and with remat the kernels against the plain
+    # path (without remat the plain path's fp32 scores, 0.68 GB per
+    # phase and tensor, do not fit in 80 GB); then the largest of 32 and
+    # 16 that fits with remat
+    step_fn = make_clip_train_step()
+    state = _make_state(base.train(), torch.bfloat16)
+    del base
+    data = _train_batch(8, gen, LARGE["img"])
+    rates, peaks = {}, {}
+    for remat, path in ((False, "kernels"), (True, "kernels"),
+                        (True, "plain"), (True, "plain"), (True, "kernels"),
+                        (False, "kernels")):
+        state.model.visual.remat = remat
+        with plain_path() if path == "plain" else nullcontext():
+            rate, peak = _time_steps(state, step_fn, data, 5)
+        key = f"{path}, remat" if remat else path
+        rates.setdefault(key, []).append(rate)
+        peaks.setdefault(key, []).append(peak)
+    emit("train_throughput", what="train step clips/s", model=LARGE["name"],
+         dtype="bfloat16", batch=8, frames=4, iters=5,
+         order="kernels, kernels+remat, plain+remat, plain+remat, "
+         "kernels+remat, kernels", clips_per_s=rates, peak_memory_gib=peaks)
+    del data
+    state.model.visual.remat = True
+    for batch_size in (32, 16):
+        data = _train_batch(batch_size, gen, LARGE["img"])
+        try:
+            rate, peak = _time_steps(state, step_fn, data, 5)
+        except torch.cuda.OutOfMemoryError:
+            emit("train_throughput", model=LARGE["name"], remat=True,
+                 batch=batch_size, out_of_memory=True)
+            del data
+            torch.cuda.empty_cache()
+            continue
+        emit("train_throughput", what="train step clips/s",
+             model=LARGE["name"], dtype="bfloat16", batch=batch_size,
+             frames=4, iters=5, remat=True, clips_per_s=rate,
+             peak_memory_gib=peak)
+        break  # the largest of 32 and 16 that fits
+
+
+def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
+    """The port's pretraining CLI for ``steps`` steps on the synthetic
+    dataset (bf16), then the port's zero-shot loader reads the checkpoint
+    and embeds a batch: train → save → serve. Returns the launch counts
+    of the training run, the training path's."""
     import tempfile
 
     from lavila_tpu_torch.config import parse_config
@@ -756,9 +1010,10 @@ def phase_pretrain_cli() -> dict:
     from lavila_tpu_torch.cli import main_pretrain as cli
     with tempfile.TemporaryDirectory() as out:
         cfg = parse_config(cli.TorchPretrainConfig, [
-            "--dataset", "synthetic", "--model", MODEL["name"], "--steps",
-            "5", "--batch-size", "16", "--workers", "4", "--print-freq",
-            "1", "--device", DEVICE, "--output-dir", out])
+            "--dataset", "synthetic", "--model", m["name"], "--steps",
+            str(steps), "--batch-size", str(batch), "--workers", "4",
+            "--print-freq", "1", "--device", DEVICE, "--output-dir", out,
+            *flags])
         reset_launch_counts()
         t0 = time.perf_counter()
         state = cli.main(cfg)
@@ -774,30 +1029,34 @@ def phase_pretrain_cli() -> dict:
         model, _, name = ez.load_model_from_checkpoint(args)
     same = all(torch.equal(p, state.params[k].to(p.dtype))
                for k, p in model.named_parameters())
+    del state
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
-    frames, text = _inputs(2, gen)
+    frames, text = _inputs(2, gen, m["img"])
     with torch.inference_mode():
         img, txt = model.encode_image(frames), model.encode_text(text)
-    emit("pretrain_cli", model=name, dtype="bfloat16", batch=16, steps=5,
-         seconds=seconds, step=state.step, train_loss=log["train_loss"],
-         files=files, launches=counts, reloaded_equal=same,
+    emit("pretrain_cli", model=name, dtype="bfloat16", batch=batch,
+         steps=steps, flags=list(flags), seconds=seconds,
+         train_loss=log["train_loss"], files=files, launches=counts,
+         reloaded_equal=same,
          embed_shape=[list(img.shape), list(txt.shape)])
-    check(math.isfinite(log["train_loss"]) and state.step == 5,
-          f"pretrain CLI: loss {log['train_loss']}, step {state.step}")
+    check(math.isfinite(log["train_loss"]),
+          f"pretrain CLI {name}: loss {log['train_loss']}")
     check({"checkpoint_latest.pt", "checkpoint_latest.pt.json",
            "checkpoint_0000.pt", "checkpoint_0000.pt.json"} <= set(files),
           f"pretrain CLI wrote {files}")
     check(same, "the served model differs from the trained masters")
-    check(img.shape == (2, MODEL["embed"]) and txt.shape == (2, MODEL["embed"])
+    dim = m["embed"]
+    check(img.shape == (2, dim) and txt.shape == (2, dim)
           and bool(torch.isfinite(img).all() and torch.isfinite(txt).all()),
           f"served embeddings {img.shape} {txt.shape} not finite")
-    check(counts == {k: 5 * n for k, n in _step_launches().items()},
-          f"pretrain CLI launches {counts} for 5 steps")
+    per_step = _step_launches(m, remat="--use-checkpoint" in flags)
+    check(counts == {k: steps * n for k, n in per_step.items()},
+          f"pretrain CLI {name} launches {counts} for {steps} steps")
     return counts
 
 
-def _narrator_model():
-    """The GPT-2 XL narrator (fp32) initialised on the card from a seeded
+def _narrator_model(n):
+    """Narrator ``n`` (fp32) initialised on the card from a seeded
     generator, its cross-attention gates and its time attention given
     seeded non-zero values (zero gates would make the cross-attention
     check vacuous, as zero time attention would K2's). Returns it and the
@@ -805,7 +1064,7 @@ def _narrator_model():
     from lavila_tpu_torch.models import build_model
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     t0 = time.perf_counter()
-    model = build_model(NARRATOR["name"], device=DEVICE, generator=gen,
+    model = build_model(n["name"], device=DEVICE, generator=gen,
                         gated_xattn=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -847,9 +1106,9 @@ def _cached_logits(model, tokens, text, steps: int):
     return torch.stack(out, 1), launch_counts()
 
 
-def _greedy(model, tokens, L: int):
-    return model.generate(tokens, generator=None, bos_id=NARRATOR["bos"],
-                          eos_id=NARRATOR["eos"], max_text_length=L,
+def _greedy(model, tokens, n, L: int):
+    return model.generate(tokens, generator=None, bos_id=n["bos"],
+                          eos_id=n["eos"], max_text_length=L,
                           top_k=1, num_return_sequences=2)
 
 
@@ -859,15 +1118,14 @@ def _cos_min(a, b) -> float:
     return torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
 
 
-def phase_narrator() -> None:
-    """The GPT-2 XL narrator, kernel path against plain path on the same
-    weights (fp32, then bf16), a profile of decode steps and
-    narrations/s."""
+def phase_narrator(n) -> None:
+    """Narrator ``n``, kernel path against plain path on the same weights
+    (fp32, then bf16), a profile of decode steps and narrations/s."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
-    model, init_s = _narrator_model()
-    frames, _ = _inputs(2, gen)
+    model, init_s = _narrator_model(n)
+    frames, _ = _inputs(2, gen, n["img"])
     text = torch.randint(0, 50257, (2, 8), generator=gen, device=DEVICE)
-    text[:, 0] = NARRATOR["bos"]
+    text[:, 0] = n["bos"]
     L = 16
     for dtype in (torch.float32, torch.bfloat16):
         model = model.to(dtype)
@@ -877,13 +1135,13 @@ def phase_narrator() -> None:
             torch.cuda.synchronize()
             per_image = launch_counts()
             cached, per_step = _cached_logits(model, tokens, text, 8)
-            ids, ppl = _greedy(model, tokens, L)
+            ids, ppl = _greedy(model, tokens, n, L)
             with plain_path():
                 tokens_ref = model.encode_image(frames)
                 full = model.text_decoder(text, encoder_states=tokens_ref)
                 cached_ref, _ = _cached_logits(model, tokens_ref, text, 8)
-                ids_ref, ppl_ref = _greedy(model, tokens_ref, L)
-        name = str(dtype).removeprefix("torch.")
+                ids_ref, ppl_ref = _greedy(model, tokens_ref, n, L)
+        name = dname(dtype)
         res = {"logits_err": max_err(cached, full),
                "plain_cached_err": max_err(cached_ref, full),
                "logits_cos_min": _cos_min(cached, full),
@@ -894,31 +1152,39 @@ def phase_narrator() -> None:
                "ppl_rel_err": ((ppl - ppl_ref).abs() / ppl_ref).max().item(),
                "finite": bool(torch.isfinite(cached).all()
                               and torch.isfinite(ppl).all())}
-        emit("narrator", model=NARRATOR["name"], dtype=name, clips=2,
+        emit("narrator", model=n["name"], dtype=name, clips=2,
              return_sequences=2, init_seconds=init_s,
              launches_per_encode_image=per_image,
              launches_per_decode_step=per_step, ids=ids.tolist(),
              ids_plain=ids_ref.tolist(), **res)
         check(res["finite"] and tokens.shape == (2, 256, 1600),
-              f"narrator {name}: non-finite or misshapen outputs")
-        check(per_step["K9"] == NARRATOR["layers"] and per_step["K3"] == 2 * (
-            NARRATOR["layers"] + NARRATOR["cross"]) + 1,
-              f"narrator {name}: launches per decode step {per_step}")
-        check(per_image["K1"] == per_image["K2"] == 12
-              and per_image["K9"] == 0,
-              f"narrator {name}: launches per encode_image {per_image}")
+              f"narrator {n['name']} {name}: non-finite or misshapen "
+              "outputs")
+        want_step = dict.fromkeys(COUNTERS, 0)
+        want_step.update({"K9": n["layers"],
+                          "K3": 2 * (n["layers"] + n["cross"]) + 1})
+        check(per_step == want_step,
+              f"narrator {n['name']} {name}: launches per decode step "
+              f"{per_step}")
+        # the pooler reads the joint sequence: the final norm and the
+        # pooler's three bias-free norms are K3 too
+        want_image = _encode_launches(n)
+        want_image["K3"] += 3
+        check(per_image == want_image,
+              f"narrator {n['name']} {name}: launches per encode_image "
+              f"{per_image}")
         if dtype == torch.float32:
             # 48 layers; the cached steps' (B, 1, D) products and the full
             # forward's (B, 8, D) ones sum in other orders
             check(res["logits_err"] <= 1e-3 and res["ids_equal"]
                   and res["ppl_rel_err"] <= 1e-4,
-                  f"narrator fp32 kernels vs plain: {res}")
+                  f"narrator {n['name']} fp32 kernels vs plain: {res}")
         else:
             check(res["logits_cos_min"] >= 0.99
                   and res["ids_agree_steps"] >= 4,
-                  f"narrator bf16 kernels vs plain: {res}")
-    _decode_profile(model, gen)
-    _narration_throughput(model, gen)
+                  f"narrator {n['name']} bf16 kernels vs plain: {res}")
+    _decode_profile(model, gen, n)
+    _narration_throughput(model, gen, n)
 
 
 def _timed_steps(model, cur, kv, cache, first: int, steps: int):
@@ -933,21 +1199,20 @@ def _timed_steps(model, cur, kv, cache, first: int, steps: int):
     return host / steps * 1e3, wall / steps * 1e3
 
 
-def _decode_profile(model, gen, steps: int = 5) -> None:
+def _decode_profile(model, gen, n, steps: int = 5) -> None:
     """Host time against device time over ``steps`` decode steps of the
     throughput shape (160 rows, bf16, cache positions 8..12): the steps
     timed as they run, then the same steps traced with torch.profiler for
     the device time by kernel and K9's share. The idle share is the
     device time over the untraced step."""
     from lavila_tpu_torch.models.gpt2 import init_cache
-    frames, _ = _inputs(16, gen)
+    frames, _ = _inputs(16, gen, n["img"])
     with torch.inference_mode():
         tokens = model.encode_image(frames).repeat_interleave(10, 0)
         kv = model.prepare_decode(tokens)
         cache = init_cache(model.text_decoder.cfg, tokens.shape[0], 77,
                            dtype=tokens.dtype, device=DEVICE)
-        cur = torch.full((tokens.shape[0], 1), NARRATOR["bos"],
-                         device=DEVICE)
+        cur = torch.full((tokens.shape[0], 1), n["bos"], device=DEVICE)
         _timed_steps(model, cur, kv, cache, 0, 8)  # warm-up, fills 0..7
         # the traced run rewrites the same cache rows: the same work
         host, wall = _timed_steps(model, cur, kv, cache, 8, steps)
@@ -965,26 +1230,26 @@ def _decode_profile(model, gen, steps: int = 5) -> None:
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     k9_ms = sum(r[1] for r in rows if "decode_kernel" in r[0])
-    emit("decode_profile", model=NARRATOR["name"], dtype="bfloat16",
+    emit("decode_profile", model=n["name"], dtype="bfloat16",
          rows=tokens.shape[0], steps=steps, host_issue_ms_per_step=host,
          wall_ms_per_step=wall, traced_host_issue_ms_per_step=traced_host,
          traced_wall_ms_per_step=traced_wall,
          device_ms_per_step=device_ms or "not measured",
          k9_ms_per_step=k9_ms, device_idle_share=(
              1 - device_ms / wall) if device_ms else None,
-         top=[{"kernel": k[:90], "ms_per_step": t, "launches_per_step": n}
-              for k, t, n in rows[:12]])
+         top=[{"kernel": k[:90], "ms_per_step": t, "launches_per_step": c}
+              for k, t, c in rows[:12]])
 
 
-def _narration_throughput(model, gen, clips: int = 16, nrs: int = 10,
+def _narration_throughput(model, gen, n, clips: int = 16, nrs: int = 10,
                           L: int = 77) -> None:
     """Narrations/s (clips × return sequences per second, encode and
     decode), bf16, kernel and plain path in alternating order, with the
     decode steps run (read from the ids, and held against K9's launches
     on the kernel path), ms per step and peak memory."""
-    frames, _ = _inputs(clips, gen)
-    kw = dict(bos_id=NARRATOR["bos"], eos_id=NARRATOR["eos"],
-              temperature=0.7, top_p=0.95, num_return_sequences=nrs)
+    frames, _ = _inputs(clips, gen, n["img"])
+    kw = dict(bos_id=n["bos"], eos_id=n["eos"], temperature=0.7,
+              top_p=0.95, num_return_sequences=nrs)
     out = {}
     for path in ("kernels", "plain", "plain", "kernels"):
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
@@ -1003,7 +1268,7 @@ def _narration_throughput(model, gen, clips: int = 16, nrs: int = 10,
                                       **kw)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-        steps = _steps_run(ids, NARRATOR["eos"], L)
+        steps = _steps_run(ids, n["eos"], L)
         for k, v in (("narrations_per_s", clips * nrs / (t2 - t0)),
                      ("encode_ms", (t1 - t0) * 1e3),
                      ("decode_steps", steps),
@@ -1012,28 +1277,28 @@ def _narration_throughput(model, gen, clips: int = 16, nrs: int = 10,
                       torch.cuda.max_memory_allocated() / 2**30)):
             out.setdefault(k, {}).setdefault(path, []).append(v)
         check(bool(torch.isfinite(ppl).all()) and ids.shape[0] == clips * nrs,
-              f"narration throughput {path}: bad outputs")
+              f"narration throughput {n['name']} {path}: bad outputs")
         k9 = launch_counts()["K9"]
-        check(k9 == (steps * NARRATOR["layers"] if path == "kernels" else 0),
-              f"narration throughput {path}: {k9} K9 launches for {steps} "
-              "decode steps")
-    emit("narrator_throughput", what="narrations/s", model=NARRATOR["name"],
+        check(k9 == (steps * n["layers"] if path == "kernels" else 0),
+              f"narration throughput {n['name']} {path}: {k9} K9 launches "
+              f"for {steps} decode steps")
+    emit("narrator_throughput", what="narrations/s", model=n["name"],
          dtype="bfloat16", clips=clips, return_sequences=nrs,
          max_text_length=L, temperature=0.7, top_p=0.95,
          order="kernels, plain, plain, kernels", **out)
 
 
-def phase_infer_narrator_cli() -> dict:
+def phase_infer_narrator_cli(n) -> dict:
     """The port's narrator inference CLI on one batch of the synthetic
-    dataset (GPT-2 XL, bf16, 16 clips x 10 captions). Returns the launch
-    counts of this run, the decode path's."""
+    dataset (narrator ``n``, bf16, 16 clips x 10 captions). Returns the
+    launch counts of this run, the decode path's."""
     import pickle
     import tempfile
 
     from lavila_tpu_torch.cli import main_infer_narrator as cli
     with tempfile.TemporaryDirectory() as out:
         args = cli.get_args_parser().parse_args(
-            ["--dataset", "synthetic", "--model", NARRATOR["name"], "--bf16",
+            ["--dataset", "synthetic", "--model", n["name"], "--bf16",
              "--device", DEVICE, "--batch-size", "16", "--max-samples", "16",
              "--num-return-sequences", "10", "--workers", "4",
              "--output-dir", out])
@@ -1052,17 +1317,19 @@ def phase_infer_narrator_cli() -> dict:
         and all(math.isfinite(x) for x in r[4]) for r in total))
     first = ([*total[0][:3], total[0][3][:2], total[0][4][:2]] if total
              else None)
-    emit("infer_narrator_cli", model=NARRATOR["name"], dtype="bfloat16",
+    emit("infer_narrator_cli", model=n["name"], dtype="bfloat16",
          clips=16, return_sequences=10, seconds=seconds, files=files,
          records=len(total), first_record=first, launches=counts)
     check(ok and {"cache.0.pkl", "total.pkl"} <= set(files),
-          f"infer CLI wrote {files}, {len(total)} records")
-    layers = NARRATOR["layers"]
+          f"infer CLI {n['name']} wrote {files}, {len(total)} records")
+    layers = n["layers"]
     steps = counts["K9"] // layers
+    encode = _encode_launches(n)
     check(counts["K9"] > 0 and counts["K9"] % layers == 0 and steps <= 76
-          and counts["K1"] == 12 and counts["K2"] == 12
-          and counts["K3"] >= steps * (2 * (layers + NARRATOR["cross"]) + 1),
-          f"infer CLI launches {counts}")
+          and all(counts[k] == encode[k]
+                  for k in ("K1", "K2", "K4", "K5", "K6"))
+          and counts["K3"] >= steps * (2 * (layers + n["cross"]) + 1),
+          f"infer CLI {n['name']} launches {counts}")
     return counts
 
 
@@ -1073,6 +1340,15 @@ KERNELS = [
      "lavila_tpu/ops/pallas/divided.py:178"),
     ("K3", "layernorm_fwd", "triton", "lavila_tpu_torch/kernels/layernorm.py",
      "lavila_tpu/ops/pallas/layernorm.py:64"),
+    ("K4", "add_layernorm_fwd", "triton",
+     "lavila_tpu_torch/kernels/layernorm.py",
+     "lavila_tpu/ops/pallas/layernorm.py:230"),
+    ("K5", "add_layernorm_nosum_fwd", "triton",
+     "lavila_tpu_torch/kernels/layernorm.py",
+     "lavila_tpu/ops/pallas/layernorm.py:261"),
+    ("K6", "divided_space_big_fwd", "cuda",
+     "lavila_tpu_torch/csrc/divided_big.cu",
+     "lavila_tpu/ops/pallas/divided.py:445"),
     ("K1 bwd", "divided_space_bwd", "cuda",
      "lavila_tpu_torch/csrc/divided_bwd.cu",
      "lavila_tpu/ops/pallas/divided.py:77"),
@@ -1082,10 +1358,41 @@ KERNELS = [
     ("K3 bwd", "layernorm_bwd", "triton",
      "lavila_tpu_torch/kernels/layernorm.py",
      "lavila_tpu/ops/pallas/layernorm.py:82"),
+    ("K4 bwd", "add_layernorm_bwd", "triton",
+     "lavila_tpu_torch/kernels/layernorm.py",
+     "lavila_tpu/ops/pallas/layernorm.py:243"),
+    ("K5 bwd", "add_layernorm_nosum_bwd", "triton",
+     "lavila_tpu_torch/kernels/layernorm.py",
+     "lavila_tpu/ops/pallas/layernorm.py:273"),
+    ("K6 bwd", "divided_space_big_bwd", "cuda",
+     "lavila_tpu_torch/csrc/divided_big.cu",
+     "lavila_tpu/ops/pallas/divided.py:470"),
     ("K9", "decode_attention", "cuda",
      "lavila_tpu_torch/csrc/decode_attention.cu",
      "lavila_tpu/ops/pallas/decode_attention.py:43"),
 ]
+
+# the phases in order; a path phase returns its run's launch counts
+PHASES = (
+    ("kernels", phase_kernels),
+    ("kernel_bwd", phase_kernels_bwd),
+    ("model", lambda: phase_model(MODEL)),
+    ("cli", lambda: phase_cli(MODEL)),
+    ("train_step", phase_train_step),
+    ("pretrain_cli", lambda: phase_pretrain_cli(MODEL, 5, 16)),
+    ("narrator", lambda: phase_narrator(NARRATOR)),
+    ("infer_narrator_cli", lambda: phase_infer_narrator_cli(NARRATOR)),
+    ("large_model", lambda: phase_model(LARGE)),
+    ("large_cli", lambda: phase_cli(LARGE)),
+    ("large_train_step", phase_large_train_step),
+    ("large_pretrain_cli",
+     lambda: phase_pretrain_cli(LARGE, 3, 8, ("--use-checkpoint",))),
+    ("flagship_narrator", lambda: phase_narrator(FLAGSHIP)),
+    ("flagship_infer_narrator_cli",
+     lambda: phase_infer_narrator_cli(FLAGSHIP)),
+)
+PATH_PHASES = ("cli", "pretrain_cli", "infer_narrator_cli", "large_cli",
+               "large_pretrain_cli", "flagship_infer_narrator_cli")
 
 
 def main() -> int:
@@ -1102,14 +1409,8 @@ def main() -> int:
         return 2
     device = phase_device()
     phase_build()
-    summary, counts = {}, {}
-    for name, phase in (("kernels", phase_kernels),
-                        ("kernel_bwd", phase_kernels_bwd),
-                        ("model", phase_model), ("cli", phase_cli),
-                        ("train_step", phase_train_step),
-                        ("pretrain_cli", phase_pretrain_cli),
-                        ("narrator", phase_narrator),
-                        ("infer_narrator_cli", phase_infer_narrator_cli)):
+    summary, counts = {}, dict.fromkeys(COUNTERS, 0)
+    for name, phase in PHASES:
         t0 = time.perf_counter()
         try:
             out = phase()
@@ -1122,22 +1423,24 @@ def main() -> int:
             emit("phase_done", name=name, seconds=time.perf_counter() - t0)
         if name in ("kernels", "kernel_bwd"):
             summary.update(out)
-        elif name == "pretrain_cli":  # the training path: K1-K3
-            counts.update({k: v for k, v in out.items() if k != "K9"})
-        elif name == "infer_narrator_cli":  # the decode path: K9, K3
-            counts["K9"] = out["K9"]
-            if "narrator" in summary.get("K3", {}):
-                summary["K3"]["narrator"]["launches"] = out["K3"]
+        elif name in PATH_PHASES:  # each run counted from zero
+            for k, v in out.items():
+                counts[k] += v
+            if name.endswith("infer_narrator_cli") and \
+                    "narrator" in summary.get("K3", {}):
+                narr = summary["K3"]["narrator"]
+                narr["launches"] = narr.get("launches", 0) + out["K3"]
     rows = []
     for key, name, route, source, replaces in KERNELS:
         s = summary.get(key, {})
+        side = SIDE_CASES.get(key.removesuffix(" bwd"), (None,))[0]
         rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": counts.get(key, 0),
+                     "replaces": replaces, "launches": counts[key],
                      "max_abs_err": s.get("max_abs_err"),
                      **{k: s.get(k) for k in _SUMMARY_KEYS},
                      "at": s.get("at")}
-                    | ({"narrator": s["narrator"]} if "narrator" in s else {}))
-        check(counts.get(key, 0) > 0, f"{name} never launched on the path")
+                    | ({side: s[side]} if side in s else {}))
+        check(counts[key] > 0, f"{name} never launched on the path")
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n  "

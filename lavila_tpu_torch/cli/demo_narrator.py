@@ -11,6 +11,8 @@ directory and captioned. Without the GPT-2 BPE files captions print as
 raw token ids.
 
     python -m lavila_tpu_torch.cli.demo_narrator --device cpu
+    python -m lavila_tpu_torch.cli.demo_narrator --bf16 \\
+        --model VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ def get_args_parser():
     p.add_argument("--video-path", default="")
     p.add_argument("--checkpoint", default="")
     p.add_argument("--model",
-                   default="VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI")
+                   default="VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI",
+                   help="a VCLM_OPENAI_TIMESFORMER_* narrator; LaViLa's "
+                        "Ego4D narrator is "
+                        "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL")
     p.add_argument("--clip-length", type=int, default=4)
     p.add_argument("--num-return-sequences", type=int, default=5)
     p.add_argument("--temperature", type=float, default=0.7)

@@ -17,6 +17,10 @@ yet (ROADMAP).
 
     python -m lavila_tpu_torch.cli.eval_zeroshot --dataset ek100_mir \\
         --root ... --metadata ... --model CLIP_OPENAI_TIMESFORMER_BASE
+
+The TSF-L models (``CLIP_OPENAI_TIMESFORMER_LARGE``, ``..._LARGE_336PX``,
+the high-resolution one, whose frames are cropped to 336) serve the
+same way.
 """
 
 from __future__ import annotations

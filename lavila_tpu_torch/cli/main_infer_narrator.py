@@ -23,7 +23,10 @@ not ported yet and raise; their flags (``--num-beams``,
 stops once every row has sampled EOS).
 
     python -m lavila_tpu_torch.cli.main_infer_narrator --dataset synthetic \\
-        --model VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL --bf16
+        --model VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL --bf16
+
+(``VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL`` is the narrator LaViLa
+used to narrate Ego4D: TSF-L at 336², its frames cropped to 336.)
 """
 
 from __future__ import annotations
@@ -60,7 +63,10 @@ def get_args_parser():
     p.add_argument("--checkpoint", "--resume", dest="checkpoint",
                    default="", help="released narrator .pt/.pth")
     p.add_argument("--model",
-                   default="VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI")
+                   default="VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI",
+                   help="a VCLM_OPENAI_TIMESFORMER_* narrator; LaViLa's "
+                        "Ego4D narrator is "
+                        "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL")
     p.add_argument("--clip-length", type=int, default=4)
     p.add_argument("--clip-stride", type=int, default=16)
     p.add_argument("--batch-size", type=int, default=16)
@@ -93,7 +99,8 @@ def check_decode_device(model_name: str, head_dim: int,
             f"{model_name}: its decoder's heads are {head_dim} wide and the "
             f"CUDA decode kernel takes {HEAD_DIM}; run it with --device "
             "cpu, or pick a GPT-2 narrator (--model "
-            "VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL)")
+            "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL, LaViLa's Ego4D "
+            "narrator)")
 
 
 def load_narrator(args):

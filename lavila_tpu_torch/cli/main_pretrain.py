@@ -7,7 +7,9 @@ transforms and the tokenizer are the port's copies of the framework-free
 modules of ``lavila_tpu``; each host batch is staged one step ahead by
 ``device_prefetch`` into pinned memory and copied without blocking. The
 step is ``lavila_tpu_torch.train.step`` (bf16 compute on fp32 masters,
-``--disable-amp`` for fp32 throughout); checkpoints are torch files with
+``--disable-amp`` for fp32 throughout; ``--use-checkpoint`` recomputes
+each video block in the backward, remat policy ``full``); checkpoints
+are torch files with
 the run config in a JSON sidecar (``utils/checkpoints.py``), one per
 epoch, auto-resumed from ``--output-dir``. ``--profile-dir`` writes a
 ``torch.profiler`` trace over steps 5-10.
@@ -64,8 +66,8 @@ _NOT_PORTED = (
      "slice 5"),
     (lambda c: c.mesh_model > 1, "--mesh-model > 1", "slice 5"),
     (lambda c: c.mesh_data not in (-1, 1), "--mesh-data > 1", "slice 5"),
-    (lambda c: c.use_checkpoint, "--use-checkpoint (remat)",
-     "slice 2 leftovers"),
+    (lambda c: c.use_checkpoint and c.remat_policy != "full",
+     "--remat-policy other than full (remat)", "item 4"),
     (lambda c: any([c.freeze_temperature, c.timesformer_freeze_space,
                     c.freeze_visual_vclm, c.freeze_visual_vclm_temporal,
                     c.freeze_lm_vclm, c.freeze_pseudo_temperature]),
@@ -119,8 +121,8 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     print(f"=> building model {cfg.model} (compute dtype "
           f"{str(dtype).removeprefix('torch.')})")
     kw = model_kwargs_from_config(cfg)
-    kw.pop("timesformer_gated_xattn")
-    kw.pop("remat_policy")  # only read with remat, which raises above
+    kw.pop("timesformer_gated_xattn")  # raises above when set
+    kw.pop("remat_policy")  # only 'full' passes check_ported
     model = build_model(cfg.model, device=device, train=True,
                         generator=torch.Generator().manual_seed(cfg.seed),
                         **kw)

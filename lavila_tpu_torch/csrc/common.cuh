@@ -1,5 +1,7 @@
 // Helpers shared by the divided-attention kernels (divided_fwd.cu,
-// divided_bwd.cu): fp32/bf16 conversion and warp reductions.
+// divided_bwd.cu, divided_big.cu): fp32/bf16 conversion, warp and quad
+// reductions, the tensor-core product, and the two small passes of the
+// backward kernels (delta and the fixed-order sum of per-group partials).
 
 #pragma once
 
@@ -37,6 +39,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// max / sum over the 4 lanes of a quad, which share one mma fragment row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ---- bf16 tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate)
@@ -80,5 +93,63 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
+
+// Kernels used by more than one source: internal linkage, so every source
+// that includes this header compiles its own copy.
+namespace {
+
+// delta[i] = sum over the d dims of row i of dO * O (one row = one token's
+// head): one thread per (token, head).
+template <typename T>
+__global__ void delta_kernel(const T* __restrict__ dout,
+                             const T* __restrict__ out,
+                             float* __restrict__ delta, long long n, int d) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T* g = dout + i * d;
+  const T* o = out + i * d;
+  float s = 0.f;
+  for (int c = 0; c < d; ++c) s = fmaf(to_float(g[c]), to_float(o[c]), s);
+  delta[i] = s;
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* dout, const void* out, void* delta,
+                         long long rows, int d, cudaStream_t stream) {
+  delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
+      (const T*)dout, (const T*)out, (float*)delta, rows, d);
+  return cudaGetLastError();
+}
+
+// out[b, c] = sum over g of part[b, g, c], in order g = 0..G-1: the
+// second, deterministic pass over the per-group partials of dck/dcv.
+template <typename T>
+__global__ void sum_groups_kernel(const float* __restrict__ part_k,
+                                  const float* __restrict__ part_v,
+                                  T* __restrict__ dck, T* __restrict__ dcv,
+                                  int B, int G, long long D) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * D) return;
+  const long long b = i / D, c = i - b * D;
+  float ak = 0.f, av = 0.f;
+  for (int g = 0; g < G; ++g) {
+    ak += part_k[(b * G + g) * D + c];
+    av += part_v[(b * G + g) * D + c];
+  }
+  dck[i] = from_float<T>(ak);
+  dcv[i] = from_float<T>(av);
+}
+
+template <typename T>
+cudaError_t launch_sum_groups(const float* part_k, const float* part_v,
+                              void* dck, void* dcv, int B, int G, long long D,
+                              cudaStream_t stream) {
+  const long long n = (long long)B * D;
+  sum_groups_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part_k, part_v, (T*)dck, (T*)dcv, B, G, D);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace lavila

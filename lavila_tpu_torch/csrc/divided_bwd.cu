@@ -70,6 +70,8 @@ namespace {
 
 using lavila::allow_smem;
 using lavila::from_float;
+using lavila::launch_delta;
+using lavila::launch_sum_groups;
 using lavila::ld32;
 using lavila::mma_16816;
 using lavila::pack_bf16;
@@ -305,26 +307,6 @@ __device__ __forceinline__ void stage_pair(__nv_bfloat16* rows,
     cols[(2 * w) * kColStride + j] = v.x;
     cols[(2 * w + 1) * kColStride + j] = v.y;
   }
-}
-
-// delta[row, h] = sum over the head's dims of dO * O: one thread per
-// (row, head). Both tensor-core kernels read it.
-__global__ void delta_kernel(const __nv_bfloat16* __restrict__ dout,
-                             const __nv_bfloat16* __restrict__ out,
-                             float* __restrict__ delta, long long n, int d) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const __nv_bfloat16* g = dout + i * d;
-  const __nv_bfloat16* o = out + i * d;
-  float s = 0.f;
-  for (int c = 0; c < d; c += 2) {
-    const float2 gv = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(g + c));
-    const float2 ov = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(o + c));
-    s = fmaf(gv.x, ov.x, fmaf(gv.y, ov.y, s));
-  }
-  delta[i] = s;
 }
 
 // dq: grid (H, F, B), kMmaWarps*32 threads. K and V of the (frame, head)
@@ -728,35 +710,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// out[b, c] = sum over g of part[b, g, c], in order g = 0..G-1: the
-// second, deterministic pass over the per-group partials of dck/dcv.
-template <typename T>
-__global__ void sum_groups_kernel(const float* __restrict__ part_k,
-                                  const float* __restrict__ part_v,
-                                  T* __restrict__ dck, T* __restrict__ dcv,
-                                  int B, int G, long long D) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)B * D) return;
-  const long long b = i / D, c = i - b * D;
-  float ak = 0.f, av = 0.f;
-  for (int g = 0; g < G; ++g) {
-    ak += part_k[(b * G + g) * D + c];
-    av += part_v[(b * G + g) * D + c];
-  }
-  dck[i] = from_float<T>(ak);
-  dcv[i] = from_float<T>(av);
-}
-
-template <typename T>
-cudaError_t launch_sum_groups(const float* part_k, const float* part_v,
-                              void* dck, void* dcv, int B, int G, long long D,
-                              cudaStream_t stream) {
-  const long long n = (long long)B * D;
-  sum_groups_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part_k, part_v, (T*)dck, (T*)dcv, B, G, D);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_space_bwd(const void* q, const void* k, const void* v,
                              const void* ck, const void* cv, const void* dout,
@@ -813,10 +766,9 @@ cudaError_t launch_space_bwd_mma(const void* q, const void* k, const void* v,
                                  long long cv_rs, float scale,
                                  cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const long long rows = (long long)B * F * N * H;
-  delta_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
-      (const bf16*)dout, (const bf16*)out, (float*)delta, rows, kMmaD);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<bf16>(dout, out, delta,
+                                       (long long)B * F * N * H, kMmaD,
+                                       stream);
   if (err != cudaSuccess) return err;
 
   const dim3 grid(H, F, B);

@@ -49,6 +49,8 @@ using lavila::from_float;
 using lavila::ld32;
 using lavila::mma_16816;
 using lavila::pack_bf16;
+using lavila::quad_max;
+using lavila::quad_sum;
 using lavila::to_float;
 using lavila::warp_max;
 using lavila::warp_sum;
@@ -149,17 +151,6 @@ constexpr int kVtStride = kMmaKeys + 8; // bf16 per V^T row in shared memory
 size_t space_mma_smem_bytes() {
   return ((size_t)kMmaKeys * kKsStride + (size_t)kMmaD * kVtStride) *
          sizeof(__nv_bfloat16);
-}
-
-// max / sum over the 4 lanes of a quad, which share one fragment row
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // grid (H, F, B), kMmaWarps*32 threads. Fragment layouts are PTX's for

@@ -1,15 +1,20 @@
-"""Divided space-time attention phases (K1 spatial, K2 temporal),
-forward and backward.
+"""Divided space-time attention phases (K1 spatial, K2 temporal, K6
+spatial over large frames), forward and backward.
 
-Replaces ``lavila_tpu/ops/pallas/divided.py:divided_phase`` and its
-custom VJP (Pallas bodies ``_space_fwd_kernel``/``_time_fwd_kernel`` and
-``_space_bwd_kernel``/``_time_bwd_kernel``) with the CUDA C++ kernels of
-``lavila_tpu_torch/csrc/divided_fwd.cu`` and ``divided_bwd.cu``; the
-headers there say what bounds each phase on the H100 and how the kernels
-are laid out for it. The contract is the JAX function's: patch tokens token-major
-``(B, F, N, D = heads * head_dim)``, the CLS token's key/value rows
-``(B, D)`` folded into every group's softmax, outputs ``(B, F, N, D)``
-and the per-row log-sum-exp ``(B, F, N, heads)`` in fp32.
+Replaces ``lavila_tpu/ops/pallas/divided.py:divided_phase`` and
+``spatial_phase_big`` with their custom VJPs (Pallas bodies
+``_space_fwd_kernel``/``_time_fwd_kernel``/``_space_big_fwd_kernel`` and
+``_space_bwd_kernel``/``_time_bwd_kernel``/``_space_big_bwd_kernel``)
+with the CUDA C++ kernels of ``lavila_tpu_torch/csrc/divided_fwd.cu``,
+``divided_bwd.cu`` and ``divided_big.cu``; the headers there say what
+bounds each phase on the H100 and how the kernels are laid out for it.
+A spatial phase over frames of more than 256 patches (the 336px towers'
+576) goes to K6, as ``lavila_tpu/ops/attention.py:359-377`` routes it;
+K1 and K6 share one contract, the JAX function's: patch tokens
+token-major ``(B, F, N, D = heads * head_dim)``, the CLS token's
+key/value rows ``(B, D)`` folded into every group's softmax, outputs
+``(B, F, N, D)`` and the per-row log-sum-exp ``(B, F, N, heads)`` in
+fp32.
 
 q/k/v may be row views with any row stride (the column blocks of one
 ``(B, F, N, 3D)`` qkv projection output), so the attention block makes
@@ -34,10 +39,11 @@ from lavila_tpu_torch.kernels import build
 
 # kernel launches in this process, a plain int per kernel; a caller
 # zeroes them to count one run
-launches = {"space": 0, "time": 0, "space_bwd": 0, "time_bwd": 0}
+launches = {"space": 0, "time": 0, "space_big": 0, "space_bwd": 0,
+            "time_bwd": 0, "space_big_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SPACE_TOKENS = 256  # larger frames belong to K6 (spatial_phase_big)
+_MAX_SPACE_TOKENS = 256  # larger frames go to K6 (spatial_phase_big)
 
 
 def divided_phase_reference(qp, kp, vp, ck, cv, axis: str, heads: int,
@@ -150,14 +156,15 @@ def _check(qp, kp, vp, ck, cv, axis, heads):
         raise ValueError("q/k/v/ck/cv must be on one device")
 
 
-def _check_kernel_shape(qp, axis, heads):
-    B, F, N, D = qp.shape
+def _kernel_name(qp, axis: str, heads: int) -> str:
+    """The kernel of this phase: 'space' (K1), 'space_big' (K6, frames of
+    more than 256 patches) or 'time' (K2); raises on what none takes."""
+    N, D = qp.shape[2], qp.shape[3]
     if D // heads > 128:
         raise ValueError(f"head_dim {D // heads} > 128 is not supported")
     if axis == "space" and N > _MAX_SPACE_TOKENS:
-        raise NotImplementedError(
-            f"N={N} > {_MAX_SPACE_TOKENS}: large frames are K6 "
-            "(spatial_phase_big), ROADMAP queue 2")
+        return "space_big"
+    return axis
 
 
 def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
@@ -167,23 +174,21 @@ def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
                                        scale)
     if qp.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for {qp.device}")
-    _check_kernel_shape(qp, axis, heads)
+    name = _kernel_name(qp, axis, heads)
     B, F, N, D = qp.shape
     strides = [_row_stride(t, n) for t, n in
                ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
-    lib = build.library()
+    fn = getattr(build.library(), f"lavila_divided_{name}_fwd")
     out = torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
     lse = torch.empty((B, F, N, heads), dtype=torch.float32,
                       device=qp.device)
-    fn = (lib.lavila_divided_space_fwd if axis == "space"
-          else lib.lavila_divided_time_fwd)
     with torch.cuda.device(qp.device):
         err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), ck.data_ptr(),
                  cv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, F, N,
                  heads, D // heads, *strides, float(scale),
                  _DTYPES[qp.dtype], torch.cuda.current_stream().cuda_stream)
-    build.check(err, f"divided_{axis}_fwd")
-    launches[axis] += 1
+    build.check(err, f"divided_{name}_fwd")
+    launches[name] += 1
     return out, lse
 
 
@@ -211,13 +216,13 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
                                            axis, heads, scale)
     if qp.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for {qp.device}")
-    _check_kernel_shape(qp, axis, heads)
+    name = _kernel_name(qp, axis, heads)
     if not (do.is_contiguous() and out.is_contiguous()
             and lse.is_contiguous()):
         raise ValueError("do/out/lse must be contiguous")
     strides = [_row_stride(t, n) for t, n in
                ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
-    lib = build.library()
+    fn = getattr(build.library(), f"lavila_divided_{name}_bwd")
     grads = [torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
              for _ in range(3)]
     grads += [torch.empty((B, D), dtype=ck.dtype, device=qp.device)
@@ -226,17 +231,15 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     groups = F if axis == "space" else N
     parts = [torch.empty((B, groups, D), dtype=torch.float32,
                          device=qp.device) for _ in range(2)]
-    if axis == "space":  # + rowsum(dO·O) per (row, head), fp32 scratch
-        fn, scratch = lib.lavila_divided_space_bwd, [torch.empty_like(lse)]
-    else:
-        fn, scratch = lib.lavila_divided_time_bwd, []
+    # the spatial kernels take rowsum(dO·O) per (row, head) as fp32 scratch
+    scratch = [torch.empty_like(lse)] if axis == "space" else []
     with torch.cuda.device(qp.device):
         err = fn(*(t.data_ptr() for t in (qp, kp, vp, ck, cv, do, out, lse,
                                           *scratch, *grads, *parts)),
                  B, F, N, heads, D // heads, *strides, float(scale),
                  _DTYPES[qp.dtype], torch.cuda.current_stream().cuda_stream)
-    build.check(err, f"divided_{axis}_bwd")
-    launches[f"{axis}_bwd"] += 1
+    build.check(err, f"divided_{name}_bwd")
+    launches[f"{name}_bwd"] += 1
     return tuple(grads)
 
 

@@ -1,32 +1,44 @@
-"""LayerNorm (K3), forward and backward, Triton kernels.
+"""LayerNorm (K3) and the fused add + LayerNorm (K4, K5), forward and
+backward, Triton kernels.
 
-Replaces ``lavila_tpu/ops/pallas/layernorm.py:fused_layernorm`` and its
-custom VJP (Pallas bodies ``_fwd_kernel`` and ``_bwd_kernel``).
-LayerNorm is a per-row reduction followed by an elementwise pass (the
-case Triton is allowed for in this port), so on the H100 it is bound by
+Replaces ``lavila_tpu/ops/pallas/layernorm.py``: ``fused_layernorm``
+(K3), ``fused_add_layernorm`` (K4: ``(LN(a + b), a + b)``) and
+``fused_add_layernorm_nosum`` (K5: ``LN(a + b)``, the sum never stored),
+with their custom VJPs (Pallas bodies ``_fwd_kernel`` and
+``_bwd_kernel``, whose ``two_inputs``/``emit_sum``/``has_dsum`` flags
+become the kernels' constexpr flags here). Each is a per-row reduction
+around an elementwise pass, fused with the residual add for K4/K5: the
+case Triton is allowed for in this port. On the H100 each is bound by
 device memory.
 
-* Forward: one read of x and one write of y, 2·R·D·itemsize bytes (19.3
-  MB for the video tower's (8·4·196, 768) bf16 rows). One program per row
-  holds the whole row in registers (D in {512, 768, 1600} masked to a
-  power-of-two block), takes fp32 statistics with the one-pass variance
-  ``max(E[x²] − E[x]², 0)`` of ``lavila_tpu/ops/basic.py:150-153``, and
-  writes y in the input dtype. No statistics land in device memory.
-* Backward: reads x and dy once and writes dx, 3·R·D·itemsize bytes.
-  The statistics are recomputed from x in fp32 (nothing was saved), then
-  ``dx = rstd·(g − mean(g) − x̂·mean(g·x̂))`` with g = dy·γ. dγ = Σ dy·x̂
-  and dβ = Σ dy are sums over every row: blocks run in no order on the
-  card, so each program walks a fixed run of rows and writes fp32
-  partials, and a second kernel adds the partials in a fixed order, 64
-  partials x 64 columns per step. No atomics, so two calls give the same
-  bits.
+* Forward: one program per row holds the whole row in registers (D in
+  {512, 768, 1024, 1600} masked to a power-of-two block), takes fp32
+  statistics with the one-pass variance ``max(E[x²] − E[x]², 0)`` of
+  ``lavila_tpu/ops/basic.py:150-153``, and writes y in the input dtype.
+  K3 reads x and writes y, 2·R·D·itemsize bytes (19.3 MB for the TSF-B
+  tower's (8·4·196, 768) bf16 rows). K4/K5 read a and b and normalise
+  their fp32 sum x = a + b (not the sum rounded to the dtype, as the
+  Pallas kernel does); K4 also writes the sum rounded to the dtype, the
+  residual carry: 4·R·D·itemsize bytes for K4, 3 for K5. No statistics
+  land in device memory.
+* Backward: the statistics are recomputed from x in fp32 (nothing was
+  saved), then ``dx = rstd·(g − mean(g) − x̂·mean(g·x̂))`` with g = dy·γ.
+  K3 reads x; K4 reads its saved sum and adds the sum's own gradient
+  d(sum) into dx; K5 re-adds a + b in fp32. K4/K5 return the same dx for
+  a and b. dγ = Σ dy·x̂ and dβ = Σ dy are sums over every row: blocks run
+  in no order on the card, so each program walks a fixed run of rows and
+  writes fp32 partials, and a second kernel adds the partials in a fixed
+  order, 64 partials x 64 columns per step. No atomics, so two calls give
+  the same bits.
 
 When autograd needs it, :func:`layer_norm` runs through
-:class:`_LayerNorm`, which saves x and γ. Each direction takes its plain
-PyTorch version (:func:`layer_norm_reference`,
-:func:`layer_norm_bwd_reference`) only for CPU tensors; on a CUDA tensor
-it launches the kernel or raises. ``triton`` is imported when a kernel
-is first launched, so the module imports where triton is absent.
+:class:`_LayerNorm` (saves x and γ) and :func:`add_layer_norm` through
+:class:`_AddLayerNorm` (K4: saves the sum; K5: saves a and b). Each
+direction takes its plain PyTorch version (:func:`layer_norm_reference`,
+:func:`add_layer_norm_reference`, :func:`layer_norm_bwd_reference`,
+:func:`add_layer_norm_bwd_reference`) only for CPU tensors; on a CUDA
+tensor it launches the kernel or raises. ``triton`` is imported when a
+kernel is first launched, so the module imports where triton is absent.
 """
 
 from __future__ import annotations
@@ -35,29 +47,45 @@ import functools
 
 import torch
 
-# kernel launches in this process, a plain int; a caller zeroes it to
-# count one run
-launches = {"layernorm": 0, "layernorm_bwd": 0}
+# kernel launches in this process, a plain int per kernel; a caller
+# zeroes them to count one run
+launches = {"layernorm": 0, "layernorm_bwd": 0, "add_layernorm": 0,
+            "add_layernorm_bwd": 0, "add_layernorm_nosum": 0,
+            "add_layernorm_nosum_bwd": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _normalise32(x32, weight, bias, eps: float):
+    """LN of fp32 rows with one-pass statistics, in fp32."""
+    mean = x32.mean(dim=-1, keepdim=True)
+    ms = (x32 * x32).mean(dim=-1, keepdim=True)
+    var = (ms - mean * mean).clamp_min(0.0)
+    return (x32 - mean) * torch.rsqrt(var + eps) * weight.float() \
+        + bias.float()
 
 
 def layer_norm_reference(x, weight, bias, eps: float):
     """Plain PyTorch LayerNorm over the last axis with fp32 one-pass
     statistics; the output takes the input dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    ms = (x32 * x32).mean(dim=-1, keepdim=True)
-    var = (ms - mean * mean).clamp_min(0.0)
-    y = (x32 - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
-    return y.to(x.dtype)
+    return _normalise32(x.float(), weight, bias, eps).to(x.dtype)
 
 
-def layer_norm_bwd_reference(x, weight, dy, eps: float):
-    """Plain PyTorch backward: fp32 one-pass statistics recomputed from x
-    (``lavila_tpu/ops/pallas/layernorm.py:56-61``). Returns ``(dx,
-    dweight, dbias)``: dx in x's dtype, dweight/dbias in weight's."""
-    x32 = x.float()
+def add_layer_norm_reference(a, b, weight, bias, eps: float,
+                             return_sum: bool = True):
+    """Plain K4 (``return_sum``: ``(LN(a + b), a + b)``) or K5
+    (``LN(a + b)``): the sum taken and normalised in fp32, as the Pallas
+    kernel does (the XLA path rounds it first); y and the sum in a's
+    dtype."""
+    x32 = a.float() + b.float()
+    y = _normalise32(x32, weight, bias, eps).to(a.dtype)
+    return (y, x32.to(a.dtype)) if return_sum else y
+
+
+def _bwd32(x32, weight, dy, eps: float):
+    """fp32 ``(dx, dweight, dbias)`` of LN at fp32 rows ``x32``: one-pass
+    statistics recomputed from x (``lavila_tpu/ops/pallas/layernorm.py:
+    56-61``)."""
     mean = x32.mean(dim=-1, keepdim=True)
     ms = (x32 * x32).mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt((ms - mean * mean).clamp_min(0.0) + eps)
@@ -66,9 +94,27 @@ def layer_norm_bwd_reference(x, weight, dy, eps: float):
     g = dy32 * weight.float()
     dx = rstd * (g - g.mean(dim=-1, keepdim=True)
                  - xhat * (g * xhat).mean(dim=-1, keepdim=True))
-    D = x.shape[-1]
-    dw = (dy32 * xhat).reshape(-1, D).sum(0)
-    db = dy32.reshape(-1, D).sum(0)
+    D = x32.shape[-1]
+    return dx, (dy32 * xhat).reshape(-1, D).sum(0), dy32.reshape(-1, D).sum(0)
+
+
+def layer_norm_bwd_reference(x, weight, dy, eps: float):
+    """Plain K3 backward. Returns ``(dx, dweight, dbias)``: dx in x's
+    dtype, dweight/dbias in weight's."""
+    dx, dw, db = _bwd32(x.float(), weight, dy, eps)
+    return dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
+
+
+def add_layer_norm_bwd_reference(x, residual, weight, dy, dsum, eps: float):
+    """Plain K4/K5 backward, the dx that both summands receive. K4: ``x``
+    the saved sum, ``residual`` None, ``dsum`` the sum's gradient, added
+    to dx in fp32. K5: ``x`` and ``residual`` the pair, re-added in fp32,
+    ``dsum`` None. Returns ``(dx, dweight, dbias)`` as
+    :func:`layer_norm_bwd_reference`."""
+    x32 = x.float() if residual is None else x.float() + residual.float()
+    dx, dw, db = _bwd32(x32, weight, dy, eps)
+    if dsum is not None:
+        dx = dx + dsum.float()
     return dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
 
 
@@ -80,12 +126,21 @@ def _kernel():
     import triton.language as tl
 
     @triton.jit
-    def ln_fwd(x_ptr, w_ptr, b_ptr, y_ptr, D, eps, BLOCK_D: tl.constexpr):
+    def ln_fwd(x_ptr, r_ptr, w_ptr, b_ptr, y_ptr, s_ptr, D, eps,
+               BLOCK_D: tl.constexpr, HAS_RESIDUAL: tl.constexpr,
+               EMIT_SUM: tl.constexpr):
+        # K3: y = LN(x); K5: y = LN(x + r); K4: also s = x + r
         row = tl.program_id(0).to(tl.int64)
         cols = tl.arange(0, BLOCK_D)
         mask = cols < D
         x = tl.load(x_ptr + row * D + cols, mask=mask, other=0.0)
         x = x.to(tl.float32)
+        if HAS_RESIDUAL:
+            r = tl.load(r_ptr + row * D + cols, mask=mask, other=0.0)
+            x += r.to(tl.float32)
+        if EMIT_SUM:
+            tl.store(s_ptr + row * D + cols, x.to(s_ptr.dtype.element_ty),
+                     mask=mask)
         mean = tl.sum(x, axis=0) / D
         ms = tl.sum(x * x, axis=0) / D
         var = tl.maximum(ms - mean * mean, 0.0)
@@ -106,8 +161,12 @@ def _bwd_kernels():
     import triton.language as tl
 
     @triton.jit
-    def ln_bwd(x_ptr, w_ptr, dy_ptr, dx_ptr, dw_part_ptr, db_part_ptr, R, D,
-               rows_per_program, eps, BLOCK_D: tl.constexpr):
+    def ln_bwd(x_ptr, r_ptr, w_ptr, dy_ptr, dsum_ptr, dx_ptr, dw_part_ptr,
+               db_part_ptr, R, D, rows_per_program, eps,
+               BLOCK_D: tl.constexpr, HAS_RESIDUAL: tl.constexpr,
+               HAS_DSUM: tl.constexpr):
+        # K3: x read; K5: x + r re-added; K4: x the saved sum, its
+        # gradient dsum folded into dx
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK_D)
         mask = cols < D
@@ -120,6 +179,9 @@ def _bwd_kernels():
             off = row.to(tl.int64) * D
             x = tl.load(x_ptr + off + cols, mask=mask, other=0.0)
             x = x.to(tl.float32)
+            if HAS_RESIDUAL:
+                r = tl.load(r_ptr + off + cols, mask=mask, other=0.0)
+                x += r.to(tl.float32)
             dy = tl.load(dy_ptr + off + cols, mask=mask, other=0.0)
             dy = dy.to(tl.float32)
             mean = tl.sum(x, axis=0) / D
@@ -130,6 +192,9 @@ def _bwd_kernels():
             gm = tl.sum(g, axis=0) / D
             gxm = tl.sum(g * xhat, axis=0) / D
             dx = rstd * (g - gm - xhat * gxm)
+            if HAS_DSUM:
+                ds = tl.load(dsum_ptr + off + cols, mask=mask, other=0.0)
+                dx += ds.to(tl.float32)
             tl.store(dx_ptr + off + cols, dx.to(dx_ptr.dtype.element_ty),
                      mask=mask)
             dw += dy * xhat
@@ -172,6 +237,13 @@ def _check_kernel_inputs(*ts):
         raise ValueError("LayerNorm kernel takes contiguous tensors")
 
 
+def _check_pair(x, residual):
+    if residual.shape != x.shape or residual.dtype != x.dtype:
+        raise ValueError(f"the summands must share shape and dtype, got "
+                         f"{tuple(x.shape)} {x.dtype} and "
+                         f"{tuple(residual.shape)} {residual.dtype}")
+
+
 @functools.cache
 def _sm_count(device_index) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -181,34 +253,32 @@ def _block(D: int) -> int:
     return 1 << (D - 1).bit_length()  # D masked to a power of two
 
 
-def _layer_norm_fwd(x, weight, bias, eps):
-    if x.device.type == "cpu":
-        return layer_norm_reference(x, weight, bias, eps)
-    _check_kernel_inputs(x, weight, bias)
+def _fwd(x, residual, weight, bias, eps, emit_sum: bool, counter: str):
+    """The forward kernel on CUDA tensors: y, and the sum when
+    ``emit_sum``."""
+    ts = (x, weight, bias) if residual is None else (x, residual, weight,
+                                                     bias)
+    _check_kernel_inputs(*ts)
     D = x.shape[-1]
     y = torch.empty_like(x)
+    s = torch.empty_like(x) if emit_sum else y
     rows = x.numel() // D
-    if rows == 0:
-        return y
-    kernel = _kernel()
-    block = _block(D)
-    with torch.cuda.device(x.device):
-        kernel[(rows,)](x, weight, bias, y, D, eps, BLOCK_D=block,
-                        num_warps=4 if block <= 1024 else 8)
-    launches["layernorm"] += 1
-    return y
+    if rows:
+        block = _block(D)
+        with torch.cuda.device(x.device):
+            _kernel()[(rows,)](
+                x, x if residual is None else residual, weight, bias, y, s,
+                D, eps, BLOCK_D=block, HAS_RESIDUAL=residual is not None,
+                EMIT_SUM=emit_sum, num_warps=4 if block <= 1024 else 8)
+        launches[counter] += 1
+    return (y, s) if emit_sum else y
 
 
-def layer_norm_bwd(x, weight, dy, eps: float):
-    """Backward on the tensors' device: ``(dx, dweight, dbias)``, dx in
-    x's dtype and dweight/dbias in weight's."""
+def _bwd(x, residual, weight, dy, dsum, eps, counter: str):
+    """The backward kernels on CUDA tensors: ``(dx, dweight, dbias)``."""
+    ts = [x, weight, dy] + [t for t in (residual, dsum) if t is not None]
+    _check_kernel_inputs(*ts)
     D = x.shape[-1]
-    if weight.shape != (D,) or dy.shape != x.shape:
-        raise ValueError(f"weight must be ({D},) and dy {tuple(x.shape)}, "
-                         f"got {tuple(weight.shape)} {tuple(dy.shape)}")
-    if x.device.type == "cpu":
-        return layer_norm_bwd_reference(x, weight, dy, eps)
-    _check_kernel_inputs(x, weight, dy)
     rows = x.numel() // D
     dx = torch.empty_like(x)
     dw = torch.empty_like(weight)
@@ -224,17 +294,54 @@ def layer_norm_bwd(x, weight, dy, eps: float):
     ln_bwd, ln_bwd_sum = _bwd_kernels()
     block = _block(D)
     with torch.cuda.device(x.device):
-        ln_bwd[(programs,)](x, weight, dy, dx, parts[0], parts[1], rows, D,
-                            per, eps, BLOCK_D=block,
-                            num_warps=4 if block <= 1024 else 8)
+        ln_bwd[(programs,)](
+            x, x if residual is None else residual, weight, dy,
+            dy if dsum is None else dsum, dx, parts[0], parts[1], rows, D,
+            per, eps, BLOCK_D=block, HAS_RESIDUAL=residual is not None,
+            HAS_DSUM=dsum is not None, num_warps=4 if block <= 1024 else 8)
         ln_bwd_sum[(-(-D // 64),)](parts[0], parts[1], dw, db, programs, D,
                                    BLOCK_P=64, BLOCK_C=64, num_warps=4)
-    launches["layernorm_bwd"] += 1
+    launches[counter] += 1
     return dx, dw, db
 
 
+def _check_weight(x, weight, *others):
+    D = x.shape[-1]
+    if weight.shape != (D,) or any(t.shape != x.shape for t in others):
+        raise ValueError(f"weight must be ({D},) and dy {tuple(x.shape)}, "
+                         f"got {tuple(weight.shape)} "
+                         f"{[tuple(t.shape) for t in others]}")
+
+
+def layer_norm_bwd(x, weight, dy, eps: float):
+    """K3 backward on the tensors' device: ``(dx, dweight, dbias)``, dx in
+    x's dtype and dweight/dbias in weight's."""
+    _check_weight(x, weight, dy)
+    if x.device.type == "cpu":
+        return layer_norm_bwd_reference(x, weight, dy, eps)
+    return _bwd(x, None, weight, dy, None, eps, "layernorm_bwd")
+
+
+def add_layer_norm_bwd(x, residual, weight, dy, dsum, eps: float):
+    """K4 backward (``residual`` None: ``x`` the saved sum, ``dsum`` its
+    gradient) or K5 backward (``x``, ``residual`` the pair, ``dsum``
+    None) on the tensors' device: ``(dx, dweight, dbias)``, dx the
+    gradient of each summand."""
+    _check_weight(x, weight, dy, *(t for t in (residual, dsum)
+                                   if t is not None))
+    if (residual is None) == (dsum is None):
+        raise ValueError("pass the saved sum with dsum (K4) or the pair "
+                         "without it (K5)")
+    if x.device.type == "cpu":
+        return add_layer_norm_bwd_reference(x, residual, weight, dy, dsum,
+                                            eps)
+    counter = ("add_layernorm_bwd" if residual is None
+               else "add_layernorm_nosum_bwd")
+    return _bwd(x, residual, weight, dy, dsum, eps, counter)
+
+
 class _LayerNorm(torch.autograd.Function):
-    """LayerNorm with its backward kernel (the Pallas custom VJP)."""
+    """K3 with its backward kernel (the Pallas custom VJP)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
@@ -249,17 +356,76 @@ class _LayerNorm(torch.autograd.Function):
         return dx, dw, db.to(ctx.bias_dtype), None
 
 
-def layer_norm(x, weight, bias, eps: float):
-    """LayerNorm over the last axis of ``x`` (any leading shape) with fp32
-    statistics; ``weight``/``bias`` are (D,). Returns ``x.dtype``;
-    differentiable through the backward kernel."""
+class _AddLayerNorm(torch.autograd.Function):
+    """K4 (``return_sum``) or K5 with its backward kernel (the Pallas
+    custom VJPs): K4 saves the sum it wrote, K5 the pair."""
+
+    @staticmethod
+    def forward(ctx, a, b, weight, bias, eps, return_sum):
+        out = _add_layer_norm_fwd(a, b, weight, bias, eps, return_sum)
+        ctx.eps, ctx.bias_dtype, ctx.return_sum = eps, bias.dtype, return_sum
+        if return_sum:
+            ctx.save_for_backward(out[1], weight)
+        else:
+            ctx.save_for_backward(a, b, weight)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dsum=None):
+        if ctx.return_sum:
+            s, weight = ctx.saved_tensors
+            dx, dw, db = add_layer_norm_bwd(s, None, weight, dy.contiguous(),
+                                            dsum.contiguous(), ctx.eps)
+        else:
+            a, b, weight = ctx.saved_tensors
+            dx, dw, db = add_layer_norm_bwd(a, b, weight, dy.contiguous(),
+                                            None, ctx.eps)
+        return dx, dx, dw, db.to(ctx.bias_dtype), None, None
+
+
+def _layer_norm_fwd(x, weight, bias, eps):
+    if x.device.type == "cpu":
+        return layer_norm_reference(x, weight, bias, eps)
+    return _fwd(x, None, weight, bias, eps, False, "layernorm")
+
+
+def _add_layer_norm_fwd(a, b, weight, bias, eps, return_sum):
+    if a.device.type == "cpu":
+        return add_layer_norm_reference(a, b, weight, bias, eps, return_sum)
+    _check_pair(a, b)
+    return _fwd(a, b, weight, bias, eps, return_sum,
+                "add_layernorm" if return_sum else "add_layernorm_nosum")
+
+
+def _check_call(x, weight, bias):
     D = x.shape[-1]
     if weight.shape != (D,) or bias.shape != (D,):
         raise ValueError(f"weight/bias must be ({D},), got "
                          f"{tuple(weight.shape)} {tuple(bias.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LayerNorm kernel for {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, weight, bias)):
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def layer_norm(x, weight, bias, eps: float):
+    """K3: LayerNorm over the last axis of ``x`` (any leading shape) with
+    fp32 statistics; ``weight``/``bias`` are (D,). Returns ``x.dtype``;
+    differentiable through the backward kernel."""
+    _check_call(x, weight, bias)
+    if _needs_grad(x, weight, bias):
         return _LayerNorm.apply(x, weight, bias, eps)
     return _layer_norm_fwd(x, weight, bias, eps)
+
+
+def add_layer_norm(a, b, weight, bias, eps: float, return_sum: bool = True):
+    """K4 (``return_sum``): ``(LN(a + b), a + b)``; K5: ``LN(a + b)``,
+    the sum never stored. ``a``/``b`` share a shape (any leading dims) and
+    a dtype; the sum is normalised in fp32 and returned in a's dtype.
+    Differentiable through the backward kernels."""
+    _check_call(a, weight, bias)
+    if _needs_grad(a, b, weight, bias):
+        return _AddLayerNorm.apply(a, b, weight, bias, eps, return_sum)
+    return _add_layer_norm_fwd(a, b, weight, bias, eps, return_sum)

@@ -233,8 +233,8 @@ class GPT2LMHead(nn.Module):
         super().__init__()
         if cfg.remat:
             raise NotImplementedError(
-                "remat (--use-checkpoint) is not ported yet: ROADMAP queue "
-                "1, slice 2 leftovers (remat policies)")
+                "remat of the narrator's decoder is not ported yet: ROADMAP "
+                "queue 1 item 10c (the caption loss and its step)")
         self.cfg = cfg
         self.transformer = GPT2Model(cfg)
 

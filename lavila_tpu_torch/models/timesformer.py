@@ -12,7 +12,11 @@ the reference LaViLa state-dict keys (``blocks.{i}.timeattn.qkv.weight``,
     CLS concatenation or slice is made around them.
   * Block order (frozen-in-time): time attention on ``norm3``;
     ``norm1(time_out + x)``; spatial attention, whose residual goes back
-    to the block input ``x``; then the MLP on ``norm2``.
+    to the block input ``x``; then the MLP on ``norm2``. On the patch
+    half the two residual norms are fused with their adds, as in the
+    JAX block: ``norm1`` is K5 (the time residual feeds only the norm, so
+    its sum is never stored) and ``norm2`` is K4 (the sum is the residual
+    carry). The CLS half adds and then normalises with K3.
   * Positional embedding: the spatial PE tiled over frames plus the
     temporal PE; the CLS row takes ``pos_embed[0]``.
   * Time attention starts at zero: qkv weight and bias 0, proj weight 1,
@@ -24,16 +28,23 @@ the reference LaViLa state-dict keys (``blocks.{i}.timeattn.qkv.weight``,
     over the blocks) on the spatial-attention and the MLP residual, in
     ``train()`` mode only. Each of the two draws one mask per sample that
     the CLS row and the patches share, from the ``generator`` given to
-    ``forward``.
-
-Remat (``remat=True``, the JAX package's ``--use-checkpoint``) is not
-ported yet and raises; TSF-B pretrains without it.
+    ``forward``; a block's masks are drawn before it runs and handed in.
+  * Remat (``remat=True``, the JAX package's ``--use-checkpoint``): each
+    block runs under ``torch.utils.checkpoint`` (non-reentrant), so only
+    its inputs are kept and the backward runs its forward again, the
+    JAX ``nn.remat`` per block with policy ``full``. The recompute
+    reuses the masks drawn before the block (the checkpoint restores
+    only torch's default generators, not the explicit one), so remat
+    changes no gradient. The JAX policies that save some of the block
+    (``dots``, ``save_attn``, ``dots_attn``) are not ported: the
+    pretraining CLI refuses them.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lavila_tpu_torch.ops.attention import divided_attention_split
 from lavila_tpu_torch.ops.basic import (LayerNorm, Mlp, drop_path,
@@ -77,28 +88,39 @@ class SpaceTimeBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, 4 * dim)
 
-    def _drop_path(self, pair, generator):
-        """Stochastic depth on a (CLS, patches) residual pair: one mask per
-        sample for both halves (the JAX block's ``dp``)."""
+    def draw_masks(self, batch: int, generator, device, dtype):
+        """The block's two stochastic-depth masks (spatial attention, then
+        MLP), one draw per sample each, from ``generator``; None in eval
+        mode or at rate 0."""
         rate = self.drop_path_rate
         if rate == 0.0 or not self.training:
-            return pair
-        mask = drop_path_mask(pair[0].shape[0], rate, generator,
-                              pair[0].device, pair[0].dtype)
-        return tuple(drop_path(y, rate, mask) for y in pair)
+            return None
+        return tuple(drop_path_mask(batch, rate, generator, device, dtype)
+                     for _ in range(2))
 
-    def forward(self, cls, patches, generator=None):
+    def _drop_path(self, pair, mask):
+        """Stochastic depth on a (CLS, patches) residual pair: one mask per
+        sample for both halves (the JAX block's ``dp``)."""
+        if mask is None:
+            return pair
+        return tuple(drop_path(y, self.drop_path_rate, mask) for y in pair)
+
+    def forward(self, cls, patches, masks=None):
+        """``masks``: :meth:`draw_masks`' pair, or None."""
+        space_mask, mlp_mask = masks if masks is not None else (None, None)
         t_cls, t_pat = self.timeattn(self.norm3(cls), self.norm3(patches),
                                      "time")
+        # the time residual feeds only norm1: K5 on the patch half
         s_cls, s_pat = self._drop_path(
-            self.attn(self.norm1(cls + t_cls), self.norm1(patches + t_pat),
-                      "space"), generator)
-        # frozen-in-time: the spatial residual reconnects to the block input
+            self.attn(self.norm1(cls + t_cls),
+                      self.norm1(t_pat, residual=patches, return_sum=False),
+                      "space"), space_mask)
+        # frozen-in-time: the spatial residual reconnects to the block
+        # input; on the patch half the sum is also norm2's input (K4)
         cls = cls + s_cls
-        patches = patches + s_pat
+        y2_pat, patches = self.norm2(s_pat, residual=patches)
         m_cls, m_pat = self._drop_path(
-            (self.mlp(self.norm2(cls)), self.mlp(self.norm2(patches))),
-            generator)
+            (self.mlp(self.norm2(cls)), self.mlp(y2_pat)), mlp_mask)
         return cls + m_cls, patches + m_pat
 
 
@@ -127,11 +149,8 @@ class SpaceTimeTransformer(nn.Module):
                  num_frames: int = 8, drop_path_rate: float = 0.0,
                  remat: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat (--use-checkpoint) is not ported yet: ROADMAP queue "
-                "1, slice 2 leftovers (remat policies)")
         D = embed_dim
+        self.remat = remat
         self.num_frames = num_frames
         self.embed_dim = D
         self.num_patches = (img_size // patch_size) ** 2
@@ -183,8 +202,17 @@ class SpaceTimeTransformer(nn.Module):
         cls = (self.cls_token + self.pos_embed[:, :1]).expand(
             B, 1, D).contiguous()
         cls, patches = self.ln_pre(cls), self.ln_pre(patches)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            cls, patches = blk(cls, patches, generator)
+            masks = blk.draw_masks(B, generator, cls.device, cls.dtype)
+            if remat:
+                # the block draws no random numbers itself: nothing of
+                # torch's generators needs stashing for the recompute
+                cls, patches = checkpoint(blk, cls, patches, masks,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+            else:
+                cls, patches = blk(cls, patches, masks)
         if cls_at_last:
             return self.norm(cls)[:, 0]
         return self.norm(torch.cat([cls, patches.reshape(B, T * N, D)], 1))

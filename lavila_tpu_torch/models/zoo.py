@@ -7,14 +7,21 @@ it to ``device`` in ``dtype``. A CPU generator (the default) gives the
 same weights whatever the target device; a generator on the target
 device initialises a GPT-2 XL narrator there in seconds instead of
 minutes on the host, with other (equally seeded) values. Unlike the JAX
-zoo, an unknown keyword argument raises; of the training options,
-``drop_path_rate`` is taken and ``remat`` raises unless False (not
-ported yet).
+zoo, an unknown keyword argument raises. The dual encoders take the
+training options ``drop_path_rate`` and ``remat`` (the JAX policy
+``full``); a narrator raises on ``remat`` (its caption loss and step
+are not ported).
 
-The narrators (``VCLM_*``) are the TimeSformer ones of slice 3: MINI
-(CI), TSF-B with GPT-2 (12 layers, cross-attention on every layer) and
-TSF-B with GPT-2 XL (48 layers, cross-attention on every second). As in
-the JAX CLIs, the narrator CLIs build them with ``gated_xattn=True``.
+The dual encoders are the TimeSformer ones with the CLIP text tower:
+TSF-B (224², patch 16; text 512 wide, 8 heads) and TSF-L (patch 14,
+1024 wide, 24 blocks, 16 heads; text 768 wide, 12 heads) at 224² and
+336² (N = 576 patches a frame: the spatial phase runs K6). The
+narrators (``VCLM_*``) are the TimeSformer ones: MINI (CI), TSF-B or
+TSF-L with GPT-2 (12 layers, cross-attention on every layer), TSF-B or
+TSF-L with GPT-2 XL (48 layers, cross-attention on every second), and
+the flagship TSF-L@336 with GPT-2 XL (cross-attention on every third,
+16 layers), the narrator LaViLa used to narrate Ego4D. As in the JAX
+CLIs, the narrator CLIs build them with ``gated_xattn=True``.
 """
 
 from __future__ import annotations
@@ -76,20 +83,56 @@ def CLIP_OPENAI_TIMESFORMER_MINI(num_frames: int = 4,
     return VideoCLIP(vision, text, project_embed_dim, temperature_init)
 
 
-@register
-def CLIP_OPENAI_TIMESFORMER_BASE(num_frames: int = 4,
-                                 project_embed_dim: int = 256,
-                                 temperature_init: float = 0.07,
-                                 drop_path_rate: float = 0.0,
-                                 remat: bool = False):
-    """TSF-B video tower (12 blocks, 768 wide, 12 heads, 224², patch 16)
-    with the CLIP text tower (12 layers, 512 wide, 8 heads, 77 tokens)."""
-    vision = SpaceTimeTransformer(
-        img_size=224, patch_size=16, embed_dim=768, depth=12, num_heads=12,
-        num_frames=num_frames, drop_path_rate=drop_path_rate, remat=remat)
-    text = TextTransformer(width=512, heads=8, layers=12,
+# TimeSformer geometries of the reference zoo (lavila_tpu/models/zoo.py:
+# 55-70) and the width and heads of the CLIP text tower beside each
+_TSF = {"base": dict(patch_size=16, embed_dim=768, depth=12, num_heads=12),
+        "large": dict(patch_size=14, embed_dim=1024, depth=24, num_heads=16)}
+_TEXT = {"base": (512, 8), "large": (768, 12)}
+
+
+def _timesformer(size: str, img_size: int, num_frames: int,
+                 timesformer_gated_xattn: bool = False, **train_kw
+                 ) -> SpaceTimeTransformer:
+    if timesformer_gated_xattn:
+        raise NotImplementedError(
+            "timesformer_gated_xattn is not ported: ROADMAP queue 1, "
+            "slice 1 leftovers")
+    return SpaceTimeTransformer(img_size=img_size, num_frames=num_frames,
+                                **_TSF[size], **train_kw)
+
+
+def _clip_timesformer(size: str, img_size: int, num_frames: int = 4,
+                      project_embed_dim: int = 256,
+                      temperature_init: float = 0.07,
+                      drop_path_rate: float = 0.0,
+                      remat: bool = False) -> VideoCLIP:
+    vision = _timesformer(size, img_size, num_frames,
+                          drop_path_rate=drop_path_rate, remat=remat)
+    width, heads = _TEXT[size]
+    text = TextTransformer(width=width, heads=heads, layers=12,
                            embed_dim=project_embed_dim)
     return VideoCLIP(vision, text, project_embed_dim, temperature_init)
+
+
+@register
+def CLIP_OPENAI_TIMESFORMER_BASE(**kw):
+    """TSF-B video tower (12 blocks, 768 wide, 12 heads, 224², patch 16)
+    with the CLIP text tower (12 layers, 512 wide, 8 heads, 77 tokens)."""
+    return _clip_timesformer("base", 224, **kw)
+
+
+@register
+def CLIP_OPENAI_TIMESFORMER_LARGE(**kw):
+    """TSF-L video tower (24 blocks, 1024 wide, 16 heads, 224², patch 14:
+    N = 256) with the CLIP text tower (12 layers, 768 wide, 12 heads)."""
+    return _clip_timesformer("large", 224, **kw)
+
+
+@register
+def CLIP_OPENAI_TIMESFORMER_LARGE_336PX(**kw):
+    """TSF-L at 336² (N = 576 patches a frame, K6), the high-resolution
+    dual encoder, with the CLIP text tower (768 wide, 12 heads)."""
+    return _clip_timesformer("large", 336, **kw)
 
 
 def _vclm(vision: SpaceTimeTransformer, gpt2: GPT2Config,
@@ -102,15 +145,37 @@ def _vclm(vision: SpaceTimeTransformer, gpt2: GPT2Config,
                 dim_head=dim_head, heads=heads)
 
 
-def _tsf_base(num_frames: int, timesformer_gated_xattn: bool,
-              remat: bool) -> SpaceTimeTransformer:
-    if timesformer_gated_xattn:
-        raise NotImplementedError(
-            "timesformer_gated_xattn is not ported: ROADMAP queue 1, "
-            "slice 1 leftovers")
-    return SpaceTimeTransformer(
-        img_size=224, patch_size=16, embed_dim=768, depth=12, num_heads=12,
-        num_frames=num_frames, remat=remat)
+# the TimeSformer narrators of the reference zoo: (tower size, image
+# size, GPT-2 preset, cross-attention every n layers, pooler heads), as
+# lavila_tpu/models/zoo.py:302-351 and its _GPT2_HEADS
+_NARRATORS = {
+    "BASE_GPT2": ("base", 224, "gpt2", 1, 12),
+    "BASE_GPT2_XL": ("base", 224, "gpt2-xl", 2, 25),
+    "LARGE_GPT2": ("large", 224, "gpt2", 1, 12),
+    "LARGE_GPT2_XL": ("large", 224, "gpt2-xl", 2, 25),
+    "LARGE_336PX_GPT2_XL": ("large", 336, "gpt2-xl", 3, 25),
+}
+
+
+def _register_narrator(suffix: str) -> None:
+    size, img, preset, freq, heads = _NARRATORS[suffix]
+
+    def factory(num_frames: int = 4, gated_xattn: bool = False,
+                timesformer_gated_xattn: bool = False, remat: bool = False):
+        vision = _timesformer(size, img, num_frames,
+                              timesformer_gated_xattn, remat=remat)
+        return _vclm(vision, PRESETS[preset], freq, gated_xattn, remat,
+                     heads=heads)
+
+    factory.__name__ = f"VCLM_OPENAI_TIMESFORMER_{suffix}"
+    factory.__doc__ = (f"TSF-{size[0].upper()}@{img} video tower with "
+                       f"{preset.upper()}, cross-attention every {freq} "
+                       f"layer(s), a {heads}-head attention pooler.")
+    register(factory)
+
+
+for _suffix in _NARRATORS:
+    _register_narrator(_suffix)
 
 
 @register
@@ -127,25 +192,3 @@ def VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI(num_frames: int = 4,
                       n_layer=2, n_head=4)
     return _vclm(vision, gpt2, 1, gated_xattn, remat, heads=4,
                  num_img_queries=16, dim_head=16)
-
-
-@register
-def VCLM_OPENAI_TIMESFORMER_BASE_GPT2(num_frames: int = 4,
-                                      gated_xattn: bool = False,
-                                      timesformer_gated_xattn: bool = False,
-                                      remat: bool = False):
-    """TSF-B video tower with GPT-2 (12 layers, 768 wide, 12 heads),
-    cross-attention on every layer."""
-    return _vclm(_tsf_base(num_frames, timesformer_gated_xattn, remat),
-                 PRESETS["gpt2"], 1, gated_xattn, remat, heads=12)
-
-
-@register
-def VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL(num_frames: int = 4,
-                                         gated_xattn: bool = False,
-                                         timesformer_gated_xattn: bool = False,
-                                         remat: bool = False):
-    """TSF-B video tower with GPT-2 XL (48 layers, 1600 wide, 25 heads of
-    64), cross-attention on every second layer (24 of them)."""
-    return _vclm(_tsf_base(num_frames, timesformer_gated_xattn, remat),
-                 PRESETS["gpt2-xl"], 2, gated_xattn, remat, heads=25)

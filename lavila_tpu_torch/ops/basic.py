@@ -5,10 +5,11 @@ Counterpart of ``lavila_tpu/ops/basic.py``:
   * :class:`LayerNorm` takes fp32 statistics with the one-pass variance
     ``max(E[x²] − E[x]², 0)`` and returns the input dtype. Every
     LayerNorm of the port goes through :func:`kernels.layernorm.
-    layer_norm`, its single dispatch site: the Triton kernel (K3) on a
-    CUDA tensor, the plain version on a CPU tensor, for any shape.
-    :class:`BiasFreeLayerNorm` (CoCa's, ``use_bias=False`` in the JAX
-    package) goes through the same site with a zero bias.
+    layer_norm` (K3) or, with a residual, :func:`kernels.layernorm.
+    add_layer_norm` (K4, or K5 without the sum), its dispatch sites: the
+    Triton kernels on a CUDA tensor, the plain versions on a CPU tensor,
+    for any shape. :class:`BiasFreeLayerNorm` (CoCa's, ``use_bias=False``
+    in the JAX package) goes through K3 with a zero bias.
   * :func:`quick_gelu` is CLIP's ``x · sigmoid(1.702 x)``;
     :func:`gelu_new` GPT-2's tanh-approximated GELU; :func:`squared_relu`
     Primer's ``relu(x)²`` (the narrator's cross-attention MLP).
@@ -24,7 +25,7 @@ import math
 import torch
 from torch import nn
 
-from lavila_tpu_torch.kernels.layernorm import layer_norm
+from lavila_tpu_torch.kernels.layernorm import add_layer_norm, layer_norm
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -54,8 +55,16 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+                return_sum: bool = True):
+        """``LN(x)``; with a ``residual``, the pair ``(LN(x + residual),
+        x + residual)``, or ``LN(x + residual)`` alone when not
+        ``return_sum`` (the JAX ``LayerNorm``'s contract). The residual is
+        cast to x's dtype and the sum normalised in fp32."""
+        if residual is None:
+            return layer_norm(x, self.weight, self.bias, self.eps)
+        return add_layer_norm(x, residual.to(x.dtype), self.weight,
+                              self.bias, self.eps, return_sum)
 
 
 class BiasFreeLayerNorm(nn.Module):

@@ -7,7 +7,7 @@ per-kernel breakdown of device time and the device's idle share. With
 CLI's defaults) instead.
 
     python3 scripts/profile_torch_encode.py [--batch 32] [--bf16] \\
-        [--train] [--out profile.json]
+        [--train [--remat]] [--model NAME] [--out profile.json]
 
 Prints one JSON object (also written to ``--out``). Needs a CUDA device.
 """
@@ -81,6 +81,8 @@ def main():
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--train", action="store_true",
                    help="profile the train step, not the encoders")
+    p.add_argument("--remat", action="store_true",
+                   help="the video tower with remat (--use-checkpoint)")
     p.add_argument("--out", default="")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -91,7 +93,8 @@ def main():
     model = build_model(args.model, device="cuda",
                         dtype=torch.float32 if args.train else dtype,
                         generator=torch.Generator().manual_seed(0),
-                        num_frames=args.frames, train=args.train)
+                        num_frames=args.frames, train=args.train,
+                        remat=args.remat)
     size = model.visual.patch_embed.proj.kernel_size[0] * int(
         model.visual.num_patches ** 0.5)
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -5,11 +5,14 @@ For each hand-written kernel of ``lavila_tpu_torch`` this builds the
 single PyTorch call that computes the same function on the same inputs
 and times it on the card (CUDA events):
 
-  * K1/K2 forward: ``F.scaled_dot_product_attention`` over each group
+  * K1/K2/K6 forward: ``F.scaled_dot_product_attention`` over each group
     with the CLS key/value row concatenated in front of its keys (space:
-    a group is one frame, N + 1 keys; time: one position, F + 1 keys);
-    backward: ``torch.autograd.grad`` of that call.
+    a group is one frame, N + 1 keys, for K1 and for K6's larger frames;
+    time: one position, F + 1 keys); backward: ``torch.autograd.grad`` of
+    that call.
   * K3 forward: ``F.layer_norm``; backward: ``torch.autograd.grad`` of it.
+  * K4/K5 forward: ``a + b`` then ``F.layer_norm`` (two calls: PyTorch has
+    no single fused one); backward: ``torch.autograd.grad`` of the pair.
   * K9: ``F.scaled_dot_product_attention`` of a ``(B, H, 1, d)`` query
     over the ``num_valid`` cache rows with the current token appended.
 
@@ -98,6 +101,28 @@ def layer_norm_bwd_call(x, w, b, dy, eps: float):
     return lambda: torch.autograd.grad(y, (x, w, b), dy, retain_graph=True)
 
 
+def add_layer_norm_call(a, b, w, bias, eps: float, return_sum: bool):
+    """K4 (``return_sum``: the sum returned too) / K5: the add, then
+    ``F.layer_norm`` of the sum (two library calls)."""
+    def call():
+        s = a + b
+        y = F.layer_norm(s, (s.shape[-1],), w, bias, eps)
+        return (y, s) if return_sum else y
+    return call
+
+
+def add_layer_norm_bwd_call(a, b, w, bias, dy, dsum, eps: float):
+    """K4 (``dsum`` given) / K5 backward: the gradient of that pair of
+    calls for (a, b, w, bias)."""
+    a, b, w, bias = (t.detach().requires_grad_() for t in (a, b, w, bias))
+    with torch.enable_grad():
+        out = add_layer_norm_call(a, b, w, bias, eps, dsum is not None)()
+    outs, cots = ((out, (dy, dsum)) if dsum is not None else
+                  ((out,), (dy,)))
+    return lambda: torch.autograd.grad(outs, (a, b, w, bias), cots,
+                                       retain_graph=True)
+
+
 def decode_call(q, k_cache, v_cache, k_new, v_new, num_valid: int,
                 heads: int):
     """K9 as SDPA: a ``(B, H, 1, d)`` query over the valid cache rows
@@ -133,19 +158,34 @@ def main(argv=None) -> int:
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
-        for axis, shape in (("space", (8, 4, 196, 768)),
-                            ("time", (8, 4, 196, 768)),
-                            ("time", (8, 16, 196, 768))):
+        for kern, axis, shape, heads in (
+                ("K1", "space", (8, 4, 196, 768), 12),
+                ("K2", "time", (8, 4, 196, 768), 12),
+                ("K2", "time", (8, 16, 196, 768), 12),
+                ("K6", "space", (8, 4, 576, 1024), 16),
+                ("K2", "time", (8, 4, 576, 1024), 16)):
             qp, kp, vp, do = (rand(*shape, dtype=dtype) for _ in range(4))
             ck, cv = (rand(shape[0], shape[3], dtype=dtype) for _ in range(2))
-            kern = "K1" if axis == "space" else "K2"
             lines.append({"kernel": kern, "shape": list(shape), "dtype": name,
                           "library_ms": time_ms(divided_fwd_call(
-                              qp, kp, vp, ck, cv, axis, 12))})
+                              qp, kp, vp, ck, cv, axis, heads))})
             lines.append({"kernel": f"{kern} bwd", "shape": list(shape),
                           "dtype": name, "library_ms": time_ms(
                               divided_bwd_call(qp, kp, vp, ck, cv, do, axis,
-                                               12))})
+                                               heads))})
+            del qp, kp, vp, do
+        for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768)):
+            a, b, dy, ds = (rand(*shape, dtype=dtype) for _ in range(4))
+            w, bias = (rand(shape[-1], dtype=dtype) for _ in range(2))
+            for kern, dsum in (("K4", ds), ("K5", None)):
+                lines.append({"kernel": kern, "shape": list(shape),
+                              "dtype": name, "calls": 2, "library_ms":
+                              time_ms(add_layer_norm_call(
+                                  a, b, w, bias, 1e-6, dsum is not None))})
+                lines.append({"kernel": f"{kern} bwd", "shape": list(shape),
+                              "dtype": name, "library_ms": time_ms(
+                                  add_layer_norm_bwd_call(a, b, w, bias, dy,
+                                                          dsum, 1e-6))})
         for shape in ((8 * 4 * 196, 768), (8, 77, 512), (160, 1, 1600)):
             x, dy = rand(*shape, dtype=dtype), rand(*shape, dtype=dtype)
             w, b = rand(shape[-1], dtype=dtype), rand(shape[-1], dtype=dtype)

@@ -213,11 +213,18 @@ def test_layernorm_autograd_mixed_dtypes(gen):
 def test_wrappers_raise_instead_of_falling_back(gen):
     q = torch.randn(1, 2, 300, 64, generator=gen, device="cuda")
     ck = torch.randn(1, 64, generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError, match="K6"):
-        KD.divided_phase(q, q, q, ck, ck, "space", 1, 0.125)
+    q160 = torch.randn(1, 2, 300, 160, generator=gen, device="cuda")
+    ck160 = torch.randn(1, 160, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 160"):
+        KD.divided_phase(q160, q160, q160, ck160, ck160, "space", 1, 0.125)
     lse = torch.zeros(1, 2, 300, 1, device="cuda")
-    with pytest.raises(NotImplementedError, match="K6"):
-        KD.divided_phase_bwd(q, q, q, ck, ck, q, q, lse, "space", 1, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        KD.divided_phase_bwd(q, q, q, ck, ck, q.transpose(1, 2)
+                             .contiguous().transpose(1, 2), q, lse, "space",
+                             1, 0.125)
+    with pytest.raises(ValueError, match="share shape and dtype"):
+        KL.add_layer_norm(q, q.bfloat16(), torch.ones(64, device="cuda"),
+                          torch.zeros(64, device="cuda"), 1e-6)
     qh = q[:, :, :8].half()
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         KD.divided_phase_bwd(qh, qh, qh, ck.half(), ck.half(), qh, qh,
@@ -233,6 +240,86 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError, match="float32/bfloat16"):
         KL.layer_norm_bwd(ck.half(), torch.ones(64, device="cuda"),
                           ck.half(), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,N,H,d,pad", [
+    (2, 4, 576, 16, 64, 0),   # TSF-L@336; bf16: the tensor-core kernels
+    (1, 2, 300, 2, 64, 0),    # partial query and key tiles
+    (1, 3, 257, 4, 32, 0),    # SIMT kernels (head_dim 32), 2-key last tile
+    (1, 2, 576, 2, 64, 1),    # odd row stride: SIMT kernels in bf16 too
+    (1, 2, 576, 2, 64, 2),    # rows off 16-byte boundaries: SIMT too
+])
+def test_space_big_kernel(gen, B, F, N, H, d, pad, dtype):
+    """K6 forward and backward on strided qkv views against the plain
+    versions in fp32 on the same values; the backward bit-identical on a
+    second call; both through the phase's single dispatch site."""
+    D = H * d
+    qkv = torch.randn(B, F, N, 3 * D + pad, generator=gen,
+                      device="cuda").to(dtype)
+    cls = torch.randn(B, 3 * D + pad, generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv[..., :3 * D].chunk(3, dim=-1)
+    _, ck, cv = cls[:, :3 * D].chunk(3, dim=-1)
+    fwd = (q, k, v, ck, cv, "space", H, d ** -0.5)
+    before = dict(KD.launches)
+    out, lse = KD.divided_phase(*fwd)
+    assert KD.launches["space_big"] == before["space_big"] + 1
+    assert KD.launches["space"] == before["space"]
+    ref, ref_lse = KD.divided_phase_reference(
+        *(t.float() for t in fwd[:5]), *fwd[5:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=TOL[dtype])
+    do = torch.randn(B, F, N, D, generator=gen, device="cuda").to(dtype)
+    bwd = (q, k, v, ck, cv, do, out, lse, "space", H, d ** -0.5)
+    got = KD.divided_phase_bwd(*bwd)
+    assert KD.launches["space_big_bwd"] == before["space_big_bwd"] + 1
+    again = KD.divided_phase_bwd(*bwd)
+    want = KD.divided_phase_bwd_reference(*(t.float() for t in bwd[:8]),
+                                          *bwd[8:])
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        assert _rel_err(g, w) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8 * 4 * 576, 1024), (32 * 4 * 196, 768),
+                                   (5, 3, 200)])
+@pytest.mark.parametrize("return_sum", [True, False])
+def test_add_layernorm_kernels(gen, shape, return_sum, dtype):
+    """K4 (``return_sum``) and K5 forward and backward against their plain
+    versions in fp32 on the same values; the backward bit-identical."""
+    D = shape[-1]
+    a, b, dy, ds = (torch.randn(*shape, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(4))
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+    bias = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+    name = "add_layernorm" if return_sum else "add_layernorm_nosum"
+    before = dict(KL.launches)
+    got = KL.add_layer_norm(a, b, w, bias, 1e-6, return_sum)
+    assert KL.launches[name] == before[name] + 1
+    want = KL.add_layer_norm_reference(a.float(), b.float(), w.float(),
+                                       bias.float(), 1e-6, return_sum)
+    for g, r in zip(*((got, want) if return_sum else ((got,), (want,)))):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), r, rtol=0, atol=TOL[dtype])
+    if return_sum:  # the saved sum, and its gradient folded into dx
+        s = got[1]
+        args = (s, None, w, dy, ds, 1e-6)
+        ref = KL.add_layer_norm_bwd_reference(s.float(), None, w.float(),
+                                              dy.float(), ds.float(), 1e-6)
+    else:  # the pair, re-added
+        args = (a, b, w, dy, None, 1e-6)
+        ref = KL.add_layer_norm_bwd_reference(a.float(), b.float(),
+                                              w.float(), dy.float(), None,
+                                              1e-6)
+    grads = KL.add_layer_norm_bwd(*args)
+    assert KL.launches[f"{name}_bwd"] == before[f"{name}_bwd"] + 1
+    again = KL.add_layer_norm_bwd(*args)
+    for g, r, x in zip(grads, ref, again):
+        assert torch.equal(g, x)
+        assert _rel_err(g, r) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

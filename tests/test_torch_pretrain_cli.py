@@ -64,6 +64,15 @@ def test_cli_resumes_from_output_dir(tmp_path):
     assert meta["epoch"] == 1
 
 
+def test_cli_use_checkpoint_trains_with_remat(tmp_path):
+    """--use-checkpoint builds the video tower with remat (policy full)
+    and trains through it."""
+    state = cli.main(_cfg(tmp_path, "--use-checkpoint", "--disable-amp"))
+    assert state.step == 2 and state.model.visual.remat
+    meta = json.loads((tmp_path / "checkpoint_latest.pt.json").read_text())
+    assert meta["config"]["use_checkpoint"] is True
+
+
 def test_cli_profile_dir_writes_a_trace(tmp_path):
     """--profile-dir traces steps 5-10, as the JAX CLI does."""
     cli.main(_cfg(tmp_path / "run", "--steps", "11", "--batch-size", "2",
@@ -77,7 +86,7 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
     (["--contrastive-use-vissl"], "slice 5"),
     (["--mesh-model", "2"], "slice 5"),
     (["--mesh-data", "4"], "slice 5"),
-    (["--use-checkpoint"], "remat"),
+    (["--use-checkpoint", "--remat-policy", "dots"], "remat"),
     (["--freeze-temperature"], "freeze"),
     (["--timesformer-freeze-space"], "freeze"),
     (["--val-metadata", "val.csv"], "probe"),

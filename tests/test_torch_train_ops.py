@@ -158,7 +158,9 @@ def test_drop_path_shares_one_mask_for_cls_and_patches():
     blk = SpaceTimeBlock(16, 2, drop_path_rate=0.5).train()
     cls, pat = torch.ones(64, 1, 16), torch.ones(64, 3, 5, 16)
     gen = torch.Generator().manual_seed(0)
-    a, b = blk._drop_path((cls, pat), gen)
+    space_mask, mlp_mask = blk.draw_masks(64, gen, "cpu", torch.float32)
+    assert not torch.equal(space_mask, mlp_mask)  # two draws
+    a, b = blk._drop_path((cls, pat), space_mask)
     kept_cls = a.flatten(1).amax(1) > 0
     kept_pat = b.flatten(1).amax(1) > 0
     assert torch.equal(kept_cls, kept_pat)
@@ -170,8 +172,10 @@ def test_drop_path_shares_one_mask_for_cls_and_patches():
 def test_drop_path_is_identity_in_eval_mode_and_at_rate_zero():
     x = torch.randn(4, 1, 8)
     blk = SpaceTimeBlock(8, 2, drop_path_rate=0.3).eval()
+    assert blk.draw_masks(4, None, "cpu", torch.float32) is None
     assert blk._drop_path((x, x), None)[0] is x
     blk0 = SpaceTimeBlock(8, 2).train()
+    assert blk0.draw_masks(4, None, "cpu", torch.float32) is None
     assert blk0._drop_path((x, x), None)[1] is x
     mask = drop_path_mask(4, 0.25, torch.Generator().manual_seed(1), "cpu",
                           torch.float32)
@@ -195,5 +199,13 @@ def test_drop_path_rate_rule_is_linear_and_model_uses_it():
     m.eval()
     torch.testing.assert_close(m.encode_image(frames),
                                m.encode_image(frames, torch.Generator()))
+    # remat (policy full) recomputes the blocks with the same masks
+    r = build_model("CLIP_OPENAI_TIMESFORMER_MINI", device="cpu",
+                    drop_path_rate=0.2, train=True, remat=True)
+    assert r.visual.remat
+    torch.testing.assert_close(
+        r.encode_image(frames, torch.Generator().manual_seed(0)), a)
+    # the narrators' caption step is not ported: their remat raises
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("CLIP_OPENAI_TIMESFORMER_MINI", device="cpu", remat=True)
+        build_model("VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI", device="cpu",
+                    remat=True)
