@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU, through the
 kernels written for Hopper, and check them: the zero-shot dual encoder
-(serving), the dual-encoder pretraining step and the narrator's sampled
-decoding, at TSF-B width and with the 336px TSF-L towers (the
-high-resolution dual encoder and LaViLa's flagship narrator).
+(serving), the dual-encoder pretraining step, the EK-100 MIR retrieval
+fine-tune and the narrator's sampled decoding, at TSF-B width and with
+the 336px TSF-L towers (the high-resolution dual encoder and LaViLa's
+flagship narrator).
 
     python3 chip_smoke.py
 
@@ -18,14 +19,18 @@ and prints no result. Phases, each printing JSON lines:
      the towers' widths and the narrator's: a decode step's (160, 1,
      1600) and the pooler's bias-free (4096, 1600)), K4/K5 (add +
      LayerNorm at TSF-L@336's and TSF-B's patch rows), K6 (spatial phase
-     over 576 patches) and K9 (decode attention; GPT-2 XL and TSF-B
-     widths, ``num_valid`` 0, 1, 15 and 77) against their plain PyTorch
+     over 576 patches), K9 (decode attention; GPT-2 XL and TSF-B
+     widths, ``num_valid`` 0, 1, 15 and 77) and K7/K8 forward (flash
+     attention: the CLIP text towers' causal attention, 16 captions of
+     77 tokens, 8 and 12 heads of 64, and 256 captions; one uneven
+     non-causal case, 130 queries over 260 keys) against their plain PyTorch
      versions on seeded inputs, fp32 and bf16, with errors, tolerances,
      CUDA-event times, the card's bound for the same work and the time
      of one PyTorch library call computing it
      (``scripts/time_library_calls.py``). kernel_bwd: the same for the
-     backward kernels, on strided qkv views, errors relative to the
-     reference's largest value, and two calls checked bit-identical.
+     backward kernels (K8's dq and dk/dv each on its own), on strided
+     qkv views, errors relative to the reference's largest value, and two
+     calls checked bit-identical.
   4. model: CLIP_OPENAI_TIMESFORMER_BASE from a seeded generator, time
      attention given seeded noise (its zero init would make K2's check
      vacuous), embeddings on the kernel path against the plain functions
@@ -42,6 +47,12 @@ and prints no result. Phases, each printing JSON lines:
   7. pretrain_cli: the port's pretraining CLI for 5 steps (BASE, bf16,
      batch 16, synthetic data), then the zero-shot loader reads its
      checkpoint and embeds a batch.
+  7b. finetune_step: the retrieval fine-tune's step (adaptive max-margin
+     with relevancy weights, logit_scale frozen) on BASE at 16 frames, 2
+     fp32 steps kernel path against plain path; bf16 clips/s and peak
+     memory at batch 8. finetune_cli: the port's
+     ``main_finetune_retrieval`` for 3 steps (BASE, 16 frames, bf16,
+     batch 8, synthetic data): a finite loss, logit_scale unchanged.
   8. narrator: VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL (48 layers, 1600
      wide) initialised on the card from a seeded generator, its
      cross-attention gates and time attention given seeded non-zero
@@ -72,8 +83,10 @@ and prints no result. Phases, each printing JSON lines:
      VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL (cross-attention on 16
      of the 48 layers, 4·576 + 1 image tokens into the pooler).
 
-Every path phase (5, 7, 9, 10-13) zeroes the launch counters before it
-runs and reads them after; the kernel summary line sums those runs' counts.
+Every path phase (5, 7, finetune_cli, 9, 10-13) zeroes the launch
+counters before it runs and reads them after; the kernel summary line
+sums those runs' counts. The text tower runs K7 under inference_mode
+(serving) and K8 forward, dq and dk/dv in every train step.
 TF32 is off for matmuls and cuDNN convolutions, so fp32 comparisons are
 fp32. Any failed check exits non-zero without the final line; the final
 line is ``{"ok": true, "device": {...}}``.
@@ -184,9 +197,12 @@ def plain_path():
     """Route the model's dispatch sites to the plain versions."""
     from lavila_tpu_torch.kernels import decode as KDec
     from lavila_tpu_torch.kernels import divided as KD
+    from lavila_tpu_torch.kernels import flash as KF
     from lavila_tpu_torch.kernels import layernorm as KL
     with mock.patch("lavila_tpu_torch.ops.attention.divided_phase",
                     KD.divided_phase_reference), \
+            mock.patch("lavila_tpu_torch.ops.attention.flash_attention",
+                       KF.flash_attention_reference), \
             mock.patch("lavila_tpu_torch.ops.basic.layer_norm",
                        KL.layer_norm_reference), \
             mock.patch("lavila_tpu_torch.ops.basic.add_layer_norm",
@@ -208,14 +224,18 @@ COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
             "K4 bwd": ("layernorm", "add_layernorm_bwd"),
             "K5 bwd": ("layernorm", "add_layernorm_nosum_bwd"),
             "K6 bwd": ("divided", "space_big_bwd"),
-            "K9": ("decode", "decode")}
+            "K9": ("decode", "decode"),
+            "K7": ("flash", "flash"), "K8 fwd": ("flash", "flash_fwd"),
+            "K8 dq": ("flash", "flash_dq"), "K8 dkv": ("flash", "flash_dkv")}
 
 
 def _counter(module: str) -> dict:
     from lavila_tpu_torch.kernels import decode as KDec
     from lavila_tpu_torch.kernels import divided as KD
+    from lavila_tpu_torch.kernels import flash as KF
     from lavila_tpu_torch.kernels import layernorm as KL
-    return {"divided": KD, "layernorm": KL, "decode": KDec}[module].launches
+    return {"divided": KD, "layernorm": KL, "decode": KDec,
+            "flash": KF}[module].launches
 
 
 def launch_counts() -> dict:
@@ -239,13 +259,22 @@ def _encode_launches(m) -> dict:
     return want
 
 
+def _text_launches(m) -> dict:
+    """Kernel launches of one ``encode_text`` under inference_mode: per
+    block ln_1, ln_2 (K3) and the causal attention (K7), and ln_final."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"K3": 2 * m["text_depth"] + 1, "K7": m["text_depth"]})
+    return want
+
+
 def _step_launches(m, remat: bool = False) -> dict:
     """Kernel launches of one train step of dual encoder ``m``: the
     encode's, the text tower's LayerNorms (ln_1, ln_2 per block,
-    ln_final), and one backward each, except that the tower returns only
-    the CLS row, so the last block's patch outputs never reach the loss:
-    autograd runs no backward for its spatial phase or its K4. With remat
-    every block runs its forward again in the backward."""
+    ln_final) and causal attention (K8's forward), and one backward each,
+    except that the tower returns only the CLS row, so the last block's
+    patch outputs never reach the loss: autograd runs no backward for its
+    spatial phase or its K4. With remat every video block runs its
+    forward again in the backward (the text tower has no remat)."""
     depth = m["depth"]
     want = _encode_launches(m)
     text = 2 * m["text_depth"] + 1
@@ -254,7 +283,8 @@ def _step_launches(m, remat: bool = False) -> dict:
     blocks["K3"] = 4 * depth * r + 3 + text
     blocks.update({f"{m['space']} bwd": depth - 1, "K2 bwd": depth,
                    "K3 bwd": 4 * depth + 3 + text, "K4 bwd": depth - 1,
-                   "K5 bwd": depth})
+                   "K5 bwd": depth, "K8 fwd": m["text_depth"],
+                   "K8 dq": m["text_depth"], "K8 dkv": m["text_depth"]})
     return blocks
 
 
@@ -396,18 +426,121 @@ def _decode_case(B, K, D, H, nv, dtype, gen) -> dict:
             "library_ms": time_ms(library().decode_call(*args))}
 
 
+def _flash_qkv(B, H, Lq, Lk, d, dtype, gen):
+    """q (B, Lq, H, d) and k/v (B, Lk, H, d) as head views of packed
+    projections, as the text tower hands them over: one (B, L, 3D)
+    in_proj output when Lq == Lk, else (B, Lq, D) and (B, Lk, 2D)."""
+    D = H * d
+    if Lq == Lk:
+        q, k, v = torch.randn(B, Lq, 3 * D, generator=gen, device=DEVICE).to(
+            dtype).chunk(3, dim=-1)
+    else:
+        q = torch.randn(B, Lq, D, generator=gen, device=DEVICE).to(dtype)
+        k, v = torch.randn(B, Lk, 2 * D, generator=gen, device=DEVICE).to(
+            dtype).chunk(2, dim=-1)
+    return tuple(t.reshape(B, t.shape[1], H, d) for t in (q, k, v))
+
+
+def _pairs(Lq, Lk, causal) -> int:
+    """(query, key) pairs the mask lets through: the work of one head."""
+    return sum(min(i + 1, Lk) for i in range(Lq)) if causal else Lq * Lk
+
+
+def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
+    """One K7 (``name`` 'K7') or K8 forward case against the plain
+    version in fp32 on the same values."""
+    from lavila_tpu_torch.kernels import flash as KF
+    q, k, v = _flash_qkv(B, H, Lq, Lk, d, dtype, gen)
+    scale = d ** -0.5
+    with_lse = name != "K7"
+
+    def run():
+        return KF._forward(q, k, v, causal, scale, with_lse)
+    got = run()
+    ref, ref_lse = KF.flash_fwd_reference(q.float(), k.float(), v.float(),
+                                          causal)
+    torch.cuda.synchronize()
+    out, lse = got if with_lse else (got, None)
+    err = max_err(out, ref)
+    lse_err = max_err(lse, ref_lse) if with_lse else 0.0
+    tol = TOL[dtype]
+    it, D = q.element_size(), H * d
+    # reads q, k, v; writes out (and lse); QKᵀ and PV over the pairs
+    return {"out_err": err, "lse_err": lse_err, "tol": tol,
+            "ok": err <= tol and lse_err <= tol, "ms": time_ms(run),
+            "plain_ms": time_ms(lambda: (
+                KF.flash_fwd_reference if with_lse
+                else KF.flash_attention_reference)(q, k, v, causal)),
+            **bound((2 * B * Lq * D + 2 * B * Lk * D) * it
+                    + (B * Lq * H * 4 if with_lse else 0),
+                    4 * B * H * _pairs(Lq, Lk, causal) * d, dtype),
+            "library_ms": time_ms(library().flash_fwd_call(q, k, v, causal))}
+
+
+def _flash_bwd_cases(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
+    """K8's dq and dk/dv kernels on the forward kernel's out and lse,
+    each against the plain backward in fp32 on the same values (errors
+    relative to the reference's largest value) and bit-identical over two
+    calls. ``plain_ms`` and ``library_ms`` are those of the whole
+    backward (the plain version and SDPA's give dq, dk, dv together)."""
+    from lavila_tpu_torch.kernels import flash as KF
+    q, k, v = _flash_qkv(B, H, Lq, Lk, d, dtype, gen)
+    scale = d ** -0.5
+    out, lse = KF._forward(q, k, v, causal, scale, with_lse=True)
+    do = torch.randn(B, Lq, H, d, generator=gen, device=DEVICE).to(dtype)
+    dq_args = (q, k, v, do, out, lse, causal, scale)
+    dq, delta = KF.flash_bwd_dq(*dq_args)
+    dq2, delta2 = KF.flash_bwd_dq(*dq_args)
+    dkv_args = (q, k, v, do, lse, delta, causal, scale)
+    dk, dv = KF.flash_bwd_dkv(*dkv_args)
+    dk2, dv2 = KF.flash_bwd_dkv(*dkv_args)
+    ref = KF.flash_bwd_reference(*(t.float() for t in dq_args[:5]), lse,
+                                 causal, scale)
+    ref_delta = (do.float() * out.float()).sum(-1)
+    torch.cuda.synchronize()
+    tol, it, D = TOL[dtype], q.element_size(), H * d
+    pairs = B * H * _pairs(Lq, Lk, causal)
+    plain_ms = time_ms(lambda: KF.flash_bwd_reference(*dq_args))
+    library_ms = time_ms(library().flash_bwd_call(q, k, v, do, causal))
+    res = {}
+    for name, got, again, refs, names, run, nbytes, flops in (
+            ("K8 dq", (dq, delta), (dq2, delta2), (ref[0], ref_delta),
+             ("dq", "delta"), lambda: KF.flash_bwd_dq(*dq_args),
+             # reads q, do, out, k, v, lse; writes dq, delta; S, dP, dQ
+             (4 * B * Lq * D + 2 * B * Lk * D) * it + 2 * B * Lq * H * 4,
+             6 * pairs * d),
+            ("K8 dkv", (dk, dv), (dk2, dv2), ref[1:], ("dk", "dv"),
+             lambda: KF.flash_bwd_dkv(*dkv_args),
+             # reads q, do, k, v, lse, delta; writes dk, dv; S, dP, dV, dK
+             (2 * B * Lq * D + 4 * B * Lk * D) * it + 2 * B * Lq * H * 4,
+             8 * pairs * d)):
+        errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, refs)}
+        deterministic = _all_equal(got, again)
+        res[name] = {"rel_err": errs, "abs_err": max(map(max_err, got, refs)),
+                     "tol": tol, "deterministic": deterministic,
+                     "ok": max(errs.values()) <= tol and deterministic,
+                     "ms": time_ms(run), "plain_ms": plain_ms,
+                     **bound(nbytes, flops, dtype), "library_ms": library_ms}
+    return res
+
+
 # the main-path case of each kernel, whose numbers go into the summary:
 # TSF-B at batch 8 for K1/K2/K3, TSF-L@336 at batch 8 for K4/K5/K6
 MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
              "K3": (8 * 4 * 196, 768), "K4": (8 * 4 * 576, 1024),
              "K5": (8 * 4 * 576, 1024), "K6": (8, 4, 576, 1024, 16),
-             "K9": (160, 77, 1600, 25, 15)}
+             "K9": (160, 77, 1600, 25, 15),
+             # TSF-B's text tower at 16 captions (B, H, Lq, Lk, d)
+             **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
+                             (16, 8, 77, 77, 64))}
 # further cases a kernel's summary keeps under a name: K3 on the
 # narrator's decode path (one decode step's 160 GPT-2 XL rows), K1 at
 # TSF-L@224 (N = 256, its SIMT branch even in bf16), K2 at TSF-L@336
 SIDE_CASES = {"K3": ("narrator", (160, 1, 1600)),
               "K1": ("tsf_l_224", (8, 4, 256, 1024, 16)),
-              "K2": ("tsf_l_336", (8, 4, 576, 1024, 16))}
+              "K2": ("tsf_l_336", (8, 4, 576, 1024, 16)),
+              **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
+                              ("b256", (256, 8, 77, 77, 64)))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -424,6 +557,13 @@ def _summarise(summary, name, shape, dtype, res, err_keys) -> None:
     side = SIDE_CASES.get(base)
     if side is not None and shape == side[1]:
         s[side[0]] = main
+
+
+# the flash kernels' cases: the text towers' causal attention at 16
+# captions (TSF-B: 8 heads, TSF-L: 12), and an uneven non-causal one
+FLASH_CASES = (("causal", (16, 8, 77, 77, 64)),
+               ("causal", (16, 12, 77, 77, 64)),
+               ("full", (4, 8, 130, 260, 64)))
 
 
 def phase_kernels() -> dict:
@@ -455,6 +595,11 @@ def phase_kernels() -> dict:
     cases += [("K6", "space", (8, 4, 576, 1024, 16), bf16),
               ("K2", "time", (8, 4, 576, 1024, 16), bf16),
               ("K1", "space", (8, 4, 256, 1024, 16), bf16)]
+    for dtype in (torch.float32, bf16):
+        cases += [(k, kind, shape, dtype) for k in ("K7", "K8 fwd")
+                  for kind, shape in FLASH_CASES]
+    cases += [(k, "causal", (256, 8, 77, 77, 64), bf16)
+              for k in ("K7", "K8 fwd")]
     summary = {}
     with torch.inference_mode():
         for name, kind, shape, dtype in cases:
@@ -464,6 +609,8 @@ def phase_kernels() -> dict:
                 res = _ln_case(shape, dtype, gen, bias=kind == "ln")
             elif kind == "decode":
                 res = _decode_case(*shape, dtype, gen)
+            elif kind in ("causal", "full"):
+                res = _flash_case(name, *shape, kind == "causal", dtype, gen)
             else:
                 res = _phase_case(kind, *shape[:3], shape[3], shape[4],
                                   dtype, gen)
@@ -606,6 +753,20 @@ def phase_kernels_bwd() -> dict:
     cases += [("K6 bwd", "space", (8, 4, 576, 1024, 16), torch.bfloat16),
               ("K2 bwd", "time", (8, 4, 576, 1024, 16), torch.bfloat16)]
     summary = {}
+    flash = [(kind, shape, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for kind, shape in FLASH_CASES]
+    flash.append(("causal", (256, 8, 77, 77, 64), torch.bfloat16))
+    for kind, shape, dtype in flash:
+        with torch.no_grad():
+            both = _flash_bwd_cases(*shape, kind == "causal", dtype, gen)
+        for name, res in both.items():
+            emit("kernel_bwd", kernel=name, case=kind, shape=list(shape),
+                 dtype=dname(dtype), **res)
+            check(res["ok"], f"{name} {kind} {shape} {dtype}: relative "
+                  f"errors {res['rel_err']} > {res['tol']} or not "
+                  f"deterministic ({res['deterministic']})")
+            _summarise(summary, name, shape, dtype, res, ("abs_err",))
+        torch.cuda.empty_cache()
     for name, kind, shape, dtype in cases:
         with torch.no_grad():
             if kind.startswith("add_ln"):
@@ -640,8 +801,9 @@ def _clip_model(m, **kw):
     return model
 
 
-def _inputs(B, gen, size: int = 224):
-    frames = torch.randn(B, 4, size, size, 3, generator=gen, device=DEVICE)
+def _inputs(B, gen, size: int = 224, frames: int = 4):
+    frames = torch.randn(B, frames, size, size, 3, generator=gen,
+                         device=DEVICE)
     text = torch.randint(1, 49407, (B, 77), generator=gen, device=DEVICE)
     eot = torch.randint(5, 77, (B,), generator=gen, device=DEVICE)
     text[torch.arange(B, device=DEVICE), eot] = 49407
@@ -681,9 +843,8 @@ def phase_model(m) -> None:
              launches_per_encode_text=per_text, **res)
         check(res["image_finite"] and res["text_finite"],
               f"{m['name']} {dtype}: non-finite embeddings")
-        want_text = dict.fromkeys(COUNTERS, 0)
-        want_text["K3"] = 2 * m["text_depth"] + 1
-        check(per_image == _encode_launches(m) and per_text == want_text,
+        check(per_image == _encode_launches(m)
+              and per_text == _text_launches(m),
               f"{m['name']} {dtype}: launches image {per_image} text "
               f"{per_text}")
         if dtype == torch.float32:
@@ -770,40 +931,52 @@ def phase_cli(m) -> dict:
     check(all(0.0 <= x <= 1.0 for x in metrics.values()),
           f"CLI metrics out of range: {metrics}")
     batches = -(-len(ds) // args.batch_size)
-    per_batch = _encode_launches(m)
-    per_batch["K3"] += 2 * m["text_depth"] + 1
+    per_batch = {k: n + _text_launches(m)[k]
+                 for k, n in _encode_launches(m).items()}
     check(counts == {k: n * batches for k, n in per_batch.items()},
           f"CLI {name} launches {counts} for {batches} batches")
     return counts
 
 
-def _make_state(model, dtype, seed: int = SEED + 8):
+def _make_state(model, dtype, seed: int = SEED + 8, frozen=None):
     """A TrainState with the CLI's default AdamW recipe (warm-up from
-    1e-6 over 100-step epochs); drop-path masks from a seeded
-    generator."""
+    1e-6 over 100-step epochs); drop-path masks from a seeded generator;
+    the parameters that ``frozen`` names left out of the optimizer."""
+    from lavila_tpu_torch.train.freeze import freeze_by_predicate
     from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
     from lavila_tpu_torch.train.step import TrainState
     schedule = cosine_schedule(3e-5, 1e-5, 5, 100, warmup_epochs=1,
                                start_warmup_lr=1e-6)
     return TrainState.create(
-        model, lambda params: make_optimizer(params, schedule), dtype=dtype,
+        model, lambda params: make_optimizer(
+            freeze_by_predicate(params, frozen or (lambda n: False)),
+            schedule), dtype=dtype,
         generator=torch.Generator(device=DEVICE).manual_seed(seed))
 
 
-def _train_batch(B, gen, size: int = 224):
-    frames, text = _inputs(B, gen, size)
-    return {"frames": frames, "text": text}
+def _train_batch(B, gen, size: int = 224, frames: int = 4):
+    frames, text = _inputs(B, gen, size, frames)
+    # the EK-100 relevancy of each clip, for the adaptive margin
+    rel = torch.rand(B, generator=gen, device=DEVICE)
+    return {"frames": frames, "text": text, "relevancy": rel}
 
 
-def _run_steps(base, dtype, batch, plain: bool, steps: int = 2):
-    """``steps`` train steps from a copy of ``base``: the losses, each
-    step's fp32 gradients and the launch counts of each step."""
-    from lavila_tpu_torch.train.step import make_clip_train_step
-    state = _make_state(copy.deepcopy(base).train(), dtype)
+def _run_steps(base, dtype, batch, plain: bool, steps: int = 2,
+               retrieval: bool = False):
+    """``steps`` train steps from a copy of ``base`` (pretraining's, or
+    with ``retrieval`` the fine-tune's: adaptive max-margin, logit_scale
+    frozen): the losses, each step's fp32 gradients and the launch
+    counts of each step."""
+    from lavila_tpu_torch.train.freeze import logit_scale_only
+    from lavila_tpu_torch.train.step import (make_clip_train_step,
+                                             make_retrieval_train_step)
+    state = _make_state(copy.deepcopy(base).train(), dtype,
+                        frozen=logit_scale_only if retrieval else None)
     # normalised embeddings (--norm-embed) keep the logits within
     # ±logit_scale; raw random-init embeddings give logits in the
     # hundreds, where bf16 rounding alone moves the loss by percents
-    step_fn = make_clip_train_step(norm_embed=True)
+    step_fn = (make_retrieval_train_step(norm_embed=True) if retrieval
+               else make_clip_train_step(norm_embed=True))
     losses, grads, counts = [], [], []
     with plain_path() if plain else nullcontext():
         for _ in range(steps):
@@ -1052,6 +1225,87 @@ def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
     per_step = _step_launches(m, remat="--use-checkpoint" in flags)
     check(counts == {k: steps * n for k, n in per_step.items()},
           f"pretrain CLI {name} launches {counts} for {steps} steps")
+    return counts
+
+
+def phase_finetune_step() -> None:
+    """The retrieval fine-tune's step on BASE at 16 frames (adaptive
+    max-margin with relevancy weights, logit_scale frozen): 2 fp32 steps,
+    kernel path against plain path from the same weights and batch, held
+    to the pretraining step's limits; then bf16 clips/s and peak memory
+    at batch 8, kernels/plain/plain/kernels."""
+    from lavila_tpu_torch.train.freeze import logit_scale_only
+    from lavila_tpu_torch.train.step import make_retrieval_train_step
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    base = _clip_model(MODEL, num_frames=16)
+    batch = _train_batch(4, gen, MODEL["img"], 16)
+    k_run = _run_steps(base, torch.float32, batch, False, retrieval=True)
+    p_run = _run_steps(base, torch.float32, batch, True, retrieval=True)
+    res = _compare_steps(k_run, p_run)
+    emit("finetune_step", model=MODEL["name"], dtype="float32", batch=4,
+         frames=16, steps=2, loss="adaptive_max_margin",
+         loss_kernels=k_run[0], loss_plain=p_run[0],
+         launches_per_step=k_run[2], **res)
+    check(all(math.isfinite(x) for x in k_run[0] + p_run[0])
+          and res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
+          f"fine-tune step fp32 kernels vs plain: {res}")
+    want = _step_launches(MODEL)
+    check(all(c == want for c in k_run[2]),
+          f"fine-tune step launches {k_run[2]}, want {want}")
+    del k_run, p_run
+    state = _make_state(base.train(), torch.bfloat16, frozen=logit_scale_only)
+    step_fn = make_retrieval_train_step(norm_embed=True)
+    data = _train_batch(8, gen, MODEL["img"], 16)
+    rates, peaks = {}, {}
+    for path in ("kernels", "plain", "plain", "kernels"):
+        with plain_path() if path == "plain" else nullcontext():
+            rate, peak = _time_steps(state, step_fn, data, 5)
+        rates.setdefault(path, []).append(rate)
+        peaks.setdefault(path, []).append(peak)
+    emit("train_throughput", what="retrieval fine-tune step clips/s",
+         model=MODEL["name"], dtype="bfloat16", batch=8, frames=16, iters=5,
+         loss="adaptive_max_margin", order="kernels, plain, plain, kernels",
+         clips_per_s=rates, peak_memory_gib=peaks)
+
+
+def phase_finetune_cli(m) -> dict:
+    """The port's retrieval fine-tune CLI for 3 steps (``m`` at 16
+    frames, bf16, batch 8, adaptive max-margin, synthetic data): a finite
+    loss, logit_scale bit-equal to its initial log(1/0.07). Returns the
+    launch counts of the run, the fine-tune path's."""
+    import tempfile
+
+    from lavila_tpu_torch.cli import main_finetune_retrieval as cli
+    steps = 3
+    with tempfile.TemporaryDirectory() as out:
+        args = cli.get_args_parser().parse_args(
+            ["--dataset", "synthetic", "--model", m["name"],
+             "--clip-length", "16", "--batch-size", "8", "--steps",
+             str(steps), "--bf16", "--workers", "4", "--print-freq", "1",
+             "--device", DEVICE, "--output-dir", out])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(os.path.join(out, "log.txt")) as f:
+            log = json.loads(f.readlines()[-1])
+        files = sorted(os.listdir(out))
+    scale = state.params["logit_scale"].detach().cpu()
+    frozen = torch.equal(scale, torch.tensor(math.log(1 / 0.07)))
+    emit("finetune_cli", model=m["name"], dtype="bfloat16", batch=8,
+         frames=16, steps=steps, loss="adaptive_max_margin",
+         seconds=seconds, train_loss=log["train_loss"],
+         logit_scale=scale.item(), logit_scale_unchanged=frozen,
+         files=files, launches=counts)
+    check(math.isfinite(log["train_loss"]) and state.step == steps,
+          f"fine-tune CLI: loss {log['train_loss']}, {state.step} steps")
+    check(frozen, f"fine-tune CLI moved logit_scale to {scale.item()}")
+    check("checkpoint_latest.pt" in files, f"fine-tune CLI wrote {files}")
+    check(counts == {k: steps * n for k, n in _step_launches(m).items()},
+          f"fine-tune CLI launches {counts} for {steps} steps")
+    del state
     return counts
 
 
@@ -1370,6 +1624,17 @@ KERNELS = [
     ("K9", "decode_attention", "cuda",
      "lavila_tpu_torch/csrc/decode_attention.cu",
      "lavila_tpu/ops/pallas/decode_attention.py:43"),
+    ("K7", "flash_attention", "cuda",
+     "lavila_tpu_torch/csrc/flash_attention.cu",
+     "lavila_tpu/ops/pallas/flash_attention.py:33"),
+    ("K8 fwd", "flash_fwd", "cuda", "lavila_tpu_torch/csrc/flash_attention.cu",
+     "lavila_tpu/ops/pallas/flash_attention.py:159"),
+    ("K8 dq", "flash_bwd_dq", "cuda",
+     "lavila_tpu_torch/csrc/flash_attention.cu",
+     "lavila_tpu/ops/pallas/flash_attention.py:204"),
+    ("K8 dkv", "flash_bwd_dkv", "cuda",
+     "lavila_tpu_torch/csrc/flash_attention.cu",
+     "lavila_tpu/ops/pallas/flash_attention.py:242"),
 ]
 
 # the phases in order; a path phase returns its run's launch counts
@@ -1380,6 +1645,8 @@ PHASES = (
     ("cli", lambda: phase_cli(MODEL)),
     ("train_step", phase_train_step),
     ("pretrain_cli", lambda: phase_pretrain_cli(MODEL, 5, 16)),
+    ("finetune_step", phase_finetune_step),
+    ("finetune_cli", lambda: phase_finetune_cli(MODEL)),
     ("narrator", lambda: phase_narrator(NARRATOR)),
     ("infer_narrator_cli", lambda: phase_infer_narrator_cli(NARRATOR)),
     ("large_model", lambda: phase_model(LARGE)),
@@ -1391,8 +1658,9 @@ PHASES = (
     ("flagship_infer_narrator_cli",
      lambda: phase_infer_narrator_cli(FLAGSHIP)),
 )
-PATH_PHASES = ("cli", "pretrain_cli", "infer_narrator_cli", "large_cli",
-               "large_pretrain_cli", "flagship_infer_narrator_cli")
+PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "infer_narrator_cli",
+               "large_cli", "large_pretrain_cli",
+               "flagship_infer_narrator_cli")
 
 
 def main() -> int:

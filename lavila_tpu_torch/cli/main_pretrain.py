@@ -42,6 +42,8 @@ from lavila_tpu_torch.data.datasets import DatasetConfig, get_dataset
 from lavila_tpu_torch.data.loader import DataLoader, device_prefetch
 from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.models import build_model
+from lavila_tpu_torch.train.freeze import (build_freeze_predicate,
+                                           freeze_by_predicate)
 from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
 from lavila_tpu_torch.train.step import TrainState, make_clip_train_step
 from lavila_tpu_torch.utils.checkpoints import (CheckpointManager,
@@ -68,14 +70,15 @@ _NOT_PORTED = (
     (lambda c: c.mesh_data not in (-1, 1), "--mesh-data > 1", "slice 5"),
     (lambda c: c.use_checkpoint and c.remat_policy != "full",
      "--remat-policy other than full (remat)", "item 4"),
-    (lambda c: any([c.freeze_temperature, c.timesformer_freeze_space,
-                    c.freeze_visual_vclm, c.freeze_visual_vclm_temporal,
-                    c.freeze_lm_vclm, c.freeze_pseudo_temperature]),
-     "the --freeze-* flags", "slice 4"),
+    (lambda c: any([c.freeze_visual_vclm, c.freeze_visual_vclm_temporal,
+                    c.freeze_lm_vclm]),
+     "the VCLM --freeze-* flags (the narrator's training)",
+     "slice 3 leftovers"),
+    (lambda c: c.freeze_pseudo_temperature,
+     "--freeze-pseudo-temperature (the SSL loss)", "slice 4"),
     (lambda c: c.val_metadata is not None,
      "--val-metadata (the in-training probe)", "slice 2 leftovers"),
     (lambda c: c.wandb, "--wandb", "slice 2 leftovers"),
-    (lambda c: c.update_freq > 1, "--update-freq > 1", "slice 2 leftovers"),
     (lambda c: c.timesformer_gated_xattn, "--timesformer-gated-xattn",
      "slice 4"),
 )
@@ -99,13 +102,19 @@ def build_dataset(cfg, tokenizer, train_transform):
                        seed=cfg.seed)
 
 
-def make_place(device: torch.device):
-    """Host batch → device tensors: pinned memory and a non-blocking
-    copy on CUDA, so the copy of batch N+1 overlaps step N."""
+# the batch entries a train step reads, and their dtypes on the device
+BATCH_DTYPES = {"frames": torch.float32, "text": torch.long,
+                "relevancy": torch.float32}
+
+
+def make_place(device: torch.device, keys=("frames", "text")):
+    """Host batch → device tensors of ``keys``: pinned memory and a
+    non-blocking copy on CUDA, so the copy of batch N+1 overlaps step N."""
     def place(batch):
         out = {}
-        for key, dtype in (("frames", torch.float32), ("text", torch.long)):
-            t = torch.from_numpy(np.asarray(batch[key])).to(dtype)
+        for key in keys:
+            t = torch.from_numpy(np.asarray(batch[key])).to(
+                BATCH_DTYPES[key])
             if device.type == "cuda":
                 t = t.pin_memory()
             out[key] = t.to(device, non_blocking=True)
@@ -134,7 +143,7 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     loader = DataLoader(dataset, cfg.batch_size, shuffle=True,
                         num_workers=cfg.workers, drop_last=True,
                         seed=cfg.seed)
-    iters_per_epoch = max(len(loader), 1)
+    iters_per_epoch = max(len(loader) // cfg.update_freq, 1)
     print(f"=> dataset {cfg.dataset}: {len(dataset)} samples, "
           f"{iters_per_epoch} optim iters/epoch")
 
@@ -143,9 +152,15 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         warmup_epochs=cfg.warmup_epochs, start_warmup_lr=cfg.lr_start))
     clip = (None if cfg.clip_grad_value is None
             else float(cfg.clip_grad_value))
+    # --freeze-temperature and --timesformer-freeze-space leave their
+    # parameters out of the optimizer (train/freeze.py)
+    frozen = build_freeze_predicate(
+        freeze_temperature=cfg.freeze_temperature,
+        timesformer_freeze_space=cfg.timesformer_freeze_space)
     state = TrainState.create(
         model, lambda params: make_optimizer(
-            params, schedule, weight_decay=cfg.wd, betas=cfg.betas,
+            freeze_by_predicate(params, frozen), schedule,
+            weight_decay=cfg.wd, betas=cfg.betas,
             eps=cfg.eps, clip_grad_value=clip,
             clip_grad_type=cfg.clip_grad_type,
             update_freq=cfg.update_freq),

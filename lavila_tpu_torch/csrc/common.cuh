@@ -1,7 +1,9 @@
-// Helpers shared by the divided-attention kernels (divided_fwd.cu,
-// divided_bwd.cu, divided_big.cu): fp32/bf16 conversion, warp and quad
-// reductions, the tensor-core product, and the two small passes of the
-// backward kernels (delta and the fixed-order sum of per-group partials).
+// Helpers shared by the attention kernels (divided_fwd.cu,
+// divided_bwd.cu, divided_big.cu, flash_attention.cu): fp32/bf16
+// conversion, warp and quad reductions, the tensor-core product, cp.async
+// and the head_dim-64 fragment helpers of the 64-key-tile kernels, and the
+// two small passes of the divided backward kernels (delta and the
+// fixed-order sum of per-group partials).
 
 #pragma once
 
@@ -74,6 +76,124 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// ---- cp.async: 16 bytes global -> shared without passing through
+// registers
+
+// zeros when !valid (src is then not read, but must be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group (the newest) is still in flight
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// ---- a warp's 16 rows x 64 dims (head_dim 64) on mma.sync: fragments
+// of row-major [row][d] operands, tiles in shared memory with rows padded
+// by 8 bf16 (144 bytes) so that fragment loads hit 32 distinct banks.
+// Used by the 64-key-tile kernels (divided_big.cu, flash_attention.cu).
+namespace d64 {
+
+constexpr int kD = 64;
+constexpr int kRow = kD + 8;     // bf16 per smem row
+constexpr int kChunks = kD / 8;  // 16-byte chunks per row
+
+// The A fragments of a warp's 16 rows x 64 dims: x0 and x1 point at this
+// lane's rows g and g + 8 (head slice included); a row that is not `ok`
+// reads as zeros.
+__device__ __forceinline__ void load_rows(unsigned (&a)[kD / 16][4],
+                                          const __nv_bfloat16* x0,
+                                          const __nv_bfloat16* x1, bool ok0,
+                                          bool ok1, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    a[kk][0] = ok0 ? ld32(x0 + c) : 0u;
+    a[kk][1] = ok1 ? ld32(x1 + c) : 0u;
+    a[kk][2] = ok0 ? ld32(x0 + c + 8) : 0u;
+    a[kk][3] = ok1 ? ld32(x1 + c + 8) : 0u;
+  }
+}
+
+// B fragments of the product with a row-major [k][n] tile (rows k0..k0+15
+// of `tile`): for the 8-column blocks 2p and 2p+1, b[0..1] and b[2..3],
+// transposed on the way by ldmatrix.
+__device__ __forceinline__ void ldsm_b_pair(unsigned (&b)[4],
+                                            const __nv_bfloat16* tile, int k0,
+                                            int p, int lane) {
+  const __nv_bfloat16* src = tile +
+                             (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow +
+                             p * 16 + (lane >> 4) * 8;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(a));
+}
+
+// acc[16 rows x 64] += A (16 x 16, fragments a) * tile rows k0..k0+15
+__device__ __forceinline__ void mma_rows(float (&acc)[kD / 8][4],
+                                         const unsigned (&a)[4],
+                                         const __nv_bfloat16* tile, int k0,
+                                         int lane) {
+#pragma unroll
+  for (int p = 0; p < kD / 16; ++p) {
+    unsigned b[4];
+    ldsm_b_pair(b, tile, k0, p, lane);
+    mma_16816(acc[2 * p], a, b[0], b[1]);
+    mma_16816(acc[2 * p + 1], a, b[2], b[3]);
+  }
+}
+
+// S (16 rows x 8 columns) = A rows (fragments a, 64 dims) . rows r of a
+// [row][d] tile, r = 8*nt + g for this lane
+__device__ __forceinline__ void mma_scores(float (&s)[4],
+                                           const unsigned (&a)[kD / 16][4],
+                                           const __nv_bfloat16* tile, int nt,
+                                           int g, int t) {
+  s[0] = s[1] = s[2] = s[3] = 0.f;
+  const __nv_bfloat16* r = tile + (nt * 8 + g) * kRow + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    mma_16816(s, a[kk], ld32(r + kk * 16), ld32(r + kk * 16 + 8));
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kD / 8][4]) {
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn)
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+}
+
+// Store a warp's 16 x 64 result (rows r0 = this lane's g and r0 + 8) as
+// bf16 pairs, times mul0/mul1, rows that are not `ok` skipped.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* y0,
+                                           __nv_bfloat16* y1, bool ok0,
+                                           bool ok1,
+                                           const float (&acc)[kD / 8][4],
+                                           float mul0, float mul1, int t) {
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+    const int c = dn * 8 + 2 * t;
+    if (ok0)
+      *reinterpret_cast<unsigned*>(y0 + c) =
+          pack_bf16(acc[dn][0] * mul0, acc[dn][1] * mul0);
+    if (ok1)
+      *reinterpret_cast<unsigned*>(y1 + c) =
+          pack_bf16(acc[dn][2] * mul1, acc[dn][3] * mul1);
+  }
+}
+
+}  // namespace d64
 
 // The tensor-core kernels move bf16 pairs: every pointer 4-byte aligned
 // and every row stride even.

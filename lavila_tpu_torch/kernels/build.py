@@ -33,6 +33,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # argtypes of each C entry point; ctypes would cut an undeclared pointer
 # to 32 bits
 _FWD = ([_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int)
+# B, H, Lq, Lk, d, the q/k/v row strides, scale, causal, dtype, stream
+_FLASH_TAIL = [_I] * 5 + [_LL] * 3 + [_F, _I, _I, _P]
 _SPACE_BWD = ([_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int)
 _SIGNATURES = {
     "lavila_divided_space_fwd": _FWD,
@@ -44,6 +46,10 @@ _SIGNATURES = {
         [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
     "lavila_decode_attention": (
         [_P] * 6 + [_I] * 4 + [_LL] * 3 + [_F, _I, _P], ctypes.c_int),
+    "lavila_flash_attention": ([_P] * 4 + _FLASH_TAIL, ctypes.c_int),
+    "lavila_flash_fwd": ([_P] * 5 + _FLASH_TAIL, ctypes.c_int),
+    "lavila_flash_bwd_dq": ([_P] * 8 + _FLASH_TAIL, ctypes.c_int),
+    "lavila_flash_bwd_dkv": ([_P] * 8 + _FLASH_TAIL, ctypes.c_int),
 }
 
 # set by the build in this process: its wall time and nvcc's output
@@ -117,6 +123,25 @@ def library() -> ctypes.CDLL:
 def _raise_if_failed(cmd: list[str], code: int, log: str) -> None:
     if code != 0:
         raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
+
+
+def row_stride(t: torch.Tensor, name: str) -> int:
+    """Row stride of a tensor whose last dim is a row, (..., D), with
+    the rows evenly spaced and a unit stride inside the row (a column
+    block of a wider tensor passes); raise otherwise."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name}: last dim must have stride 1")
+    sized = [i for i in range(t.dim() - 1) if t.shape[i] > 1]
+    rs = t.stride(sized[-1]) if sized else t.shape[-1]
+    rows_inside = 1  # rows spanned by one step of leading dim i
+    for i in range(t.dim() - 2, -1, -1):
+        if t.shape[i] > 1 and t.stride(i) != rows_inside * rs:
+            raise ValueError(f"{name}: rows are not evenly strided "
+                             f"(shape {tuple(t.shape)}, stride {t.stride()})")
+        rows_inside *= t.shape[i]
+    if rs < t.shape[-1]:
+        raise ValueError(f"{name}: rows overlap")
+    return rs
 
 
 def check(err: int, what: str) -> None:

@@ -118,24 +118,6 @@ def divided_phase_bwd_reference(qp, kp, vp, ck, cv, do, out, lse,
             dvg[:, :, 0].sum(1).reshape(B, D).to(cv.dtype))
 
 
-def _row_stride(t: torch.Tensor, name: str) -> int:
-    """Row stride of a (B, F, N, D) or (B, D) tensor whose rows are
-    evenly spaced with a unit stride inside the row; raise otherwise."""
-    if t.stride(-1) != 1 and t.shape[-1] > 1:
-        raise ValueError(f"{name}: last dim must have stride 1")
-    sized = [i for i in range(t.dim() - 1) if t.shape[i] > 1]
-    rs = t.stride(sized[-1]) if sized else t.shape[-1]
-    rows_inside = 1  # rows spanned by one step of leading dim i
-    for i in range(t.dim() - 2, -1, -1):
-        if t.shape[i] > 1 and t.stride(i) != rows_inside * rs:
-            raise ValueError(f"{name}: rows are not evenly strided "
-                             f"(shape {tuple(t.shape)}, stride {t.stride()})")
-        rows_inside *= t.shape[i]
-    if rs < t.shape[-1]:
-        raise ValueError(f"{name}: rows overlap")
-    return rs
-
-
 def _check(qp, kp, vp, ck, cv, axis, heads):
     if axis not in ("space", "time"):
         raise ValueError(f"axis must be 'space' or 'time', got {axis!r}")
@@ -176,7 +158,7 @@ def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
         raise ValueError(f"no divided-attention kernel for {qp.device}")
     name = _kernel_name(qp, axis, heads)
     B, F, N, D = qp.shape
-    strides = [_row_stride(t, n) for t, n in
+    strides = [build.row_stride(t, n) for t, n in
                ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
     fn = getattr(build.library(), f"lavila_divided_{name}_fwd")
     out = torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
@@ -220,7 +202,7 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     if not (do.is_contiguous() and out.is_contiguous()
             and lse.is_contiguous()):
         raise ValueError("do/out/lse must be contiguous")
-    strides = [_row_stride(t, n) for t, n in
+    strides = [build.row_stride(t, n) for t, n in
                ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
     fn = getattr(build.library(), f"lavila_divided_{name}_bwd")
     grads = [torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)

@@ -7,8 +7,10 @@ in_proj_weight``, ``.ln_1``, ``.mlp.c_fc``, ``token_embedding``,
 ``positional_embedding``, ``ln_final`` and ``text_projection``.
 
 Causal self-attention over ``(B, L, D)`` without the reference's
-NLD↔LND permutes, pre-LN residual blocks with QuickGELU, and EOT pooling
-at ``argmax(text)`` (the EOT token has the largest id in CLIP's vocab).
+NLD↔LND permutes (q/k/v are views of the packed in_proj output, handed
+to the flash kernels K7/K8 without copies), pre-LN residual blocks with
+QuickGELU, and EOT pooling at ``argmax(text)`` (the EOT token has the
+largest id in CLIP's vocab).
 The CLIP image tower (``VisionTransformer``) belongs to a later slice.
 """
 
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from lavila_tpu_torch.ops.attention import attention, causal_mask
+from lavila_tpu_torch.ops.attention import causal_attention
 from lavila_tpu_torch.ops.basic import (LayerNorm, init_linear_,
                                         lecun_normal_, quick_gelu)
 
@@ -34,12 +36,13 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, x, mask=None):
+    def forward(self, x):
+        """Causal self-attention of ``x`` ``(B, L, D)``."""
         B, L, D = x.shape
         H = self.num_heads
         q, k, v = (t.reshape(B, L, H, D // H) for t in F.linear(
             x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1))
-        return self.out_proj(attention(q, k, v, mask).reshape(B, L, D))
+        return self.out_proj(causal_attention(q, k, v).reshape(B, L, D))
 
 
 class ClipMlp(nn.Module):
@@ -62,8 +65,8 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(dim)
         self.mlp = ClipMlp(dim, 4 * dim)
 
-    def forward(self, x, mask=None):
-        x = x + self.attn(self.ln_1(x), mask)
+    def forward(self, x):
+        x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 
 
@@ -73,9 +76,10 @@ class Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads) for _ in range(layers))
 
-    def forward(self, x, mask=None):
+    def forward(self, x):
+        """The blocks over ``x`` ``(B, L, D)``, each causal."""
         for blk in self.resblocks:
-            x = blk(x, mask)
+            x = blk(x)
         return x
 
 
@@ -109,7 +113,7 @@ def encode_text(tower: nn.Module, text: torch.Tensor) -> torch.Tensor:
     modules at its top level, as the reference checkpoints name them."""
     L = text.shape[1]
     x = tower.token_embedding(text) + tower.positional_embedding[:L]
-    x = tower.transformer(x, causal_mask(L, device=x.device))
+    x = tower.transformer(x)
     x = tower.ln_final(x)
     x = x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
     return x @ tower.text_projection

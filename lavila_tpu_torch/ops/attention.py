@@ -4,9 +4,13 @@ Counterpart of ``lavila_tpu/ops/attention.py``, with one formulation per
 piece and none of the TPU layout variants:
 
   * :func:`attention`: multi-head attention over ``(B, L, H, d)`` with an
-    additive mask and fp32 scores and softmax (the text tower's causal
-    self-attention).
-  * :func:`causal_mask`: the additive ``(1, 1, L, L)`` causal bias.
+    additive mask and fp32 scores and softmax (GPT-2's self- and
+    cross-attention).
+  * :func:`causal_attention`: causal multi-head self-attention over
+    ``(B, L, H, d)`` views (the CLIP text tower's), through
+    :func:`kernels.flash.flash_attention`, its single dispatch site: K8
+    when autograd needs the gradient, K7 otherwise, on a CUDA tensor;
+    their plain versions on a CPU tensor.
   * :func:`cls_row_attention`: the CLS token's global attention row over
     ``[itself; all F·N patches]``. The JAX package writes it in XLA ops,
     not Pallas, so it is plain PyTorch here too, and autograd gives its
@@ -25,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from lavila_tpu_torch.kernels.divided import divided_phase
+from lavila_tpu_torch.kernels.flash import flash_attention
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,13 +45,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def causal_mask(length: int, device=None) -> torch.Tensor:
-    """Additive causal mask ``(1, 1, L, L)``: 0 on and below the diagonal,
-    the most negative fp32 value above it (as the JAX package)."""
-    neg = torch.finfo(torch.float32).min
-    m = torch.full((length, length), neg, dtype=torch.float32,
-                   device=device).triu(1)
-    return m[None, None]
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Causal multi-head self-attention over ``(B, L, H, d)`` views (row
+    views of one packed qkv projection pass), scaled by ``d ** -0.5``:
+    query i attends keys 0..i, as the JAX package's additive mask of
+    fp32's lowest value above the diagonal. Returns ``(B, L, H, d)``."""
+    return flash_attention(q, k, v, causal=True)
 
 
 def cls_row_attention(cls_q, cls_k, cls_v, kp, vp):

@@ -10,9 +10,16 @@ in place of the optax chain:
     first update uses ``schedule(0)``;
   * optional clipping, by global norm with optax's formula
     ``g·c / max(‖g‖, c)`` or by value;
+  * gradient accumulation (``update_freq`` k > 1) with
+    ``optax.MultiSteps``' semantics: the gradients of k micro-steps
+    averaged (its running mean), then one clipped update and one schedule
+    step every k;
   * :func:`clamp_logit_scale` after each update.
 
-SGD and gradient accumulation (``update_freq > 1``) are not ported yet.
+Frozen parameters (``train/freeze.py``) are left out of the optimizer
+altogether: no update, no weight decay, no share in the clipping norm,
+as ``optax.multi_transform`` with ``set_to_zero`` leaves them. SGD is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -66,14 +73,23 @@ def clamp_logit_scale(named_params: Iterable) -> None:
 
 class Optimizer:
     """Clipping, then AdamW at the scheduled rate: one :meth:`step` is
-    one optax update of the JAX chain. ``adamw``/``scheduler`` are the
-    torch objects; :meth:`state_dict` holds both."""
+    one optax update of the JAX chain (with ``update_freq`` k > 1, one
+    micro-step of ``optax.MultiSteps``: k of them make one update).
+    ``adamw``/``scheduler`` are the torch objects; :meth:`state_dict`
+    holds both, and the running mean of the gradients when k > 1."""
 
     def __init__(self, named_params, lr: float | Callable[[int], float],
                  weight_decay: float, betas, eps: float,
-                 clip_grad_value: float | None, clip_grad_type: str):
+                 clip_grad_value: float | None, clip_grad_type: str,
+                 update_freq: int = 1):
         named = list(named_params)
         self.params = [p for _, p in named]
+        self.update_freq = update_freq
+        # MultiSteps' running mean of the micro-steps' gradients, and how
+        # many it holds
+        self.mean_grads = ([torch.zeros_like(p) for p in self.params]
+                           if update_freq > 1 else [])
+        self.micro_step = 0
         decay = wd_mask(named)
         groups = [{"params": [p for n, p in named if decay[n]],
                    "weight_decay": weight_decay},
@@ -102,19 +118,49 @@ class Optimizer:
         for g in grads:
             g.mul_(factor.to(g.dtype))
 
+    @torch.no_grad()
+    def _accumulate(self) -> bool:
+        """Fold this micro-step's gradients into the running mean (as
+        MultiSteps: ``acc + (g - acc) / (n + 1)``); on the k-th, hand the
+        mean to the update as the gradients and restart. Returns whether
+        an update is due."""
+        n = self.micro_step
+        for p, acc in zip(self.params, self.mean_grads):
+            acc.add_((p.grad - acc) / (n + 1))
+        self.micro_step = (n + 1) % self.update_freq
+        if self.micro_step:
+            return False
+        for p, acc in zip(self.params, self.mean_grads):
+            p.grad = acc.clone()
+            acc.zero_()
+        return True
+
     def step(self) -> None:
+        if self.update_freq > 1 and not self._accumulate():
+            return
         if self.clip_grad_value is not None:
             self._clip()
         self.adamw.step()
         self.scheduler.step()
 
     def state_dict(self) -> dict:
-        return {"optimizer": self.adamw.state_dict(),
-                "scheduler": self.scheduler.state_dict()}
+        state = {"optimizer": self.adamw.state_dict(),
+                 "scheduler": self.scheduler.state_dict()}
+        if self.update_freq > 1:
+            state["accumulate"] = {"micro_step": self.micro_step,
+                                   "mean_grads": [a.clone()
+                                                  for a in self.mean_grads]}
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         self.adamw.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
+        if self.update_freq > 1:
+            acc = state["accumulate"]
+            self.micro_step = int(acc["micro_step"])
+            with torch.no_grad():
+                for a, saved in zip(self.mean_grads, acc["mean_grads"]):
+                    a.copy_(saved)
 
 
 def make_optimizer(named_params, lr: float | Callable[[int], float],
@@ -124,14 +170,15 @@ def make_optimizer(named_params, lr: float | Callable[[int], float],
                    clip_grad_type: str = "norm", update_freq: int = 1,
                    use_sgd: bool = False) -> Optimizer:
     """AdamW over ``named_params`` ((name, tensor) pairs), as the JAX
-    package's ``make_optimizer``."""
+    package's ``make_optimizer``; pass the pairs through
+    ``train.freeze.freeze_by_predicate`` to freeze some."""
     if clip_grad_type not in ("norm", "value"):
         raise ValueError(clip_grad_type)
     if use_sgd:
-        raise NotImplementedError("SGD is not ported yet: ROADMAP queue 1")
-    if update_freq > 1:
         raise NotImplementedError(
-            "gradient accumulation (--update-freq > 1) is not ported yet: "
-            "ROADMAP queue 1")
+            "SGD (--use-sgd) is not ported yet: ROADMAP queue 1, the "
+            "classification fine-tune")
+    if update_freq < 1:
+        raise ValueError(f"update_freq must be >= 1, got {update_freq}")
     return Optimizer(named_params, lr, weight_decay, betas, eps,
-                     clip_grad_value, clip_grad_type)
+                     clip_grad_value, clip_grad_type, update_freq)

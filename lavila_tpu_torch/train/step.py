@@ -1,8 +1,9 @@
-"""The dual-encoder pretraining step.
+"""The dual encoder's train steps: pretraining and retrieval fine-tuning.
 
 Counterpart of ``lavila_tpu/train/step.py`` (``TrainState``,
-``make_clip_train_step``) on one device. JAX's step is a pure function
-of an immutable state; here the step updates the state in place (the
+``make_clip_train_step``, ``make_retrieval_train_step``) on one device.
+JAX's step is a pure function of an immutable state; here the step
+updates the state in place (the
 parameters, the optimizer's moments, the step count) and returns it, so
 no second copy of the model or its moments is ever held.
 
@@ -88,18 +89,19 @@ class TrainState:
 
     def state_dict(self) -> dict:
         """What a checkpoint holds: the fp32 masters under the model's
-        parameter names, the optimizer and schedule states, the step."""
+        parameter names, the optimizer and schedule states (and the
+        running mean of the gradients under ``update_freq`` > 1), the
+        step."""
         opt = self.optimizer.state_dict()
         return {"state_dict": {k: p.detach() for k, p in self.params.items()},
-                "optimizer": opt["optimizer"],
-                "scheduler": opt["scheduler"], "step": self.step}
+                **opt, "step": self.step}
 
     @torch.no_grad()
     def load_state_dict(self, ckpt: dict) -> None:
         for k, p in self.params.items():
             p.copy_(ckpt["state_dict"][k])
-        self.optimizer.load_state_dict({"optimizer": ckpt["optimizer"],
-                                        "scheduler": ckpt["scheduler"]})
+        self.optimizer.load_state_dict(
+            {k: v for k, v in ckpt.items() if k not in ("state_dict", "step")})
         self.step = int(ckpt["step"])
         self._copy_masters()
 
@@ -129,24 +131,71 @@ def make_clip_train_step(norm_embed: bool = False,
             "the local loss over a mesh is ROADMAP queue 1, slice 5")
 
     def train_step(state: TrainState, batch: dict):
-        model = state.model
-        for p in model.parameters():
-            p.grad = None
-        out = model(batch["frames"], batch["text"], norm_embed=norm_embed,
-                    generator=state.generator)
+        out = _forward(state, batch, norm_embed)
         metrics = loss_fn(out["image_embed"], out["text_embed"],
                           out["logit_scale"])
         metrics["loss"].backward()
-        for name, p in model.named_parameters():
-            master = state.params[name]
-            # a parameter the loss did not reach still decays, as in optax
-            master.grad = (torch.zeros_like(master) if p.grad is None
-                           else p.grad.float() if state.has_copy
-                           else p.grad)
-        state.optimizer.step()
-        clamp_logit_scale(state.params.items())
-        state._copy_masters()
-        state.step += 1
+        _update(state)
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def _forward(state: TrainState, batch: dict, norm_embed: bool) -> dict:
+    """The working copy's forward on ``batch``, its gradients cleared."""
+    model = state.model
+    for p in model.parameters():
+        p.grad = None
+    return model(batch["frames"], batch["text"], norm_embed=norm_embed,
+                 generator=state.generator)
+
+
+def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:
+    """After backward: the working copy's gradients (those named in
+    ``zero`` zeroed) onto the fp32 masters, the optimizer's update,
+    ``logit_scale`` clamped, the masters copied back, ``step += 1``."""
+    for name, p in state.model.named_parameters():
+        master = state.params[name]
+        # a parameter the loss did not reach still decays, as in optax
+        master.grad = (torch.zeros_like(master)
+                       if p.grad is None or name in zero
+                       else p.grad.float() if state.has_copy else p.grad)
+    state.optimizer.step()
+    clamp_logit_scale(state.params.items())
+    state._copy_masters()
+    state.step += 1
+
+
+RETRIEVAL_LOSSES = ("clip", "max_margin", "adaptive_max_margin")
+
+
+def make_retrieval_train_step(loss_type: str = "adaptive_max_margin",
+                              margin: float = 0.4, norm_embed: bool = False):
+    """The retrieval fine-tune's step (reference
+    main_finetune_retrieval.py:131-160): the max-margin ranking loss over
+    the batch, with the EK-100 relevancy (``batch["relevancy"]``, per
+    clip) scaling the margin under ``adaptive_max_margin``, or the CLIP
+    loss (CharadesEgo). ``logit_scale``'s gradient is always zeroed, as
+    the reference freezes it (reference line 142). Returns
+    ``train_step(state, batch) -> (state, metrics)``, as
+    :func:`make_clip_train_step`."""
+    if loss_type not in RETRIEVAL_LOSSES:
+        raise ValueError(f"loss_type must be one of {RETRIEVAL_LOSSES}, "
+                         f"got {loss_type!r}")
+
+    def train_step(state: TrainState, batch: dict):
+        out = _forward(state, batch, norm_embed)
+        if loss_type == "clip":
+            metrics = losses.clip_loss(out["image_embed"], out["text_embed"],
+                                       out["logit_scale"])
+        else:
+            weights = (batch.get("relevancy")
+                       if loss_type == "adaptive_max_margin" else None)
+            metrics = losses.max_margin_loss(
+                out["image_embed"], out["text_embed"], margin=margin,
+                weights=weights)
+        metrics["loss"].backward()
+        _update(state, zero=("logit_scale",))
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step

@@ -15,6 +15,10 @@ and times it on the card (CUDA events):
     no single fused one); backward: ``torch.autograd.grad`` of the pair.
   * K9: ``F.scaled_dot_product_attention`` of a ``(B, H, 1, d)`` query
     over the ``num_valid`` cache rows with the current token appended.
+  * K7 and K8 forward: ``F.scaled_dot_product_attention(q, k, v,
+    is_causal=...)`` on head-major ``(B, H, L, d)`` copies of the
+    token-major inputs (made once, outside the timed call); K8's
+    backward (dq and dk/dv together): ``torch.autograd.grad`` of it.
 
 The port never calls these: ``chip_smoke.py`` imports the builders below
 to report ``library_ms`` beside each kernel, and run alone the script
@@ -139,6 +143,29 @@ def decode_call(q, k_cache, v_cache, k_new, v_new, num_valid: int,
     return lambda: F.scaled_dot_product_attention(qh, k, v)
 
 
+def _heads_major(t):
+    """(B, L, H, d) → a contiguous (B, H, L, d) copy."""
+    return t.transpose(1, 2).contiguous()
+
+
+def flash_fwd_call(q, k, v, causal: bool):
+    """K7 / K8 forward as one SDPA call (the causal mask as its
+    ``is_causal``: equal lengths, the same absolute mask)."""
+    qh, kh, vh = map(_heads_major, (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal)
+
+
+def flash_bwd_call(q, k, v, do, causal: bool):
+    """K8's backward: the gradient of that SDPA call for ``do``."""
+    qh, kh, vh = (_heads_major(t).requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    g = _heads_major(do)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), g,
+                                       retain_graph=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write the lines here")
@@ -203,6 +230,22 @@ def main(argv=None) -> int:
                               "num_valid": nv, "dtype": name,
                               "library_ms": time_ms(decode_call(
                                   q, kc, vc, kn, vn, nv, H))})
+        # the CLIP text towers' causal attention (TSF-B: 8 heads, TSF-L:
+        # 12) at 16 and 256 captions, and an uneven non-causal case
+        for B, H, Lq, Lk, causal in ((16, 8, 77, 77, True),
+                                     (256, 8, 77, 77, True),
+                                     (16, 12, 77, 77, True),
+                                     (2, 3, 130, 260, False)):
+            q, do = rand(B, Lq, H, 64, dtype=dtype), rand(B, Lq, H, 64,
+                                                           dtype=dtype)
+            k, v = (rand(B, Lk, H, 64, dtype=dtype) for _ in range(2))
+            shape = [B, H, Lq, Lk, 64]
+            lines.append({"kernel": "K7/K8 fwd", "shape": shape,
+                          "causal": causal, "dtype": name, "library_ms":
+                          time_ms(flash_fwd_call(q, k, v, causal))})
+            lines.append({"kernel": "K8 bwd", "shape": shape,
+                          "causal": causal, "dtype": name, "library_ms":
+                          time_ms(flash_bwd_call(q, k, v, do, causal))})
     for line in lines:
         print(json.dumps({"device": smi, **line}), flush=True)
     if args.out:

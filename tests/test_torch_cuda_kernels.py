@@ -11,6 +11,7 @@ import torch
 
 from lavila_tpu_torch.kernels import decode as KDec
 from lavila_tpu_torch.kernels import divided as KD
+from lavila_tpu_torch.kernels import flash as KF
 from lavila_tpu_torch.kernels import layernorm as KL
 
 pytestmark = pytest.mark.cuda
@@ -359,3 +360,97 @@ def test_decode_attention_kernel_raises(gen):
     with pytest.raises(TypeError, match="float32/bfloat16"):
         KDec.decode_attention(q.half(), kc.half(), kc.half(), q.half(),
                               q.half(), 3, 2)
+
+
+def _qkv_views(gen, B, Lq, Lk, H, d, dtype, pad=0):
+    """q (B, Lq, H, d) and k/v (B, Lk, H, d) as head views of packed
+    projections with row stride 3·H·d (+ pad) when Lq == Lk, as the text
+    tower hands them over; else of (B, L, 2·H·d) and (B, L, H·d)."""
+    D = H * d
+    if Lq == Lk:
+        qkv = torch.randn(B, Lq, 3 * D + pad, generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = qkv[..., :3 * D].chunk(3, dim=-1)
+    else:
+        q = torch.randn(B, Lq, D + pad, generator=gen, device="cuda").to(
+            dtype)[..., :D]
+        kv = torch.randn(B, Lk, 2 * D + pad, generator=gen,
+                         device="cuda").to(dtype)
+        k, v = kv[..., :2 * D].chunk(2, dim=-1)
+    return tuple(t.reshape(B, t.shape[1], H, d) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,H,d,causal,pad", [
+    (16, 77, 77, 8, 64, True, 0),     # TSF-B's text tower
+    (16, 77, 77, 12, 64, True, 0),    # TSF-L's text tower
+    (2, 130, 260, 3, 64, False, 0),   # uneven: 64-key tiles, two stages
+    (2, 197, 197, 2, 64, True, 0),    # causal over several tiles
+    (1, 40, 40, 2, 32, True, 0),      # SIMT kernels (head_dim 32)
+    (1, 77, 77, 2, 64, True, 2),      # rows off 16-byte boundaries: SIMT
+])
+def test_flash_kernels(gen, B, Lq, Lk, H, d, causal, pad, dtype):
+    """K7 and K8 forward against the plain versions in fp32 on the same
+    values; K8's backward within the backward limits (relative to the
+    largest gradient) and bit-identical on a second call."""
+    q, k, v = _qkv_views(gen, B, Lq, Lk, H, d, dtype, pad)
+    before = dict(KF.launches)
+    with torch.no_grad():
+        out7 = KF.flash_attention(q, k, v, causal=causal)
+    assert KF.launches["flash"] == before["flash"] + 1
+    out, lse = KF._forward(q, k, v, causal, d ** -0.5, with_lse=True)
+    assert KF.launches["flash_fwd"] == before["flash_fwd"] + 1
+    ref, ref_lse = KF.flash_fwd_reference(q.float(), k.float(), v.float(),
+                                          causal)
+    torch.cuda.synchronize()
+    assert out7.dtype == out.dtype == dtype and lse.dtype == torch.float32
+    for got in (out7, out):
+        torch.testing.assert_close(got.float(), ref, rtol=0, atol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=TOL[dtype])
+    do = torch.randn(B, Lq, H, d, generator=gen, device="cuda").to(dtype)
+    args = (q, k, v, do, out, lse, causal)
+    got = KF.flash_bwd(*args)
+    assert KF.launches["flash_dq"] == before["flash_dq"] + 1
+    assert KF.launches["flash_dkv"] == before["flash_dkv"] + 1
+    again = KF.flash_bwd(*args)
+    want = KF.flash_bwd_reference(*(t.float() for t in args[:6]), causal)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        assert _rel_err(g, w) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dispatch_k7_and_k8(gen, dtype):
+    """Under no_grad the text attention runs K7; with an input that
+    requires grad, K8's forward, then dq and dk/dv in the backward."""
+    from lavila_tpu_torch.ops.attention import causal_attention
+    qkv = torch.randn(4, 77, 3 * 512, generator=gen, device="cuda").to(
+        dtype).requires_grad_()
+    q, k, v = (t.reshape(4, 77, 8, 64) for t in qkv.chunk(3, dim=-1))
+    before = dict(KF.launches)
+    with torch.inference_mode():
+        causal_attention(q.detach(), k.detach(), v.detach())
+    assert KF.launches["flash"] == before["flash"] + 1
+    assert KF.launches["flash_fwd"] == before["flash_fwd"]
+    causal_attention(q, k, v).float().square().sum().backward()
+    assert KF.launches["flash"] == before["flash"] + 1
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert KF.launches[name] == before[name] + 1
+    assert qkv.grad.dtype == dtype and torch.isfinite(qkv.grad).all()
+
+
+def test_flash_kernels_raise(gen):
+    q = torch.randn(1, 9, 1, 160, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        KF.flash_attention(q, q, q, causal=True)
+    q = torch.randn(1, 9, 2, 64, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="heads of a token"):
+        KF.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q, q)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        KF.flash_attention(q.half(), q.half(), q.half())
+    lse = torch.zeros(1, 9, 2, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        KF.flash_bwd(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                     q, lse)

@@ -11,6 +11,7 @@ import torch
 
 from lavila_tpu.ops import attention as JA
 from lavila_tpu.ops.pallas import divided as JD
+from lavila_tpu_torch.kernels import build
 from lavila_tpu_torch.kernels import divided as K
 from lavila_tpu_torch.ops.attention import divided_attention_split
 
@@ -86,7 +87,7 @@ def test_phase_takes_strided_qkv_views():
     q, k, v = qkv.chunk(3, dim=-1)
     _, ck, cv = (t.reshape(B, D) for t in cls.chunk(3, dim=-1))
     assert not q.is_contiguous()
-    assert [K._row_stride(t, "t") for t in (q, k, v, ck, cv)] == \
+    assert [build.row_stride(t, "t") for t in (q, k, v, ck, cv)] == \
         [3 * D] * 5
     for axis in ("space", "time"):
         a, la = K.divided_phase(q, k, v, ck, cv, axis, H, d ** -0.5)
@@ -100,9 +101,9 @@ def test_phase_takes_strided_qkv_views():
 def test_row_stride_rejects_uneven_rows():
     x = torch.zeros(2, 3, 4, 8)
     with pytest.raises(ValueError, match="evenly strided"):
-        K._row_stride(x.transpose(1, 2), "x")
+        build.row_stride(x.transpose(1, 2), "x")
     with pytest.raises(ValueError, match="stride 1"):
-        K._row_stride(torch.zeros(8, 4).t(), "x")
+        build.row_stride(torch.zeros(8, 4).t(), "x")
 
 
 def test_phase_rejects_bad_input():

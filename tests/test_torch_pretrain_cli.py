@@ -80,6 +80,54 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
+def _fresh_params(cfg):
+    """The parameters the CLI starts from (its seeded init)."""
+    from lavila_tpu_torch.config import model_kwargs_from_config
+    from lavila_tpu_torch.models import build_model
+    kw = model_kwargs_from_config(cfg)
+    kw.pop("timesformer_gated_xattn")
+    kw.pop("remat_policy")
+    model = build_model(cfg.model, device="cpu", train=True,
+                        generator=torch.Generator().manual_seed(cfg.seed),
+                        **kw)
+    return dict(model.named_parameters())
+
+
+@pytest.mark.parametrize("flags", [
+    ["--freeze-temperature"],
+    ["--timesformer-freeze-space"],
+    ["--update-freq", "2", "--steps", "3"],
+])
+def test_cli_freeze_and_accumulation_as_the_jax_cli(tmp_path, flags):
+    """The options the JAX CLI implements with optax: a frozen parameter
+    (``freeze_by_predicate``: logit_scale; the video tower but its
+    temporal branch) keeps its initial value and every other one moves;
+    ``--update-freq 2`` (``optax.MultiSteps``) makes one update of two
+    micro-steps, so three steps make one update and leave one micro-step
+    in the running mean, and the schedule counts updates."""
+    from lavila_tpu.train import freeze as JF
+    cfg = _cfg(tmp_path, *flags)
+    state = cli.main(cfg)
+    frozen = {"--freeze-temperature": JF.logit_scale_only,
+              "--timesformer-freeze-space": JF.spatial_parts}.get(
+                  flags[0], lambda n: False)
+    updates = 1 if "--update-freq" in flags else 2
+    moved = 0
+    for name, p in _fresh_params(cfg).items():
+        same = torch.equal(p, state.params[name])
+        # after one update the zero-init time attention's proj has kept
+        # every gradient before it at zero: two updates move all
+        assert same if frozen(name) else (not same or updates == 1), name
+        moved += not same
+    assert moved > 0
+    assert state.optimizer.scheduler.last_epoch == updates
+    if "--update-freq" in flags:
+        assert state.step == 3 and state.optimizer.micro_step == 1
+        ckpt = torch.load(tmp_path / "checkpoint_latest.pt",
+                          weights_only=True)
+        assert ckpt["accumulate"]["micro_step"] == 1
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--model", "VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI"], "slice 3"),
     (["--metadata-aux", "aux.pkl"], "slice 4"),
@@ -87,11 +135,11 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
     (["--mesh-model", "2"], "slice 5"),
     (["--mesh-data", "4"], "slice 5"),
     (["--use-checkpoint", "--remat-policy", "dots"], "remat"),
-    (["--freeze-temperature"], "freeze"),
-    (["--timesformer-freeze-space"], "freeze"),
+    (["--freeze-visual-vclm"], "freeze"),
+    (["--freeze-lm-vclm"], "freeze"),
     (["--val-metadata", "val.csv"], "probe"),
     (["--wandb"], "wandb"),
-    (["--update-freq", "2"], "update-freq"),
+    (["--freeze-pseudo-temperature"], "freeze"),
     (["--timesformer-gated-xattn"], "gated"),
 ])
 def test_cli_options_not_ported_raise(tmp_path, flags, match):
