@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU, through the
 kernels written for Hopper, and check them: the zero-shot dual encoder
 (serving), the dual-encoder pretraining step, the EK-100 MIR retrieval
-fine-tune and the narrator's sampled decoding, at TSF-B width and with
-the 336px TSF-L towers (the high-resolution dual encoder and LaViLa's
+fine-tune and the narrator's sampled decoding, at TSF-B width, with the
+TSF-L@224 dual encoder (N = 256: K1's tensor-core kernels) and with the
+336px TSF-L towers (the high-resolution dual encoder and LaViLa's
 flagship narrator).
 
     python3 chip_smoke.py
@@ -14,7 +15,10 @@ and prints no result. Phases, each printing JSON lines:
 
   1. device: ``nvidia-smi`` name and power limit, torch's device name.
   2. build: nvcc builds ``lavila_tpu_torch/csrc/*.cu`` (timed).
-  3. kernels: K1 (spatial phase; TSF-B's N = 196 and TSF-L@224's 256),
+  3. kernels: K1 (spatial phase; TSF-B's N = 196 at batch 8 and 32 and
+     TSF-L@224's 256; each K1 case also gives the profiler's device time
+     beside the event time, the branch it took and, at N = 256, K6's
+     kernels called on the same input),
      K2 (temporal phase, F=4 and F=16, and at TSF-L@336), K3 (LayerNorm;
      the towers' widths and the narrator's: a decode step's (160, 1,
      1600) and the pooler's bias-free (4096, 1600)), K4/K5 (add +
@@ -28,7 +32,8 @@ and prints no result. Phases, each printing JSON lines:
      CUDA-event times, the card's bound for the same work and the time
      of one PyTorch library call computing it
      (``scripts/time_library_calls.py``). kernel_bwd: the same for the
-     backward kernels (K8's dq and dk/dv each on its own), on strided
+     backward kernels (K8's dq and dk/dv each on its own; K1 also at
+     TSF-L@224's N = 256, bf16 at batch 8 and fp32 at batch 1), on strided
      qkv views, errors relative to the reference's largest value, and two
      calls checked bit-identical.
   4. model: CLIP_OPENAI_TIMESFORMER_BASE from a seeded generator, time
@@ -53,7 +58,13 @@ and prints no result. Phases, each printing JSON lines:
      memory at batch 8. finetune_cli: the port's
      ``main_finetune_retrieval`` for 3 steps (BASE, 16 frames, bf16,
      batch 8, synthetic data): a finite loss, logit_scale unchanged.
-  8. narrator: VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL (48 layers, 1600
+  7c. large224_model, large224_train_step, large224_cli:
+     CLIP_OPENAI_TIMESFORMER_LARGE (TSF-L@224: 24 blocks 1024 wide, 16
+     heads, N = 256, K1 in every block) as phases 4, 6 and 5: embeddings
+     kernels vs plain and encode_image clips/s at batch 8; 2 AdamW steps
+     kernels vs plain in fp32 at batch 2 and bf16 at batch 4, then bf16
+     train clips/s and peak memory at batch 8; the zero-shot CLI.
+ 8. narrator: VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL (48 layers, 1600
      wide) initialised on the card from a seeded generator, its
      cross-attention gates and time attention given seeded non-zero
      values; kernel path against plain path on the same weights: cached
@@ -83,9 +94,10 @@ and prints no result. Phases, each printing JSON lines:
      VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL (cross-attention on 16
      of the 48 layers, 4·576 + 1 image tokens into the pooler).
 
-Every path phase (5, 7, finetune_cli, 9, 10-13) zeroes the launch
-counters before it runs and reads them after; the kernel summary line
-sums those runs' counts. The text tower runs K7 under inference_mode
+Every path phase (5, 7, finetune_cli, large224_cli, 9, 10-13) zeroes
+the launch counters before it runs and reads them after; the kernel
+summary line sums those runs' counts (K1's also by branch: every K1
+launch of a path runs bf16 at head_dim 64, so on the tensor cores). The text tower runs K7 under inference_mode
 (serving) and K8 forward, dq and dk/dv in every train step.
 TF32 is off for matmuls and cuDNN convolutions, so fp32 comparisons are
 fp32. Any failed check exits non-zero without the final line; the final
@@ -111,11 +123,15 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DEVICE = "cuda"
-# the dual encoders of the paths: TSF-B (12 blocks, N = 196: K1) and
-# TSF-L@336 (24 blocks 1024 wide, N = 576: K6), each with the CLIP text
-# tower; "space" names the spatial phase's kernel
+# the dual encoders of the paths: TSF-B (12 blocks, N = 196: K1),
+# TSF-L@224 (24 blocks 1024 wide, N = 256: K1) and TSF-L@336 (N = 576:
+# K6), each with the CLIP text tower; "space" names the spatial phase's
+# kernel
 MODEL = {"name": "CLIP_OPENAI_TIMESFORMER_BASE", "img": 224, "depth": 12,
          "text_depth": 12, "embed": 256, "space": "K1", "serve_batch": 32}
+LARGE224 = {"name": "CLIP_OPENAI_TIMESFORMER_LARGE", "img": 224,
+            "depth": 24, "text_depth": 12, "embed": 256, "space": "K1",
+            "serve_batch": 8}
 LARGE = {"name": "CLIP_OPENAI_TIMESFORMER_LARGE_336PX", "img": 336,
          "depth": 24, "text_depth": 12, "embed": 256, "space": "K6",
          "serve_batch": 8}
@@ -184,6 +200,15 @@ def library():
     return time_library_calls
 
 
+@functools.cache
+def spatial():
+    """``scripts/time_spatial_phase.py``: device time by the profiler,
+    and K6's C entry points called on K1's input."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import time_spatial_phase
+    return time_spatial_phase
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -212,7 +237,8 @@ def plain_path():
         yield
 
 
-# kernel name -> (module's launch counter, its key)
+# kernel name -> (module's launch counter, its key); K1 sums its two
+# branches' counters (BRANCHES)
 COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
             "K3": ("layernorm", "layernorm"),
             "K4": ("layernorm", "add_layernorm"),
@@ -238,13 +264,38 @@ def _counter(module: str) -> dict:
             "flash": KF}[module].launches
 
 
+BRANCHES = ("tc", "simt")
+# K1's launches on the path runs by branch, filled by path_counts()
+PATH_BRANCHES = {"K1": dict.fromkeys(BRANCHES, 0),
+                 "K1 bwd": dict.fromkeys(BRANCHES, 0)}
+
+
+def _counter_keys(m: str, key: str) -> list:
+    """The counter keys behind one kernel: K1's by branch."""
+    if m == "divided" and key in ("space", "space_bwd"):
+        return [f"{key}_{b}" for b in BRANCHES]
+    return [key]
+
+
 def launch_counts() -> dict:
-    return {name: _counter(m)[key] for name, (m, key) in COUNTERS.items()}
+    return {name: sum(_counter(m)[k] for k in _counter_keys(m, key))
+            for name, (m, key) in COUNTERS.items()}
+
+
+def path_counts() -> dict:
+    """:func:`launch_counts` at the end of a path run, whose K1 launches
+    by branch are added to PATH_BRANCHES."""
+    from lavila_tpu_torch.kernels import divided as KD
+    for name, key in (("K1", "space"), ("K1 bwd", "space_bwd")):
+        for b in BRANCHES:
+            PATH_BRANCHES[name][b] += KD.launches[f"{key}_{b}"]
+    return launch_counts()
 
 
 def reset_launch_counts() -> None:
     for m, key in COUNTERS.values():
-        _counter(m)[key] = 0
+        for k in _counter_keys(m, key):
+            _counter(m)[k] = 0
 
 
 def _encode_launches(m) -> dict:
@@ -321,9 +372,29 @@ def _keys(axis, F, N) -> int:
     return N + 1 if axis == "space" else F + 1
 
 
+def _k1_extras(args, run, out, lse, do=None) -> dict:
+    """For a K1 case (``args`` the forward's): the branch it took, the
+    profiler's device time of ``run`` beside its event time and, at N =
+    256, K6's kernels on the same input (the forward's, or with ``do``
+    the backward's)."""
+    from lavila_tpu_torch.kernels import build
+    from lavila_tpu_torch.kernels import divided as KD
+    q, k, v, ck, cv, _, H, scale = args
+    ts = spatial()
+    res = {"branch": KD.space_branch(q, k, v, ck, cv, H, do,
+                                     None if do is None else out),
+           "device_ms": ts.measure(run, 20)["device_ms"]}
+    if q.shape[2] == 256:
+        k6 = ts.k6_calls(build, q, k, v, ck, cv, do, out, lse, H, scale)
+        m = ts.measure(k6[0 if do is None else 1], 20)
+        res.update(k6_ms=m["event_ms"], k6_device_ms=m["device_ms"])
+    return res
+
+
 def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     """One K1/K2/K6 case on strided q/k/v views of a (B, F, N, 3D)
-    tensor, as the attention block hands them over."""
+    tensor, as the attention block hands them over; K1's with
+    :func:`_k1_extras`."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
         dtype)
@@ -339,8 +410,10 @@ def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     del ref, ref_lse
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
+    extras = (_k1_extras(args, lambda: KD.divided_phase(*args), out, lse)
+              if axis == "space" and N <= 256 else {})
     return {"out_err": err, "lse_err": lse_err, "tol": tol,
-            "ok": err <= tol and lse_err <= tol,
+            "ok": err <= tol and lse_err <= tol, **extras,
             "ms": time_ms(lambda: KD.divided_phase(*args)),
             "plain_ms": time_ms(lambda: KD.divided_phase_reference(*args)),
             **bound((4 * rows * D + 2 * B * D) * it + rows * H * 4,
@@ -535,13 +608,16 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
                              (16, 8, 77, 77, 64))}
 # further cases a kernel's summary keeps under a name: K3 on the
 # narrator's decode path (one decode step's 160 GPT-2 XL rows), K1 at
-# TSF-L@224 (N = 256, its SIMT branch even in bf16), K2 at TSF-L@336
-SIDE_CASES = {"K3": ("narrator", (160, 1, 1600)),
-              "K1": ("tsf_l_224", (8, 4, 256, 1024, 16)),
-              "K2": ("tsf_l_336", (8, 4, 576, 1024, 16)),
+# TSF-L@224 (N = 256) and at TSF-B's serving batch 32, K2 at TSF-L@336
+SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),),
+              "K1": (("tsf_l_224", (8, 4, 256, 1024, 16)),
+                     ("b32", (32, 4, 196, 768, 12))),
+              "K2": (("tsf_l_336", (8, 4, 576, 1024, 16)),),
               **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
-                              ("b256", (256, 8, 77, 77, 64)))}
+                              (("b256", (256, 8, 77, 77, 64)),))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# K1's further numbers (_k1_extras), where a case has them
+_EXTRA_KEYS = ("device_ms", "branch", "k6_ms", "k6_device_ms")
 
 
 def _summarise(summary, name, shape, dtype, res, err_keys) -> None:
@@ -550,13 +626,14 @@ def _summarise(summary, name, shape, dtype, res, err_keys) -> None:
                            *(res.get(k, 0.0) for k in err_keys))
     if dtype != torch.bfloat16:
         return
-    main = {k: res[k] for k in _SUMMARY_KEYS} | {"at": list(shape)}
+    main = {k: res[k] for k in _SUMMARY_KEYS + _EXTRA_KEYS if k in res} \
+        | {"at": list(shape)}
     base = name.removesuffix(" bwd")
     if shape == MAIN_CASE[base]:
         s.update(main)
-    side = SIDE_CASES.get(base)
-    if side is not None and shape == side[1]:
-        s[side[0]] = main
+    for side, at in SIDE_CASES.get(base, ()):
+        if shape == at:
+            s[side] = main
 
 
 # the flash kernels' cases: the text towers' causal attention at 16
@@ -591,10 +668,12 @@ def phase_kernels() -> dict:
         cases += [("K9", "decode", (B, 77, D, H, nv), dtype)
                   for B, D, H in ((160, 1600, 25), (16, 768, 12))
                   for nv in (0, 1, 15, 77)]
-    # the 336px path's main cases, and K1 at TSF-L@224
+    # the 336px path's main cases, K1 at TSF-L@224 and at TSF-B's
+    # serving batch
     cases += [("K6", "space", (8, 4, 576, 1024, 16), bf16),
               ("K2", "time", (8, 4, 576, 1024, 16), bf16),
-              ("K1", "space", (8, 4, 256, 1024, 16), bf16)]
+              ("K1", "space", (8, 4, 256, 1024, 16), bf16),
+              ("K1", "space", (32, 4, 196, 768, 12), bf16)]
     for dtype in (torch.float32, bf16):
         cases += [(k, kind, shape, dtype) for k in ("K7", "K8 fwd")
                   for kind, shape in FLASH_CASES]
@@ -636,7 +715,8 @@ def _all_equal(a, b) -> bool:
 
 def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     """K1/K2/K6 bwd on strided q/k/v views, out and lse from the forward
-    kernel, against the plain backward in fp32 on the same values."""
+    kernel, against the plain backward in fp32 on the same values; K1's
+    with :func:`_k1_extras`."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
         dtype)
@@ -659,11 +739,13 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     del ref, again
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
+    extras = (_k1_extras(args[:5] + args[8:], lambda: KD.divided_phase_bwd(
+        *args), out, lse, do) if axis == "space" and N <= 256 else {})
     # reads q, k, v, do, out, ck, cv, lse; writes dq, dk, dv, dck, dcv;
     # five products (S, dP, dV, dQ, dK) of 2 operations per term
     return {"rel_err": errs, "abs_err": abs_err, "tol": tol,
             "deterministic": deterministic,
-            "ok": max(errs.values()) <= tol and deterministic,
+            "ok": max(errs.values()) <= tol and deterministic, **extras,
             "ms": time_ms(lambda: KD.divided_phase_bwd(*args)),
             "plain_ms": time_ms(
                 lambda: KD.divided_phase_bwd_reference(*args)),
@@ -751,7 +833,9 @@ def phase_kernels_bwd() -> dict:
                                   ("K5 bwd", "add_ln_nosum"))
                   for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768))]
     cases += [("K6 bwd", "space", (8, 4, 576, 1024, 16), torch.bfloat16),
-              ("K2 bwd", "time", (8, 4, 576, 1024, 16), torch.bfloat16)]
+              ("K2 bwd", "time", (8, 4, 576, 1024, 16), torch.bfloat16),
+              ("K1 bwd", "space", (8, 4, 256, 1024, 16), torch.bfloat16),
+              ("K1 bwd", "space", (1, 2, 256, 1024, 16), torch.float32)]
     summary = {}
     flash = [(kind, shape, dtype) for dtype in (torch.float32, torch.bfloat16)
              for kind, shape in FLASH_CASES]
@@ -912,7 +996,7 @@ def phase_cli(m) -> dict:
     t0 = time.perf_counter()
     v, t, _ = cli.embed_dataset(model, loader)
     seconds = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
     sim = v @ t.T
     rel = np.eye(len(v), dtype=np.float32)
     v_map, t_map, avg_map = M.retrieval_map(sim, rel)
@@ -1019,34 +1103,41 @@ def _compare_steps(a, b) -> dict:
             "embed_grad_cos_min_at": worst["embeddings"][1]}
 
 
-def phase_train_step() -> None:
-    """The train step on BASE at full depth, kernel path against the
-    plain path from the same weights and batch; then train clips/s."""
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    base = _clip_model(MODEL)
-    batch = _train_batch(4, gen)
-    for dtype in (torch.float32, torch.bfloat16):
+def phase_train_step(m, batches: dict, throughput: tuple,
+                     phase: str = "train_step", seed: int = SEED + 3) -> None:
+    """The train step of dual encoder ``m`` at full depth, kernel path
+    against the plain path from the same weights and batch (``batches``:
+    the batch size of each dtype, one batch drawn per size); then train
+    clips/s at the ``throughput`` batch sizes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    base = _clip_model(m)
+    data = {}
+    for dtype, size in batches.items():
+        if size not in data:
+            data[size] = _train_batch(size, gen, m["img"])
+        batch = data[size]
         k_run = _run_steps(base, dtype, batch, False)
         p_run = _run_steps(base, dtype, batch, True)
         res = _compare_steps(k_run, p_run)
-        name = dname(dtype)
-        emit("train_step", model=MODEL["name"], dtype=name, batch=4,
+        name = f"{m['name']} {dname(dtype)}"
+        emit(phase, model=m["name"], dtype=dname(dtype), batch=size,
              steps=2, loss_kernels=k_run[0], loss_plain=p_run[0],
              launches_per_step=k_run[2], **res)
         check(all(math.isfinite(x) for x in k_run[0] + p_run[0]),
               f"train step {name}: non-finite loss {k_run[0]} {p_run[0]}")
-        want = _step_launches(MODEL)
+        want = _step_launches(m)
         check(all(c == want for c in k_run[2]),
               f"train step {name}: launches {k_run[2]}, want {want}")
         if dtype == torch.float32:
             check(res["loss_rel_err"] <= 1e-5
                   and res["grad_rel_err_max"] <= 1e-4,
-                  f"train step fp32 kernels vs plain: {res}")
+                  f"train step {name} kernels vs plain: {res}")
         else:
             check(res["loss_rel_err"] <= 1e-2 and res["grad_cos_min"] >= 0.99,
-                  f"train step bf16 kernels vs plain: {res}")
+                  f"train step {name} kernels vs plain: {res}")
         del k_run, p_run
-    _train_throughput(base, gen, MODEL, (16, 48))
+    del data
+    _train_throughput(base, gen, m, throughput)
 
 
 def _time_steps(state, step_fn, data, iters: int) -> tuple:
@@ -1065,9 +1156,10 @@ def _time_steps(state, step_fn, data, iters: int) -> tuple:
 
 
 def _train_throughput(base, gen, m, batches, iters: int = 10) -> None:
-    """Train clips/s, bf16, kernel and plain path in alternating order:
-    for TSF-B at batch 16 (bench.py's TSF-B batch), where the host's
-    issue time bounds the step, and at batch 48, where the device does."""
+    """Train clips/s and peak memory, bf16, kernel and plain path in
+    alternating order, at each of ``batches``: for TSF-B 16 (bench.py's
+    TSF-B batch), where the host's issue time bounds the step, and 48,
+    where the device does; for TSF-L@224 8."""
     from lavila_tpu_torch.train.step import make_clip_train_step
     state = _make_state(base.train(), torch.bfloat16)
     step_fn = make_clip_train_step()
@@ -1192,7 +1284,7 @@ def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
         state = cli.main(cfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = path_counts()
         with open(os.path.join(out, "log.txt")) as f:
             log = json.loads(f.readlines()[-1])
         files = sorted(os.listdir(out))
@@ -1288,7 +1380,7 @@ def phase_finetune_cli(m) -> dict:
         state = cli.main(args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = path_counts()
         with open(os.path.join(out, "log.txt")) as f:
             log = json.loads(f.readlines()[-1])
         files = sorted(os.listdir(out))
@@ -1561,7 +1653,7 @@ def phase_infer_narrator_cli(n) -> dict:
         cli.main(args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = path_counts()
         with open(os.path.join(out, "total.pkl"), "rb") as f:
             total = pickle.load(f)
         files = sorted(os.listdir(out))
@@ -1643,10 +1735,16 @@ PHASES = (
     ("kernel_bwd", phase_kernels_bwd),
     ("model", lambda: phase_model(MODEL)),
     ("cli", lambda: phase_cli(MODEL)),
-    ("train_step", phase_train_step),
+    ("train_step", lambda: phase_train_step(
+        MODEL, {torch.float32: 4, torch.bfloat16: 4}, (16, 48))),
     ("pretrain_cli", lambda: phase_pretrain_cli(MODEL, 5, 16)),
     ("finetune_step", phase_finetune_step),
     ("finetune_cli", lambda: phase_finetune_cli(MODEL)),
+    ("large224_model", lambda: phase_model(LARGE224)),
+    ("large224_train_step", lambda: phase_train_step(
+        LARGE224, {torch.float32: 2, torch.bfloat16: 4}, (8,),
+        "large224_train_step", SEED + 11)),
+    ("large224_cli", lambda: phase_cli(LARGE224)),
     ("narrator", lambda: phase_narrator(NARRATOR)),
     ("infer_narrator_cli", lambda: phase_infer_narrator_cli(NARRATOR)),
     ("large_model", lambda: phase_model(LARGE)),
@@ -1658,8 +1756,8 @@ PHASES = (
     ("flagship_infer_narrator_cli",
      lambda: phase_infer_narrator_cli(FLAGSHIP)),
 )
-PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "infer_narrator_cli",
-               "large_cli", "large_pretrain_cli",
+PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "large224_cli",
+               "infer_narrator_cli", "large_cli", "large_pretrain_cli",
                "flagship_infer_narrator_cli")
 
 
@@ -1701,13 +1799,20 @@ def main() -> int:
     rows = []
     for key, name, route, source, replaces in KERNELS:
         s = summary.get(key, {})
-        side = SIDE_CASES.get(key.removesuffix(" bwd"), (None,))[0]
-        rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": counts[key],
-                     "max_abs_err": s.get("max_abs_err"),
-                     **{k: s.get(k) for k in _SUMMARY_KEYS},
-                     "at": s.get("at")}
-                    | ({side: s[side]} if side in s else {}))
+        sides = [side for side, _ in SIDE_CASES.get(key.removesuffix(" bwd"),
+                                                    ()) if side in s]
+        row = {"name": name, "route": route, "source": source,
+               "replaces": replaces, "launches": counts[key],
+               "max_abs_err": s.get("max_abs_err"),
+               **{k: s.get(k) for k in _SUMMARY_KEYS},
+               **{k: s[k] for k in _EXTRA_KEYS if k in s},
+               "at": s.get("at"), **{side: s[side] for side in sides}}
+        if key in PATH_BRANCHES:
+            row["launches_by_branch"] = PATH_BRANCHES[key]
+            # the paths run K1 in bf16 at head_dim 64: the tensor cores
+            check(PATH_BRANCHES[key]["simt"] == 0,
+                  f"{name}: SIMT launches on the path {PATH_BRANCHES[key]}")
+        rows.append(row)
         check(counts[key] > 0, f"{name} never launched on the path")
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILURES:

@@ -120,7 +120,7 @@ def load_model_from_checkpoint(args):
         if not args.checkpoint.endswith((".pt", ".pth")):
             raise NotImplementedError(
                 f"{args.checkpoint}: only reference .pt/.pth checkpoints "
-                "load into the port; Orbax checkpoints are ROADMAP work")
+                "load into the port: ROADMAP queue 1: Orbax checkpoints")
         meta_path = args.checkpoint + ".json"
         if osp.exists(meta_path):
             with open(meta_path) as f:

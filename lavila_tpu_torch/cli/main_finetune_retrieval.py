@@ -27,7 +27,7 @@ Run without data:
         --output-dir /tmp/ft
 
 ``--wandb`` and the remat policies other than ``full`` raise, naming
-their ROADMAP item.
+their ROADMAP queue 1 subject.
 """
 
 from __future__ import annotations
@@ -137,12 +137,12 @@ def _check_ported(args) -> None:
     if args.wandb:
         raise NotImplementedError(
             "--wandb is not ported to lavila_tpu_torch yet: ROADMAP queue "
-            "1, slice 2 leftovers")
+            "1: --wandb")
     if args.use_checkpoint and args.remat_policy != "full":
         raise NotImplementedError(
             f"--remat-policy {args.remat_policy} is not ported to "
             "lavila_tpu_torch yet (remat policy full only): ROADMAP queue "
-            "1, item 4")
+            "1: the remat policies")
 
 
 def build_finetune_model(args, device: torch.device):

@@ -10,7 +10,7 @@ to ``cache.0.pkl`` and, merged, to ``total.pkl``: the output contract
 of the JAX CLI and of the reference, which the pretraining's SSL path
 reads. One process, so ``total.pkl`` holds rank 0's records; the JAX
 CLI's sharding across processes and its round-robin merge are ROADMAP
-slice 5.
+queue 1: multi-GPU.
 
 Weights are seeded random (``--seed``, drawn on ``--device``) unless
 ``--checkpoint`` names a released narrator ``.pt``/``.pth``, whose tower
@@ -52,7 +52,7 @@ from lavila_tpu_torch.models.convert import (count_layers,
                                              narrator_state_dict)
 
 BEAMS_NOT_PORTED = ("beam decoding (models/beam.py BeamDecoder) is not "
-                    "ported yet: ROADMAP queue 1, slice 3 leftovers")
+                    "ported yet: ROADMAP queue 1: the beams")
 
 
 def get_args_parser():
@@ -119,7 +119,7 @@ def load_narrator(args):
         if not args.checkpoint.endswith((".pt", ".pth")):
             raise NotImplementedError(
                 f"{args.checkpoint}: only reference .pt/.pth checkpoints "
-                "load into the port; Orbax checkpoints are ROADMAP work")
+                "load into the port: ROADMAP queue 1: Orbax checkpoints")
         sd = narrator_state_dict(load_reference_checkpoint(
             args.checkpoint, num_frames=args.clip_length))
         # depths come from the checkpoint, never from the model name

@@ -19,7 +19,7 @@ Run without data: ``python -m lavila_tpu_torch.cli.main_pretrain
 --batch-size 4 --device cpu --output-dir /tmp/run``.
 
 Options of the JAX CLI that are not ported yet raise, each naming its
-ROADMAP slice; none is silently ignored.
+ROADMAP queue 1 subject; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -57,39 +57,41 @@ class TorchPretrainConfig(PretrainConfig):
     device: str = "cuda"
 
 
-# option → (is it set, the ROADMAP slice that ports it)
+# option → (is it set, the ROADMAP queue 1 subject that ports it)
 _NOT_PORTED = (
     (lambda c: c.model.startswith("VCLM"),
      "--model VCLM_* (the narrator's caption loss and step)",
-     "slice 3 leftovers"),
+     "the narrator's training"),
     (lambda c: c.metadata_aux is not None, "--metadata-aux (the SSL loss)",
-     "slice 4"),
+     "the SSL loss"),
     (lambda c: c.contrastive_use_vissl, "--contrastive-use-vissl",
-     "slice 5"),
-    (lambda c: c.mesh_model > 1, "--mesh-model > 1", "slice 5"),
-    (lambda c: c.mesh_data not in (-1, 1), "--mesh-data > 1", "slice 5"),
+     "multi-GPU"),
+    (lambda c: c.mesh_model > 1, "--mesh-model > 1", "multi-GPU"),
+    (lambda c: c.mesh_data not in (-1, 1), "--mesh-data > 1", "multi-GPU"),
     (lambda c: c.use_checkpoint and c.remat_policy != "full",
-     "--remat-policy other than full (remat)", "item 4"),
+     "--remat-policy other than full (remat)",
+     "the remat policies"),
     (lambda c: any([c.freeze_visual_vclm, c.freeze_visual_vclm_temporal,
                     c.freeze_lm_vclm]),
      "the VCLM --freeze-* flags (the narrator's training)",
-     "slice 3 leftovers"),
+     "the narrator's training"),
     (lambda c: c.freeze_pseudo_temperature,
-     "--freeze-pseudo-temperature (the SSL loss)", "slice 4"),
+     "--freeze-pseudo-temperature (the SSL loss)", "the SSL loss"),
     (lambda c: c.val_metadata is not None,
-     "--val-metadata (the in-training probe)", "slice 2 leftovers"),
-    (lambda c: c.wandb, "--wandb", "slice 2 leftovers"),
+     "--val-metadata (the in-training probe)",
+     "the in-training probe"),
+    (lambda c: c.wandb, "--wandb", "--wandb"),
     (lambda c: c.timesformer_gated_xattn, "--timesformer-gated-xattn",
-     "slice 4"),
+     "timesformer_gated_xattn"),
 )
 
 
 def check_ported(cfg) -> None:
-    for is_set, what, slice_ in _NOT_PORTED:
+    for is_set, what, subject in _NOT_PORTED:
         if is_set(cfg):
             raise NotImplementedError(
                 f"{what} is not ported to lavila_tpu_torch yet: ROADMAP "
-                f"queue 1, {slice_}")
+                f"queue 1: {subject}")
 
 
 def build_dataset(cfg, tokenizer, train_transform):

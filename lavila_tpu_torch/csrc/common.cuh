@@ -1,9 +1,10 @@
 // Helpers shared by the attention kernels (divided_fwd.cu,
 // divided_bwd.cu, divided_big.cu, flash_attention.cu): fp32/bf16
 // conversion, warp and quad reductions, the tensor-core product, cp.async
-// and the head_dim-64 fragment helpers of the 64-key-tile kernels, and the
-// two small passes of the divided backward kernels (delta and the
-// fixed-order sum of per-group partials).
+// and the head_dim-64 fragment helpers of the 64-key-tile kernels,
+// Hopper's mbarriers, TMA and wgmma, and the two small passes of the
+// divided backward kernels (delta and the fixed-order sum of per-group
+// partials).
 
 #pragma once
 
@@ -65,6 +66,11 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// a bf16 pair -> two floats
+__device__ __forceinline__ float2 unpack_bf16(unsigned w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+
 // D += A (16x16 bf16, row-major) * B (16x8 bf16, col-major), fp32 D.
 // Fragment layouts are PTX's: lane = 4*g + t holds rows g and g+8,
 // columns 2t, 2t+1 (+8).
@@ -86,6 +92,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes; zeros when !valid (src must still be a valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -194,6 +209,149 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* y0,
 }
 
 }  // namespace d64
+
+// ---- Hopper's asynchronous units (sm_90a): mbarriers, TMA tile loads and
+// warpgroup matrix products (wgmma), for the K1 forward (divided_fwd.cu).
+namespace sm90 {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible to the TMA unit
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of copies still to land
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// spin until the barrier's phase `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// TMA: the box at coordinates (c0, c1, c2), innermost first, of the 3-D
+// tensor map `map` (a __grid_constant__ kernel parameter) into shared
+// memory at dst; completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            unsigned long long* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Matrix descriptor of a bf16 tile in shared memory laid out as a
+// 128-byte-swizzled TMA box: 128-byte rows, the swizzle's 8-row period
+// (1024 bytes) as the stride between row groups. The same descriptor
+// serves a K-major operand (rows = M or N, 64 k-values a row; start
+// advanced 32 bytes per 16-deep k-step) and an MN-major one (rows = k,
+// 64 n-values a row; start advanced 2048 bytes per k-step).
+__device__ __forceinline__ unsigned long long sw128_desc(const void* p) {
+  return (unsigned long long)((smem_addr(p) & 0x3FFFF) >> 4) |
+         (1ull << 16) |                // leading offset: unused here
+         ((1024ull >> 4) << 32) |      // stride between 8-row groups
+         (1ull << 62);                 // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep registers that an asynchronous wgmma reads or writes in place
+// until wgmma_wait_all: the compiler sees the asm as their last writer.
+template <int n>
+__device__ __forceinline__ void hold(float (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int n>
+__device__ __forceinline__ void hold(unsigned (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define LAVILA_ACC32(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define LAVILA_D32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// D (64 x 64 fp32, the warpgroup's accumulator: thread 32w + 4g + t holds
+// rows 16w + g and 16w + g + 8, columns 8j + 2t and 8j + 2t + 1 in
+// d[4j..4j+3], as mma.sync's m16n8 fragments) += A (64 x 16, K-major, in
+// shared memory) * B (16 x 64, K-major, in shared memory); D is not read
+// when accumulate is 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32],
+                                         unsigned long long da,
+                                         unsigned long long db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LAVILA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : LAVILA_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D += A (64 x 16 bf16 in registers, per warp mma.sync's m16n8k16 A
+// fragment) * B (16 x 64, MN-major in shared memory: read transposed)
+__device__ __forceinline__ void wgmma_rs_tn(float (&d)[32],
+                                            const unsigned (&a)[4],
+                                            unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LAVILA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : LAVILA_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef LAVILA_ACC32
+#undef LAVILA_D32
+
+}  // namespace sm90
 
 // The tensor-core kernels move bf16 pairs: every pointer 4-byte aligned
 // and every row stride even.

@@ -20,39 +20,48 @@
 // fp32 partial (B, G, D), and sum_groups_kernel adds the G partials of a
 // clip in a fixed order. Two calls on the same inputs give the same bits.
 //
-// K1 bwd, spatial phase: one (clip, frame, head) sees N queries and the
-// N+1 keys [ck; k_f]. One kernel that stages K and V and also accumulates
-// dK and dV in shared memory would need ~200 KB of the 227 KB a block may
-// hold in fp32 and run one block per SM, so the backward is split as
-// FlashAttention-2 splits it: a dq kernel that stages the keys' side (K,
-// V) and walks the queries, and a dk/dv kernel that stages the queries'
-// side (Q, dO, lse, delta) and walks the keys. Key row 0 of the second is
-// the CLS key: its dK/dV rows are this frame's share of dck/dcv. Two
-// pairs, chosen by what the call gives:
+// K1 bwd, spatial phase: one (clip, frame, head) sees N <= 256 queries
+// and the N+1 keys [ck; k_f]. FlashAttention-2's split, as K6's
+// (divided_big.cu): a dq kernel that walks the key tiles for a block of
+// queries, a dk/dv kernel that walks the query tiles for a block of keys,
+// each recomputing P from the saved lse. The caller picks one of two
+// pairs (kernels/divided.py asks for the tensor cores by the `tc`
+// argument; the entry point refuses a call they cannot take):
 //
-//  * bf16, head_dim 64, N+1 <= 208 (TSF-B: N = 196): tensor cores, as the
-//    forward. With mma.sync (bf16 in, fp32 accumulate) the backward does
-//    ~2.5x the forward's FLOPs over the same bytes, still below the
-//    H100's ~295 FLOPs per byte, so its floor is one read of q/k/v/dO and
-//    one write of dq/dk/dv. A small pass first writes delta (fp32, per row
-//    and head). space_bwd_dq_mma_kernel stages K, V as [key][d] and K^T as
-//    [d][key] (~88 KB); each warp takes 16 query rows and walks the keys
-//    16 at a time: S and dP on the tensor cores, P and dS in registers,
-//    dS (rounded to bf16, the accumulator layout reused as the A operand)
-//    times K into dq. space_bwd_dkv_mma_kernel stages Q and dO in both
-//    layouts (~117 KB); each warp takes 16 key rows and walks the queries:
-//    S^T and dP^T, then P^T.dO into dV and dS^T.Q into dK. Padded queries
-//    get lse = +inf, so P = 0 there; padded keys are masked in dq. Rows
-//    are padded by 8 elements so that fragment loads hit 32 banks.
+//  * bf16, head_dim 64, q/k/v/dO rows on 16-byte boundaries: tensor
+//    cores, mma.sync m16n8k16 (bf16 in, fp32 accumulate), one design for
+//    every N <= 256. Bound by bytes: ~10*(N+1)*d FLOPs per query row
+//    against 8*d*2 bytes of q/k/v/dO/O/dq/dk/dv, ~123 FLOPs a byte at N =
+//    196 (77 MB and 9.5 GFLOP at TSF-B's batch 8, 0.0231 ms at 3.35 TB/s)
+//    and ~160 at N = 256 (134 MB, 21.5 GFLOP at TSF-L@224's, 0.040 ms),
+//    below the H100's ~295. So, as the forward, the design is about the
+//    memory side. Both kernels take 64 rows a block of 4 warps (16 rows a
+//    warp), ceil(N/64) x H x B*F blocks (1536 at TSF-B batch 8), and
+//    stream the other side's 64-row tiles through two cp.async stages
+//    ([row][d], rows padded by 8 bf16 so that fragment loads hit 32
+//    banks; the dk/dv kernel's per-query lse and delta ride in the same
+//    stage), the copy of tile t+1 in flight while tile t is used; every
+//    product whose B operand is a [row][d] tile read down its rows (dS K,
+//    P^T dO, dS^T Q) takes it through ldmatrix's transpose. (128 rows a
+//    block of 8 warps measured no faster.) The CLS key is handled as the
+//    forward's starting state: the dq kernel computes, per query row,
+//    delta = rowsum(dO*O) (a side output the dk/dv kernel reads: no delta
+//    pass), P_cls and dS_cls, adds dS_cls*ck to dq, and writes its 64
+//    queries' share of dck = scale * sum dS_cls*q and dcv = sum P_cls*dO
+//    as fp32 partials (B, F*ceil(N/64), D); the key tiles are plain rows
+//    of k_f, masked past N. Padded queries are zero rows of Q and dO with
+//    lse = delta = 0, so their dS and P^T dO are zero.
 //  * everything else (fp32, whose 1e-4 bound rules out bf16 or TF32
-//    tensor cores, other head sizes, N up to 256): SIMT fp32 FMA, bound by
-//    FMA issue and shared-memory loads (~7*d FMAs per query-key pair
+//    tensor cores, other head sizes, unaligned rows): SIMT fp32 FMA, bound
+//    by FMA issue and shared-memory loads (~7*d FMAs per query-key pair
 //    against the forward's 2*d). space_bwd_dq_kernel stages K and V in
 //    fp32 (~100 KB, rows padded to d+1 floats so lane j reading row j hits
 //    its own bank); each warp takes one query row, computes its delta,
 //    then dS over the N+1 keys and dq. space_bwd_dkv_kernel stages Q, dO,
 //    lse and delta (recomputed from dO and O while staging; ~120 KB); each
-//    warp takes one key row, P and dS against all N queries, then dK, dV.
+//    warp takes one key row (row 0 the CLS key: its dK/dV rows are this
+//    frame's share of dck/dcv, partials (B, F, D)), P and dS against all N
+//    queries, then dK, dV.
 //
 // K2 bwd, temporal phase: one (clip, position, head) sees F queries and
 // F+1 keys, so one warp owns it, each lane holding d/32 dims as in the
@@ -70,12 +79,12 @@ namespace {
 
 using lavila::allow_smem;
 using lavila::from_float;
-using lavila::launch_delta;
 using lavila::launch_sum_groups;
 using lavila::ld32;
-using lavila::mma_16816;
 using lavila::pack_bf16;
+using lavila::quad_sum;
 using lavila::to_float;
+using lavila::unpack_bf16;
 using lavila::warp_sum;
 
 constexpr int kWarps = 8;           // warps per block, every kernel here
@@ -276,266 +285,287 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// ---- K1 bwd, bf16 on the tensor cores ---------------------------------
+// ---- K1 bwd, bf16 head_dim 64: mma.sync on 64-row tiles ----------------
 
-constexpr int kMmaD = 64;               // head_dim of the tensor-core path
-constexpr int kTiles = 13;              // 16-row tiles: N + 1 <= 208 keys
-constexpr int kPad = kTiles * 16;       // keys and queries, padded
-constexpr int kMmaWarps = 8;
-constexpr int kRowStride = kMmaD + 8;   // bf16 per [row][d] row in smem
-constexpr int kColStride = kPad + 8;    // bf16 per [d][row] row in smem
-constexpr int kWords = kMmaD / 2;       // bf16 pairs per row
+using namespace lavila::d64;  // kD, kRow, kChunks and the fragment helpers
 
-size_t space_dq_mma_smem_bytes() {
-  return (2 * (size_t)kPad * kRowStride + (size_t)kMmaD * kColStride) *
-         sizeof(__nv_bfloat16);
-}
+constexpr int kTile = 64;         // queries (dq) or keys (dk/dv) a block
+constexpr int kTcWarps = 4;       // 16 rows each
+constexpr int kTileElems = kTile * kRow;
+constexpr float kLog2e = 1.4426950408889634f;
 
-size_t space_dkv_mma_smem_bytes() {
-  return 2 * ((size_t)kPad * kRowStride + (size_t)kMmaD * kColStride) *
-             sizeof(__nv_bfloat16) +
-         2 * (size_t)kPad * sizeof(float);
-}
-
-// Store one bf16 pair of row j both as [j][d] and transposed as [d][j].
-__device__ __forceinline__ void stage_pair(__nv_bfloat16* rows,
-                                           __nv_bfloat16* cols, int j, int w,
-                                           unsigned word) {
-  *reinterpret_cast<unsigned*>(rows + j * kRowStride + 2 * w) = word;
-  if (cols != nullptr) {
-    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&word);
-    cols[(2 * w) * kColStride + j] = v.x;
-    cols[(2 * w + 1) * kColStride + j] = v.y;
+// Copy rows first..first+63 of frame x_f (head slice at col) into a
+// [row][d] tile by cp.async, zeros past `rows`.
+__device__ __forceinline__ void async_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* x,
+                                           long long x_rs,
+                                           long long frame_row, int col,
+                                           int first, int rows) {
+  for (int i = threadIdx.x; i < kTile * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    const int n = first + r;
+    const bool ok = n < rows;
+    lavila::cp_async16(dst + r * kRow + 8 * c,
+                       ok ? x + (frame_row + n) * x_rs + col + 8 * c : x,
+                       ok);
   }
 }
 
-// dq: grid (H, F, B), kMmaWarps*32 threads. K and V of the (frame, head)
-// staged as [key][d] and K^T as [d][key]; each warp takes 16 query rows
-// and walks the keys 16 at a time: S = Q K^T and dP = dO V^T on the
-// tensor cores, dS = P (dP - delta) in registers, then dS (rounded to
-// bf16, reusing the accumulator layout as the A operand, as the forward
-// does with P) times K into dq.
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    space_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ ck,
-                            const __nv_bfloat16* __restrict__ cv,
-                            const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            __nv_bfloat16* __restrict__ dq, int F, int N,
-                            int H, long long q_rs, long long k_rs,
-                            long long v_rs, long long ck_rs, long long cv_rs,
-                            float scale) {
-  extern __shared__ float smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [key][d]
-  __nv_bfloat16* vs = ks + kPad * kRowStride;                  // [key][d]
-  __nv_bfloat16* kts = vs + kPad * kRowStride;                 // [d][key]
-  const int h = blockIdx.x, f = blockIdx.y, b = blockIdx.z;
-  const int L = N + 1;  // key 0 is the CLS token; keys >= L are zero pads
-  const long long frame_row = ((long long)b * F + f) * N;
-  const int col = h * kMmaD;
-  const long long D = (long long)H * kMmaD;
-
-  for (int i = threadIdx.x; i < kPad * kWords; i += blockDim.x) {
-    const int j = i / kWords, w = i - j * kWords;
-    unsigned kw = 0u, vw = 0u;
-    if (j == 0) {
-      kw = ld32(ck + b * ck_rs + col + 2 * w);
-      vw = ld32(cv + b * cv_rs + col + 2 * w);
-    } else if (j < L) {
-      const long long r = frame_row + j - 1;
-      kw = ld32(k + r * k_rs + col + 2 * w);
-      vw = ld32(v + r * v_rs + col + 2 * w);
-    }
-    stage_pair(ks, kts, j, w, kw);
-    stage_pair(vs, nullptr, j, w, vw);
-  }
-  __syncthreads();
-
+// dq: grid (ceil(N/64), H, B*F), kTcWarps*32 threads; warp w owns queries
+// 16w..16w+15 of the block's 64. First, per query row (fragments loaded
+// from device memory): delta = rowsum(dO*O), written for the dk/dv kernel,
+// and the CLS key's P and dS. Then per 64-key tile of k_f (two cp.async
+// stages), S = Q K^T and dP = dO V^T on the tensor cores, dS = P (dP -
+// delta) in registers, dS (bf16) times K into dq. dq = scale*(dS K +
+// dS_cls ck). The block's share of dck/dcv (its 64 queries' scale*dS_cls*q
+// and P_cls*dO) goes to the fp32 partials (B, F*ceil(N/64), D).
+__global__ void __launch_bounds__(kTcWarps * 32)
+    space_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ ck,
+                           const __nv_bfloat16* __restrict__ cv,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const __nv_bfloat16* __restrict__ out,
+                           const float* __restrict__ lse,
+                           float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq,
+                           float* __restrict__ part_k,
+                           float* __restrict__ part_v, int F, int N, int H,
+                           long long q_rs, long long k_rs, long long v_rs,
+                           long long ck_rs, long long cv_rs, float scale) {
+  __shared__ __align__(16) __nv_bfloat16 tiles[2][2][kTileElems];  // K, V
+  __shared__ float cls[2][kTcWarps][kD];  // per warp: dck, dcv shares
+  const int qt = blockIdx.x, h = blockIdx.y, bf = blockIdx.z, b = bf / F;
+  const long long frame_row = (long long)bf * N;
+  const int col = h * kD;
+  const long long D = (long long)H * kD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  for (int rt = warp; rt * 16 < N; rt += kMmaWarps) {
-    const int n0 = rt * 16 + g, n1 = n0 + 8;  // this lane's two query rows
-    const __nv_bfloat16* q0 = q + (frame_row + n0) * q_rs + col + 2 * t;
-    const __nv_bfloat16* q1 = q + (frame_row + n1) * q_rs + col + 2 * t;
-    const __nv_bfloat16* g0 = dout + (frame_row + n0) * D + col + 2 * t;
-    const __nv_bfloat16* g1 = dout + (frame_row + n1) * D + col + 2 * t;
-    unsigned qa[kMmaD / 16][4], ga[kMmaD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kMmaD / 16; ++kk) {
-      qa[kk][0] = n0 < N ? ld32(q0 + kk * 16) : 0u;
-      qa[kk][1] = n1 < N ? ld32(q1 + kk * 16) : 0u;
-      qa[kk][2] = n0 < N ? ld32(q0 + kk * 16 + 8) : 0u;
-      qa[kk][3] = n1 < N ? ld32(q1 + kk * 16 + 8) : 0u;
-      ga[kk][0] = n0 < N ? ld32(g0 + kk * 16) : 0u;
-      ga[kk][1] = n1 < N ? ld32(g1 + kk * 16) : 0u;
-      ga[kk][2] = n0 < N ? ld32(g0 + kk * 16 + 8) : 0u;
-      ga[kk][3] = n1 < N ? ld32(g1 + kk * 16 + 8) : 0u;
-    }
-    const float l0 = n0 < N ? lse[(frame_row + n0) * H + h] : 0.f;
-    const float l1 = n1 < N ? lse[(frame_row + n1) * H + h] : 0.f;
-    const float d0 = n0 < N ? delta[(frame_row + n0) * H + h] : 0.f;
-    const float d1 = n1 < N ? delta[(frame_row + n1) * H + h] : 0.f;
+  const int n0 = qt * kTile + warp * 16 + g, n1 = n0 + 8;
+  const bool ok0 = n0 < N, ok1 = n1 < N;
+  const float sl2 = scale * kLog2e;
 
-    float acc[kMmaD / 8][4];
+  auto stage = [&](int kt) {
+    async_rows(tiles[kt & 1][0], k, k_rs, frame_row, col, kt * kTile, N);
+    async_rows(tiles[kt & 1][1], v, v_rs, frame_row, col, kt * kTile, N);
+    lavila::cp_async_commit();
+  };
+  stage(0);
+
+  unsigned qa[kD / 16][4], ga[kD / 16][4];
+  float dl0, dl1, pc0, pc1, dc0, dc1;  // delta, P_cls, dS_cls per row
+  {
+    unsigned oa[kD / 16][4];
+    load_rows(qa, q + (frame_row + n0) * q_rs + col,
+              q + (frame_row + n1) * q_rs + col, ok0, ok1, t);
+    load_rows(ga, dout + (frame_row + n0) * D + col,
+              dout + (frame_row + n1) * D + col, ok0, ok1, t);
+    load_rows(oa, out + (frame_row + n0) * D + col,
+              out + (frame_row + n1) * D + col, ok0, ok1, t);
+    // this lane's 16 dims of rows g and g + 8: fragment kk, half hf holds
+    // dims 16kk + 8hf + 2t, +1 (rows g in [2hf], g + 8 in [2hf + 1])
+    float s0 = 0.f, s1 = 0.f, p0 = 0.f, p1 = 0.f, e0 = 0.f, e1 = 0.f;
 #pragma unroll
-    for (int dn = 0; dn < kMmaD / 8; ++dn)
-      acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-    for (int kt = 0; kt < kTiles; ++kt) {
+    for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = col + kk * 16 + hf * 8 + 2 * t;
+        const float2 kc = unpack_bf16(ld32(ck + b * ck_rs + c));
+        const float2 vc = unpack_bf16(ld32(cv + b * cv_rs + c));
+        const float2 qx = unpack_bf16(qa[kk][2 * hf]);
+        const float2 qy = unpack_bf16(qa[kk][2 * hf + 1]);
+        const float2 gx = unpack_bf16(ga[kk][2 * hf]);
+        const float2 gy = unpack_bf16(ga[kk][2 * hf + 1]);
+        const float2 ox = unpack_bf16(oa[kk][2 * hf]);
+        const float2 oy = unpack_bf16(oa[kk][2 * hf + 1]);
+        s0 += qx.x * kc.x + qx.y * kc.y;
+        s1 += qy.x * kc.x + qy.y * kc.y;
+        p0 += gx.x * vc.x + gx.y * vc.y;
+        p1 += gy.x * vc.x + gy.y * vc.y;
+        e0 += gx.x * ox.x + gx.y * ox.y;
+        e1 += gy.x * oy.x + gy.y * oy.y;
+      }
+    }
+    dl0 = quad_sum(e0);
+    dl1 = quad_sum(e1);
+    if (t == 0) {
+      if (ok0) delta[(frame_row + n0) * H + h] = dl0;
+      if (ok1) delta[(frame_row + n1) * H + h] = dl1;
+    }
+    // padded rows: q = dO = 0, lse = 0, so P_cls = 1 and dS_cls = 0; they
+    // add nothing to dck/dcv
+    const float l0 = ok0 ? lse[(frame_row + n0) * H + h] * kLog2e : 0.f;
+    const float l1 = ok1 ? lse[(frame_row + n1) * H + h] * kLog2e : 0.f;
+    pc0 = exp2f(quad_sum(s0) * sl2 - l0);
+    pc1 = exp2f(quad_sum(s1) * sl2 - l1);
+    dc0 = pc0 * (quad_sum(p0) - dl0);
+    dc1 = pc1 * (quad_sum(p1) - dl1);
+  }
+  // the block's share of dck/dcv, this warp's 16 rows: sum the lane's two
+  // rows, then the 8 lanes of equal t (xor over g)
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float2 qx = unpack_bf16(qa[kk][2 * hf]);
+      const float2 qy = unpack_bf16(qa[kk][2 * hf + 1]);
+      const float2 gx = unpack_bf16(ga[kk][2 * hf]);
+      const float2 gy = unpack_bf16(ga[kk][2 * hf + 1]);
+      float r[4] = {dc0 * qx.x + dc1 * qy.x, dc0 * qx.y + dc1 * qy.y,
+                    pc0 * gx.x + pc1 * gy.x, pc0 * gx.y + pc1 * gy.y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          r[i] += __shfl_xor_sync(0xffffffffu, r[i], o);
+      if (g == 0) {
+        const int c = kk * 16 + hf * 8 + 2 * t;
+        cls[0][warp][c] = r[0];
+        cls[0][warp][c + 1] = r[1];
+        cls[1][warp][c] = r[2];
+        cls[1][warp][c + 1] = r[3];
+      }
+    }
+  }
+
+  const float l0 = ok0 ? lse[(frame_row + n0) * H + h] * kLog2e : 0.f;
+  const float l1 = ok1 ? lse[(frame_row + n1) * H + h] * kLog2e : 0.f;
+  float acc[kD / 8][4];
+  zero(acc);
+  const int n_tiles = (N + kTile - 1) / kTile;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    if (kt + 1 < n_tiles) stage(kt + 1);
+    else lavila::cp_async_commit();  // an empty group keeps the count
+    lavila::cp_async_wait_prev();
+    __syncthreads();
+    const __nv_bfloat16* ks = tiles[kt & 1][0];
+    const __nv_bfloat16* vs = tiles[kt & 1][1];
+#pragma unroll
+    for (int st = 0; st < kTile / 16; ++st) {
       float s[2][4], dp[2][4];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = (2 * kt + half) * 8 + g;
-        const __nv_bfloat16* kr = ks + row * kRowStride + 2 * t;
-        const __nv_bfloat16* vr = vs + row * kRowStride + 2 * t;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[half][e] = dp[half][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kMmaD / 16; ++kk) {
-          mma_16816(s[half], qa[kk], ld32(kr + kk * 16),
-                    ld32(kr + kk * 16 + 8));
-          mma_16816(dp[half], ga[kk], ld32(vr + kk * 16),
-                    ld32(vr + kk * 16 + 8));
-        }
+        mma_scores(s[half], qa, ks, 2 * st + half, g, t);
+        mma_scores(dp[half], ga, vs, 2 * st + half, g, t);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool valid = (2 * kt + half) * 8 + 2 * t + e < L;
-          const float p0 = valid ? expf(s[half][e] * scale - l0) : 0.f;
-          const float p1 = valid ? expf(s[half][2 + e] * scale - l1) : 0.f;
-          s[half][e] = p0 * (dp[half][e] - d0);  // dS, row n0
-          s[half][2 + e] = p1 * (dp[half][2 + e] - d1);  // dS, row n1
+          const bool valid =
+              kt * kTile + (2 * st + half) * 8 + 2 * t + e < N;
+          const float p0 = valid ? exp2f(s[half][e] * sl2 - l0) : 0.f;
+          const float p1 = valid ? exp2f(s[half][2 + e] * sl2 - l1) : 0.f;
+          s[half][e] = p0 * (dp[half][e] - dl0);          // dS, row n0
+          s[half][2 + e] = p1 * (dp[half][2 + e] - dl1);  // dS, row n1
         }
       }
       const unsigned da[4] = {pack_bf16(s[0][0], s[0][1]),
                               pack_bf16(s[0][2], s[0][3]),
                               pack_bf16(s[1][0], s[1][1]),
                               pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-      for (int dn = 0; dn < kMmaD / 8; ++dn) {
-        const __nv_bfloat16* kc =
-            kts + (dn * 8 + g) * kColStride + kt * 16 + 2 * t;
-        mma_16816(acc[dn], da, ld32(kc), ld32(kc + 8));
-      }
+      mma_rows(acc, da, ks, st * 16, lane);
     }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+  // the CLS key's term, then dq = scale * acc
 #pragma unroll
-    for (int dn = 0; dn < kMmaD / 8; ++dn) {
-      const int c = col + dn * 8 + 2 * t;
-      if (n0 < N)
-        *reinterpret_cast<unsigned*>(dq + (frame_row + n0) * D + c) =
-            pack_bf16(acc[dn][0] * scale, acc[dn][1] * scale);
-      if (n1 < N)
-        *reinterpret_cast<unsigned*>(dq + (frame_row + n1) * D + c) =
-            pack_bf16(acc[dn][2] * scale, acc[dn][3] * scale);
-    }
+  for (int dn = 0; dn < kD / 8; ++dn) {
+    const float2 kc = unpack_bf16(ld32(ck + b * ck_rs + col + dn * 8 + 2 * t));
+    acc[dn][0] += dc0 * kc.x;
+    acc[dn][1] += dc0 * kc.y;
+    acc[dn][2] += dc1 * kc.x;
+    acc[dn][3] += dc1 * kc.y;
+  }
+  store_rows(dq + (frame_row + n0) * D + col, dq + (frame_row + n1) * D + col,
+             ok0, ok1, acc, scale, scale, t);
+  // the block's dck/dcv partials: the 4 warps' shares in a fixed order
+  // (the last __syncthreads of the loop made them visible)
+  const long long o = ((long long)bf * gridDim.x + qt) * D + col;
+  for (int i = threadIdx.x; i < 2 * kD; i += blockDim.x) {
+    const int which = i / kD, c = i - which * kD;
+    float sum = 0.f;
+    for (int w = 0; w < kTcWarps; ++w) sum += cls[which][w][c];
+    if (which == 0) part_k[o + c] = sum * scale;
+    else part_v[o + c] = sum;
   }
 }
 
-// The (head-sliced) row j of the keys [ck; k_f] or values [cv; v_f].
-__device__ __forceinline__ const __nv_bfloat16* key_row(
-    const __nv_bfloat16* cls, long long cls_rs, const __nv_bfloat16* x,
-    long long x_rs, int b, long long frame_row, int j) {
-  return j == 0 ? cls + b * cls_rs : x + (frame_row + j - 1) * x_rs;
-}
-
-// dk/dv: grid (H, F, B), kMmaWarps*32 threads. The frame's Q and dO are
-// staged as [query][d] and [d][query], lse and delta per query; each warp
-// takes 16 key rows (row 0 is the CLS key) and walks the queries 16 at a
-// time: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in registers, then
-// P^T dO into dV and dS^T Q into dK. Key 0's rows are this frame's share
-// of dck/dcv (fp32 partials, summed by sum_groups_kernel).
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    space_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ ck,
-                             const __nv_bfloat16* __restrict__ cv,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv,
-                             float* __restrict__ dcls_k,
-                             float* __restrict__ dcls_v, int F, int N, int H,
-                             long long q_rs, long long k_rs, long long v_rs,
-                             long long ck_rs, long long cv_rs, float scale) {
-  extern __shared__ float smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [n][d]
-  __nv_bfloat16* gs = qs + kPad * kRowStride;                  // [n][d]
-  __nv_bfloat16* qts = gs + kPad * kRowStride;                 // [d][n]
-  __nv_bfloat16* gts = qts + kMmaD * kColStride;               // [d][n]
-  float* lses = reinterpret_cast<float*>(gts + kMmaD * kColStride);
-  float* deltas = lses + kPad;
-  const int h = blockIdx.x, f = blockIdx.y, b = blockIdx.z;
-  const int L = N + 1;
-  const long long frame_row = ((long long)b * F + f) * N;
-  const int col = h * kMmaD;
-  const long long D = (long long)H * kMmaD;
-
-  for (int i = threadIdx.x; i < kPad * kWords; i += blockDim.x) {
-    const int n = i / kWords, w = i - n * kWords;
-    const long long r = frame_row + n;
-    stage_pair(qs, qts, n, w, n < N ? ld32(q + r * q_rs + col + 2 * w) : 0u);
-    stage_pair(gs, gts, n, w, n < N ? ld32(dout + r * D + col + 2 * w) : 0u);
-  }
-  for (int n = threadIdx.x; n < kPad; n += blockDim.x) {
-    // padded queries: P = exp(s - inf) = 0, so they add nothing
-    lses[n] = n < N ? lse[(frame_row + n) * H + h] : INFINITY;
-    deltas[n] = n < N ? delta[(frame_row + n) * H + h] : 0.f;
-  }
-  __syncthreads();
-
+// dk/dv: grid (ceil(N/64), H, B*F), kTcWarps*32 threads; warp w owns keys
+// 16w..16w+15 of the block's 64 (rows of k_f and v_f: the CLS key's
+// gradient is the dq kernel's). Per query tile (two cp.async stages), Q and
+// dO [query][d] with lse and delta per query; S^T = K Q^T and dP^T = V
+// dO^T on the tensor cores, P^T and dS^T in registers, then P^T dO into
+// dV and dS^T Q into dK, both through ldmatrix's transpose.
+__global__ void __launch_bounds__(kTcWarps * 32)
+    space_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int N, int H,
+                            long long q_rs, long long k_rs, long long v_rs,
+                            float scale) {
+  __shared__ __align__(16) __nv_bfloat16 tiles[2][2][kTileElems];  // Q, dO
+  __shared__ float stats[2][2][kTile];  // per stage: lse, delta
+  const int h = blockIdx.y, bf = blockIdx.z;
+  const long long frame_row = (long long)bf * N;
+  const int col = h * kD;
+  const long long D = (long long)H * kD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  for (int kt = warp; kt * 16 < L; kt += kMmaWarps) {
-    const int j0 = kt * 16 + g, j1 = j0 + 8;  // this lane's two key rows
-    const __nv_bfloat16* k0 = key_row(ck, ck_rs, k, k_rs, b, frame_row, j0);
-    const __nv_bfloat16* k1 = key_row(ck, ck_rs, k, k_rs, b, frame_row, j1);
-    const __nv_bfloat16* v0 = key_row(cv, cv_rs, v, v_rs, b, frame_row, j0);
-    const __nv_bfloat16* v1 = key_row(cv, cv_rs, v, v_rs, b, frame_row, j1);
-    unsigned ka[kMmaD / 16][4], va[kMmaD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kMmaD / 16; ++kk) {
-      const int c = col + kk * 16 + 2 * t;
-      ka[kk][0] = j0 < L ? ld32(k0 + c) : 0u;
-      ka[kk][1] = j1 < L ? ld32(k1 + c) : 0u;
-      ka[kk][2] = j0 < L ? ld32(k0 + c + 8) : 0u;
-      ka[kk][3] = j1 < L ? ld32(k1 + c + 8) : 0u;
-      va[kk][0] = j0 < L ? ld32(v0 + c) : 0u;
-      va[kk][1] = j1 < L ? ld32(v1 + c) : 0u;
-      va[kk][2] = j0 < L ? ld32(v0 + c + 8) : 0u;
-      va[kk][3] = j1 < L ? ld32(v1 + c + 8) : 0u;
-    }
-    float ak[kMmaD / 8][4], av[kMmaD / 8][4];
-#pragma unroll
-    for (int dn = 0; dn < kMmaD / 8; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ak[dn][e] = av[dn][e] = 0.f;
+  const int j0 = blockIdx.x * kTile + warp * 16 + g, j1 = j0 + 8;
+  const float sl2 = scale * kLog2e;
 
-    for (int qt = 0; qt * 16 < N; ++qt) {
+  auto stage = [&](int qt) {
+    async_rows(tiles[qt & 1][0], q, q_rs, frame_row, col, qt * kTile, N);
+    async_rows(tiles[qt & 1][1], dout, D, frame_row, col, qt * kTile, N);
+    // lse and delta by cp.async too; padded queries read lse = delta = 0:
+    // their Q and dO rows are zeros, so dS = P (dP - delta) = 0 and
+    // P^T dO = 0 whatever P is
+    for (int nn = threadIdx.x; nn < kTile; nn += blockDim.x) {
+      const int n = qt * kTile + nn;
+      const long long r = (frame_row + (n < N ? n : 0)) * H + h;
+      lavila::cp_async4(&stats[qt & 1][0][nn], lse + r, n < N);
+      lavila::cp_async4(&stats[qt & 1][1][nn], delta + r, n < N);
+    }
+    lavila::cp_async_commit();
+  };
+  stage(0);
+
+  unsigned ka[kD / 16][4], va[kD / 16][4];
+  load_rows(ka, k + (frame_row + j0) * k_rs + col,
+            k + (frame_row + j1) * k_rs + col, j0 < N, j1 < N, t);
+  load_rows(va, v + (frame_row + j0) * v_rs + col,
+            v + (frame_row + j1) * v_rs + col, j0 < N, j1 < N, t);
+  float ak[kD / 8][4], av[kD / 8][4];
+  zero(ak);
+  zero(av);
+
+  const int n_tiles = (N + kTile - 1) / kTile;
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    if (qt + 1 < n_tiles) stage(qt + 1);
+    else lavila::cp_async_commit();
+    lavila::cp_async_wait_prev();
+    __syncthreads();
+    const __nv_bfloat16* qs = tiles[qt & 1][0];
+    const __nv_bfloat16* gs = tiles[qt & 1][1];
+    const float* lses = stats[qt & 1][0];
+    const float* deltas = stats[qt & 1][1];
+#pragma unroll
+    for (int st = 0; st < kTile / 16; ++st) {
       float s[2][4], dp[2][4], p[2][4];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = (2 * qt + half) * 8 + g;
-        const __nv_bfloat16* qr = qs + row * kRowStride + 2 * t;
-        const __nv_bfloat16* gr = gs + row * kRowStride + 2 * t;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[half][e] = dp[half][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kMmaD / 16; ++kk) {
-          mma_16816(s[half], ka[kk], ld32(qr + kk * 16),
-                    ld32(qr + kk * 16 + 8));
-          mma_16816(dp[half], va[kk], ld32(gr + kk * 16),
-                    ld32(gr + kk * 16 + 8));
-        }
-        // columns are queries n = (2qt+half)*8 + 2t + e; rows j0 and j1
+        mma_scores(s[half], ka, qs, 2 * st + half, g, t);
+        mma_scores(dp[half], va, gs, 2 * st + half, g, t);
+        // columns are queries nn = (2st+half)*8 + 2t + e; rows j0 and j1
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int n = (2 * qt + half) * 8 + 2 * t + e;
-          const float l = lses[n], dl = deltas[n];
-          p[half][e] = expf(s[half][e] * scale - l);
-          p[half][2 + e] = expf(s[half][2 + e] * scale - l);
+          const int nn = (2 * st + half) * 8 + 2 * t + e;
+          const float l = lses[nn] * kLog2e, dl = deltas[nn];
+          p[half][e] = exp2f(s[half][e] * sl2 - l);
+          p[half][2 + e] = exp2f(s[half][2 + e] * sl2 - l);
           s[half][e] = p[half][e] * (dp[half][e] - dl);
           s[half][2 + e] = p[half][2 + e] * (dp[half][2 + e] - dl);
         }
@@ -548,36 +578,15 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
                               pack_bf16(s[0][2], s[0][3]),
                               pack_bf16(s[1][0], s[1][1]),
                               pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-      for (int dn = 0; dn < kMmaD / 8; ++dn) {
-        const int off = (dn * 8 + g) * kColStride + qt * 16 + 2 * t;
-        mma_16816(av[dn], pa, ld32(gts + off), ld32(gts + off + 8));
-        mma_16816(ak[dn], sa, ld32(qts + off), ld32(qts + off + 8));
-      }
+      mma_rows(av, pa, gs, st * 16, lane);
+      mma_rows(ak, sa, qs, st * 16, lane);
     }
-
-#pragma unroll
-    for (int dn = 0; dn < kMmaD / 8; ++dn) {
-      const int c = col + dn * 8 + 2 * t;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int j = r ? j1 : j0;
-        const float gk0 = ak[dn][2 * r] * scale, gk1 = ak[dn][2 * r + 1] * scale;
-        const float gv0 = av[dn][2 * r], gv1 = av[dn][2 * r + 1];
-        if (j == 0) {
-          const long long o = ((long long)b * F + f) * D + c;
-          dcls_k[o] = gk0;
-          dcls_k[o + 1] = gk1;
-          dcls_v[o] = gv0;
-          dcls_v[o + 1] = gv1;
-        } else if (j < L) {
-          const long long o = (frame_row + j - 1) * D + c;
-          *reinterpret_cast<unsigned*>(dk + o) = pack_bf16(gk0, gk1);
-          *reinterpret_cast<unsigned*>(dv + o) = pack_bf16(gv0, gv1);
-        }
-      }
-    }
+    __syncthreads();  // this stage is refilled two tiles on
   }
+  store_rows(dk + (frame_row + j0) * D + col, dk + (frame_row + j1) * D + col,
+             j0 < N, j1 < N, ak, scale, scale, t);
+  store_rows(dv + (frame_row + j0) * D + col, dv + (frame_row + j1) * D + col,
+             j0 < N, j1 < N, av, 1.f, 1.f, t);
 }
 
 // One warp per (clip, position, head); ceil(B*N*H / kWarps) blocks.
@@ -742,57 +751,50 @@ cudaError_t launch_space_bwd(const void* q, const void* k, const void* v,
                               dck, dcv, B, F, (long long)H * d, stream);
 }
 
-// The tensor-core K1 bwd takes bf16 with head_dim 64, at most 207
-// patches and bf16-pair aligned rows, as the forward's; everything else
-// takes the SIMT kernels.
-bool space_bwd_mma_fits(const void* q, const void* k, const void* v,
-                        const void* ck, const void* cv, const void* dout,
-                        const void* out, int N, int d, long long q_rs,
-                        long long k_rs, long long v_rs, long long ck_rs,
-                        long long cv_rs) {
-  return d == kMmaD && N + 1 <= kPad &&
-         lavila::bf16_pairs_ok({q, k, v, ck, cv, dout, out},
-                               {q_rs, k_rs, v_rs, ck_rs, cv_rs});
+// What the tensor-core K1 bwd takes (kernels/divided.py mirrors it): the
+// forward's conditions (head_dim 64, 1 <= N <= 256, q/k/v rows on 16-byte
+// boundaries, ck/cv as bf16 pairs), dO on a 16-byte boundary (cp.async)
+// and O 4-byte aligned (read as bf16 pairs).
+bool space_bwd_tc_fits(const void* q, const void* k, const void* v,
+                       const void* ck, const void* cv, const void* dout,
+                       const void* out, int N, int d, long long q_rs,
+                       long long k_rs, long long v_rs, long long ck_rs,
+                       long long cv_rs) {
+  if (d != kD || N < 1 || N > 4 * kTile) return false;
+  for (const void* p : {q, k, v, dout})
+    if ((unsigned long long)p & 15ull) return false;
+  for (long long s : {q_rs, k_rs, v_rs})
+    if (s & 7ll) return false;
+  return lavila::bf16_pairs_ok({ck, cv, out}, {ck_rs, cv_rs});
 }
 
-cudaError_t launch_space_bwd_mma(const void* q, const void* k, const void* v,
-                                 const void* ck, const void* cv,
-                                 const void* dout, const void* out,
-                                 const void* lse, void* delta, void* dq,
-                                 void* dk, void* dv, void* dck, void* dcv,
-                                 void* part_k, void* part_v, int B, int F,
-                                 int N, int H, long long q_rs, long long k_rs,
-                                 long long v_rs, long long ck_rs,
-                                 long long cv_rs, float scale,
-                                 cudaStream_t stream) {
+cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
+                                const void* ck, const void* cv,
+                                const void* dout, const void* out,
+                                const void* lse, void* delta, void* dq,
+                                void* dk, void* dv, void* dck, void* dcv,
+                                void* part_k, void* part_v, int B, int F,
+                                int N, int H, long long q_rs, long long k_rs,
+                                long long v_rs, long long ck_rs,
+                                long long cv_rs, float scale,
+                                cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  cudaError_t err = launch_delta<bf16>(dout, out, delta,
-                                       (long long)B * F * N * H, kMmaD,
-                                       stream);
-  if (err != cudaSuccess) return err;
-
-  const dim3 grid(H, F, B);
-  size_t smem = space_dq_mma_smem_bytes();
-  if ((err = allow_smem(space_bwd_dq_mma_kernel, smem)) != cudaSuccess)
-    return err;
-  space_bwd_dq_mma_kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+  const int tiles = (N + kTile - 1) / kTile;
+  const dim3 grid(tiles, H, B * F);
+  space_bwd_dq_tc_kernel<<<grid, kTcWarps * 32, 0, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ck,
-      (const bf16*)cv, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dq, F, N, H, q_rs, k_rs, v_rs, ck_rs,
-      cv_rs, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  smem = space_dkv_mma_smem_bytes();
-  if ((err = allow_smem(space_bwd_dkv_mma_kernel, smem)) != cudaSuccess)
-    return err;
-  space_bwd_dkv_mma_kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ck,
-      (const bf16*)cv, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, (float*)part_k,
+      (const bf16*)cv, (const bf16*)dout, (const bf16*)out,
+      (const float*)lse, (float*)delta, (bf16*)dq, (float*)part_k,
       (float*)part_v, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  space_bwd_dkv_tc_kernel<<<grid, kTcWarps * 32, 0, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, N, H,
+      q_rs, k_rs, v_rs, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_groups<bf16>((const float*)part_k, (const float*)part_v,
-                                 dck, dcv, B, F, (long long)H * kMmaD,
+                                 dck, dcv, B, F * tiles, (long long)H * kD,
                                  stream);
 }
 
@@ -823,12 +825,16 @@ cudaError_t launch_time_bwd(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = fp32, 1 = bf16.
-// part_k/part_v: fp32 scratch the caller allocates, (B, F, D) for the
-// spatial phase and (B, N, D) for the temporal one; delta: fp32 scratch
-// (B, F, N, H) for the spatial phase's tensor-core path. Returns the
-// cudaError_t of the launches (0 on success).
+// part_k/part_v: fp32 scratch the caller allocates: (B, F*ceil(N/64), D)
+// for the spatial phase's tensor-core kernels, (B, F, D) for its SIMT
+// ones, (B, N, D) for the temporal phase; delta: fp32 scratch (B, F, N, H)
+// for the spatial phase's tensor-core kernels. Returns the cudaError_t of
+// the launches (0 on success).
 extern "C" {
 
+// tc: 1 runs the tensor-core kernels (bf16; refused with
+// cudaErrorInvalidValue where space_bwd_tc_fits does not hold), 0 the SIMT
+// ones.
 int lavila_divided_space_bwd(const void* q, const void* k, const void* v,
                              const void* ck, const void* cv,
                              const void* dout, const void* out,
@@ -837,14 +843,17 @@ int lavila_divided_space_bwd(const void* q, const void* k, const void* v,
                              void* part_k, void* part_v, int B, int F, int N,
                              int H, int d, long long q_rs, long long k_rs,
                              long long v_rs, long long ck_rs, long long cv_rs,
-                             float scale, int dtype, void* stream) {
+                             float scale, int dtype, int tc, void* stream) {
   if (d < 1 || d > 32 * kMaxDimsPerLane) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && space_bwd_mma_fits(q, k, v, ck, cv, dout, out, N, d,
-                                       q_rs, k_rs, v_rs, ck_rs, cv_rs))
-    return (int)launch_space_bwd_mma(
+  if (tc) {
+    if (dtype != 1 || !space_bwd_tc_fits(q, k, v, ck, cv, dout, out, N, d,
+                                         q_rs, k_rs, v_rs, ck_rs, cv_rs))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_space_bwd_tc(
         q, k, v, ck, cv, dout, out, lse, delta, dq, dk, dv, dck, dcv, part_k,
         part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+  }
   if (dtype == 0)
     return (int)launch_space_bwd<float>(
         q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k, part_v,

@@ -10,27 +10,54 @@
 // scores, softmax and sums are fp32.
 //
 // K1, spatial phase: each patch query of frame f attends over the N+1 keys
-// [cls_k; k_{f,1..N}]. One block owns one (clip, frame, head) and stages
-// that head's K and V and the CLS row in shared memory once; its warps
-// sweep all N queries against them. Two kernels, chosen by what the call
-// gives:
+// [cls_k; k_f], N <= 256 (larger frames go to K6, divided_big.cu). The
+// caller picks one of two kernels (kernels/divided.py asks for the tensor
+// cores by the `tc` argument, and the entry point refuses a call they
+// cannot take):
 //
-//  * bf16, head_dim 64, N+1 <= 208 keys (TSF-B: N = 196): tensor cores.
-//    With mma.sync (bf16 in, fp32 accumulate) the phase does (N+1)/2 ~ 98
-//    FLOPs per byte of q/k/v/out, below the H100's ~295, so its floor is
-//    one read of q/k/v and one write of out. K and V^T sit in shared
-//    memory as bf16 (~57 KB, so dynamic shared memory above the 48 KB
-//    static limit), rows padded by 8 elements so fragment loads hit 32
-//    distinct banks. Each warp takes 16 query rows at a time, holds the
-//    whole 16 x 208 score tile in registers, takes the softmax there (a
-//    row is spread over the 4 lanes of a quad) and reuses the score
-//    accumulators, rounded to bf16, as the A operand of P·V, as
-//    FlashAttention-2 does: no score or probability touches memory.
+//  * bf16, head_dim 64, q/k/v rows on 16-byte boundaries: space_fwd_tc,
+//    one design for every N <= 256 (TSF-B's 196, TSF-L@224's 256, ragged
+//    N between). The phase is bound by bytes: 4*(N+1)*d FLOPs per query
+//    row against 4*d*2 bytes of q/k/v/out, ~98 FLOPs a byte at N = 196
+//    (38.5 MB and 3.8 GFLOP at TSF-B's batch 8, 0.0116 ms at 3.35 TB/s)
+//    and ~128 at N = 256 (67 MB and 8.6 GFLOP at TSF-L@224's batch 8,
+//    0.0202 ms), below the H100's ~295. So the design is about the
+//    memory side:
+//    - Grid: one block per (128-query tile, head, clip*frame), two
+//      warpgroups, each owning 64 query rows; 2 x 12 x 32 = 768 blocks at
+//      TSF-B batch 8, 1024 at TSF-L@224. The two warpgroups share the
+//      frame's K and V in shared memory, so a frame's keys cross from L2
+//      half as often as with one warpgroup a block (which measured
+//      slower). A warpgroup past the frame's last query leaves at once.
+//    - Copies: thread 0 issues every copy at entry by TMA (3-D tensor maps
+//      over the strided row views: columns, the frame's N rows, frames;
+//      rows past N come in as zeros): each query tile and each 64-key K
+//      and V tile lands in shared memory (128-byte swizzle) on a barrier
+//      of its own, so the products of key tile t run while tiles t+1..
+//      are still in flight. With N <= 256 the ring holds every key tile
+//      (2 query + 8 key tiles, ~81 KB: two blocks an SM) and no slot is
+//      ever refilled.
+//    - Products: S = Q K^T and O += P V are wgmma m64n64k16 (bf16 in,
+//      fp32 accumulate): Q and K from shared memory, K-major; P from
+//      registers (the S accumulator rounded to bf16 is wgmma's A
+//      fragment); V from shared memory read MN-major, so no tile is
+//      stored transposed.
+//    - The CLS key is the online softmax's starting state: per row
+//      s_cls = scale*q.ck, m = s_cls, l = 1, acc = cv (the Pallas
+//      kernel's order, divided.py:63-72), so the key tiles are plain rows
+//      of k_f and only the last one is masked (196 = 3*64 + 4; 256 =
+//      4*64). The softmax runs in the log2 domain (exp2).
+//    - Output through the warpgroup's query tile in shared memory to
+//      16-byte coalesced stores; lse = m + log(l).
+//    - Numerics: the *unnormalised* P = exp(s - m) is rounded to bf16 for
+//      P V and the sum divided at the end, as K6 does; the JAX kernel
+//      rounds the normalised P. bf16 rounding only (the 2e-2 bf16 limit).
 //  * everything else (fp32, whose 1e-4 bound rules out bf16 or TF32
-//    tensor cores, other head sizes, N up to 256): SIMT fp32 FMA, bound by
-//    FMA issue and its ~2 shared-memory loads per FMA. K/V are staged in
-//    fp32 (~100 KB at N = 196, dynamic shared memory), rows padded to d+1
-//    floats so that lane j reading key row j hits its own bank.
+//    tensor cores, other head sizes, unaligned rows): SIMT fp32 FMA,
+//    bound by FMA issue and its ~2 shared-memory loads per FMA. K/V are
+//    staged in fp32 (~100 KB at N = 196, dynamic shared memory), rows
+//    padded to d+1 floats so that lane j reading key row j hits its own
+//    bank.
 //
 // K2, temporal phase: each query at (frame f, position n) attends over the
 // F keys at position n plus the CLS key. Only F+1 keys, so the phase is
@@ -39,23 +66,27 @@
 // reductions and the softmax is online, so F is only bounded by the loop
 // (16 frames, the fine-tune clip length, runs the same code as 4).
 
+#include <cuda.h>
+#include <dlfcn.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
+using lavila::allow_smem;
 using lavila::from_float;
 using lavila::ld32;
-using lavila::mma_16816;
 using lavila::pack_bf16;
 using lavila::quad_max;
 using lavila::quad_sum;
 using lavila::to_float;
+using lavila::unpack_bf16;
 using lavila::warp_max;
 using lavila::warp_sum;
 
-constexpr int kWarps = 8;           // warps per block, both kernels
+constexpr int kWarps = 8;           // warps per block, the SIMT kernels
 constexpr int kMaxDimsPerLane = 4;  // head_dim <= 128
 
 size_t space_smem_bytes(int N, int d) {
@@ -139,149 +170,249 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// ---- K1, bf16 on the tensor cores -------------------------------------
+// ---- K1, bf16 head_dim 64: TMA and wgmma ---------------------------------
 
-constexpr int kMmaD = 64;           // head_dim of the tensor-core path
-constexpr int kMmaKeyTiles = 26;    // 8-key tiles: N + 1 <= 208 keys
-constexpr int kMmaKeys = kMmaKeyTiles * 8;
-constexpr int kMmaWarps = 4;
-constexpr int kKsStride = kMmaD + 8;    // bf16 per K row in shared memory
-constexpr int kVtStride = kMmaKeys + 8; // bf16 per V^T row in shared memory
+constexpr int kTcD = 64;         // head_dim of the tensor-core kernel
+constexpr int kTcTile = 64;      // queries per warpgroup, keys per tile
+constexpr int kTcMaxTiles = 4;   // key tiles: N <= 256
+constexpr int kWG = 2;           // warpgroups per block: 128 queries
+constexpr int kTcTileElems = kTcTile * kTcD;
+constexpr unsigned kTcTileBytes = kTcTileElems * 2;  // 8 KB of 128-B rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-size_t space_mma_smem_bytes() {
-  return ((size_t)kMmaKeys * kKsStride + (size_t)kMmaD * kVtStride) *
-         sizeof(__nv_bfloat16);
+size_t space_tc_smem_bytes(int tiles) {
+  // a query tile per warpgroup, `tiles` K and V tiles, and slack to put
+  // the first tile on a 1024-byte boundary (the 128-byte swizzle's period)
+  return (size_t)(kWG + 2 * tiles) * kTcTileBytes + 1024;
 }
 
-// grid (H, F, B), kMmaWarps*32 threads. Fragment layouts are PTX's for
-// m16n8k16: lane = 4*g + t holds rows g and g+8, columns 2t, 2t+1 (+8).
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    space_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ ck,
-                         const __nv_bfloat16* __restrict__ cv,
-                         __nv_bfloat16* __restrict__ out,
-                         float* __restrict__ lse, int F, int N, int H,
-                         long long q_rs, long long k_rs, long long v_rs,
-                         long long ck_rs, long long cv_rs, float scale) {
-  extern __shared__ float smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [key][d]
-  __nv_bfloat16* vt = ks + kMmaKeys * kKsStride;               // [d][key]
-  const int h = blockIdx.x, f = blockIdx.y, b = blockIdx.z;
-  const int L = N + 1;  // key 0 is the CLS token; keys >= L are zero pads
-  const long long frame_row = ((long long)b * F + f) * N;
-  const int col = h * kMmaD;
-  const long long D = (long long)H * kMmaD;
+// Element (r, c) of a 64 x 64 bf16 tile written by TMA with the 128-byte
+// swizzle: 16-byte chunk c/8 of row r sits at chunk (c/8) ^ (r % 8).
+__device__ __forceinline__ char* swizzled(void* tile, int r, int c) {
+  return static_cast<char*>(tile) + r * 128 + (((c >> 3) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
 
-  constexpr int kWords = kMmaD / 2;  // bf16 pairs per row
-  for (int i = threadIdx.x; i < kMmaKeys * kWords; i += blockDim.x) {
-    const int j = i / kWords, w = i - j * kWords;
-    unsigned kw = 0u, vw = 0u;
-    if (j == 0) {
-      kw = ld32(ck + b * ck_rs + col + 2 * w);
-      vw = ld32(cv + b * cv_rs + col + 2 * w);
-    } else if (j < L) {
-      const long long r = frame_row + j - 1;
-      kw = ld32(k + r * k_rs + col + 2 * w);
-      vw = ld32(v + r * v_rs + col + 2 * w);
+// the 128 threads of warpgroup `wg` wait for each other (named barrier
+// 1 + wg; 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// The online softmax over key tile kt's scores s (log2 domain after the
+// scale): keys past N masked, the running max and sum of the thread's
+// rows r0 and r0 + 8 updated, c0/c1 the factors that rescale what came
+// before, and P = exp2(s - m) packed to bf16 as wgmma's A operand (keys
+// 16kk..16kk+15 are the accumulator's column blocks 2kk and 2kk+1).
+__device__ __forceinline__ void softmax_tile(float (&s)[32],
+                                             unsigned (&pa)[kTcD / 16][4],
+                                             int kt, int N, int t4, float sl2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& c0,
+                                             float& c1) {
+  float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool valid = kt * kTcTile + 8 * j + 2 * t4 + e < N;
+      s[4 * j + e] = valid ? s[4 * j + e] * sl2 : -INFINITY;
+      s[4 * j + 2 + e] = valid ? s[4 * j + 2 + e] * sl2 : -INFINITY;
+      t0 = fmaxf(t0, s[4 * j + e]);
+      t1 = fmaxf(t1, s[4 * j + 2 + e]);
     }
-    *reinterpret_cast<unsigned*>(ks + j * kKsStride + 2 * w) = kw;
-    const __nv_bfloat162 vv = *reinterpret_cast<const __nv_bfloat162*>(&vw);
-    vt[(2 * w) * kVtStride + j] = vv.x;
-    vt[(2 * w + 1) * kVtStride + j] = vv.y;
+  }
+  // finite: m0/m1 start at the CLS score
+  const float mn0 = fmaxf(m0, quad_max(t0)), mn1 = fmaxf(m1, quad_max(t1));
+  c0 = exp2f(m0 - mn0);
+  c1 = exp2f(m1 - mn1);
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = exp2f(s[4 * j + e] - mn0);
+      s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - mn1);
+      rs0 += s[4 * j + e];
+      rs1 += s[4 * j + 2 + e];
+    }
+  }
+  l0 = l0 * c0 + quad_sum(rs0);
+  l1 = l1 * c1 + quad_sum(rs1);
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int kk = 0; kk < kTcD / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], float c0, float c1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    o[4 * j] *= c0;
+    o[4 * j + 1] *= c0;
+    o[4 * j + 2] *= c1;
+    o[4 * j + 3] *= c1;
+  }
+}
+
+// grid (ceil(N / (64 kWG)), H, B*F), 128 kWG threads: warpgroup w owns
+// queries 64 (kWG blockIdx.x + w) .. +63. tq/tk/tv: 3-D tensor maps
+// (columns, the frame's N rows, frames) with a 64 x 64 x 1 box.
+__global__ void __launch_bounds__(128 * kWG)
+    space_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __nv_bfloat16* __restrict__ ck,
+                        const __nv_bfloat16* __restrict__ cv,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int F, int N, int H,
+                        long long ck_rs, long long cv_rs, float scale) {
+  using namespace lavila::sm90;
+  extern __shared__ unsigned char smem_raw[];
+  // a barrier per query tile, per K tile and per V tile
+  __shared__ __align__(8) unsigned long long bar_q[kWG];
+  __shared__ __align__(8) unsigned long long bar_k[kTcMaxTiles];
+  __shared__ __align__(8) unsigned long long bar_v[kTcMaxTiles];
+  __nv_bfloat16* qs0 = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tiles = (N + kTcTile - 1) / kTcTile;
+  __nv_bfloat16* ks = qs0 + kWG * kTcTileElems;
+  __nv_bfloat16* vs = ks + tiles * kTcTileElems;
+  const int h = blockIdx.y, bf = blockIdx.z, b = bf / F;
+  const int col = h * kTcD;
+  const int wg = threadIdx.x >> 7;
+  const int row0 = (blockIdx.x * kWG + wg) * kTcTile;  // this warpgroup's
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWG; ++w) mbar_init(&bar_q[w], 1);
+    for (int t = 0; t < tiles; ++t) {
+      mbar_init(&bar_k[t], 1);
+      mbar_init(&bar_v[t], 1);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWG; ++w) {
+      const int r = (blockIdx.x * kWG + w) * kTcTile;
+      if (r >= N) break;
+      mbar_expect_tx(&bar_q[w], kTcTileBytes);
+      tma_load_3d(qs0 + w * kTcTileElems, &tq, &bar_q[w], col, r, bf);
+    }
+    for (int t = 0; t < tiles; ++t) {
+      mbar_expect_tx(&bar_k[t], kTcTileBytes);
+      tma_load_3d(ks + t * kTcTileElems, &tk, &bar_k[t], col, t * kTcTile,
+                  bf);
+      mbar_expect_tx(&bar_v[t], kTcTileBytes);
+      tma_load_3d(vs + t * kTcTileElems, &tv, &bar_v[t], col, t * kTcTile,
+                  bf);
+    }
+  }
+  // a warpgroup past the frame's last query has nothing to do; no
+  // block-wide barrier follows
+  if (row0 >= N) return;
+  __nv_bfloat16* qs = qs0 + wg * kTcTileElems;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  for (int rt = warp; rt * 16 < N; rt += kMmaWarps) {
-    const int n0 = rt * 16 + g, n1 = n0 + 8;  // this lane's two query rows
-    const __nv_bfloat16* q0 = q + (frame_row + n0) * q_rs + col + 2 * t;
-    const __nv_bfloat16* q1 = q + (frame_row + n1) * q_rs + col + 2 * t;
-    unsigned qa[kMmaD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kMmaD / 16; ++kk) {
-      qa[kk][0] = n0 < N ? ld32(q0 + kk * 16) : 0u;
-      qa[kk][1] = n1 < N ? ld32(q1 + kk * 16) : 0u;
-      qa[kk][2] = n0 < N ? ld32(q0 + kk * 16 + 8) : 0u;
-      qa[kk][3] = n1 < N ? ld32(q1 + kk * 16 + 8) : 0u;
-    }
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const float sl2 = scale * kLog2e;  // scores in the log2 domain
 
-    // S = Q K^T for 16 rows x kMmaKeys keys, in registers
-    float s[kMmaKeyTiles][4];
+  // the CLS key opens the softmax: acc = cv, l = 1, m = s_cls
+  float o[32];
 #pragma unroll
-    for (int nt = 0; nt < kMmaKeyTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (nt * 8 + g) * kKsStride + 2 * t;
+  for (int j = 0; j < 8; ++j) {
+    const float2 c = unpack_bf16(ld32(cv + b * cv_rs + col + 8 * j + 2 * t4));
+    o[4 * j] = o[4 * j + 2] = c.x;
+    o[4 * j + 1] = o[4 * j + 3] = c.y;
+  }
+  float ckf[16];  // ck's dims 16*t4 .. 16*t4 + 15
 #pragma unroll
-      for (int kk = 0; kk < kMmaD / 16; ++kk)
-        mma_16816(s[nt], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
+  for (int i = 0; i < 8; ++i) {
+    const float2 c = unpack_bf16(ld32(ck + b * ck_rs + col + 16 * t4 + 2 * i));
+    ckf[2 * i] = c.x;
+    ckf[2 * i + 1] = c.y;
+  }
+  mbar_wait(&bar_q[wg], 0);
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 16 * t4 + 2 * i;
+    const float2 a = unpack_bf16(*reinterpret_cast<unsigned*>(
+        swizzled(qs, r0, c)));
+    const float2 e = unpack_bf16(*reinterpret_cast<unsigned*>(
+        swizzled(qs, r0 + 8, c)));
+    d0 = fmaf(a.x, ckf[2 * i], fmaf(a.y, ckf[2 * i + 1], d0));
+    d1 = fmaf(e.x, ckf[2 * i], fmaf(e.y, ckf[2 * i + 1], d1));
+  }
+  float m0 = quad_sum(d0) * sl2, m1 = quad_sum(d1) * sl2;
+  float l0 = 1.f, l1 = 1.f;
 
-    // softmax over each row's keys (columns 2t, 2t+1 of every tile)
-    float m0 = -INFINITY, m1 = -INFINITY;
+  for (int kt = 0; kt < tiles; ++kt) {
+    mbar_wait(&bar_k[kt], 0);
+    __syncwarp();
+    const __nv_bfloat16* kst = ks + kt * kTcTileElems;
+    float s[32];
 #pragma unroll
-    for (int nt = 0; nt < kMmaKeyTiles; ++nt) {
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool valid = nt * 8 + 2 * t + e < L;
-        s[nt][e] = valid ? s[nt][e] * scale : -INFINITY;
-        s[nt][2 + e] = valid ? s[nt][2 + e] * scale : -INFINITY;
-        m0 = fmaxf(m0, s[nt][e]);
-        m1 = fmaxf(m1, s[nt][2 + e]);
-      }
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kMmaKeyTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = expf(s[nt][e] - m0);
-        s[nt][2 + e] = expf(s[nt][2 + e] - m1);
-        l0 += s[nt][e];
-        l1 += s[nt][2 + e];
-      }
-    }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
+    for (int kk = 0; kk < kTcD / 16; ++kk)
+      wgmma_ss(s, sw128_desc(qs + 16 * kk), sw128_desc(kst + 16 * kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
 
-    // O = P V: the score tiles 2kt, 2kt+1 are the A fragment of keys
-    // 16kt..16kt+15
-    float o[kMmaD / 8][4];
+    unsigned pa[kTcD / 16][4];
+    float c0, c1;
+    softmax_tile(s, pa, kt, N, t4, sl2, m0, m1, l0, l1, c0, c1);
+    rescale(o, c0, c1);
+    mbar_wait(&bar_v[kt], 0);
+    __syncwarp();
+    const __nv_bfloat16* vst = vs + kt * kTcTileElems;
+    wgmma_fence();
 #pragma unroll
-    for (int dn = 0; dn < kMmaD / 8; ++dn)
-      o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+    for (int kk = 0; kk < kTcTile / 16; ++kk)
+      wgmma_rs_tn(o, pa[kk], sw128_desc(vst + 16 * kk * kTcD));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(o);
 #pragma unroll
-    for (int kt = 0; kt < kMmaKeyTiles / 2; ++kt) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-                              pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                              pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                              pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < kMmaD / 8; ++dn) {
-        const __nv_bfloat16* vr = vt + (dn * 8 + g) * kVtStride + kt * 16 + 2 * t;
-        mma_16816(o[dn], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    for (int kk = 0; kk < kTcTile / 16; ++kk) hold(pa[kk]);
+  }
 
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  // out: through this warpgroup's query tile (same swizzle) to 16-byte
+  // row-contiguous stores
+  wg_sync(wg);  // every product of the warpgroup is done with qs
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-    for (int dn = 0; dn < kMmaD / 8; ++dn) {
-      const int c = col + dn * 8 + 2 * t;
-      if (n0 < N)
-        *reinterpret_cast<unsigned*>(out + (frame_row + n0) * D + c) =
-            pack_bf16(o[dn][0] * inv0, o[dn][1] * inv0);
-      if (n1 < N)
-        *reinterpret_cast<unsigned*>(out + (frame_row + n1) * D + c) =
-            pack_bf16(o[dn][2] * inv1, o[dn][3] * inv1);
-    }
-    if (t == 0) {
-      if (n0 < N) lse[(frame_row + n0) * H + h] = m0 + logf(l0);
-      if (n1 < N) lse[(frame_row + n1) * H + h] = m1 + logf(l1);
-    }
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    *reinterpret_cast<unsigned*>(swizzled(qs, r0, c)) =
+        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<unsigned*>(swizzled(qs, r0 + 8, c)) =
+        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  wg_sync(wg);
+  const long long frame_row = (long long)bf * N;
+  const long long D = (long long)H * kTcD;
+  for (int i = threadIdx.x & 127; i < kTcTile * kTcD / 8; i += 128) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const int n = row0 + r;
+    if (n < N)
+      *reinterpret_cast<uint4*>(out + (frame_row + n) * D + col + c) =
+          *reinterpret_cast<const uint4*>(swizzled(qs, r, c));
+  }
+  if (t4 == 0) {
+    const int n0 = row0 + r0, n1 = n0 + 8;
+    if (n0 < N) lse[(frame_row + n0) * H + h] = (m0 + log2f(l0)) * kLn2;
+    if (n1 < N) lse[(frame_row + n1) * H + h] = (m1 + log2f(l1)) * kLn2;
   }
 }
 
@@ -367,9 +498,7 @@ cudaError_t launch_space(const void* q, const void* k, const void* v,
                          long long k_rs, long long v_rs, long long ck_rs,
                          long long cv_rs, float scale, cudaStream_t stream) {
   const size_t smem = space_smem_bytes(N, d);
-  cudaError_t err = cudaFuncSetAttribute(
-      space_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = allow_smem(space_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   space_fwd_kernel<T><<<dim3(H, F, B), kWarps * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)ck, (const T*)cv,
@@ -378,34 +507,80 @@ cudaError_t launch_space(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The tensor-core K1 takes bf16 with head_dim 64, at most 207 patches and
-// 4-byte aligned rows (it moves bf16 pairs); everything else takes the
-// SIMT kernel.
-bool space_mma_fits(const void* q, const void* k, const void* v,
-                    const void* ck, const void* cv, int N, int d,
-                    long long q_rs, long long k_rs, long long v_rs,
-                    long long ck_rs, long long cv_rs) {
-  return d == kMmaD && N + 1 <= kMmaKeys &&
-         lavila::bf16_pairs_ok({q, k, v, ck, cv},
-                               {q_rs, k_rs, v_rs, ck_rs, cv_rs});
+// cuTensorMapEncodeTiled from the libcuda the process already loaded
+// (it is not linked: the library is loaded next to PyTorch's own)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h == nullptr ? nullptr
+                        : (EncodeTiled)dlsym(h, "cuTensorMapEncodeTiled");
+  }();
+  return fn;
 }
 
-cudaError_t launch_space_mma(const void* q, const void* k, const void* v,
-                             const void* ck, const void* cv, void* out,
-                             void* lse, int B, int F, int N, int H,
-                             long long q_rs, long long k_rs, long long v_rs,
-                             long long ck_rs, long long cv_rs, float scale,
-                             cudaStream_t stream) {
-  const size_t smem = space_mma_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      space_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// The (B*F frames, N rows, D columns) bf16 row view at p with row stride
+// rs elements, as a 3-D tensor map with a 64 x 64 x 1 box, 128-byte
+// swizzle; rows past N read as zeros.
+bool rows_map(CUtensorMap* map, const void* p, long long rs, int D, int N,
+              int frames) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N,
+                              (cuuint64_t)frames};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2,
+                                 (cuuint64_t)rs * 2 * N};
+  const cuuint32_t box[3] = {kTcD, kTcTile, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What the tensor-core K1 takes (kernels/divided.py mirrors it): head_dim
+// 64, 1 <= N <= 256, q/k/v rows on 16-byte boundaries (TMA), ck/cv read
+// as bf16 pairs.
+bool space_tc_fits(const void* q, const void* k, const void* v,
+                   const void* ck, const void* cv, int N, int d,
+                   long long q_rs, long long k_rs, long long v_rs,
+                   long long ck_rs, long long cv_rs) {
+  if (d != kTcD || N < 1 || N > kTcMaxTiles * kTcTile) return false;
+  for (const void* p : {q, k, v})
+    if ((uintptr_t)p & 15u) return false;
+  for (long long s : {q_rs, k_rs, v_rs})
+    if (s & 7ll) return false;
+  return lavila::bf16_pairs_ok({ck, cv}, {ck_rs, cv_rs});
+}
+
+cudaError_t launch_space_tc(const void* q, const void* k, const void* v,
+                            const void* ck, const void* cv, void* out,
+                            void* lse, int B, int F, int N, int H,
+                            long long q_rs, long long k_rs, long long v_rs,
+                            long long ck_rs, long long cv_rs, float scale,
+                            cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int D = H * kTcD;
+  if (!rows_map(&tq, q, q_rs, D, N, B * F) ||
+      !rows_map(&tk, k, k_rs, D, N, B * F) ||
+      !rows_map(&tv, v, v_rs, D, N, B * F))
+    return cudaErrorInvalidValue;
+  const int tiles = (N + kTcTile - 1) / kTcTile;
+  const size_t smem = space_tc_smem_bytes(tiles);
+  cudaError_t err = allow_smem(space_fwd_tc_kernel, smem);
   if (err != cudaSuccess) return err;
-  space_fwd_mma_kernel<<<dim3(H, F, B), kMmaWarps * 32, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)ck,
-      (const __nv_bfloat16*)cv, (__nv_bfloat16*)out, (float*)lse, F, N, H,
-      q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
+  const int blocks = (tiles + kWG - 1) / kWG;
+  space_fwd_tc_kernel<<<dim3(blocks, H, B * F), 128 * kWG, smem, stream>>>(
+      tq, tk, tv, (const __nv_bfloat16*)ck, (const __nv_bfloat16*)cv,
+      (__nv_bfloat16*)out, (float*)lse, F, N, H, ck_rs, cv_rs, scale);
   return cudaGetLastError();
 }
 
@@ -430,21 +605,26 @@ cudaError_t launch_time(const void* q, const void* k, const void* v,
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" {
 
+// tc: 1 runs the tensor-core kernel (bf16; refused with
+// cudaErrorInvalidValue where space_tc_fits does not hold), 0 the SIMT one.
 int lavila_divided_space_fwd(const void* q, const void* k, const void* v,
                              const void* ck, const void* cv, void* out,
                              void* lse, int B, int F, int N, int H, int d,
                              long long q_rs, long long k_rs, long long v_rs,
                              long long ck_rs, long long cv_rs, float scale,
-                             int dtype, void* stream) {
+                             int dtype, int tc, void* stream) {
   if (d < 1 || d > 32 * kMaxDimsPerLane) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tc) {
+    if (dtype != 1 || !space_tc_fits(q, k, v, ck, cv, N, d, q_rs, k_rs,
+                                     v_rs, ck_rs, cv_rs))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_space_tc(q, k, v, ck, cv, out, lse, B, F, N, H, q_rs,
+                                k_rs, v_rs, ck_rs, cv_rs, scale, s);
+  }
   if (dtype == 0)
     return (int)launch_space<float>(q, k, v, ck, cv, out, lse, B, F, N, H, d,
                                     q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
-  if (dtype == 1 && space_mma_fits(q, k, v, ck, cv, N, d, q_rs, k_rs, v_rs,
-                                   ck_rs, cv_rs))
-    return (int)launch_space_mma(q, k, v, ck, cv, out, lse, B, F, N, H, q_rs,
-                                 k_rs, v_rs, ck_rs, cv_rs, scale, s);
   if (dtype == 1)
     return (int)launch_space<__nv_bfloat16>(q, k, v, ck, cv, out, lse, B, F,
                                             N, H, d, q_rs, k_rs, v_rs, ck_rs,

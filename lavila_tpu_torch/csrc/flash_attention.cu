@@ -64,6 +64,7 @@ using lavila::pack_bf16;
 using lavila::quad_max;
 using lavila::quad_sum;
 using lavila::to_float;
+using lavila::unpack_bf16;
 using lavila::warp_max;
 using lavila::warp_sum;
 using namespace lavila::d64;  // kD, kRow, kChunks and the fragment helpers
@@ -104,11 +105,6 @@ __device__ __forceinline__ void async_rows(bf16* dst, const bf16* x,
     const bf16* src = ok ? x + (row0 + first + r) * rs + col + 8 * c : x;
     cp_async16(dst + r * kRow + 8 * c, src, ok);
   }
-}
-
-// bf16 pair -> two floats
-__device__ __forceinline__ float2 unpack_bf16(unsigned w) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
 }
 
 // forward: grid (ceil(Lq / (16 * warps)), H, B), warps * 32 threads; key

@@ -37,13 +37,16 @@ import torch
 
 from lavila_tpu_torch.kernels import build
 
-# kernel launches in this process, a plain int per kernel; a caller
-# zeroes them to count one run
-launches = {"space": 0, "time": 0, "space_big": 0, "space_bwd": 0,
-            "time_bwd": 0, "space_big_bwd": 0}
+# kernel launches in this process, a plain int per kernel, K1's split by
+# the branch it took ("tc": the tensor cores, "simt"); a caller zeroes
+# them to count one run
+launches = {"space_tc": 0, "space_simt": 0, "time": 0, "space_big": 0,
+            "space_bwd_tc": 0, "space_bwd_simt": 0, "time_bwd": 0,
+            "space_big_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SPACE_TOKENS = 256  # larger frames go to K6 (spatial_phase_big)
+_TC_TILE = 64  # K1's tensor-core blocks: 64 queries (or keys) each
 
 
 def divided_phase_reference(qp, kp, vp, ck, cv, axis: str, heads: int,
@@ -149,6 +152,45 @@ def _kernel_name(qp, axis: str, heads: int) -> str:
     return axis
 
 
+def _strides(qp, kp, vp, ck, cv) -> list[int]:
+    return [build.row_stride(t, n) for t, n in
+            ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
+
+
+def space_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None) -> str:
+    """The K1 kernels a call takes: "tc", the tensor-core ones (bf16,
+    head_dim 64, 1 <= N <= 256, q/k/v rows and dO on 16-byte boundaries
+    for TMA and cp.async, ck/cv and O read as bf16 pairs), or "simt".
+    The C entry points refuse a "tc" call outside these conditions
+    (``space_tc_fits``, ``space_bwd_tc_fits`` in ``csrc/``); pass
+    ``do``/``out`` for the backward's."""
+    N, D = qp.shape[2], qp.shape[3]
+    if qp.dtype != torch.bfloat16 or D // heads != 64 \
+            or not 1 <= N <= _MAX_SPACE_TOKENS:
+        return "simt"
+    rs = _strides(qp, kp, vp, ck, cv)
+    wide = [t for t in (qp, kp, vp, do) if t is not None]
+    pairs = [t for t in (ck, cv, out) if t is not None]
+    if any(t.data_ptr() % 16 for t in wide) or any(s % 8 for s in rs[:3]) \
+            or any(t.data_ptr() % 4 for t in pairs) \
+            or any(s % 2 for s in rs[3:]):
+        return "simt"
+    return "tc"
+
+
+def _partials_shape(name: str, branch, B: int, F: int, N: int,
+                    D: int) -> tuple:
+    """The fp32 partials of dck/dcv, ``(B, groups, D)``, summed over the
+    groups in a fixed order: one per (frame, 64-query tile) for K1's
+    tensor-core kernels, per frame for its SIMT ones and for K6, per
+    position for K2."""
+    if name == "time":
+        return (B, N, D)
+    if name == "space" and branch == "tc":
+        return (B, F * -(-N // _TC_TILE), D)
+    return (B, F, D)
+
+
 def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
     """Forward on the tensors' device: (out, lse)."""
     if qp.device.type == "cpu":
@@ -157,20 +199,22 @@ def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
     if qp.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for {qp.device}")
     name = _kernel_name(qp, axis, heads)
+    branch = space_branch(qp, kp, vp, ck, cv, heads) \
+        if name == "space" else None
     B, F, N, D = qp.shape
-    strides = [build.row_stride(t, n) for t, n in
-               ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
     fn = getattr(build.library(), f"lavila_divided_{name}_fwd")
     out = torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
     lse = torch.empty((B, F, N, heads), dtype=torch.float32,
                       device=qp.device)
+    tc = [] if branch is None else [int(branch == "tc")]
     with torch.cuda.device(qp.device):
         err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), ck.data_ptr(),
                  cv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, F, N,
-                 heads, D // heads, *strides, float(scale),
-                 _DTYPES[qp.dtype], torch.cuda.current_stream().cuda_stream)
+                 heads, D // heads, *_strides(qp, kp, vp, ck, cv),
+                 float(scale), _DTYPES[qp.dtype], *tc,
+                 torch.cuda.current_stream().cuda_stream)
     build.check(err, f"divided_{name}_fwd")
-    launches[name] += 1
+    launches[name if branch is None else f"{name}_{branch}"] += 1
     return out, lse
 
 
@@ -202,26 +246,29 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     if not (do.is_contiguous() and out.is_contiguous()
             and lse.is_contiguous()):
         raise ValueError("do/out/lse must be contiguous")
-    strides = [build.row_stride(t, n) for t, n in
-               ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
+    branch = space_branch(qp, kp, vp, ck, cv, heads, do, out) \
+        if name == "space" else None
     fn = getattr(build.library(), f"lavila_divided_{name}_bwd")
     grads = [torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
              for _ in range(3)]
     grads += [torch.empty((B, D), dtype=ck.dtype, device=qp.device)
               for _ in range(2)]
     # fp32 per-group partials of dck/dcv, summed by a second pass
-    groups = F if axis == "space" else N
-    parts = [torch.empty((B, groups, D), dtype=torch.float32,
-                         device=qp.device) for _ in range(2)]
+    parts = [torch.empty(_partials_shape(name, branch, B, F, N, D),
+                         dtype=torch.float32, device=qp.device)
+             for _ in range(2)]
     # the spatial kernels take rowsum(dO·O) per (row, head) as fp32 scratch
     scratch = [torch.empty_like(lse)] if axis == "space" else []
+    tc = [] if branch is None else [int(branch == "tc")]
     with torch.cuda.device(qp.device):
         err = fn(*(t.data_ptr() for t in (qp, kp, vp, ck, cv, do, out, lse,
                                           *scratch, *grads, *parts)),
-                 B, F, N, heads, D // heads, *strides, float(scale),
-                 _DTYPES[qp.dtype], torch.cuda.current_stream().cuda_stream)
+                 B, F, N, heads, D // heads, *_strides(qp, kp, vp, ck, cv),
+                 float(scale), _DTYPES[qp.dtype], *tc,
+                 torch.cuda.current_stream().cuda_stream)
     build.check(err, f"divided_{name}_bwd")
-    launches[f"{name}_bwd"] += 1
+    launches[f"{name}_bwd" if branch is None
+             else f"{name}_bwd_{branch}"] += 1
     return tuple(grads)
 
 

@@ -40,13 +40,13 @@ def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
 def clip_loss_local(*args, **kwargs):
     raise NotImplementedError(
         "the local (all-gather) contrastive loss needs several GPUs: "
-        "ROADMAP queue 1, slice 5 (multi-GPU)")
+        "ROADMAP queue 1: multi-GPU")
 
 
 def ssl_clip_loss(*args, **kwargs):
     raise NotImplementedError(
-        "the SSL loss over pseudo-narrations (--metadata-aux) is ROADMAP "
-        "queue 1, slice 4")
+        "the SSL loss over pseudo-narrations (--metadata-aux) is not "
+        "ported yet: ROADMAP queue 1: the SSL loss")
 
 
 def _cosine_sim_matrix(a: torch.Tensor, b: torch.Tensor,
@@ -88,8 +88,8 @@ def get_loss(model_name: str):
     if model_name.startswith("CLIP"):
         return clip_loss
     raise NotImplementedError(
-        f"{model_name}: only the CLIP family's loss is ported (the caption "
-        "loss is ROADMAP queue 1)")
+        f"{model_name}: only the CLIP family's loss is ported: ROADMAP "
+        "queue 1: the narrator's training (the caption loss)")
 
 
 def get_metric_names(model_name: str) -> list[str]:

@@ -234,7 +234,7 @@ class GPT2LMHead(nn.Module):
         if cfg.remat:
             raise NotImplementedError(
                 "remat of the narrator's decoder is not ported yet: ROADMAP "
-                "queue 1 item 10c (the caption loss and its step)")
+                "queue 1: the narrator's training")
         self.cfg = cfg
         self.transformer = GPT2Model(cfg)
 

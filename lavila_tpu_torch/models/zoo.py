@@ -95,8 +95,8 @@ def _timesformer(size: str, img_size: int, num_frames: int,
                  ) -> SpaceTimeTransformer:
     if timesformer_gated_xattn:
         raise NotImplementedError(
-            "timesformer_gated_xattn is not ported: ROADMAP queue 1, "
-            "slice 1 leftovers")
+            "timesformer_gated_xattn is not ported: ROADMAP queue 1: "
+            "timesformer_gated_xattn")
     return SpaceTimeTransformer(img_size=img_size, num_frames=num_frames,
                                 **_TSF[size], **train_kw)
 

@@ -176,7 +176,7 @@ def make_optimizer(named_params, lr: float | Callable[[int], float],
         raise ValueError(clip_grad_type)
     if use_sgd:
         raise NotImplementedError(
-            "SGD (--use-sgd) is not ported yet: ROADMAP queue 1, the "
+            "SGD (--use-sgd) is not ported yet: ROADMAP queue 1: the "
             "classification fine-tune")
     if update_freq < 1:
         raise ValueError(f"update_freq must be >= 1, got {update_freq}")

@@ -125,10 +125,12 @@ def make_clip_train_step(norm_embed: bool = False,
     """
     if use_ssl:
         raise NotImplementedError(
-            "the SSL step (--metadata-aux) is ROADMAP queue 1, slice 4")
+            "the SSL step (--metadata-aux) is not ported yet: ROADMAP "
+            "queue 1: the SSL loss")
     if local_loss_mesh is not None:
         raise NotImplementedError(
-            "the local loss over a mesh is ROADMAP queue 1, slice 5")
+            "the local loss over a mesh is not ported yet: ROADMAP queue "
+            "1: multi-GPU")
 
     def train_step(state: TrainState, batch: dict):
         out = _forward(state, batch, norm_embed)

@@ -28,16 +28,34 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("axis,B,F,N,H,d", [
-    ("space", 2, 4, 196, 12, 64),   # bf16: the tensor-core kernel
-    ("space", 2, 2, 50, 3, 64),     # tensor cores, padded rows and keys
-    ("space", 1, 3, 37, 4, 32),     # SIMT kernel (head_dim 32)
-    ("space", 1, 2, 256, 2, 64),    # SIMT kernel (N + 1 > 208)
+# K1 (space) and K2 (time) cases; in bf16 every K1 case at head_dim 64
+# takes the tensor-core kernels: 64-query blocks over 64-key tiles, the
+# last one masked (N = 1, 63, 64, 65, 200 are the ragged edges)
+PHASE_CASES = [
+    ("space", 2, 4, 196, 12, 64),   # TSF-B's frame: 3 full tiles + 4 keys
+    ("space", 2, 4, 256, 16, 64),   # TSF-L@224's frame: 4 full tiles
+    ("space", 2, 2, 50, 3, 64),     # one partial tile
+    *[("space", 1, 2, n, 2, 64) for n in (1, 63, 64, 65, 200)],
+    ("space", 1, 3, 37, 4, 32),     # SIMT kernels (head_dim 32)
+    ("space", 1, 2, 256, 2, 64),    # N = 256, two heads
     ("time", 2, 4, 196, 12, 64),
     ("time", 1, 16, 50, 12, 64),
     ("time", 3, 5, 7, 2, 96),
-])
+]
+
+
+def _counter(axis, dtype, d, bwd=False):
+    """The launch counter a call bumps: K2's own, K1's by branch (bf16 at
+    head_dim 64 on aligned rows is the tensor cores')."""
+    name = f"{axis}_bwd" if bwd else axis
+    if axis != "space":
+        return name
+    tc = dtype == torch.bfloat16 and d == 64
+    return f"{name}_{'tc' if tc else 'simt'}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis,B,F,N,H,d", PHASE_CASES)
 def test_divided_phase_kernel(gen, axis, B, F, N, H, d, dtype):
     D = H * d
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device="cuda").to(
@@ -46,9 +64,10 @@ def test_divided_phase_kernel(gen, axis, B, F, N, H, d, dtype):
     q, k, v = qkv.chunk(3, dim=-1)
     _, ck, cv = cls.chunk(3, dim=-1)
     args = (q, k, v, ck, cv, axis, H, d ** -0.5)
-    before = KD.launches[axis]
+    key = _counter(axis, dtype, d)
+    before = KD.launches[key]
     out, lse = KD.divided_phase(*args)
-    assert KD.launches[axis] == before + 1
+    assert KD.launches[key] == before + 1
     ref, ref_lse = KD.divided_phase_reference(
         *(t.float() for t in args[:5]), *args[5:])
     torch.cuda.synchronize()
@@ -69,7 +88,9 @@ def test_space_kernel_odd_row_stride(gen):
     cls = torch.randn(B, 3 * D + 1, generator=gen, device="cuda").bfloat16()
     _, ck, cv = cls[:, :3 * D].chunk(3, dim=-1)
     args = (q, k, v, ck, cv, "space", H, d ** -0.5)
+    before = dict(KD.launches)
     out, lse = KD.divided_phase(*args)
+    assert KD.launches["space_simt"] == before["space_simt"] + 1
     ref, ref_lse = KD.divided_phase_reference(
         *(t.float() for t in args[:5]), *args[5:])
     torch.testing.assert_close(out.float(), ref, rtol=0,
@@ -79,6 +100,7 @@ def test_space_kernel_odd_row_stride(gen):
     do = torch.randn(B, F, N, D, generator=gen, device="cuda").bfloat16()
     bwd = (q, k, v, ck, cv, do, out, lse, "space", H, d ** -0.5)
     got = KD.divided_phase_bwd(*bwd)
+    assert KD.launches["space_bwd_simt"] == before["space_bwd_simt"] + 1
     want = KD.divided_phase_bwd_reference(*(t.float() for t in bwd[:8]),
                                           *bwd[8:])
     for g, w in zip(got, want):
@@ -125,15 +147,7 @@ def _rel_err(got, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("axis,B,F,N,H,d", [
-    ("space", 2, 4, 196, 12, 64),   # bf16: the tensor-core kernels
-    ("space", 2, 2, 50, 3, 64),     # tensor cores, padded rows and keys
-    ("space", 1, 3, 37, 4, 32),     # SIMT kernels (head_dim 32)
-    ("space", 1, 2, 256, 2, 64),    # SIMT kernels (N + 1 > 208)
-    ("time", 2, 4, 196, 12, 64),
-    ("time", 1, 16, 50, 12, 64),
-    ("time", 3, 5, 7, 2, 96),
-])
+@pytest.mark.parametrize("axis,B,F,N,H,d", PHASE_CASES)
 def test_divided_phase_bwd_kernel(gen, axis, B, F, N, H, d, dtype):
     """K1/K2 bwd on strided qkv views against the plain backward in fp32
     on the same values (errors relative to the largest gradient: dck/dcv
@@ -147,9 +161,10 @@ def test_divided_phase_bwd_kernel(gen, axis, B, F, N, H, d, dtype):
     out, lse = KD.divided_phase(q, k, v, ck, cv, axis, H, d ** -0.5)
     do = torch.randn(B, F, N, D, generator=gen, device="cuda").to(dtype)
     args = (q, k, v, ck, cv, do, out, lse, axis, H, d ** -0.5)
-    before = KD.launches[f"{axis}_bwd"]
+    key = _counter(axis, dtype, d, bwd=True)
+    before = KD.launches[key]
     got = KD.divided_phase_bwd(*args)
-    assert KD.launches[f"{axis}_bwd"] == before + 1
+    assert KD.launches[key] == before + 1
     again = KD.divided_phase_bwd(*args)
     ref = KD.divided_phase_bwd_reference(
         *(t.float() for t in args[:8]), *args[8:])
@@ -176,8 +191,9 @@ def test_divided_phase_autograd_uses_bwd_kernel(gen, dtype):
         _, ck, cv = cls.chunk(3, dim=-1)
         out, _ = KD.divided_phase(q, k, v, ck, cv, axis, H, d ** -0.5)
         out.float().square().sum().backward()
-        assert KD.launches[axis] == before[axis] + 1
-        assert KD.launches[f"{axis}_bwd"] == before[f"{axis}_bwd"] + 1
+        fwd, bwd = _counter(axis, dtype, d), _counter(axis, dtype, d, True)
+        assert KD.launches[fwd] == before[fwd] + 1
+        assert KD.launches[bwd] == before[bwd] + 1
         assert qkv.grad.dtype == dtype and torch.isfinite(qkv.grad).all()
 
 
@@ -265,7 +281,7 @@ def test_space_big_kernel(gen, B, F, N, H, d, pad, dtype):
     before = dict(KD.launches)
     out, lse = KD.divided_phase(*fwd)
     assert KD.launches["space_big"] == before["space_big"] + 1
-    assert KD.launches["space"] == before["space"]
+    assert all(KD.launches[k] == before[k] for k in ("space_tc", "space_simt"))
     ref, ref_lse = KD.divided_phase_reference(
         *(t.float() for t in fwd[:5]), *fwd[5:])
     torch.cuda.synchronize()

@@ -34,6 +34,7 @@ def _phase_inputs(B, F, N, H, d, seed):
     ("time", 1, 16, 8, 2, 16),
     ("space", 1, 2, 196, 12, 64),   # TSF-B frame: N=196, 12 heads of 64
     ("time", 1, 4, 196, 12, 64),
+    ("space", 1, 2, 256, 2, 64),    # TSF-L@224 frame: N=256
 ])
 def test_phase_matches_pallas_kernel(axis, B, F, N, H, d):
     arrs = _phase_inputs(B, F, N, H, d, seed=F * N + H)
@@ -120,3 +121,52 @@ def test_phase_rejects_bad_input():
                         "space", H, 1.0)
     with pytest.raises(ValueError, match="multiple of heads"):
         K.divided_phase(q, q, q, ck, ck, "space", 3, 1.0)
+
+
+def _space_views(N, dtype, d=64, H=2, B=2, F=3, pad=0):
+    """q/k/v and ck/cv as the column blocks of one qkv output, with
+    ``pad`` extra elements per row."""
+    D = H * d
+    qkv = torch.zeros(B, F, N, 3 * D + pad, dtype=dtype)
+    cls = torch.zeros(B, 3 * D + pad, dtype=dtype)
+    q, k, v = qkv[..., :3 * D].chunk(3, dim=-1)
+    _, ck, cv = cls[:, :3 * D].chunk(3, dim=-1)
+    return q, k, v, ck, cv
+
+
+@pytest.mark.parametrize("N,dtype,d,pad,name,branch", [
+    (196, torch.bfloat16, 64, 0, "space", "tc"),     # TSF-B
+    (256, torch.bfloat16, 64, 0, "space", "tc"),     # TSF-L@224
+    (1, torch.bfloat16, 64, 0, "space", "tc"),
+    (65, torch.bfloat16, 64, 0, "space", "tc"),      # a 1-row last tile
+    (257, torch.bfloat16, 64, 0, "space_big", None),  # K6
+    (576, torch.bfloat16, 64, 0, "space_big", None),  # TSF-L@336
+    (196, torch.float32, 64, 0, "space", "simt"),    # fp32: 1e-4 limit
+    (196, torch.bfloat16, 32, 0, "space", "simt"),   # head_dim 32
+    (196, torch.bfloat16, 64, 1, "space", "simt"),   # odd row stride
+    (196, torch.bfloat16, 64, 2, "space", "simt"),   # rows off 16 bytes
+])
+def test_space_routing_and_partials(N, dtype, d, pad, name, branch):
+    """The wrapper's arithmetic before a launch: the kernel a spatial
+    phase takes (K1 up to N = 256, K6 past it), K1's branch, and the
+    shape of the dck/dcv partials the backward allocates: one per (frame,
+    64-query tile) on the tensor cores, one per frame otherwise."""
+    B, F, H = 2, 3, 2
+    q, k, v, ck, cv = _space_views(N, dtype, d, H, B, F, pad)
+    D = H * d
+    assert K._kernel_name(q, "space", H) == name
+    got = K.space_branch(q, k, v, ck, cv, H) if name == "space" else None
+    assert got == branch
+    want = (B, F * -(-N // 64), D) if branch == "tc" else (B, F, D)
+    assert K._partials_shape(name, branch, B, F, N, D) == want
+    assert K._partials_shape("time", None, B, F, N, D) == (B, N, D)
+
+
+def test_space_branch_backward_needs_aligned_do():
+    """The backward's tensor cores also read dO by 16-byte copies and O
+    as bf16 pairs: a dO off a 16-byte boundary takes the SIMT kernels."""
+    q, k, v, ck, cv = _space_views(196, torch.bfloat16)
+    do = torch.zeros(2, 3, 196, 129, dtype=torch.bfloat16)[..., 1:]
+    out = torch.zeros(2, 3, 196, 128, dtype=torch.bfloat16)
+    assert K.space_branch(q, k, v, ck, cv, 2, do.contiguous(), out) == "tc"
+    assert K.space_branch(q, k, v, ck, cv, 2, do, out) == "simt"

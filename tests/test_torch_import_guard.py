@@ -46,7 +46,8 @@ def test_port_imports_no_jax():
 def _port_sources():
     return (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
             + sorted(PORT.rglob("*.cuh"))
-            + [REPO / "chip_smoke.py", REPO / "scripts/profile_torch_encode.py"])
+            + [REPO / "chip_smoke.py", REPO / "scripts/profile_torch_encode.py",
+               REPO / "scripts/time_spatial_phase.py"])
 
 
 @pytest.mark.parametrize("pattern", [

@@ -148,7 +148,7 @@ def test_infer_cli_beams_not_ported(tmp_path, decoding):
     args = main_infer_narrator.get_args_parser().parse_args(
         ["--decoding", decoding, "--device", "cpu",
          "--output-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="slice 3 leftovers"):
+    with pytest.raises(NotImplementedError, match="queue 1: the beams"):
         main_infer_narrator.main(args)
 
 
@@ -177,7 +177,7 @@ def test_demo_captions_a_clip(tmp_path, capsys):
     assert ids.shape == (3, 77) and (ids[:, 0] == 50256).all()
     out = capsys.readouterr().out
     assert "image tokens: (1, 16, 64)" in out and "[2] (score" in out
-    with pytest.raises(NotImplementedError, match="slice 3 leftovers"):
+    with pytest.raises(NotImplementedError, match="queue 1: the beams"):
         demo_narrator.main(demo_narrator.get_args_parser().parse_args(
             ["--video-path", str(video), "--device", "cpu",
              "--decoding", "beam"]))

@@ -129,11 +129,12 @@ def test_cli_freeze_and_accumulation_as_the_jax_cli(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI"], "slice 3"),
-    (["--metadata-aux", "aux.pkl"], "slice 4"),
-    (["--contrastive-use-vissl"], "slice 5"),
-    (["--mesh-model", "2"], "slice 5"),
-    (["--mesh-data", "4"], "slice 5"),
+    (["--model", "VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI"],
+     "queue 1: the narrator's training"),
+    (["--metadata-aux", "aux.pkl"], "queue 1: the SSL loss"),
+    (["--contrastive-use-vissl"], "queue 1: multi-GPU"),
+    (["--mesh-model", "2"], "queue 1: multi-GPU"),
+    (["--mesh-data", "4"], "queue 1: multi-GPU"),
     (["--use-checkpoint", "--remat-policy", "dots"], "remat"),
     (["--freeze-visual-vclm"], "freeze"),
     (["--freeze-lm-vclm"], "freeze"),

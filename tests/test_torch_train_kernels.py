@@ -17,7 +17,8 @@ from lavila_tpu_torch.kernels import layernorm as KL
 torch.set_num_threads(1)
 
 PHASES = [("space", 2, 4, 24, 3, 16), ("time", 2, 4, 24, 3, 16),
-          ("space", 1, 16, 8, 2, 16), ("time", 1, 16, 8, 2, 16)]
+          ("space", 1, 16, 8, 2, 16), ("time", 1, 16, 8, 2, 16),
+          ("space", 1, 2, 256, 2, 64)]  # TSF-L@224's frame
 GRADS = ("dq", "dk", "dv", "dck", "dcv")
 
 
