@@ -16,14 +16,16 @@ and prints no result. Phases, each printing JSON lines:
   1. device: ``nvidia-smi`` name and power limit, torch's device name.
   2. build: nvcc builds ``lavila_tpu_torch/csrc/*.cu`` (timed).
   3. kernels: K1 (spatial phase; TSF-B's N = 196 at batch 8 and 32 and
-     TSF-L@224's 256; each K1 case also gives the profiler's device time
-     beside the event time, the branch it took and, at N = 256, K6's
-     kernels called on the same input),
+     TSF-L@224's 256; each K1 and K6 case also gives the branch it took
+     and the profiler's device time of the kernel and of the library
+     call beside their event times),
      K2 (temporal phase, F=4 and F=16, and at TSF-L@336), K3 (LayerNorm;
      the towers' widths and the narrator's: a decode step's (160, 1,
      1600) and the pooler's bias-free (4096, 1600)), K4/K5 (add +
      LayerNorm at TSF-L@336's and TSF-B's patch rows), K6 (spatial phase
-     over 576 patches), K9 (decode attention; GPT-2 XL and TSF-B
+     over 576 patches, batch 8 and 32: the same tensor-core kernels as
+     K1, their keys streamed through a refilled ring; fp32 on its SIMT
+     kernels), K9 (decode attention; GPT-2 XL and TSF-B
      widths, ``num_valid`` 0, 1, 15 and 77) and K7/K8 forward (flash
      attention: the CLIP text towers' causal attention, 16 captions of
      77 tokens, 8 and 12 heads of 64, and 256 captions; one uneven
@@ -35,7 +37,8 @@ and prints no result. Phases, each printing JSON lines:
      backward kernels (K8's dq and dk/dv each on its own; K1 also at
      TSF-L@224's N = 256, bf16 at batch 8 and fp32 at batch 1), on strided
      qkv views, errors relative to the reference's largest value, and two
-     calls checked bit-identical.
+     calls checked bit-identical; K1's and K6's with the floor of their
+     tensor-core split (7 products against the bound's 5).
   4. model: CLIP_OPENAI_TIMESFORMER_BASE from a seeded generator, time
      attention given seeded noise (its zero init would make K2's check
      vacuous), embeddings on the kernel path against the plain functions
@@ -96,9 +99,12 @@ and prints no result. Phases, each printing JSON lines:
 
 Every path phase (5, 7, finetune_cli, large224_cli, 9, 10-13) zeroes
 the launch counters before it runs and reads them after; the kernel
-summary line sums those runs' counts (K1's also by branch: every K1
-launch of a path runs bf16 at head_dim 64, so on the tensor cores). The text tower runs K7 under inference_mode
-(serving) and K8 forward, dq and dk/dv in every train step.
+summary line sums those runs' counts (K1's and K6's also by branch:
+every spatial launch of a path runs bf16 at head_dim 64, so on the
+tensor cores, which the bf16 encodes, the TSF-L@336 bf16 train steps
+with and without remat and the narrators' bf16 encodes check too). The
+text tower runs K7 under inference_mode (serving) and K8 forward, dq and
+dk/dv in every train step.
 TF32 is off for matmuls and cuDNN convolutions, so fp32 comparisons are
 fp32. Any failed check exits non-zero without the final line; the final
 line is ``{"ok": true, "device": {...}}``.
@@ -202,8 +208,7 @@ def library():
 
 @functools.cache
 def spatial():
-    """``scripts/time_spatial_phase.py``: device time by the profiler,
-    and K6's C entry points called on K1's input."""
+    """``scripts/time_spatial_phase.py``: device time by the profiler."""
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import time_spatial_phase
     return time_spatial_phase
@@ -237,8 +242,8 @@ def plain_path():
         yield
 
 
-# kernel name -> (module's launch counter, its key); K1 sums its two
-# branches' counters (BRANCHES)
+# kernel name -> (module's launch counter, its key); the spatial phase's
+# kernels (K1, K6) sum their two branches' counters (BRANCHES)
 COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
             "K3": ("layernorm", "layernorm"),
             "K4": ("layernorm", "add_layernorm"),
@@ -265,14 +270,15 @@ def _counter(module: str) -> dict:
 
 
 BRANCHES = ("tc", "simt")
-# K1's launches on the path runs by branch, filled by path_counts()
-PATH_BRANCHES = {"K1": dict.fromkeys(BRANCHES, 0),
-                 "K1 bwd": dict.fromkeys(BRANCHES, 0)}
+# K1's and K6's launches on the path runs by branch, filled by
+# path_counts()
+PATH_BRANCHES = {k: dict.fromkeys(BRANCHES, 0)
+                 for k in ("K1", "K1 bwd", "K6", "K6 bwd")}
 
 
 def _counter_keys(m: str, key: str) -> list:
-    """The counter keys behind one kernel: K1's by branch."""
-    if m == "divided" and key in ("space", "space_bwd"):
+    """The counter keys behind one kernel: K1's and K6's by branch."""
+    if m == "divided" and key.startswith("space"):
         return [f"{key}_{b}" for b in BRANCHES]
     return [key]
 
@@ -283,13 +289,25 @@ def launch_counts() -> dict:
 
 
 def path_counts() -> dict:
-    """:func:`launch_counts` at the end of a path run, whose K1 launches
-    by branch are added to PATH_BRANCHES."""
+    """:func:`launch_counts` at the end of a path run, whose K1 and K6
+    launches by branch are added to PATH_BRANCHES."""
     from lavila_tpu_torch.kernels import divided as KD
-    for name, key in (("K1", "space"), ("K1 bwd", "space_bwd")):
+    for name in PATH_BRANCHES:
+        key = COUNTERS[name][1]
         for b in BRANCHES:
             PATH_BRANCHES[name][b] += KD.launches[f"{key}_{b}"]
     return launch_counts()
+
+
+def check_tensor_cores(what: str, kernel: str) -> None:
+    """After a bf16 run at head_dim 64 (the counters zeroed before it):
+    ``kernel`` (K1 or K6, forward or backward) launched, and every
+    spatial-phase launch took the tensor cores, none the SIMT kernels."""
+    from lavila_tpu_torch.kernels import divided as KD
+    by = {k: n for k, n in KD.launches.items() if k.startswith("space")}
+    check(by[f"{COUNTERS[kernel][1]}_tc"] > 0
+          and not any(n for k, n in by.items() if k.endswith("_simt")),
+          f"{what}: {kernel} not on the tensor cores only: {by}")
 
 
 def reset_launch_counts() -> None:
@@ -372,29 +390,24 @@ def _keys(axis, F, N) -> int:
     return N + 1 if axis == "space" else F + 1
 
 
-def _k1_extras(args, run, out, lse, do=None) -> dict:
-    """For a K1 case (``args`` the forward's): the branch it took, the
-    profiler's device time of ``run`` beside its event time and, at N =
-    256, K6's kernels on the same input (the forward's, or with ``do``
-    the backward's)."""
-    from lavila_tpu_torch.kernels import build
+def _space_extras(args, run, library_call, out=None, do=None) -> dict:
+    """For a spatial-phase case, K1's or K6's (``args`` the forward's):
+    the branch it took (with ``do`` and ``out`` the backward's), and the
+    profiler's device time of ``run`` and of the library call on the
+    same input (``scripts/time_spatial_phase.py``), beside their event
+    times."""
     from lavila_tpu_torch.kernels import divided as KD
-    q, k, v, ck, cv, _, H, scale = args
+    q, k, v, ck, cv, _, H, _ = args
     ts = spatial()
-    res = {"branch": KD.space_branch(q, k, v, ck, cv, H, do,
-                                     None if do is None else out),
-           "device_ms": ts.measure(run, 20)["device_ms"]}
-    if q.shape[2] == 256:
-        k6 = ts.k6_calls(build, q, k, v, ck, cv, do, out, lse, H, scale)
-        m = ts.measure(k6[0 if do is None else 1], 20)
-        res.update(k6_ms=m["event_ms"], k6_device_ms=m["device_ms"])
-    return res
+    return {"branch": KD.space_branch(q, k, v, ck, cv, H, do, out),
+            "device_ms": ts.measure(run, 20)["device_ms"],
+            "library_device_ms": ts.measure(library_call, 20)["device_ms"]}
 
 
 def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     """One K1/K2/K6 case on strided q/k/v views of a (B, F, N, 3D)
-    tensor, as the attention block hands them over; K1's with
-    :func:`_k1_extras`."""
+    tensor, as the attention block hands them over; K1's and K6's with
+    :func:`_space_extras`."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
         dtype)
@@ -410,16 +423,16 @@ def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     del ref, ref_lse
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
-    extras = (_k1_extras(args, lambda: KD.divided_phase(*args), out, lse)
-              if axis == "space" and N <= 256 else {})
+    lib = library().divided_fwd_call(q, k, v, ck, cv, axis, H)
+    extras = (_space_extras(args, lambda: KD.divided_phase(*args), lib)
+              if axis == "space" else {})
     return {"out_err": err, "lse_err": lse_err, "tol": tol,
             "ok": err <= tol and lse_err <= tol, **extras,
             "ms": time_ms(lambda: KD.divided_phase(*args)),
             "plain_ms": time_ms(lambda: KD.divided_phase_reference(*args)),
             **bound((4 * rows * D + 2 * B * D) * it + rows * H * 4,
                     4 * rows * _keys(axis, F, N) * D, dtype),
-            "library_ms": time_ms(library().divided_fwd_call(
-                q, k, v, ck, cv, axis, H))}
+            "library_ms": time_ms(lib)}
 
 
 def _ln_case(shape, dtype, gen, bias: bool = True) -> dict:
@@ -608,16 +621,19 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
                              (16, 8, 77, 77, 64))}
 # further cases a kernel's summary keeps under a name: K3 on the
 # narrator's decode path (one decode step's 160 GPT-2 XL rows), K1 at
-# TSF-L@224 (N = 256) and at TSF-B's serving batch 32, K2 at TSF-L@336
+# TSF-L@224 (N = 256) and at TSF-B's serving batch 32, K6 at the
+# TSF-L@336 remat step's batch 32, K2 at TSF-L@336
 SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),),
               "K1": (("tsf_l_224", (8, 4, 256, 1024, 16)),
                      ("b32", (32, 4, 196, 768, 12))),
+              "K6": (("b32", (32, 4, 576, 1024, 16)),),
               "K2": (("tsf_l_336", (8, 4, 576, 1024, 16)),),
               **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
                               (("b256", (256, 8, 77, 77, 64)),))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-# K1's further numbers (_k1_extras), where a case has them
-_EXTRA_KEYS = ("device_ms", "branch", "k6_ms", "k6_device_ms")
+# K1's and K6's further measured numbers (_space_extras), where a case has
+# them; the split's floor is computed, so it stays on the case's own line
+_EXTRA_KEYS = ("device_ms", "branch", "library_device_ms")
 
 
 def _summarise(summary, name, shape, dtype, res, err_keys) -> None:
@@ -671,6 +687,7 @@ def phase_kernels() -> dict:
     # the 336px path's main cases, K1 at TSF-L@224 and at TSF-B's
     # serving batch
     cases += [("K6", "space", (8, 4, 576, 1024, 16), bf16),
+              ("K6", "space", (32, 4, 576, 1024, 16), bf16),
               ("K2", "time", (8, 4, 576, 1024, 16), bf16),
               ("K1", "space", (8, 4, 256, 1024, 16), bf16),
               ("K1", "space", (32, 4, 196, 768, 12), bf16)]
@@ -716,7 +733,9 @@ def _all_equal(a, b) -> bool:
 def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     """K1/K2/K6 bwd on strided q/k/v views, out and lse from the forward
     kernel, against the plain backward in fp32 on the same values; K1's
-    with :func:`_k1_extras`."""
+    and K6's with :func:`_space_extras`, and beside the bound the floor of
+    the tensor-core split, which recomputes S and dP in both of its
+    kernels (7 products against 5)."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
         dtype)
@@ -739,8 +758,14 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     del ref, again
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
-    extras = (_k1_extras(args[:5] + args[8:], lambda: KD.divided_phase_bwd(
-        *args), out, lse, do) if axis == "space" and N <= 256 else {})
+    lib = library().divided_bwd_call(q, k, v, ck, cv, do, axis, H)
+    extras = {}
+    if axis == "space":
+        extras = _space_extras(args[:5] + args[8:],
+                               lambda: KD.divided_phase_bwd(*args), lib,
+                               out, do)
+        extras["split_floor_ms"] = (14 * rows * _keys(axis, F, N) * D
+                                    / PEAK_FLOPS[dtype] * 1e3)
     # reads q, k, v, do, out, ck, cv, lse; writes dq, dk, dv, dck, dcv;
     # five products (S, dP, dV, dQ, dK) of 2 operations per term
     return {"rel_err": errs, "abs_err": abs_err, "tol": tol,
@@ -751,8 +776,7 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
                 lambda: KD.divided_phase_bwd_reference(*args)),
             **bound((8 * rows * D + 4 * B * D) * it + rows * H * 4,
                     10 * rows * _keys(axis, F, N) * D, dtype),
-            "library_ms": time_ms(library().divided_bwd_call(
-                q, k, v, ck, cv, do, axis, H))}
+            "library_ms": time_ms(lib)}
 
 
 def _ln_bwd_case(shape, dtype, gen) -> dict:
@@ -833,8 +857,10 @@ def phase_kernels_bwd() -> dict:
                                   ("K5 bwd", "add_ln_nosum"))
                   for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768))]
     cases += [("K6 bwd", "space", (8, 4, 576, 1024, 16), torch.bfloat16),
+              ("K6 bwd", "space", (32, 4, 576, 1024, 16), torch.bfloat16),
               ("K2 bwd", "time", (8, 4, 576, 1024, 16), torch.bfloat16),
               ("K1 bwd", "space", (8, 4, 256, 1024, 16), torch.bfloat16),
+              ("K1 bwd", "space", (32, 4, 196, 768, 12), torch.bfloat16),
               ("K1 bwd", "space", (1, 2, 256, 1024, 16), torch.float32)]
     summary = {}
     flash = [(kind, shape, dtype) for dtype in (torch.float32, torch.bfloat16)
@@ -909,6 +935,9 @@ def phase_model(m) -> None:
             img = model.encode_image(frames)
             torch.cuda.synchronize()
             per_image = launch_counts()
+            if dtype == torch.bfloat16:
+                check_tensor_cores(f"{m['name']} bf16 encode_image",
+                                   m["space"])
             reset_launch_counts()
             txt = model.encode_text(text)
             torch.cuda.synchronize()
@@ -1235,9 +1264,14 @@ def phase_large_train_step() -> None:
                         (True, "plain"), (True, "plain"), (True, "kernels"),
                         (False, "kernels")):
         state.model.visual.remat = remat
+        reset_launch_counts()
         with plain_path() if path == "plain" else nullcontext():
             rate, peak = _time_steps(state, step_fn, data, 5)
+        torch.cuda.synchronize()
         key = f"{path}, remat" if remat else path
+        if path == "kernels":  # every K6 launch on the tensor cores
+            for kernel in ("K6", "K6 bwd"):
+                check_tensor_cores(f"TSF-L@336 bf16 step ({key})", kernel)
         rates.setdefault(key, []).append(rate)
         peaks.setdefault(key, []).append(peak)
     emit("train_throughput", what="train step clips/s", model=LARGE["name"],
@@ -1480,6 +1514,9 @@ def phase_narrator(n) -> None:
             tokens = model.encode_image(frames)
             torch.cuda.synchronize()
             per_image = launch_counts()
+            if dtype == torch.bfloat16:
+                check_tensor_cores(f"narrator {n['name']} bf16 "
+                                   "encode_image", n["space"])
             cached, per_step = _cached_logits(model, tokens, text, 8)
             ids, ppl = _greedy(model, tokens, n, L)
             with plain_path():
@@ -1693,7 +1730,7 @@ KERNELS = [
      "lavila_tpu_torch/kernels/layernorm.py",
      "lavila_tpu/ops/pallas/layernorm.py:261"),
     ("K6", "divided_space_big_fwd", "cuda",
-     "lavila_tpu_torch/csrc/divided_big.cu",
+     "lavila_tpu_torch/csrc/divided_fwd.cu",
      "lavila_tpu/ops/pallas/divided.py:445"),
     ("K1 bwd", "divided_space_bwd", "cuda",
      "lavila_tpu_torch/csrc/divided_bwd.cu",
@@ -1711,7 +1748,7 @@ KERNELS = [
      "lavila_tpu_torch/kernels/layernorm.py",
      "lavila_tpu/ops/pallas/layernorm.py:273"),
     ("K6 bwd", "divided_space_big_bwd", "cuda",
-     "lavila_tpu_torch/csrc/divided_big.cu",
+     "lavila_tpu_torch/csrc/divided_bwd.cu",
      "lavila_tpu/ops/pallas/divided.py:470"),
     ("K9", "decode_attention", "cuda",
      "lavila_tpu_torch/csrc/decode_attention.cu",
@@ -1809,7 +1846,8 @@ def main() -> int:
                "at": s.get("at"), **{side: s[side] for side in sides}}
         if key in PATH_BRANCHES:
             row["launches_by_branch"] = PATH_BRANCHES[key]
-            # the paths run K1 in bf16 at head_dim 64: the tensor cores
+            # the paths run K1 and K6 in bf16 at head_dim 64: the tensor
+            # cores
             check(PATH_BRANCHES[key]["simt"] == 0,
                   f"{name}: SIMT launches on the path {PATH_BRANCHES[key]}")
         rows.append(row)

@@ -1,15 +1,18 @@
 // Helpers shared by the attention kernels (divided_fwd.cu,
 // divided_bwd.cu, divided_big.cu, flash_attention.cu): fp32/bf16
 // conversion, warp and quad reductions, the tensor-core product, cp.async
-// and the head_dim-64 fragment helpers of the 64-key-tile kernels,
-// Hopper's mbarriers, TMA and wgmma, and the two small passes of the
-// divided backward kernels (delta and the fixed-order sum of per-group
-// partials).
+// and the head_dim-64 fragment helpers of the 64-key-tile kernels (K7/K8),
+// Hopper's mbarriers, TMA copies, the refilled ring of tiles, wgmma and
+// the tensor map of a row view (the spatial phase's tensor-core kernels,
+// shared by K1 and K6, declared below), and the fixed-order sum of the
+// divided backward kernels' per-group partials.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <initializer_list>
 
@@ -95,15 +98,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
-// 4 bytes; zeros when !valid (src must still be a valid address)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -116,7 +110,7 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 // ---- a warp's 16 rows x 64 dims (head_dim 64) on mma.sync: fragments
 // of row-major [row][d] operands, tiles in shared memory with rows padded
 // by 8 bf16 (144 bytes) so that fragment loads hit 32 distinct banks.
-// Used by the 64-key-tile kernels (divided_big.cu, flash_attention.cu).
+// Used by the 64-key-tile kernels of flash_attention.cu (K7/K8).
 namespace d64 {
 
 constexpr int kD = 64;
@@ -210,12 +204,30 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* y0,
 
 }  // namespace d64
 
-// ---- Hopper's asynchronous units (sm_90a): mbarriers, TMA tile loads and
-// warpgroup matrix products (wgmma), for the K1 forward (divided_fwd.cu).
+// ---- Hopper's asynchronous units (sm_90a): mbarriers, TMA copies and
+// warpgroup matrix products (wgmma), and the pieces of the spatial
+// phase's tensor-core kernels (K1 and K6 share them: divided_fwd.cu,
+// divided_bwd.cu) built on them: 64 x 64 bf16 tiles of 128-byte rows,
+// 128-byte swizzled as TMA writes them, a warpgroup of 128 threads
+// owning 64 rows.
 namespace sm90 {
+
+constexpr int kD = 64;     // head_dim
+constexpr int kTile = 64;  // rows of a tile: queries or keys
+constexpr int kTileElems = kTile * kD;
+constexpr unsigned kTileBytes = kTileElems * 2;  // 8 KB
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the first 1024-byte boundary (the 128-byte swizzle's period) at or past
+// p: where a kernel's dynamic shared memory puts its first tile
+__device__ __forceinline__ __nv_bfloat16* align1024(void* p) {
+  return reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<unsigned long long>(p) + 1023) & ~1023ull);
 }
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar,
@@ -239,6 +251,13 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
           smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// one plain arrival
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // spin until the barrier's phase `parity` has completed
@@ -269,6 +288,67 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+// a contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) into shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A ring of S slots that one producer thread refills by TMA while the
+// consumer warpgroups use them: tile t lives in slot t % S. Each slot has
+// a `full` barrier (the copies' bytes) and an `empty` one on which every
+// thread of every live consumer warpgroup arrives once it is done with
+// the slot; the producer waits on `empty` before it refills. With at
+// most S tiles no slot is refilled and nobody waits on `empty`.
+template <int S>
+struct Ring {
+  unsigned long long full[S], empty[S];
+
+  // by one thread, before the block's first __syncthreads
+  __device__ __forceinline__ void init(unsigned consumers) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumers);
+    }
+  }
+  // producer: the barrier to load tile t on, once its slot is free
+  __device__ __forceinline__ unsigned long long* acquire(int t) {
+    if (t >= S) mbar_wait(&empty[t % S], ((t / S) - 1) & 1);
+    return &full[t % S];
+  }
+  // consumers: until tile t has landed (the warp converged again for
+  // wgmma's .aligned instructions); then release it
+  __device__ __forceinline__ void wait(int t) {
+    mbar_wait(&full[t % S], (t / S) & 1);
+    __syncwarp();
+  }
+  __device__ __forceinline__ void release(int t) { mbar_arrive(&empty[t % S]); }
+};
+
+// Element (r, c) of a 64 x 64 bf16 tile written by TMA with the 128-byte
+// swizzle: 16-byte chunk c/8 of row r sits at chunk (c/8) ^ (r % 8).
+__device__ __forceinline__ char* swizzled(const void* tile, int r, int c) {
+  return const_cast<char*>(static_cast<const char*>(tile)) + r * 128 +
+         (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// the bf16 pair (c, c + 1) of row r of a swizzled tile, as floats
+__device__ __forceinline__ float2 tile_pair(const void* tile, int r, int c) {
+  return unpack_bf16(*reinterpret_cast<const unsigned*>(swizzled(tile, r, c)));
+}
+
+// the 128 threads of warpgroup `wg` wait for each other (named barrier
+// 1 + wg; 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
 // Matrix descriptor of a bf16 tile in shared memory laid out as a
 // 128-byte-swizzled TMA box: 128-byte rows, the swizzle's 8-row period
 // (1024 bytes) as the stride between row groups. The same descriptor
@@ -288,8 +368,19 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most n of the warpgroup's committed wgmma groups are still
+// running (groups finish in the order they were committed)
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+
+// 2^x by the SFU (ex2.approx: ~2 ulp, denormals flushed; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Keep registers that an asynchronous wgmma reads or writes in place
@@ -351,6 +442,116 @@ __device__ __forceinline__ void wgmma_rs_tn(float (&d)[32],
 #undef LAVILA_ACC32
 #undef LAVILA_D32
 
+// D = A (64 x 64 in tile a, K-major) * B^T (tile b, K-major: its rows are
+// D's columns), over the 4 k-steps of head_dim 64; committed, not waited
+__device__ __forceinline__ void wgmma_tile_ss(float (&d)[32], const void* a,
+                                              const void* b) {
+  const __nv_bfloat16* pa = static_cast<const __nv_bfloat16*>(a);
+  const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss(d, sw128_desc(pa + 16 * kk), sw128_desc(pb + 16 * kk), kk);
+}
+
+// D += A (64 x 64 bf16 in registers: the A fragments of 4 k-steps) * B
+// (tile b, MN-major: its 64 rows are the k index)
+__device__ __forceinline__ void wgmma_tile_rs(float (&d)[32],
+                                              const unsigned (&a)[kD / 16][4],
+                                              const void* b) {
+  const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_rs_tn(d, a[kk], sw128_desc(pb + 16 * kk * kD));
+}
+
+// An fp32 accumulator rounded to bf16 as the A fragments of the product
+// with its columns as the k index (columns 16kk..16kk+15 are the
+// accumulator's blocks 2kk and 2kk+1)
+__device__ __forceinline__ void acc_to_a(unsigned (&a)[kD / 16][4],
+                                         const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Store warpgroup wg's accumulator (this thread's rows r0 and r0 + 8
+// times mul0 / mul1) as bf16 rows row0.. of dst (row stride ld), rows at
+// or past `rows` skipped: through `tile` (a swizzled tile that no wgmma
+// reads any more) to 16-byte row-contiguous stores.
+__device__ __forceinline__ void store_tile(void* tile, const float (&o)[32],
+                                           float mul0, float mul1,
+                                           __nv_bfloat16* dst, long long ld,
+                                           int row0, int rows, int wg) {
+  const int lane = threadIdx.x & 31, t4 = lane & 3;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  wg_sync(wg);  // every product of the warpgroup is done with the tile
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    *reinterpret_cast<unsigned*>(swizzled(tile, r0, c)) =
+        pack_bf16(o[4 * j] * mul0, o[4 * j + 1] * mul0);
+    *reinterpret_cast<unsigned*>(swizzled(tile, r0 + 8, c)) =
+        pack_bf16(o[4 * j + 2] * mul1, o[4 * j + 3] * mul1);
+  }
+  wg_sync(wg);
+  for (int i = threadIdx.x & 127; i < kTile * kD / 8; i += 128) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    if (row0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * ld + c) =
+          *reinterpret_cast<const uint4*>(swizzled(tile, r, c));
+  }
+}
+
+// cuTensorMapEncodeTiled from the libcuda the process already loaded
+// (it is not linked: the library is loaded next to PyTorch's own)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h == nullptr ? nullptr
+                        : (EncodeTiled)dlsym(h, "cuTensorMapEncodeTiled");
+  }();
+  return fn;
+}
+
+// The (frames, N rows, D columns) bf16 row view at p with row stride rs
+// elements, as a 3-D tensor map with a 64 x 64 x 1 box (a head's 64
+// columns of 64 rows of one frame), 128-byte swizzle; rows past N read
+// as zeros. p must be 16-byte aligned and rs a multiple of 8.
+inline bool rows_map(CUtensorMap* map, const void* p, long long rs, int D,
+                     int N, int frames) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N,
+                              (cuuint64_t)frames};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2,
+                                 (cuuint64_t)rs * 2 * N};
+  const cuuint32_t box[3] = {kD, kTile, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if ((unsigned long long)p & 15ull) return false;
+  return true;
+}
+
 }  // namespace sm90
 
 // The tensor-core kernels move bf16 pairs: every pointer 4-byte aligned
@@ -372,32 +573,40 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The spatial phase's tensor-core kernels (bf16, head_dim 64, any N):
+// K1 (N <= 256, divided_fwd.cu / divided_bwd.cu) and K6 (N > 256,
+// divided_big.cu) launch the same ones. The forward is defined in
+// divided_fwd.cu, the backward in divided_bwd.cu; the *_fits functions
+// say what they take (kernels/divided.py:space_branch mirrors them).
+bool space_tc_fits(const void* q, const void* k, const void* v,
+                   const void* ck, const void* cv, int N, int d,
+                   long long q_rs, long long k_rs, long long v_rs,
+                   long long ck_rs, long long cv_rs);
+cudaError_t launch_space_tc(const void* q, const void* k, const void* v,
+                            const void* ck, const void* cv, void* out,
+                            void* lse, int B, int F, int N, int H,
+                            long long q_rs, long long k_rs, long long v_rs,
+                            long long ck_rs, long long cv_rs, float scale,
+                            cudaStream_t stream);
+bool space_bwd_tc_fits(const void* q, const void* k, const void* v,
+                       const void* ck, const void* cv, const void* dout,
+                       const void* out, int N, int d, long long q_rs,
+                       long long k_rs, long long v_rs, long long ck_rs,
+                       long long cv_rs);
+cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
+                                const void* ck, const void* cv,
+                                const void* dout, const void* out,
+                                const void* lse, void* stats, void* dq,
+                                void* dk, void* dv, void* dck, void* dcv,
+                                void* part_k, void* part_v, int B, int F,
+                                int N, int H, long long q_rs, long long k_rs,
+                                long long v_rs, long long ck_rs,
+                                long long cv_rs, float scale,
+                                cudaStream_t stream);
+
 // Kernels used by more than one source: internal linkage, so every source
 // that includes this header compiles its own copy.
 namespace {
-
-// delta[i] = sum over the d dims of row i of dO * O (one row = one token's
-// head): one thread per (token, head).
-template <typename T>
-__global__ void delta_kernel(const T* __restrict__ dout,
-                             const T* __restrict__ out,
-                             float* __restrict__ delta, long long n, int d) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T* g = dout + i * d;
-  const T* o = out + i * d;
-  float s = 0.f;
-  for (int c = 0; c < d; ++c) s = fmaf(to_float(g[c]), to_float(o[c]), s);
-  delta[i] = s;
-}
-
-template <typename T>
-cudaError_t launch_delta(const void* dout, const void* out, void* delta,
-                         long long rows, int d, cudaStream_t stream) {
-  delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
-      (const T*)dout, (const T*)out, (float*)delta, rows, d);
-  return cudaGetLastError();
-}
 
 // out[b, c] = sum over g of part[b, g, c], in order g = 0..G-1: the
 // second, deterministic pass over the per-group partials of dck/dcv.

@@ -21,36 +21,54 @@
 // clip in a fixed order. Two calls on the same inputs give the same bits.
 //
 // K1 bwd, spatial phase: one (clip, frame, head) sees N <= 256 queries
-// and the N+1 keys [ck; k_f]. FlashAttention-2's split, as K6's
-// (divided_big.cu): a dq kernel that walks the key tiles for a block of
-// queries, a dk/dv kernel that walks the query tiles for a block of keys,
-// each recomputing P from the saved lse. The caller picks one of two
-// pairs (kernels/divided.py asks for the tensor cores by the `tc`
+// and the N+1 keys [ck; k_f] (larger frames go to K6's entry point,
+// divided_big.cu, whose tensor-core route is the pair below too).
+// FlashAttention-2's split: a dq kernel that walks the key tiles for a
+// block of queries, a dk/dv kernel that walks the query tiles for a block
+// of keys, each recomputing P from the saved lse. The caller picks one of
+// two pairs (kernels/divided.py asks for the tensor cores by the `tc`
 // argument; the entry point refuses a call they cannot take):
 //
-//  * bf16, head_dim 64, q/k/v/dO rows on 16-byte boundaries: tensor
-//    cores, mma.sync m16n8k16 (bf16 in, fp32 accumulate), one design for
-//    every N <= 256. Bound by bytes: ~10*(N+1)*d FLOPs per query row
-//    against 8*d*2 bytes of q/k/v/dO/O/dq/dk/dv, ~123 FLOPs a byte at N =
-//    196 (77 MB and 9.5 GFLOP at TSF-B's batch 8, 0.0231 ms at 3.35 TB/s)
-//    and ~160 at N = 256 (134 MB, 21.5 GFLOP at TSF-L@224's, 0.040 ms),
-//    below the H100's ~295. So, as the forward, the design is about the
-//    memory side. Both kernels take 64 rows a block of 4 warps (16 rows a
-//    warp), ceil(N/64) x H x B*F blocks (1536 at TSF-B batch 8), and
-//    stream the other side's 64-row tiles through two cp.async stages
-//    ([row][d], rows padded by 8 bf16 so that fragment loads hit 32
-//    banks; the dk/dv kernel's per-query lse and delta ride in the same
-//    stage), the copy of tile t+1 in flight while tile t is used; every
-//    product whose B operand is a [row][d] tile read down its rows (dS K,
-//    P^T dO, dS^T Q) takes it through ldmatrix's transpose. (128 rows a
-//    block of 8 warps measured no faster.) The CLS key is handled as the
-//    forward's starting state: the dq kernel computes, per query row,
-//    delta = rowsum(dO*O) (a side output the dk/dv kernel reads: no delta
-//    pass), P_cls and dS_cls, adds dS_cls*ck to dq, and writes its 64
-//    queries' share of dck = scale * sum dS_cls*q and dcv = sum P_cls*dO
-//    as fp32 partials (B, F*ceil(N/64), D); the key tiles are plain rows
-//    of k_f, masked past N. Padded queries are zero rows of Q and dO with
-//    lse = delta = 0, so their dS and P^T dO are zero.
+//  * bf16, head_dim 64, q/k/v/dO/O rows on 16-byte boundaries: the tensor
+//    cores, one design for every N. ~10*(N+1)*d FLOPs per query row
+//    against 8*d*2 bytes of q/k/v/dO/O/dq/dk/dv: ~123 FLOPs a byte at N =
+//    196 (77 MB, 0.0231 ms at 3.35 TB/s at TSF-B's batch 8), ~160 at N =
+//    256, ~360 at N = 576 (109 GFLOP at TSF-L@336's batch 8: 0.110 ms at
+//    989 TFLOP/s), above the H100's ~295: there the tensor cores are the
+//    limit, so every product is a wgmma m64n64k16 (bf16 in, fp32
+//    accumulate), none needing a transposed store. The split recomputes S
+//    and dP in both kernels, 7 products against the 5 of the bound: its
+//    own floor is 1.4x the bound's operations. Both kernels are built as
+//    the forward: blocks of consumer warpgroups (64 rows each; the dq
+//    kernel's block size by launch_dq's rule, dk/dv two) and a producer
+//    warp that issues TMA copies, its own side's tiles first, then the
+//    other side's 64-row tiles through a ring of kTcStages slots that it
+//    refills once every live warpgroup released a slot
+//    (lavila::sm90::Ring).
+//    - dq kernel (a warpgroup owns 64 queries; Q, dO and O stay in shared
+//      memory): per row delta = rowsum(dO*O), P_cls and dS_cls from the
+//      CLS key; the tile's lse (log2 domain; +inf on padded rows) and
+//      delta go to the fp32 scratch `stats` for the dk/dv kernel (no
+//      separate delta pass), its share of dck = scale sum dS_cls q and
+//      dcv = sum P_cls dO to the partials (B, F*ceil(N/64), D). Per key
+//      tile: S = Q K^T and dP = dO V^T (SS, K and V K-major), dS = P (dP -
+//      delta) in registers, dq += dS K (RS: dS rounded to bf16 is the A
+//      fragment, K read MN-major); dq = scale (dS K + dS_cls ck). In
+//      FlashAttention-3's order: S and dP of tile t are issued before dS K
+//      of tile t-1, and dS of tile t is formed while that product runs
+//      (measured 1.2x faster than in turn; the same order spilled in the
+//      dk/dv kernel, whose four accumulators leave no room, and did not
+//      pay there).
+//    - dk/dv kernel (a warpgroup owns 64 keys of k_f; K and V stay in
+//      shared memory): per query tile Q, dO and the tile's lse and delta
+//      (one bulk copy of `stats`) come through the ring. S^T = K Q^T and
+//      dP^T = V dO^T (SS, Q and dO K-major): the accumulators' rows are
+//      keys and their columns queries, which index lse and delta. P^T and
+//      dS^T, rounded to bf16, are the A fragments of dV += P^T dO and dK
+//      += dS^T Q (RS, dO and Q read MN-major); dK = scale dS^T Q.
+//    Padded queries are zero rows of Q, dO and O (TMA's fill) with lse =
+//    +inf in the dk/dv kernel, so their P^T and dS^T are zero; padded
+//    keys are never stored.
 //  * everything else (fp32, whose 1e-4 bound rules out bf16 or TF32
 //    tensor cores, other head sizes, unaligned rows): SIMT fp32 FMA, bound
 //    by FMA issue and shared-memory loads (~7*d FMAs per query-key pair
@@ -81,7 +99,6 @@ using lavila::allow_smem;
 using lavila::from_float;
 using lavila::launch_sum_groups;
 using lavila::ld32;
-using lavila::pack_bf16;
 using lavila::quad_sum;
 using lavila::to_float;
 using lavila::unpack_bf16;
@@ -285,308 +302,357 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// ---- K1 bwd, bf16 head_dim 64: mma.sync on 64-row tiles ----------------
+// ---- the spatial phase's backward on the tensor cores (K1 and K6): TMA
+// and wgmma
 
-using namespace lavila::d64;  // kD, kRow, kChunks and the fragment helpers
+using namespace lavila::sm90;  // tiles, barriers, the ring, wgmma
 
-constexpr int kTile = 64;         // queries (dq) or keys (dk/dv) a block
-constexpr int kTcWarps = 4;       // 16 rows each
-constexpr int kTileElems = kTile * kRow;
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDkvWG = 2;      // consumer warpgroups a dk/dv block
+constexpr int kTcStages = 4;   // ring slots
+constexpr unsigned kStatBytes = 2 * kTile * sizeof(float);  // lse, delta
 
-// Copy rows first..first+63 of frame x_f (head slice at col) into a
-// [row][d] tile by cp.async, zeros past `rows`.
-__device__ __forceinline__ void async_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* x,
-                                           long long x_rs,
-                                           long long frame_row, int col,
-                                           int first, int rows) {
-  for (int i = threadIdx.x; i < kTile * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const int n = first + r;
-    const bool ok = n < rows;
-    lavila::cp_async16(dst + r * kRow + 8 * c,
-                       ok ? x + (frame_row + n) * x_rs + col + 8 * c : x,
-                       ok);
-  }
-}
-
-// dq: grid (ceil(N/64), H, B*F), kTcWarps*32 threads; warp w owns queries
-// 16w..16w+15 of the block's 64. First, per query row (fragments loaded
-// from device memory): delta = rowsum(dO*O), written for the dk/dv kernel,
-// and the CLS key's P and dS. Then per 64-key tile of k_f (two cp.async
-// stages), S = Q K^T and dP = dO V^T on the tensor cores, dS = P (dP -
-// delta) in registers, dS (bf16) times K into dq. dq = scale*(dS K +
-// dS_cls ck). The block's share of dck/dcv (its 64 queries' scale*dS_cls*q
-// and P_cls*dO) goes to the fp32 partials (B, F*ceil(N/64), D).
-__global__ void __launch_bounds__(kTcWarps * 32)
-    space_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
+// dq: grid (ceil(N / (64 WG)), H, B*F), 128 WG + 32 threads: warpgroup
+// w < WG owns queries 64 (WG blockIdx.x + w) .. +63 (its query tile
+// qt), the last warp is the producer. Its Q, dO and O tiles come in
+// first; then the frame's K and V tiles stream through the ring. Per
+// row: delta = rowsum(dO*O), P_cls and dS_cls; the tile's lse (log2) and
+// delta go to `stats` for the dk/dv kernel, its share of dck/dcv to the
+// partials. Per key tile: S = Q K^T and dP = dO V^T (wgmma SS, K and V
+// K-major), dS = P (dP - delta) in registers, dq += dS K (wgmma RS, K
+// read MN-major). dq = scale (dS K + dS_cls ck).
+template <int WG, int S>
+__global__ void __launch_bounds__(128 * WG + 32)
+    space_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tout,
                            const __nv_bfloat16* __restrict__ ck,
                            const __nv_bfloat16* __restrict__ cv,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const __nv_bfloat16* __restrict__ out,
                            const float* __restrict__ lse,
-                           float* __restrict__ delta,
+                           float* __restrict__ stats,
                            __nv_bfloat16* __restrict__ dq,
                            float* __restrict__ part_k,
                            float* __restrict__ part_v, int F, int N, int H,
-                           long long q_rs, long long k_rs, long long v_rs,
                            long long ck_rs, long long cv_rs, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 tiles[2][2][kTileElems];  // K, V
-  __shared__ float cls[2][kTcWarps][kD];  // per warp: dck, dcv shares
-  const int qt = blockIdx.x, h = blockIdx.y, bf = blockIdx.z, b = bf / F;
-  const long long frame_row = (long long)bf * N;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) unsigned long long bar_q[WG];
+  __shared__ __align__(8) Ring<S> ring;
+  __shared__ float cls[WG][2][4][kD];  // per warp: its dck, dcv shares
+  __nv_bfloat16* rows0 = align1024(smem_raw);      // Q, dO, O per WG
+  __nv_bfloat16* kv = rows0 + 3 * WG * kTileElems;  // K, V per slot
+  const int tiles = (N + kTile - 1) / kTile;
+  const int h = blockIdx.y, bf = blockIdx.z, b = bf / F;
   const int col = h * kD;
+  const int first = blockIdx.x * WG;
+  const int live = min(WG, tiles - first);
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < WG; ++w) mbar_init(&bar_q[w], 1);
+    ring.init(128 * live);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == WG) {  // the producer
+    if (threadIdx.x == 128 * WG) {
+      for (int w = 0; w < live; ++w) {
+        __nv_bfloat16* dst = rows0 + 3 * w * kTileElems;
+        const int r = (first + w) * kTile;
+        mbar_expect_tx(&bar_q[w], 3 * kTileBytes);
+        tma_load_3d(dst, &tq, &bar_q[w], col, r, bf);
+        tma_load_3d(dst + kTileElems, &tdo, &bar_q[w], col, r, bf);
+        tma_load_3d(dst + 2 * kTileElems, &tout, &bar_q[w], col, r, bf);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        unsigned long long* full = ring.acquire(t);
+        __nv_bfloat16* dst = kv + 2 * (t % S) * kTileElems;
+        mbar_expect_tx(full, 2 * kTileBytes);
+        tma_load_3d(dst, &tk, full, col, t * kTile, bf);
+        tma_load_3d(dst + kTileElems, &tv, full, col, t * kTile, bf);
+      }
+    }
+    return;
+  }
+  if (wg >= live) return;  // not counted on the ring's `empty` barriers
+  const __nv_bfloat16* qs = rows0 + 3 * wg * kTileElems;
+  const __nv_bfloat16* gs = qs + kTileElems;
+  const __nv_bfloat16* os = gs + kTileElems;
+  const int qt = first + wg, row0 = qt * kTile;
+  const long long frame_row = (long long)bf * N;
   const long long D = (long long)H * kD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = qt * kTile + warp * 16 + g, n1 = n0 + 8;
-  const bool ok0 = n0 < N, ok1 = n1 < N;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const int n0 = row0 + r0, n1 = n0 + 8;
   const float sl2 = scale * kLog2e;
 
-  auto stage = [&](int kt) {
-    async_rows(tiles[kt & 1][0], k, k_rs, frame_row, col, kt * kTile, N);
-    async_rows(tiles[kt & 1][1], v, v_rs, frame_row, col, kt * kTile, N);
-    lavila::cp_async_commit();
-  };
-  stage(0);
+  // per row, over this lane's dims 16 t4 .. 16 t4 + 15 (quad sums):
+  // delta, q.ck and dO.cv. Padded rows (past N) are zeros in Q, dO and O
+  // and read lse = 0: P_cls = 1 and dS_cls = 0, every dS of theirs 0.
+  mbar_wait(&bar_q[wg], 0);
+  __syncwarp();
+  float e0 = 0.f, e1 = 0.f, s0 = 0.f, s1 = 0.f, p0 = 0.f, p1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 16 * t4 + 2 * i;
+    const float2 kc = unpack_bf16(ld32(ck + b * ck_rs + col + c));
+    const float2 vc = unpack_bf16(ld32(cv + b * cv_rs + col + c));
+    const float2 qx = tile_pair(qs, r0, c), qy = tile_pair(qs, r0 + 8, c);
+    const float2 gx = tile_pair(gs, r0, c), gy = tile_pair(gs, r0 + 8, c);
+    const float2 ox = tile_pair(os, r0, c), oy = tile_pair(os, r0 + 8, c);
+    e0 += gx.x * ox.x + gx.y * ox.y;
+    e1 += gy.x * oy.x + gy.y * oy.y;
+    s0 += qx.x * kc.x + qx.y * kc.y;
+    s1 += qy.x * kc.x + qy.y * kc.y;
+    p0 += gx.x * vc.x + gx.y * vc.y;
+    p1 += gy.x * vc.x + gy.y * vc.y;
+  }
+  const float dl0 = quad_sum(e0), dl1 = quad_sum(e1);
+  const float l0 = n0 < N ? lse[(frame_row + n0) * H + h] * kLog2e : 0.f;
+  const float l1 = n1 < N ? lse[(frame_row + n1) * H + h] * kLog2e : 0.f;
+  const float pc0 = exp2f(quad_sum(s0) * sl2 - l0);
+  const float pc1 = exp2f(quad_sum(s1) * sl2 - l1);
+  const float dc0 = pc0 * (quad_sum(p0) - dl0);
+  const float dc1 = pc1 * (quad_sum(p1) - dl1);
+  if (t4 == 0) {
+    // the dk/dv kernel's per-query lse and delta; a padded query's lse is
+    // +inf there, so its P is 0
+    float* st = stats + (((long long)bf * H + h) * tiles + qt) * 2 * kTile;
+    st[r0] = n0 < N ? l0 : INFINITY;
+    st[r0 + 8] = n1 < N ? l1 : INFINITY;
+    st[kTile + r0] = dl0;
+    st[kTile + r0 + 8] = dl1;
+  }
+  // this warp's share of dck = scale sum dS_cls q and dcv = sum P_cls dO:
+  // the lane's two rows, then the 8 lanes of equal t4 (xor over g)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 16 * t4 + 2 * i;
+    const float2 qx = tile_pair(qs, r0, c), qy = tile_pair(qs, r0 + 8, c);
+    const float2 gx = tile_pair(gs, r0, c), gy = tile_pair(gs, r0 + 8, c);
+    float r[4] = {dc0 * qx.x + dc1 * qy.x, dc0 * qx.y + dc1 * qy.y,
+                  pc0 * gx.x + pc1 * gy.x, pc0 * gx.y + pc1 * gy.y};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        r[j] += __shfl_xor_sync(0xffffffffu, r[j], o);
+    if (g == 0) {
+      cls[wg][0][warp][c] = r[0];
+      cls[wg][0][warp][c + 1] = r[1];
+      cls[wg][1][warp][c] = r[2];
+      cls[wg][1][warp][c + 1] = r[3];
+    }
+  }
 
-  unsigned qa[kD / 16][4], ga[kD / 16][4];
-  float dl0, dl1, pc0, pc1, dc0, dc1;  // delta, P_cls, dS_cls per row
+  // FlashAttention-3's order: S and dP of key tile kt are issued before
+  // dq += dS K of tile kt - 1, and dS of tile kt is formed while that
+  // product runs; da holds the dS in flight as bf16
+  float acc[32], sc[32], dp[32];
+  unsigned da[kD / 16][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < tiles; ++kt) {
+    ring.wait(kt);
+    const __nv_bfloat16* ks = kv + 2 * (kt % S) * kTileElems;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    hold(sc);
+    hold(dp);
+    wgmma_fence();
+    wgmma_tile_ss(sc, qs, ks);
+    wgmma_tile_ss(dp, gs, ks + kTileElems);
+    wgmma_commit();
+    if (kt > 0) {
+      wgmma_tile_rs(acc, da, kv + 2 * ((kt - 1) % S) * kTileElems);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    hold(sc);
+    hold(dp);
+    const bool full = (kt + 1) * kTile <= N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = full || kt * kTile + 8 * j + 2 * t4 + e < N;
+        const float pa = valid ? fast_exp2(fmaf(sc[4 * j + e], sl2, -l0))
+                               : 0.f;
+        const float pb =
+            valid ? fast_exp2(fmaf(sc[4 * j + 2 + e], sl2, -l1)) : 0.f;
+        sc[4 * j + e] = pa * (dp[4 * j + e] - dl0);          // dS, row r0
+        sc[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl1);  // row r0 + 8
+      }
+    }
+    wgmma_wait<0>();
+    hold(acc);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) hold(da[kk]);
+    if (kt > 0) ring.release(kt - 1);
+    acc_to_a(da, sc);
+  }
   {
-    unsigned oa[kD / 16][4];
-    load_rows(qa, q + (frame_row + n0) * q_rs + col,
-              q + (frame_row + n1) * q_rs + col, ok0, ok1, t);
-    load_rows(ga, dout + (frame_row + n0) * D + col,
-              dout + (frame_row + n1) * D + col, ok0, ok1, t);
-    load_rows(oa, out + (frame_row + n0) * D + col,
-              out + (frame_row + n1) * D + col, ok0, ok1, t);
-    // this lane's 16 dims of rows g and g + 8: fragment kk, half hf holds
-    // dims 16kk + 8hf + 2t, +1 (rows g in [2hf], g + 8 in [2hf + 1])
-    float s0 = 0.f, s1 = 0.f, p0 = 0.f, p1 = 0.f, e0 = 0.f, e1 = 0.f;
+    const int kt = tiles - 1;
+    wgmma_fence();
+    wgmma_tile_rs(acc, da, kv + 2 * (kt % S) * kTileElems);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(acc);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int c = col + kk * 16 + hf * 8 + 2 * t;
-        const float2 kc = unpack_bf16(ld32(ck + b * ck_rs + c));
-        const float2 vc = unpack_bf16(ld32(cv + b * cv_rs + c));
-        const float2 qx = unpack_bf16(qa[kk][2 * hf]);
-        const float2 qy = unpack_bf16(qa[kk][2 * hf + 1]);
-        const float2 gx = unpack_bf16(ga[kk][2 * hf]);
-        const float2 gy = unpack_bf16(ga[kk][2 * hf + 1]);
-        const float2 ox = unpack_bf16(oa[kk][2 * hf]);
-        const float2 oy = unpack_bf16(oa[kk][2 * hf + 1]);
-        s0 += qx.x * kc.x + qx.y * kc.y;
-        s1 += qy.x * kc.x + qy.y * kc.y;
-        p0 += gx.x * vc.x + gx.y * vc.y;
-        p1 += gy.x * vc.x + gy.y * vc.y;
-        e0 += gx.x * ox.x + gx.y * ox.y;
-        e1 += gy.x * oy.x + gy.y * oy.y;
-      }
-    }
-    dl0 = quad_sum(e0);
-    dl1 = quad_sum(e1);
-    if (t == 0) {
-      if (ok0) delta[(frame_row + n0) * H + h] = dl0;
-      if (ok1) delta[(frame_row + n1) * H + h] = dl1;
-    }
-    // padded rows: q = dO = 0, lse = 0, so P_cls = 1 and dS_cls = 0; they
-    // add nothing to dck/dcv
-    const float l0 = ok0 ? lse[(frame_row + n0) * H + h] * kLog2e : 0.f;
-    const float l1 = ok1 ? lse[(frame_row + n1) * H + h] * kLog2e : 0.f;
-    pc0 = exp2f(quad_sum(s0) * sl2 - l0);
-    pc1 = exp2f(quad_sum(s1) * sl2 - l1);
-    dc0 = pc0 * (quad_sum(p0) - dl0);
-    dc1 = pc1 * (quad_sum(p1) - dl1);
+    for (int kk = 0; kk < kD / 16; ++kk) hold(da[kk]);
+    ring.release(kt);
   }
-  // the block's share of dck/dcv, this warp's 16 rows: sum the lane's two
-  // rows, then the 8 lanes of equal t (xor over g)
+  // the CLS key's term, then dq = scale * acc through the Q tile
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float2 qx = unpack_bf16(qa[kk][2 * hf]);
-      const float2 qy = unpack_bf16(qa[kk][2 * hf + 1]);
-      const float2 gx = unpack_bf16(ga[kk][2 * hf]);
-      const float2 gy = unpack_bf16(ga[kk][2 * hf + 1]);
-      float r[4] = {dc0 * qx.x + dc1 * qy.x, dc0 * qx.y + dc1 * qy.y,
-                    pc0 * gx.x + pc1 * gy.x, pc0 * gx.y + pc1 * gy.y};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1)
-          r[i] += __shfl_xor_sync(0xffffffffu, r[i], o);
-      if (g == 0) {
-        const int c = kk * 16 + hf * 8 + 2 * t;
-        cls[0][warp][c] = r[0];
-        cls[0][warp][c + 1] = r[1];
-        cls[1][warp][c] = r[2];
-        cls[1][warp][c + 1] = r[3];
-      }
-    }
+  for (int j = 0; j < 8; ++j) {
+    const float2 kc = unpack_bf16(ld32(ck + b * ck_rs + col + 8 * j + 2 * t4));
+    acc[4 * j] += dc0 * kc.x;
+    acc[4 * j + 1] += dc0 * kc.y;
+    acc[4 * j + 2] += dc1 * kc.x;
+    acc[4 * j + 3] += dc1 * kc.y;
   }
-
-  const float l0 = ok0 ? lse[(frame_row + n0) * H + h] * kLog2e : 0.f;
-  const float l1 = ok1 ? lse[(frame_row + n1) * H + h] * kLog2e : 0.f;
-  float acc[kD / 8][4];
-  zero(acc);
-  const int n_tiles = (N + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) stage(kt + 1);
-    else lavila::cp_async_commit();  // an empty group keeps the count
-    lavila::cp_async_wait_prev();
-    __syncthreads();
-    const __nv_bfloat16* ks = tiles[kt & 1][0];
-    const __nv_bfloat16* vs = tiles[kt & 1][1];
-#pragma unroll
-    for (int st = 0; st < kTile / 16; ++st) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        mma_scores(s[half], qa, ks, 2 * st + half, g, t);
-        mma_scores(dp[half], ga, vs, 2 * st + half, g, t);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool valid =
-              kt * kTile + (2 * st + half) * 8 + 2 * t + e < N;
-          const float p0 = valid ? exp2f(s[half][e] * sl2 - l0) : 0.f;
-          const float p1 = valid ? exp2f(s[half][2 + e] * sl2 - l1) : 0.f;
-          s[half][e] = p0 * (dp[half][e] - dl0);          // dS, row n0
-          s[half][2 + e] = p1 * (dp[half][2 + e] - dl1);  // dS, row n1
-        }
-      }
-      const unsigned da[4] = {pack_bf16(s[0][0], s[0][1]),
-                              pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]),
-                              pack_bf16(s[1][2], s[1][3])};
-      mma_rows(acc, da, ks, st * 16, lane);
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-  // the CLS key's term, then dq = scale * acc
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    const float2 kc = unpack_bf16(ld32(ck + b * ck_rs + col + dn * 8 + 2 * t));
-    acc[dn][0] += dc0 * kc.x;
-    acc[dn][1] += dc0 * kc.y;
-    acc[dn][2] += dc1 * kc.x;
-    acc[dn][3] += dc1 * kc.y;
-  }
-  store_rows(dq + (frame_row + n0) * D + col, dq + (frame_row + n1) * D + col,
-             ok0, ok1, acc, scale, scale, t);
-  // the block's dck/dcv partials: the 4 warps' shares in a fixed order
-  // (the last __syncthreads of the loop made them visible)
-  const long long o = ((long long)bf * gridDim.x + qt) * D + col;
-  for (int i = threadIdx.x; i < 2 * kD; i += blockDim.x) {
+  store_tile(const_cast<__nv_bfloat16*>(qs), acc, scale, scale,
+             dq + frame_row * D + col, D, row0, N, wg);
+  // the tile's dck/dcv partials: the 4 warps' shares in a fixed order
+  // (store_tile's barriers made them visible)
+  const long long o = ((long long)bf * tiles + qt) * D + col;
+  for (int i = threadIdx.x & 127; i < 2 * kD; i += 128) {
     const int which = i / kD, c = i - which * kD;
-    float sum = 0.f;
-    for (int w = 0; w < kTcWarps; ++w) sum += cls[which][w][c];
+    const float sum = cls[wg][which][0][c] + cls[wg][which][1][c] +
+                      cls[wg][which][2][c] + cls[wg][which][3][c];
     if (which == 0) part_k[o + c] = sum * scale;
     else part_v[o + c] = sum;
   }
 }
 
-// dk/dv: grid (ceil(N/64), H, B*F), kTcWarps*32 threads; warp w owns keys
-// 16w..16w+15 of the block's 64 (rows of k_f and v_f: the CLS key's
-// gradient is the dq kernel's). Per query tile (two cp.async stages), Q and
-// dO [query][d] with lse and delta per query; S^T = K Q^T and dP^T = V
-// dO^T on the tensor cores, P^T and dS^T in registers, then P^T dO into
-// dV and dS^T Q into dK, both through ldmatrix's transpose.
-__global__ void __launch_bounds__(kTcWarps * 32)
-    space_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
+// dk/dv: grid (ceil(N / (64 WG)), H, B*F), 128 WG + 32 threads:
+// warpgroup w < WG owns keys 64 (WG blockIdx.x + w) .. +63 of k_f (the
+// CLS key's gradient is the dq kernel's), the last warp is the producer.
+// Its K and V tiles come in first; then per 64-query tile Q, dO and the
+// tile's lse and delta (`stats`, from the dq kernel) stream through the
+// ring. S^T = K Q^T and dP^T = V dO^T (wgmma SS: the accumulators' rows
+// are keys, their columns queries, which index lse and delta), P^T and
+// dS^T = P^T (dP^T - delta) in registers and, rounded to bf16, the A
+// operands of dV += P^T dO and dK += dS^T Q (wgmma RS, dO and Q read
+// MN-major). dK = scale dS^T Q.
+template <int WG, int S>
+__global__ void __launch_bounds__(128 * WG + 32)
+    space_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ stats,
                             __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int N, int H,
-                            long long q_rs, long long k_rs, long long v_rs,
                             float scale) {
-  __shared__ __align__(16) __nv_bfloat16 tiles[2][2][kTileElems];  // Q, dO
-  __shared__ float stats[2][2][kTile];  // per stage: lse, delta
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) unsigned long long bar_kv[WG];
+  __shared__ __align__(8) Ring<S> ring;
+  __shared__ __align__(16) float st[S][2 * kTile];  // lse (log2), delta
+  __nv_bfloat16* kv0 = align1024(smem_raw);         // K, V per WG
+  __nv_bfloat16* qg = kv0 + 2 * WG * kTileElems;    // Q, dO per slot
+  const int tiles = (N + kTile - 1) / kTile;
   const int h = blockIdx.y, bf = blockIdx.z;
-  const long long frame_row = (long long)bf * N;
   const int col = h * kD;
-  const long long D = (long long)H * kD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int j0 = blockIdx.x * kTile + warp * 16 + g, j1 = j0 + 8;
+  const int first = blockIdx.x * WG;
+  const int live = min(WG, tiles - first);
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < WG; ++w) mbar_init(&bar_kv[w], 1);
+    ring.init(128 * live);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == WG) {  // the producer
+    if (threadIdx.x == 128 * WG) {
+      for (int w = 0; w < live; ++w) {
+        __nv_bfloat16* dst = kv0 + 2 * w * kTileElems;
+        const int r = (first + w) * kTile;
+        mbar_expect_tx(&bar_kv[w], 2 * kTileBytes);
+        tma_load_3d(dst, &tk, &bar_kv[w], col, r, bf);
+        tma_load_3d(dst + kTileElems, &tv, &bar_kv[w], col, r, bf);
+      }
+      const float* st0 = stats + ((long long)bf * H + h) * tiles * 2 * kTile;
+      for (int t = 0; t < tiles; ++t) {
+        unsigned long long* full = ring.acquire(t);
+        const int s = t % S;
+        __nv_bfloat16* dst = qg + 2 * s * kTileElems;
+        mbar_expect_tx(full, 2 * kTileBytes + kStatBytes);
+        tma_load_3d(dst, &tq, full, col, t * kTile, bf);
+        tma_load_3d(dst + kTileElems, &tdo, full, col, t * kTile, bf);
+        bulk_load(st[s], st0 + t * 2 * kTile, kStatBytes, full);
+      }
+    }
+    return;
+  }
+  if (wg >= live) return;  // not counted on the ring's `empty` barriers
+  __nv_bfloat16* ks = kv0 + 2 * wg * kTileElems;
+  __nv_bfloat16* vs = ks + kTileElems;
+  const int row0 = (first + wg) * kTile;
+  const int t4 = threadIdx.x & 3;
   const float sl2 = scale * kLog2e;
 
-  auto stage = [&](int qt) {
-    async_rows(tiles[qt & 1][0], q, q_rs, frame_row, col, qt * kTile, N);
-    async_rows(tiles[qt & 1][1], dout, D, frame_row, col, qt * kTile, N);
-    // lse and delta by cp.async too; padded queries read lse = delta = 0:
-    // their Q and dO rows are zeros, so dS = P (dP - delta) = 0 and
-    // P^T dO = 0 whatever P is
-    for (int nn = threadIdx.x; nn < kTile; nn += blockDim.x) {
-      const int n = qt * kTile + nn;
-      const long long r = (frame_row + (n < N ? n : 0)) * H + h;
-      lavila::cp_async4(&stats[qt & 1][0][nn], lse + r, n < N);
-      lavila::cp_async4(&stats[qt & 1][1][nn], delta + r, n < N);
-    }
-    lavila::cp_async_commit();
-  };
-  stage(0);
-
-  unsigned ka[kD / 16][4], va[kD / 16][4];
-  load_rows(ka, k + (frame_row + j0) * k_rs + col,
-            k + (frame_row + j1) * k_rs + col, j0 < N, j1 < N, t);
-  load_rows(va, v + (frame_row + j0) * v_rs + col,
-            v + (frame_row + j1) * v_rs + col, j0 < N, j1 < N, t);
-  float ak[kD / 8][4], av[kD / 8][4];
-  zero(ak);
-  zero(av);
-
-  const int n_tiles = (N + kTile - 1) / kTile;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    if (qt + 1 < n_tiles) stage(qt + 1);
-    else lavila::cp_async_commit();
-    lavila::cp_async_wait_prev();
-    __syncthreads();
-    const __nv_bfloat16* qs = tiles[qt & 1][0];
-    const __nv_bfloat16* gs = tiles[qt & 1][1];
-    const float* lses = stats[qt & 1][0];
-    const float* deltas = stats[qt & 1][1];
+  mbar_wait(&bar_kv[wg], 0);
+  __syncwarp();
+  float ak[32], av[32];
 #pragma unroll
-    for (int st = 0; st < kTile / 16; ++st) {
-      float s[2][4], dp[2][4], p[2][4];
+  for (int i = 0; i < 32; ++i) ak[i] = av[i] = 0.f;
+  for (int qt = 0; qt < tiles; ++qt) {
+    ring.wait(qt);
+    const int s = qt % S;
+    const __nv_bfloat16* qs = qg + 2 * s * kTileElems;
+    const __nv_bfloat16* gs = qs + kTileElems;
+    float sc[32], dp[32];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        mma_scores(s[half], ka, qs, 2 * st + half, g, t);
-        mma_scores(dp[half], va, gs, 2 * st + half, g, t);
-        // columns are queries nn = (2st+half)*8 + 2t + e; rows j0 and j1
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    wgmma_fence();
+    wgmma_tile_ss(sc, ks, qs);
+    wgmma_tile_ss(dp, vs, gs);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(sc);
+    hold(dp);
+    // columns are queries 8j + 2t4 + e of the tile; padded ones read lse
+    // = +inf (P = 0) and have zero dO
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int nn = (2 * st + half) * 8 + 2 * t + e;
-          const float l = lses[nn] * kLog2e, dl = deltas[nn];
-          p[half][e] = exp2f(s[half][e] * sl2 - l);
-          p[half][2 + e] = exp2f(s[half][2 + e] * sl2 - l);
-          s[half][e] = p[half][e] * (dp[half][e] - dl);
-          s[half][2 + e] = p[half][2 + e] * (dp[half][2 + e] - dl);
-        }
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * j + 2 * t4 + e;
+        const float l = st[s][n], dl = st[s][kTile + n];
+        const float p0 = fast_exp2(fmaf(sc[4 * j + e], sl2, -l));
+        const float p1 = fast_exp2(fmaf(sc[4 * j + 2 + e], sl2, -l));
+        sc[4 * j + e] = p0;
+        sc[4 * j + 2 + e] = p1;
+        dp[4 * j + e] = p0 * (dp[4 * j + e] - dl);
+        dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl);
       }
-      const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]),
-                              pack_bf16(p[0][2], p[0][3]),
-                              pack_bf16(p[1][0], p[1][1]),
-                              pack_bf16(p[1][2], p[1][3])};
-      const unsigned sa[4] = {pack_bf16(s[0][0], s[0][1]),
-                              pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]),
-                              pack_bf16(s[1][2], s[1][3])};
-      mma_rows(av, pa, gs, st * 16, lane);
-      mma_rows(ak, sa, qs, st * 16, lane);
     }
-    __syncthreads();  // this stage is refilled two tiles on
+    unsigned pa[kD / 16][4], da[kD / 16][4];
+    acc_to_a(pa, sc);
+    acc_to_a(da, dp);
+    wgmma_fence();
+    wgmma_tile_rs(av, pa, gs);
+    wgmma_tile_rs(ak, da, qs);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(av);
+    hold(ak);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      hold(pa[kk]);
+      hold(da[kk]);
+    }
+    ring.release(qt);
   }
-  store_rows(dk + (frame_row + j0) * D + col, dk + (frame_row + j1) * D + col,
-             j0 < N, j1 < N, ak, scale, scale, t);
-  store_rows(dv + (frame_row + j0) * D + col, dv + (frame_row + j1) * D + col,
-             j0 < N, j1 < N, av, 1.f, 1.f, t);
+  const long long frame_row = (long long)bf * N;
+  const long long D = (long long)H * kD;
+  store_tile(ks, ak, scale, scale, dk + frame_row * D + col, D, row0, N, wg);
+  store_tile(vs, av, 1.f, 1.f, dv + frame_row * D + col, D, row0, N, wg);
 }
 
 // One warp per (clip, position, head); ceil(B*N*H / kWarps) blocks.
@@ -751,53 +817,6 @@ cudaError_t launch_space_bwd(const void* q, const void* k, const void* v,
                               dck, dcv, B, F, (long long)H * d, stream);
 }
 
-// What the tensor-core K1 bwd takes (kernels/divided.py mirrors it): the
-// forward's conditions (head_dim 64, 1 <= N <= 256, q/k/v rows on 16-byte
-// boundaries, ck/cv as bf16 pairs), dO on a 16-byte boundary (cp.async)
-// and O 4-byte aligned (read as bf16 pairs).
-bool space_bwd_tc_fits(const void* q, const void* k, const void* v,
-                       const void* ck, const void* cv, const void* dout,
-                       const void* out, int N, int d, long long q_rs,
-                       long long k_rs, long long v_rs, long long ck_rs,
-                       long long cv_rs) {
-  if (d != kD || N < 1 || N > 4 * kTile) return false;
-  for (const void* p : {q, k, v, dout})
-    if ((unsigned long long)p & 15ull) return false;
-  for (long long s : {q_rs, k_rs, v_rs})
-    if (s & 7ll) return false;
-  return lavila::bf16_pairs_ok({ck, cv, out}, {ck_rs, cv_rs});
-}
-
-cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
-                                const void* ck, const void* cv,
-                                const void* dout, const void* out,
-                                const void* lse, void* delta, void* dq,
-                                void* dk, void* dv, void* dck, void* dcv,
-                                void* part_k, void* part_v, int B, int F,
-                                int N, int H, long long q_rs, long long k_rs,
-                                long long v_rs, long long ck_rs,
-                                long long cv_rs, float scale,
-                                cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const int tiles = (N + kTile - 1) / kTile;
-  const dim3 grid(tiles, H, B * F);
-  space_bwd_dq_tc_kernel<<<grid, kTcWarps * 32, 0, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ck,
-      (const bf16*)cv, (const bf16*)dout, (const bf16*)out,
-      (const float*)lse, (float*)delta, (bf16*)dq, (float*)part_k,
-      (float*)part_v, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  space_bwd_dkv_tc_kernel<<<grid, kTcWarps * 32, 0, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, N, H,
-      q_rs, k_rs, v_rs, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_sum_groups<bf16>((const float*)part_k, (const float*)part_v,
-                                 dck, dcv, B, F * tiles, (long long)H * kD,
-                                 stream);
-}
-
 template <typename T>
 cudaError_t launch_time_bwd(const void* q, const void* k, const void* v,
                             const void* ck, const void* cv, const void* dout,
@@ -822,13 +841,103 @@ cudaError_t launch_time_bwd(const void* q, const void* k, const void* v,
                               dck, dcv, B, N, (long long)H * d, stream);
 }
 
+template <int WG>
+cudaError_t launch_dq(const CUtensorMap& tq, const CUtensorMap& tk,
+                      const CUtensorMap& tv, const CUtensorMap& tdo,
+                      const CUtensorMap& tout, const void* ck, const void* cv,
+                      const void* lse, void* stats, void* dq, void* part_k,
+                      void* part_v, int B, int F, int N, int H,
+                      long long ck_rs, long long cv_rs, float scale,
+                      cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  auto kernel = space_bwd_dq_tc_kernel<WG, kTcStages>;
+  const size_t smem = (size_t)(3 * WG + 2 * kTcStages) * kTileBytes + 1024;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + kTile - 1) / kTile;
+  kernel<<<dim3((tiles + WG - 1) / WG, H, B * F), 128 * WG + 32, smem,
+           stream>>>(tq, tk, tv, tdo, tout, (const bf16*)ck, (const bf16*)cv,
+                     (const float*)lse, (float*)stats, (bf16*)dq,
+                     (float*)part_k, (float*)part_v, F, N, H, ck_rs, cv_rs,
+                     scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+namespace lavila {
+
+// What the tensor-core backward takes (kernels/divided.py mirrors it):
+// the forward's conditions (space_tc_fits: head_dim 64, N >= 1, q/k/v
+// rows on 16-byte boundaries, ck/cv as bf16 pairs), and dO and O, which
+// TMA reads too, on 16-byte boundaries.
+bool space_bwd_tc_fits(const void* q, const void* k, const void* v,
+                       const void* ck, const void* cv, const void* dout,
+                       const void* out, int N, int d, long long q_rs,
+                       long long k_rs, long long v_rs, long long ck_rs,
+                       long long cv_rs) {
+  return space_tc_fits(q, k, v, ck, cv, N, d, q_rs, k_rs, v_rs, ck_rs,
+                       cv_rs) &&
+         sm90::aligned16({dout, out});
+}
+
+cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
+                                const void* ck, const void* cv,
+                                const void* dout, const void* out,
+                                const void* lse, void* stats, void* dq,
+                                void* dk, void* dv, void* dck, void* dcv,
+                                void* part_k, void* part_v, int B, int F,
+                                int N, int H, long long q_rs, long long k_rs,
+                                long long v_rs, long long ck_rs,
+                                long long cv_rs, float scale,
+                                cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const int D = H * sm90::kD;
+  CUtensorMap tq, tk, tv, tdo, tout;
+  if (!sm90::rows_map(&tq, q, q_rs, D, N, B * F) ||
+      !sm90::rows_map(&tk, k, k_rs, D, N, B * F) ||
+      !sm90::rows_map(&tv, v, v_rs, D, N, B * F) ||
+      !sm90::rows_map(&tdo, dout, D, D, N, B * F) ||
+      !sm90::rows_map(&tout, out, D, D, N, B * F))
+    return cudaErrorInvalidValue;
+  const int tiles = (N + sm90::kTile - 1) / sm90::kTile;
+  // dq blocks of 3 warpgroups where a frame has at least 9 query tiles and
+  // they split into threes, so none idles; else 2. Timed at two shapes
+  // only: N = 576 (9 tiles), where 3 made dq 7% faster (0.281 -> 0.262 ms
+  // at B = 8, the whole backward 3%), the extra warpgroup hiding the
+  // products' latency; N = 196 (4 tiles), where 2 were faster (0.066
+  // against 0.073 ms). Fewer tiles keep 2, the form timed there.
+  cudaError_t err =
+      tiles >= 9 && tiles % 3 == 0
+          ? launch_dq<3>(tq, tk, tv, tdo, tout, ck, cv, lse, stats, dq,
+                         part_k, part_v, B, F, N, H, ck_rs, cv_rs, scale,
+                         stream)
+          : launch_dq<2>(tq, tk, tv, tdo, tout, ck, cv, lse, stats, dq,
+                         part_k, part_v, B, F, N, H, ck_rs, cv_rs, scale,
+                         stream);
+  if (err != cudaSuccess) return err;
+  auto dkv_kernel = space_bwd_dkv_tc_kernel<kDkvWG, kTcStages>;
+  const size_t smem =
+      (size_t)(2 * kDkvWG + 2 * kTcStages) * sm90::kTileBytes + 1024;
+  if ((err = allow_smem(dkv_kernel, smem)) != cudaSuccess) return err;
+  dkv_kernel<<<dim3((tiles + kDkvWG - 1) / kDkvWG, H, B * F),
+               128 * kDkvWG + 32, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)stats, (bf16*)dk, (bf16*)dv, N, H,
+      scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_sum_groups<bf16>((const float*)part_k, (const float*)part_v,
+                                 dck, dcv, B, F * tiles, D, stream);
+}
+
+}  // namespace lavila
 
 // Plain C interface, loaded with ctypes. dtype: 0 = fp32, 1 = bf16.
 // part_k/part_v: fp32 scratch the caller allocates: (B, F*ceil(N/64), D)
 // for the spatial phase's tensor-core kernels, (B, F, D) for its SIMT
-// ones, (B, N, D) for the temporal phase; delta: fp32 scratch (B, F, N, H)
-// for the spatial phase's tensor-core kernels. Returns the cudaError_t of
+// ones, (B, N, D) for the temporal phase; stats: fp32 scratch (B, F, H,
+// ceil(N/64), 2, 64) for the spatial phase's tensor-core kernels (each
+// 64-query tile's lse, then its delta), unread by the SIMT ones (may be
+// NULL). Returns the cudaError_t of
 // the launches (0 on success).
 extern "C" {
 
@@ -838,7 +947,7 @@ extern "C" {
 int lavila_divided_space_bwd(const void* q, const void* k, const void* v,
                              const void* ck, const void* cv,
                              const void* dout, const void* out,
-                             const void* lse, void* delta, void* dq,
+                             const void* lse, void* stats, void* dq,
                              void* dk, void* dv, void* dck, void* dcv,
                              void* part_k, void* part_v, int B, int F, int N,
                              int H, int d, long long q_rs, long long k_rs,
@@ -847,11 +956,12 @@ int lavila_divided_space_bwd(const void* q, const void* k, const void* v,
   if (d < 1 || d > 32 * kMaxDimsPerLane) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (tc) {
-    if (dtype != 1 || !space_bwd_tc_fits(q, k, v, ck, cv, dout, out, N, d,
-                                         q_rs, k_rs, v_rs, ck_rs, cv_rs))
+    if (dtype != 1 ||
+        !lavila::space_bwd_tc_fits(q, k, v, ck, cv, dout, out, N, d, q_rs,
+                                   k_rs, v_rs, ck_rs, cv_rs))
       return (int)cudaErrorInvalidValue;
-    return (int)launch_space_bwd_tc(
-        q, k, v, ck, cv, dout, out, lse, delta, dq, dk, dv, dck, dcv, part_k,
+    return (int)lavila::launch_space_bwd_tc(
+        q, k, v, ck, cv, dout, out, lse, stats, dq, dk, dv, dck, dcv, part_k,
         part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
   }
   if (dtype == 0)

@@ -10,33 +10,38 @@
 // scores, softmax and sums are fp32.
 //
 // K1, spatial phase: each patch query of frame f attends over the N+1 keys
-// [cls_k; k_f], N <= 256 (larger frames go to K6, divided_big.cu). The
+// [cls_k; k_f], N <= 256 (larger frames go to K6's entry points,
+// divided_big.cu, whose tensor-core route is the kernel below too). The
 // caller picks one of two kernels (kernels/divided.py asks for the tensor
 // cores by the `tc` argument, and the entry point refuses a call they
 // cannot take):
 //
 //  * bf16, head_dim 64, q/k/v rows on 16-byte boundaries: space_fwd_tc,
-//    one design for every N <= 256 (TSF-B's 196, TSF-L@224's 256, ragged
-//    N between). The phase is bound by bytes: 4*(N+1)*d FLOPs per query
-//    row against 4*d*2 bytes of q/k/v/out, ~98 FLOPs a byte at N = 196
-//    (38.5 MB and 3.8 GFLOP at TSF-B's batch 8, 0.0116 ms at 3.35 TB/s)
-//    and ~128 at N = 256 (67 MB and 8.6 GFLOP at TSF-L@224's batch 8,
-//    0.0202 ms), below the H100's ~295. So the design is about the
-//    memory side:
-//    - Grid: one block per (128-query tile, head, clip*frame), two
-//      warpgroups, each owning 64 query rows; 2 x 12 x 32 = 768 blocks at
-//      TSF-B batch 8, 1024 at TSF-L@224. The two warpgroups share the
-//      frame's K and V in shared memory, so a frame's keys cross from L2
-//      half as often as with one warpgroup a block (which measured
-//      slower). A warpgroup past the frame's last query leaves at once.
-//    - Copies: thread 0 issues every copy at entry by TMA (3-D tensor maps
-//      over the strided row views: columns, the frame's N rows, frames;
-//      rows past N come in as zeros): each query tile and each 64-key K
-//      and V tile lands in shared memory (128-byte swizzle) on a barrier
-//      of its own, so the products of key tile t run while tiles t+1..
-//      are still in flight. With N <= 256 the ring holds every key tile
-//      (2 query + 8 key tiles, ~81 KB: two blocks an SM) and no slot is
-//      ever refilled.
+//    one design for every N: TSF-B's 196, TSF-L@224's 256 and, for K6,
+//    TSF-L@336's 576. 4*(N+1)*d FLOPs per query row against 4*d*2 bytes
+//    of q/k/v/out: ~98 FLOPs a byte at N = 196 (38.5 MB and 3.8 GFLOP at
+//    TSF-B's batch 8, 0.0116 ms at 3.35 TB/s), ~128 at N = 256 (0.0202
+//    ms), ~290 at N = 576 (151 MB and 38.7 GFLOP at batch 8: 0.0454 ms
+//    by bytes, 0.039 by the tensor cores), at the H100's balance point.
+//    So the design keeps the copies ahead of the products and the
+//    products on wgmma:
+//    - Grid: one block per (128-query tile, head, clip*frame): two
+//      consumer warpgroups, each owning 64 query rows, and one producer
+//      warp. The two warpgroups share the frame's K and V in shared
+//      memory, so a frame's keys cross from L2 half as often as with one
+//      warpgroup a block (which measured slower in K1's first version).
+//    - Copies: the producer's first thread issues every copy by TMA (3-D
+//      tensor maps over the strided row views: columns, the frame's N
+//      rows, frames; rows past N come in as zeros), the query tiles first,
+//      then the 64-key K and V tiles through a ring of kTcStages slots
+//      (128-byte swizzle), K and V of a slot on barriers of their own.
+//      Each consumer warpgroup arrives on the slot's `empty` barrier when
+//      its P V on that tile is done, and the producer waits on it before
+//      it refills the slot (lavila::sm90::Ring): K/V for tile t+4 are in
+//      flight while tile t is used. A warpgroup past the frame's last
+//      query leaves at once and is not counted on `empty`. With N <= 256
+//      the ring holds every key tile and no slot is refilled (K1's
+//      resident case: 2 query + 8 key tiles, ~81 KB: two blocks an SM).
 //    - Products: S = Q K^T and O += P V are wgmma m64n64k16 (bf16 in,
 //      fp32 accumulate): Q and K from shared memory, K-major; P from
 //      registers (the S accumulator rounded to bf16 is wgmma's A
@@ -46,12 +51,20 @@
 //      s_cls = scale*q.ck, m = s_cls, l = 1, acc = cv (the Pallas
 //      kernel's order, divided.py:63-72), so the key tiles are plain rows
 //      of k_f and only the last one is masked (196 = 3*64 + 4; 256 =
-//      4*64). The softmax runs in the log2 domain (exp2).
+//      4*64; 576 = 9*64). The softmax runs in the log2 domain (exp2).
 //    - Output through the warpgroup's query tile in shared memory to
 //      16-byte coalesced stores; lse = m + log(l).
+//    - The softmax is the loop's critical path at head_dim 64 (one ex2
+//      per 128 multiply-adds of the products): per score one FFMA folds
+//      the scale into exp2's argument, ex2.approx, and a running sum each
+//      thread keeps for its share of a row (reduced over the quad once, at
+//      the end); only the last tile is masked. S and P V run in turn
+//      within a warpgroup: issuing S of tile t+1 before P V of tile t
+//      (FlashAttention-3's order) needs ~16 more registers, which cost the
+//      second block an SM and measured slower.
 //    - Numerics: the *unnormalised* P = exp(s - m) is rounded to bf16 for
-//      P V and the sum divided at the end, as K6 does; the JAX kernel
-//      rounds the normalised P. bf16 rounding only (the 2e-2 bf16 limit).
+//      P V and the sum divided at the end; the JAX kernels round the
+//      normalised P. bf16 rounding only (the 2e-2 bf16 limit).
 //  * everything else (fp32, whose 1e-4 bound rules out bf16 or TF32
 //    tensor cores, other head sizes, unaligned rows): SIMT fp32 FMA,
 //    bound by FMA issue and its ~2 shared-memory loads per FMA. K/V are
@@ -66,10 +79,7 @@
 // reductions and the softmax is online, so F is only bounded by the loop
 // (16 frames, the fine-tune clip length, runs the same code as 4).
 
-#include <cuda.h>
-#include <dlfcn.h>
 #include <math.h>
-#include <stdint.h>
 
 #include "common.cuh"
 
@@ -78,7 +88,6 @@ namespace {
 using lavila::allow_smem;
 using lavila::from_float;
 using lavila::ld32;
-using lavila::pack_bf16;
 using lavila::quad_max;
 using lavila::quad_sum;
 using lavila::to_float;
@@ -170,85 +179,64 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// ---- K1, bf16 head_dim 64: TMA and wgmma ---------------------------------
+// ---- the spatial phase on the tensor cores (K1 and K6): TMA and wgmma
 
-constexpr int kTcD = 64;         // head_dim of the tensor-core kernel
-constexpr int kTcTile = 64;      // queries per warpgroup, keys per tile
-constexpr int kTcMaxTiles = 4;   // key tiles: N <= 256
-constexpr int kWG = 2;           // warpgroups per block: 128 queries
-constexpr int kTcTileElems = kTcTile * kTcD;
-constexpr unsigned kTcTileBytes = kTcTileElems * 2;  // 8 KB of 128-B rows
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace lavila::sm90;  // tiles, barriers, the ring, wgmma
 
-size_t space_tc_smem_bytes(int tiles) {
-  // a query tile per warpgroup, `tiles` K and V tiles, and slack to put
+constexpr int kTcWG = 2;      // consumer warpgroups a block: 128 queries
+constexpr int kTcStages = 4;  // ring slots of K and V tiles
+
+size_t space_tc_smem_bytes(int wgs, int stages) {
+  // a query tile per warpgroup, `stages` K and V tiles, and slack to put
   // the first tile on a 1024-byte boundary (the 128-byte swizzle's period)
-  return (size_t)(kWG + 2 * tiles) * kTcTileBytes + 1024;
+  return (size_t)(wgs + 2 * stages) * kTileBytes + 1024;
 }
 
-// Element (r, c) of a 64 x 64 bf16 tile written by TMA with the 128-byte
-// swizzle: 16-byte chunk c/8 of row r sits at chunk (c/8) ^ (r % 8).
-__device__ __forceinline__ char* swizzled(void* tile, int r, int c) {
-  return static_cast<char*>(tile) + r * 128 + (((c >> 3) ^ (r & 7)) << 4) +
-         (c & 7) * 2;
-}
-
-// the 128 threads of warpgroup `wg` wait for each other (named barrier
-// 1 + wg; 0 is __syncthreads')
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-// The online softmax over key tile kt's scores s (log2 domain after the
-// scale): keys past N masked, the running max and sum of the thread's
-// rows r0 and r0 + 8 updated, c0/c1 the factors that rescale what came
-// before, and P = exp2(s - m) packed to bf16 as wgmma's A operand (keys
-// 16kk..16kk+15 are the accumulator's column blocks 2kk and 2kk+1).
-__device__ __forceinline__ void softmax_tile(float (&s)[32],
-                                             unsigned (&pa)[kTcD / 16][4],
-                                             int kt, int N, int t4, float sl2,
-                                             float& m0, float& m1, float& l0,
-                                             float& l1, float& c0,
-                                             float& c1) {
+// The online softmax over key tile kt's raw scores s (q.k, in place): keys
+// past N masked (only the last tile has any), the running max m0/m1 of
+// the thread's rows r0 and r0 + 8 (log2 domain, after the scale; the same
+// in the 4 lanes of a quad) updated, c0/c1 the factors that rescale what
+// came before, s overwritten by P = exp2(scale log2(e) s - m) with one FFMA
+// and one ex2 an element, and the thread's share of each row's sum
+// (l0/l1: reduced over the quad once, at the end) updated.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], int kt, int N,
+                                             int t4, float sl2, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& c0, float& c1) {
+  if ((kt + 1) * kTile > N) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (kt * kTile + 8 * j + 2 * t4 + e >= N)
+          s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+  }
   float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool valid = kt * kTcTile + 8 * j + 2 * t4 + e < N;
-      s[4 * j + e] = valid ? s[4 * j + e] * sl2 : -INFINITY;
-      s[4 * j + 2 + e] = valid ? s[4 * j + 2 + e] * sl2 : -INFINITY;
-      t0 = fmaxf(t0, s[4 * j + e]);
-      t1 = fmaxf(t1, s[4 * j + 2 + e]);
-    }
+    t0 = fmaxf(t0, fmaxf(s[4 * j], s[4 * j + 1]));
+    t1 = fmaxf(t1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
   // finite: m0/m1 start at the CLS score
-  const float mn0 = fmaxf(m0, quad_max(t0)), mn1 = fmaxf(m1, quad_max(t1));
-  c0 = exp2f(m0 - mn0);
-  c1 = exp2f(m1 - mn1);
+  const float mn0 = fmaxf(m0, quad_max(t0) * sl2);
+  const float mn1 = fmaxf(m1, quad_max(t1) * sl2);
+  c0 = fast_exp2(m0 - mn0);
+  c1 = fast_exp2(m1 - mn1);
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[4 * j + e] = exp2f(s[4 * j + e] - mn0);
-      s[4 * j + 2 + e] = exp2f(s[4 * j + 2 + e] - mn1);
+      s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], sl2, -mn0));
+      s[4 * j + 2 + e] = fast_exp2(fmaf(s[4 * j + 2 + e], sl2, -mn1));
       rs0 += s[4 * j + e];
       rs1 += s[4 * j + 2 + e];
     }
   }
-  l0 = l0 * c0 + quad_sum(rs0);
-  l1 = l1 * c1 + quad_sum(rs1);
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
   m0 = mn0;
   m1 = mn1;
-#pragma unroll
-  for (int kk = 0; kk < kTcD / 16; ++kk) {
-    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
 }
 
 __device__ __forceinline__ void rescale(float (&o)[32], float c0, float c1) {
@@ -261,10 +249,12 @@ __device__ __forceinline__ void rescale(float (&o)[32], float c0, float c1) {
   }
 }
 
-// grid (ceil(N / (64 kWG)), H, B*F), 128 kWG threads: warpgroup w owns
-// queries 64 (kWG blockIdx.x + w) .. +63. tq/tk/tv: 3-D tensor maps
-// (columns, the frame's N rows, frames) with a 64 x 64 x 1 box.
-__global__ void __launch_bounds__(128 * kWG)
+// grid (ceil(N / (64 WG)), H, B*F), 128 WG + 32 threads: warpgroup w < WG
+// owns queries 64 (WG blockIdx.x + w) .. +63, the last warp is the
+// producer. tq/tk/tv: 3-D tensor maps (columns, the frame's N rows,
+// frames) with a 64 x 64 x 1 box.
+template <int WG, int S>
+__global__ void __launch_bounds__(128 * WG + 32)
     space_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
@@ -273,51 +263,54 @@ __global__ void __launch_bounds__(128 * kWG)
                         __nv_bfloat16* __restrict__ out,
                         float* __restrict__ lse, int F, int N, int H,
                         long long ck_rs, long long cv_rs, float scale) {
-  using namespace lavila::sm90;
   extern __shared__ unsigned char smem_raw[];
-  // a barrier per query tile, per K tile and per V tile
-  __shared__ __align__(8) unsigned long long bar_q[kWG];
-  __shared__ __align__(8) unsigned long long bar_k[kTcMaxTiles];
-  __shared__ __align__(8) unsigned long long bar_v[kTcMaxTiles];
-  __nv_bfloat16* qs0 = reinterpret_cast<__nv_bfloat16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int tiles = (N + kTcTile - 1) / kTcTile;
-  __nv_bfloat16* ks = qs0 + kWG * kTcTileElems;
-  __nv_bfloat16* vs = ks + tiles * kTcTileElems;
+  __shared__ __align__(8) unsigned long long bar_q[WG];
+  // K and V tiles of one slot land on barriers of their own, so that
+  // S = Q K^T runs while V is still in flight
+  __shared__ __align__(8) Ring<S> ring_k;
+  __shared__ __align__(8) unsigned long long full_v[S];
+  __nv_bfloat16* qs0 = align1024(smem_raw);
+  __nv_bfloat16* ks = qs0 + WG * kTileElems;
+  __nv_bfloat16* vs = ks + S * kTileElems;
+  const int tiles = (N + kTile - 1) / kTile;
   const int h = blockIdx.y, bf = blockIdx.z, b = bf / F;
-  const int col = h * kTcD;
+  const int col = h * kD;
+  const int first = blockIdx.x * WG;  // the block's first query tile
+  const int live = min(WG, tiles - first);
   const int wg = threadIdx.x >> 7;
-  const int row0 = (blockIdx.x * kWG + wg) * kTcTile;  // this warpgroup's
 
   if (threadIdx.x == 0) {
-    for (int w = 0; w < kWG; ++w) mbar_init(&bar_q[w], 1);
-    for (int t = 0; t < tiles; ++t) {
-      mbar_init(&bar_k[t], 1);
-      mbar_init(&bar_v[t], 1);
-    }
+    for (int w = 0; w < WG; ++w) mbar_init(&bar_q[w], 1);
+    ring_k.init(128 * live);
+    for (int s = 0; s < S; ++s) mbar_init(&full_v[s], 1);
     mbar_fence_init();
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWG; ++w) {
-      const int r = (blockIdx.x * kWG + w) * kTcTile;
-      if (r >= N) break;
-      mbar_expect_tx(&bar_q[w], kTcTileBytes);
-      tma_load_3d(qs0 + w * kTcTileElems, &tq, &bar_q[w], col, r, bf);
+  if (wg == WG) {  // the producer: queries, then the K/V ring
+    if (threadIdx.x == 128 * WG) {
+      for (int w = 0; w < live; ++w) {
+        mbar_expect_tx(&bar_q[w], kTileBytes);
+        tma_load_3d(qs0 + w * kTileElems, &tq, &bar_q[w], col,
+                    (first + w) * kTile, bf);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        unsigned long long* fk = ring_k.acquire(t);
+        const int s = t % S;
+        mbar_expect_tx(fk, kTileBytes);
+        tma_load_3d(ks + s * kTileElems, &tk, fk, col, t * kTile, bf);
+        mbar_expect_tx(&full_v[s], kTileBytes);
+        tma_load_3d(vs + s * kTileElems, &tv, &full_v[s], col, t * kTile,
+                    bf);
+      }
     }
-    for (int t = 0; t < tiles; ++t) {
-      mbar_expect_tx(&bar_k[t], kTcTileBytes);
-      tma_load_3d(ks + t * kTcTileElems, &tk, &bar_k[t], col, t * kTcTile,
-                  bf);
-      mbar_expect_tx(&bar_v[t], kTcTileBytes);
-      tma_load_3d(vs + t * kTcTileElems, &tv, &bar_v[t], col, t * kTcTile,
-                  bf);
-    }
+    return;
   }
-  // a warpgroup past the frame's last query has nothing to do; no
-  // block-wide barrier follows
-  if (row0 >= N) return;
-  __nv_bfloat16* qs = qs0 + wg * kTcTileElems;
+  // a warpgroup past the frame's last query has nothing to do; it is not
+  // counted on the ring's `empty` barriers, and no block-wide barrier
+  // follows
+  if (wg >= live) return;
+  __nv_bfloat16* qs = qs0 + wg * kTileElems;
+  const int row0 = (first + wg) * kTile;
 
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -340,75 +333,55 @@ __global__ void __launch_bounds__(128 * kWG)
     ckf[2 * i + 1] = c.y;
   }
   mbar_wait(&bar_q[wg], 0);
+  __syncwarp();
   float d0 = 0.f, d1 = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = 16 * t4 + 2 * i;
-    const float2 a = unpack_bf16(*reinterpret_cast<unsigned*>(
-        swizzled(qs, r0, c)));
-    const float2 e = unpack_bf16(*reinterpret_cast<unsigned*>(
-        swizzled(qs, r0 + 8, c)));
+    const float2 a = tile_pair(qs, r0, c), e = tile_pair(qs, r0 + 8, c);
     d0 = fmaf(a.x, ckf[2 * i], fmaf(a.y, ckf[2 * i + 1], d0));
     d1 = fmaf(e.x, ckf[2 * i], fmaf(e.y, ckf[2 * i + 1], d1));
   }
   float m0 = quad_sum(d0) * sl2, m1 = quad_sum(d1) * sl2;
-  float l0 = 1.f, l1 = 1.f;
+  // each row's sum is split over its quad; the CLS key's 1 counts once
+  float l0 = t4 == 0 ? 1.f : 0.f, l1 = l0;
 
   for (int kt = 0; kt < tiles; ++kt) {
-    mbar_wait(&bar_k[kt], 0);
-    __syncwarp();
-    const __nv_bfloat16* kst = ks + kt * kTcTileElems;
-    float s[32];
+    const int s = kt % S;
+    ring_k.wait(kt);
+    float sc[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTcD / 16; ++kk)
-      wgmma_ss(s, sw128_desc(qs + 16 * kk), sw128_desc(kst + 16 * kk), kk);
+    wgmma_tile_ss(sc, qs, ks + s * kTileElems);
     wgmma_commit();
     wgmma_wait_all();
-    hold(s);
+    hold(sc);
 
-    unsigned pa[kTcD / 16][4];
     float c0, c1;
-    softmax_tile(s, pa, kt, N, t4, sl2, m0, m1, l0, l1, c0, c1);
+    softmax_tile(sc, kt, N, t4, sl2, m0, m1, l0, l1, c0, c1);
+    unsigned pa[kD / 16][4];
+    acc_to_a(pa, sc);
     rescale(o, c0, c1);
-    mbar_wait(&bar_v[kt], 0);
+    mbar_wait(&full_v[s], (kt / S) & 1);
     __syncwarp();
-    const __nv_bfloat16* vst = vs + kt * kTcTileElems;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTcTile / 16; ++kk)
-      wgmma_rs_tn(o, pa[kk], sw128_desc(vst + 16 * kk * kTcD));
+    wgmma_tile_rs(o, pa, vs + s * kTileElems);
     wgmma_commit();
     wgmma_wait_all();
     hold(o);
 #pragma unroll
-    for (int kk = 0; kk < kTcTile / 16; ++kk) hold(pa[kk]);
+    for (int kk = 0; kk < kTile / 16; ++kk) hold(pa[kk]);
+    ring_k.release(kt);  // the slot's K and V tiles are free
   }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
 
-  // out: through this warpgroup's query tile (same swizzle) to 16-byte
-  // row-contiguous stores
-  wg_sync(wg);  // every product of the warpgroup is done with qs
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * t4;
-    *reinterpret_cast<unsigned*>(swizzled(qs, r0, c)) =
-        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<unsigned*>(swizzled(qs, r0 + 8, c)) =
-        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-  }
-  wg_sync(wg);
+  // out: through this warpgroup's query tile to 16-byte stores
   const long long frame_row = (long long)bf * N;
-  const long long D = (long long)H * kTcD;
-  for (int i = threadIdx.x & 127; i < kTcTile * kTcD / 8; i += 128) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    const int n = row0 + r;
-    if (n < N)
-      *reinterpret_cast<uint4*>(out + (frame_row + n) * D + col + c) =
-          *reinterpret_cast<const uint4*>(swizzled(qs, r, c));
-  }
+  const long long D = (long long)H * kD;
+  store_tile(qs, o, 1.f / l0, 1.f / l1, out + frame_row * D + col, D, row0,
+             N, wg);
   if (t4 == 0) {
     const int n0 = row0 + r0, n1 = n0 + 8;
     if (n0 < N) lse[(frame_row + n0) * H + h] = (m0 + log2f(l0)) * kLn2;
@@ -507,83 +480,6 @@ cudaError_t launch_space(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the libcuda the process already loaded
-// (it is not linked: the library is loaded next to PyTorch's own)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h == nullptr ? nullptr
-                        : (EncodeTiled)dlsym(h, "cuTensorMapEncodeTiled");
-  }();
-  return fn;
-}
-
-// The (B*F frames, N rows, D columns) bf16 row view at p with row stride
-// rs elements, as a 3-D tensor map with a 64 x 64 x 1 box, 128-byte
-// swizzle; rows past N read as zeros.
-bool rows_map(CUtensorMap* map, const void* p, long long rs, int D, int N,
-              int frames) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N,
-                              (cuuint64_t)frames};
-  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2,
-                                 (cuuint64_t)rs * 2 * N};
-  const cuuint32_t box[3] = {kTcD, kTcTile, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(p), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// What the tensor-core K1 takes (kernels/divided.py mirrors it): head_dim
-// 64, 1 <= N <= 256, q/k/v rows on 16-byte boundaries (TMA), ck/cv read
-// as bf16 pairs.
-bool space_tc_fits(const void* q, const void* k, const void* v,
-                   const void* ck, const void* cv, int N, int d,
-                   long long q_rs, long long k_rs, long long v_rs,
-                   long long ck_rs, long long cv_rs) {
-  if (d != kTcD || N < 1 || N > kTcMaxTiles * kTcTile) return false;
-  for (const void* p : {q, k, v})
-    if ((uintptr_t)p & 15u) return false;
-  for (long long s : {q_rs, k_rs, v_rs})
-    if (s & 7ll) return false;
-  return lavila::bf16_pairs_ok({ck, cv}, {ck_rs, cv_rs});
-}
-
-cudaError_t launch_space_tc(const void* q, const void* k, const void* v,
-                            const void* ck, const void* cv, void* out,
-                            void* lse, int B, int F, int N, int H,
-                            long long q_rs, long long k_rs, long long v_rs,
-                            long long ck_rs, long long cv_rs, float scale,
-                            cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  const int D = H * kTcD;
-  if (!rows_map(&tq, q, q_rs, D, N, B * F) ||
-      !rows_map(&tk, k, k_rs, D, N, B * F) ||
-      !rows_map(&tv, v, v_rs, D, N, B * F))
-    return cudaErrorInvalidValue;
-  const int tiles = (N + kTcTile - 1) / kTcTile;
-  const size_t smem = space_tc_smem_bytes(tiles);
-  cudaError_t err = allow_smem(space_fwd_tc_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (tiles + kWG - 1) / kWG;
-  space_fwd_tc_kernel<<<dim3(blocks, H, B * F), 128 * kWG, smem, stream>>>(
-      tq, tk, tv, (const __nv_bfloat16*)ck, (const __nv_bfloat16*)cv,
-      (__nv_bfloat16*)out, (float*)lse, F, N, H, ck_rs, cv_rs, scale);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_time(const void* q, const void* k, const void* v,
                         const void* ck, const void* cv, void* out, void* lse,
@@ -599,7 +495,60 @@ cudaError_t launch_time(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int WG, int S>
+cudaError_t launch_space_tc_grid(const CUtensorMap& tq, const CUtensorMap& tk,
+                                 const CUtensorMap& tv, const void* ck,
+                                 const void* cv, void* out, void* lse, int B,
+                                 int F, int N, int H, long long ck_rs,
+                                 long long cv_rs, float scale,
+                                 cudaStream_t stream) {
+  const size_t smem = space_tc_smem_bytes(WG, S);
+  cudaError_t err = allow_smem(space_fwd_tc_kernel<WG, S>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + kTile - 1) / kTile;
+  space_fwd_tc_kernel<WG, S>
+      <<<dim3((tiles + WG - 1) / WG, H, B * F), 128 * WG + 32, smem,
+          stream>>>(tq, tk, tv, (const __nv_bfloat16*)ck,
+                    (const __nv_bfloat16*)cv, (__nv_bfloat16*)out,
+                    (float*)lse, F, N, H, ck_rs, cv_rs, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+namespace lavila {
+
+// What the tensor-core forward takes: head_dim 64, N >= 1, q/k/v on
+// 16-byte boundaries with row strides of whole 16-byte chunks (TMA), ck/cv
+// read as bf16 pairs.
+bool space_tc_fits(const void* q, const void* k, const void* v,
+                   const void* ck, const void* cv, int N, int d,
+                   long long q_rs, long long k_rs, long long v_rs,
+                   long long ck_rs, long long cv_rs) {
+  if (d != sm90::kD || N < 1 || !sm90::aligned16({q, k, v})) return false;
+  for (long long s : {q_rs, k_rs, v_rs})
+    if (s & 7ll) return false;
+  return bf16_pairs_ok({ck, cv}, {ck_rs, cv_rs});
+}
+
+cudaError_t launch_space_tc(const void* q, const void* k, const void* v,
+                            const void* ck, const void* cv, void* out,
+                            void* lse, int B, int F, int N, int H,
+                            long long q_rs, long long k_rs, long long v_rs,
+                            long long ck_rs, long long cv_rs, float scale,
+                            cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int D = H * sm90::kD;
+  if (!sm90::rows_map(&tq, q, q_rs, D, N, B * F) ||
+      !sm90::rows_map(&tk, k, k_rs, D, N, B * F) ||
+      !sm90::rows_map(&tv, v, v_rs, D, N, B * F))
+    return cudaErrorInvalidValue;
+  return launch_space_tc_grid<kTcWG, kTcStages>(tq, tk, tv, ck, cv, out,
+                                                lse, B, F, N, H, ck_rs,
+                                                cv_rs, scale, stream);
+}
+
+}  // namespace lavila
 
 // Plain C interface, loaded with ctypes. dtype: 0 = fp32, 1 = bf16.
 // Returns the cudaError_t of the launch (0 on success).
@@ -616,11 +565,12 @@ int lavila_divided_space_fwd(const void* q, const void* k, const void* v,
   if (d < 1 || d > 32 * kMaxDimsPerLane) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (tc) {
-    if (dtype != 1 || !space_tc_fits(q, k, v, ck, cv, N, d, q_rs, k_rs,
-                                     v_rs, ck_rs, cv_rs))
+    if (dtype != 1 || !lavila::space_tc_fits(q, k, v, ck, cv, N, d, q_rs,
+                                             k_rs, v_rs, ck_rs, cv_rs))
       return (int)cudaErrorInvalidValue;
-    return (int)launch_space_tc(q, k, v, ck, cv, out, lse, B, F, N, H, q_rs,
-                                k_rs, v_rs, ck_rs, cv_rs, scale, s);
+    return (int)lavila::launch_space_tc(q, k, v, ck, cv, out, lse, B, F, N, H,
+                                        q_rs, k_rs, v_rs, ck_rs, cv_rs, scale,
+                                        s);
   }
   if (dtype == 0)
     return (int)launch_space<float>(q, k, v, ck, cv, out, lse, B, F, N, H, d,

@@ -33,17 +33,19 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # argtypes of each C entry point; ctypes would cut an undeclared pointer
 # to 32 bits
 _FWD = ([_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int)
-# K1's forward and backward take a tensor-core flag after dtype
+# the spatial phase's (K1's and K6's) forward and backward take a
+# tensor-core flag after dtype
 _SPACE_FWD = (_FWD[0][:-1] + [_I, _P], ctypes.c_int)
+_SPACE_BWD = ([_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _I, _P],
+              ctypes.c_int)
 # B, H, Lq, Lk, d, the q/k/v row strides, scale, causal, dtype, stream
 _FLASH_TAIL = [_I] * 5 + [_LL] * 3 + [_F, _I, _I, _P]
-_BIG_BWD = ([_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int)
 _SIGNATURES = {
     "lavila_divided_space_fwd": _SPACE_FWD,
     "lavila_divided_time_fwd": _FWD,
-    "lavila_divided_space_big_fwd": _FWD,
-    "lavila_divided_space_bwd": (_BIG_BWD[0][:-1] + [_I, _P], ctypes.c_int),
-    "lavila_divided_space_big_bwd": _BIG_BWD,
+    "lavila_divided_space_big_fwd": _SPACE_FWD,
+    "lavila_divided_space_bwd": _SPACE_BWD,
+    "lavila_divided_space_big_bwd": _SPACE_BWD,
     "lavila_divided_time_bwd": (
         [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
     "lavila_decode_attention": (

@@ -9,8 +9,11 @@ with the CUDA C++ kernels of ``lavila_tpu_torch/csrc/divided_fwd.cu``,
 ``divided_bwd.cu`` and ``divided_big.cu``; the headers there say what
 bounds each phase on the H100 and how the kernels are laid out for it.
 A spatial phase over frames of more than 256 patches (the 336px towers'
-576) goes to K6, as ``lavila_tpu/ops/attention.py:359-377`` routes it;
-K1 and K6 share one contract, the JAX function's: patch tokens
+576) goes to K6's entry points, as ``lavila_tpu/ops/attention.py:359-377``
+routes it; in bf16 at head_dim 64 K1 and K6 run the same tensor-core
+kernels (:func:`space_branch` picks them, one rule for both), and only
+their SIMT kernels (fp32, other head sizes, unaligned rows) differ. K1
+and K6 share one contract, the JAX function's: patch tokens
 token-major ``(B, F, N, D = heads * head_dim)``, the CLS token's
 key/value rows ``(B, D)`` folded into every group's softmax, outputs
 ``(B, F, N, D)`` and the per-row log-sum-exp ``(B, F, N, heads)`` in
@@ -37,16 +40,16 @@ import torch
 
 from lavila_tpu_torch.kernels import build
 
-# kernel launches in this process, a plain int per kernel, K1's split by
-# the branch it took ("tc": the tensor cores, "simt"); a caller zeroes
-# them to count one run
-launches = {"space_tc": 0, "space_simt": 0, "time": 0, "space_big": 0,
-            "space_bwd_tc": 0, "space_bwd_simt": 0, "time_bwd": 0,
-            "space_big_bwd": 0}
+# kernel launches in this process, a plain int per kernel, K1's and K6's
+# split by the branch they took ("tc": the tensor cores, "simt"); a caller
+# zeroes them to count one run
+launches = {"space_tc": 0, "space_simt": 0, "time": 0, "space_big_tc": 0,
+            "space_big_simt": 0, "space_bwd_tc": 0, "space_bwd_simt": 0,
+            "time_bwd": 0, "space_big_bwd_tc": 0, "space_big_bwd_simt": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SPACE_TOKENS = 256  # larger frames go to K6 (spatial_phase_big)
-_TC_TILE = 64  # K1's tensor-core blocks: 64 queries (or keys) each
+_TC_TILE = 64  # the tensor-core kernels' tiles: 64 queries (or keys)
 
 
 def divided_phase_reference(qp, kp, vp, ck, cv, axis: str, heads: int,
@@ -158,19 +161,18 @@ def _strides(qp, kp, vp, ck, cv) -> list[int]:
 
 
 def space_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None) -> str:
-    """The K1 kernels a call takes: "tc", the tensor-core ones (bf16,
-    head_dim 64, 1 <= N <= 256, q/k/v rows and dO on 16-byte boundaries
-    for TMA and cp.async, ck/cv and O read as bf16 pairs), or "simt".
+    """The spatial-phase kernels a call takes, K1's and K6's alike: "tc",
+    the tensor-core ones (bf16, head_dim 64, q/k/v rows, dO and O on
+    16-byte boundaries for TMA, ck/cv read as bf16 pairs), or "simt".
     The C entry points refuse a "tc" call outside these conditions
     (``space_tc_fits``, ``space_bwd_tc_fits`` in ``csrc/``); pass
     ``do``/``out`` for the backward's."""
     N, D = qp.shape[2], qp.shape[3]
-    if qp.dtype != torch.bfloat16 or D // heads != 64 \
-            or not 1 <= N <= _MAX_SPACE_TOKENS:
+    if qp.dtype != torch.bfloat16 or D // heads != 64 or N < 1:
         return "simt"
     rs = _strides(qp, kp, vp, ck, cv)
-    wide = [t for t in (qp, kp, vp, do) if t is not None]
-    pairs = [t for t in (ck, cv, out) if t is not None]
+    wide = [t for t in (qp, kp, vp, do, out) if t is not None]
+    pairs = (ck, cv)
     if any(t.data_ptr() % 16 for t in wide) or any(s % 8 for s in rs[:3]) \
             or any(t.data_ptr() % 4 for t in pairs) \
             or any(s % 2 for s in rs[3:]):
@@ -181,14 +183,29 @@ def space_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None) -> str:
 def _partials_shape(name: str, branch, B: int, F: int, N: int,
                     D: int) -> tuple:
     """The fp32 partials of dck/dcv, ``(B, groups, D)``, summed over the
-    groups in a fixed order: one per (frame, 64-query tile) for K1's
-    tensor-core kernels, per frame for its SIMT ones and for K6, per
-    position for K2."""
+    groups in a fixed order: one per (frame, 64-query tile) for the
+    spatial phase's tensor-core kernels (K1 and K6), per frame for its
+    SIMT ones, per position for K2."""
     if name == "time":
         return (B, N, D)
-    if name == "space" and branch == "tc":
+    if branch == "tc":
         return (B, F * -(-N // _TC_TILE), D)
     return (B, F, D)
+
+
+def _stats_shape(name: str, branch, B: int, F: int, N: int,
+                 H: int) -> tuple | None:
+    """The fp32 scratch a spatial backward hands between its kernels, or
+    None where no kernel reads one: on the tensor cores per (frame, head,
+    64-query tile) the tile's 64 lse (log2 domain) then its 64 delta =
+    rowsum(dO·O), written by the dq kernel and read by the dk/dv kernel in
+    one copy; for K6's SIMT kernels delta per (row, head), written by its
+    own pass; K1's SIMT kernels and K2 compute delta where they use it."""
+    if branch == "tc":
+        return (B, F, H, -(-N // _TC_TILE), 2, _TC_TILE)
+    if name == "space_big":
+        return (B, F, N, H)
+    return None
 
 
 def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
@@ -200,7 +217,7 @@ def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
         raise ValueError(f"no divided-attention kernel for {qp.device}")
     name = _kernel_name(qp, axis, heads)
     branch = space_branch(qp, kp, vp, ck, cv, heads) \
-        if name == "space" else None
+        if axis == "space" else None
     B, F, N, D = qp.shape
     fn = getattr(build.library(), f"lavila_divided_{name}_fwd")
     out = torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
@@ -247,7 +264,7 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
             and lse.is_contiguous()):
         raise ValueError("do/out/lse must be contiguous")
     branch = space_branch(qp, kp, vp, ck, cv, heads, do, out) \
-        if name == "space" else None
+        if axis == "space" else None
     fn = getattr(build.library(), f"lavila_divided_{name}_bwd")
     grads = [torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
              for _ in range(3)]
@@ -257,12 +274,15 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     parts = [torch.empty(_partials_shape(name, branch, B, F, N, D),
                          dtype=torch.float32, device=qp.device)
              for _ in range(2)]
-    # the spatial kernels take rowsum(dO·O) per (row, head) as fp32 scratch
-    scratch = [torch.empty_like(lse)] if axis == "space" else []
+    # the spatial kernels take one scratch pointer (NULL where unread)
+    stats = _stats_shape(name, branch, B, F, N, heads)
+    scratch = [] if axis == "time" else [
+        None if stats is None
+        else torch.empty(stats, dtype=torch.float32, device=qp.device)]
     tc = [] if branch is None else [int(branch == "tc")]
     with torch.cuda.device(qp.device):
-        err = fn(*(t.data_ptr() for t in (qp, kp, vp, ck, cv, do, out, lse,
-                                          *scratch, *grads, *parts)),
+        err = fn(*(None if t is None else t.data_ptr() for t in (
+            qp, kp, vp, ck, cv, do, out, lse, *scratch, *grads, *parts)),
                  B, F, N, heads, D // heads, *_strides(qp, kp, vp, ck, cv),
                  float(scale), _DTYPES[qp.dtype], *tc,
                  torch.cuda.current_stream().cuda_stream)

@@ -23,11 +23,16 @@ and times it on the card (CUDA events):
 The port never calls these: ``chip_smoke.py`` imports the builders below
 to report ``library_ms`` beside each kernel, and run alone the script
 prints the times at the shapes of the port's main paths, one JSON line
-each, after the card's name and power limit:
+each, after the card's name and power limit. It then times the short
+calls, K3's forward, K7, K8's forward and K9, at their main-path shapes
+by the profiler's device time (the kernels' own time, without the
+wrapper's host cost that their event times carry), the port's kernel and
+the library call in turns on the same input
+(``scripts/time_spatial_phase.py``'s ``measure``):
 
     python3 scripts/time_library_calls.py [--out chiprun_out/lib.json]
 
-Needs a CUDA device.
+Needs a CUDA device, ``nvcc`` and ``triton``.
 """
 
 from __future__ import annotations
@@ -166,6 +171,59 @@ def flash_bwd_call(q, k, v, do, causal: bool):
                                        retain_graph=True)
 
 
+def kernel_device_times(gen) -> list:
+    """K3 forward (TSF-B's 6272 x 768 rows and a decode step's (160, 1,
+    1600)), K7 and K8's forward (16 captions x 8 heads x 77 tokens,
+    causal) and K9 (160 GPT-2 XL rows, 15 valid of 77), bf16: the port's
+    kernel and the library call, kernel, library, library, kernel, each
+    by the profiler's device time and by CUDA events."""
+    import os
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from time_spatial_phase import measure
+
+    from lavila_tpu_torch.kernels import decode as KDec
+    from lavila_tpu_torch.kernels import flash as KF
+    from lavila_tpu_torch.kernels import layernorm as KL
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+
+    cases = []
+    for shape in ((8 * 4 * 196, 768), (160, 1, 1600)):
+        x, w, b = rand(*shape), rand(shape[-1]), rand(shape[-1])
+        cases.append(("K3", list(shape),
+                      lambda x=x, w=w, b=b: KL.layer_norm(x, w, b, 1e-6),
+                      layer_norm_call(x, w, b, 1e-6)))
+    q, k, v = rand(16, 77, 3 * 512).reshape(16, 77, 24, 64).chunk(3, dim=2)
+    for name, with_lse in (("K7", False), ("K8 fwd", True)):
+        cases.append((name, [16, 8, 77, 77, 64],
+                      lambda w=with_lse: KF._forward(q, k, v, True,
+                                                     64 ** -0.5, w),
+                      flash_fwd_call(q, k, v, True)))
+    qd, kn, vn = rand(160, 3 * 1600).chunk(3, dim=-1)
+    kc, vc = rand(160, 77, 1600), rand(160, 77, 1600)
+    dec = (qd, kc, vc, kn, vn, 15, 25)
+    cases.append(("K9", [160, 77, 1600, 25, 15],
+                  lambda: KDec.decode_attention(*dec), decode_call(*dec)))
+    lines = []
+    with torch.inference_mode():
+        for name, shape, kernel, lib in cases:
+            runs = {"kernel": [], "library": []}
+            for who in ("kernel", "library", "library", "kernel"):
+                runs[who].append(measure(kernel if who == "kernel" else lib,
+                                         50))
+            lines.append({"kernel": name, "shape": shape, "dtype": "bfloat16",
+                          **{f"{who}_{k}": [r[k] for r in rs]
+                             for who, rs in runs.items()
+                             for k in ("device_ms", "event_ms")},
+                          "kernels": runs["kernel"][0]["kernels"],
+                          "library_kernels": runs["library"][0]["kernels"]})
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write the lines here")
@@ -246,6 +304,7 @@ def main(argv=None) -> int:
             lines.append({"kernel": "K8 bwd", "shape": shape,
                           "causal": causal, "dtype": name, "library_ms":
                           time_ms(flash_bwd_call(q, k, v, do, causal))})
+    lines += kernel_device_times(gen)
     for line in lines:
         print(json.dumps({"device": smi, **line}), flush=True)
     if args.out:

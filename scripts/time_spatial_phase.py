@@ -1,26 +1,27 @@
 #!/usr/bin/env python3
-"""Time the spatial divided-attention phase (K1, and K6 on the same
-input) on one NVIDIA GPU, by CUDA events and by the device time that
+"""Time the spatial divided-attention phase (K1 for N <= 256, K6 past
+it) on one NVIDIA GPU, by CUDA events and by the device time that
 ``torch.profiler`` reads for each kernel.
 
 For each case (B, F, N, D, heads), bf16, q/k/v as the column blocks of
 one ``(B, F, N, 3D)`` tensor and ck/cv as those of one ``(B, 3D)`` row
 (as the attention block hands them over), it times:
 
-  * K1 forward and backward through the port's wrapper
-    (``kernels/divided.py``: ``divided_phase``, ``divided_phase_bwd``);
-  * K6's C entry points (``lavila_divided_space_big_fwd``/``_bwd``)
-    called directly on the same input, N ≤ 256 included, which the
-    wrapper never routes there;
+  * the phase forward and backward through the port's wrapper
+    (``kernels/divided.py``: ``divided_phase``, ``divided_phase_bwd``),
+    which takes K1's or K6's C entry points by N, with the launch counter
+    the call bumps (its kernel and branch);
   * SDPA forward and backward with the CLS key concatenated
-    (``scripts/time_library_calls.py``).
+    (``scripts/time_library_calls.py``), the yardstick.
 
 Each line gives the event time (mean of ``--iters`` back-to-back calls,
 the wrapper's host cost included), the profiler's device time per call
-summed over the kernels it launched, and those kernels by name.
-``--repo`` imports ``lavila_tpu_torch`` from another checkout (an
-unpacked ``git archive`` of a parent commit), so that two trees can be
-timed in turns in one call:
+summed over the kernels it launched, and those kernels by name. The
+cases: TSF-B (N = 196) at batch 8 and 32, TSF-L@224 (256), TSF-L@336
+(576) at batch 8 and at the remat step's 32, and a ragged 441 (21 x 21
+patches) at TSF-B width. ``--repo`` imports ``lavila_tpu_torch`` from
+another checkout (an unpacked ``git archive`` of a parent commit), so
+that two trees can be timed in turns in one call:
 
     python3 scripts/time_spatial_phase.py [--repo DIR] [--label NAME] \\
         [--out k1.jsonl]
@@ -40,7 +41,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CASES = ((8, 4, 196, 768, 12), (32, 4, 196, 768, 12),
-         (8, 4, 256, 1024, 16))
+         (8, 4, 256, 1024, 16), (8, 4, 576, 1024, 16),
+         (32, 4, 576, 1024, 16), (8, 4, 441, 768, 12))
 
 
 def _device_us(evt) -> float:
@@ -94,39 +96,6 @@ def _inputs(B, F, N, D, gen):
     return q, k, v, ck, cv, do
 
 
-def k6_calls(build, q, k, v, ck, cv, do, out, lse, H, scale):
-    """K6's forward and backward C entry points on K1's input (fp32 or
-    bf16; ``do`` is read only by the backward)."""
-    lib = build.library()
-    dtype = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
-    B, F, N, D = q.shape
-    strides = [build.row_stride(t, n) for t, n in
-               ((q, "q"), (k, "k"), (v, "v"), (ck, "ck"), (cv, "cv"))]
-    stream = torch.cuda.current_stream().cuda_stream
-    o6 = torch.empty_like(out)
-    l6 = torch.empty_like(lse)
-    grads = [torch.empty_like(out) for _ in range(3)]
-    grads += [torch.empty_like(ck, memory_format=torch.contiguous_format)
-              for _ in range(2)]
-    parts = [torch.empty((B, F, D), dtype=torch.float32, device="cuda")
-             for _ in range(2)]
-    delta = torch.empty_like(lse)
-
-    def fwd():
-        err = lib.lavila_divided_space_big_fwd(
-            *(t.data_ptr() for t in (q, k, v, ck, cv, o6, l6)), B, F, N, H,
-            D // H, *strides, scale, dtype, stream)
-        build.check(err, "space_big_fwd")
-
-    def bwd():
-        err = lib.lavila_divided_space_big_bwd(
-            *(t.data_ptr() for t in (q, k, v, ck, cv, do, out, lse, delta,
-                                     *grads, *parts)), B, F, N, H, D // H,
-            *strides, scale, dtype, stream)
-        build.check(err, "space_big_bwd")
-    return fwd, bwd
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=os.path.dirname(HERE),
@@ -155,24 +124,27 @@ def main(argv=None) -> int:
     for B, F, N, D, H in CASES:
         q, k, v, ck, cv, do = _inputs(B, F, N, D, gen)
         scale = (D // H) ** -0.5
+        kernel = "K1" if N <= 256 else "K6"
         with torch.no_grad():
             out, lse = KD.divided_phase(q, k, v, ck, cv, "space", H, scale)
             bwd_args = (q, k, v, ck, cv, do, out, lse, "space", H, scale)
-            k6_fwd, k6_bwd = k6_calls(build, q, k, v, ck, cv, do, out,
-                                      lse, H, scale)
             timed = {
-                "K1 fwd": lambda: KD.divided_phase(q, k, v, ck, cv, "space",
-                                                   H, scale),
-                "K1 bwd": lambda: KD.divided_phase_bwd(*bwd_args),
-                "K6 fwd": k6_fwd, "K6 bwd": k6_bwd,
+                f"{kernel} fwd": lambda: KD.divided_phase(
+                    q, k, v, ck, cv, "space", H, scale),
+                f"{kernel} bwd": lambda: KD.divided_phase_bwd(*bwd_args),
                 "SDPA fwd": lib_calls.divided_fwd_call(q, k, v, ck, cv,
                                                        "space", H),
                 "SDPA bwd": lib_calls.divided_bwd_call(q, k, v, ck, cv, do,
                                                        "space", H)}
             for name, fn in timed.items():
                 line = {"tree": args.label, "what": name,
-                        "shape": [B, F, N, D, H], "dtype": "bfloat16",
-                        **measure(fn, args.iters)}
+                        "shape": [B, F, N, D, H], "dtype": "bfloat16"}
+                if name.startswith("K"):  # the launch counter it bumps
+                    before = dict(KD.launches)
+                    fn()
+                    line["counter"] = [key for key, n in KD.launches.items()
+                                       if n != before[key]]
+                line.update(measure(fn, args.iters))
                 lines.append(line)
                 print(json.dumps(line), flush=True)
         del q, k, v, ck, cv, do, out, lse

@@ -30,12 +30,13 @@ def gen():
 
 # K1 (space) and K2 (time) cases; in bf16 every K1 case at head_dim 64
 # takes the tensor-core kernels: 64-query blocks over 64-key tiles, the
-# last one masked (N = 1, 63, 64, 65, 200 are the ragged edges)
+# last one masked (N = 1, 63, 64, 65, 200 are the ragged edges; 150 is
+# 3 query tiles, which the dq kernel runs on blocks of 2 warpgroups)
 PHASE_CASES = [
     ("space", 2, 4, 196, 12, 64),   # TSF-B's frame: 3 full tiles + 4 keys
     ("space", 2, 4, 256, 16, 64),   # TSF-L@224's frame: 4 full tiles
     ("space", 2, 2, 50, 3, 64),     # one partial tile
-    *[("space", 1, 2, n, 2, 64) for n in (1, 63, 64, 65, 200)],
+    *[("space", 1, 2, n, 2, 64) for n in (1, 63, 64, 65, 150, 200)],
     ("space", 1, 3, 37, 4, 32),     # SIMT kernels (head_dim 32)
     ("space", 1, 2, 256, 2, 64),    # N = 256, two heads
     ("time", 2, 4, 196, 12, 64),
@@ -266,11 +267,21 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     (1, 3, 257, 4, 32, 0),    # SIMT kernels (head_dim 32), 2-key last tile
     (1, 2, 576, 2, 64, 1),    # odd row stride: SIMT kernels in bf16 too
     (1, 2, 576, 2, 64, 2),    # rows off 16-byte boundaries: SIMT too
+    # the tensor cores' ragged edges and ring refills (4 slots of 64 keys)
+    (1, 2, 257, 2, 64, 0),    # one key in the 5th tile: the first refill
+    (2, 2, 441, 12, 64, 0),   # 21 x 21 patches, 57 keys in the last tile
+    (1, 3, 577, 2, 64, 0),    # one query in the last block's only tile
+    (1, 2, 360, 2, 64, 0),    # 6 tiles: dq on 2 warpgroups, 3 blocks
+    (1, 2, 640, 2, 64, 0),    # 10 full tiles
+    (1, 2, 720, 2, 64, 0),    # 12 tiles: dq on 3 warpgroups, 4 blocks a
+                              # frame, 16 queries in the last tile
+    (1, 1, 1024, 2, 64, 0),   # 16 tiles: every slot refilled 3 times
 ])
 def test_space_big_kernel(gen, B, F, N, H, d, pad, dtype):
     """K6 forward and backward on strided qkv views against the plain
     versions in fp32 on the same values; the backward bit-identical on a
-    second call; both through the phase's single dispatch site."""
+    second call; both through the phase's single dispatch site, on the
+    branch that its counter names."""
     D = H * d
     qkv = torch.randn(B, F, N, 3 * D + pad, generator=gen,
                       device="cuda").to(dtype)
@@ -278,10 +289,15 @@ def test_space_big_kernel(gen, B, F, N, H, d, pad, dtype):
     q, k, v = qkv[..., :3 * D].chunk(3, dim=-1)
     _, ck, cv = cls[:, :3 * D].chunk(3, dim=-1)
     fwd = (q, k, v, ck, cv, "space", H, d ** -0.5)
+    branch = "tc" if dtype == torch.bfloat16 and d == 64 and not pad \
+        else "simt"
+    assert KD.space_branch(q, k, v, ck, cv, H) == branch
     before = dict(KD.launches)
     out, lse = KD.divided_phase(*fwd)
-    assert KD.launches["space_big"] == before["space_big"] + 1
-    assert all(KD.launches[k] == before[k] for k in ("space_tc", "space_simt"))
+    assert KD.launches[f"space_big_{branch}"] == \
+        before[f"space_big_{branch}"] + 1
+    assert all(KD.launches[k] == before[k] for k in KD.launches
+               if k != f"space_big_{branch}")
     ref, ref_lse = KD.divided_phase_reference(
         *(t.float() for t in fwd[:5]), *fwd[5:])
     torch.cuda.synchronize()
@@ -290,7 +306,8 @@ def test_space_big_kernel(gen, B, F, N, H, d, pad, dtype):
     do = torch.randn(B, F, N, D, generator=gen, device="cuda").to(dtype)
     bwd = (q, k, v, ck, cv, do, out, lse, "space", H, d ** -0.5)
     got = KD.divided_phase_bwd(*bwd)
-    assert KD.launches["space_big_bwd"] == before["space_big_bwd"] + 1
+    assert KD.launches[f"space_big_bwd_{branch}"] == \
+        before[f"space_big_bwd_{branch}"] + 1
     again = KD.divided_phase_bwd(*bwd)
     want = KD.divided_phase_bwd_reference(*(t.float() for t in bwd[:8]),
                                           *bwd[8:])

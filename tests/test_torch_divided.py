@@ -139,34 +139,47 @@ def _space_views(N, dtype, d=64, H=2, B=2, F=3, pad=0):
     (256, torch.bfloat16, 64, 0, "space", "tc"),     # TSF-L@224
     (1, torch.bfloat16, 64, 0, "space", "tc"),
     (65, torch.bfloat16, 64, 0, "space", "tc"),      # a 1-row last tile
-    (257, torch.bfloat16, 64, 0, "space_big", None),  # K6
-    (576, torch.bfloat16, 64, 0, "space_big", None),  # TSF-L@336
+    (257, torch.bfloat16, 64, 0, "space_big", "tc"),  # K6
+    (576, torch.bfloat16, 64, 0, "space_big", "tc"),  # TSF-L@336
+    (1024, torch.bfloat16, 64, 0, "space_big", "tc"),
     (196, torch.float32, 64, 0, "space", "simt"),    # fp32: 1e-4 limit
     (196, torch.bfloat16, 32, 0, "space", "simt"),   # head_dim 32
     (196, torch.bfloat16, 64, 1, "space", "simt"),   # odd row stride
     (196, torch.bfloat16, 64, 2, "space", "simt"),   # rows off 16 bytes
+    (576, torch.float32, 64, 0, "space_big", "simt"),
+    (576, torch.bfloat16, 32, 0, "space_big", "simt"),
+    (576, torch.bfloat16, 64, 1, "space_big", "simt"),
+    (576, torch.bfloat16, 64, 2, "space_big", "simt"),
 ])
 def test_space_routing_and_partials(N, dtype, d, pad, name, branch):
     """The wrapper's arithmetic before a launch: the kernel a spatial
-    phase takes (K1 up to N = 256, K6 past it), K1's branch, and the
-    shape of the dck/dcv partials the backward allocates: one per (frame,
-    64-query tile) on the tensor cores, one per frame otherwise."""
+    phase takes (K1 up to N = 256, K6 past it), its branch (one rule for
+    both), and the scratch the backward allocates: dck/dcv partials one
+    per (frame, 64-query tile) on the tensor cores, one per frame
+    otherwise; per-tile lse and delta on the tensor cores, K6's SIMT
+    delta per (row, head), none for K1's SIMT kernels."""
     B, F, H = 2, 3, 2
     q, k, v, ck, cv = _space_views(N, dtype, d, H, B, F, pad)
     D = H * d
     assert K._kernel_name(q, "space", H) == name
-    got = K.space_branch(q, k, v, ck, cv, H) if name == "space" else None
-    assert got == branch
-    want = (B, F * -(-N // 64), D) if branch == "tc" else (B, F, D)
+    assert K.space_branch(q, k, v, ck, cv, H) == branch
+    tiles = -(-N // 64)
+    want = (B, F * tiles, D) if branch == "tc" else (B, F, D)
     assert K._partials_shape(name, branch, B, F, N, D) == want
     assert K._partials_shape("time", None, B, F, N, D) == (B, N, D)
+    stats = {"tc": (B, F, H, tiles, 2, 64)}.get(
+        branch, (B, F, N, H) if name == "space_big" else None)
+    assert K._stats_shape(name, branch, B, F, N, H) == stats
+    assert K._stats_shape("time", None, B, F, N, H) is None
 
 
-def test_space_branch_backward_needs_aligned_do():
-    """The backward's tensor cores also read dO by 16-byte copies and O
-    as bf16 pairs: a dO off a 16-byte boundary takes the SIMT kernels."""
-    q, k, v, ck, cv = _space_views(196, torch.bfloat16)
-    do = torch.zeros(2, 3, 196, 129, dtype=torch.bfloat16)[..., 1:]
-    out = torch.zeros(2, 3, 196, 128, dtype=torch.bfloat16)
+@pytest.mark.parametrize("N", [196, 576])
+def test_space_branch_backward_needs_aligned_do(N):
+    """The backward's tensor cores also read dO and O by TMA: a dO or an
+    O off a 16-byte boundary takes the SIMT kernels, K1's and K6's."""
+    q, k, v, ck, cv = _space_views(N, torch.bfloat16)
+    do = torch.zeros(2, 3, N, 129, dtype=torch.bfloat16)[..., 1:]
+    out = torch.zeros(2, 3, N, 128, dtype=torch.bfloat16)
     assert K.space_branch(q, k, v, ck, cv, 2, do.contiguous(), out) == "tc"
     assert K.space_branch(q, k, v, ck, cv, 2, do, out) == "simt"
+    assert K.space_branch(q, k, v, ck, cv, 2, out, do) == "simt"

@@ -41,7 +41,11 @@ def pallas_backend():
 
 
 @pytest.mark.parametrize("B,F,N,H,d", [(1, 2, 576, 2, 64),
-                                       (1, 2, 300, 4, 16)])
+                                       (1, 2, 300, 4, 16),
+                                       # ragged: 21 x 21 patches, and one
+                                       # query past 9 full tiles
+                                       (1, 1, 441, 2, 64),
+                                       (1, 1, 577, 2, 64)])
 def test_space_big_reference_matches_pallas(B, F, N, H, d):
     ins, do = _inputs(B, F, N, H, d, seed=N + H)
     scale = d ** -0.5
