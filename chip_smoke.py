@@ -29,12 +29,14 @@ and prints no result. Phases, each printing JSON lines:
      widths, ``num_valid`` 0, 1, 15 and 77) and K7/K8 forward (flash
      attention: the CLIP text towers' causal attention, 16 captions of
      77 tokens, 8 and 12 heads of 64, and 256 captions; one uneven
-     non-causal case, 130 queries over 260 keys) against their plain PyTorch
-     versions on seeded inputs, fp32 and bf16, with errors, tolerances,
-     CUDA-event times, the card's bound for the same work and the time
-     of one PyTorch library call computing it
+     non-causal case, 130 queries over 260 keys; each with its branch
+     and, in bf16, the profiler's device time beside SDPA's) against
+     their plain PyTorch versions on seeded inputs, fp32 and bf16, with
+     errors, tolerances, CUDA-event times, the card's bound for the same
+     work and the time of one PyTorch library call computing it
      (``scripts/time_library_calls.py``). kernel_bwd: the same for the
-     backward kernels (K8's dq and dk/dv each on its own; K1 also at
+     backward kernels (K8's whole backward: the fused kernel up to 128
+     tokens, dq then dk/dv past it and in fp32; K1 also at
      TSF-L@224's N = 256, bf16 at batch 8 and fp32 at batch 1), on strided
      qkv views, errors relative to the reference's largest value, and two
      calls checked bit-identical; K1's and K6's with the floor of their
@@ -102,9 +104,12 @@ the launch counters before it runs and reads them after; the kernel
 summary line sums those runs' counts (K1's and K6's also by branch:
 every spatial launch of a path runs bf16 at head_dim 64, so on the
 tensor cores, which the bf16 encodes, the TSF-L@336 bf16 train steps
-with and without remat and the narrators' bf16 encodes check too). The
-text tower runs K7 under inference_mode (serving) and K8 forward, dq and
-dk/dv in every train step.
+with and without remat and the narrators' bf16 encodes check too; K7's
+and K8's by branch as well: the bf16 text towers take the tensor-core
+forward and the fused backward only, which the bf16 encodes and steps
+check too). The text tower runs K7 under inference_mode (serving) and
+K8's forward and backward (one fused launch a layer in bf16) in every
+train step.
 TF32 is off for matmuls and cuDNN convolutions, so fp32 comparisons are
 fp32. Any failed check exits non-zero without the final line; the final
 line is ``{"ok": true, "device": {...}}``.
@@ -257,7 +262,11 @@ COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
             "K6 bwd": ("divided", "space_big_bwd"),
             "K9": ("decode", "decode"),
             "K7": ("flash", "flash"), "K8 fwd": ("flash", "flash_fwd"),
+            "K8 bwd": ("flash", "flash_bwd"),
             "K8 dq": ("flash", "flash_dq"), "K8 dkv": ("flash", "flash_dkv")}
+# K8's backward kernels: the fused one ("K8 bwd") does the work of the
+# TPU's dq and dk/dv kernels up to 128 tokens; their rows sum it in
+FUSED_INTO = {"K8 dq": "K8 bwd", "K8 dkv": "K8 bwd"}
 
 
 def _counter(module: str) -> dict:
@@ -270,16 +279,27 @@ def _counter(module: str) -> dict:
 
 
 BRANCHES = ("tc", "simt")
-# K1's and K6's launches on the path runs by branch, filled by
-# path_counts()
+# the flash kernels' counters by branch (kernels/flash.py:flash_branch)
+FLASH_BRANCHES = {"flash": BRANCHES, "flash_fwd": BRANCHES,
+                  "flash_bwd": ("fused",), "flash_dq": ("split", "simt"),
+                  "flash_dkv": ("split", "simt")}
+# the branches a bf16 path at head_dim 64 may take: the tensor cores
+TC_BRANCHES = ("tc", "fused")
+# K1's, K6's, K7's and K8's launches on the path runs by branch, filled
+# by path_counts()
 PATH_BRANCHES = {k: dict.fromkeys(BRANCHES, 0)
-                 for k in ("K1", "K1 bwd", "K6", "K6 bwd")}
+                 for k in ("K1", "K1 bwd", "K6", "K6 bwd", "K7", "K8 fwd")}
+PATH_BRANCHES.update({k: dict.fromkeys(("fused", "split", "simt"), 0)
+                      for k in ("K8 dq", "K8 dkv")})
 
 
 def _counter_keys(m: str, key: str) -> list:
-    """The counter keys behind one kernel: K1's and K6's by branch."""
+    """The counter keys behind one kernel: K1's, K6's and the flash
+    kernels' by branch."""
     if m == "divided" and key.startswith("space"):
         return [f"{key}_{b}" for b in BRANCHES]
+    if m == "flash":
+        return [f"{key}_{b}" for b in FLASH_BRANCHES[key]]
     return [key]
 
 
@@ -289,13 +309,15 @@ def launch_counts() -> dict:
 
 
 def path_counts() -> dict:
-    """:func:`launch_counts` at the end of a path run, whose K1 and K6
-    launches by branch are added to PATH_BRANCHES."""
-    from lavila_tpu_torch.kernels import divided as KD
-    for name in PATH_BRANCHES:
-        key = COUNTERS[name][1]
-        for b in BRANCHES:
-            PATH_BRANCHES[name][b] += KD.launches[f"{key}_{b}"]
+    """:func:`launch_counts` at the end of a path run, whose K1, K6, K7
+    and K8 launches by branch are added to PATH_BRANCHES (K8 dq's and
+    dkv's with the fused kernel's)."""
+    for name, by in PATH_BRANCHES.items():
+        m, key = COUNTERS[name]
+        for b in by:
+            by[b] += _counter(m).get(f"{key}_{b}", 0)
+        if name in FUSED_INTO:
+            by["fused"] += _counter("flash")["flash_bwd_fused"]
     return launch_counts()
 
 
@@ -308,6 +330,17 @@ def check_tensor_cores(what: str, kernel: str) -> None:
     check(by[f"{COUNTERS[kernel][1]}_tc"] > 0
           and not any(n for k, n in by.items() if k.endswith("_simt")),
           f"{what}: {kernel} not on the tensor cores only: {by}")
+
+
+def check_flash_tc(what: str) -> None:
+    """After a bf16 run of a text tower at head_dim 64 (the counters
+    zeroed before it): K7 or K8 launched, and every launch took the
+    tensor cores (the forward's TMA kernel, the fused backward)."""
+    from lavila_tpu_torch.kernels import flash as KF
+    off = {k: n for k, n in KF.launches.items()
+           if n and not k.endswith(tuple(f"_{b}" for b in TC_BRANCHES))}
+    check(any(KF.launches.values()) and not off,
+          f"{what}: K7/K8 not on the tensor cores only: {KF.launches}")
 
 
 def reset_launch_counts() -> None:
@@ -336,14 +369,16 @@ def _text_launches(m) -> dict:
     return want
 
 
-def _step_launches(m, remat: bool = False) -> dict:
-    """Kernel launches of one train step of dual encoder ``m``: the
-    encode's, the text tower's LayerNorms (ln_1, ln_2 per block,
-    ln_final) and causal attention (K8's forward), and one backward each,
-    except that the tower returns only the CLS row, so the last block's
-    patch outputs never reach the loss: autograd runs no backward for its
-    spatial phase or its K4. With remat every video block runs its
-    forward again in the backward (the text tower has no remat)."""
+def _step_launches(m, remat: bool = False,
+                   dtype=torch.bfloat16) -> dict:
+    """Kernel launches of one train step of dual encoder ``m`` in
+    ``dtype``: the encode's, the text tower's LayerNorms (ln_1, ln_2 per
+    block, ln_final) and causal attention (K8's forward), and one
+    backward each (K8's: one fused launch a layer in bf16, dq and dk/dv
+    in fp32), except that the tower returns only the CLS row, so the last
+    block's patch outputs never reach the loss: autograd runs no backward
+    for its spatial phase or its K4. With remat every video block runs
+    its forward again in the backward (the text tower has no remat)."""
     depth = m["depth"]
     want = _encode_launches(m)
     text = 2 * m["text_depth"] + 1
@@ -352,8 +387,10 @@ def _step_launches(m, remat: bool = False) -> dict:
     blocks["K3"] = 4 * depth * r + 3 + text
     blocks.update({f"{m['space']} bwd": depth - 1, "K2 bwd": depth,
                    "K3 bwd": 4 * depth + 3 + text, "K4 bwd": depth - 1,
-                   "K5 bwd": depth, "K8 fwd": m["text_depth"],
-                   "K8 dq": m["text_depth"], "K8 dkv": m["text_depth"]})
+                   "K5 bwd": depth, "K8 fwd": m["text_depth"]})
+    text_bwd = ("K8 bwd",) if dtype == torch.bfloat16 else ("K8 dq",
+                                                             "K8 dkv")
+    blocks.update(dict.fromkeys(text_bwd, m["text_depth"]))
     return blocks
 
 
@@ -532,13 +569,27 @@ def _pairs(Lq, Lk, causal) -> int:
     return sum(min(i + 1, Lk) for i in range(Lq)) if causal else Lq * Lk
 
 
+def _flash_extras(run, library_call, dtype) -> dict:
+    """In bf16, the profiler's device time of ``run`` and of the library
+    call on the same input (``scripts/time_spatial_phase.py``), beside
+    their event times: these calls are short, and their event times carry
+    the wrapper's host cost."""
+    if dtype != torch.bfloat16:
+        return {}
+    ts = spatial()
+    return {"device_ms": ts.measure(run, 20)["device_ms"],
+            "library_device_ms": ts.measure(library_call, 20)["device_ms"]}
+
+
 def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
     """One K7 (``name`` 'K7') or K8 forward case against the plain
-    version in fp32 on the same values."""
+    version in fp32 on the same values, with the branch it took (bf16 at
+    head_dim 64 on in_proj views: the tensor cores)."""
     from lavila_tpu_torch.kernels import flash as KF
     q, k, v = _flash_qkv(B, H, Lq, Lk, d, dtype, gen)
     scale = d ** -0.5
     with_lse = name != "K7"
+    branch = KF.flash_branch(q, k, v)
 
     def run():
         return KF._forward(q, k, v, causal, scale, with_lse)
@@ -551,63 +602,64 @@ def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
     lse_err = max_err(lse, ref_lse) if with_lse else 0.0
     tol = TOL[dtype]
     it, D = q.element_size(), H * d
+    lib = library().flash_fwd_call(q, k, v, causal)
+    want = "tc" if dtype == torch.bfloat16 else "simt"
     # reads q, k, v; writes out (and lse); QKᵀ and PV over the pairs
-    return {"out_err": err, "lse_err": lse_err, "tol": tol,
-            "ok": err <= tol and lse_err <= tol, "ms": time_ms(run),
+    return {"out_err": err, "lse_err": lse_err, "tol": tol, "branch": branch,
+            "ok": err <= tol and lse_err <= tol and branch == want,
+            **_flash_extras(run, lib, dtype), "ms": time_ms(run),
             "plain_ms": time_ms(lambda: (
                 KF.flash_fwd_reference if with_lse
                 else KF.flash_attention_reference)(q, k, v, causal)),
             **bound((2 * B * Lq * D + 2 * B * Lk * D) * it
                     + (B * Lq * H * 4 if with_lse else 0),
                     4 * B * H * _pairs(Lq, Lk, causal) * d, dtype),
-            "library_ms": time_ms(library().flash_fwd_call(q, k, v, causal))}
+            "library_ms": time_ms(lib)}
 
 
-def _flash_bwd_cases(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
-    """K8's dq and dk/dv kernels on the forward kernel's out and lse,
-    each against the plain backward in fp32 on the same values (errors
-    relative to the reference's largest value) and bit-identical over two
-    calls. ``plain_ms`` and ``library_ms`` are those of the whole
-    backward (the plain version and SDPA's give dq, dk, dv together)."""
+def _flash_bwd_case(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
+    """K8's whole backward on the forward kernel's out and lse against
+    the plain backward in fp32 on the same values (errors relative to the
+    reference's largest value), bit-identical over two calls, with the
+    branch it took: in bf16 the fused kernel up to 128 tokens (one
+    launch), the split past it (dq, then dk/dv); in fp32 the SIMT dq and
+    dk/dv. Times are the whole backward's, the library call's (SDPA's by
+    autograd) and the plain version's too."""
     from lavila_tpu_torch.kernels import flash as KF
     q, k, v = _flash_qkv(B, H, Lq, Lk, d, dtype, gen)
     scale = d ** -0.5
     out, lse = KF._forward(q, k, v, causal, scale, with_lse=True)
     do = torch.randn(B, Lq, H, d, generator=gen, device=DEVICE).to(dtype)
-    dq_args = (q, k, v, do, out, lse, causal, scale)
-    dq, delta = KF.flash_bwd_dq(*dq_args)
-    dq2, delta2 = KF.flash_bwd_dq(*dq_args)
-    dkv_args = (q, k, v, do, lse, delta, causal, scale)
-    dk, dv = KF.flash_bwd_dkv(*dkv_args)
-    dk2, dv2 = KF.flash_bwd_dkv(*dkv_args)
-    ref = KF.flash_bwd_reference(*(t.float() for t in dq_args[:5]), lse,
+    args = (q, k, v, do, out, lse, causal, scale)
+    branch = KF.flash_branch(q, k, v, do, out)
+    got = KF.flash_bwd(*args)
+    again = KF.flash_bwd(*args)
+    ref = KF.flash_bwd_reference(*(t.float() for t in args[:5]), lse,
                                  causal, scale)
-    ref_delta = (do.float() * out.float()).sum(-1)
     torch.cuda.synchronize()
     tol, it, D = TOL[dtype], q.element_size(), H * d
-    pairs = B * H * _pairs(Lq, Lk, causal)
-    plain_ms = time_ms(lambda: KF.flash_bwd_reference(*dq_args))
-    library_ms = time_ms(library().flash_bwd_call(q, k, v, do, causal))
-    res = {}
-    for name, got, again, refs, names, run, nbytes, flops in (
-            ("K8 dq", (dq, delta), (dq2, delta2), (ref[0], ref_delta),
-             ("dq", "delta"), lambda: KF.flash_bwd_dq(*dq_args),
-             # reads q, do, out, k, v, lse; writes dq, delta; S, dP, dQ
-             (4 * B * Lq * D + 2 * B * Lk * D) * it + 2 * B * Lq * H * 4,
-             6 * pairs * d),
-            ("K8 dkv", (dk, dv), (dk2, dv2), ref[1:], ("dk", "dv"),
-             lambda: KF.flash_bwd_dkv(*dkv_args),
-             # reads q, do, k, v, lse, delta; writes dk, dv; S, dP, dV, dK
-             (2 * B * Lq * D + 4 * B * Lk * D) * it + 2 * B * Lq * H * 4,
-             8 * pairs * d)):
-        errs = {n: _rel_err(a, b) for n, a, b in zip(names, got, refs)}
-        deterministic = _all_equal(got, again)
-        res[name] = {"rel_err": errs, "abs_err": max(map(max_err, got, refs)),
-                     "tol": tol, "deterministic": deterministic,
-                     "ok": max(errs.values()) <= tol and deterministic,
-                     "ms": time_ms(run), "plain_ms": plain_ms,
-                     **bound(nbytes, flops, dtype), "library_ms": library_ms}
-    return res
+    errs = {n: _rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
+                                                 ref)}
+    deterministic = _all_equal(got, again)
+    want = ("simt" if dtype != torch.bfloat16 else
+            "fused" if max(Lq, Lk) <= 128 else "split")
+
+    def run():
+        return KF.flash_bwd(*args)
+    lib = library().flash_bwd_call(q, k, v, do, causal)
+    # reads q, k, v, do, out, lse; writes dq, dk, dv; five products (S,
+    # dP, dV, dQ, dK) over the pairs the mask lets through
+    return {"rel_err": errs, "abs_err_dq": max_err(got[0], ref[0]),
+            "abs_err_dkv": max(max_err(got[1], ref[1]),
+                               max_err(got[2], ref[2])),
+            "tol": tol, "deterministic": deterministic, "branch": branch,
+            "ok": max(errs.values()) <= tol and deterministic
+            and branch == want,
+            **_flash_extras(run, lib, dtype), "ms": time_ms(run),
+            "plain_ms": time_ms(lambda: KF.flash_bwd_reference(*args)),
+            **bound((4 * B * Lq * D + 4 * B * Lk * D) * it + B * Lq * H * 4,
+                    10 * B * H * _pairs(Lq, Lk, causal) * d, dtype),
+            "library_ms": time_ms(lib)}
 
 
 # the main-path case of each kernel, whose numbers go into the summary:
@@ -616,7 +668,8 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
              "K3": (8 * 4 * 196, 768), "K4": (8 * 4 * 576, 1024),
              "K5": (8 * 4 * 576, 1024), "K6": (8, 4, 576, 1024, 16),
              "K9": (160, 77, 1600, 25, 15),
-             # TSF-B's text tower at 16 captions (B, H, Lq, Lk, d)
+             # TSF-B's text tower at 16 captions (B, H, Lq, Lk, d); K8 dq
+             # and dkv: the fused backward there
              **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
                              (16, 8, 77, 77, 64))}
 # further cases a kernel's summary keeps under a name: K3 on the
@@ -628,11 +681,17 @@ SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),),
                      ("b32", (32, 4, 196, 768, 12))),
               "K6": (("b32", (32, 4, 576, 1024, 16)),),
               "K2": (("tsf_l_336", (8, 4, 576, 1024, 16)),),
-              **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
-                              (("b256", (256, 8, 77, 77, 64)),))}
+              **dict.fromkeys(("K7", "K8 fwd"),
+                              (("b256", (256, 8, 77, 77, 64)),)),
+              # K8's backward at 256 captions (fused) and past 128 tokens
+              # (the split dq and dk/dv)
+              **dict.fromkeys(("K8 dq", "K8 dkv"),
+                              (("b256", (256, 8, 77, 77, 64)),
+                               ("split", (4, 8, 130, 260, 64))))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-# K1's and K6's further measured numbers (_space_extras), where a case has
-# them; the split's floor is computed, so it stays on the case's own line
+# K1's, K6's, K7's and K8's further measured numbers (_space_extras,
+# _flash_extras), where a case has them; the split's floor is computed, so
+# it stays on the case's own line
 _EXTRA_KEYS = ("device_ms", "branch", "library_device_ms")
 
 
@@ -868,14 +927,16 @@ def phase_kernels_bwd() -> dict:
     flash.append(("causal", (256, 8, 77, 77, 64), torch.bfloat16))
     for kind, shape, dtype in flash:
         with torch.no_grad():
-            both = _flash_bwd_cases(*shape, kind == "causal", dtype, gen)
-        for name, res in both.items():
-            emit("kernel_bwd", kernel=name, case=kind, shape=list(shape),
-                 dtype=dname(dtype), **res)
-            check(res["ok"], f"{name} {kind} {shape} {dtype}: relative "
-                  f"errors {res['rel_err']} > {res['tol']} or not "
-                  f"deterministic ({res['deterministic']})")
-            _summarise(summary, name, shape, dtype, res, ("abs_err",))
+            res = _flash_bwd_case(*shape, kind == "causal", dtype, gen)
+        emit("kernel_bwd", kernel="K8 bwd", case=kind, shape=list(shape),
+             dtype=dname(dtype), **res)
+        check(res["ok"], f"K8 bwd {kind} {shape} {dtype}: relative errors "
+              f"{res['rel_err']} > {res['tol']}, not deterministic "
+              f"({res['deterministic']}) or branch {res['branch']}")
+        # the TPU's dq and dk/dv kernels' rows: both hold the whole
+        # backward's numbers, each its own errors
+        _summarise(summary, "K8 dq", shape, dtype, res, ("abs_err_dq",))
+        _summarise(summary, "K8 dkv", shape, dtype, res, ("abs_err_dkv",))
         torch.cuda.empty_cache()
     for name, kind, shape, dtype in cases:
         with torch.no_grad():
@@ -942,6 +1003,8 @@ def phase_model(m) -> None:
             txt = model.encode_text(text)
             torch.cuda.synchronize()
             per_text = launch_counts()
+            if dtype == torch.bfloat16:
+                check_flash_tc(f"{m['name']} bf16 encode_text")
             with plain_path():
                 img_ref = model.encode_image(frames)
                 txt_ref = model.encode_text(text)
@@ -1097,6 +1160,8 @@ def _run_steps(base, dtype, batch, plain: bool, steps: int = 2,
             state, metrics = step_fn(state, batch)
             torch.cuda.synchronize()
             counts.append(launch_counts())
+            if dtype == torch.bfloat16 and not plain:
+                check_flash_tc(f"bf16 train step {len(counts)}")
             losses.append(metrics["loss"].item())
             grads.append({k: p.grad.clone() for k, p in state.params.items()})
     del state
@@ -1154,7 +1219,7 @@ def phase_train_step(m, batches: dict, throughput: tuple,
              launches_per_step=k_run[2], **res)
         check(all(math.isfinite(x) for x in k_run[0] + p_run[0]),
               f"train step {name}: non-finite loss {k_run[0]} {p_run[0]}")
-        want = _step_launches(m)
+        want = _step_launches(m, dtype=dtype)
         check(all(c == want for c in k_run[2]),
               f"train step {name}: launches {k_run[2]}, want {want}")
         if dtype == torch.float32:
@@ -1225,7 +1290,7 @@ def phase_large_train_step() -> None:
     check(all(math.isfinite(x) for x in k_run[0] + p_run[0])
           and res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
           f"TSF-L@336 train step fp32 kernels vs plain: {res}")
-    want = _step_launches(LARGE)
+    want = _step_launches(LARGE, dtype=fp32)
     check(all(c == want for c in k_run[2]),
           f"TSF-L@336 train step launches {k_run[2]}, want {want}")
     del k_run, p_run
@@ -1245,7 +1310,7 @@ def phase_large_train_step() -> None:
          launches_per_step_remat=runs[True][2], **res)
     check(res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
           f"TSF-L@336 train step remat vs no remat: {res}")
-    want = _step_launches(LARGE, remat=True)
+    want = _step_launches(LARGE, remat=True, dtype=fp32)
     check(all(c == want for c in runs[True][2]),
           f"TSF-L@336 remat step launches {runs[True][2]}, want {want}")
     del runs
@@ -1269,9 +1334,10 @@ def phase_large_train_step() -> None:
             rate, peak = _time_steps(state, step_fn, data, 5)
         torch.cuda.synchronize()
         key = f"{path}, remat" if remat else path
-        if path == "kernels":  # every K6 launch on the tensor cores
+        if path == "kernels":  # every K6, K7, K8 launch on the tensor cores
             for kernel in ("K6", "K6 bwd"):
                 check_tensor_cores(f"TSF-L@336 bf16 step ({key})", kernel)
+            check_flash_tc(f"TSF-L@336 bf16 step ({key})")
         rates.setdefault(key, []).append(rate)
         peaks.setdefault(key, []).append(peak)
     emit("train_throughput", what="train step clips/s", model=LARGE["name"],
@@ -1375,7 +1441,7 @@ def phase_finetune_step() -> None:
     check(all(math.isfinite(x) for x in k_run[0] + p_run[0])
           and res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
           f"fine-tune step fp32 kernels vs plain: {res}")
-    want = _step_launches(MODEL)
+    want = _step_launches(MODEL, dtype=torch.float32)
     check(all(c == want for c in k_run[2]),
           f"fine-tune step launches {k_run[2]}, want {want}")
     del k_run, p_run
@@ -1758,10 +1824,12 @@ KERNELS = [
      "lavila_tpu/ops/pallas/flash_attention.py:33"),
     ("K8 fwd", "flash_fwd", "cuda", "lavila_tpu_torch/csrc/flash_attention.cu",
      "lavila_tpu/ops/pallas/flash_attention.py:159"),
-    ("K8 dq", "flash_bwd_dq", "cuda",
+    # up to 128 tokens (every text tower) the fused kernel does both
+    # TPU kernels' work in one launch; past it the split dq and dk/dv
+    ("K8 dq", "flash_bwd_fused / flash_bwd_dq", "cuda",
      "lavila_tpu_torch/csrc/flash_attention.cu",
      "lavila_tpu/ops/pallas/flash_attention.py:204"),
-    ("K8 dkv", "flash_bwd_dkv", "cuda",
+    ("K8 dkv", "flash_bwd_fused / flash_bwd_dkv", "cuda",
      "lavila_tpu_torch/csrc/flash_attention.cu",
      "lavila_tpu/ops/pallas/flash_attention.py:242"),
 ]
@@ -1838,20 +1906,23 @@ def main() -> int:
         s = summary.get(key, {})
         sides = [side for side, _ in SIDE_CASES.get(key.removesuffix(" bwd"),
                                                     ()) if side in s]
+        launches = counts[key] + (counts[FUSED_INTO[key]]
+                                  if key in FUSED_INTO else 0)
         row = {"name": name, "route": route, "source": source,
-               "replaces": replaces, "launches": counts[key],
+               "replaces": replaces, "launches": launches,
                "max_abs_err": s.get("max_abs_err"),
                **{k: s.get(k) for k in _SUMMARY_KEYS},
                **{k: s[k] for k in _EXTRA_KEYS if k in s},
                "at": s.get("at"), **{side: s[side] for side in sides}}
         if key in PATH_BRANCHES:
-            row["launches_by_branch"] = PATH_BRANCHES[key]
-            # the paths run K1 and K6 in bf16 at head_dim 64: the tensor
-            # cores
-            check(PATH_BRANCHES[key]["simt"] == 0,
-                  f"{name}: SIMT launches on the path {PATH_BRANCHES[key]}")
+            by = PATH_BRANCHES[key]
+            row["launches_by_branch"] = by
+            # the paths run K1, K6, K7 and K8 in bf16 at head_dim 64 (77
+            # text tokens): the tensor cores
+            check(not any(n for b, n in by.items() if b not in TC_BRANCHES),
+                  f"{name}: launches off the tensor cores on the path {by}")
         rows.append(row)
-        check(counts[key] > 0, f"{name} never launched on the path")
+        check(launches > 0, f"{name} never launched on the path")
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n  "

@@ -1,11 +1,11 @@
 // Helpers shared by the attention kernels (divided_fwd.cu,
 // divided_bwd.cu, divided_big.cu, flash_attention.cu): fp32/bf16
 // conversion, warp and quad reductions, the tensor-core product, cp.async
-// and the head_dim-64 fragment helpers of the 64-key-tile kernels (K7/K8),
-// Hopper's mbarriers, TMA copies, the refilled ring of tiles, wgmma and
-// the tensor map of a row view (the spatial phase's tensor-core kernels,
-// shared by K1 and K6, declared below), and the fixed-order sum of the
-// divided backward kernels' per-group partials.
+// and the head_dim-64 fragment helpers of K8's split backward (past 128
+// tokens), Hopper's mbarriers, TMA copies, the refilled ring of tiles,
+// wgmma and the tensor map of a row view (the spatial phase's tensor-core
+// kernels, shared by K1 and K6, declared below; K7/K8's TMA kernels), and
+// the fixed-order sum of the divided backward kernels' per-group partials.
 
 #pragma once
 
@@ -110,7 +110,7 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 // ---- a warp's 16 rows x 64 dims (head_dim 64) on mma.sync: fragments
 // of row-major [row][d] operands, tiles in shared memory with rows padded
 // by 8 bf16 (144 bytes) so that fragment loads hit 32 distinct banks.
-// Used by the 64-key-tile kernels of flash_attention.cu (K7/K8).
+// Used by K8's split dq and dk/dv kernels (flash_attention.cu).
 namespace d64 {
 
 constexpr int kD = 64;
@@ -286,6 +286,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Order this thread's generic writes to shared memory before the TMA
+// unit's reads of it (a tma_store_3d that follows).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA: shared memory at src (laid out as map's box) to the box at
+// coordinates (c0, c1, c2) of `map`; box elements past the tensor's ends
+// are not written. Returns once the copy has read shared memory.
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(map),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // a contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
@@ -526,18 +546,19 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The (frames, N rows, D columns) bf16 row view at p with row stride rs
-// elements, as a 3-D tensor map with a 64 x 64 x 1 box (a head's 64
-// columns of 64 rows of one frame), 128-byte swizzle; rows past N read
-// as zeros. p must be 16-byte aligned and rs a multiple of 8.
+// elements, as a 3-D tensor map with a 64 x box_rows x 1 box (a head's 64
+// columns of box_rows rows of one frame; at most 256), 128-byte swizzle;
+// rows past N read as zeros. p must be 16-byte aligned and rs a multiple
+// of 8.
 inline bool rows_map(CUtensorMap* map, const void* p, long long rs, int D,
-                     int N, int frames) {
+                     int N, int frames, int box_rows = kTile) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N,
                               (cuuint64_t)frames};
   const cuuint64_t strides[2] = {(cuuint64_t)rs * 2,
                                  (cuuint64_t)rs * 2 * N};
-  const cuuint32_t box[3] = {kD, kTile, 1};
+  const cuuint32_t box[3] = {kD, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(p), dims, strides, box, unit,

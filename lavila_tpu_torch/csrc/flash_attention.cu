@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a): K7 (forward only) and K8 (the
-// forward with the log-sum-exp, and its backward: dq, then dk/dv).
+// forward with the log-sum-exp, and its backward).
 //
 // Replaces the Pallas kernels of lavila_tpu/ops/pallas/flash_attention.py:
 // flash_attention (_kernel, K7) and fused_attention's custom VJP
@@ -13,35 +13,67 @@
 // exp(s - m) to the input dtype before P V and divides by their sum at the
 // end, as the Pallas kernels do. It writes out (B, Lq, H*d) contiguous and,
 // for K8, lse (B, Lq, H) fp32. The backward takes dO and O contiguous with
-// lse; the dq kernel writes delta = rowsum(dO * O) per (query, head) (fp32
-// (B, Lq, H)) as a side output, which the dk/dv kernel reads, so the
-// backward is two launches. dq (B, Lq, H*d) and dk/dv (B, Lk, H*d)
-// contiguous. No atomics: two calls give the same bits.
+// lse and writes dq (B, Lq, H*d) and dk/dv (B, Lk, H*d) contiguous. No
+// atomics: two calls give the same bits.
 //
 // What bounds it on the H100: at the text towers' shape (L = 77, d = 64,
 // causal) attention does ~2*L*d FLOPs per query against ~8*d bytes of
-// q/k/v/out in bf16, ~40 FLOPs per byte: far below the card's balance
-// point, so the floor is one pass over q/k/v/out (~1.5 us at 16 captions
-// x 8 heads), and at that size the wrapper's host cost rules. The design
-// is K6's (divided_big.cu) without the CLS key:
+// q/k/v/out in bf16, ~40 FLOPs per byte, far below the card's ~295: the
+// forward's floor is one pass over q/k/v/out (1.5 us at 16 captions x 8
+// heads, 24 us at 256), the backward's one pass over q/k/v/dO/O/dq/dk/dv
+// (3.0 us; 48 us). At 16 captions the 128 (caption, head) pairs are one
+// block each, less than one wave of 132 SMs, so a call's time is the
+// latency of one block's chain (copy, S, softmax, P V, store) and the
+// design shortens that chain; at 256 captions several blocks an SM hide
+// each other's. The caller picks the kernels (kernels/flash.py:
+// flash_branch, one rule with *_fits below; the entry points refuse a
+// tensor-core call outside it):
 //
-//  * bf16, head_dim 64, rows on 16-byte boundaries: mma.sync m16n8k16
-//    (bf16 in, fp32 accumulate), each warp 16 rows. Forward (K7, K8): one
-//    block per (query block, head, batch element) of up to 8 warps (at
-//    L = 77 one block of 5 warps holds every query). Keys come in tiles of
-//    128 when Lk <= 128, so that at the text towers' 77 tokens one tile
-//    holds every key and exp(s - m) is rounded to bf16 relative to the
-//    row's own max, as in the Pallas kernel (whose block_k is 80 there);
-//    in 64-key tiles in two cp.async stages otherwise. Under the causal
-//    mask the key tiles past the block's last query are not read. dq: the
-//    forward's layout with 64-key tiles; dS = P (dP - delta) rounded to
-//    bf16 as the A operand of dS K (the Pallas kernel rounds ds to k's
-//    dtype). dk/dv: one block per 64 keys, 16 key rows a warp, streaming
-//    64-query tiles of Q and dO (with their lse and delta) from the first
-//    tile that can see the block's keys; P^T dO and dS^T Q on the tensor
-//    cores with P and dS rounded to bf16 (the Pallas kernel multiplies
-//    them in fp32: bf16 rounding only), fp32 accumulators. Every B operand
-//    read down its rows goes through ldmatrix's transpose.
+//  * bf16, head_dim 64, q/k/v (and dO/O) rows on 16-byte boundaries, the
+//    tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; each warp
+//    16 rows; a 64-row wgmma tile would pad 77 queries to 128, mma.sync
+//    pads them to 80):
+//    - Forward (K7, K8): one block per (128-query block, head, caption),
+//      a warp per 16 queries (5 at L = 77). Every tile comes by TMA (3-D
+//      tensor maps over the strided row views: columns, the caption's
+//      rows, captions; rows past the caption's end read as zeros), 128-byte
+//      swizzled, on mbarriers. At Lk <= 128 one key tile of round_up(Lk,
+//      16) keys holds every key (80 at L = 77, so no key row is zero
+//      filled past 80, and exp(s - m) is rounded to bf16 against the row's
+//      own max, as the Pallas kernel's block_k = 80 rounds it), copied by
+//      thread 0 with the queries; past 128 keys a producer warp streams
+//      64-key tiles through a refilled 4-slot ring (lavila::sm90::Ring).
+//      Fragments come by ldmatrix from the swizzled tiles (V transposed on
+//      the way), so nothing is stored transposed. The softmax is the
+//      loop's critical path at head_dim 64: ex2.approx, per-thread row
+//      sums reduced over the quad once at the end, the mask applied only
+//      to the 8-key tiles that reach past the warp's diagonal or past Lk
+//      (the scale multiplies each score before the row max, one FMUL:
+//      folding it into the exponent's FFMA, as K1 does, would need the
+//      row's minimum under a negative scale);
+//      under the causal mask a warp skips the keys past its last query
+//      (S and P V), so at L = 77 warp w reads 16(w + 1) keys. The output
+//      goes through the warp's rows of the Q tile to a TMA store of their
+//      16-row box (2-4% less device time than 16-byte stores at 16 x 8,
+//      32 x 12 and 256 x 8 captions x heads; a 64-row wgmma version was
+//      8% faster at 16 x 8 and 7-11% slower at the other two).
+//    - Backward at Lq, Lk <= 128 (every text tower): one launch, one
+//      block per (head, caption) owning the whole score matrix. TMA brings
+//      Q, K, V, dO and O; then warp w (a) takes its 16 queries: delta =
+//      rowsum(dO * O) in registers, per 16-key chunk S = Q K^T and dP = dO
+//      V^T, P = exp2(S scale log2(e) - lse2), dS = P (dP - delta), dq +=
+//      dS K (dS rounded to bf16 as the A fragment, K read transposed), P
+//      and dS rounded to bf16 into shared memory; after one block barrier
+//      (b) its 16 keys: dV += P^T dO and dK += dS^T Q, P^T and dS^T by
+//      ldmatrix.trans from the query-major P and dS. 5 products against
+//      the split's 7, one launch against two, no delta or reduction in
+//      device memory. dq/dk/dv leave through the O/K/V tiles' rows.
+//    - Backward past 128 tokens (no path runs it; the ViT towers would):
+//      the split of FlashAttention-2, two launches. dq: the forward's
+//      layout over 64-key tiles in two cp.async stages, writing delta for
+//      dk/dv: one block per 64 keys, 16 key rows a warp, streaming 64-query
+//      tiles of Q and dO with their lse and delta. P and dS rounded to bf16
+//      as in the fused kernel.
 //  * everything else (fp32, whose 1e-4 limit rules out bf16 or TF32
 //    tensor cores; head sizes other than 64, up to 128; unaligned rows):
 //    SIMT fp32 FMA, 64 rows a block, 8 a warp, tiles staged as fp32 rows
@@ -60,6 +92,7 @@ using lavila::cp_async_commit;
 using lavila::cp_async_wait_prev;
 using lavila::from_float;
 using lavila::ld32;
+using lavila::mma_16816;
 using lavila::pack_bf16;
 using lavila::quad_max;
 using lavila::quad_sum;
@@ -68,15 +101,20 @@ using lavila::unpack_bf16;
 using lavila::warp_max;
 using lavila::warp_sum;
 using namespace lavila::d64;  // kD, kRow, kChunks and the fragment helpers
+namespace sm = lavila::sm90;  // mbarriers, TMA, the ring, swizzled tiles
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kMaxWarps = 8;  // 16 query rows each: up to 128 a block
-constexpr int kTile = 64;     // dq: keys per tile; dk/dv: keys per block
-                              // and queries per tile
+constexpr int kMaxWarps = 8;  // 16 rows each: up to 128 a block
+constexpr int kTile = 64;     // split dq: keys per tile; dk/dv: keys per
+                              // block and queries per tile
 constexpr int kTileElems = kTile * kRow;
 constexpr int kDkvWarps = 4;  // 16 key rows each
+constexpr int kOneTile = 128;  // up to this many keys (and, backward,
+                               // queries) the tensor cores take one tile
+constexpr int kStages = 4;     // ring slots of 64-key tiles past it
+constexpr int kRowBytes = kD * 2;  // a TMA tile's row: 64 bf16
 
 // key j is attended by query i
 __device__ __forceinline__ bool attends(int i, int j, int Lk, int causal) {
@@ -90,7 +128,437 @@ __device__ __forceinline__ int keys_needed(int q_base, int nq, int Lq,
   return causal ? min(Lk, min(q_base + nq, Lq)) : Lk;
 }
 
-// ---- tensor-core kernels (bf16, head_dim 64) ----------------------------
+// ---- the TMA tensor-core kernels (bf16, head_dim 64) ---------------------
+
+// shared address of 16-byte chunk c (0..7) of row r of a tile that TMA
+// wrote with the 128-byte swizzle (from a 1024-byte boundary: chunk c of
+// row r sits at c ^ (r % 8))
+__device__ __forceinline__ unsigned sw_addr(unsigned tile, int r, int c) {
+  return tile + r * kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm4(unsigned (&x)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4_t(unsigned (&x)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The A fragments of rows r0..r0+15 x 64 dims (4 k-steps) of a swizzled
+// tile.
+__device__ __forceinline__ void sw_rows_a(unsigned (&a)[kD / 16][4],
+                                          unsigned tile, int r0, int lane) {
+  const int r = r0 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    ldsm4(a[kk], sw_addr(tile, r, 2 * kk + (lane >> 4)));
+}
+
+// s (16 rows x 8 keys) = A (16 rows x 64 dims, fragments a) . rows
+// key0..key0+7 of a swizzled [key][d] tile
+__device__ __forceinline__ void sw_scores(float (&s)[4],
+                                          const unsigned (&a)[kD / 16][4],
+                                          unsigned tile, int key0, int lane) {
+  unsigned lo[4], hi[4];  // 16-byte chunks 0..3 and 4..7 of the 8 rows
+  const int r = key0 + (lane & 7);
+  ldsm4(lo, sw_addr(tile, r, lane >> 3));
+  ldsm4(hi, sw_addr(tile, r, 4 + (lane >> 3)));
+  s[0] = s[1] = s[2] = s[3] = 0.f;
+  mma_16816(s, a[0], lo[0], lo[1]);
+  mma_16816(s, a[1], lo[2], lo[3]);
+  mma_16816(s, a[2], hi[0], hi[1]);
+  mma_16816(s, a[3], hi[2], hi[3]);
+}
+
+// acc (16 rows x 64) += A (16 x 16, fragments a) * rows k0..k0+15 of a
+// swizzled [k][64] tile, transposed on the way by ldmatrix
+__device__ __forceinline__ void sw_mma_rows(float (&acc)[kD / 8][4],
+                                            const unsigned (&a)[4],
+                                            unsigned tile, int k0, int lane) {
+  const int r = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int p = 0; p < kD / 16; ++p) {
+    unsigned b[4];
+    ldsm4_t(b, sw_addr(tile, r, 2 * p + (lane >> 4)));
+    mma_16816(acc[2 * p], a, b[0], b[1]);
+    mma_16816(acc[2 * p + 1], a, b[2], b[3]);
+  }
+}
+
+// The A fragment (16 x 16) of the transpose of rows q0..q0+15, columns
+// c0..c0+15 of a row-major bf16 matrix m (row stride ld elements):
+// A[i][j] = m[q0 + j][c0 + i].
+__device__ __forceinline__ void ldsm_at(unsigned (&a)[4], const bf16* m,
+                                        int ld, int q0, int c0, int lane) {
+  const int r = q0 + (lane & 7) + ((lane >> 4) << 3);
+  const int c = c0 + (((lane >> 3) & 1) << 3);
+  ldsm4_t(a, sm::smem_addr(m + r * ld + c));
+}
+
+// A warp's 16 x 64 result (rows r0 + g and r0 + g + 8 of this lane, times
+// mul0 / mul1) as bf16 into rows r0.. of a swizzled tile that only this
+// warp uses now.
+__device__ __forceinline__ void stage_rows_sw(void* tile, int r0,
+                                              const float (&acc)[kD / 8][4],
+                                              float mul0, float mul1,
+                                              int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+    const int c = 8 * dn + 2 * t4;
+    *reinterpret_cast<unsigned*>(sm::swizzled(tile, r0 + g, c)) =
+        pack_bf16(acc[dn][0] * mul0, acc[dn][1] * mul0);
+    *reinterpret_cast<unsigned*>(sm::swizzled(tile, r0 + g + 8, c)) =
+        pack_bf16(acc[dn][2] * mul1, acc[dn][3] * mul1);
+  }
+}
+
+// ... and on to bf16 rows dst + r * ld (r = 0..15) by 16-byte stores, rows
+// at or past `rows` skipped.
+__device__ __forceinline__ void store_rows_sw(void* tile, int r0,
+                                              const float (&acc)[kD / 8][4],
+                                              float mul0, float mul1,
+                                              bf16* dst, long long ld,
+                                              int rows, int lane) {
+  stage_rows_sw(tile, r0, acc, mul0, mul1, lane);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (r < rows)
+      *reinterpret_cast<uint4*>(dst + r * ld + c) =
+          *reinterpret_cast<const uint4*>(sm::swizzled(tile, r0 + r, c));
+  }
+}
+
+__device__ __forceinline__ void scale_rows(float (&o)[kD / 8][4], float c0,
+                                           float c1) {
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+    o[dn][0] *= c0;
+    o[dn][1] *= c0;
+    o[dn][2] *= c1;
+    o[dn][3] *= c1;
+  }
+}
+
+// Forward: grid (ceil(Lq / (16 * qwarps)), H, B), 32 * qwarps threads
+// (+ 32 for the producer warp with RING). Key tiles of KT keys: one tile
+// of KT = round_up(Lk, 16) <= 128 keys, or (RING) 64-key tiles in a ring
+// of kStages slots. tq/tk/tv: tensor maps of the row views (columns, the
+// caption's rows, captions) with boxes of 16 * qwarps and KT rows; tout:
+// out's, with a box of 16 rows. lse == nullptr: K7, no lse written.
+template <int KT, bool RING>
+__global__ void __launch_bounds__(kMaxWarps * 32 + 32)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tout,
+                        float* __restrict__ lse, int H, int Lq, int Lk,
+                        float scale, int causal) {
+  constexpr int S = RING ? kStages : 1;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) unsigned long long bar_q;
+  __shared__ __align__(8) sm::Ring<S> ring;
+  const int qwarps = (blockDim.x >> 5) - (RING ? 1 : 0);
+  const int nq = 16 * qwarps;
+  const int q_base = blockIdx.x * nq;
+  const int h = blockIdx.y, b = blockIdx.z, col = h * kD;
+  const int keys = keys_needed(q_base, nq, Lq, Lk, causal);
+  const int tiles = RING ? (keys + KT - 1) / KT : 1;
+  bf16* qs = sm::align1024(smem_raw);
+  bf16* kv = qs + nq * kD;  // slot s: K at kv + 2 s KT kD, then V
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    sm::mbar_init(&bar_q, 1);
+    ring.init(32 * qwarps);
+    sm::mbar_fence_init();
+  }
+  __syncthreads();
+  // the copies: past 128 keys by the producer warp, else by thread 0,
+  // which then joins the consumers
+  if (threadIdx.x == (RING ? 32 * qwarps : 0)) {
+    sm::mbar_expect_tx(&bar_q, nq * kRowBytes);
+    sm::tma_load_3d(qs, &tq, &bar_q, col, q_base, b);
+    for (int t = 0; t < tiles; ++t) {
+      unsigned long long* full = ring.acquire(t);
+      bf16* dst = kv + 2 * (t % S) * KT * kD;
+      sm::mbar_expect_tx(full, 2 * KT * kRowBytes);
+      sm::tma_load_3d(dst, &tk, full, col, t * KT, b);
+      sm::tma_load_3d(dst + KT * kD, &tv, full, col, t * KT, b);
+    }
+  }
+  if (RING && warp == qwarps) return;
+
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_lo = q_base + 16 * warp;  // the warp's first query
+  const int n0 = r_lo + g, n1 = n0 + 8;
+  // the keys that the warp's rows attend at most, and those that all of
+  // them attend; a warp past the last query has nothing to do
+  const int lim = r_lo >= Lq ? 0 : causal ? min(Lk, r_lo + 16) : Lk;
+  const int all = causal ? min(Lk, r_lo + 1) : Lk;
+  const float sl2 = scale * kLog2e;  // scores in the log2 domain
+
+  sm::mbar_wait(&bar_q, 0);
+  __syncwarp();
+  unsigned qa[kD / 16][4];
+  sw_rows_a(qa, sm::smem_addr(qs), 16 * warp, lane);
+  float o[kD / 8][4];
+  zero(o);
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = 0; kt < tiles; ++kt) {
+    ring.wait(kt);
+    const int j0 = kt * KT;
+    if (j0 < lim) {
+      const unsigned kb = sm::smem_addr(kv + 2 * (kt % S) * KT * kD);
+      const unsigned vb = kb + KT * kRowBytes;
+      float s[KT / 8][4];
+      float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt) {
+        const int j = j0 + 8 * nt;
+        if (j >= lim) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = -INFINITY;
+          continue;
+        }
+        sw_scores(s[nt], qa, kb, 8 * nt, lane);
+        const bool edge = j + 8 > all;  // some key here is masked
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x0 = s[nt][e] * sl2, x1 = s[nt][2 + e] * sl2;
+          if (edge) {
+            const int jj = j + 2 * t4 + e;
+            if (!attends(n0, jj, Lk, causal)) x0 = -INFINITY;
+            if (!attends(n1, jj, Lk, causal)) x1 = -INFINITY;
+          }
+          s[nt][e] = x0;
+          s[nt][2 + e] = x1;
+          t0 = fmaxf(t0, x0);
+          t1 = fmaxf(t1, x1);
+        }
+      }
+      // finite from the warp's first tile on: every query attends key 0
+      const float mn0 = fmaxf(m0, quad_max(t0));
+      const float mn1 = fmaxf(m1, quad_max(t1));
+      const float c0 = sm::fast_exp2(m0 - mn0), c1 = sm::fast_exp2(m1 - mn1);
+      float r0 = 0.f, r1 = 0.f;  // this thread's share of the row sums
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt) {
+        if (j0 + 16 * (nt / 2) >= lim) continue;  // no P V step reads it
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nt][e] = sm::fast_exp2(s[nt][e] - mn0);
+          s[nt][2 + e] = sm::fast_exp2(s[nt][2 + e] - mn1);
+          r0 += s[nt][e];
+          r1 += s[nt][2 + e];
+        }
+      }
+      l0 = l0 * c0 + r0;
+      l1 = l1 * c1 + r1;
+      m0 = mn0;
+      m1 = mn1;
+      scale_rows(o, c0, c1);
+      // O += P V: score tiles 2kk, 2kk+1 are the A fragment of keys
+      // 16kk..16kk+15
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        if (j0 + 16 * kk >= lim) continue;
+        const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        sw_mma_rows(o, pa, vb, 16 * kk, lane);
+      }
+    }
+    if (RING) ring.release(kt);
+  }
+  if (lim == 0) return;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  // out through the warp's rows of the Q tile (its Q is in registers) by
+  // a TMA store of their 16-row box; rows past Lq are not written
+  stage_rows_sw(qs, 16 * warp, o, 1.f / l0, 1.f / l1, lane);
+  sm::fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) sm::tma_store_3d(&tout, qs + 16 * warp * kD, col, r_lo, b);
+  const long long row = (long long)b * Lq + r_lo;
+  if (lse != nullptr && t4 == 0) {
+    if (n0 < Lq) lse[(row + g) * H + h] = (m0 + log2f(l0)) * kLn2;
+    if (n1 < Lq) lse[(row + g + 8) * H + h] = (m1 + log2f(l1)) * kLn2;
+  }
+}
+
+size_t fwd_tc_smem_bytes(int nq, int kt, int stages) {
+  // the query tile, `stages` K and V tiles, and slack to put the first on
+  // a 1024-byte boundary (the 128-byte swizzle's period)
+  return (size_t)(nq + 2 * stages * kt) * kRowBytes + 1024;
+}
+
+size_t bwd_fused_smem_bytes(int QR, int KR) {
+  // Q, dO, O (QR rows) and K, V (KR rows) swizzled; P and dS (QR x (KR +
+  // 8) bf16: the padding puts ldmatrix's 8 rows on distinct banks); slack
+  return (size_t)(3 * QR + 2 * KR) * kRowBytes +
+         2 * (size_t)QR * (KR + 8) * sizeof(bf16) + 1024;
+}
+
+// Backward at Lq, Lk <= 128: grid (H, B), 32 * max(QR, KR) / 16 threads
+// (QR, KR = Lq, Lk rounded up to 16). tq/tk/tv/tdo/tout: tensor maps with
+// boxes of QR (queries) and KR (keys) rows. Warp w takes queries 16w..
+// (dq), then, after one block barrier, keys 16w.. (dk, dv).
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tout,
+                           const float* __restrict__ lse,
+                           bf16* __restrict__ dq, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int H, int Lq, int Lk,
+                           float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) unsigned long long bar;
+  const int QR = (Lq + 15) & ~15, KR = (Lk + 15) & ~15;
+  const int ld = KR + 8;  // P and dS row stride
+  const int h = blockIdx.x, b = blockIdx.y, col = h * kD;
+  bf16* qs = sm::align1024(smem_raw);
+  bf16* gs = qs + QR * kD;   // dO
+  bf16* os = gs + QR * kD;   // O, then dq on its way out
+  bf16* ks = os + QR * kD;   // K, then dk
+  bf16* vs = ks + KR * kD;   // V, then dv
+  bf16* ps = vs + KR * kD;   // P [query][key]
+  bf16* dss = ps + QR * ld;  // dS [query][key]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  if (threadIdx.x == 0) {
+    sm::mbar_init(&bar, 1);
+    sm::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm::mbar_expect_tx(&bar, (3 * QR + 2 * KR) * kRowBytes);
+    sm::tma_load_3d(qs, &tq, &bar, col, 0, b);
+    sm::tma_load_3d(ks, &tk, &bar, col, 0, b);
+    sm::tma_load_3d(gs, &tdo, &bar, col, 0, b);
+    sm::tma_load_3d(vs, &tv, &bar, col, 0, b);
+    sm::tma_load_3d(os, &tout, &bar, col, 0, b);
+  }
+  const long long D = (long long)H * kD;
+  const float sl2 = scale * kLog2e;
+  const unsigned qb = sm::smem_addr(qs), gb = sm::smem_addr(gs);
+  const unsigned kb = sm::smem_addr(ks), vb = sm::smem_addr(vs);
+  sm::mbar_wait(&bar, 0);
+  __syncwarp();
+
+  // (a) queries 16w..16w+15: rows n0 = 16w + g and n1 = n0 + 8 of this lane
+  if (16 * warp < Lq) {
+    const int r0 = 16 * warp, n0 = r0 + g, n1 = n0 + 8;
+    unsigned qa[kD / 16][4], ga[kD / 16][4];
+    sw_rows_a(qa, qb, r0, lane);
+    sw_rows_a(ga, gb, r0, lane);
+    // delta over this lane's 16 columns of rows n0 and n1 (the columns of
+    // its dO fragments), then over the quad; padded rows: dO = O = 0
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = kk * 16 + 8 * half + 2 * t4;
+        const float2 x0 = unpack_bf16(ga[kk][2 * half]);
+        const float2 y0 = sm::tile_pair(os, n0, c);
+        const float2 x1 = unpack_bf16(ga[kk][2 * half + 1]);
+        const float2 y1 = sm::tile_pair(os, n1, c);
+        d0 = fmaf(x0.y, y0.y, fmaf(x0.x, y0.x, d0));
+        d1 = fmaf(x1.y, y1.y, fmaf(x1.x, y1.x, d1));
+      }
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
+    // log2 domain; a padded row's +inf makes its P (and dS) zero
+    const long long row = (long long)b * Lq;
+    const float l0 = n0 < Lq ? lse[(row + n0) * H + h] * kLog2e : INFINITY;
+    const float l1 = n1 < Lq ? lse[(row + n1) * H + h] * kLog2e : INFINITY;
+    const int lim = causal ? min(Lk, r0 + 16) : Lk;
+    const int all = causal ? min(Lk, r0 + 1) : Lk;
+    float acc[kD / 8][4];
+    zero(acc);
+    for (int j16 = 0; j16 < lim; j16 += 16) {
+      float ds[2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = j16 + 8 * half;
+        float s[4], dp[4], p[4];
+        sw_scores(s, qa, kb, j, lane);
+        sw_scores(dp, ga, vb, j, lane);
+        const bool edge = j + 8 > all;  // some key here is masked
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jj = j + 2 * t4 + e;
+          p[e] = sm::fast_exp2(fmaf(s[e], sl2, -l0));
+          p[2 + e] = sm::fast_exp2(fmaf(s[2 + e], sl2, -l1));
+          if (edge) {
+            if (!attends(n0, jj, Lk, causal)) p[e] = 0.f;
+            if (!attends(n1, jj, Lk, causal)) p[2 + e] = 0.f;
+          }
+          ds[half][e] = p[e] * (dp[e] - d0);
+          ds[half][2 + e] = p[2 + e] * (dp[2 + e] - d1);
+        }
+        // P and dS, rounded to bf16, for the keys' half
+        const int c = j + 2 * t4;
+        *reinterpret_cast<unsigned*>(ps + n0 * ld + c) = pack_bf16(p[0], p[1]);
+        *reinterpret_cast<unsigned*>(ps + n1 * ld + c) = pack_bf16(p[2], p[3]);
+        *reinterpret_cast<unsigned*>(dss + n0 * ld + c) =
+            pack_bf16(ds[half][0], ds[half][1]);
+        *reinterpret_cast<unsigned*>(dss + n1 * ld + c) =
+            pack_bf16(ds[half][2], ds[half][3]);
+      }
+      // dq += dS K: dS rounded to bf16 (k's dtype) as the A fragment
+      const unsigned da[4] = {pack_bf16(ds[0][0], ds[0][1]),
+                              pack_bf16(ds[0][2], ds[0][3]),
+                              pack_bf16(ds[1][0], ds[1][1]),
+                              pack_bf16(ds[1][2], ds[1][3])};
+      sw_mma_rows(acc, da, kb, j16, lane);
+    }
+    // dq = scale dS K, through the warp's rows of the O tile
+    store_rows_sw(os, r0, acc, scale, scale, dq + (row + r0) * D + col, D,
+                  Lq - r0, lane);
+  }
+  __syncthreads();  // P and dS complete; K and V free
+
+  // (b) keys 16w..16w+15: dV = P^T dO and dK = dS^T Q over the query
+  // chunks that can attend them (under the causal mask, from the warp's
+  // own chunk on); P^T and dS^T by ldmatrix.trans
+  if (16 * warp < Lk) {
+    const int j0 = 16 * warp;
+    float ak[kD / 8][4], av[kD / 8][4];
+    zero(ak);
+    zero(av);
+    for (int q16 = causal ? j0 : 0; q16 < Lq; q16 += 16) {
+      unsigned pa[4], sa[4];
+      ldsm_at(pa, ps, ld, q16, j0, lane);
+      ldsm_at(sa, dss, ld, q16, j0, lane);
+      sw_mma_rows(av, pa, gb, q16, lane);
+      sw_mma_rows(ak, sa, qb, q16, lane);
+    }
+    const long long row = (long long)b * Lk + j0;
+    store_rows_sw(ks, j0, ak, scale, scale, dk + row * D + col, D, Lk - j0,
+                  lane);
+    store_rows_sw(vs, j0, av, 1.f, 1.f, dv + row * D + col, D, Lk - j0, lane);
+  }
+}
+
+// ---- the split backward past 128 tokens: mma.sync over cp.async tiles
 
 // Copy rows first..first+ROWS-1 of one batch element (row r at x + (row0 +
 // r) * rs, head slice at column col) into a [row][d] bf16 tile; zeros from
@@ -104,120 +572,6 @@ __device__ __forceinline__ void async_rows(bf16* dst, const bf16* x,
     const bool ok = first + r < rows;
     const bf16* src = ok ? x + (row0 + first + r) * rs + col + 8 * c : x;
     cp_async16(dst + r * kRow + 8 * c, src, ok);
-  }
-}
-
-// forward: grid (ceil(Lq / (16 * warps)), H, B), warps * 32 threads; key
-// tiles of KT keys, `stages` of K and V tiles [key][d] in dynamic shared
-// memory (two when there is more than one tile: the copy of tile kt+1
-// runs while tile kt is used). lse == nullptr: K7, no lse written.
-template <int KT>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    flash_fwd_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                         float* __restrict__ lse, int H, int Lq, int Lk,
-                         long long q_rs, long long k_rs, long long v_rs,
-                         float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);
-  constexpr int kElems = KT * kRow;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int col = h * kD;
-  const long long D = (long long)H * kD;
-  const long long qrow0 = (long long)b * Lq, krow0 = (long long)b * Lk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nq = (blockDim.x >> 5) * 16;
-  const int q_base = blockIdx.x * nq;
-  const int n0 = q_base + warp * 16 + g, n1 = n0 + 8;
-  const float sl2 = scale * kLog2e;  // scores in the log2 domain
-  const int keys = keys_needed(q_base, nq, Lq, Lk, causal);
-
-  auto stage = [&](int kt) {
-    bf16* ks = tiles + (kt & 1) * 2 * kElems;
-    async_rows<KT>(ks, k, k_rs, krow0, col, kt * KT, keys);
-    async_rows<KT>(ks + kElems, v, v_rs, krow0, col, kt * KT, keys);
-    cp_async_commit();
-  };
-  stage(0);
-
-  unsigned qa[kD / 16][4];
-  load_rows(qa, q + (qrow0 + n0) * q_rs + col, q + (qrow0 + n1) * q_rs + col,
-            n0 < Lq, n1 < Lq, t);
-  float o[kD / 8][4];
-  zero(o);
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  const int n_tiles = (keys + KT - 1) / KT;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) stage(kt + 1);
-    else cp_async_commit();  // an empty group keeps the count
-    cp_async_wait_prev();
-    __syncthreads();
-    const bf16* ks = tiles + (kt & 1) * 2 * kElems;
-    const bf16* vs = ks + kElems;
-
-    float s[KT / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) mma_scores(s[nt], qa, ks, nt, g, t);
-    // online softmax: the tile's row maxima, rescale what came before
-    float t0 = -INFINITY, t1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = kt * KT + nt * 8 + 2 * t + e;
-        s[nt][e] = attends(n0, j, Lk, causal) ? s[nt][e] * sl2 : -INFINITY;
-        s[nt][2 + e] =
-            attends(n1, j, Lk, causal) ? s[nt][2 + e] * sl2 : -INFINITY;
-        t0 = fmaxf(t0, s[nt][e]);
-        t1 = fmaxf(t1, s[nt][2 + e]);
-      }
-    }
-    // finite from the first tile on: every query attends key 0
-    const float mn0 = fmaxf(m0, quad_max(t0)), mn1 = fmaxf(m1, quad_max(t1));
-    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
-    float r0 = 0.f, r1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - mn0);
-        s[nt][2 + e] = exp2f(s[nt][2 + e] - mn1);
-        r0 += s[nt][e];
-        r1 += s[nt][2 + e];
-      }
-    }
-    l0 = l0 * c0 + quad_sum(r0);
-    l1 = l1 * c1 + quad_sum(r1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      o[dn][0] *= c0;
-      o[dn][1] *= c0;
-      o[dn][2] *= c1;
-      o[dn][3] *= c1;
-    }
-    // O += P V: score tiles 2kk, 2kk+1 are the A fragment of keys
-    // 16kk..16kk+15
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_rows(o, pa, vs, kk * 16, lane);
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  store_rows(out + (qrow0 + n0) * D + col, out + (qrow0 + n1) * D + col,
-             n0 < Lq, n1 < Lq, o, 1.f / l0, 1.f / l1, t);
-  if (lse != nullptr && t == 0) {
-    if (n0 < Lq) lse[(qrow0 + n0) * H + h] = (m0 + log2f(l0)) * kLn2;
-    if (n1 < Lq) lse[(qrow0 + n1) * H + h] = (m1 + log2f(l1)) * kLn2;
   }
 }
 
@@ -784,41 +1138,120 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // ---- launchers -----------------------------------------------------------
 
-// The tensor-core kernels take bf16 with head_dim 64 and rows that start
-// on 16-byte boundaries (they copy 16-byte chunks); everything else takes
-// the SIMT kernels.
-bool mma_fits(int dtype, int d, std::initializer_list<const void*> ptrs,
-              long long q_rs, long long k_rs, long long v_rs) {
-  if (dtype != 1 || d != kD) return false;
-  for (const void* p : ptrs)
-    if ((unsigned long long)p & 15ull) return false;
+// What the tensor-core kernels take (kernels/flash.py:flash_branch is the
+// same rule): bf16, head_dim 64, every pointer on a 16-byte boundary and
+// row strides of whole 16-byte chunks (TMA; the split's cp.async). The
+// backward then takes the fused kernel up to kOneTile queries and keys,
+// the split past it.
+bool tc_fits(int dtype, int d, std::initializer_list<const void*> ptrs,
+             long long q_rs, long long k_rs, long long v_rs) {
+  if (dtype != 1 || d != kD || !sm::aligned16(ptrs)) return false;
   for (long long s : {q_rs, k_rs, v_rs})
     if (s & 7ll) return false;
   return true;
 }
 
+bool fused_fits(int Lq, int Lk) { return Lq <= kOneTile && Lk <= kOneTile; }
+
 dim3 grid(int rows, int per_block, int H, int B) {
   return dim3((unsigned)((rows + per_block - 1) / per_block), H, B);
 }
 
-// warps of the tensor-core forward and dq blocks: 16 queries each, as
-// few as hold every query up to 8
+// warps of the query blocks: 16 queries each, as few as hold every query
+// up to 8
 int query_warps(int Lq) { return Lq < 16 * kMaxWarps ? (Lq + 15) / 16 : kMaxWarps; }
 
-template <int KT>
-cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
-                           void* out, void* lse, int B, int H, int Lq, int Lk,
-                           long long q_rs, long long k_rs, long long v_rs,
-                           float scale, int causal, cudaStream_t stream) {
-  const int warps = query_warps(Lq);
-  const int stages = Lk > KT ? 2 : 1;
-  const size_t smem = (size_t)stages * 2 * KT * kRow * sizeof(bf16);
-  cudaError_t err = allow_smem(flash_fwd_mma_kernel<KT>, smem);
+int round16(int n) { return (n + 15) & ~15; }
+
+// Dynamic shared memory above 48 KB needs an opt-in per kernel and device;
+// a launcher makes it once per device (a static of its own), for the most
+// that its kernel ever asks.
+struct SmemOptIn {
+  unsigned long long devices = 0;  // bit d: made on device d
+  template <typename Kernel>
+  cudaError_t ensure(Kernel kernel, size_t most) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64 && (devices >> dev & 1ull)) return cudaSuccess;
+    if ((err = allow_smem(kernel, most)) == cudaSuccess && dev < 64)
+      devices |= 1ull << dev;
+    return err;
+  }
+};
+
+template <int KT, bool RING>
+cudaError_t launch_fwd_tc_kt(const CUtensorMap& tq, const CUtensorMap& tk,
+                             const CUtensorMap& tv, const CUtensorMap& tout,
+                             void* lse, int B, int H, int Lq, int Lk,
+                             int qwarps, float scale, int causal,
+                             cudaStream_t stream) {
+  constexpr int S = RING ? kStages : 1;
+  static SmemOptIn opt_in;
+  cudaError_t err = opt_in.ensure(flash_fwd_tc_kernel<KT, RING>,
+                                  fwd_tc_smem_bytes(16 * kMaxWarps, KT, S));
   if (err != cudaSuccess) return err;
-  flash_fwd_mma_kernel<KT><<<grid(Lq, 16 * warps, H, B), warps * 32, smem,
-                             stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-      (float*)lse, H, Lq, Lk, q_rs, k_rs, v_rs, scale, causal);
+  flash_fwd_tc_kernel<KT, RING>
+      <<<grid(Lq, 16 * qwarps, H, B), 32 * qwarps + (RING ? 32 : 0),
+         fwd_tc_smem_bytes(16 * qwarps, KT, S), stream>>>(
+          tq, tk, tv, tout, (float*)lse, H, Lq, Lk, scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          void* out, void* lse, int B, int H, int Lq, int Lk,
+                          long long q_rs, long long k_rs, long long v_rs,
+                          float scale, int causal, cudaStream_t stream) {
+  const int qwarps = query_warps(Lq);
+  const int kt = Lk <= kOneTile ? round16(Lk) : kTile;
+  const int D = H * kD;
+  CUtensorMap tq, tk, tv, tout;
+  if (!sm::rows_map(&tq, q, q_rs, D, Lq, B, 16 * qwarps) ||
+      !sm::rows_map(&tk, k, k_rs, D, Lk, B, kt) ||
+      !sm::rows_map(&tv, v, v_rs, D, Lk, B, kt) ||
+      !sm::rows_map(&tout, out, D, D, Lq, B, 16))
+    return cudaErrorInvalidValue;
+#define LAVILA_FWD(KT, RING)                                                 \
+  return launch_fwd_tc_kt<KT, RING>(tq, tk, tv, tout, lse, B, H, Lq, Lk,     \
+                                    qwarps, scale, causal, stream)
+  if (Lk > kOneTile) LAVILA_FWD(kTile, true);
+  switch (kt / 16) {
+    case 1: LAVILA_FWD(16, false);
+    case 2: LAVILA_FWD(32, false);
+    case 3: LAVILA_FWD(48, false);
+    case 4: LAVILA_FWD(64, false);
+    case 5: LAVILA_FWD(80, false);
+    case 6: LAVILA_FWD(96, false);
+    case 7: LAVILA_FWD(112, false);
+    case 8: LAVILA_FWD(128, false);
+  }
+#undef LAVILA_FWD
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_bwd_fused(const void* q, const void* k, const void* v,
+                             const void* dout, const void* out,
+                             const void* lse, void* dq, void* dk, void* dv,
+                             int B, int H, int Lq, int Lk, long long q_rs,
+                             long long k_rs, long long v_rs, float scale,
+                             int causal, cudaStream_t stream) {
+  const int QR = round16(Lq), KR = round16(Lk), D = H * kD;
+  CUtensorMap tq, tk, tv, tdo, tout;
+  if (!sm::rows_map(&tq, q, q_rs, D, Lq, B, QR) ||
+      !sm::rows_map(&tk, k, k_rs, D, Lk, B, KR) ||
+      !sm::rows_map(&tv, v, v_rs, D, Lk, B, KR) ||
+      !sm::rows_map(&tdo, dout, D, D, Lq, B, QR) ||
+      !sm::rows_map(&tout, out, D, D, Lq, B, QR))
+    return cudaErrorInvalidValue;
+  static SmemOptIn opt_in;
+  cudaError_t err = opt_in.ensure(flash_bwd_fused_kernel,
+                                  bwd_fused_smem_bytes(kOneTile, kOneTile));
+  if (err != cudaSuccess) return err;
+  const int warps = (QR > KR ? QR : KR) / 16;
+  flash_bwd_fused_kernel<<<dim3(H, B), 32 * warps,
+                           bwd_fused_smem_bytes(QR, KR), stream>>>(
+      tq, tk, tv, tdo, tout, (const float*)lse, (bf16*)dq, (bf16*)dk,
+      (bf16*)dv, H, Lq, Lk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -839,27 +1272,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
 bool shape_ok(int B, int H, int Lq, int Lk, int d) {
   return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && Lq >= 1 && Lk >= 1 &&
          d >= 1 && d <= 32 * kMaxDimsPerLane;
-}
-
-int forward(const void* q, const void* k, const void* v, void* out,
-            void* lse, int B, int H, int Lq, int Lk, int d, long long q_rs,
-            long long k_rs, long long v_rs, float scale, int causal,
-            int dtype, void* stream) {
-  if (!shape_ok(B, H, Lq, Lk, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mma_fits(dtype, d, {q, k, v, out}, q_rs, k_rs, v_rs))
-    return (int)(Lk <= 128
-                     ? launch_fwd_mma<128>(q, k, v, out, lse, B, H, Lq, Lk,
-                                           q_rs, k_rs, v_rs, scale, causal, s)
-                     : launch_fwd_mma<64>(q, k, v, out, lse, B, H, Lq, Lk,
-                                          q_rs, k_rs, v_rs, scale, causal, s));
-  if (dtype == 0)
-    return (int)launch_fwd<float>(q, k, v, out, lse, B, H, Lq, Lk, d, q_rs,
-                                  k_rs, v_rs, scale, causal, s);
-  if (dtype == 1)
-    return (int)launch_fwd<bf16>(q, k, v, out, lse, B, H, Lq, Lk, d, q_rs,
-                                 k_rs, v_rs, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -894,42 +1306,88 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+int forward(const void* q, const void* k, const void* v, void* out,
+            void* lse, int B, int H, int Lq, int Lk, int d, long long q_rs,
+            long long k_rs, long long v_rs, float scale, int causal,
+            int dtype, int tc, void* stream) {
+  if (!shape_ok(B, H, Lq, Lk, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tc) {
+    if (!tc_fits(dtype, d, {q, k, v, out}, q_rs, k_rs, v_rs))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_fwd_tc(q, k, v, out, lse, B, H, Lq, Lk, q_rs, k_rs,
+                              v_rs, scale, causal, s);
+  }
+  if (dtype == 0)
+    return (int)launch_fwd<float>(q, k, v, out, lse, B, H, Lq, Lk, d, q_rs,
+                                  k_rs, v_rs, scale, causal, s);
+  if (dtype == 1)
+    return (int)launch_fwd<bf16>(q, k, v, out, lse, B, H, Lq, Lk, d, q_rs,
+                                 k_rs, v_rs, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. q/k/v: row views, row r of batch
 // element b at (b * L + r) * rs, head h at column h * d; every other
 // tensor contiguous as the header says. dtype: 0 = fp32, 1 = bf16; causal:
-// 0 or 1. Returns the cudaError_t of the launch (0 on success).
+// 0 or 1; tc: 1 runs the tensor-core kernels, refused with
+// cudaErrorInvalidValue outside tc_fits (and, for the split backward,
+// where the fused kernel fits), 0 the SIMT ones. Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" {
 
 // K7: the forward without the log-sum-exp
 int lavila_flash_attention(const void* q, const void* k, const void* v,
                            void* out, int B, int H, int Lq, int Lk, int d,
                            long long q_rs, long long k_rs, long long v_rs,
-                           float scale, int causal, int dtype, void* stream) {
+                           float scale, int causal, int dtype, int tc,
+                           void* stream) {
   return forward(q, k, v, out, nullptr, B, H, Lq, Lk, d, q_rs, k_rs, v_rs,
-                 scale, causal, dtype, stream);
+                 scale, causal, dtype, tc, stream);
 }
 
 // K8 forward: also lse (B, Lq, H) fp32
 int lavila_flash_fwd(const void* q, const void* k, const void* v, void* out,
                      void* lse, int B, int H, int Lq, int Lk, int d,
                      long long q_rs, long long k_rs, long long v_rs,
-                     float scale, int causal, int dtype, void* stream) {
+                     float scale, int causal, int dtype, int tc,
+                     void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
   return forward(q, k, v, out, lse, B, H, Lq, Lk, d, q_rs, k_rs, v_rs, scale,
-                 causal, dtype, stream);
+                 causal, dtype, tc, stream);
 }
 
-// K8 dq; writes delta (B, Lq, H) fp32 for lavila_flash_bwd_dkv
+// K8 backward in one launch (tensor cores, Lq and Lk <= 128)
+int lavila_flash_bwd_fused(const void* q, const void* k, const void* v,
+                           const void* dout, const void* out, const void* lse,
+                           void* dq, void* dk, void* dv, int B, int H, int Lq,
+                           int Lk, int d, long long q_rs, long long k_rs,
+                           long long v_rs, float scale, int causal,
+                           int dtype, void* stream) {
+  if (!shape_ok(B, H, Lq, Lk, d) || !fused_fits(Lq, Lk) ||
+      !tc_fits(dtype, d, {q, k, v, dout, out, dq, dk, dv}, q_rs, k_rs, v_rs))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_bwd_fused(q, k, v, dout, out, lse, dq, dk, dv, B, H, Lq,
+                               Lk, q_rs, k_rs, v_rs, scale, causal,
+                               (cudaStream_t)stream);
+}
+
+// K8 dq of the split backward; writes delta (B, Lq, H) fp32 for
+// lavila_flash_bwd_dkv
 int lavila_flash_bwd_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* out, const void* lse,
                         void* delta, void* dq, int B, int H, int Lq, int Lk,
                         int d, long long q_rs, long long k_rs, long long v_rs,
-                        float scale, int causal, int dtype, void* stream) {
+                        float scale, int causal, int dtype, int tc,
+                        void* stream) {
   if (!shape_ok(B, H, Lq, Lk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mma_fits(dtype, d, {q, k, v, dout, out, dq}, q_rs, k_rs, v_rs)) {
+  if (tc) {
+    if (fused_fits(Lq, Lk) ||
+        !tc_fits(dtype, d, {q, k, v, dout, out, dq}, q_rs, k_rs, v_rs))
+      return (int)cudaErrorInvalidValue;
     const int warps = query_warps(Lq);
     flash_dq_mma_kernel<<<grid(Lq, 16 * warps, H, B), warps * 32, 0, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
@@ -946,16 +1404,20 @@ int lavila_flash_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// K8 dk/dv, after lavila_flash_bwd_dq on the same stream (reads its delta)
+// K8 dk/dv of the split backward, after lavila_flash_bwd_dq on the same
+// stream (reads its delta)
 int lavila_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int B, int H, int Lq, int Lk,
                          int d, long long q_rs, long long k_rs,
                          long long v_rs, float scale, int causal, int dtype,
-                         void* stream) {
+                         int tc, void* stream) {
   if (!shape_ok(B, H, Lq, Lk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mma_fits(dtype, d, {q, k, v, dout, dk, dv}, q_rs, k_rs, v_rs)) {
+  if (tc) {
+    if (fused_fits(Lq, Lk) ||
+        !tc_fits(dtype, d, {q, k, v, dout, dk, dv}, q_rs, k_rs, v_rs))
+      return (int)cudaErrorInvalidValue;
     flash_dkv_mma_kernel<<<grid(Lk, kDkvWarps * 16, H, B), kDkvWarps * 32, 0,
                            s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,

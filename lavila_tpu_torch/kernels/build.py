@@ -38,8 +38,10 @@ _FWD = ([_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int)
 _SPACE_FWD = (_FWD[0][:-1] + [_I, _P], ctypes.c_int)
 _SPACE_BWD = ([_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _I, _P],
               ctypes.c_int)
-# B, H, Lq, Lk, d, the q/k/v row strides, scale, causal, dtype, stream
+# B, H, Lq, Lk, d, the q/k/v row strides, scale, causal, dtype, stream;
+# all but the fused backward take a tensor-core flag after dtype
 _FLASH_TAIL = [_I] * 5 + [_LL] * 3 + [_F, _I, _I, _P]
+_FLASH_TC_TAIL = _FLASH_TAIL[:-1] + [_I, _P]
 _SIGNATURES = {
     "lavila_divided_space_fwd": _SPACE_FWD,
     "lavila_divided_time_fwd": _FWD,
@@ -50,10 +52,11 @@ _SIGNATURES = {
         [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
     "lavila_decode_attention": (
         [_P] * 6 + [_I] * 4 + [_LL] * 3 + [_F, _I, _P], ctypes.c_int),
-    "lavila_flash_attention": ([_P] * 4 + _FLASH_TAIL, ctypes.c_int),
-    "lavila_flash_fwd": ([_P] * 5 + _FLASH_TAIL, ctypes.c_int),
-    "lavila_flash_bwd_dq": ([_P] * 8 + _FLASH_TAIL, ctypes.c_int),
-    "lavila_flash_bwd_dkv": ([_P] * 8 + _FLASH_TAIL, ctypes.c_int),
+    "lavila_flash_attention": ([_P] * 4 + _FLASH_TC_TAIL, ctypes.c_int),
+    "lavila_flash_fwd": ([_P] * 5 + _FLASH_TC_TAIL, ctypes.c_int),
+    "lavila_flash_bwd_fused": ([_P] * 9 + _FLASH_TAIL, ctypes.c_int),
+    "lavila_flash_bwd_dq": ([_P] * 8 + _FLASH_TC_TAIL, ctypes.c_int),
+    "lavila_flash_bwd_dkv": ([_P] * 8 + _FLASH_TC_TAIL, ctypes.c_int),
 }
 
 # set by the build in this process: its wall time and nvcc's output

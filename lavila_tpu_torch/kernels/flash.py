@@ -1,4 +1,4 @@
-"""Flash attention (K7 forward only; K8 forward, dq and dk/dv).
+"""Flash attention (K7 forward only; K8 forward and backward).
 
 Replaces ``lavila_tpu/ops/pallas/flash_attention.py``: ``flash_attention``
 (Pallas body ``_kernel``, K7) and ``fused_attention`` with its custom VJP
@@ -20,11 +20,15 @@ and the heads adjacent.
 
 :func:`flash_attention` dispatches: when autograd needs it (grad enabled
 and an input requires grad), :class:`_FlashAttention` runs K8's forward
-(saving ``out`` and the log-sum-exp) and its two backward kernels;
-otherwise K7. Each direction takes its plain PyTorch version
-(:func:`flash_attention_reference`, :func:`flash_fwd_reference`,
-:func:`flash_bwd_reference`) only for CPU tensors; on a CUDA tensor it
-launches the kernel (fp32 or bf16, head_dim up to 128) or raises.
+(saving ``out`` and the log-sum-exp) and its backward; otherwise K7.
+:func:`flash_branch` says which kernels a call takes: bf16 at head_dim
+64 on rows that TMA can copy runs the tensor cores ("tc"; the backward
+"fused", one launch, up to 128 queries and keys, or "split", dq then
+dk/dv, past it), everything else the SIMT kernels ("simt"; fp32 or
+bf16, head_dim up to 128; dq then dk/dv). Each direction takes its plain
+PyTorch version (:func:`flash_attention_reference`,
+:func:`flash_fwd_reference`, :func:`flash_bwd_reference`) only for CPU
+tensors; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -33,12 +37,16 @@ import torch
 
 from lavila_tpu_torch.kernels import build
 
-# kernel launches in this process, a plain int per kernel; a caller
-# zeroes them to count one run
-launches = {"flash": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# kernel launches in this process, a plain int per kernel and branch
+# (flash_branch); a caller zeroes them to count one run
+launches = {"flash_tc": 0, "flash_simt": 0, "flash_fwd_tc": 0,
+            "flash_fwd_simt": 0, "flash_bwd_fused": 0, "flash_dq_split": 0,
+            "flash_dkv_split": 0, "flash_dq_simt": 0, "flash_dkv_simt": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128  # the SIMT kernels' limit (four dims a lane)
+TC_HEAD_DIM = 64    # the tensor-core kernels' head_dim
+FUSED_MAX_LEN = 128  # the fused backward's largest Lq and Lk
 
 
 def _mask(Lq: int, Lk: int, causal: bool, device) -> torch.Tensor | None:
@@ -125,24 +133,64 @@ def _check(q, k, v):
 
 def _row_stride(t: torch.Tensor, name: str) -> int:
     """Row stride of a (B, L, H, d) view whose H·d values of a token are
-    contiguous; raise otherwise."""
-    if t.shape[3] > 1 and t.stride(3) != 1 or \
-            t.shape[2] > 1 and t.stride(2) != t.shape[3]:
+    contiguous and whose rows are evenly spaced; raise otherwise."""
+    B, L, H, d = t.shape
+    sb, sl, sh, sd = t.stride()
+    if d > 1 and sd != 1 or H > 1 and sh != d:
         raise ValueError(f"{name}: the heads of a token must be contiguous "
                          f"(shape {tuple(t.shape)}, stride {t.stride()})")
-    return build.row_stride(t.flatten(2), name)
+    rs = sl if L > 1 else sb if B > 1 else H * d
+    if B > 1 and L > 1 and sb != L * rs or rs < H * d:
+        raise ValueError(f"{name}: rows are not evenly strided or overlap "
+                         f"(shape {tuple(t.shape)}, stride {t.stride()})")
+    return rs
 
 
-def _cuda_args(q, k, v):
-    """The launch's tail after the pointers: shape, row strides."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for {q.device}")
+def _strides(q, k, v) -> list[int]:
+    return [_row_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+
+
+def _branch(q, k, strides, tensors, backward: bool) -> str:
+    if q.dtype != torch.bfloat16 or q.shape[3] != TC_HEAD_DIM \
+            or any(s % 8 for s in strides) \
+            or any(t.data_ptr() % 16 for t in tensors):
+        return "simt"
+    if not backward:
+        return "tc"
+    return "fused" if max(q.shape[1], k.shape[1]) <= FUSED_MAX_LEN \
+        else "split"
+
+
+def flash_branch(q, k, v, do=None, out=None) -> str:
+    """The kernels a call takes. Forward (no ``do``): "tc", the TMA
+    tensor-core kernel (bf16, head_dim 64, q/k/v rows on 16-byte
+    boundaries with row strides of whole 16-byte chunks), else "simt".
+    Backward (``do``/``out`` given, contiguous; they must sit on 16-byte
+    boundaries too): "fused", one tensor-core launch for Lq and Lk up to
+    128, "split" (dq, then dk/dv, on the tensor cores) past it, else
+    "simt" (dq, then dk/dv). The C entry points refuse a tensor-core call
+    outside these conditions (``tc_fits``, ``fused_fits`` in
+    ``csrc/flash_attention.cu``)."""
+    tensors = [t for t in (q, k, v, do, out) if t is not None]
+    return _branch(q, k, _strides(q, k, v), tensors, do is not None)
+
+
+def _tail(q, k, strides) -> list:
+    """The launch's arguments after the pointers: shape, row strides."""
     B, Lq, H, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels take head_dim <= "
                          f"{MAX_HEAD_DIM}, got {d}")
-    strides = [_row_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     return [B, H, Lq, k.shape[1], d, *strides]
+
+
+def _launch(fn, t, *args) -> int:
+    """``fn(*args, stream)`` on t's device and its current stream; the
+    device is switched only when it is not the current one."""
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
@@ -152,26 +200,25 @@ def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
         if with_lse:
             return flash_fwd_reference(q, k, v, causal, scale)
         return flash_attention_reference(q, k, v, causal, scale)
-    tail = _cuda_args(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
+    strides = _strides(q, k, v)
+    tail = _tail(q, k, strides)
+    branch = _branch(q, k, strides, (q, k, v), False)
     B, Lq, H, d = q.shape
     out = torch.empty((B, Lq, H, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, Lq, H), dtype=torch.float32, device=q.device)
-           if with_lse else None)
     lib = build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-        if with_lse:
-            err = lib.lavila_flash_fwd(*ptrs, lse.data_ptr(), *tail,
-                                       float(scale), int(causal),
-                                       _DTYPES[q.dtype], stream)
-        else:
-            err = lib.lavila_flash_attention(*ptrs, *tail, float(scale),
-                                             int(causal), _DTYPES[q.dtype],
-                                             stream)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    flags = [float(scale), int(causal), _DTYPES[q.dtype], int(branch == "tc")]
+    if with_lse:
+        lse = torch.empty((B, Lq, H), dtype=torch.float32, device=q.device)
+        err = _launch(lib.lavila_flash_fwd, q, *ptrs, lse.data_ptr(), *tail,
+                      *flags)
+    else:
+        err = _launch(lib.lavila_flash_attention, q, *ptrs, *tail, *flags)
     name = "flash_fwd" if with_lse else "flash"
     build.check(err, name)
-    launches[name] += 1
+    launches[f"{name}_{branch}"] += 1
     return (out, lse) if with_lse else out
 
 
@@ -180,9 +227,9 @@ def flash_bwd(q, k, v, do, out, lse, causal: bool = False,
     """K8's backward on the tensors' device: ``(dq, dk, dv)``, contiguous.
     q/k/v as the forward took them; do and out ``(B, Lq, H, d)``
     contiguous in the inputs' dtype, lse ``(B, Lq, H)`` fp32 as the
-    forward wrote it. On CUDA two launches: :func:`flash_bwd_dq` (which
-    also writes delta = rowsum(dO·O)), then :func:`flash_bwd_dkv` (which
-    reads it)."""
+    forward wrote it. On CUDA the branch of :func:`flash_branch`: one
+    launch ("fused"), or dq (which also writes delta = rowsum(dO·O)) then
+    dk/dv (which reads it)."""
     _check(q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     B, Lq, H, d = q.shape
@@ -199,43 +246,36 @@ def flash_bwd(q, k, v, do, out, lse, causal: bool = False,
         raise ValueError("do/out/lse must be on the inputs' device")
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, out, lse, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
     if not (do.is_contiguous() and out.is_contiguous()
             and lse.is_contiguous()):
         raise ValueError("do/out/lse must be contiguous")
-    dq, delta = flash_bwd_dq(q, k, v, do, out, lse, causal, scale)
-    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
-
-
-def flash_bwd_dq(q, k, v, do, out, lse, causal: bool, scale: float):
-    """The dq kernel, CUDA tensors checked by :func:`flash_bwd`: ``(dq,
-    delta (B, Lq, H) fp32)``."""
-    tail = _cuda_args(q, k, v)
+    strides = _strides(q, k, v)
+    tail = _tail(q, k, strides) + [float(scale), int(causal),
+                                   _DTYPES[q.dtype]]
+    branch = _branch(q, k, strides, (q, k, v, do, out), True)
+    lib = build.library()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    delta = torch.empty_like(lse)
-    with torch.cuda.device(q.device):
-        err = build.library().lavila_flash_bwd_dq(
-            *(t.data_ptr() for t in (q, k, v, do, out, lse, delta, dq)),
-            *tail, float(scale), int(causal), _DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "flash_dq")
-    launches["flash_dq"] += 1
-    return dq, delta
-
-
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """The dk/dv kernel after :func:`flash_bwd_dq` (it reads ``delta``),
-    CUDA tensors checked by :func:`flash_bwd`: ``(dk, dv)``."""
-    tail = _cuda_args(q, k, v)
     dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=q.device)
               for _ in range(2))
-    with torch.cuda.device(q.device):
-        err = build.library().lavila_flash_bwd_dkv(
-            *(t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)),
-            *tail, float(scale), int(causal), _DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+    if branch == "fused":
+        err = _launch(lib.lavila_flash_bwd_fused, q, *(t.data_ptr() for t in (
+            q, k, v, do, out, lse, dq, dk, dv)), *tail)
+        build.check(err, "flash_bwd_fused")
+        launches["flash_bwd_fused"] += 1
+        return dq, dk, dv
+    tc = int(branch == "split")
+    delta = torch.empty_like(lse)
+    err = _launch(lib.lavila_flash_bwd_dq, q, *(t.data_ptr() for t in (
+        q, k, v, do, out, lse, delta, dq)), *tail, tc)
+    build.check(err, "flash_dq")
+    launches[f"flash_dq_{branch}"] += 1
+    err = _launch(lib.lavila_flash_bwd_dkv, q, *(t.data_ptr() for t in (
+        q, k, v, do, lse, delta, dk, dv)), *tail, tc)
     build.check(err, "flash_dkv")
-    launches["flash_dkv"] += 1
-    return dk, dv
+    launches[f"flash_dkv_{branch}"] += 1
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -24,11 +24,15 @@ The port never calls these: ``chip_smoke.py`` imports the builders below
 to report ``library_ms`` beside each kernel, and run alone the script
 prints the times at the shapes of the port's main paths, one JSON line
 each, after the card's name and power limit. It then times the short
-calls, K3's forward, K7, K8's forward and K9, at their main-path shapes
-by the profiler's device time (the kernels' own time, without the
-wrapper's host cost that their event times carry), the port's kernel and
-the library call in turns on the same input
-(``scripts/time_spatial_phase.py``'s ``measure``):
+calls, K3's forward, K7, K8's forward and backward and K9, at their
+main-path shapes by the profiler's device time (the kernels' own time,
+without the wrapper's host cost that their event times carry), the
+port's kernel and the library call in turns on the same input
+(``scripts/time_spatial_phase.py``'s ``measure``). K7 and K8 run at the
+text towers' shapes: 16 captions x 8 heads (TSF-B's b16 step), 32 x 12
+(TSF-L@336's b32 remat step) and 256 x 8, on in_proj views; K8's
+backward is ``flash_bwd``, whichever kernels it launches, beside SDPA's
+backward by autograd:
 
     python3 scripts/time_library_calls.py [--out chiprun_out/lib.json]
 
@@ -173,8 +177,9 @@ def flash_bwd_call(q, k, v, do, causal: bool):
 
 def kernel_device_times(gen) -> list:
     """K3 forward (TSF-B's 6272 x 768 rows and a decode step's (160, 1,
-    1600)), K7 and K8's forward (16 captions x 8 heads x 77 tokens,
-    causal) and K9 (160 GPT-2 XL rows, 15 valid of 77), bf16: the port's
+    1600)), K7 and K8's forward and backward (the text towers' causal
+    attention: 16 captions x 8 heads, 32 x 12 and 256 x 8, 77 tokens of
+    64) and K9 (160 GPT-2 XL rows, 15 valid of 77), bf16: the port's
     kernel and the library call, kernel, library, library, kernel, each
     by the profiler's device time and by CUDA events."""
     import os
@@ -197,19 +202,29 @@ def kernel_device_times(gen) -> list:
         cases.append(("K3", list(shape),
                       lambda x=x, w=w, b=b: KL.layer_norm(x, w, b, 1e-6),
                       layer_norm_call(x, w, b, 1e-6)))
-    q, k, v = rand(16, 77, 3 * 512).reshape(16, 77, 24, 64).chunk(3, dim=2)
-    for name, with_lse in (("K7", False), ("K8 fwd", True)):
-        cases.append((name, [16, 8, 77, 77, 64],
-                      lambda w=with_lse: KF._forward(q, k, v, True,
-                                                     64 ** -0.5, w),
-                      flash_fwd_call(q, k, v, True)))
+    scale = 64 ** -0.5
+    for B, H in ((16, 8), (32, 12), (256, 8)):
+        q, k, v = rand(B, 77, 3 * H * 64).reshape(B, 77, 3 * H, 64).chunk(
+            3, dim=2)
+        for name, with_lse in (("K7", False), ("K8 fwd", True)):
+            cases.append((name, [B, H, 77, 77, 64],
+                          lambda q=q, k=k, v=v, w=with_lse: KF._forward(
+                              q, k, v, True, scale, w),
+                          flash_fwd_call(q, k, v, True)))
+        out, lse = KF._forward(q, k, v, True, scale, True)
+        do = rand(B, 77, H, 64)
+        args = (q, k, v, do, out, lse, True, scale)
+        cases.append(("K8 bwd", [B, H, 77, 77, 64],
+                      lambda args=args: KF.flash_bwd(*args),
+                      flash_bwd_call(q, k, v, do, True)))
     qd, kn, vn = rand(160, 3 * 1600).chunk(3, dim=-1)
     kc, vc = rand(160, 77, 1600), rand(160, 77, 1600)
     dec = (qd, kc, vc, kn, vn, 15, 25)
     cases.append(("K9", [160, 77, 1600, 25, 15],
                   lambda: KDec.decode_attention(*dec), decode_call(*dec)))
     lines = []
-    with torch.inference_mode():
+    # no_grad, not inference_mode: SDPA's backward runs autograd
+    with torch.no_grad():
         for name, shape, kernel, lib in cases:
             runs = {"kernel": [], "library": []}
             for who in ("kernel", "library", "library", "kernel"):

@@ -151,3 +151,69 @@ def test_rejects_bad_input():
         KF.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="lse"):
         KF.flash_bwd(q, q, q, q, q, torch.zeros(1, 9, 3))
+
+
+def _in_proj_views(B, Lq, Lk, H, d, dtype=torch.bfloat16, pad=0):
+    """q/k/v as head views of packed projections, as the text tower hands
+    them over: one (B, L, 3·H·d + pad) in_proj output when Lq == Lk, else
+    (B, Lq, H·d + pad) and (B, Lk, 2·H·d + pad)."""
+    D = H * d
+    if Lq == Lk:
+        q, k, v = torch.zeros(B, Lq, 3 * D + pad, dtype=dtype)[
+            ..., :3 * D].chunk(3, dim=-1)
+    else:
+        q = torch.zeros(B, Lq, D + pad, dtype=dtype)[..., :D]
+        k, v = torch.zeros(B, Lk, 2 * D + pad, dtype=dtype)[
+            ..., :2 * D].chunk(2, dim=-1)
+    return tuple(t.reshape(B, t.shape[1], H, d) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("Lq,Lk,H,d,dtype,pad,fwd,bwd", [
+    (77, 77, 8, 64, torch.bfloat16, 0, "tc", "fused"),    # TSF-B's tower
+    (77, 77, 12, 64, torch.bfloat16, 0, "tc", "fused"),   # TSF-L's tower
+    (1, 1, 8, 64, torch.bfloat16, 0, "tc", "fused"),
+    (128, 128, 8, 64, torch.bfloat16, 0, "tc", "fused"),
+    (129, 129, 8, 64, torch.bfloat16, 0, "tc", "split"),
+    (130, 260, 3, 64, torch.bfloat16, 0, "tc", "split"),
+    (64, 197, 2, 64, torch.bfloat16, 0, "tc", "split"),
+    (77, 77, 8, 64, torch.bfloat16, 8, "tc", "fused"),    # whole chunks
+    (77, 77, 8, 64, torch.bfloat16, 2, "simt", "simt"),   # off 16 bytes
+    (77, 77, 8, 64, torch.float32, 0, "simt", "simt"),
+    (77, 77, 8, 32, torch.bfloat16, 0, "simt", "simt"),
+    (40, 40, 2, 128, torch.bfloat16, 0, "simt", "simt"),
+])
+def test_flash_branch(Lq, Lk, H, d, dtype, pad, fwd, bwd):
+    """The kernels a call takes, the rule the C entry points enforce: the
+    tensor cores for bf16 at head_dim 64 on rows TMA can copy (16-byte
+    boundaries, row strides of whole 16-byte chunks), the backward fused
+    up to 128 queries and keys and split past it; the SIMT kernels
+    otherwise."""
+    q, k, v = _in_proj_views(2, Lq, Lk, H, d, dtype, pad)
+    assert KF.flash_branch(q, k, v) == fwd
+    do, out = (torch.zeros(q.shape, dtype=dtype) for _ in range(2))
+    assert KF.flash_branch(q, k, v, do, out) == bwd
+
+
+def test_flash_branch_backward_needs_aligned_do_and_out():
+    """The fused backward also reads dO and O by TMA: a dO or an O off a
+    16-byte boundary takes the SIMT kernels."""
+    q, k, v = _in_proj_views(2, 77, 77, 8, 64)
+    off = torch.zeros(2 * 77 * 512 + 1, dtype=torch.bfloat16)[1:].reshape(
+        2, 77, 8, 64)
+    ok = torch.zeros(2, 77, 8, 64, dtype=torch.bfloat16)
+    assert KF.flash_branch(q, k, v, ok, ok) == "fused"
+    assert KF.flash_branch(q, k, v, off, ok) == "simt"
+    assert KF.flash_branch(q, k, v, ok, off) == "simt"
+
+
+def test_flash_row_strides():
+    """The row stride the kernels get: that of the token rows of a view
+    whose heads are adjacent; a layout the kernels cannot walk raises."""
+    q, k, v = _in_proj_views(2, 77, 77, 8, 64)
+    assert KF._strides(q, k, v) == [3 * 512] * 3
+    one = torch.zeros(3, 1, 8, 64)
+    assert KF._row_stride(one, "q") == 512
+    with pytest.raises(ValueError, match="heads of a token"):
+        KF._row_stride(torch.zeros(2, 77, 64, 8).transpose(2, 3), "q")
+    with pytest.raises(ValueError, match="evenly strided"):
+        KF._row_stride(torch.zeros(77, 2, 8, 64).transpose(0, 1), "q")
