@@ -16,10 +16,11 @@ and prints no result. Phases, each printing JSON lines:
   1. device: ``nvidia-smi`` name and power limit, torch's device name.
   2. build: nvcc builds ``lavila_tpu_torch/csrc/*.cu`` (timed).
   3. kernels: K1 (spatial phase; TSF-B's N = 196 at batch 8 and 32 and
-     TSF-L@224's 256; each K1 and K6 case also gives the branch it took
-     and the profiler's device time of the kernel and of the library
-     call beside their event times),
-     K2 (temporal phase, F=4 and F=16, and at TSF-L@336), K3 (LayerNorm;
+     TSF-L@224's 256; each K1, K2 and K6 case also gives the branch it
+     took and the profiler's device time of the kernel and of the
+     library call beside their event times),
+     K2 (temporal phase, F=4 and F=16, and at TSF-L@336; bf16 on the
+     slab kernels' tensor cores), K3 (LayerNorm;
      the towers' widths and the narrator's: a decode step's (160, 1,
      1600) and the pooler's bias-free (4096, 1600)), K4/K5 (add +
      LayerNorm at TSF-L@336's and TSF-B's patch rows), K6 (spatial phase
@@ -101,10 +102,11 @@ and prints no result. Phases, each printing JSON lines:
 
 Every path phase (5, 7, finetune_cli, large224_cli, 9, 10-13) zeroes
 the launch counters before it runs and reads them after; the kernel
-summary line sums those runs' counts (K1's and K6's also by branch:
-every spatial launch of a path runs bf16 at head_dim 64, so on the
-tensor cores, which the bf16 encodes, the TSF-L@336 bf16 train steps
-with and without remat and the narrators' bf16 encodes check too; K7's
+summary line sums those runs' counts (K1's, K2's and K6's also by
+branch: every divided-phase launch of a path runs bf16 at head_dim 64
+and at most 16 frames, so on the tensor cores, which the bf16 encodes,
+the bf16 train steps (TSF-B, TSF-L@224, the fine-tune, TSF-L@336 with
+and without remat) and the narrators' bf16 encodes check too; K7's
 and K8's by branch as well: the bf16 text towers take the tensor-core
 forward and the fused backward only, which the bf16 encodes and steps
 check too). The text tower runs K7 under inference_mode (serving) and
@@ -247,8 +249,8 @@ def plain_path():
         yield
 
 
-# kernel name -> (module's launch counter, its key); the spatial phase's
-# kernels (K1, K6) sum their two branches' counters (BRANCHES)
+# kernel name -> (module's launch counter, its key); the divided phases'
+# kernels (K1, K2, K6) sum their two branches' counters (BRANCHES)
 COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
             "K3": ("layernorm", "layernorm"),
             "K4": ("layernorm", "add_layernorm"),
@@ -285,18 +287,19 @@ FLASH_BRANCHES = {"flash": BRANCHES, "flash_fwd": BRANCHES,
                   "flash_dkv": ("split", "simt")}
 # the branches a bf16 path at head_dim 64 may take: the tensor cores
 TC_BRANCHES = ("tc", "fused")
-# K1's, K6's, K7's and K8's launches on the path runs by branch, filled
-# by path_counts()
+# K1's, K2's, K6's, K7's and K8's launches on the path runs by branch,
+# filled by path_counts()
 PATH_BRANCHES = {k: dict.fromkeys(BRANCHES, 0)
-                 for k in ("K1", "K1 bwd", "K6", "K6 bwd", "K7", "K8 fwd")}
+                 for k in ("K1", "K1 bwd", "K2", "K2 bwd", "K6", "K6 bwd",
+                           "K7", "K8 fwd")}
 PATH_BRANCHES.update({k: dict.fromkeys(("fused", "split", "simt"), 0)
                       for k in ("K8 dq", "K8 dkv")})
 
 
 def _counter_keys(m: str, key: str) -> list:
-    """The counter keys behind one kernel: K1's, K6's and the flash
-    kernels' by branch."""
-    if m == "divided" and key.startswith("space"):
+    """The counter keys behind one kernel: the divided phases' and the
+    flash kernels' by branch."""
+    if m == "divided":
         return [f"{key}_{b}" for b in BRANCHES]
     if m == "flash":
         return [f"{key}_{b}" for b in FLASH_BRANCHES[key]]
@@ -309,8 +312,8 @@ def launch_counts() -> dict:
 
 
 def path_counts() -> dict:
-    """:func:`launch_counts` at the end of a path run, whose K1, K6, K7
-    and K8 launches by branch are added to PATH_BRANCHES (K8 dq's and
+    """:func:`launch_counts` at the end of a path run, whose K1, K2, K6,
+    K7 and K8 launches by branch are added to PATH_BRANCHES (K8 dq's and
     dkv's with the fused kernel's)."""
     for name, by in PATH_BRANCHES.items():
         m, key = COUNTERS[name]
@@ -321,15 +324,17 @@ def path_counts() -> dict:
     return launch_counts()
 
 
-def check_tensor_cores(what: str, kernel: str) -> None:
+def check_tensor_cores(what: str, *kernels: str) -> None:
     """After a bf16 run at head_dim 64 (the counters zeroed before it):
-    ``kernel`` (K1 or K6, forward or backward) launched, and every
-    spatial-phase launch took the tensor cores, none the SIMT kernels."""
+    each of ``kernels`` (K1, K2 or K6, forward or backward) launched, and
+    every divided-phase launch took the tensor cores, none the SIMT
+    kernels."""
     from lavila_tpu_torch.kernels import divided as KD
-    by = {k: n for k, n in KD.launches.items() if k.startswith("space")}
-    check(by[f"{COUNTERS[kernel][1]}_tc"] > 0
+    by = dict(KD.launches)
+    check(all(by[f"{COUNTERS[k][1]}_tc"] > 0 for k in kernels)
           and not any(n for k, n in by.items() if k.endswith("_simt")),
-          f"{what}: {kernel} not on the tensor cores only: {by}")
+          f"{what}: {', '.join(kernels)} not on the tensor cores only: "
+          f"{by}")
 
 
 def check_flash_tc(what: str) -> None:
@@ -427,24 +432,31 @@ def _keys(axis, F, N) -> int:
     return N + 1 if axis == "space" else F + 1
 
 
-def _space_extras(args, run, library_call, out=None, do=None) -> dict:
-    """For a spatial-phase case, K1's or K6's (``args`` the forward's):
-    the branch it took (with ``do`` and ``out`` the backward's), and the
-    profiler's device time of ``run`` and of the library call on the
-    same input (``scripts/time_spatial_phase.py``), beside their event
-    times."""
+def _phase_extras(args, run, library_call, out=None, do=None) -> dict:
+    """For a divided-phase case, K1's, K2's or K6's (``args`` the
+    forward's): the branch it took (with ``do`` and ``out`` the
+    backward's), and the profiler's device time of ``run`` and of the
+    library call on the same input (``scripts/time_spatial_phase.py``),
+    beside their event times."""
     from lavila_tpu_torch.kernels import divided as KD
-    q, k, v, ck, cv, _, H, _ = args
+    q, k, v, ck, cv, axis, H, _ = args
     ts = spatial()
-    return {"branch": KD.space_branch(q, k, v, ck, cv, H, do, out),
+    return {"branch": KD.phase_branch(q, k, v, ck, cv, axis, H, do, out),
             "device_ms": ts.measure(run, 20)["device_ms"],
             "library_device_ms": ts.measure(library_call, 20)["device_ms"]}
 
 
+def _branch_ok(branch: str, dtype, d: int) -> bool:
+    """Every kernel case runs F <= 16 on aligned rows: bf16 at head_dim
+    64 takes the tensor cores, everything else SIMT."""
+    return branch == ("tc" if dtype == torch.bfloat16 and d == 64
+                      else "simt")
+
+
 def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     """One K1/K2/K6 case on strided q/k/v views of a (B, F, N, 3D)
-    tensor, as the attention block hands them over; K1's and K6's with
-    :func:`_space_extras`."""
+    tensor, as the attention block hands them over, with
+    :func:`_phase_extras`."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
         dtype)
@@ -461,10 +473,10 @@ def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
     lib = library().divided_fwd_call(q, k, v, ck, cv, axis, H)
-    extras = (_space_extras(args, lambda: KD.divided_phase(*args), lib)
-              if axis == "space" else {})
+    extras = _phase_extras(args, lambda: KD.divided_phase(*args), lib)
     return {"out_err": err, "lse_err": lse_err, "tol": tol,
-            "ok": err <= tol and lse_err <= tol, **extras,
+            "ok": err <= tol and lse_err <= tol
+            and _branch_ok(extras["branch"], dtype, D // H), **extras,
             "ms": time_ms(lambda: KD.divided_phase(*args)),
             "plain_ms": time_ms(lambda: KD.divided_phase_reference(*args)),
             **bound((4 * rows * D + 2 * B * D) * it + rows * H * 4,
@@ -675,12 +687,14 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
 # further cases a kernel's summary keeps under a name: K3 on the
 # narrator's decode path (one decode step's 160 GPT-2 XL rows), K1 at
 # TSF-L@224 (N = 256) and at TSF-B's serving batch 32, K6 at the
-# TSF-L@336 remat step's batch 32, K2 at TSF-L@336
+# TSF-L@336 remat step's batch 32, K2 at the fine-tune's 16 frames and
+# at TSF-L@336
 SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),),
               "K1": (("tsf_l_224", (8, 4, 256, 1024, 16)),
                      ("b32", (32, 4, 196, 768, 12))),
               "K6": (("b32", (32, 4, 576, 1024, 16)),),
-              "K2": (("tsf_l_336", (8, 4, 576, 1024, 16)),),
+              "K2": (("f16", (8, 16, 196, 768, 12)),
+                     ("tsf_l_336", (8, 4, 576, 1024, 16))),
               **dict.fromkeys(("K7", "K8 fwd"),
                               (("b256", (256, 8, 77, 77, 64)),)),
               # K8's backward at 256 captions (fused) and past 128 tokens
@@ -689,9 +703,9 @@ SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),),
                               (("b256", (256, 8, 77, 77, 64)),
                                ("split", (4, 8, 130, 260, 64))))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-# K1's, K6's, K7's and K8's further measured numbers (_space_extras,
-# _flash_extras), where a case has them; the split's floor is computed, so
-# it stays on the case's own line
+# K1's, K2's, K6's, K7's and K8's further measured numbers
+# (_phase_extras, _flash_extras), where a case has them; the split's
+# floor is computed, so it stays on the case's own line
 _EXTRA_KEYS = ("device_ms", "branch", "library_device_ms")
 
 
@@ -773,7 +787,7 @@ def phase_kernels() -> dict:
                  dtype=dname(dtype), **res)
             check(res["ok"], f"{name} {kind} {shape} {dtype}: error "
                   f"{res['out_err']} (lse {res.get('lse_err')}) > "
-                  f"{res['tol']}")
+                  f"{res['tol']} or branch {res.get('branch')}")
             _summarise(summary, name, shape, dtype, res,
                        ("out_err", "lse_err"))
             torch.cuda.empty_cache()
@@ -791,9 +805,9 @@ def _all_equal(a, b) -> bool:
 
 def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     """K1/K2/K6 bwd on strided q/k/v views, out and lse from the forward
-    kernel, against the plain backward in fp32 on the same values; K1's
-    and K6's with :func:`_space_extras`, and beside the bound the floor of
-    the tensor-core split, which recomputes S and dP in both of its
+    kernel, against the plain backward in fp32 on the same values, with
+    :func:`_phase_extras`; K1's and K6's beside the bound with the floor
+    of the tensor-core split, which recomputes S and dP in both of its
     kernels (7 products against 5)."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
@@ -818,18 +832,17 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     tol = TOL[dtype]
     it, rows = q.element_size(), B * F * N
     lib = library().divided_bwd_call(q, k, v, ck, cv, do, axis, H)
-    extras = {}
+    extras = _phase_extras(args[:5] + args[8:],
+                           lambda: KD.divided_phase_bwd(*args), lib, out, do)
     if axis == "space":
-        extras = _space_extras(args[:5] + args[8:],
-                               lambda: KD.divided_phase_bwd(*args), lib,
-                               out, do)
         extras["split_floor_ms"] = (14 * rows * _keys(axis, F, N) * D
                                     / PEAK_FLOPS[dtype] * 1e3)
     # reads q, k, v, do, out, ck, cv, lse; writes dq, dk, dv, dck, dcv;
     # five products (S, dP, dV, dQ, dK) of 2 operations per term
     return {"rel_err": errs, "abs_err": abs_err, "tol": tol,
             "deterministic": deterministic,
-            "ok": max(errs.values()) <= tol and deterministic, **extras,
+            "ok": max(errs.values()) <= tol and deterministic
+            and _branch_ok(extras["branch"], dtype, D // H), **extras,
             "ms": time_ms(lambda: KD.divided_phase_bwd(*args)),
             "plain_ms": time_ms(
                 lambda: KD.divided_phase_bwd_reference(*args)),
@@ -950,8 +963,8 @@ def phase_kernels_bwd() -> dict:
         emit("kernel_bwd", kernel=name, shape=list(shape),
              dtype=dname(dtype), **res)
         check(res["ok"], f"{name} {shape} {dtype}: relative errors "
-              f"{res['rel_err']} > {res['tol']} or not deterministic "
-              f"({res['deterministic']})")
+              f"{res['rel_err']} > {res['tol']}, not deterministic "
+              f"({res['deterministic']}) or branch {res.get('branch')}")
         _summarise(summary, name, shape, dtype, res, ("abs_err",))
         torch.cuda.empty_cache()
     return summary
@@ -998,7 +1011,7 @@ def phase_model(m) -> None:
             per_image = launch_counts()
             if dtype == torch.bfloat16:
                 check_tensor_cores(f"{m['name']} bf16 encode_image",
-                                   m["space"])
+                                   m["space"], "K2")
             reset_launch_counts()
             txt = model.encode_text(text)
             torch.cuda.synchronize()
@@ -1162,6 +1175,8 @@ def _run_steps(base, dtype, batch, plain: bool, steps: int = 2,
             counts.append(launch_counts())
             if dtype == torch.bfloat16 and not plain:
                 check_flash_tc(f"bf16 train step {len(counts)}")
+                check_tensor_cores(f"bf16 train step {len(counts)}", "K2",
+                                   "K2 bwd")
             losses.append(metrics["loss"].item())
             grads.append({k: p.grad.clone() for k, p in state.params.items()})
     del state
@@ -1334,9 +1349,10 @@ def phase_large_train_step() -> None:
             rate, peak = _time_steps(state, step_fn, data, 5)
         torch.cuda.synchronize()
         key = f"{path}, remat" if remat else path
-        if path == "kernels":  # every K6, K7, K8 launch on the tensor cores
-            for kernel in ("K6", "K6 bwd"):
-                check_tensor_cores(f"TSF-L@336 bf16 step ({key})", kernel)
+        if path == "kernels":  # every K2, K6, K7, K8 launch on the tensor
+            # cores
+            check_tensor_cores(f"TSF-L@336 bf16 step ({key})", "K6",
+                               "K6 bwd", "K2", "K2 bwd")
             check_flash_tc(f"TSF-L@336 bf16 step ({key})")
         rates.setdefault(key, []).append(rate)
         peaks.setdefault(key, []).append(peak)
@@ -1450,8 +1466,11 @@ def phase_finetune_step() -> None:
     data = _train_batch(8, gen, MODEL["img"], 16)
     rates, peaks = {}, {}
     for path in ("kernels", "plain", "plain", "kernels"):
+        reset_launch_counts()
         with plain_path() if path == "plain" else nullcontext():
             rate, peak = _time_steps(state, step_fn, data, 5)
+        if path == "kernels":  # K2 over 16 frames on the tensor cores
+            check_tensor_cores("fine-tune bf16 step", "K2", "K2 bwd")
         rates.setdefault(path, []).append(rate)
         peaks.setdefault(path, []).append(peak)
     emit("train_throughput", what="retrieval fine-tune step clips/s",
@@ -1582,7 +1601,7 @@ def phase_narrator(n) -> None:
             per_image = launch_counts()
             if dtype == torch.bfloat16:
                 check_tensor_cores(f"narrator {n['name']} bf16 "
-                                   "encode_image", n["space"])
+                                   "encode_image", n["space"], "K2")
             cached, per_step = _cached_logits(model, tokens, text, 8)
             ids, ppl = _greedy(model, tokens, n, L)
             with plain_path():

@@ -594,6 +594,268 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// ---- the temporal phase's slab kernels (K2 on the tensor cores:
+// divided_fwd.cu, divided_bwd.cu). A tile is `span` = 16 / F positions
+// n0 .. n0 + span - 1 of one clip, all F frames, for G heads: 16 rows,
+// row r = f * span + p holding frame f of position n0 + p (rows past
+// F * span or positions past N are zeros). Each tensor's tile is one
+// slab in shared memory, a row's G * 64 columns (G * 128 bytes) padded by
+// 16 bytes, so that the 8 rows an ldmatrix reads start 4 banks apart.
+// One warp owns one head: its 16 rows are the m16 of mma.sync m16n8k16,
+// and the tile's 16 rows are also its keys, masked block-diagonally
+// (query and key at one position); the CLS key is a 17th column kept out
+// of the products.
+namespace tslab {
+
+constexpr int kD = 64;     // head_dim
+constexpr int kRows = 16;  // rows of a tile
+constexpr int kMaxFrames = kRows;
+
+template <int G>
+struct Geo {
+  static constexpr int kCols = G * kD;             // bf16 a row
+  static constexpr int kLd = kCols + 8;            // padded row
+  static constexpr int kElems = kRows * kLd;       // one tensor's slab
+  static constexpr int kChunks = kCols / 8;        // 16-byte copies a row
+  static constexpr size_t kBytes = kElems * 2;
+};
+
+// heads a block: 4 where they divide H (2 timed within 1-3% of it at
+// the three shapes of scripts/time_library_calls.py, NVIDIA H100 80GB
+// HBM3 at 700 W), else 2, else 1
+inline int heads_per_block(int H) { return H % 4 == 0 ? 4 : H % 2 ? 1 : 2; }
+
+// Where a tile's rows come from: tile `tile` of clip b (positions n0 =
+// tile * span ..), row r < 16 holding frame r / span of position n0 + r %
+// span. r / span is (r * mul) >> 8 with mul = ceil(256 / span), exact for
+// r < 16, so no row costs an integer division.
+struct Tile {
+  int F, N, span, mul, n0, b;
+  __device__ __forceinline__ Tile(int F_, int N_, int tile, int b_)
+      : F(F_), N(N_), span(kRows / F_), mul((256 + span - 1) / span),
+        n0(tile * span), b(b_) {}
+  __device__ __forceinline__ int frame(int r) const { return (r * mul) >> 8; }
+  __device__ __forceinline__ int pos(int r) const {
+    return r - frame(r) * span;
+  }
+  __device__ __forceinline__ bool valid(int r) const {
+    return r < F * span && n0 + pos(r) < N;
+  }
+  // the row index of row r in the (B, F, N) rows
+  __device__ __forceinline__ long long row(int r) const {
+    return ((long long)b * F + frame(r)) * N + n0 + pos(r);
+  }
+};
+
+// The rows a thread copies in and out: the block's G warps move a
+// tensor's 16 rows x G * 8 chunks of 16 bytes, a thread chunk c of rows
+// r0, r0 + 4, r0 + 8, r0 + 12 (r0 < 4), the same in every tensor.
+template <int G>
+struct Rows {
+  static constexpr int kChunks = Geo<G>::kChunks;
+  int r0, c;
+  long long at[4];  // row index in the (B, F, N) rows; 0 where invalid
+  bool ok[4];
+  __device__ __forceinline__ explicit Rows(const Tile& t)
+      : r0(threadIdx.x / kChunks), c((threadIdx.x % kChunks) * 8) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ok[k] = t.valid(r0 + 4 * k);
+      at[k] = ok[k] ? t.row(r0 + 4 * k) : 0;
+    }
+  }
+};
+
+// One tensor's slab: 16-byte cp.async copies of the tile's rows, columns
+// col0 .. col0 + G * 64 of rows rs elements apart; invalid rows zero.
+template <int G>
+__device__ __forceinline__ void load(__nv_bfloat16* dst,
+                                     const __nv_bfloat16* src, long long rs,
+                                     const Rows<G>& w, int col0) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    cp_async16(dst + (w.r0 + 4 * k) * Geo<G>::kLd + w.c,
+               src + w.at[k] * rs + col0 + w.c, w.ok[k]);
+}
+
+// The slab's valid rows to rows rs elements apart, 16 bytes a store.
+template <int G>
+__device__ __forceinline__ void store(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, long long rs,
+                                      const Rows<G>& w, int col0) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (w.ok[k])
+      *reinterpret_cast<uint4*>(dst + w.at[k] * rs + col0 + w.c) =
+          *reinterpret_cast<const uint4*>(
+              src + (w.r0 + 4 * k) * Geo<G>::kLd + w.c);
+}
+
+// seen[r][nt][e]: this lane's row g + 8r sees key 8 nt + 2t + e, a valid
+// row of the same position (the block-diagonal mask)
+__device__ __forceinline__ void keys_seen(bool (&seen)[2][2][2],
+                                          const Tile& tile, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * nt + 2 * t + e;
+      const bool ok = tile.valid(c);
+      seen[0][nt][e] = ok && tile.pos(c) == tile.pos(g);
+      seen[1][nt][e] = ok && tile.pos(c) == tile.pos(g + 8);
+    }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4],
+                                        const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4],
+                                          const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// The A fragments of the 16 rows x 64 columns at x (row stride ld).
+template <int ld>
+__device__ __forceinline__ void rows_a(unsigned (&a)[kD / 16][4],
+                                       const __nv_bfloat16* x, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    ldsm_x4(a[kk], x + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
+}
+
+// s[2][4] = A (16 rows, fragments a) . the 16 rows at x (64 columns, row
+// stride ld) as keys: B read row-major, key = column of s
+template <int ld>
+__device__ __forceinline__ void scores(float (&s)[2][4],
+                                       const unsigned (&a)[kD / 16][4],
+                                       const __nv_bfloat16* x, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    unsigned b[4];
+    ldsm_x4(b, x + ((lane >> 4) * 8 + (lane & 7)) * ld + kk * 16 +
+                   ((lane >> 3) & 1) * 8);
+    mma_16816(s[0], a[kk], b[0], b[1]);
+    mma_16816(s[1], a[kk], b[2], b[3]);
+  }
+}
+
+// acc[8][4] = A (16 x 16, fragments a) . the 16 rows x 64 columns at x
+// (row stride ld): B read transposed
+template <int ld>
+__device__ __forceinline__ void times_rows(float (&acc)[kD / 8][4],
+                                           const unsigned (&a)[4],
+                                           const __nv_bfloat16* x, int lane) {
+#pragma unroll
+  for (int p = 0; p < kD / 16; ++p) {
+    unsigned b[4];
+    ldsm_x4_t(b, x + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + p * 16 +
+                     (lane >> 4) * 8);
+    acc[2 * p][0] = acc[2 * p][1] = acc[2 * p][2] = acc[2 * p][3] = 0.f;
+    acc[2 * p + 1][0] = acc[2 * p + 1][1] = acc[2 * p + 1][2] =
+        acc[2 * p + 1][3] = 0.f;
+    mma_16816(acc[2 * p], a, b[0], b[1]);
+    mma_16816(acc[2 * p + 1], a, b[2], b[3]);
+  }
+}
+
+// The A fragment of a 16 x 16 score tile held as mma accumulators
+// (s[nt]: columns 8 nt + 2t, +1 of rows g and g + 8), rounded to bf16.
+__device__ __forceinline__ void acc_a(unsigned (&a)[4],
+                                      const float (&s)[2][4]) {
+  a[0] = pack_bf16(s[0][0], s[0][1]);
+  a[1] = pack_bf16(s[0][2], s[0][3]);
+  a[2] = pack_bf16(s[1][0], s[1][1]);
+  a[3] = pack_bf16(s[1][2], s[1][3]);
+}
+
+// A 16 x 64 accumulator, times mul0 (row g) and mul1 (row g + 8), as
+// bf16 into the 16 rows at x (row stride ld).
+template <int ld>
+__device__ __forceinline__ void put_rows(__nv_bfloat16* x,
+                                         const float (&acc)[kD / 8][4],
+                                         float mul0, float mul1, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    *reinterpret_cast<unsigned*>(x + g * ld + 8 * j + 2 * t) =
+        pack_bf16(acc[j][0] * mul0, acc[j][1] * mul0);
+    *reinterpret_cast<unsigned*>(x + (g + 8) * ld + 8 * j + 2 * t) =
+        pack_bf16(acc[j][2] * mul1, acc[j][3] * mul1);
+  }
+}
+
+// a . c over one row's 16 columns that this lane's A fragments hold
+// (row g: registers 0 and 2; row g + 8: 1 and 3), c[j] the pair at
+// columns 8 j + 2t; the quad's lanes then sum the row.
+__device__ __forceinline__ float row_dot(const unsigned (&a)[kD / 16][4],
+                                         const float2 (&c)[kD / 8], int hi) {
+  float s = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const float2 x = unpack_bf16(a[kk][hi]), y = unpack_bf16(a[kk][2 + hi]);
+    s = fmaf(x.x, c[2 * kk].x, s);
+    s = fmaf(x.y, c[2 * kk].y, s);
+    s = fmaf(y.x, c[2 * kk + 1].x, s);
+    s = fmaf(y.y, c[2 * kk + 1].y, s);
+  }
+  return quad_sum(s);
+}
+
+// One step of a reduce-scatter over lanes `half` apart (16, 8, 4): of
+// red[0 .. 2 half), a lane keeps the half its bit `half` selects, summed
+// with its partner's, in red[0 .. half).
+template <int half>
+__device__ __forceinline__ void halve(float (&red)[32], int lane) {
+  const bool up = lane & half;
+#pragma unroll
+  for (int i = 0; i < half; ++i) {
+    const float send = up ? red[i] : red[i + half];
+    red[i] = (up ? red[i + half] : red[i]) +
+             __shfl_xor_sync(0xffffffffu, send, half);
+  }
+}
+
+// the pairs of a (B, D) row at columns 8 j + 2t of a head
+__device__ __forceinline__ void cls_pairs(float2 (&c)[kD / 8],
+                                          const __nv_bfloat16* row, int t) {
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+    c[j] = unpack_bf16(ld32(row + 8 * j + 2 * t));
+}
+
+}  // namespace tslab
+
+// What K2's slab kernels take (kernels/divided.py:time_branch mirrors it):
+// head_dim 64, 1 <= F <= 16 (the tile's 16 rows), q/k/v rows on 16-byte
+// boundaries (cp.async), ck/cv read as bf16 pairs; for the backward also
+// dO and O (contiguous) on 16-byte boundaries.
+inline bool time_tc_fits(std::initializer_list<const void*> rows,
+                         const void* ck, const void* cv, int F, int d,
+                         long long q_rs, long long k_rs, long long v_rs,
+                         long long ck_rs, long long cv_rs) {
+  if (d != tslab::kD || F < 1 || F > tslab::kMaxFrames) return false;
+  for (const void* p : rows)
+    if ((unsigned long long)p & 15ull) return false;
+  for (long long s : {q_rs, k_rs, v_rs})
+    if (s & 7ll) return false;
+  return bf16_pairs_ok({ck, cv}, {ck_rs, cv_rs});
+}
+
 // The spatial phase's tensor-core kernels (bf16, head_dim 64, any N):
 // K1 (N <= 256, divided_fwd.cu / divided_bwd.cu) and K6 (N > 256,
 // divided_big.cu) launch the same ones. The forward is defined in
@@ -629,23 +891,41 @@ cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
 // that includes this header compiles its own copy.
 namespace {
 
-// out[b, c] = sum over g of part[b, g, c], in order g = 0..G-1: the
-// second, deterministic pass over the per-group partials of dck/dcv.
+constexpr int kSumSlices = 16;  // warps a block of sum_groups_kernel
+
+// out[b, c] = sum over g of part[b, g, c]: the second, deterministic pass
+// over the per-group partials of dck/dcv. A block takes 32 columns; its
+// warp s sums the groups g = s, s + 16, ... in order, then the first warp
+// adds the 16 warps' sums in order.
 template <typename T>
-__global__ void sum_groups_kernel(const float* __restrict__ part_k,
-                                  const float* __restrict__ part_v,
-                                  T* __restrict__ dck, T* __restrict__ dcv,
-                                  int B, int G, long long D) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)B * D) return;
-  const long long b = i / D, c = i - b * D;
+__global__ void __launch_bounds__(32 * kSumSlices)
+    sum_groups_kernel(const float* __restrict__ part_k,
+                      const float* __restrict__ part_v, T* __restrict__ dck,
+                      T* __restrict__ dcv, int B, int G, long long D) {
+  __shared__ float sums[2][kSumSlices][32];
+  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * 32 + lane;
+  const bool ok = i < (long long)B * D;
+  const long long b = ok ? i / D : 0, c = ok ? i - b * D : 0;
   float ak = 0.f, av = 0.f;
-  for (int g = 0; g < G; ++g) {
-    ak += part_k[(b * G + g) * D + c];
-    av += part_v[(b * G + g) * D + c];
+  if (ok)
+    for (int g = s; g < G; g += kSumSlices) {
+      ak += part_k[(b * G + g) * D + c];
+      av += part_v[(b * G + g) * D + c];
+    }
+  sums[0][s][lane] = ak;
+  sums[1][s][lane] = av;
+  __syncthreads();
+  if (s == 0 && ok) {
+    ak = av = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSumSlices; ++j) {
+      ak += sums[0][j][lane];
+      av += sums[1][j][lane];
+    }
+    dck[i] = from_float<T>(ak);
+    dcv[i] = from_float<T>(av);
   }
-  dck[i] = from_float<T>(ak);
-  dcv[i] = from_float<T>(av);
 }
 
 template <typename T>
@@ -653,8 +933,9 @@ cudaError_t launch_sum_groups(const float* part_k, const float* part_v,
                               void* dck, void* dcv, int B, int G, long long D,
                               cudaStream_t stream) {
   const long long n = (long long)B * D;
-  sum_groups_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part_k, part_v, (T*)dck, (T*)dcv, B, G, D);
+  sum_groups_kernel<T><<<(unsigned)((n + 31) / 32), 32 * kSumSlices, 0,
+                         stream>>>(part_k, part_v, (T*)dck, (T*)dcv, B, G,
+                                   D);
   return cudaGetLastError();
 }
 

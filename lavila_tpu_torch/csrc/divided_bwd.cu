@@ -16,9 +16,10 @@
 // dK = scale*dS^T.Q, dV = P^T.dO.
 //
 // Determinism: blocks run in no order, so nothing is summed across blocks
-// with atomics. The CLS rows' gradient of each group is written to an
-// fp32 partial (B, G, D), and sum_groups_kernel adds the G partials of a
-// clip in a fixed order. Two calls on the same inputs give the same bits.
+// with atomics. The CLS rows' gradient of each group (or tile of groups)
+// is written to an fp32 partial (B, G, D), and sum_groups_kernel adds the
+// G partials of a clip in a fixed order. Two calls on the same inputs
+// give the same bits.
 //
 // K1 bwd, spatial phase: one (clip, frame, head) sees N <= 256 queries
 // and the N+1 keys [ck; k_f] (larger frames go to K6's entry point,
@@ -82,12 +83,43 @@
 //    queries, then dK, dV.
 //
 // K2 bwd, temporal phase: one (clip, position, head) sees F queries and
-// F+1 keys, so one warp owns it, each lane holding d/32 dims as in the
-// forward. A first sweep over the queries computes the scores as warp
-// reductions, dq, and the CLS rows' share; it leaves P and dS (F x F
-// scalars per warp) in shared memory, and a second sweep over the keys
-// forms dK and dV from them. Bound by reading q/k/v/dO/O (L2 serves the
-// re-reads); F = 16 runs the same code as F = 4.
+// F+1 keys. 10(F+1)/16 FLOPs a byte of q/k/v/dO/O/dq/dk/dv in bf16 (3.1 at
+// F = 4, 10.6 at 16): bound by bytes, 77 MB at TSF-B's (8, 4, 196, 768),
+// 0.0231 ms at 3.35 TB/s; 0.092 ms at the fine-tune's 16 frames; 0.0905
+// at TSF-L@336. Two kernels, picked as the forward's:
+//
+//  * bf16, head_dim 64, F <= 16, q/k/v/dO/O rows on 16-byte boundaries:
+//    time_bwd_tc, one pass over the forward's slab tiles (the first
+//    version swept twice, re-reading K and V for every (query, key) pair
+//    and Q and dO for every key, with two warp reductions a pair):
+//    - q/k/v/dO/O of a tile come in by cp.async into five slabs, one
+//      block per tile, as the forward.
+//    - One warp per head, on mma.sync: delta = rowsum(dO O) from the
+//      fragments; S = Q K^T and dP = dO V^T; P = exp2(S - lse) from the
+//      saved lse (+inf on rows past the tile, whose P and dS are then
+//      zero) under the block-diagonal mask; dS = P (dP - delta). P and
+//      dS go to a per-warp scratch (bf16, rows padded to 48 bytes) and
+//      come back transposed by ldmatrix as the A fragments of dV = P^T dO
+//      and dK = dS^T Q; dq = dS K (dS from registers) + dS_cls ck. Each
+//      result is written over a slab that no later product of the warp
+//      reads (dV over dO, dK over O, dq over Q), then stored in 16-byte
+//      rows.
+//    - The CLS key's column stays out of the products: its P, dP and dS
+//      are per-row dots, and the tile's share of dck = scale sum dS_cls q
+//      and dcv = sum P_cls dO is summed over the tile's rows inside the
+//      warp (a reduce-scatter over the 8 lanes that share columns: 28
+//      shuffles) in a fixed order, one fp32 partial per tile: (B,
+//      ceil(N / (16 / F)), D), a quarter of the first version's (B, N, D)
+//      at F = 4.
+//    - Numerics: P stays fp32 for dS; P and dS are rounded to bf16 as
+//      the products' operands, as the JAX kernel rounds them
+//      (divided.py:248, :258); bf16 rounding only.
+//  * everything else (fp32, other head sizes, unaligned rows, F > 16):
+//    time_bwd_kernel, SIMT, one warp per (clip, position, head) with each
+//    lane holding d/32 dims: a first sweep over the queries computes the
+//    scores as warp reductions, dq and the CLS rows' share (per position:
+//    partials (B, N, D)), leaving P and dS (F x F per warp) in shared
+//    memory for a second sweep over the keys that forms dK and dV.
 
 #include <math.h>
 
@@ -96,13 +128,16 @@
 namespace {
 
 using lavila::allow_smem;
+using lavila::cp_async_commit;
 using lavila::from_float;
 using lavila::launch_sum_groups;
 using lavila::ld32;
+using lavila::pack_bf16;
 using lavila::quad_sum;
 using lavila::to_float;
 using lavila::unpack_bf16;
 using lavila::warp_sum;
+namespace tslab = lavila::tslab;
 
 constexpr int kWarps = 8;           // warps per block, every kernel here
 constexpr int kMaxDimsPerLane = 4;  // head_dim <= 128
@@ -310,6 +345,9 @@ using namespace lavila::sm90;  // tiles, barriers, the ring, wgmma
 constexpr int kDkvWG = 2;      // consumer warpgroups a dk/dv block
 constexpr int kTcStages = 4;   // ring slots
 constexpr unsigned kStatBytes = 2 * kTile * sizeof(float);  // lse, delta
+// K2's per-warp P and dS scratch: 16 keys a row padded to 24 bf16 (48
+// bytes), so the 8 rows an ldmatrix reads start 12 banks apart
+constexpr int kTimeScratchLd = 24;
 
 // dq: grid (ceil(N / (64 WG)), H, B*F), 128 WG + 32 threads: warpgroup
 // w < WG owns queries 64 (WG blockIdx.x + w) .. +63 (its query tile
@@ -785,6 +823,196 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// K2 bwd on the tensor cores, laid out as the forward: a block of G warps
+// per tile (16 / F positions x G heads of one clip, all F frames), one
+// warp per head; grid (H / G, tiles, B). part_k/part_v: fp32 (B, tiles,
+// D), each tile's share of dck/dcv.
+template <int G>
+__global__ void __launch_bounds__(G * 32)
+    time_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ ck,
+                       const __nv_bfloat16* __restrict__ cv,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const __nv_bfloat16* __restrict__ out,
+                       const float* __restrict__ lse,
+                       __nv_bfloat16* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv,
+                       float* __restrict__ part_k, float* __restrict__ part_v,
+                       int F, int N, int H, long long q_rs, long long k_rs,
+                       long long v_rs, long long ck_rs, long long cv_rs,
+                       float scale) {
+  using Geo = tslab::Geo<G>;
+  using bf16 = __nv_bfloat16;
+  constexpr int ld = Geo::kLd, E = Geo::kElems;
+  constexpr int lp = kTimeScratchLd;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + E;
+  bf16* vs = qs + 2 * E;
+  bf16* gs = qs + 3 * E;  // dO
+  bf16* os = qs + 4 * E;  // O
+  const tslab::Tile tile(F, N, blockIdx.y, blockIdx.z);
+  const tslab::Rows<G> rows(tile);
+  const int col0 = blockIdx.x * Geo::kCols;
+  const long long D = (long long)H * tslab::kD;
+  tslab::load<G>(qs, q, q_rs, rows, col0);
+  tslab::load<G>(ks, k, k_rs, rows, col0);
+  tslab::load<G>(vs, v, v_rs, rows, col0);
+  tslab::load<G>(gs, dout, D, rows, col0);
+  tslab::load<G>(os, out, D, rows, col0);
+  cp_async_commit();
+
+  // while the copies land: this warp's head, its CLS rows, its rows' lse
+  // (log2 domain; +inf on invalid rows, whose P and dS are then zero) and
+  // which keys each row sees
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x * G + warp, hc = h * tslab::kD;
+  float2 ckf[8], cvf[8];
+  tslab::cls_pairs(ckf, ck + tile.b * ck_rs + hc, t);
+  tslab::cls_pairs(cvf, cv + tile.b * cv_rs + hc, t);
+  const float l0 =
+      tile.valid(g) ? lse[tile.row(g) * H + h] * kLog2e : INFINITY;
+  const float l1 =
+      tile.valid(g + 8) ? lse[tile.row(g + 8) * H + h] * kLog2e : INFINITY;
+  bool allowed[2][2][2];
+  tslab::keys_seen(allowed, tile, g, t);
+  tslab::cp_async_wait_all();
+  __syncthreads();
+
+  const int hw = warp * tslab::kD;  // the warp's columns in the slabs
+  bf16* pw = os + E + warp * 2 * 16 * lp;  // this warp's P, then dS
+  bf16* dw = pw + 16 * lp;
+  unsigned qa[4][4], ga[4][4];
+  tslab::rows_a<ld>(qa, qs + hw, lane);
+  tslab::rows_a<ld>(ga, gs + hw, lane);
+  float delta0 = 0.f, delta1 = 0.f;  // rowsum(dO * O)
+  {
+    unsigned oa[4][4];
+    tslab::rows_a<ld>(oa, os + hw, lane);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const float2 a0 = unpack_bf16(ga[kk][i]),
+                     b0 = unpack_bf16(oa[kk][i]);
+        const float2 a1 = unpack_bf16(ga[kk][i + 1]),
+                     b1 = unpack_bf16(oa[kk][i + 1]);
+        delta0 = fmaf(a0.x, b0.x, fmaf(a0.y, b0.y, delta0));
+        delta1 = fmaf(a1.x, b1.x, fmaf(a1.y, b1.y, delta1));
+      }
+  }
+  delta0 = quad_sum(delta0);
+  delta1 = quad_sum(delta1);
+  const float c2 = scale * kLog2e;
+  // the CLS key: P, dP = dO . cv, dS
+  const float pc0 = fast_exp2(tslab::row_dot(qa, ckf, 0) * c2 - l0);
+  const float pc1 = fast_exp2(tslab::row_dot(qa, ckf, 1) * c2 - l1);
+  const float dsc0 = pc0 * (tslab::row_dot(ga, cvf, 0) - delta0);
+  const float dsc1 = pc1 * (tslab::row_dot(ga, cvf, 1) - delta1);
+  // the frame keys: S = Q K^T, dP = dO V^T, then P and dS in place
+  float p[2][4], ds[2][4];
+  tslab::scores<ld>(p, qa, ks + hw, lane);
+  tslab::scores<ld>(ds, ga, vs + hw, lane);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float p0 =
+          allowed[0][nt][e] ? fast_exp2(p[nt][e] * c2 - l0) : 0.f;
+      const float p1 =
+          allowed[1][nt][e] ? fast_exp2(p[nt][2 + e] * c2 - l1) : 0.f;
+      ds[nt][e] = p0 * (ds[nt][e] - delta0);
+      ds[nt][2 + e] = p1 * (ds[nt][2 + e] - delta1);
+      p[nt][e] = p0;
+      p[nt][2 + e] = p1;
+    }
+
+  // this tile's share of dck = scale sum dS_cls q and dcv = sum P_cls dO:
+  // per lane red[2j], red[2j + 1] at dck's columns 8j + 2t, +1 (rows g
+  // and g + 8), red[16 + ...] at dcv's; then a reduce-scatter over the 8
+  // lanes of one t (xor 16, 8, 4: 28 shuffles, each step halving what a
+  // lane keeps), after which lane (g, t) holds the sums of values 4g ..
+  // 4g + 3
+  float red[32];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int j = 2 * kk + hi;
+      const float2 q0 = unpack_bf16(qa[kk][2 * hi]),
+                   q1 = unpack_bf16(qa[kk][2 * hi + 1]);
+      const float2 g0 = unpack_bf16(ga[kk][2 * hi]),
+                   g1 = unpack_bf16(ga[kk][2 * hi + 1]);
+      red[2 * j] = fmaf(dsc0, q0.x, dsc1 * q1.x);
+      red[2 * j + 1] = fmaf(dsc0, q0.y, dsc1 * q1.y);
+      red[16 + 2 * j] = fmaf(pc0, g0.x, pc1 * g1.x);
+      red[17 + 2 * j] = fmaf(pc0, g0.y, pc1 * g1.y);
+    }
+  tslab::halve<16>(red, lane);
+  tslab::halve<8>(red, lane);
+  tslab::halve<4>(red, lane);
+  {
+    const int jj = 2 * (g & 3);  // this lane's pair of 8-column groups
+    const float mul = g < 4 ? scale : 1.f;
+    float* part = (g < 4 ? part_k : part_v) +
+                  ((long long)tile.b * gridDim.y + blockIdx.y) * D + hc +
+                  8 * jj + 2 * t;
+    *reinterpret_cast<float2*>(part) =
+        make_float2(red[0] * mul, red[1] * mul);
+    *reinterpret_cast<float2*>(part + 8) =
+        make_float2(red[2] * mul, red[3] * mul);
+  }
+
+  // P and dS (bf16) to this warp's scratch, read back transposed as the
+  // A fragments of dV = P^T dO and dK = dS^T Q
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int c = 8 * nt + 2 * t;
+    *reinterpret_cast<unsigned*>(pw + g * lp + c) =
+        pack_bf16(p[nt][0], p[nt][1]);
+    *reinterpret_cast<unsigned*>(pw + (g + 8) * lp + c) =
+        pack_bf16(p[nt][2], p[nt][3]);
+    *reinterpret_cast<unsigned*>(dw + g * lp + c) =
+        pack_bf16(ds[nt][0], ds[nt][1]);
+    *reinterpret_cast<unsigned*>(dw + (g + 8) * lp + c) =
+        pack_bf16(ds[nt][2], ds[nt][3]);
+  }
+  __syncwarp();
+  const int tr =
+      ((lane >> 4) * 8 + (lane & 7)) * lp + ((lane >> 3) & 1) * 8;
+  unsigned a[4];
+  float acc[8][4];
+  // each product's result goes to this warp's columns of a slab that no
+  // later product reads: dV over dO, dK over O, dq over Q
+  tslab::ldsm_x4_t(a, pw + tr);
+  tslab::times_rows<ld>(acc, a, gs + hw, lane);
+  __syncwarp();
+  tslab::put_rows<ld>(gs + hw, acc, 1.f, 1.f, lane);
+  tslab::ldsm_x4_t(a, dw + tr);
+  tslab::times_rows<ld>(acc, a, qs + hw, lane);
+  __syncwarp();
+  tslab::put_rows<ld>(os + hw, acc, scale, scale, lane);
+  tslab::acc_a(a, ds);  // dq = scale (dS K + dS_cls ck)
+  tslab::times_rows<ld>(acc, a, ks + hw, lane);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[j][0] = fmaf(dsc0, ckf[j].x, acc[j][0]);
+    acc[j][1] = fmaf(dsc0, ckf[j].y, acc[j][1]);
+    acc[j][2] = fmaf(dsc1, ckf[j].x, acc[j][2]);
+    acc[j][3] = fmaf(dsc1, ckf[j].y, acc[j][3]);
+  }
+  __syncwarp();
+  tslab::put_rows<ld>(qs + hw, acc, scale, scale, lane);
+  __syncthreads();
+  tslab::store<G>(dq, qs, D, rows, col0);
+  tslab::store<G>(dk, os, D, rows, col0);
+  tslab::store<G>(dv, gs, D, rows, col0);
+}
+
 template <typename T>
 cudaError_t launch_space_bwd(const void* q, const void* k, const void* v,
                              const void* ck, const void* cv, const void* dout,
@@ -839,6 +1067,33 @@ cudaError_t launch_time_bwd(const void* q, const void* k, const void* v,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_groups<T>((const float*)part_k, (const float*)part_v,
                               dck, dcv, B, N, (long long)H * d, stream);
+}
+
+template <int G>
+cudaError_t launch_time_bwd_tc(const void* q, const void* k, const void* v,
+                               const void* ck, const void* cv,
+                               const void* dout, const void* out,
+                               const void* lse, void* dq, void* dk, void* dv,
+                               void* dck, void* dcv, void* part_k,
+                               void* part_v, int B, int F, int N, int H,
+                               long long q_rs, long long k_rs, long long v_rs,
+                               long long ck_rs, long long cv_rs, float scale,
+                               cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = 5 * tslab::Geo<G>::kBytes +
+                      (size_t)G * 2 * tslab::kRows * kTimeScratchLd * 2;
+  cudaError_t err = allow_smem(time_bwd_tc_kernel<G>, smem);
+  if (err != cudaSuccess) return err;
+  const int span = tslab::kRows / F, tiles = (N + span - 1) / span;
+  time_bwd_tc_kernel<G><<<dim3(H / G, tiles, B), G * 32, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ck,
+      (const bf16*)cv, (const bf16*)dout, (const bf16*)out, (const float*)lse,
+      (bf16*)dq, (bf16*)dk, (bf16*)dv, (float*)part_k, (float*)part_v, F, N,
+      H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_sum_groups<bf16>((const float*)part_k, (const float*)part_v,
+                                 dck, dcv, B, tiles,
+                                 (long long)H * tslab::kD, stream);
 }
 
 template <int WG>
@@ -934,7 +1189,8 @@ cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
 // Plain C interface, loaded with ctypes. dtype: 0 = fp32, 1 = bf16.
 // part_k/part_v: fp32 scratch the caller allocates: (B, F*ceil(N/64), D)
 // for the spatial phase's tensor-core kernels, (B, F, D) for its SIMT
-// ones, (B, N, D) for the temporal phase; stats: fp32 scratch (B, F, H,
+// ones, (B, ceil(N / (16 / F)), D) for the temporal phase's tensor-core
+// kernel, (B, N, D) for its SIMT one; stats: fp32 scratch (B, F, H,
 // ceil(N/64), 2, 64) for the spatial phase's tensor-core kernels (each
 // 64-query tile's lse, then its delta), unread by the SIMT ones (may be
 // NULL). Returns the cudaError_t of
@@ -975,6 +1231,8 @@ int lavila_divided_space_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// tc: 1 runs the slab kernel on the tensor cores (bf16; refused with
+// cudaErrorInvalidValue where time_tc_fits does not hold), 0 the SIMT one.
 int lavila_divided_time_bwd(const void* q, const void* k, const void* v,
                             const void* ck, const void* cv, const void* dout,
                             const void* out, const void* lse, void* dq,
@@ -982,9 +1240,29 @@ int lavila_divided_time_bwd(const void* q, const void* k, const void* v,
                             void* part_k, void* part_v, int B, int F, int N,
                             int H, int d, long long q_rs, long long k_rs,
                             long long v_rs, long long ck_rs, long long cv_rs,
-                            float scale, int dtype, void* stream) {
+                            float scale, int dtype, int tc, void* stream) {
   if (d < 1 || d > 32 * kMaxDimsPerLane) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tc) {
+    if (dtype != 1 || !lavila::time_tc_fits({q, k, v, dout, out}, ck, cv, F,
+                                            d, q_rs, k_rs, v_rs, ck_rs,
+                                            cv_rs))
+      return (int)cudaErrorInvalidValue;
+    switch (tslab::heads_per_block(H)) {
+      case 4:
+        return (int)launch_time_bwd_tc<4>(
+            q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+            part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+      case 2:
+        return (int)launch_time_bwd_tc<2>(
+            q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+            part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+      default:
+        return (int)launch_time_bwd_tc<1>(
+            q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+            part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+    }
+  }
   if (dtype == 0)
     return (int)launch_time_bwd<float>(
         q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k, part_v,

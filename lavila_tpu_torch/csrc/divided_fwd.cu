@@ -73,11 +73,50 @@
 //    bank.
 //
 // K2, temporal phase: each query at (frame f, position n) attends over the
-// F keys at position n plus the CLS key. Only F+1 keys, so the phase is
-// bound by reading q/k/v from device memory. One warp owns one
-// (clip, position, head); each lane holds d/32 dims, the scores are warp
-// reductions and the softmax is online, so F is only bounded by the loop
-// (16 frames, the fine-tune clip length, runs the same code as 4).
+// F keys at position n plus the CLS key. Only F+1 keys: (F+1)/2 FLOPs a
+// byte of q/k/v/out in bf16 (2.5 at F = 4, 8.5 at the fine-tune's 16),
+// far under the H100's ~295 and under the ~20 that fp32 FMA issue covers,
+// so the phase is bound by moving its bytes: 38.5 MB at TSF-B's (8, 4,
+// 196, 768), 0.0116 ms at 3.35 TB/s; 0.046 ms at 16 frames; 0.0454 ms at
+// TSF-L@336's (8, 4, 576, 1024). Two kernels (kernels/divided.py asks for
+// the tensor cores by `tc`; the entry point refuses a call that
+// time_tc_fits does not take):
+//
+//  * bf16, head_dim 64, F <= 16, q/k/v rows on 16-byte boundaries:
+//    time_fwd_tc, the slab kernel. The first version (one warp per
+//    (clip, position, head), 2 bytes a lane) read every key and value
+//    row once per query frame, F^2 row reads, and spent a 5-step warp
+//    shuffle chain and two expf in series on every (query, key) pair.
+//    Here:
+//    - A work item is a tile: 16 / F positions x G heads of one clip, all
+//      F frames: 16 rows (lavila::tslab in common.cuh). Its q, k and v
+//      rows come in by 16-byte cp.async copies (a row's G * 64 columns,
+//      512 bytes at G = 4) into one shared-memory slab per tensor, rows
+//      padded by 16 bytes so the 8 rows an ldmatrix reads start 4 banks
+//      apart: every input byte is read from device memory once.
+//    - One block per tile, as many resident on an SM as registers and
+//      shared memory allow (25 KB and ~64 registers a thread at G = 4):
+//      their copies and arithmetic overlap across blocks. The head groups
+//      of one tile are neighbouring blocks, so the blocks that run
+//      together read the same rows' other columns. A thread's rows and
+//      their offsets are worked out once a tile, without an integer
+//      division (tslab::Tile).
+//    - One warp per head: its 16 rows are mma.sync m16n8k16's m16 (bf16
+//      in, fp32 accumulate). S = Q K^T takes the tile's 16 rows as keys
+//      under a block-diagonal mask (a query sees its own position's
+//      frames); the CLS key's score is a dot over each lane's 16 columns
+//      and a quad sum, so no product is padded for it. The softmax stays
+//      in registers (quad shuffles only), exp2 with the scale folded in;
+//      O = P V (P from the S accumulators) + p_cls cv, written through
+//      the warp's columns of the query slab to 16-byte stores.
+//    - Numerics: the unnormalised P = exp(s - m) is rounded to bf16 for
+//      P V and the sum divided at the end; the JAX kernel rounds the
+//      normalised P (divided.py:198-201): bf16 rounding only, within the
+//      2e-2 limit.
+//  * everything else (fp32, whose 1e-4 bound rules out bf16 tensor cores,
+//    other head sizes, unaligned rows, more than 16 frames):
+//    time_fwd_kernel, SIMT: one warp per (clip, position, head), each lane
+//    holding d/32 dims, the scores warp reductions, the softmax online.
 
 #include <math.h>
 
@@ -86,6 +125,7 @@
 namespace {
 
 using lavila::allow_smem;
+using lavila::cp_async_commit;
 using lavila::from_float;
 using lavila::ld32;
 using lavila::quad_max;
@@ -94,6 +134,7 @@ using lavila::to_float;
 using lavila::unpack_bf16;
 using lavila::warp_max;
 using lavila::warp_sum;
+namespace tslab = lavila::tslab;
 
 constexpr int kWarps = 8;           // warps per block, the SIMT kernels
 constexpr int kMaxDimsPerLane = 4;  // head_dim <= 128
@@ -464,6 +505,107 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// K2 on the tensor cores: a block of G warps per tile (16 / F positions x
+// G heads of one clip, all F frames), one warp per head; grid (H / G,
+// tiles, B), so the blocks that run together read the other heads'
+// columns of the same rows.
+template <int G>
+__global__ void __launch_bounds__(G * 32)
+    time_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ ck,
+                       const __nv_bfloat16* __restrict__ cv,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int F, int N, int H,
+                       long long q_rs, long long k_rs, long long v_rs,
+                       long long ck_rs, long long cv_rs, float scale) {
+  using Geo = tslab::Geo<G>;
+  using bf16 = __nv_bfloat16;
+  constexpr int ld = Geo::kLd, E = Geo::kElems;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // then k, v
+  const tslab::Tile tile(F, N, blockIdx.y, blockIdx.z);
+  const tslab::Rows<G> rows(tile);
+  const int col0 = blockIdx.x * Geo::kCols;
+  tslab::load<G>(qs, q, q_rs, rows, col0);
+  tslab::load<G>(qs + E, k, k_rs, rows, col0);
+  tslab::load<G>(qs + 2 * E, v, v_rs, rows, col0);
+  cp_async_commit();
+
+  // while the copies land: this warp's head, its CLS rows, its rows' and
+  // keys' places in the tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x * G + warp, hc = h * tslab::kD;
+  float2 ckf[8], cvf[8];
+  tslab::cls_pairs(ckf, ck + tile.b * ck_rs + hc, t);
+  tslab::cls_pairs(cvf, cv + tile.b * cv_rs + hc, t);
+  bool allowed[2][2][2];
+  tslab::keys_seen(allowed, tile, g, t);
+  tslab::cp_async_wait_all();
+  __syncthreads();
+
+  const int hw = warp * tslab::kD;  // the warp's columns in the slabs
+  unsigned qa[4][4];
+  tslab::rows_a<ld>(qa, qs + hw, lane);
+  const float c2 = scale * kLog2e;  // scores to the log2 domain
+  const float sc0 = tslab::row_dot(qa, ckf, 0) * c2;
+  const float sc1 = tslab::row_dot(qa, ckf, 1) * c2;
+  float s[2][4];
+  tslab::scores<ld>(s, qa, qs + E + hw, lane);
+  // softmax over the CLS key and the row's own position's frames
+  float m0 = sc0, m1 = sc1;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = allowed[0][nt][e] ? s[nt][e] * c2 : -INFINITY;
+      s[nt][2 + e] = allowed[1][nt][e] ? s[nt][2 + e] * c2 : -INFINITY;
+      m0 = fmaxf(m0, s[nt][e]);
+      m1 = fmaxf(m1, s[nt][2 + e]);
+    }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[nt][e] = fast_exp2(s[nt][e] - m0);
+      s[nt][2 + e] = fast_exp2(s[nt][2 + e] - m1);
+      l0 += s[nt][e];
+      l1 += s[nt][2 + e];
+    }
+  const float pc0 = fast_exp2(sc0 - m0), pc1 = fast_exp2(sc1 - m1);
+  l0 = quad_sum(l0) + pc0;
+  l1 = quad_sum(l1) + pc1;
+  // O = P V + p_cls cv, P unnormalised in bf16, divided by the sum at the
+  // end
+  unsigned pa[4];
+  tslab::acc_a(pa, s);
+  float o[8][4];
+  tslab::times_rows<ld>(o, pa, qs + 2 * E + hw, lane);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    o[j][0] = fmaf(pc0, cvf[j].x, o[j][0]);
+    o[j][1] = fmaf(pc0, cvf[j].y, o[j][1]);
+    o[j][2] = fmaf(pc1, cvf[j].x, o[j][2]);
+    o[j][3] = fmaf(pc1, cvf[j].y, o[j][3]);
+  }
+  // the output through this warp's columns of the query slab (its own
+  // queries are in registers) to 16-byte stores
+  tslab::put_rows<ld>(qs + hw, o, 1.f / l0, 1.f / l1, lane);
+  if (t == 0) {
+    if (tile.valid(g))
+      lse[tile.row(g) * H + h] = (m0 + log2f(l0)) * kLn2;
+    if (tile.valid(g + 8))
+      lse[tile.row(g + 8) * H + h] = (m1 + log2f(l1)) * kLn2;
+  }
+  __syncthreads();
+  tslab::store<G>(out, qs, (long long)H * tslab::kD, rows, col0);
+}
+
 template <typename T>
 cudaError_t launch_space(const void* q, const void* k, const void* v,
                          const void* ck, const void* cv, void* out, void* lse,
@@ -492,6 +634,26 @@ cudaError_t launch_time(const void* q, const void* k, const void* v,
       (const T*)q, (const T*)k, (const T*)v, (const T*)ck, (const T*)cv,
       (T*)out, (float*)lse, B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs,
       scale);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_time_tc(const void* q, const void* k, const void* v,
+                           const void* ck, const void* cv, void* out,
+                           void* lse, int B, int F, int N, int H,
+                           long long q_rs, long long k_rs, long long v_rs,
+                           long long ck_rs, long long cv_rs, float scale,
+                           cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = 3 * tslab::Geo<G>::kBytes;
+  cudaError_t err = allow_smem(time_fwd_tc_kernel<G>, smem);
+  if (err != cudaSuccess) return err;
+  const int span = tslab::kRows / F;
+  time_fwd_tc_kernel<G><<<dim3(H / G, (N + span - 1) / span, B), G * 32,
+                          smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ck,
+      (const bf16*)cv, (bf16*)out, (float*)lse, F, N, H, q_rs, k_rs, v_rs,
+      ck_rs, cv_rs, scale);
   return cudaGetLastError();
 }
 
@@ -582,14 +744,35 @@ int lavila_divided_space_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// tc: 1 runs the slab kernel on the tensor cores (bf16; refused with
+// cudaErrorInvalidValue where time_tc_fits does not hold), 0 the SIMT one.
 int lavila_divided_time_fwd(const void* q, const void* k, const void* v,
                             const void* ck, const void* cv, void* out,
                             void* lse, int B, int F, int N, int H, int d,
                             long long q_rs, long long k_rs, long long v_rs,
                             long long ck_rs, long long cv_rs, float scale,
-                            int dtype, void* stream) {
+                            int dtype, int tc, void* stream) {
   if (d < 1 || d > 32 * kMaxDimsPerLane) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (tc) {
+    if (dtype != 1 || !lavila::time_tc_fits({q, k, v}, ck, cv, F, d, q_rs,
+                                            k_rs, v_rs, ck_rs, cv_rs))
+      return (int)cudaErrorInvalidValue;
+    switch (tslab::heads_per_block(H)) {
+      case 4:
+        return (int)launch_time_tc<4>(q, k, v, ck, cv, out, lse, B, F, N, H,
+                                      q_rs, k_rs, v_rs, ck_rs, cv_rs, scale,
+                                      s);
+      case 2:
+        return (int)launch_time_tc<2>(q, k, v, ck, cv, out, lse, B, F, N, H,
+                                      q_rs, k_rs, v_rs, ck_rs, cv_rs, scale,
+                                      s);
+      default:
+        return (int)launch_time_tc<1>(q, k, v, ck, cv, out, lse, B, F, N, H,
+                                      q_rs, k_rs, v_rs, ck_rs, cv_rs, scale,
+                                      s);
+    }
+  }
   if (dtype == 0)
     return (int)launch_time<float>(q, k, v, ck, cv, out, lse, B, F, N, H, d,
                                    q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);

@@ -32,10 +32,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # argtypes of each C entry point; ctypes would cut an undeclared pointer
 # to 32 bits
-_FWD = ([_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int)
-# the spatial phase's (K1's and K6's) forward and backward take a
+# the divided phases' (K1's, K2's and K6's) forward and backward take a
 # tensor-core flag after dtype
-_SPACE_FWD = (_FWD[0][:-1] + [_I, _P], ctypes.c_int)
+_PHASE_FWD = ([_P] * 7 + [_I] * 5 + [_LL] * 5 + [_F, _I, _I, _P],
+              ctypes.c_int)
 _SPACE_BWD = ([_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _I, _P],
               ctypes.c_int)
 # B, H, Lq, Lk, d, the q/k/v row strides, scale, causal, dtype, stream;
@@ -43,13 +43,13 @@ _SPACE_BWD = ([_P] * 16 + [_I] * 5 + [_LL] * 5 + [_F, _I, _I, _P],
 _FLASH_TAIL = [_I] * 5 + [_LL] * 3 + [_F, _I, _I, _P]
 _FLASH_TC_TAIL = _FLASH_TAIL[:-1] + [_I, _P]
 _SIGNATURES = {
-    "lavila_divided_space_fwd": _SPACE_FWD,
-    "lavila_divided_time_fwd": _FWD,
-    "lavila_divided_space_big_fwd": _SPACE_FWD,
+    "lavila_divided_space_fwd": _PHASE_FWD,
+    "lavila_divided_time_fwd": _PHASE_FWD,
+    "lavila_divided_space_big_fwd": _PHASE_FWD,
     "lavila_divided_space_bwd": _SPACE_BWD,
     "lavila_divided_space_big_bwd": _SPACE_BWD,
     "lavila_divided_time_bwd": (
-        [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P], ctypes.c_int),
+        [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _I, _P], ctypes.c_int),
     "lavila_decode_attention": (
         [_P] * 6 + [_I] * 4 + [_LL] * 3 + [_F, _I, _P], ctypes.c_int),
     "lavila_flash_attention": ([_P] * 4 + _FLASH_TC_TAIL, ctypes.c_int),

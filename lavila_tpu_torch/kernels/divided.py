@@ -12,8 +12,13 @@ A spatial phase over frames of more than 256 patches (the 336px towers'
 576) goes to K6's entry points, as ``lavila_tpu/ops/attention.py:359-377``
 routes it; in bf16 at head_dim 64 K1 and K6 run the same tensor-core
 kernels (:func:`space_branch` picks them, one rule for both), and only
-their SIMT kernels (fp32, other head sizes, unaligned rows) differ. K1
-and K6 share one contract, the JAX function's: patch tokens
+their SIMT kernels (fp32, other head sizes, unaligned rows) differ. K2
+(the temporal phase) takes its slab kernels on the tensor cores in bf16
+at head_dim 64 up to 16 frames (:func:`time_branch`: tiles of 16 // F
+positions x every frame, read once into shared memory), and its SIMT
+kernels otherwise. Every launch counts under its kernel and branch
+(``launches["time_tc"]``, ``["space_bwd_simt"]``, ...). K1, K2 and K6
+share one contract, the JAX function's: patch tokens
 token-major ``(B, F, N, D = heads * head_dim)``, the CLS token's
 key/value rows ``(B, D)`` folded into every group's softmax, outputs
 ``(B, F, N, D)`` and the per-row log-sum-exp ``(B, F, N, heads)`` in
@@ -40,16 +45,17 @@ import torch
 
 from lavila_tpu_torch.kernels import build
 
-# kernel launches in this process, a plain int per kernel, K1's and K6's
-# split by the branch they took ("tc": the tensor cores, "simt"); a caller
-# zeroes them to count one run
-launches = {"space_tc": 0, "space_simt": 0, "time": 0, "space_big_tc": 0,
-            "space_big_simt": 0, "space_bwd_tc": 0, "space_bwd_simt": 0,
-            "time_bwd": 0, "space_big_bwd_tc": 0, "space_big_bwd_simt": 0}
+# kernel launches in this process, a plain int per kernel and branch
+# ("tc": the tensor cores, "simt"); a caller zeroes them to count one run
+launches = {f"{name}_{branch}": 0
+            for name in ("space", "time", "space_big", "space_bwd",
+                         "time_bwd", "space_big_bwd")
+            for branch in ("tc", "simt")}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SPACE_TOKENS = 256  # larger frames go to K6 (spatial_phase_big)
-_TC_TILE = 64  # the tensor-core kernels' tiles: 64 queries (or keys)
+_TC_TILE = 64  # the spatial tensor-core kernels' tiles: 64 queries (keys)
+_TIME_ROWS = 16  # K2's slab: 16 // F positions x F frames, one mma.sync m16
 
 
 def divided_phase_reference(qp, kp, vp, ck, cv, axis: str, heads: int,
@@ -160,34 +166,67 @@ def _strides(qp, kp, vp, ck, cv) -> list[int]:
             ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
 
 
-def space_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None) -> str:
+def _tc_rows_fit(qp, kp, vp, ck, cv, heads: int, do, out, rs=None) -> bool:
+    """bf16 at head_dim 64 with q/k/v rows (and dO, O where given) on
+    16-byte boundaries and ck/cv readable as bf16 pairs: what every
+    tensor-core kernel of the divided phases copies. ``rs``: the five
+    row strides, where the caller has them."""
+    D = qp.shape[3]
+    if qp.dtype != torch.bfloat16 or D // heads != 64 or qp.shape[2] < 1:
+        return False
+    rs = rs or _strides(qp, kp, vp, ck, cv)
+    wide = [t for t in (qp, kp, vp, do, out) if t is not None]
+    return not (any(t.data_ptr() % 16 for t in wide)
+                or any(s % 8 for s in rs[:3])
+                or any(t.data_ptr() % 4 for t in (ck, cv))
+                or any(s % 2 for s in rs[3:]))
+
+
+def space_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None,
+                 rs=None) -> str:
     """The spatial-phase kernels a call takes, K1's and K6's alike: "tc",
     the tensor-core ones (bf16, head_dim 64, q/k/v rows, dO and O on
     16-byte boundaries for TMA, ck/cv read as bf16 pairs), or "simt".
     The C entry points refuse a "tc" call outside these conditions
     (``space_tc_fits``, ``space_bwd_tc_fits`` in ``csrc/``); pass
     ``do``/``out`` for the backward's."""
-    N, D = qp.shape[2], qp.shape[3]
-    if qp.dtype != torch.bfloat16 or D // heads != 64 or N < 1:
-        return "simt"
-    rs = _strides(qp, kp, vp, ck, cv)
-    wide = [t for t in (qp, kp, vp, do, out) if t is not None]
-    pairs = (ck, cv)
-    if any(t.data_ptr() % 16 for t in wide) or any(s % 8 for s in rs[:3]) \
-            or any(t.data_ptr() % 4 for t in pairs) \
-            or any(s % 2 for s in rs[3:]):
-        return "simt"
-    return "tc"
+    return "tc" if _tc_rows_fit(qp, kp, vp, ck, cv, heads, do, out, rs) \
+        else "simt"
 
 
-def _partials_shape(name: str, branch, B: int, F: int, N: int,
+def time_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None,
+                rs=None) -> str:
+    """The temporal-phase (K2) kernels a call takes: "tc", the slab
+    kernels on the tensor cores (the spatial ones' row conditions, for
+    cp.async, and at most 16 frames: a tile's 16 rows hold every frame of
+    16 // F positions), or "simt" (fp32, other head sizes, unaligned
+    rows, more frames). The C entry points refuse a "tc" call outside
+    these conditions (``time_tc_fits`` in ``csrc/common.cuh``); pass
+    ``do``/``out`` for the backward's."""
+    fits = qp.shape[1] <= _TIME_ROWS and _tc_rows_fit(qp, kp, vp, ck, cv,
+                                                      heads, do, out, rs)
+    return "tc" if fits else "simt"
+
+
+def phase_branch(qp, kp, vp, ck, cv, axis: str, heads: int, do=None,
+                 out=None, rs=None) -> str:
+    """:func:`space_branch` or :func:`time_branch` by ``axis`` (``rs``:
+    the row strides, where the caller has them)."""
+    pick = space_branch if axis == "space" else time_branch
+    return pick(qp, kp, vp, ck, cv, heads, do, out, rs)
+
+
+def _partials_shape(name: str, branch: str, B: int, F: int, N: int,
                     D: int) -> tuple:
     """The fp32 partials of dck/dcv, ``(B, groups, D)``, summed over the
     groups in a fixed order: one per (frame, 64-query tile) for the
     spatial phase's tensor-core kernels (K1 and K6), per frame for its
-    SIMT ones, per position for K2."""
+    SIMT ones; for K2 one per slab tile (16 // F positions, every frame,
+    summed over the tile inside the block) on the tensor cores, per
+    position on SIMT."""
     if name == "time":
-        return (B, N, D)
+        span = _TIME_ROWS // F if branch == "tc" else 1
+        return (B, -(-N // span), D)
     if branch == "tc":
         return (B, F * -(-N // _TC_TILE), D)
     return (B, F, D)
@@ -201,6 +240,8 @@ def _stats_shape(name: str, branch, B: int, F: int, N: int,
     rowsum(dO·O), written by the dq kernel and read by the dk/dv kernel in
     one copy; for K6's SIMT kernels delta per (row, head), written by its
     own pass; K1's SIMT kernels and K2 compute delta where they use it."""
+    if name == "time":
+        return None
     if branch == "tc":
         return (B, F, H, -(-N // _TC_TILE), 2, _TC_TILE)
     if name == "space_big":
@@ -216,22 +257,21 @@ def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
     if qp.device.type != "cuda":
         raise ValueError(f"no divided-attention kernel for {qp.device}")
     name = _kernel_name(qp, axis, heads)
-    branch = space_branch(qp, kp, vp, ck, cv, heads) \
-        if axis == "space" else None
+    rs = _strides(qp, kp, vp, ck, cv)
+    branch = phase_branch(qp, kp, vp, ck, cv, axis, heads, rs=rs)
     B, F, N, D = qp.shape
     fn = getattr(build.library(), f"lavila_divided_{name}_fwd")
     out = torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
     lse = torch.empty((B, F, N, heads), dtype=torch.float32,
                       device=qp.device)
-    tc = [] if branch is None else [int(branch == "tc")]
     with torch.cuda.device(qp.device):
         err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), ck.data_ptr(),
                  cv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, F, N,
-                 heads, D // heads, *_strides(qp, kp, vp, ck, cv),
-                 float(scale), _DTYPES[qp.dtype], *tc,
+                 heads, D // heads, *rs,
+                 float(scale), _DTYPES[qp.dtype], int(branch == "tc"),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, f"divided_{name}_fwd")
-    launches[name if branch is None else f"{name}_{branch}"] += 1
+    launches[f"{name}_{branch}"] += 1
     return out, lse
 
 
@@ -263,8 +303,8 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     if not (do.is_contiguous() and out.is_contiguous()
             and lse.is_contiguous()):
         raise ValueError("do/out/lse must be contiguous")
-    branch = space_branch(qp, kp, vp, ck, cv, heads, do, out) \
-        if axis == "space" else None
+    rs = _strides(qp, kp, vp, ck, cv)
+    branch = phase_branch(qp, kp, vp, ck, cv, axis, heads, do, out, rs)
     fn = getattr(build.library(), f"lavila_divided_{name}_bwd")
     grads = [torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
              for _ in range(3)]
@@ -279,16 +319,14 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     scratch = [] if axis == "time" else [
         None if stats is None
         else torch.empty(stats, dtype=torch.float32, device=qp.device)]
-    tc = [] if branch is None else [int(branch == "tc")]
     with torch.cuda.device(qp.device):
         err = fn(*(None if t is None else t.data_ptr() for t in (
             qp, kp, vp, ck, cv, do, out, lse, *scratch, *grads, *parts)),
-                 B, F, N, heads, D // heads, *_strides(qp, kp, vp, ck, cv),
-                 float(scale), _DTYPES[qp.dtype], *tc,
+                 B, F, N, heads, D // heads, *rs,
+                 float(scale), _DTYPES[qp.dtype], int(branch == "tc"),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, f"divided_{name}_bwd")
-    launches[f"{name}_bwd" if branch is None
-             else f"{name}_bwd_{branch}"] += 1
+    launches[f"{name}_bwd_{branch}"] += 1
     return tuple(grads)
 
 

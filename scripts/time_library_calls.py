@@ -28,13 +28,21 @@ calls, K3's forward, K7, K8's forward and backward and K9, at their
 main-path shapes by the profiler's device time (the kernels' own time,
 without the wrapper's host cost that their event times carry), the
 port's kernel and the library call in turns on the same input
-(``scripts/time_spatial_phase.py``'s ``measure``). K7 and K8 run at the
+(``scripts/time_spatial_phase.py``'s ``measure``), and K3's backward
+and K2's forward and backward likewise. K7 and K8 run at the
 text towers' shapes: 16 captions x 8 heads (TSF-B's b16 step), 32 x 12
 (TSF-L@336's b32 remat step) and 256 x 8, on in_proj views; K8's
 backward is ``flash_bwd``, whichever kernels it launches, beside SDPA's
-backward by autograd:
+backward by autograd. K2 runs at TSF-B's (8, 4, 196, 768, 12 heads),
+the fine-tune's 16 frames (8, 16, 196, 768, 12) and TSF-L@336's (8, 4,
+576, 1024, 16), on strided qkv views, with the launch counter each call
+bumps (its branch). ``--repo`` times another checkout's kernels (an
+unpacked ``git archive`` of a parent commit) and then only the device
+times, which are all that depend on the tree, so that two trees can be
+timed in turns in one call:
 
-    python3 scripts/time_library_calls.py [--out chiprun_out/lib.json]
+    python3 scripts/time_library_calls.py [--repo DIR --label NAME] \
+        [--out chiprun_out/lib.json]
 
 Needs a CUDA device, ``nvcc`` and ``triton``.
 """
@@ -43,11 +51,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 
 import torch
 from torch.nn import functional as F
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -175,20 +186,25 @@ def flash_bwd_call(q, k, v, do, causal: bool):
                                        retain_graph=True)
 
 
+# K2's shapes (B, F, N, D, heads): TSF-B, the fine-tune's 16 frames,
+# TSF-L@336
+TIME_CASES = ((8, 4, 196, 768, 12), (8, 16, 196, 768, 12),
+              (8, 4, 576, 1024, 16))
+
+
 def kernel_device_times(gen) -> list:
-    """K3 forward (TSF-B's 6272 x 768 rows and a decode step's (160, 1,
-    1600)), K7 and K8's forward and backward (the text towers' causal
-    attention: 16 captions x 8 heads, 32 x 12 and 256 x 8, 77 tokens of
-    64) and K9 (160 GPT-2 XL rows, 15 valid of 77), bf16: the port's
-    kernel and the library call, kernel, library, library, kernel, each
-    by the profiler's device time and by CUDA events."""
-    import os
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    """K2 forward and backward (:data:`TIME_CASES`), K3 forward (TSF-B's
+    6272 x 768 rows and a decode step's (160, 1, 1600)) and backward
+    (6272 x 768), K7 and K8's forward and backward (the text towers'
+    causal attention: 16 captions x 8 heads, 32 x 12 and 256 x 8, 77
+    tokens of 64) and K9 (160 GPT-2 XL rows, 15 valid of 77), bf16: the
+    port's kernel and the library call, kernel, library, library,
+    kernel, each by the profiler's device time and by CUDA events."""
+    sys.path.insert(0, HERE)
     from time_spatial_phase import measure
 
     from lavila_tpu_torch.kernels import decode as KDec
+    from lavila_tpu_torch.kernels import divided as KD
     from lavila_tpu_torch.kernels import flash as KF
     from lavila_tpu_torch.kernels import layernorm as KL
     bf16 = torch.bfloat16
@@ -197,11 +213,30 @@ def kernel_device_times(gen) -> list:
         return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
 
     cases = []
+    for B, F_, N, D, H in TIME_CASES:
+        q, k, v = rand(B, F_, N, 3 * D).chunk(3, dim=-1)
+        _, ck, cv = rand(B, 3 * D).chunk(3, dim=-1)
+        scale = (D // H) ** -0.5
+        fwd = (q, k, v, ck, cv, "time", H, scale)
+        out, lse = KD.divided_phase(*fwd)
+        do = rand(B, F_, N, D)
+        bwd = (q, k, v, ck, cv, do, out, lse, "time", H, scale)
+        cases.append(("K2", [B, F_, N, D, H],
+                      lambda fwd=fwd: KD.divided_phase(*fwd),
+                      divided_fwd_call(q, k, v, ck, cv, "time", H)))
+        cases.append(("K2 bwd", [B, F_, N, D, H],
+                      lambda bwd=bwd: KD.divided_phase_bwd(*bwd),
+                      divided_bwd_call(q, k, v, ck, cv, do, "time", H)))
     for shape in ((8 * 4 * 196, 768), (160, 1, 1600)):
         x, w, b = rand(*shape), rand(shape[-1]), rand(shape[-1])
         cases.append(("K3", list(shape),
                       lambda x=x, w=w, b=b: KL.layer_norm(x, w, b, 1e-6),
                       layer_norm_call(x, w, b, 1e-6)))
+    x, w, b, dy = (rand(8 * 4 * 196, 768), rand(768), rand(768),
+                   rand(8 * 4 * 196, 768))
+    cases.append(("K3 bwd", list(x.shape),
+                  lambda: KL.layer_norm_bwd(x, w, dy, 1e-6),
+                  layer_norm_bwd_call(x, w, b, dy, 1e-6)))
     scale = 64 ** -0.5
     for B, H in ((16, 8), (32, 12), (256, 8)):
         q, k, v = rand(B, 77, 3 * H * 64).reshape(B, 77, 3 * H, 64).chunk(
@@ -223,14 +258,20 @@ def kernel_device_times(gen) -> list:
     cases.append(("K9", [160, 77, 1600, 25, 15],
                   lambda: KDec.decode_attention(*dec), decode_call(*dec)))
     lines = []
+    counters = [KD.launches, KL.launches, KF.launches, KDec.launches]
     # no_grad, not inference_mode: SDPA's backward runs autograd
     with torch.no_grad():
         for name, shape, kernel, lib in cases:
+            before = [dict(c) for c in counters]
+            kernel()
+            bumped = [k for c, b in zip(counters, before) for k, n in c.items()
+                      if n != b[k]]
             runs = {"kernel": [], "library": []}
             for who in ("kernel", "library", "library", "kernel"):
                 runs[who].append(measure(kernel if who == "kernel" else lib,
                                          50))
             lines.append({"kernel": name, "shape": shape, "dtype": "bfloat16",
+                          "counter": bumped,
                           **{f"{who}_{k}": [r[k] for r in rs]
                              for who, rs in runs.items()
                              for k in ("device_ms", "event_ms")},
@@ -241,16 +282,25 @@ def kernel_device_times(gen) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", default="",
+                    help="time this checkout's kernels (device times only)")
+    ap.add_argument("--label", default="",
+                    help="a name for the tree, copied into every line")
     ap.add_argument("--out", default="", help="also write the lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_library_calls: needs a CUDA device", file=sys.stderr)
         return 2
+    sys.path.insert(0, os.path.abspath(args.repo or os.path.dirname(HERE)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.repo:
+        lines = kernel_device_times(gen)
+        _write(lines, smi, args)
+        return 0
     lines = []
 
     def rand(*shape, dtype):
@@ -320,13 +370,21 @@ def main(argv=None) -> int:
                           "causal": causal, "dtype": name, "library_ms":
                           time_ms(flash_bwd_call(q, k, v, do, causal))})
     lines += kernel_device_times(gen)
-    for line in lines:
-        print(json.dumps({"device": smi, **line}), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            for line in lines:
-                f.write(json.dumps({"device": smi, **line}) + "\n")
+    _write(lines, smi, args)
     return 0
+
+
+def _write(lines, smi: str, args) -> None:
+    """Print the lines, with the card and the tree's label; append them
+    to ``--out``."""
+    lines = [{"device": smi, "tree": args.label, **line} for line in lines]
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "a") as f:
+            for line in lines:
+                f.write(json.dumps(line) + "\n")
 
 
 if __name__ == "__main__":

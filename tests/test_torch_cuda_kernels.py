@@ -31,7 +31,12 @@ def gen():
 # K1 (space) and K2 (time) cases; in bf16 every K1 case at head_dim 64
 # takes the tensor-core kernels: 64-query blocks over 64-key tiles, the
 # last one masked (N = 1, 63, 64, 65, 200 are the ragged edges; 150 is
-# 3 query tiles, which the dq kernel runs on blocks of 2 warpgroups)
+# 3 query tiles, which the dq kernel runs on blocks of 2 warpgroups).
+# In bf16 every K2 case at head_dim 64 with F <= 16 takes the slab
+# kernels: tiles of 16 // F positions x F frames (F = 1, 2, 4, 5, 16:
+# 16, 8, 4, 3 and 1 positions, the last tile ragged at N = 1, 7, 196,
+# 577), 4 heads a block where they divide H, else 2 (H = 6), else 1
+# (H = 3); F = 17 and head_dim 32 or 96 take the SIMT kernels.
 PHASE_CASES = [
     ("space", 2, 4, 196, 12, 64),   # TSF-B's frame: 3 full tiles + 4 keys
     ("space", 2, 4, 256, 16, 64),   # TSF-L@224's frame: 4 full tiles
@@ -39,19 +44,26 @@ PHASE_CASES = [
     *[("space", 1, 2, n, 2, 64) for n in (1, 63, 64, 65, 150, 200)],
     ("space", 1, 3, 37, 4, 32),     # SIMT kernels (head_dim 32)
     ("space", 1, 2, 256, 2, 64),    # N = 256, two heads
-    ("time", 2, 4, 196, 12, 64),
-    ("time", 1, 16, 50, 12, 64),
-    ("time", 3, 5, 7, 2, 96),
+    ("time", 2, 4, 196, 12, 64),    # TSF-B: 49 tiles of 4 positions
+    ("time", 1, 16, 50, 12, 64),    # the fine-tune's 16 frames
+    ("time", 3, 5, 7, 2, 96),       # SIMT kernels (head_dim 96)
+    ("time", 2, 1, 7, 4, 64),       # one frame: 16 positions a tile
+    ("time", 2, 2, 1, 4, 64),       # one position
+    ("time", 1, 2, 577, 2, 64),     # 8 positions a tile, 1 in the last
+    ("time", 2, 5, 196, 6, 64),     # 3 positions (15 rows), 2 heads a block
+    ("time", 1, 16, 7, 3, 64),      # one head a block
+    ("time", 1, 4, 577, 16, 64),    # TSF-L@336's width, a ragged tile
+    ("time", 1, 16, 1, 4, 64),
+    ("time", 1, 17, 7, 4, 64),      # past the slab: SIMT
+    ("time", 1, 4, 7, 2, 32),       # SIMT kernels (head_dim 32)
 ]
 
 
-def _counter(axis, dtype, d, bwd=False):
-    """The launch counter a call bumps: K2's own, K1's by branch (bf16 at
-    head_dim 64 on aligned rows is the tensor cores')."""
+def _counter(axis, dtype, d, bwd=False, F=4):
+    """The launch counter a call bumps, by branch: bf16 at head_dim 64 on
+    aligned rows is the tensor cores' (for K2 up to 16 frames)."""
     name = f"{axis}_bwd" if bwd else axis
-    if axis != "space":
-        return name
-    tc = dtype == torch.bfloat16 and d == 64
+    tc = dtype == torch.bfloat16 and d == 64 and (axis == "space" or F <= 16)
     return f"{name}_{'tc' if tc else 'simt'}"
 
 
@@ -65,7 +77,7 @@ def test_divided_phase_kernel(gen, axis, B, F, N, H, d, dtype):
     q, k, v = qkv.chunk(3, dim=-1)
     _, ck, cv = cls.chunk(3, dim=-1)
     args = (q, k, v, ck, cv, axis, H, d ** -0.5)
-    key = _counter(axis, dtype, d)
+    key = _counter(axis, dtype, d, F=F)
     before = KD.launches[key]
     out, lse = KD.divided_phase(*args)
     assert KD.launches[key] == before + 1
@@ -102,6 +114,39 @@ def test_space_kernel_odd_row_stride(gen):
     bwd = (q, k, v, ck, cv, do, out, lse, "space", H, d ** -0.5)
     got = KD.divided_phase_bwd(*bwd)
     assert KD.launches["space_bwd_simt"] == before["space_bwd_simt"] + 1
+    want = KD.divided_phase_bwd_reference(*(t.float() for t in bwd[:8]),
+                                          *bwd[8:])
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("pad", [1, 2])
+def test_time_kernel_unaligned_rows(gen, pad):
+    """K2 on rows the slab's 16-byte copies cannot take (an odd row
+    stride, or rows off 16-byte boundaries) runs the SIMT kernels, forward
+    and backward, within the bf16 limit."""
+    B, F, N, H, d = 2, 4, 37, 4, 64
+    D = H * d
+    base = torch.randn(B, F, N, 3 * D + pad, generator=gen,
+                       device="cuda").bfloat16()
+    q, k, v = base[..., :3 * D].chunk(3, dim=-1)
+    cls = torch.randn(B, 3 * D + pad, generator=gen, device="cuda").bfloat16()
+    _, ck, cv = cls[:, :3 * D].chunk(3, dim=-1)
+    assert KD.time_branch(q, k, v, ck, cv, H) == "simt"
+    before = dict(KD.launches)
+    out, lse = KD.divided_phase(q, k, v, ck, cv, "time", H, d ** -0.5)
+    assert KD.launches["time_simt"] == before["time_simt"] + 1
+    ref, ref_lse = KD.divided_phase_reference(
+        q.float(), k.float(), v.float(), ck.float(), cv.float(), "time", H,
+        d ** -0.5)
+    torch.testing.assert_close(out.float(), ref, rtol=0,
+                               atol=TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, rtol=0,
+                               atol=TOL[torch.bfloat16])
+    do = torch.randn(B, F, N, D, generator=gen, device="cuda").bfloat16()
+    bwd = (q, k, v, ck, cv, do, out, lse, "time", H, d ** -0.5)
+    got = KD.divided_phase_bwd(*bwd)
+    assert KD.launches["time_bwd_simt"] == before["time_bwd_simt"] + 1
     want = KD.divided_phase_bwd_reference(*(t.float() for t in bwd[:8]),
                                           *bwd[8:])
     for g, w in zip(got, want):
@@ -162,7 +207,7 @@ def test_divided_phase_bwd_kernel(gen, axis, B, F, N, H, d, dtype):
     out, lse = KD.divided_phase(q, k, v, ck, cv, axis, H, d ** -0.5)
     do = torch.randn(B, F, N, D, generator=gen, device="cuda").to(dtype)
     args = (q, k, v, ck, cv, do, out, lse, axis, H, d ** -0.5)
-    key = _counter(axis, dtype, d, bwd=True)
+    key = _counter(axis, dtype, d, bwd=True, F=F)
     before = KD.launches[key]
     got = KD.divided_phase_bwd(*args)
     assert KD.launches[key] == before + 1

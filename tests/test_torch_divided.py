@@ -32,6 +32,8 @@ def _phase_inputs(B, F, N, H, d, seed):
     ("time", 2, 4, 24, 3, 16),
     ("space", 1, 16, 8, 2, 16),
     ("time", 1, 16, 8, 2, 16),
+    ("time", 1, 8, 13, 2, 16),      # 8 frames: K2's slab holds 2 positions
+    ("time", 1, 16, 11, 2, 16),     # 16 frames, N off the Pallas row tile
     ("space", 1, 2, 196, 12, 64),   # TSF-B frame: N=196, 12 heads of 64
     ("time", 1, 4, 196, 12, 64),
     ("space", 1, 2, 256, 2, 64),    # TSF-L@224 frame: N=256
@@ -166,7 +168,7 @@ def test_space_routing_and_partials(N, dtype, d, pad, name, branch):
     tiles = -(-N // 64)
     want = (B, F * tiles, D) if branch == "tc" else (B, F, D)
     assert K._partials_shape(name, branch, B, F, N, D) == want
-    assert K._partials_shape("time", None, B, F, N, D) == (B, N, D)
+    assert K._partials_shape("time", "simt", B, F, N, D) == (B, N, D)
     stats = {"tc": (B, F, H, tiles, 2, 64)}.get(
         branch, (B, F, N, H) if name == "space_big" else None)
     assert K._stats_shape(name, branch, B, F, N, H) == stats
@@ -183,3 +185,41 @@ def test_space_branch_backward_needs_aligned_do(N):
     assert K.space_branch(q, k, v, ck, cv, 2, do.contiguous(), out) == "tc"
     assert K.space_branch(q, k, v, ck, cv, 2, do, out) == "simt"
     assert K.space_branch(q, k, v, ck, cv, 2, out, do) == "simt"
+
+
+@pytest.mark.parametrize("F,N,dtype,d,pad,H,branch", [
+    (4, 196, torch.bfloat16, 64, 0, 12, "tc"),    # TSF-B: 4 positions a tile
+    (16, 196, torch.bfloat16, 64, 0, 12, "tc"),   # the fine-tune: 1
+    (4, 576, torch.bfloat16, 64, 0, 16, "tc"),    # TSF-L@336
+    (1, 7, torch.bfloat16, 64, 0, 3, "tc"),       # 16 positions, ragged
+    (5, 7, torch.bfloat16, 64, 0, 2, "tc"),       # 3 positions (15 rows)
+    (17, 7, torch.bfloat16, 64, 0, 2, "simt"),    # past the slab's 16 rows
+    (4, 196, torch.float32, 64, 0, 12, "simt"),   # fp32: the 1e-4 limit
+    (4, 196, torch.bfloat16, 32, 0, 12, "simt"),  # head_dim 32
+    (4, 196, torch.bfloat16, 64, 1, 12, "simt"),  # odd row stride
+    (4, 196, torch.bfloat16, 64, 2, 12, "simt"),  # rows off 16 bytes
+])
+def test_time_routing_and_partials(F, N, dtype, d, pad, H, branch):
+    """K2's branch (the slab kernels on the tensor cores up to 16 frames
+    of aligned bf16 rows at head_dim 64, else SIMT; dO and O must be
+    aligned too for the backward's) and the dck/dcv partials its backward
+    allocates: one per tile of 16 // F positions on the tensor cores, one
+    per position on SIMT; no scratch."""
+    B = 2
+    D = H * d
+    qkv = torch.zeros(B, F, N, 3 * D + pad, dtype=dtype)
+    cls = torch.zeros(B, 3 * D + pad, dtype=dtype)
+    q, k, v = qkv[..., :3 * D].chunk(3, dim=-1)
+    _, ck, cv = cls[:, :3 * D].chunk(3, dim=-1)
+    assert K._kernel_name(q, "time", H) == "time"
+    assert K.time_branch(q, k, v, ck, cv, H) == branch
+    assert K.phase_branch(q, k, v, ck, cv, "time", H) == branch
+    span = 16 // F if branch == "tc" else 1
+    assert K._partials_shape("time", branch, B, F, N, D) == \
+        (B, -(-N // span), D)
+    assert K._stats_shape("time", branch, B, F, N, H) is None
+    if branch == "tc":
+        do = torch.zeros(B, F, N, D + 1, dtype=dtype)[..., 1:]
+        out = torch.zeros(B, F, N, D, dtype=dtype)
+        assert K.time_branch(q, k, v, ck, cv, H, out, out) == "tc"
+        assert K.time_branch(q, k, v, ck, cv, H, do, out) == "simt"

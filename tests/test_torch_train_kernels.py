@@ -18,7 +18,9 @@ torch.set_num_threads(1)
 
 PHASES = [("space", 2, 4, 24, 3, 16), ("time", 2, 4, 24, 3, 16),
           ("space", 1, 16, 8, 2, 16), ("time", 1, 16, 8, 2, 16),
-          ("space", 1, 2, 256, 2, 64)]  # TSF-L@224's frame
+          ("space", 1, 2, 256, 2, 64),  # TSF-L@224's frame
+          ("time", 1, 8, 13, 2, 16),    # 8 frames
+          ("time", 1, 16, 11, 2, 16)]   # 16, N off the Pallas row tile
 GRADS = ("dq", "dk", "dv", "dck", "dcv")
 
 
