@@ -38,10 +38,14 @@ and prints no result. Phases, each printing JSON lines:
      (``scripts/time_library_calls.py``). kernel_bwd: the same for the
      backward kernels (K8's whole backward: the fused kernel up to 128
      tokens, dq then dk/dv past it and in fp32; K1 also at
-     TSF-L@224's N = 256, bf16 at batch 8 and fp32 at batch 1), on strided
-     qkv views, errors relative to the reference's largest value, and two
-     calls checked bit-identical; K1's and K6's with the floor of their
-     tensor-core split (7 products against the bound's 5).
+     TSF-L@224's N = 256, bf16 at batch 8 and fp32 at batch 1; the
+     LayerNorm backward, K3/K4/K5 bwd, one CUDA kernel: also on ragged
+     rows (6273), one row, CLS rows (8, 1024), the fine-tune's (25088,
+     768), D = 1600 and bf16 rows with fp32 γ, each with the branch it
+     took), on strided qkv views, errors relative to the reference's
+     largest value, and two calls checked bit-identical; K1's and K6's
+     with the floor of their tensor-core split (7 products against the
+     bound's 5).
   4. model: CLIP_OPENAI_TIMESFORMER_BASE from a seeded generator, time
      attention given seeded noise (its zero init would make K2's check
      vacuous), embeddings on the kernel path against the plain functions
@@ -106,7 +110,10 @@ summary line sums those runs' counts (K1's, K2's and K6's also by
 branch: every divided-phase launch of a path runs bf16 at head_dim 64
 and at most 16 frames, so on the tensor cores, which the bf16 encodes,
 the bf16 train steps (TSF-B, TSF-L@224, the fine-tune, TSF-L@336 with
-and without remat) and the narrators' bf16 encodes check too; K7's
+and without remat) and the narrators' bf16 encodes check too; the
+LayerNorm backward's by branch, one launch a call: the one-block branch
+for the CLS rows of a batch that one block's rings hold, the cooperative
+grid for the rest, which every train step on the kernels checks; K7's
 and K8's by branch as well: the bf16 text towers take the tensor-core
 forward and the fused backward only, which the bf16 encodes and steps
 check too). The text tower runs K7 under inference_mode (serving) and
@@ -141,13 +148,14 @@ DEVICE = "cuda"
 # K6), each with the CLIP text tower; "space" names the spatial phase's
 # kernel
 MODEL = {"name": "CLIP_OPENAI_TIMESFORMER_BASE", "img": 224, "depth": 12,
-         "text_depth": 12, "embed": 256, "space": "K1", "serve_batch": 32}
+         "width": 768, "text_depth": 12, "embed": 256, "space": "K1",
+         "serve_batch": 32}
 LARGE224 = {"name": "CLIP_OPENAI_TIMESFORMER_LARGE", "img": 224,
-            "depth": 24, "text_depth": 12, "embed": 256, "space": "K1",
-            "serve_batch": 8}
+            "depth": 24, "width": 1024, "text_depth": 12, "embed": 256,
+            "space": "K1", "serve_batch": 8}
 LARGE = {"name": "CLIP_OPENAI_TIMESFORMER_LARGE_336PX", "img": 336,
-         "depth": 24, "text_depth": 12, "embed": 256, "space": "K6",
-         "serve_batch": 8}
+         "depth": 24, "width": 1024, "text_depth": 12, "embed": 256,
+         "space": "K6", "serve_batch": 8}
 # Each kernel case is held against the plain version run in fp32 on the
 # same input values, so the bound is the kernel's own error. fp32:
 # summation order only; bf16: the kernels compute in fp32 and round the
@@ -321,6 +329,8 @@ def path_counts() -> dict:
             by[b] += _counter(m).get(f"{key}_{b}", 0)
         if name in FUSED_INTO:
             by["fused"] += _counter("flash")["flash_bwd_fused"]
+    for b in LN_BWD_BRANCHES:
+        PATH_LN_BWD[b] += _counter("layernorm")[b]
     return launch_counts()
 
 
@@ -349,9 +359,68 @@ def check_flash_tc(what: str) -> None:
 
 
 def reset_launch_counts() -> None:
-    for m, key in COUNTERS.values():
-        for k in _counter_keys(m, key):
-            _counter(m)[k] = 0
+    for m in ("divided", "layernorm", "decode", "flash"):
+        counter = _counter(m)
+        for k in counter:
+            counter[k] = 0
+
+
+LN_BWD_CALLS = ("layernorm_bwd", "add_layernorm_bwd",
+                "add_layernorm_nosum_bwd")
+LN_BWD_BRANCHES = ("ln_bwd_grid", "ln_bwd_block")
+# the LayerNorm backward's launches on the path runs by branch, filled by
+# path_counts()
+PATH_LN_BWD = dict.fromkeys(LN_BWD_BRANCHES, 0)
+
+
+def _ln_bwd_block_calls(m, batch: int, dtype) -> int:
+    """LayerNorm backward calls of one train step of dual encoder ``m``
+    at ``batch`` clips whose rows one block's rings hold at once: the CLS
+    rows' (norm3, norm1, norm2 a block, ln_pre's CLS half and the final
+    norm), where ``batch`` rows fit; the patches', the text tower's (77
+    rows a caption) and K4's/K5's take the grid."""
+    from lavila_tpu_torch.kernels import layernorm as KL
+    plan = KL.bwd_shape(m["width"], torch.empty((), dtype=dtype)
+                        .element_size(), 2)
+    return 3 * m["depth"] + 2 if batch <= plan.warps * plan.slots else 0
+
+
+@contextmanager
+def trace_ln_bwd_kernels(out: list):
+    """Appends to ``out`` the launches of the LayerNorm backward kernel
+    (``ln_bwd_kernel``, any instantiation) that the profiler saw on the
+    device while the block ran."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+        torch.cuda.synchronize()
+    out.append(sum(1 for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "ln_bwd" in ev.name))
+
+
+def check_ln_bwd(what: str, m=None, batch: int = 0, steps: int = 1,
+                 dtype=torch.bfloat16, device_launches=None) -> None:
+    """After a run on the kernels (the counters zeroed before it): every
+    LayerNorm backward call (K3, K4, K5) took one of the CUDA kernel's two
+    branches; with dual encoder ``m`` trained ``steps`` steps at
+    ``batch`` clips, the one-block branch exactly for the calls
+    :func:`_ln_bwd_block_calls` names. Where the run was traced
+    (:func:`trace_ln_bwd_kernels`), ``device_launches``, the kernel's
+    launches on the device, is one a call."""
+    from lavila_tpu_torch.kernels import layernorm as KL
+    n = KL.launches
+    calls = sum(n[k] for k in LN_BWD_CALLS)
+    ok = calls > 0 and sum(n[k] for k in LN_BWD_BRANCHES) == calls
+    if m is not None:
+        ok = ok and n["ln_bwd_block"] == steps * _ln_bwd_block_calls(
+            m, batch, dtype)
+    if device_launches is not None:
+        ok = ok and device_launches == calls
+    check(ok, f"{what}: LayerNorm backward calls by branch "
+          f"{ {k: n[k] for k in LN_BWD_CALLS + LN_BWD_BRANCHES} }, "
+          f"device launches {device_launches}")
 
 
 def _encode_launches(m) -> dict:
@@ -689,7 +758,9 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
 # TSF-L@224 (N = 256) and at TSF-B's serving batch 32, K6 at the
 # TSF-L@336 remat step's batch 32, K2 at the fine-tune's 16 frames and
 # at TSF-L@336
-SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),),
+SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),
+                     ("finetune", (8 * 16 * 196, 768)), ("cls", (8, 1024)),
+                     ("text", (8, 77, 512))),
               "K1": (("tsf_l_224", (8, 4, 256, 1024, 16)),
                      ("b32", (32, 4, 196, 768, 12))),
               "K6": (("b32", (32, 4, 576, 1024, 16)),),
@@ -851,44 +922,62 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
             "library_ms": time_ms(lib)}
 
 
-def _ln_bwd_case(shape, dtype, gen) -> dict:
+def _ln_bwd_branch(call) -> tuple:
+    """``call()``'s result and the branches of the LayerNorm backward
+    kernel that it took, by the counters it bumped (one)."""
+    from lavila_tpu_torch.kernels import layernorm as KL
+    before = dict(KL.launches)
+    out = call()
+    return out, [k for k in ("ln_bwd_grid", "ln_bwd_block")
+                 if KL.launches[k] != before[k]]
+
+
+def _ln_bwd_case(shape, dtype, gen, wdtype=None) -> dict:
+    """K3 bwd; ``wdtype``: γ's dtype where it is not the rows' (the bf16
+    step's fp32 γ)."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(
+        wdtype or dtype)
     dy = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
-    got = KL.layer_norm_bwd(x, w, dy, 1e-6)
+    got, branch = _ln_bwd_branch(lambda: KL.layer_norm_bwd(x, w, dy, 1e-6))
     again = KL.layer_norm_bwd(x, w, dy, 1e-6)
     ref = KL.layer_norm_bwd_reference(x.float(), w.float(), dy.float(), 1e-6)
     torch.cuda.synchronize()
     errs = {n: _rel_err(a, b) for n, a, b in
             zip(("dx", "dweight", "dbias"), got, ref)}
     tol = TOL[dtype]
-    b = torch.zeros_like(w)
+    wl = w.to(dtype)  # F.layer_norm takes γ in the rows' dtype
+    b = torch.zeros_like(wl)
     # reads x, dy, w; writes dx, dw, db; ~12 fp32 operations per element
     return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
             "tol": tol, "deterministic": _all_equal(got, again),
-            "ok": max(errs.values()) <= tol and _all_equal(got, again),
+            "branch": branch, "gamma": dname(w.dtype),
+            "ok": max(errs.values()) <= tol and _all_equal(got, again)
+            and len(branch) == 1,
             "ms": time_ms(lambda: KL.layer_norm_bwd(x, w, dy, 1e-6)),
             "plain_ms": time_ms(
                 lambda: KL.layer_norm_bwd_reference(x, w, dy, 1e-6)),
             **bound((3 * x.numel() + 3 * D) * x.element_size(),
                     12 * x.numel(), torch.float32),
             "library_ms": time_ms(library().layer_norm_bwd_call(
-                x, w, b, dy, 1e-6))}
+                x, wl, b, dy, 1e-6))}
 
 
-def _add_ln_bwd_case(shape, dtype, gen, return_sum: bool) -> dict:
+def _add_ln_bwd_case(shape, dtype, gen, return_sum: bool,
+                     wdtype=None) -> dict:
     """K4 bwd (``return_sum``: from the saved sum, d(sum) folded into dx)
-    or K5 bwd (the pair re-added)."""
+    or K5 bwd (the pair re-added); ``wdtype`` as :func:`_ln_bwd_case`."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     a, b, dy, ds = (torch.randn(*shape, generator=gen, device=DEVICE)
                     .to(dtype) for _ in range(4))
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(
+        wdtype or dtype)
     args = ((a, None, w, dy, ds, 1e-6) if return_sum
             else (a, b, w, dy, None, 1e-6))
-    got = KL.add_layer_norm_bwd(*args)
+    got, branch = _ln_bwd_branch(lambda: KL.add_layer_norm_bwd(*args))
     again = KL.add_layer_norm_bwd(*args)
     ref = KL.add_layer_norm_bwd_reference(
         *(None if t is None else t.float() for t in args[:5]), 1e-6)
@@ -900,14 +989,16 @@ def _add_ln_bwd_case(shape, dtype, gen, return_sum: bool) -> dict:
     # dw, db; ~13 fp32 operations per element
     return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
             "tol": tol, "deterministic": _all_equal(got, again),
-            "ok": max(errs.values()) <= tol and _all_equal(got, again),
+            "branch": branch, "gamma": dname(w.dtype),
+            "ok": max(errs.values()) <= tol and _all_equal(got, again)
+            and len(branch) == 1,
             "ms": time_ms(lambda: KL.add_layer_norm_bwd(*args)),
             "plain_ms": time_ms(
                 lambda: KL.add_layer_norm_bwd_reference(*args)),
             **bound((4 * a.numel() + 3 * D) * a.element_size(),
                     13 * a.numel(), torch.float32),
             "library_ms": time_ms(library().add_layer_norm_bwd_call(
-                a, b, w, torch.zeros_like(w), dy,
+                a, b, w.to(dtype), torch.zeros_like(w, dtype=dtype), dy,
                 ds if return_sum else None, 1e-6))}
 
 
@@ -921,13 +1012,25 @@ def phase_kernels_bwd() -> dict:
         cases += [("K1 bwd", "space", (8, 4, 196, 768, 12), dtype),
                   ("K2 bwd", "time", (8, 4, 196, 768, 12), dtype),
                   ("K2 bwd", "time", (8, 16, 196, 768, 12), dtype),
-                  ("K6 bwd", "space", (2, 4, 576, 1024, 16), dtype),
-                  ("K3 bwd", "ln", (8, 77, 512), dtype),
-                  ("K3 bwd", "ln", (8 * 4 * 196, 768), dtype)]
+                  ("K6 bwd", "space", (2, 4, 576, 1024, 16), dtype)]
+        # the LayerNorm backward: the text tower's rows, TSF-B's patches
+        # and one row more, one row, TSF-L's CLS rows (one block), the
+        # fine-tune's 16 frames, GPT-2 XL's width
+        cases += [("K3 bwd", "ln", shape, dtype)
+                  for shape in ((8, 77, 512), (8 * 4 * 196, 768),
+                                (8 * 4 * 196 + 1, 768), (1, 768), (8, 1024),
+                                (8 * 16 * 196, 768), (64, 1600))]
         cases += [(k, kind, shape, dtype)
                   for k, kind in (("K4 bwd", "add_ln"),
                                   ("K5 bwd", "add_ln_nosum"))
-                  for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768))]
+                  for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768),
+                                (8 * 4 * 196 + 1, 768), (8, 1024))]
+    # bf16 rows with fp32 γ, as the bf16 train step hands them over
+    cases += [("K3 bwd", "ln+f32w", shape, torch.bfloat16)
+              for shape in ((8 * 4 * 196, 768), (8, 1024))]
+    cases += [(k, f"{kind}+f32w", (8 * 4 * 576, 1024), torch.bfloat16)
+              for k, kind in (("K4 bwd", "add_ln"),
+                              ("K5 bwd", "add_ln_nosum"))]
     cases += [("K6 bwd", "space", (8, 4, 576, 1024, 16), torch.bfloat16),
               ("K6 bwd", "space", (32, 4, 576, 1024, 16), torch.bfloat16),
               ("K2 bwd", "time", (8, 4, 576, 1024, 16), torch.bfloat16),
@@ -952,20 +1055,28 @@ def phase_kernels_bwd() -> dict:
         _summarise(summary, "K8 dkv", shape, dtype, res, ("abs_err_dkv",))
         torch.cuda.empty_cache()
     for name, kind, shape, dtype in cases:
+        # "+f32w": fp32 γ beside the rows' dtype
+        wdtype = torch.float32 if kind.endswith("+f32w") else None
         with torch.no_grad():
             if kind.startswith("add_ln"):
-                res = _add_ln_bwd_case(shape, dtype, gen, kind == "add_ln")
-            elif kind == "ln":
-                res = _ln_bwd_case(shape, dtype, gen)
+                res = _add_ln_bwd_case(shape, dtype, gen,
+                                       kind.startswith("add_ln+")
+                                       or kind == "add_ln", wdtype)
+            elif kind.startswith("ln"):
+                res = _ln_bwd_case(shape, dtype, gen, wdtype)
             else:
                 res = _phase_bwd_case(kind, *shape[:3], shape[3], shape[4],
                                       dtype, gen)
-        emit("kernel_bwd", kernel=name, shape=list(shape),
+        emit("kernel_bwd", kernel=name, case=kind, shape=list(shape),
              dtype=dname(dtype), **res)
         check(res["ok"], f"{name} {shape} {dtype}: relative errors "
               f"{res['rel_err']} > {res['tol']}, not deterministic "
               f"({res['deterministic']}) or branch {res.get('branch')}")
-        _summarise(summary, name, shape, dtype, res, ("abs_err",))
+        if wdtype is None:
+            _summarise(summary, name, shape, dtype, res, ("abs_err",))
+        else:  # its errors only
+            s = summary.setdefault(name, {"max_abs_err": 0.0})
+            s["max_abs_err"] = max(s["max_abs_err"], res["abs_err"])
         torch.cuda.empty_cache()
     return summary
 
@@ -1150,12 +1261,14 @@ def _train_batch(B, gen, size: int = 224, frames: int = 4):
     return {"frames": frames, "text": text, "relevancy": rel}
 
 
-def _run_steps(base, dtype, batch, plain: bool, steps: int = 2,
+def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
                retrieval: bool = False):
-    """``steps`` train steps from a copy of ``base`` (pretraining's, or
-    with ``retrieval`` the fine-tune's: adaptive max-margin, logit_scale
-    frozen): the losses, each step's fp32 gradients and the launch
-    counts of each step."""
+    """``steps`` train steps from a copy of ``base`` (dual encoder
+    ``m``; pretraining's, or with ``retrieval`` the fine-tune's: adaptive
+    max-margin, logit_scale frozen): the losses, each step's fp32
+    gradients and the launch counts of each step; on the kernels every
+    step's LayerNorm backward is checked by branch, and the first step's
+    launches of its kernel on the device (traced) one a call."""
     from lavila_tpu_torch.train.freeze import logit_scale_only
     from lavila_tpu_torch.train.step import (make_clip_train_step,
                                              make_retrieval_train_step)
@@ -1170,9 +1283,17 @@ def _run_steps(base, dtype, batch, plain: bool, steps: int = 2,
     with plain_path() if plain else nullcontext():
         for _ in range(steps):
             reset_launch_counts()
-            state, metrics = step_fn(state, batch)
-            torch.cuda.synchronize()
+            traced = []
+            with trace_ln_bwd_kernels(traced) if not plain and not counts \
+                    else nullcontext():
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
             counts.append(launch_counts())
+            if not plain:
+                check_ln_bwd(f"{m['name']} {dname(dtype)} train step "
+                             f"{len(counts)}", m,
+                             batch["frames"].shape[0], dtype=dtype,
+                             device_launches=traced[0] if traced else None)
             if dtype == torch.bfloat16 and not plain:
                 check_flash_tc(f"bf16 train step {len(counts)}")
                 check_tensor_cores(f"bf16 train step {len(counts)}", "K2",
@@ -1225,8 +1346,8 @@ def phase_train_step(m, batches: dict, throughput: tuple,
         if size not in data:
             data[size] = _train_batch(size, gen, m["img"])
         batch = data[size]
-        k_run = _run_steps(base, dtype, batch, False)
-        p_run = _run_steps(base, dtype, batch, True)
+        k_run = _run_steps(m, base, dtype, batch, False)
+        p_run = _run_steps(m, base, dtype, batch, True)
         res = _compare_steps(k_run, p_run)
         name = f"{m['name']} {dname(dtype)}"
         emit(phase, model=m["name"], dtype=dname(dtype), batch=size,
@@ -1296,8 +1417,8 @@ def phase_large_train_step() -> None:
     batch = _train_batch(2, gen, LARGE["img"])
     fp32 = torch.float32
     base = _clip_model(LARGE)
-    k_run = _run_steps(base, fp32, batch, False)
-    p_run = _run_steps(base, fp32, batch, True)
+    k_run = _run_steps(LARGE, base, fp32, batch, False)
+    p_run = _run_steps(LARGE, base, fp32, batch, True)
     res = _compare_steps(k_run, p_run)
     emit("large_train_step", model=LARGE["name"], dtype="float32", batch=2,
          steps=2, what="kernels vs plain", loss_kernels=k_run[0],
@@ -1316,7 +1437,7 @@ def phase_large_train_step() -> None:
     for remat in (False, True):
         model = _clip_model(LARGE, drop_path_rate=0.1, remat=remat)
         model.load_state_dict(base.state_dict())
-        runs[remat] = _run_steps(model, fp32, batch, False)
+        runs[remat] = _run_steps(LARGE, model, fp32, batch, False)
         del model
     res = _compare_steps(runs[True], runs[False])
     emit("large_train_step", model=LARGE["name"], dtype="float32", batch=2,
@@ -1354,6 +1475,7 @@ def phase_large_train_step() -> None:
             check_tensor_cores(f"TSF-L@336 bf16 step ({key})", "K6",
                                "K6 bwd", "K2", "K2 bwd")
             check_flash_tc(f"TSF-L@336 bf16 step ({key})")
+            check_ln_bwd(f"TSF-L@336 bf16 step ({key})", LARGE, 8, 7)
         rates.setdefault(key, []).append(rate)
         peaks.setdefault(key, []).append(peak)
     emit("train_throughput", what="train step clips/s", model=LARGE["name"],
@@ -1447,8 +1569,10 @@ def phase_finetune_step() -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     base = _clip_model(MODEL, num_frames=16)
     batch = _train_batch(4, gen, MODEL["img"], 16)
-    k_run = _run_steps(base, torch.float32, batch, False, retrieval=True)
-    p_run = _run_steps(base, torch.float32, batch, True, retrieval=True)
+    k_run = _run_steps(MODEL, base, torch.float32, batch, False,
+                       retrieval=True)
+    p_run = _run_steps(MODEL, base, torch.float32, batch, True,
+                       retrieval=True)
     res = _compare_steps(k_run, p_run)
     emit("finetune_step", model=MODEL["name"], dtype="float32", batch=4,
          frames=16, steps=2, loss="adaptive_max_margin",
@@ -1471,6 +1595,7 @@ def phase_finetune_step() -> None:
             rate, peak = _time_steps(state, step_fn, data, 5)
         if path == "kernels":  # K2 over 16 frames on the tensor cores
             check_tensor_cores("fine-tune bf16 step", "K2", "K2 bwd")
+            check_ln_bwd("fine-tune bf16 step", MODEL, 8, 7)
         rates.setdefault(path, []).append(rate)
         peaks.setdefault(path, []).append(peak)
     emit("train_throughput", what="retrieval fine-tune step clips/s",
@@ -1823,14 +1948,14 @@ KERNELS = [
     ("K2 bwd", "divided_time_bwd", "cuda",
      "lavila_tpu_torch/csrc/divided_bwd.cu",
      "lavila_tpu/ops/pallas/divided.py:207"),
-    ("K3 bwd", "layernorm_bwd", "triton",
-     "lavila_tpu_torch/kernels/layernorm.py",
+    ("K3 bwd", "layernorm_bwd", "cuda",
+     "lavila_tpu_torch/csrc/layernorm_bwd.cu",
      "lavila_tpu/ops/pallas/layernorm.py:82"),
-    ("K4 bwd", "add_layernorm_bwd", "triton",
-     "lavila_tpu_torch/kernels/layernorm.py",
+    ("K4 bwd", "add_layernorm_bwd", "cuda",
+     "lavila_tpu_torch/csrc/layernorm_bwd.cu",
      "lavila_tpu/ops/pallas/layernorm.py:243"),
-    ("K5 bwd", "add_layernorm_nosum_bwd", "triton",
-     "lavila_tpu_torch/kernels/layernorm.py",
+    ("K5 bwd", "add_layernorm_nosum_bwd", "cuda",
+     "lavila_tpu_torch/csrc/layernorm_bwd.cu",
      "lavila_tpu/ops/pallas/layernorm.py:273"),
     ("K6 bwd", "divided_space_big_bwd", "cuda",
      "lavila_tpu_torch/csrc/divided_bwd.cu",
@@ -1933,6 +2058,9 @@ def main() -> int:
                **{k: s.get(k) for k in _SUMMARY_KEYS},
                **{k: s[k] for k in _EXTRA_KEYS if k in s},
                "at": s.get("at"), **{side: s[side] for side in sides}}
+        if key in ("K3 bwd", "K4 bwd", "K5 bwd"):
+            # one kernel behind all three, its branches counted together
+            row["launches_by_branch"] = PATH_LN_BWD
         if key in PATH_BRANCHES:
             by = PATH_BRANCHES[key]
             row["launches_by_branch"] = by
@@ -1942,6 +2070,10 @@ def main() -> int:
                   f"{name}: launches off the tensor cores on the path {by}")
         rows.append(row)
         check(launches > 0, f"{name} never launched on the path")
+    ln_bwd = sum(counts[k] for k in ("K3 bwd", "K4 bwd", "K5 bwd"))
+    check(sum(PATH_LN_BWD.values()) == ln_bwd,
+          f"LayerNorm backward: {ln_bwd} calls on the paths, launches by "
+          f"branch {PATH_LN_BWD}")
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n  "

@@ -1,11 +1,13 @@
 // Helpers shared by the attention kernels (divided_fwd.cu,
-// divided_bwd.cu, divided_big.cu, flash_attention.cu): fp32/bf16
-// conversion, warp and quad reductions, the tensor-core product, cp.async
-// and the head_dim-64 fragment helpers of K8's split backward (past 128
-// tokens), Hopper's mbarriers, TMA copies, the refilled ring of tiles,
-// wgmma and the tensor map of a row view (the spatial phase's tensor-core
-// kernels, shared by K1 and K6, declared below; K7/K8's TMA kernels), and
-// the fixed-order sum of the divided backward kernels' per-group partials.
+// divided_bwd.cu, divided_big.cu, flash_attention.cu) and the LayerNorm
+// backward (layernorm_bwd.cu: conversion, warp sums, mbarriers, bulk
+// copies): fp32/bf16 conversion, warp and quad reductions, the
+// tensor-core product, cp.async and the head_dim-64 fragment helpers of
+// K8's split backward (past 128 tokens), Hopper's mbarriers, TMA copies,
+// the refilled ring of tiles, wgmma and the tensor map of a row view (the
+// spatial phase's tensor-core kernels, shared by K1 and K6, declared
+// below; K7/K8's TMA kernels), and the fixed-order sum of the divided
+// backward kernels' per-group partials.
 
 #pragma once
 

@@ -57,6 +57,14 @@ _SIGNATURES = {
     "lavila_flash_bwd_fused": ([_P] * 9 + _FLASH_TAIL, ctypes.c_int),
     "lavila_flash_bwd_dq": ([_P] * 8 + _FLASH_TC_TAIL, ctypes.c_int),
     "lavila_flash_bwd_dkv": ([_P] * 8 + _FLASH_TC_TAIL, ctypes.c_int),
+    # D, dtype, has_res, has_dsum, vec, per_lane, warps; out:
+    # blocks an SM, shared memory
+    "lavila_ln_bwd_occupancy": (
+        [_I] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2, ctypes.c_int),
+    # x, r, w, dy, ds, dx, dwb, part; R; D, rows_per_block, grid, warps,
+    # vec, per_lane; eps; dtype, wdtype; stream
+    "lavila_ln_bwd": ([_P] * 8 + [_LL] + [_I] * 6 + [_F] + [_I] * 2 + [_P],
+                      ctypes.c_int),
 }
 
 # set by the build in this process: its wall time and nvcc's output

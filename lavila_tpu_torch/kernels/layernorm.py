@@ -1,15 +1,15 @@
 """LayerNorm (K3) and the fused add + LayerNorm (K4, K5), forward and
-backward, Triton kernels.
+backward: Triton forward kernels, one CUDA C++ backward kernel.
 
 Replaces ``lavila_tpu/ops/pallas/layernorm.py``: ``fused_layernorm``
 (K3), ``fused_add_layernorm`` (K4: ``(LN(a + b), a + b)``) and
 ``fused_add_layernorm_nosum`` (K5: ``LN(a + b)``, the sum never stored),
 with their custom VJPs (Pallas bodies ``_fwd_kernel`` and
 ``_bwd_kernel``, whose ``two_inputs``/``emit_sum``/``has_dsum`` flags
-become the kernels' constexpr flags here). Each is a per-row reduction
-around an elementwise pass, fused with the residual add for K4/K5: the
-case Triton is allowed for in this port. On the H100 each is bound by
-device memory.
+become the forward kernel's constexpr flags and the backward kernel's
+template flags here). Each is a per-row reduction around an elementwise
+pass, fused with the residual add for K4/K5: the case Triton is allowed
+for in this port. On the H100 each is bound by device memory.
 
 * Forward: one program per row holds the whole row in registers (D in
   {512, 768, 1024, 1600} masked to a power-of-two block), takes fp32
@@ -21,15 +21,20 @@ device memory.
   Pallas kernel does); K4 also writes the sum rounded to the dtype, the
   residual carry: 4·R·D·itemsize bytes for K4, 3 for K5. No statistics
   land in device memory.
-* Backward: the statistics are recomputed from x in fp32 (nothing was
-  saved), then ``dx = rstd·(g − mean(g) − x̂·mean(g·x̂))`` with g = dy·γ.
-  K3 reads x; K4 reads its saved sum and adds the sum's own gradient
-  d(sum) into dx; K5 re-adds a + b in fp32. K4/K5 return the same dx for
-  a and b. dγ = Σ dy·x̂ and dβ = Σ dy are sums over every row: blocks run
-  in no order on the card, so each program walks a fixed run of rows and
-  writes fp32 partials, and a second kernel adds the partials in a fixed
-  order, 64 partials x 64 columns per step. No atomics, so two calls give
-  the same bits.
+* Backward: one hand-written CUDA C++ kernel for sm_90a,
+  ``csrc/layernorm_bwd.cu`` (its source note has the design). The
+  statistics are recomputed from x in fp32 (nothing was saved), then
+  ``dx = rstd·(g − mean(g) − x̂·mean(g·x̂))`` with g = dy·γ. K3 reads
+  x; K4 reads its saved sum and adds the sum's own gradient d(sum) into dx;
+  K5 re-adds a + b in fp32. K4/K5 return the same dx for a and b. A warp
+  owns a row, a persistent grid of blocks walks contiguous runs of rows
+  through per-warp rings of bulk-copied rows, and dγ = Σ dy·x̂, dβ = Σ dy
+  are summed in a fixed order inside the same launch (each block's
+  partial row, one grid barrier, then the columns over the partials):
+  no atomics, so two calls give the same bits. :func:`bwd_shape` and
+  :func:`bwd_plan` are its launch plan (warps, ring slots, shared
+  memory, grid, rows per block); a call whose rows all fit in one block's
+  ring at once runs one block, without partials or barrier.
 
 When autograd needs it, :func:`layer_norm` runs through
 :class:`_LayerNorm` (saves x and γ) and :func:`add_layer_norm` through
@@ -37,21 +42,29 @@ When autograd needs it, :func:`layer_norm` runs through
 direction takes its plain PyTorch version (:func:`layer_norm_reference`,
 :func:`add_layer_norm_reference`, :func:`layer_norm_bwd_reference`,
 :func:`add_layer_norm_bwd_reference`) only for CPU tensors; on a CUDA
-tensor it launches the kernel or raises. ``triton`` is imported when a
-kernel is first launched, so the module imports where triton is absent.
+tensor it launches the kernel or raises. ``triton`` is imported, and the
+CUDA library built (``kernels/build.py``), when a kernel is first
+launched, so the module imports where neither is present.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 
 import torch
 
+from lavila_tpu_torch.kernels import build
+
 # kernel launches in this process, a plain int per kernel; a caller
-# zeroes them to count one run
+# zeroes them to count one run. The backward's also by branch:
+# "ln_bwd_grid" (a cooperative grid, dγ/dβ behind its barrier) and
+# "ln_bwd_block" (one block holds every row)
 launches = {"layernorm": 0, "layernorm_bwd": 0, "add_layernorm": 0,
             "add_layernorm_bwd": 0, "add_layernorm_nosum": 0,
-            "add_layernorm_nosum_bwd": 0}
+            "add_layernorm_nosum_bwd": 0, "ln_bwd_grid": 0,
+            "ln_bwd_block": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -154,76 +167,6 @@ def _kernel():
     return ln_fwd
 
 
-@functools.cache
-def _bwd_kernels():
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def ln_bwd(x_ptr, r_ptr, w_ptr, dy_ptr, dsum_ptr, dx_ptr, dw_part_ptr,
-               db_part_ptr, R, D, rows_per_program, eps,
-               BLOCK_D: tl.constexpr, HAS_RESIDUAL: tl.constexpr,
-               HAS_DSUM: tl.constexpr):
-        # K3: x read; K5: x + r re-added; K4: x the saved sum, its
-        # gradient dsum folded into dx
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        mask = cols < D
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        dw = tl.zeros([BLOCK_D], dtype=tl.float32)
-        db = tl.zeros([BLOCK_D], dtype=tl.float32)
-        first = pid * rows_per_program
-        last = tl.minimum(first + rows_per_program, R)
-        for row in range(first, last):
-            off = row.to(tl.int64) * D
-            x = tl.load(x_ptr + off + cols, mask=mask, other=0.0)
-            x = x.to(tl.float32)
-            if HAS_RESIDUAL:
-                r = tl.load(r_ptr + off + cols, mask=mask, other=0.0)
-                x += r.to(tl.float32)
-            dy = tl.load(dy_ptr + off + cols, mask=mask, other=0.0)
-            dy = dy.to(tl.float32)
-            mean = tl.sum(x, axis=0) / D
-            ms = tl.sum(x * x, axis=0) / D
-            rstd = 1.0 / tl.sqrt(tl.maximum(ms - mean * mean, 0.0) + eps)
-            xhat = tl.where(mask, (x - mean) * rstd, 0.0)
-            g = dy * w
-            gm = tl.sum(g, axis=0) / D
-            gxm = tl.sum(g * xhat, axis=0) / D
-            dx = rstd * (g - gm - xhat * gxm)
-            if HAS_DSUM:
-                ds = tl.load(dsum_ptr + off + cols, mask=mask, other=0.0)
-                dx += ds.to(tl.float32)
-            tl.store(dx_ptr + off + cols, dx.to(dx_ptr.dtype.element_ty),
-                     mask=mask)
-            dw += dy * xhat
-            db += dy
-        tl.store(dw_part_ptr + pid * D + cols, dw, mask=mask)
-        tl.store(db_part_ptr + pid * D + cols, db, mask=mask)
-
-    @triton.jit
-    def ln_bwd_sum(dw_part_ptr, db_part_ptr, dw_ptr, db_ptr, P, D,
-                   BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-        # (BLOCK_P partials x BLOCK_C columns) tiles, each reduced over
-        # its rows in a fixed order: deterministic, and P / BLOCK_P
-        # dependent steps instead of P
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < D
-        dw = tl.zeros([BLOCK_C], dtype=tl.float32)
-        db = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for p0 in range(0, P, BLOCK_P):
-            rows = p0 + tl.arange(0, BLOCK_P)
-            mask = (rows < P)[:, None] & cmask[None, :]
-            off = rows[:, None] * D + cols[None, :]
-            dw += tl.sum(tl.load(dw_part_ptr + off, mask=mask, other=0.0), 0)
-            db += tl.sum(tl.load(db_part_ptr + off, mask=mask, other=0.0), 0)
-        tl.store(dw_ptr + cols, dw.to(dw_ptr.dtype.element_ty), mask=cmask)
-        tl.store(db_ptr + cols, db.to(db_ptr.dtype.element_ty), mask=cmask)
-
-    return ln_bwd, ln_bwd_sum
-
-
 def _check_kernel_inputs(*ts):
     x = ts[0]
     if x.device.type != "cuda":
@@ -274,35 +217,168 @@ def _fwd(x, residual, weight, bias, eps, emit_sum: bool, counter: str):
     return (y, s) if emit_sum else y
 
 
+# ---- the backward kernel's launch plan (csrc/layernorm_bwd.cu)
+
+SMEM_MAX = 232448  # shared memory a block may use: 227 KB
+# per block: two blocks an SM (the system keeps 1 KB a block), or one
+_SMEM_BUDGETS = (SMEM_MAX // 2 - 1024, SMEM_MAX)
+WARPS = 8  # a block's warps, one row each at a time (4 for large rows)
+SLOTS = 2  # rows a warp's ring holds (kSlots in the source)
+# the 16-byte chunks (vector path) or values (scalar path) a lane may
+# own: the kernel's instantiations
+_VEC_CHUNKS = (1, 2, 3, 4, 6, 8, 16)
+_SCALAR_VALUES = (8, 32)
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def bwd_smem(D: int, itemsize: int, tensors: int, warps: int,
+             vec: bool) -> int:
+    """Dynamic shared memory of a block (``smem_bytes`` in the source):
+    γ in fp32; on the vector path an mbarrier a ring slot and each warp's
+    ring of ``SLOTS`` rows of ``tensors`` tensors, which then holds each
+    warp's dγ/dβ row (on the scalar path that row alone)."""
+    ring = warps * SLOTS * tensors * D * itemsize if vec else 0
+    sums = 4 * warps * max(2 * D, 32)
+    return (_pad16(4 * D) + (_pad16(8 * warps * SLOTS) if vec else 0)
+            + max(ring, sums))
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdShape:
+    """What a backward call's kernel is, whatever its rows: ``vec``, the
+    16-byte ring path (else scalar), ``per_lane`` the chunks (values)
+    a lane may own, ``warps`` a block, ``smem`` a block's dynamic shared
+    memory in bytes."""
+    vec: bool
+    per_lane: int
+    warps: int
+    smem: int
+
+    @property
+    def slots(self) -> int:
+        """Rows a warp's ring holds (none on the scalar path)."""
+        return SLOTS if self.vec else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """A call's launch: ``grid`` blocks of ``rows_per_block`` contiguous
+    rows (the last block fewer)."""
+    shape: BwdShape
+    grid: int
+    rows_per_block: int
+
+    @property
+    def single(self) -> bool:
+        """One block: no partials, no grid barrier."""
+        return self.grid == 1
+
+
+@functools.cache  # a pure function, on every call's host path
+def bwd_shape(D: int, itemsize: int, tensors: int,
+              aligned: bool = True) -> BwdShape:
+    """The kernel for rows of ``D`` elements of ``itemsize`` bytes and
+    ``tensors`` row tensors read (2 for K3, 3 for K4/K5): the vector path
+    where a row is whole 16-byte chunks and every pointer is 16-byte
+    ``aligned``, with ``WARPS`` warps a block where two blocks share an
+    SM or one fits, else half as many (K4/K5 rows over 4.6 KB, as fp32
+    at D = 1600). Raises ValueError for a row the kernel does not
+    take."""
+    if D < 1:
+        raise ValueError(f"LayerNorm backward needs D >= 1, got {D}")
+    if aligned and D * itemsize % 16 == 0:
+        chunks = D * itemsize // 16
+        per_lane = next((n for n in _VEC_CHUNKS if 32 * n >= chunks), None)
+        if per_lane is not None:
+            for budget, warps in ((_SMEM_BUDGETS[0], WARPS),
+                                  (_SMEM_BUDGETS[1], WARPS),
+                                  (_SMEM_BUDGETS[1], WARPS // 2)):
+                smem = bwd_smem(D, itemsize, tensors, warps, True)
+                if smem <= budget:
+                    return BwdShape(True, per_lane, warps, smem)
+    else:
+        per_lane = next((n for n in _SCALAR_VALUES if 32 * n >= D), None)
+        if per_lane is not None:
+            return BwdShape(False, per_lane, WARPS,
+                            bwd_smem(D, itemsize, tensors, WARPS, False))
+    raise ValueError(f"no LayerNorm backward kernel for rows of {D} "
+                     f"elements of {itemsize} bytes")
+
+
+@functools.cache
+def bwd_plan(rows: int, shape: BwdShape, blocks_per_sm: int,
+             sms: int) -> BwdPlan:
+    """Rows that one block's rings hold at once go to one block;
+    otherwise at most the resident blocks (``blocks_per_sm`` x ``sms``),
+    each over a contiguous run of at least one row a warp."""
+    if rows < 1 or blocks_per_sm < 1 or sms < 1:
+        raise ValueError(f"no plan for {rows} rows on {sms} SMs x "
+                         f"{blocks_per_sm} blocks")
+    if rows <= shape.warps * max(shape.slots, 1):
+        return BwdPlan(shape, 1, rows)
+    per = max(-(-rows // (blocks_per_sm * sms)), shape.warps)
+    return BwdPlan(shape, -(-rows // per), per)
+
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _blocks_per_sm(device_index, D: int, dtype, residual: bool, dsum: bool,
+                   shape: BwdShape) -> int:
+    """Resident blocks an SM of the kernel for ``shape``, by the CUDA
+    occupancy calculator."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = build.library().lavila_ln_bwd_occupancy(
+            D, _CODES[dtype], int(residual), int(dsum), int(shape.vec),
+            shape.per_lane, shape.warps, ctypes.byref(blocks),
+            ctypes.byref(smem))
+    build.check(err, "layernorm_bwd occupancy")
+    if smem.value != shape.smem or blocks.value < 1:
+        raise RuntimeError(f"layernorm_bwd: {blocks.value} blocks an SM at "
+                           f"{smem.value} bytes of shared memory (plan "
+                           f"{shape.smem})")
+    return blocks.value
+
+
 def _bwd(x, residual, weight, dy, dsum, eps, counter: str):
-    """The backward kernels on CUDA tensors: ``(dx, dweight, dbias)``."""
-    ts = [x, weight, dy] + [t for t in (residual, dsum) if t is not None]
-    _check_kernel_inputs(*ts)
+    """The backward kernel on CUDA tensors: ``(dx, dweight, dbias)``."""
+    rows_in = [x, dy] + [t for t in (residual, dsum) if t is not None]
+    _check_kernel_inputs(weight, *rows_in)
+    if any(t.dtype != x.dtype for t in rows_in):
+        raise TypeError(f"the rows must share one dtype, got "
+                        f"{[t.dtype for t in rows_in]}")
     D = x.shape[-1]
     rows = x.numel() // D
     dx = torch.empty_like(x)
-    dw = torch.empty_like(weight)
-    db = torch.empty_like(weight)
+    dwb = torch.empty((2, D), dtype=weight.dtype, device=x.device)
     if rows == 0:
-        return dx, dw.zero_(), db.zero_()
-    # a few programs per SM, each over a fixed run of rows
-    sms = _sm_count(x.device.index)
-    per = -(-rows // min(rows, 4 * sms))
-    programs = -(-rows // per)
-    parts = torch.empty((2, programs, D), dtype=torch.float32,
-                        device=x.device)
-    ln_bwd, ln_bwd_sum = _bwd_kernels()
-    block = _block(D)
+        dwb.zero_()
+        return dx, dwb[0], dwb[1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in rows_in)  # dx is fresh
+    shape = bwd_shape(D, x.element_size(), len(rows_in), aligned)
+    dev = x.device.index
+    plan = bwd_plan(rows, shape,
+                    _blocks_per_sm(dev, D, x.dtype, residual is not None,
+                                   dsum is not None, shape), _sm_count(dev))
+    part = None if plan.single else torch.empty(
+        (plan.grid, 2, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        ln_bwd[(programs,)](
-            x, x if residual is None else residual, weight, dy,
-            dy if dsum is None else dsum, dx, parts[0], parts[1], rows, D,
-            per, eps, BLOCK_D=block, HAS_RESIDUAL=residual is not None,
-            HAS_DSUM=dsum is not None, num_warps=4 if block <= 1024 else 8)
-        ln_bwd_sum[(-(-D // 64),)](parts[0], parts[1], dw, db, programs, D,
-                                   BLOCK_P=64, BLOCK_C=64, num_warps=4)
+        err = build.library().lavila_ln_bwd(
+            *(None if t is None else t.data_ptr()
+              for t in (x, residual, weight, dy, dsum, dx, dwb, part)),
+            rows, D, plan.rows_per_block, plan.grid,
+            shape.warps, int(shape.vec), shape.per_lane, eps,
+            _CODES[x.dtype], _CODES[weight.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "layernorm_bwd")
     launches[counter] += 1
-    return dx, dw, db
+    launches["ln_bwd_block" if plan.single else "ln_bwd_grid"] += 1
+    return dx, dwb[0], dwb[1]
 
 
 def _check_weight(x, weight, *others):

@@ -4,7 +4,8 @@ NVIDIA GPU: ``encode_image`` and ``encode_text`` of a zoo model with seeded
 weights, timed with CUDA events, then traced with ``torch.profiler`` for a
 per-kernel breakdown of device time, the kernel launches per call and
 the device's idle share; the flash kernels' share (K7/K8, the CLIP text
-tower's attention) is reported on its own. With ``--train``, the same
+tower's attention) and the LayerNorm backward's (every kernel whose name
+holds ``ln_bwd``: K3/K4/K5 backward) are reported on their own. With ``--train``, the same
 for one dual-encoder train step (AdamW, the CLI's defaults) instead.
 
     python3 scripts/profile_torch_encode.py [--batch 32] [--bf16] \\
@@ -66,12 +67,15 @@ def profile(fn, iters: int) -> dict:
     busy = sum(r[1] for r in kernels)
     kernels.sort(key=lambda r: -r[1])
     flash = [r for r in kernels if "flash_" in r[0]]
+    ln_bwd = [r for r in kernels if "ln_bwd" in r[0]]
     return {"ms_per_call": ms, "traced_wall_ms_per_call": wall_us / iters
             / 1e3, "device_busy_ms_per_call": busy / iters / 1e3,
             "idle_share": max(0.0, 1 - busy / wall_us),
             "launches_per_call": sum(r[2] for r in kernels) / iters,
             "flash_ms_per_call": sum(r[1] for r in flash) / iters / 1e3,
             "flash_launches_per_call": sum(r[2] for r in flash) / iters,
+            "ln_bwd_ms_per_call": sum(r[1] for r in ln_bwd) / iters / 1e3,
+            "ln_bwd_launches_per_call": sum(r[2] for r in ln_bwd) / iters,
             "top_kernels": [{"kernel": k[:120], "ms_per_call": t / iters
                              / 1e3, "share": t / busy, "calls": c / iters}
                             for k, t, c in kernels[:25]]}

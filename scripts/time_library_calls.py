@@ -28,18 +28,23 @@ calls, K3's forward, K7, K8's forward and backward and K9, at their
 main-path shapes by the profiler's device time (the kernels' own time,
 without the wrapper's host cost that their event times carry), the
 port's kernel and the library call in turns on the same input
-(``scripts/time_spatial_phase.py``'s ``measure``), and K3's backward
-and K2's forward and backward likewise. K7 and K8 run at the
-text towers' shapes: 16 captions x 8 heads (TSF-B's b16 step), 32 x 12
-(TSF-L@336's b32 remat step) and 256 x 8, on in_proj views; K8's
-backward is ``flash_bwd``, whichever kernels it launches, beside SDPA's
-backward by autograd. K2 runs at TSF-B's (8, 4, 196, 768, 12 heads),
-the fine-tune's 16 frames (8, 16, 196, 768, 12) and TSF-L@336's (8, 4,
-576, 1024, 16), on strided qkv views, with the launch counter each call
-bumps (its branch). ``--repo`` times another checkout's kernels (an
-unpacked ``git archive`` of a parent commit) and then only the device
-times, which are all that depend on the tree, so that two trees can be
-timed in turns in one call:
+(``scripts/time_spatial_phase.py``'s ``measure``), and K3's backward,
+K4's and K5's forward and backward (beside the add and ``F.layer_norm``)
+and K2's forward and backward likewise. K3's backward runs at TSF-B's
+patch rows (6272, 768), the fine-tune's (25088, 768), TSF-L@336's
+(18432, 1024), the CLS rows (8, 768) and (8, 1024) and the text tower's
+(8, 77, 512); K4 and K5 at TSF-L@336's (18432, 1024) and TSF-B's (6272,
+768). K7 and K8 run at the text towers' shapes: 16 captions x 8 heads
+(TSF-B's b16 step), 32 x 12 (TSF-L@336's b32 remat step) and 256 x 8, on
+in_proj views; K8's backward is ``flash_bwd``, whichever kernels it
+launches, beside SDPA's backward by autograd. K2 runs at TSF-B's (8, 4,
+196, 768, 12 heads), the fine-tune's 16 frames (8, 16, 196, 768, 12),
+TSF-L@336's (8, 4, 576, 1024, 16) and TSF-L@224's (8, 4, 256, 1024, 16),
+on strided qkv views, with the launch counter each call bumps (its
+branch). ``--repo`` times another checkout's kernels (an unpacked ``git
+archive`` of a parent commit) and then only the device times, which are
+all that depend on the tree, so that two trees can be timed in turns in
+one call:
 
     python3 scripts/time_library_calls.py [--repo DIR --label NAME] \
         [--out chiprun_out/lib.json]
@@ -187,19 +192,28 @@ def flash_bwd_call(q, k, v, do, causal: bool):
 
 
 # K2's shapes (B, F, N, D, heads): TSF-B, the fine-tune's 16 frames,
-# TSF-L@336
+# TSF-L@336, TSF-L@224
 TIME_CASES = ((8, 4, 196, 768, 12), (8, 16, 196, 768, 12),
-              (8, 4, 576, 1024, 16))
+              (8, 4, 576, 1024, 16), (8, 4, 256, 1024, 16))
+# K3 backward's rows: TSF-B's patches, the fine-tune's 16 frames,
+# TSF-L@336's patches, the CLS rows of TSF-B and TSF-L at batch 8, and
+# the text tower's 8 captions of 77 tokens
+LN_BWD_CASES = ((8 * 4 * 196, 768), (8 * 16 * 196, 768),
+                (8 * 4 * 576, 1024), (8, 768), (8, 1024), (8, 77, 512))
+# K4's and K5's rows: TSF-L@336's patches and TSF-B's
+ADD_LN_CASES = ((8 * 4 * 576, 1024), (8 * 4 * 196, 768))
 
 
 def kernel_device_times(gen) -> list:
     """K2 forward and backward (:data:`TIME_CASES`), K3 forward (TSF-B's
     6272 x 768 rows and a decode step's (160, 1, 1600)) and backward
-    (6272 x 768), K7 and K8's forward and backward (the text towers'
-    causal attention: 16 captions x 8 heads, 32 x 12 and 256 x 8, 77
-    tokens of 64) and K9 (160 GPT-2 XL rows, 15 valid of 77), bf16: the
-    port's kernel and the library call, kernel, library, library,
-    kernel, each by the profiler's device time and by CUDA events."""
+    (:data:`LN_BWD_CASES`), K4 and K5 forward and backward
+    (:data:`ADD_LN_CASES`), K7 and K8's forward and backward (the text
+    towers' causal attention: 16 captions x 8 heads, 32 x 12 and 256 x
+    8, 77 tokens of 64) and K9 (160 GPT-2 XL rows, 15 valid of 77),
+    bf16: the port's kernel and the library call, kernel, library,
+    library, kernel, each by the profiler's device time and by CUDA
+    events."""
     sys.path.insert(0, HERE)
     from time_spatial_phase import measure
 
@@ -232,11 +246,29 @@ def kernel_device_times(gen) -> list:
         cases.append(("K3", list(shape),
                       lambda x=x, w=w, b=b: KL.layer_norm(x, w, b, 1e-6),
                       layer_norm_call(x, w, b, 1e-6)))
-    x, w, b, dy = (rand(8 * 4 * 196, 768), rand(768), rand(768),
-                   rand(8 * 4 * 196, 768))
-    cases.append(("K3 bwd", list(x.shape),
-                  lambda: KL.layer_norm_bwd(x, w, dy, 1e-6),
-                  layer_norm_bwd_call(x, w, b, dy, 1e-6)))
+    for shape in LN_BWD_CASES:
+        x, w, b, dy = rand(*shape), rand(shape[-1]), rand(shape[-1]), \
+            rand(*shape)
+        cases.append(("K3 bwd", list(shape),
+                      lambda x=x, w=w, dy=dy: KL.layer_norm_bwd(x, w, dy,
+                                                                1e-6),
+                      layer_norm_bwd_call(x, w, b, dy, 1e-6)))
+    for shape in ADD_LN_CASES:
+        a, r, dy, ds = (rand(*shape) for _ in range(4))
+        w, b = rand(shape[-1]), rand(shape[-1])
+        for name, dsum in (("K4", ds), ("K5", None)):
+            k4 = dsum is not None
+            cases.append((name, list(shape),
+                          lambda a=a, r=r, w=w, b=b, k4=k4:
+                          KL.add_layer_norm(a, r, w, b, 1e-6, k4),
+                          add_layer_norm_call(a, r, w, b, 1e-6, k4)))
+            # K4 from the saved sum (a) and d(sum); K5 from the pair
+            bwd = (a, None, w, dy, ds, 1e-6) if k4 else \
+                (a, r, w, dy, None, 1e-6)
+            cases.append((f"{name} bwd", list(shape),
+                          lambda bwd=bwd: KL.add_layer_norm_bwd(*bwd),
+                          add_layer_norm_bwd_call(a, r, w, b, dy, dsum,
+                                                  1e-6)))
     scale = 64 ** -0.5
     for B, H in ((16, 8), (32, 12), (256, 8)):
         q, k, v = rand(B, 77, 3 * H * 64).reshape(B, 77, 3 * H, 64).chunk(

@@ -45,7 +45,9 @@ def _close(got, want, tol, rtol=0.0, rel=False, name=""):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("return_sum", [True, False])
-@pytest.mark.parametrize("shape", [(2, 40, 128), (3, 24, 768)])
+# ragged row counts too: one row, 8, 2 x 77 + 3
+@pytest.mark.parametrize("shape", [(2, 40, 128), (3, 24, 768), (1, 1, 768),
+                                   (1, 8, 1024), (1, 2 * 77 + 3, 128)])
 def test_add_layernorm_matches_pallas(shape, return_sum, dtype):
     a, b, w, bias, dy, ds = _inputs(shape, seed=shape[-1])
     jd, td = jnp.dtype(dtype), getattr(torch, dtype)

@@ -243,22 +243,75 @@ def test_divided_phase_autograd_uses_bwd_kernel(gen, dtype):
         assert qkv.grad.dtype == dtype and torch.isfinite(qkv.grad).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 77, 512), (6272, 768), (5, 3, 200),
-                                   (160, 1, 1600)])
-def test_layernorm_bwd_kernel(gen, shape, dtype):
+# (rows' dtype, γ's dtype): the bf16 train step hands bf16 rows with fp32 γ
+LN_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.bfloat16, torch.float32)]
+# the backward kernel's shapes: the text tower's, TSF-B's patches and one
+# row more (ragged), one row, TSF-L's CLS rows, the fine-tune's 16
+# frames, D = 200 (one 16-byte chunk a lane, some lanes idle), GPT-2 XL's
+# 1600; D = 100 (bf16: 200-byte rows) and 37 take the scalar variant
+LN_BWD_SHAPES = [(4, 77, 512), (6272, 768), (6273, 768), (1, 768),
+                 (8, 1024), (25088, 768), (5, 3, 200), (160, 1, 1600),
+                 (3, 100), (9, 37)]
+
+
+def _ln_bwd_branch(shape, dtype, tensors):
+    """The launch counter a backward call bumps: one block where its
+    rings hold every row, else the cooperative grid."""
+    D = shape[-1]
+    rows = 1
+    for n in shape[:-1]:
+        rows *= n
+    plan = KL.bwd_shape(D, torch.empty((), dtype=dtype).element_size(),
+                        tensors)
+    return ("ln_bwd_block" if rows <= plan.warps * max(plan.slots, 1)
+            else "ln_bwd_grid")
+
+
+@pytest.mark.parametrize("dtype,wdtype", LN_DTYPES)
+@pytest.mark.parametrize("shape", LN_BWD_SHAPES)
+def test_layernorm_bwd_kernel(gen, shape, dtype, wdtype):
+    """K3 backward against the plain version in fp32 on the same values,
+    bit-identical over two calls, one launch on the branch its plan
+    names."""
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(wdtype)
     dy = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-    before = KL.launches["layernorm_bwd"]
+    branch = _ln_bwd_branch(shape, dtype, 2)
+    before = dict(KL.launches)
     got = KL.layer_norm_bwd(x, w, dy, 1e-5)
-    assert KL.launches["layernorm_bwd"] == before + 1
+    assert KL.launches["layernorm_bwd"] == before["layernorm_bwd"] + 1
+    assert KL.launches[branch] == before[branch] + 1
+    assert sum(KL.launches[k] for k in ("ln_bwd_grid", "ln_bwd_block")) \
+        == before["ln_bwd_grid"] + before["ln_bwd_block"] + 1
     again = KL.layer_norm_bwd(x, w, dy, 1e-5)
     ref = KL.layer_norm_bwd_reference(x.float(), w.float(), dy.float(), 1e-5)
-    for g, a, r in zip(got, again, ref):
-        assert torch.equal(g, a)
+    torch.cuda.synchronize()
+    for g, a, r, want in zip(got, again, ref, (dtype, wdtype, wdtype)):
+        assert g.dtype == want and torch.equal(g, a)
         assert _rel_err(g, r) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("rows", [6272, 8])
+def test_layernorm_bwd_one_launch_a_call(gen, rows):
+    """The profiler sees one kernel launch a call on either branch (the
+    grid's dγ/dβ behind its barrier, not in a second launch)."""
+    x, dy = (torch.randn(rows, 768, generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    w = torch.ones(768, device="cuda")
+    KL.layer_norm_bwd(x, w, dy, 1e-6)  # built and planned
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            KL.layer_norm_bwd(x, w, dy, 1e-6)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and "ln_bwd" in ev.name]
+    assert len(kernels) == 3, [ev.name for ev in kernels]
 
 
 def test_layernorm_autograd_mixed_dtypes(gen):
@@ -303,6 +356,14 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError, match="float32/bfloat16"):
         KL.layer_norm_bwd(ck.half(), torch.ones(64, device="cuda"),
                           ck.half(), 1e-5)
+    # a row the backward kernel does not take: 1025 fp32 values (not whole
+    # 16-byte chunks, and more than 32 a lane on the scalar variant)
+    x = torch.randn(4, 1025, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="no LayerNorm backward kernel"):
+        KL.layer_norm_bwd(x, torch.ones(1025, device="cuda"), x, 1e-5)
+    with pytest.raises(TypeError, match="share one dtype"):
+        KL.layer_norm_bwd(ck, torch.ones(64, device="cuda"), ck.bfloat16(),
+                          1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -362,18 +423,20 @@ def test_space_big_kernel(gen, B, F, N, H, d, pad, dtype):
         assert _rel_err(g, w) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,wdtype", LN_DTYPES)
 @pytest.mark.parametrize("shape", [(8 * 4 * 576, 1024), (32 * 4 * 196, 768),
-                                   (5, 3, 200)])
+                                   (5, 3, 200), (6273, 768), (1, 1024),
+                                   (8, 1024), (3, 100), (64, 1600)])
 @pytest.mark.parametrize("return_sum", [True, False])
-def test_add_layernorm_kernels(gen, shape, return_sum, dtype):
+def test_add_layernorm_kernels(gen, shape, return_sum, dtype, wdtype):
     """K4 (``return_sum``) and K5 forward and backward against their plain
-    versions in fp32 on the same values; the backward bit-identical."""
+    versions in fp32 on the same values; the backward bit-identical, one
+    launch on the branch its plan names."""
     D = shape[-1]
     a, b, dy, ds = (torch.randn(*shape, generator=gen, device="cuda")
                     .to(dtype) for _ in range(4))
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
-    bias = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(wdtype)
+    bias = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(wdtype)
     name = "add_layernorm" if return_sum else "add_layernorm_nosum"
     before = dict(KL.launches)
     got = KL.add_layer_norm(a, b, w, bias, 1e-6, return_sum)
@@ -393,11 +456,15 @@ def test_add_layernorm_kernels(gen, shape, return_sum, dtype):
         ref = KL.add_layer_norm_bwd_reference(a.float(), b.float(),
                                               w.float(), dy.float(), None,
                                               1e-6)
+    branch = _ln_bwd_branch(shape, dtype, 3)
+    before = dict(KL.launches)
     grads = KL.add_layer_norm_bwd(*args)
     assert KL.launches[f"{name}_bwd"] == before[f"{name}_bwd"] + 1
+    assert KL.launches[branch] == before[branch] + 1
     again = KL.add_layer_norm_bwd(*args)
-    for g, r, x in zip(grads, ref, again):
-        assert torch.equal(g, x)
+    torch.cuda.synchronize()
+    for g, r, x, want in zip(grads, ref, again, (dtype, wdtype, wdtype)):
+        assert g.dtype == want and torch.equal(g, x)
         assert _rel_err(g, r) <= TOL[dtype]
 
 

@@ -112,7 +112,9 @@ def _ln_inputs(shape, seed):
 
 
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
-@pytest.mark.parametrize("shape", [(2, 77, 512), (3, 40, 768)])
+# ragged row counts too: one row, 8 (CLS rows), 2 captions of 77 + 3
+@pytest.mark.parametrize("shape", [(2, 77, 512), (3, 40, 768), (1, 1, 768),
+                                   (1, 8, 1024), (1, 2 * 77 + 3, 512)])
 def test_layernorm_bwd_reference_matches_pallas(shape, eps):
     x, w, dy = _ln_inputs(shape, 0)
     want = JL._bwd_call((jnp.asarray(x),), jnp.asarray(w), jnp.asarray(dy),
