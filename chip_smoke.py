@@ -31,7 +31,9 @@ and prints no result. Phases, each printing JSON lines:
      attention: the CLIP text towers' causal attention, 16 captions of
      77 tokens, 8 and 12 heads of 64, and 256 captions; one uneven
      non-causal case, 130 queries over 260 keys; each with its branch
-     and, in bf16, the profiler's device time beside SDPA's) against
+     and, in bf16, the profiler's device time beside SDPA's), and
+     DistilBERT's K3 and K5 at (16·77, 768) with eps 1e-12, 16 of the
+     rows flat (variance 0, rstd 1e6), forward and backward, against
      their plain PyTorch versions on seeded inputs, fp32 and bf16, with
      errors, tolerances, CUDA-event times, the card's bound for the same
      work and the time of one PyTorch library call computing it
@@ -103,8 +105,27 @@ and prints no result. Phases, each printing JSON lines:
  13. flagship_narrator, flagship_infer_narrator_cli: phases 8 and 9 with
      VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL (cross-attention on 16
      of the 48 layers, 4·576 + 1 image tokens into the pooler).
+ 14. distilbert_model: CLIP_OPENAI_TIMESFORMER_LARGE_336PX_DISTILBERT_BASE
+     (LaViLa's TSF-L@HR recipe: TSF-L@336 with DistilBERT, 6 post-LN
+     layers 768 wide, plain masked attention, K3 on the embeddings and
+     K5 on the residual norms at eps 1e-12) serving at batch 8: captions
+     of 2 to 77 tokens under their masks, embeddings kernels vs plain
+     (fp32, bf16), launches per call, ids past each mask redrawn without
+     moving a text embedding; bf16 clips/s and captions/s, busy time,
+     idle share and peak memory. hf_model: the same with
+     CLIP_HF_TIMESFORMER_DISTILBERT_BASE (no ln_pre, a patch-embed bias,
+     erf GELU).
+ 15. distilbert_cli: phase 5 with the TSF-L@336 DistilBERT model, its
+     WordPiece vocabulary a fixture written to a temporary directory
+     (``LAVILA_TOKENIZER_DIR``), the masks passed with the text.
+ 16. distilbert_train_step, distilbert_pretrain_cli: phases 6 and 7 with
+     CLIP_OPENAI_TIMESFORMER_BASE_DISTILBERT_BASE and masked captions:
+     2 steps kernels vs plain in fp32 at batch 4 and bf16 at batch 16,
+     bf16 train clips/s, peak memory, busy time and idle share at batch
+     16; the pretraining CLI for 3 steps at batch 16.
 
-Every path phase (5, 7, finetune_cli, large224_cli, 9, 10-13) zeroes
+Every path phase (5, 7, finetune_cli, large224_cli, 9, 10-13, 15, 16's
+CLI) zeroes
 the launch counters before it runs and reads them after; the kernel
 summary line sums those runs' counts (K1's, K2's and K6's also by
 branch: every divided-phase launch of a path runs bf16 at head_dim 64
@@ -156,6 +177,22 @@ LARGE224 = {"name": "CLIP_OPENAI_TIMESFORMER_LARGE", "img": 224,
 LARGE = {"name": "CLIP_OPENAI_TIMESFORMER_LARGE_336PX", "img": 336,
          "depth": 24, "width": 1024, "text_depth": 12, "embed": 256,
          "space": "K6", "serve_batch": 8}
+# the DistilBERT dual encoders ("text": 6 post-LN layers, 768 wide, plain
+# masked attention; K3 on the embeddings, K5 on the two residual norms):
+# LaViLa's TSF-L@HR recipe (TSF-L@336), the CLIP_HF tower (no ln_pre, a
+# patch-embed bias, erf GELU) and TSF-B, whose train step runs
+DISTIL_LARGE = dict(LARGE, name="CLIP_OPENAI_TIMESFORMER_LARGE_336PX_"
+                    "DISTILBERT_BASE", text="distilbert", text_depth=6)
+HF_MODEL = dict(MODEL, name="CLIP_HF_TIMESFORMER_DISTILBERT_BASE",
+                text="distilbert", text_depth=6, ln_pre=False, serve_batch=8)
+DISTIL_BASE = dict(MODEL, name="CLIP_OPENAI_TIMESFORMER_BASE_DISTILBERT_BASE",
+                   text="distilbert", text_depth=6, serve_batch=8)
+# DistilBERT's special ids in the distilbert-base-uncased vocabulary
+BERT_PAD, BERT_CLS, BERT_SEP, BERT_VOCAB = 0, 101, 102, 30522
+# DistilBERT's LayerNorm eps, a runtime float in the K3/K5 kernels
+BERT_EPS = 1e-12
+# DistilBERT's norm rows at 16 captions of 77 tokens
+BERT_ROWS = (16 * 77, 768)
 # Each kernel case is held against the plain version run in fp32 on the
 # same input values, so the bound is the kernel's own error. fp32:
 # summation order only; bf16: the kernels compute in fp32 and round the
@@ -219,6 +256,14 @@ def library():
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import time_library_calls
     return time_library_calls
+
+
+@functools.cache
+def encoder_profiler():
+    """``scripts/profile_torch_encode.py``: busy time and idle share."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import profile_torch_encode
+    return profile_torch_encode
 
 
 @functools.cache
@@ -373,6 +418,16 @@ LN_BWD_BRANCHES = ("ln_bwd_grid", "ln_bwd_block")
 PATH_LN_BWD = dict.fromkeys(LN_BWD_BRANCHES, 0)
 
 
+def _bert(m) -> bool:
+    return m.get("text") == "distilbert"
+
+
+def _ln_pre(m) -> int:
+    """1 where tower ``m`` has ``ln_pre`` (every tower but the CLIP_HF
+    one's), else 0."""
+    return int(m.get("ln_pre", True))
+
+
 def _ln_bwd_block_calls(m, batch: int, dtype) -> int:
     """LayerNorm backward calls of one train step of dual encoder ``m``
     at ``batch`` clips whose rows one block's rings hold at once: the CLS
@@ -382,7 +437,8 @@ def _ln_bwd_block_calls(m, batch: int, dtype) -> int:
     from lavila_tpu_torch.kernels import layernorm as KL
     plan = KL.bwd_shape(m["width"], torch.empty((), dtype=dtype)
                         .element_size(), 2)
-    return 3 * m["depth"] + 2 if batch <= plan.warps * plan.slots else 0
+    return (3 * m["depth"] + 1 + _ln_pre(m)
+            if batch <= plan.warps * plan.slots else 0)
 
 
 @contextmanager
@@ -427,19 +483,26 @@ def _encode_launches(m) -> dict:
     """Kernel launches of one ``encode_image`` of tower ``m``: per block
     the two phases, K3 on norm3 (both halves), norm1 and norm2 (CLS
     half), K5 (norm1) and K4 (norm2) on the patch half; ln_pre on both
-    halves and the final norm."""
+    halves (where the tower has it) and the final norm."""
     depth = m["depth"]
     want = dict.fromkeys(COUNTERS, 0)
-    want.update({m["space"]: depth, "K2": depth, "K3": 4 * depth + 3,
-                 "K4": depth, "K5": depth})
+    want.update({m["space"]: depth, "K2": depth,
+                 "K3": 4 * depth + 1 + 2 * _ln_pre(m), "K4": depth,
+                 "K5": depth})
     return want
 
 
 def _text_launches(m) -> dict:
-    """Kernel launches of one ``encode_text`` under inference_mode: per
-    block ln_1, ln_2 (K3) and the causal attention (K7), and ln_final."""
+    """Kernel launches of one ``encode_text`` under inference_mode: the
+    CLIP text tower's ln_1, ln_2 (K3) and causal attention (K7) a block,
+    and ln_final; DistilBERT's embedding norm (K3) and its two residual
+    norms a block (K5), its masked attention plain."""
     want = dict.fromkeys(COUNTERS, 0)
-    want.update({"K3": 2 * m["text_depth"] + 1, "K7": m["text_depth"]})
+    depth = m["text_depth"]
+    if _bert(m):
+        want.update({"K3": 1, "K5": 2 * depth})
+    else:
+        want.update({"K3": 2 * depth + 1, "K7": depth})
     return want
 
 
@@ -452,19 +515,25 @@ def _step_launches(m, remat: bool = False,
     in fp32), except that the tower returns only the CLS row, so the last
     block's patch outputs never reach the loss: autograd runs no backward
     for its spatial phase or its K4. With remat every video block runs
-    its forward again in the backward (the text tower has no remat)."""
+    its forward again in the backward (the text tower has no remat).
+    DistilBERT's norms run K3 and K5 forward and backward, its attention
+    no kernel."""
     depth = m["depth"]
     want = _encode_launches(m)
-    text = 2 * m["text_depth"] + 1
+    text = _text_launches(m)
     r = 2 if remat else 1
     blocks = {k: v * r for k, v in want.items()}
-    blocks["K3"] = 4 * depth * r + 3 + text
+    # ln_pre and the final norm run once, outside the blocks
+    blocks["K3"] = want["K3"] + 4 * depth * (r - 1) + text["K3"]
+    blocks["K5"] += text["K5"]
     blocks.update({f"{m['space']} bwd": depth - 1, "K2 bwd": depth,
-                   "K3 bwd": 4 * depth + 3 + text, "K4 bwd": depth - 1,
-                   "K5 bwd": depth, "K8 fwd": m["text_depth"]})
-    text_bwd = ("K8 bwd",) if dtype == torch.bfloat16 else ("K8 dq",
-                                                             "K8 dkv")
-    blocks.update(dict.fromkeys(text_bwd, m["text_depth"]))
+                   "K3 bwd": want["K3"] + text["K3"], "K4 bwd": depth - 1,
+                   "K5 bwd": depth + text["K5"]})
+    if text["K7"]:  # the CLIP text tower: K8 in training
+        blocks["K8 fwd"] = text["K7"]
+        text_bwd = ("K8 bwd",) if dtype == torch.bfloat16 else ("K8 dq",
+                                                                 "K8 dkv")
+        blocks.update(dict.fromkeys(text_bwd, text["K7"]))
     return blocks
 
 
@@ -553,55 +622,77 @@ def _phase_case(axis, B, F, N, D, H, dtype, gen) -> dict:
             "library_ms": time_ms(lib)}
 
 
-def _ln_case(shape, dtype, gen, bias: bool = True) -> dict:
+def _flat_rows(*ts) -> float:
+    """DistilBERT's LayerNorm cases: rows 0-15 of each of ``ts`` set to
+    multiples of 1/8 (the second tensor's of 1/16), whose fp32 sums are
+    exact, so their variance is 0 and LN's rstd is 1/sqrt(eps) = 1e6 in
+    every version. Returns DistilBERT's eps."""
+    k = torch.arange(16, device=DEVICE)[:, None]
+    for t, div in zip(ts, (8, 16)):
+        t[:16] = k / div
+    return BERT_EPS
+
+
+def _ln_case(shape, dtype, gen, bias: bool = True, bert: bool = False
+             ) -> dict:
     """One K3 case; ``bias=False`` hands the kernel a zero bias, as
-    ``BiasFreeLayerNorm`` (the pooler's norms) does."""
+    ``BiasFreeLayerNorm`` (the pooler's norms) does; ``bert``:
+    DistilBERT's eps and flat rows (:func:`_flat_rows`)."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    eps = _flat_rows(x) if bert else 1e-6
     w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
     b = (0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
     if not bias:
         b = torch.zeros_like(b)
-    y = KL.layer_norm(x, w, b, 1e-6)
-    ref = KL.layer_norm_reference(x.float(), w.float(), b.float(), 1e-6)
+    y = KL.layer_norm(x, w, b, eps)
+    ref = KL.layer_norm_reference(x.float(), w.float(), b.float(), eps)
     torch.cuda.synchronize()
     err, tol = max_err(y, ref), TOL[dtype]
+    lib = library().layer_norm_call(x, w, b, eps)
+    extras = _device_extras(lambda: KL.layer_norm(x, w, b, eps), lib,
+                            dtype) if bert else {}
     # ~8 fp32 operations per element (statistics, normalise, scale, shift)
-    return {"out_err": err, "tol": tol, "ok": err <= tol,
-            "ms": time_ms(lambda: KL.layer_norm(x, w, b, 1e-6)),
+    return {"out_err": err, "tol": tol, "ok": err <= tol, **extras,
+            "ms": time_ms(lambda: KL.layer_norm(x, w, b, eps)),
             "plain_ms": time_ms(
-                lambda: KL.layer_norm_reference(x, w, b, 1e-6)),
+                lambda: KL.layer_norm_reference(x, w, b, eps)),
             **bound((2 * x.numel() + 2 * D) * x.element_size(),
                     8 * x.numel(), torch.float32),
-            "library_ms": time_ms(library().layer_norm_call(x, w, b, 1e-6))}
+            "library_ms": time_ms(lib)}
 
 
-def _add_ln_case(shape, dtype, gen, return_sum: bool) -> dict:
-    """One K4 (``return_sum``) or K5 case: LN(a + b), and the sum."""
+def _add_ln_case(shape, dtype, gen, return_sum: bool,
+                 bert: bool = False) -> dict:
+    """One K4 (``return_sum``) or K5 case: LN(a + b), and the sum;
+    ``bert`` as :func:`_ln_case`."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     a, b = (torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
             for _ in range(2))
+    eps = _flat_rows(a, b) if bert else 1e-6
     w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
     bias = (0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(dtype)
-    args = (a, b, w, bias, 1e-6, return_sum)
+    args = (a, b, w, bias, eps, return_sum)
     got = KL.add_layer_norm(*args)
     ref = KL.add_layer_norm_reference(*(t.float() for t in args[:4]),
                                       *args[4:])
     torch.cuda.synchronize()
     got, ref = (got, ref) if return_sum else ((got,), (ref,))
     err, tol = max(map(max_err, got, ref)), TOL[dtype]
+    lib = library().add_layer_norm_call(*args)
+    extras = _device_extras(lambda: KL.add_layer_norm(*args), lib,
+                            dtype) if bert else {}
     # reads a, b, w, bias; writes y (and the sum); ~9 fp32 operations
     # per element (the add, statistics, normalise, scale, shift)
-    return {"out_err": err, "tol": tol, "ok": err <= tol,
+    return {"out_err": err, "tol": tol, "ok": err <= tol, **extras,
             "ms": time_ms(lambda: KL.add_layer_norm(*args)),
             "plain_ms": time_ms(
                 lambda: KL.add_layer_norm_reference(*args)),
             **bound(((4 if return_sum else 3) * a.numel() + 2 * D)
                     * a.element_size(), 9 * a.numel(), torch.float32),
-            "library_ms": time_ms(library().add_layer_norm_call(*args)),
-            "library_calls": 2}
+            "library_ms": time_ms(lib), "library_calls": 2}
 
 
 def _decode_case(B, K, D, H, nv, dtype, gen) -> dict:
@@ -650,11 +741,11 @@ def _pairs(Lq, Lk, causal) -> int:
     return sum(min(i + 1, Lk) for i in range(Lq)) if causal else Lq * Lk
 
 
-def _flash_extras(run, library_call, dtype) -> dict:
+def _device_extras(run, library_call, dtype) -> dict:
     """In bf16, the profiler's device time of ``run`` and of the library
     call on the same input (``scripts/time_spatial_phase.py``), beside
-    their event times: these calls are short, and their event times carry
-    the wrapper's host cost."""
+    their event times: these calls (K7, K8, DistilBERT's LayerNorms) are
+    short, and their event times carry the wrapper's host cost."""
     if dtype != torch.bfloat16:
         return {}
     ts = spatial()
@@ -688,7 +779,7 @@ def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
     # reads q, k, v; writes out (and lse); QKᵀ and PV over the pairs
     return {"out_err": err, "lse_err": lse_err, "tol": tol, "branch": branch,
             "ok": err <= tol and lse_err <= tol and branch == want,
-            **_flash_extras(run, lib, dtype), "ms": time_ms(run),
+            **_device_extras(run, lib, dtype), "ms": time_ms(run),
             "plain_ms": time_ms(lambda: (
                 KF.flash_fwd_reference if with_lse
                 else KF.flash_attention_reference)(q, k, v, causal)),
@@ -736,7 +827,7 @@ def _flash_bwd_case(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
             "tol": tol, "deterministic": deterministic, "branch": branch,
             "ok": max(errs.values()) <= tol and deterministic
             and branch == want,
-            **_flash_extras(run, lib, dtype), "ms": time_ms(run),
+            **_device_extras(run, lib, dtype), "ms": time_ms(run),
             "plain_ms": time_ms(lambda: KF.flash_bwd_reference(*args)),
             **bound((4 * B * Lq * D + 4 * B * Lk * D) * it + B * Lq * H * 4,
                     10 * B * H * _pairs(Lq, Lk, causal) * d, dtype),
@@ -760,7 +851,8 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
 # at TSF-L@336
 SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),
                      ("finetune", (8 * 16 * 196, 768)), ("cls", (8, 1024)),
-                     ("text", (8, 77, 512))),
+                     ("text", (8, 77, 512)), ("distilbert", BERT_ROWS)),
+              "K5": (("distilbert", BERT_ROWS),),
               "K1": (("tsf_l_224", (8, 4, 256, 1024, 16)),
                      ("b32", (32, 4, 196, 768, 12))),
               "K6": (("b32", (32, 4, 576, 1024, 16)),),
@@ -775,7 +867,7 @@ SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),
                                ("split", (4, 8, 130, 260, 64))))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # K1's, K2's, K6's, K7's and K8's further measured numbers
-# (_phase_extras, _flash_extras), where a case has them; the split's
+# (_phase_extras, _device_extras), where a case has them; the split's
 # floor is computed, so it stays on the case's own line
 _EXTRA_KEYS = ("device_ms", "branch", "library_device_ms")
 
@@ -820,7 +912,10 @@ def phase_kernels() -> dict:
                   # 1600 masked to a 2048 block), the pooler's bias-free
                   # norms on 16 clips' 256 queries
                   ("K3", "ln", (160, 1, 1600), dtype),
-                  ("K3", "ln_nobias", (16 * 256, 1600), dtype)]
+                  ("K3", "ln_nobias", (16 * 256, 1600), dtype),
+                  # DistilBERT's emb_layer_norm and residual norms
+                  ("K3", "ln_bert", BERT_ROWS, dtype),
+                  ("K5", "add_ln_nosum_bert", BERT_ROWS, dtype)]
         cases += [(k, kind, shape, dtype)
                   for k, kind in (("K4", "add_ln"), ("K5", "add_ln_nosum"))
                   for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768))]
@@ -844,9 +939,11 @@ def phase_kernels() -> dict:
     with torch.inference_mode():
         for name, kind, shape, dtype in cases:
             if kind.startswith("add_ln"):
-                res = _add_ln_case(shape, dtype, gen, kind == "add_ln")
+                res = _add_ln_case(shape, dtype, gen, kind == "add_ln",
+                                   kind.endswith("_bert"))
             elif kind.startswith("ln"):
-                res = _ln_case(shape, dtype, gen, bias=kind == "ln")
+                res = _ln_case(shape, dtype, gen, kind != "ln_nobias",
+                               kind.endswith("_bert"))
             elif kind == "decode":
                 res = _decode_case(*shape, dtype, gen)
             elif kind in ("causal", "full"):
@@ -932,64 +1029,75 @@ def _ln_bwd_branch(call) -> tuple:
                  if KL.launches[k] != before[k]]
 
 
-def _ln_bwd_case(shape, dtype, gen, wdtype=None) -> dict:
+def _ln_bwd_case(shape, dtype, gen, wdtype=None, bert: bool = False
+                 ) -> dict:
     """K3 bwd; ``wdtype``: γ's dtype where it is not the rows' (the bf16
-    step's fp32 γ)."""
+    step's fp32 γ); ``bert`` as :func:`_ln_case`."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+    eps = _flat_rows(x) if bert else 1e-6
     w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(
         wdtype or dtype)
     dy = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
-    got, branch = _ln_bwd_branch(lambda: KL.layer_norm_bwd(x, w, dy, 1e-6))
-    again = KL.layer_norm_bwd(x, w, dy, 1e-6)
-    ref = KL.layer_norm_bwd_reference(x.float(), w.float(), dy.float(), 1e-6)
+    got, branch = _ln_bwd_branch(lambda: KL.layer_norm_bwd(x, w, dy, eps))
+    again = KL.layer_norm_bwd(x, w, dy, eps)
+    ref = KL.layer_norm_bwd_reference(x.float(), w.float(), dy.float(), eps)
     torch.cuda.synchronize()
     errs = {n: _rel_err(a, b) for n, a, b in
             zip(("dx", "dweight", "dbias"), got, ref)}
     tol = TOL[dtype]
     wl = w.to(dtype)  # F.layer_norm takes γ in the rows' dtype
     b = torch.zeros_like(wl)
+    lib = library().layer_norm_bwd_call(x, wl, b, dy, eps)
+    extras = _device_extras(lambda: KL.layer_norm_bwd(x, w, dy, eps), lib,
+                            dtype) if bert else {}
     # reads x, dy, w; writes dx, dw, db; ~12 fp32 operations per element
     return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
             "tol": tol, "deterministic": _all_equal(got, again),
-            "branch": branch, "gamma": dname(w.dtype),
+            "branch": branch, "gamma": dname(w.dtype), **extras,
             "ok": max(errs.values()) <= tol and _all_equal(got, again)
             and len(branch) == 1,
-            "ms": time_ms(lambda: KL.layer_norm_bwd(x, w, dy, 1e-6)),
+            "ms": time_ms(lambda: KL.layer_norm_bwd(x, w, dy, eps)),
             "plain_ms": time_ms(
-                lambda: KL.layer_norm_bwd_reference(x, w, dy, 1e-6)),
+                lambda: KL.layer_norm_bwd_reference(x, w, dy, eps)),
             **bound((3 * x.numel() + 3 * D) * x.element_size(),
                     12 * x.numel(), torch.float32),
-            "library_ms": time_ms(library().layer_norm_bwd_call(
-                x, wl, b, dy, 1e-6))}
+            "library_ms": time_ms(lib)}
 
 
 def _add_ln_bwd_case(shape, dtype, gen, return_sum: bool,
-                     wdtype=None) -> dict:
+                     wdtype=None, bert: bool = False) -> dict:
     """K4 bwd (``return_sum``: from the saved sum, d(sum) folded into dx)
-    or K5 bwd (the pair re-added); ``wdtype`` as :func:`_ln_bwd_case`."""
+    or K5 bwd (the pair re-added); ``wdtype`` and ``bert`` as
+    :func:`_ln_bwd_case`."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     a, b, dy, ds = (torch.randn(*shape, generator=gen, device=DEVICE)
                     .to(dtype) for _ in range(4))
+    eps = _flat_rows(a, b) if bert else 1e-6
     w = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(
         wdtype or dtype)
-    args = ((a, None, w, dy, ds, 1e-6) if return_sum
-            else (a, b, w, dy, None, 1e-6))
+    args = ((a, None, w, dy, ds, eps) if return_sum
+            else (a, b, w, dy, None, eps))
     got, branch = _ln_bwd_branch(lambda: KL.add_layer_norm_bwd(*args))
     again = KL.add_layer_norm_bwd(*args)
     ref = KL.add_layer_norm_bwd_reference(
-        *(None if t is None else t.float() for t in args[:5]), 1e-6)
+        *(None if t is None else t.float() for t in args[:5]), eps)
     torch.cuda.synchronize()
     errs = {n: _rel_err(x, y) for n, x, y in
             zip(("dx", "dweight", "dbias"), got, ref)}
     tol = TOL[dtype]
+    lib = library().add_layer_norm_bwd_call(
+        a, b, w.to(dtype), torch.zeros_like(w, dtype=dtype), dy,
+        ds if return_sum else None, eps)
+    extras = _device_extras(lambda: KL.add_layer_norm_bwd(*args), lib,
+                            dtype) if bert else {}
     # reads the sum, dy, d(sum) (K4) or a, b, dy (K5), and w; writes dx,
     # dw, db; ~13 fp32 operations per element
     return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
             "tol": tol, "deterministic": _all_equal(got, again),
-            "branch": branch, "gamma": dname(w.dtype),
+            "branch": branch, "gamma": dname(w.dtype), **extras,
             "ok": max(errs.values()) <= tol and _all_equal(got, again)
             and len(branch) == 1,
             "ms": time_ms(lambda: KL.add_layer_norm_bwd(*args)),
@@ -997,9 +1105,7 @@ def _add_ln_bwd_case(shape, dtype, gen, return_sum: bool,
                 lambda: KL.add_layer_norm_bwd_reference(*args)),
             **bound((4 * a.numel() + 3 * D) * a.element_size(),
                     13 * a.numel(), torch.float32),
-            "library_ms": time_ms(library().add_layer_norm_bwd_call(
-                a, b, w.to(dtype), torch.zeros_like(w, dtype=dtype), dy,
-                ds if return_sum else None, 1e-6))}
+            "library_ms": time_ms(lib)}
 
 
 def phase_kernels_bwd() -> dict:
@@ -1025,6 +1131,9 @@ def phase_kernels_bwd() -> dict:
                                   ("K5 bwd", "add_ln_nosum"))
                   for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768),
                                 (8 * 4 * 196 + 1, 768), (8, 1024))]
+        # DistilBERT's norms (eps 1e-12, flat rows)
+        cases += [("K3 bwd", "ln_bert", BERT_ROWS, dtype),
+                  ("K5 bwd", "add_ln_nosum_bert", BERT_ROWS, dtype)]
     # bf16 rows with fp32 γ, as the bf16 train step hands them over
     cases += [("K3 bwd", "ln+f32w", shape, torch.bfloat16)
               for shape in ((8 * 4 * 196, 768), (8, 1024))]
@@ -1058,12 +1167,13 @@ def phase_kernels_bwd() -> dict:
         # "+f32w": fp32 γ beside the rows' dtype
         wdtype = torch.float32 if kind.endswith("+f32w") else None
         with torch.no_grad():
+            bert = kind.endswith("_bert")
             if kind.startswith("add_ln"):
                 res = _add_ln_bwd_case(shape, dtype, gen,
                                        kind.startswith("add_ln+")
-                                       or kind == "add_ln", wdtype)
+                                       or kind == "add_ln", wdtype, bert)
             elif kind.startswith("ln"):
-                res = _ln_bwd_case(shape, dtype, gen, wdtype)
+                res = _ln_bwd_case(shape, dtype, gen, wdtype, bert)
             else:
                 res = _phase_bwd_case(kind, *shape[:3], shape[3], shape[4],
                                       dtype, gen)
@@ -1103,6 +1213,40 @@ def _inputs(B, gen, size: int = 224, frames: int = 4):
     eot = torch.randint(5, 77, (B,), generator=gen, device=DEVICE)
     text[torch.arange(B, device=DEVICE), eot] = 49407
     return frames, text
+
+
+def _bert_text(B, gen):
+    """``B`` DistilBERT captions of 77 positions and their {0, 1} masks:
+    lengths spread evenly from 2 tokens to all 77, each [CLS], WordPiece
+    ids drawn from the vocabulary's words, [SEP], then [PAD]."""
+    lengths = torch.linspace(2, 77, B).round().long().to(DEVICE)[:, None]
+    pos = torch.arange(77, device=DEVICE)[None]
+    ids = torch.randint(1000, BERT_VOCAB, (B, 77), generator=gen,
+                        device=DEVICE)
+    ids[:, 0] = BERT_CLS
+    ids = torch.where(pos == lengths - 1, BERT_SEP, ids)
+    mask = (pos < lengths).float()
+    return torch.where(mask > 0, ids, BERT_PAD), mask
+
+
+@contextmanager
+def bert_vocab():
+    """A WordPiece vocabulary in distilbert-base-uncased's layout ([PAD]
+    0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, then the words of the
+    synthetic captions and digits) in a temporary directory named by
+    ``LAVILA_TOKENIZER_DIR`` while the block runs."""
+    import tempfile
+    words = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "synthetic",
+                "clip", "#", "c"] + [str(i) for i in range(10)]
+             + [f"##{i}" for i in range(10)])
+    with tempfile.TemporaryDirectory() as root:
+        sub = os.path.join(root, "distilbert-base-uncased")
+        os.makedirs(sub)
+        with open(os.path.join(sub, "vocab.txt"), "w") as f:
+            f.write("\n".join(words) + "\n")
+        with mock.patch.dict(os.environ, {"LAVILA_TOKENIZER_DIR": root}):
+            yield
 
 
 def phase_model(m) -> None:
@@ -1181,6 +1325,122 @@ def _throughput(model, gen, m, iters: int = 5) -> None:
          clips_per_s=rates)
 
 
+def _profile(fn, iters: int = 5) -> dict:
+    """The device's busy time per call of ``fn`` (the profiler's kernel
+    sum, ``scripts/profile_torch_encode.py``), the call's time by CUDA
+    events, the idle share of the untraced call (1 − busy / that time)
+    beside the traced one's, launches per call and the top kernels."""
+    p = encoder_profiler().profile(fn, iters)
+    busy, ms = p["device_busy_ms_per_call"], p["ms_per_call"]
+    return {"ms_per_call": ms, "device_busy_ms_per_call": busy,
+            "idle_share": max(0.0, 1 - busy / ms),
+            "idle_share_traced": p["idle_share"],
+            "launches_per_call": p["launches_per_call"],
+            "top_kernels": p["top_kernels"][:6]}
+
+
+def phase_distilbert_model(m) -> None:
+    """DistilBERT dual encoder ``m`` at its serving batch: embeddings on
+    the kernel path against the plain path on the same weights (fp32,
+    then bf16) over captions of 2 to 77 tokens under their masks,
+    launches per call (no flash kernel: the attention is plain), ids
+    past each mask redrawn without moving a text embedding; then, in
+    bf16, clips/s and captions/s (kernels/plain/plain/kernels), the
+    device's busy time and idle share per call, and the kernel path's
+    peak memory."""
+    from lavila_tpu_torch.kernels import flash as KF
+    from lavila_tpu_torch.models.dual_encoder import l2_normalize
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    B = m["serve_batch"]
+    frames, _ = _inputs(B, gen, m["img"])
+    text, mask = _bert_text(B, gen)
+    redrawn = torch.where(mask > 0, text, torch.randint(
+        1000, BERT_VOCAB, text.shape, generator=gen, device=DEVICE))
+    model = _clip_model(m)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = model.to(dtype)
+        with torch.inference_mode():
+            reset_launch_counts()
+            img = model.encode_image(frames)
+            torch.cuda.synchronize()
+            per_image = launch_counts()
+            if dtype == torch.bfloat16:
+                check_tensor_cores(f"{m['name']} bf16 encode_image",
+                                   m["space"], "K2")
+            reset_launch_counts()
+            txt = model.encode_text(text, mask)
+            torch.cuda.synchronize()
+            per_text = launch_counts()
+            flash = sum(KF.launches.values())
+            txt_redrawn = model.encode_text(redrawn, mask)
+            with plain_path():
+                img_ref = model.encode_image(frames)
+                txt_ref = model.encode_text(text, mask)
+        res = {"padded_ids_err": max_err(txt_redrawn, txt)}
+        for name, a, b in (("image", img, img_ref), ("text", txt, txt_ref)):
+            a, b = l2_normalize(a.float()), l2_normalize(b.float())
+            res[f"{name}_max_err"] = max_err(a, b)
+            res[f"{name}_cos_min"] = (a * b).sum(-1).min().item()
+            res[f"{name}_finite"] = bool(torch.isfinite(a).all())
+        emit("distilbert_model", model=m["name"], dtype=dname(dtype),
+             batch=B, caption_tokens=mask.sum(1).long().tolist(),
+             launches_per_encode_image=per_image,
+             launches_per_encode_text=per_text, **res)
+        name = f"{m['name']} {dname(dtype)}"
+        check(res["image_finite"] and res["text_finite"],
+              f"{name}: non-finite embeddings")
+        check(per_image == _encode_launches(m)
+              and per_text == _text_launches(m) and flash == 0,
+              f"{name}: launches image {per_image} text {per_text}, "
+              f"flash {flash}")
+        check(res["padded_ids_err"] == 0.0,
+              f"{name}: ids past the mask moved the text embedding by "
+              f"{res['padded_ids_err']}")
+        if dtype == torch.float32:
+            check(res["image_max_err"] <= 1e-3
+                  and res["text_max_err"] <= 1e-3,
+                  f"{name} kernel vs plain: {res}")
+        else:
+            check(res["image_cos_min"] >= 0.999
+                  and res["text_cos_min"] >= 0.999,
+                  f"{name} kernel vs plain: {res}")
+    _serve_rates(model, frames, text, mask, m)
+
+
+def _serve_rates(model, frames, text, mask, m, iters: int = 5) -> None:
+    """bf16 clips/s and captions/s of a DistilBERT dual encoder at the
+    serving batch (kernels/plain/plain/kernels), then the kernel path's
+    busy time and idle share per call and its peak memory."""
+    B = frames.shape[0]
+    calls = {"clips_per_s": lambda: model.encode_image(frames),
+             "captions_per_s": lambda: model.encode_text(text, mask)}
+    rates = {k: {} for k in calls}
+    with torch.inference_mode():
+        for path in ("kernels", "plain", "plain", "kernels"):
+            with plain_path() if path == "plain" else nullcontext():
+                for what, fn in calls.items():
+                    for _ in range(2):
+                        fn()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+                    rates[what].setdefault(path, []).append(
+                        B * iters / (time.perf_counter() - t0))
+        torch.cuda.reset_peak_memory_stats()
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        profiles = {"encode_image": _profile(calls["clips_per_s"]),
+                    "encode_text": _profile(calls["captions_per_s"])}
+    emit("throughput", what="encode_image clips/s, encode_text captions/s",
+         model=m["name"], dtype="bfloat16", batch=B, frames=4, iters=iters,
+         order="kernels, plain, plain, kernels", **rates,
+         peak_memory_gib=peak, profile=profiles)
+
+
 def phase_cli(m) -> dict:
     """The port CLI's functions on the synthetic dataset. Returns the
     launch counts of this run, the serving path's."""
@@ -1198,7 +1458,8 @@ def phase_cli(m) -> dict:
          DEVICE, "--clip-length", "4", "--batch-size", "8", "--workers",
          "4"])
     t0 = time.perf_counter()
-    model, tokenizer, name = cli.load_model_from_checkpoint(args)
+    with bert_vocab() if _bert(m) else nullcontext():
+        model, tokenizer, name = cli.load_model_from_checkpoint(args)
     load_seconds = time.perf_counter() - t0
     mean, std = T.normalization_for_model(name)
     transform = T.EvalTransform(cli.crop_shape(name)[0], mean, std)
@@ -1210,7 +1471,7 @@ def phase_cli(m) -> dict:
                         drop_last=False, num_workers=args.workers)
     reset_launch_counts()
     t0 = time.perf_counter()
-    v, t, _ = cli.embed_dataset(model, loader)
+    v, t, _ = cli.embed_dataset(model, loader, has_mask=_bert(m))
     seconds = time.perf_counter() - t0
     counts = path_counts()
     sim = v @ t.T
@@ -1254,11 +1515,17 @@ def _make_state(model, dtype, seed: int = SEED + 8, frozen=None):
         generator=torch.Generator(device=DEVICE).manual_seed(seed))
 
 
-def _train_batch(B, gen, size: int = 224, frames: int = 4):
+def _train_batch(B, gen, size: int = 224, frames: int = 4,
+                 bert: bool = False):
+    """A batch of ``B`` clips; ``bert``: DistilBERT captions and their
+    masks (:func:`_bert_text`)."""
     frames, text = _inputs(B, gen, size, frames)
     # the EK-100 relevancy of each clip, for the adaptive margin
     rel = torch.rand(B, generator=gen, device=DEVICE)
-    return {"frames": frames, "text": text, "relevancy": rel}
+    batch = {"frames": frames, "text": text, "relevancy": rel}
+    if bert:
+        batch["text"], batch["mask"] = _bert_text(B, gen)
+    return batch
 
 
 def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
@@ -1294,7 +1561,7 @@ def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
                              f"{len(counts)}", m,
                              batch["frames"].shape[0], dtype=dtype,
                              device_launches=traced[0] if traced else None)
-            if dtype == torch.bfloat16 and not plain:
+            if dtype == torch.bfloat16 and not plain and not _bert(m):
                 check_flash_tc(f"bf16 train step {len(counts)}")
                 check_tensor_cores(f"bf16 train step {len(counts)}", "K2",
                                    "K2 bwd")
@@ -1304,19 +1571,30 @@ def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
     return losses, grads, counts
 
 
+# DistilBERT's key biases, whose exact gradient is zero (a softmax is
+# invariant to a shift of all of a query's scores): both paths give fp32
+# rounding noise there, reported beside the limits and not held to them
+ZERO_GRAD = ("attention.k_lin.bias",)
+
+
 def _compare_steps(a, b) -> dict:
     """Two runs of :func:`_run_steps`: the largest relative loss gap, the
     largest gradient error relative to its tensor's largest value, and
     the smallest cosine of a weight matrix's (2-D, and the 4-D patch-embed
     kernel's) gradient; the 3-D embeddings (cls_token, pos_embed,
-    temporal_embed) are reported beside them."""
+    temporal_embed) are reported beside them, and the largest gradient of
+    the :data:`ZERO_GRAD` tensors."""
     (a_loss, a_grads, _), (b_loss, b_grads, _) = a, b
     rel_loss = max(abs(x - y) / abs(y) for x, y in zip(a_loss, b_loss))
-    worst_err = 0.0
+    worst_err = zero_grad = 0.0
     worst = {"matrices": (1.0, None), "embeddings": (1.0, None)}
     for step, (ag, bg) in enumerate(zip(a_grads, b_grads)):
         for name, g in bg.items():
             x = ag[name]
+            if name.endswith(ZERO_GRAD):
+                zero_grad = max(zero_grad, g.abs().max().item(),
+                                x.abs().max().item())
+                continue
             scale = g.abs().max().item()
             if scale > 0:
                 worst_err = max(worst_err, max_err(x, g) / scale)
@@ -1330,7 +1608,8 @@ def _compare_steps(a, b) -> dict:
             "grad_cos_min": worst["matrices"][0],
             "grad_cos_min_at": worst["matrices"][1],
             "embed_grad_cos_min": worst["embeddings"][0],
-            "embed_grad_cos_min_at": worst["embeddings"][1]}
+            "embed_grad_cos_min_at": worst["embeddings"][1],
+            "zero_grad_max": zero_grad}
 
 
 def phase_train_step(m, batches: dict, throughput: tuple,
@@ -1344,7 +1623,7 @@ def phase_train_step(m, batches: dict, throughput: tuple,
     data = {}
     for dtype, size in batches.items():
         if size not in data:
-            data[size] = _train_batch(size, gen, m["img"])
+            data[size] = _train_batch(size, gen, m["img"], bert=_bert(m))
         batch = data[size]
         k_run = _run_steps(m, base, dtype, batch, False)
         p_run = _run_steps(m, base, dtype, batch, True)
@@ -1389,12 +1668,14 @@ def _train_throughput(base, gen, m, batches, iters: int = 10) -> None:
     """Train clips/s and peak memory, bf16, kernel and plain path in
     alternating order, at each of ``batches``: for TSF-B 16 (bench.py's
     TSF-B batch), where the host's issue time bounds the step, and 48,
-    where the device does; for TSF-L@224 8."""
+    where the device does; for TSF-L@224 8; for TSF-B + DistilBERT 16,
+    with the kernel path's step profiled (device busy time, idle
+    share)."""
     from lavila_tpu_torch.train.step import make_clip_train_step
     state = _make_state(base.train(), torch.bfloat16)
     step_fn = make_clip_train_step()
     for batch in batches:
-        data = _train_batch(batch, gen, m["img"])
+        data = _train_batch(batch, gen, m["img"], bert=_bert(m))
         rates, peaks = {}, {}
         for path in ("kernels", "plain", "plain", "kernels"):
             with plain_path() if path == "plain" else nullcontext():
@@ -1405,6 +1686,9 @@ def _train_throughput(base, gen, m, batches, iters: int = 10) -> None:
              model=m["name"], dtype="bfloat16", batch=batch, frames=4,
              iters=iters, remat=False, order="kernels, plain, plain, "
              "kernels", clips_per_s=rates, peak_memory_gib=peaks)
+        if _bert(m):
+            emit("train_profile", model=m["name"], dtype="bfloat16",
+                 batch=batch, **_profile(lambda: step_fn(state, data)))
         del data
 
 
@@ -1519,7 +1803,8 @@ def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
             *flags])
         reset_launch_counts()
         t0 = time.perf_counter()
-        state = cli.main(cfg)
+        with bert_vocab() if _bert(m) else nullcontext():
+            state = cli.main(cfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = path_counts()
@@ -1529,14 +1814,16 @@ def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
         args = ez.get_args_parser().parse_args(
             ["--checkpoint", os.path.join(out, "checkpoint_latest.pt"),
              "--device", DEVICE, "--bf16"])
-        model, _, name = ez.load_model_from_checkpoint(args)
+        with bert_vocab() if _bert(m) else nullcontext():
+            model, _, name = ez.load_model_from_checkpoint(args)
     same = all(torch.equal(p, state.params[k].to(p.dtype))
                for k, p in model.named_parameters())
     del state
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     frames, text = _inputs(2, gen, m["img"])
+    text = _bert_text(2, gen) if _bert(m) else (text,)
     with torch.inference_mode():
-        img, txt = model.encode_image(frames), model.encode_text(text)
+        img, txt = model.encode_image(frames), model.encode_text(*text)
     emit("pretrain_cli", model=name, dtype="bfloat16", batch=batch,
          steps=steps, flags=list(flags), seconds=seconds,
          train_loss=log["train_loss"], files=files, launches=counts,
@@ -2004,10 +2291,19 @@ PHASES = (
     ("flagship_narrator", lambda: phase_narrator(FLAGSHIP)),
     ("flagship_infer_narrator_cli",
      lambda: phase_infer_narrator_cli(FLAGSHIP)),
+    ("distilbert_model", lambda: phase_distilbert_model(DISTIL_LARGE)),
+    ("hf_model", lambda: phase_distilbert_model(HF_MODEL)),
+    ("distilbert_cli", lambda: phase_cli(DISTIL_LARGE)),
+    ("distilbert_train_step", lambda: phase_train_step(
+        DISTIL_BASE, {torch.float32: 4, torch.bfloat16: 16}, (16,),
+        "distilbert_train_step", SEED + 13)),
+    ("distilbert_pretrain_cli",
+     lambda: phase_pretrain_cli(DISTIL_BASE, 3, 16)),
 )
 PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "large224_cli",
                "infer_narrator_cli", "large_cli", "large_pretrain_cli",
-               "flagship_infer_narrator_cli")
+               "flagship_infer_narrator_cli", "distilbert_cli",
+               "distilbert_pretrain_cli")
 
 
 def main() -> int:

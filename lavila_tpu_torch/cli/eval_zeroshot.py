@@ -12,8 +12,14 @@ Everything runs under ``torch.inference_mode()``.
 card it raises. ``--bf16`` casts the model to bf16. Checkpoints are
 reference ``.pt``/``.pth`` files or the port's own from
 ``main_pretrain`` (their JSON sidecar names the model); the JAX
-package's Orbax checkpoints and the DistilBERT text tower are not ported
-yet (ROADMAP).
+package's Orbax checkpoints are not ported yet (ROADMAP).
+
+The DistilBERT dual encoders (``*_DISTILBERT_BASE``) take each caption's
+attention mask beside its ids, where the JAX CLI passes it: the
+dataset's ``mask`` (flattened with the text when a clip has several
+narrations), the label prompts' tokenizer mask, EgoMCQ's
+``query_mask``. Their WordPiece vocabulary is read from
+``$LAVILA_TOKENIZER_DIR/distilbert-base-uncased/vocab.txt``.
 
     python -m lavila_tpu_torch.cli.eval_zeroshot --dataset ek100_mir \\
         --root ... --metadata ... --model CLIP_OPENAI_TIMESFORMER_BASE
@@ -130,7 +136,9 @@ def load_model_from_checkpoint(args):
     config.setdefault("clip_length", args.clip_length)
     kw = model_kwargs_from_config(argparse.Namespace(**config))
     if kw.pop("timesformer_gated_xattn"):
-        raise NotImplementedError("timesformer_gated_xattn is not ported")
+        raise NotImplementedError(
+            "timesformer_gated_xattn is not ported: ROADMAP queue 1: "
+            "timesformer_gated_xattn")
     for name in ("drop_path_rate", "remat", "remat_policy"):
         kw.pop(name)  # training-only: no effect on an eval forward
     dtype = torch.bfloat16 if getattr(args, "bf16", False) else \
@@ -159,9 +167,16 @@ def _encode_image(model, frames: np.ndarray) -> np.ndarray:
     return model.encode_image(x).float().cpu().numpy()
 
 
-def _encode_text(model, text: np.ndarray) -> np.ndarray:
-    t = torch.from_numpy(np.asarray(text, np.int64)).to(_device(model))
-    return model.encode_text(t).float().cpu().numpy()
+def _encode_text(model, text: np.ndarray,
+                 mask: np.ndarray | None = None) -> np.ndarray:
+    """Text embeddings of token ids, under their {0, 1} attention mask
+    when one is given (the DistilBERT towers)."""
+    device = _device(model)
+    t = torch.from_numpy(np.asarray(text, np.int64)).to(device)
+    if mask is None:
+        return model.encode_text(t).float().cpu().numpy()
+    m = torch.from_numpy(np.asarray(mask, np.float32)).to(device)
+    return model.encode_text(t, m).float().cpu().numpy()
 
 
 def _l2(x: np.ndarray) -> np.ndarray:
@@ -169,12 +184,13 @@ def _l2(x: np.ndarray) -> np.ndarray:
 
 
 @torch.inference_mode()
-def embed_dataset(model, loader):
+def embed_dataset(model, loader, has_mask: bool = False):
     """Encode all (video, text) pairs → L2-normalised embedding arrays
     ``(v, t, n_narrations)``. Multi-view batches (B, views, T, H, W, C)
     are encoded per view and mean-pooled over normalised view embeddings
     (then re-normalised). Multiple-narration batches, text of shape
-    (B, n, L), are flattened for encoding, so ``t`` has B·n rows."""
+    (B, n, L), are flattened for encoding, so ``t`` has B·n rows. With
+    ``has_mask`` each batch's ``mask`` goes with its text."""
     vids, txts = [], []
     n_narr = 1
     for batch in loader:
@@ -187,6 +203,7 @@ def embed_dataset(model, loader):
         if views > 1:
             iv = _l2(iv).reshape(-1, views, iv.shape[-1]).mean(axis=1)
         text = np.asarray(batch["text"])
+        mask = np.asarray(batch["mask"]) if has_mask else None
         if text.ndim == 3:  # (B, n_narrations, L)
             if txts and text.shape[1] != n_narr:
                 raise ValueError(
@@ -195,12 +212,14 @@ def embed_dataset(model, loader):
                     "--narration-selection list needs a constant count")
             n_narr = text.shape[1]
             text = text.reshape(-1, text.shape[-1])
+            if mask is not None:
+                mask = mask.reshape(-1, mask.shape[-1])
         elif n_narr != 1:
             raise ValueError(
                 "ragged narration lists: batch has a single narration "
                 f"per clip but earlier batches had {n_narr}")
         vids.append(iv)
-        txts.append(_encode_text(model, text))
+        txts.append(_encode_text(model, text, mask))
     return _l2(np.concatenate(vids)), _l2(np.concatenate(txts)), n_narr
 
 
@@ -229,7 +248,8 @@ def eval_ek100_mir(model, tokenizer, model_name, *, root, metadata,
     ds = VideoCaptionDataset(dcfg, transform, tokenizer, is_training=False)
     loader = DataLoader(ds, batch_size, shuffle=False, drop_last=False,
                         num_workers=workers)
-    v, t, n_narr = embed_dataset(model, loader)
+    v, t, n_narr = embed_dataset(model, loader,
+                                 has_mask="DISTILBERT" in model_name)
     sim = v @ t.T
     if n_narr > 1:  # (V, V·n) → (V, V, n) → pool over narrations
         sim = sim.reshape(v.shape[0], v.shape[0], n_narr)
@@ -263,12 +283,15 @@ def eval_ek100_mir(model, tokenizer, model_name, *, root, metadata,
 def build_label_embeddings(model, tokenizer, labels, templates=("{}",)):
     """Prompt-ensembled class text embeddings: each label (or list of
     narrations) is expanded through ``templates`` and the normalised
-    member embeddings are averaged, then re-normalised."""
+    member embeddings are averaged, then re-normalised. A tokenizer that
+    returns (ids, mask), the WordPiece one, has its mask passed on."""
     out = []
     for label in labels:
         members = label if isinstance(label, list) else [label]
         variants = [t.format(m) for t in templates for m in members]
-        out.append(_l2(_encode_text(model, tokenizer(variants))).mean(0))
+        toks = tokenizer(variants)
+        toks = toks if isinstance(toks, tuple) else (toks,)
+        out.append(_l2(_encode_text(model, *toks)).mean(0))
     return _l2(np.stack(out))
 
 
@@ -340,7 +363,8 @@ def eval_mcq(args, model, tokenizer, model_name):
         opts = batch["frames_options"]
         B, O = opts.shape[:2]
         vemb = _l2(_encode_image(model, opts.reshape((-1,) + opts.shape[2:])))
-        qemb = _l2(_encode_text(model, batch["query"]))
+        qemb = _l2(_encode_text(model, batch["query"],
+                                batch.get("query_mask")))
         preds.append(np.einsum("bd,bod->bo", qemb, vemb.reshape(B, O, -1)))
         answers.append(np.asarray(batch["answer"]))
         types.append(np.asarray(batch["type"]))

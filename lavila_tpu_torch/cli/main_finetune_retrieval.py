@@ -15,7 +15,9 @@ trains with ``lavila_tpu_torch.train.step.make_retrieval_train_step``
 and validates every ``--eval-freq`` epochs: EK-100 MIR mAP/nDCG through
 ``eval_zeroshot.eval_ek100_mir``, CharadesEgo video mAP through
 ``eval_zeroshot.eval_classification``; both run the text tower under
-``inference_mode``, so through K7. Auto-resume from ``--output-dir``
+``inference_mode``, so through K7 (a DistilBERT tower, plain
+attention, through the batch's ``mask``, which the step takes too, as
+in the JAX CLI). Auto-resume from ``--output-dir``
 restores the masters, the optimizer and the best metric; the best
 checkpoint follows the validation metric.
 
@@ -161,7 +163,9 @@ def build_finetune_model(args, device: torch.device):
     config["remat_policy"] = args.remat_policy
     kw = model_kwargs_from_config(argparse.Namespace(**config))
     if kw.pop("timesformer_gated_xattn"):
-        raise NotImplementedError("timesformer_gated_xattn is not ported")
+        raise NotImplementedError(
+            "timesformer_gated_xattn is not ported: ROADMAP queue 1: "
+            "timesformer_gated_xattn")
     kw.pop("remat_policy")  # only 'full' passes _check_ported
     model = build_model(config["model"], device=device, train=True,
                         generator=torch.Generator().manual_seed(args.seed),

@@ -8,7 +8,9 @@ modules of ``lavila_tpu``; each host batch is staged one step ahead by
 ``device_prefetch`` into pinned memory and copied without blocking. The
 step is ``lavila_tpu_torch.train.step`` (bf16 compute on fp32 masters,
 ``--disable-amp`` for fp32 throughout; ``--use-checkpoint`` recomputes
-each video block in the backward, remat policy ``full``); checkpoints
+each video block in the backward, remat policy ``full``; a DistilBERT
+model's text mask is placed beside its ids, as the JAX CLI does);
+checkpoints
 are torch files with
 the run config in a JSON sidecar (``utils/checkpoints.py``), one per
 epoch, auto-resumed from ``--output-dir``. ``--profile-dir`` writes a
@@ -106,15 +108,17 @@ def build_dataset(cfg, tokenizer, train_transform):
 
 # the batch entries a train step reads, and their dtypes on the device
 BATCH_DTYPES = {"frames": torch.float32, "text": torch.long,
-                "relevancy": torch.float32}
+                "relevancy": torch.float32, "mask": torch.float32}
 
 
 def make_place(device: torch.device, keys=("frames", "text")):
-    """Host batch → device tensors of ``keys``: pinned memory and a
-    non-blocking copy on CUDA, so the copy of batch N+1 overlaps step N."""
+    """Host batch → device tensors of ``keys``, and of ``mask`` where the
+    batch has one (the WordPiece tokenizer's, for the DistilBERT towers):
+    pinned memory and a non-blocking copy on CUDA, so the copy of batch
+    N+1 overlaps step N."""
     def place(batch):
         out = {}
-        for key in keys:
+        for key in (*keys, *(("mask",) if "mask" in batch else ())):
             t = torch.from_numpy(np.asarray(batch[key])).to(
                 BATCH_DTYPES[key])
             if device.type == "cuda":

@@ -411,9 +411,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     }
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
-    const float mean = s1 * inv_d;
-    const float rstd = rsqrtf(fmaxf(s2 * inv_d - mean * mean, 0.f) + a.eps);
-    const float shift = -mean * rstd;  // xhat = x * rstd + shift
+    // The statistics divide by D and xhat is (x - mean) * rstd, as in the
+    // plain version and the Pallas kernel. 1/D is inexact (D = 768): a
+    // multiply by it leaves a flat row a variance of ~1e-8 instead of 0,
+    // and x * rstd - mean * rstd leaves its xhat the rounding of
+    // mean * rstd (up to 0.03 at rstd = 1e6), which DistilBERT's eps
+    // (1e-12: rstd 1e6, not 1e4) does not hide.
+    const float mean = s1 / (float)D;
+    const float rstd = rsqrtf(fmaxf(s2 / (float)D - mean * mean, 0.f)
+                              + a.eps);
 
     // g = dy * gamma: mean(g), mean(g * xhat); dgamma, dbeta
     float sg = 0.f, sgx = 0.f;
@@ -427,7 +433,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         load_gamma<EPC>(w32 + c * EPC, wv);
 #pragma unroll
         for (int e = 0; e < EPC; ++e) {
-          const float xh = fmaf(xv[e], rstd, shift);
+          const float xh = (xv[e] - mean) * rstd;
           const float g = dv[e] * wv[e];
           pg += g;
           pgx = fmaf(g, xh, pgx);
@@ -452,7 +458,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         load_gamma<EPC>(w32 + c * EPC, wv);
 #pragma unroll
         for (int e = 0; e < EPC; ++e) {
-          const float xh = fmaf(xv[e], rstd, shift);
+          const float xh = (xv[e] - mean) * rstd;
           out[e] = rstd * (dv[e] * wv[e] - sg - xh * sgx);
         }
         if constexpr (DSUM) {

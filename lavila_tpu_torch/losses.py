@@ -97,4 +97,5 @@ def get_metric_names(model_name: str) -> list[str]:
     if model_name.startswith("CLIP"):
         return ["loss", "clip_loss", "clip_acc"]
     raise NotImplementedError(
-        f"{model_name}: only the CLIP family's metrics are ported")
+        f"{model_name}: only the CLIP family's metrics are ported: ROADMAP "
+        "queue 1: the narrator's training (the caption loss)")

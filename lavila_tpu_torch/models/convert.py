@@ -6,12 +6,19 @@ The port names its parameters after the reference LaViLa state-dict keys
 checkpoint loads with ``load_state_dict(strict=True)`` once ``module.``
 is stripped and ``temporal_embed`` fits the clip length.
 
-  * :func:`state_dict_from_jax` maps a ``lavila_tpu`` ``VideoCLIP`` or
-    ``VCLM`` parameter tree onto those keys: Dense kernels ``(in, out) →
-    (out, in)``, Conv kernels ``(kh, kw, I, O) → (O, I, kh, kw)``,
-    ``h_{i}`` → ``h.{i}``, the pooler's LN ``scale`` → ``gamma``. Every
-    JAX leaf must be consumed; a leftover raises.
-  * :func:`load_reference_checkpoint` reads a reference ``.pt``/``.pth``;
+  * :func:`state_dict_from_jax` maps a ``lavila_tpu`` ``VideoCLIP``,
+    ``VideoCLIPHF`` or ``VCLM`` parameter tree onto those keys: Dense
+    kernels ``(in, out) → (out, in)``, Conv kernels ``(kh, kw, I, O) →
+    (O, I, kh, kw)``, ``h_{i}`` → ``h.{i}``, the pooler's LN ``scale`` →
+    ``gamma``; DistilBERT's flax names onto HF's under ``textual.``
+    (``import_distilbert``'s map, read backwards), the frozen-in-time
+    projections ``image_projection_fc`` / ``text_projection_fc`` onto
+    ``image_projection.0`` / ``text_projection.1`` (as
+    ``import_video_clip_hf`` reads them). Every JAX leaf must be
+    consumed; a leftover raises.
+  * :func:`load_reference_checkpoint` reads a reference ``.pt``/``.pth``
+    (HF's ``position_ids`` buffer dropped, as the JAX importer ignores
+    it);
     :func:`narrator_state_dict` turns a released narrator's keys into
     the port's (HF Conv1D ``(in, out)`` weights transposed, the tied
     ``lm_head`` and the attention-mask buffers dropped, the CoCa norms'
@@ -52,22 +59,55 @@ _LEAF = {"kernel": ("weight", "dense"), "bias": ("bias", None),
          "scale": ("weight", None)}
 # renames inside the text tower (the reference's MLP names)
 _TEXT_RENAMES = {"fc1": "c_fc", "fc2": "c_proj"}
+# DistilBERT: flax module names → HF's (lavila_tpu import_distilbert)
+_BERT_EMBEDDINGS = {"word_embeddings": "embeddings.word_embeddings",
+                    "position_embeddings": "embeddings.position_embeddings",
+                    "emb_layer_norm": "embeddings.LayerNorm"}
+_BERT_RENAMES = {"ffn_lin1": "ffn.lin1", "ffn_lin2": "ffn.lin2"}
+# VideoCLIPHF's frozen-in-time projections: Sequential(Linear) and
+# Sequential(ReLU, Linear) in the reference
+_PROJECTION_FC = {"image_projection_fc": "image_projection.0",
+                  "text_projection_fc": "text_projection.1"}
+
+
+def _distilbert_key(rest: list) -> tuple[str, str | None]:
+    """One flax path inside ``DistilBertModel`` → (key under
+    ``textual.``, layout)."""
+    if rest[0] in _BERT_EMBEDDINGS:
+        name = _BERT_EMBEDDINGS[rest[0]]
+        if rest[1] == "embedding":
+            return f"textual.{name}.weight", None
+        return f"textual.{name}.{_LEAF[rest[1]][0]}", None
+    parts = [_BERT_RENAMES.get(p, p) for p in rest]
+    layer = re.fullmatch(r"layer_(\d+)", parts[0]).group(1)
+    suffix, layout = _LEAF[parts[-1]]
+    return ".".join(["textual.transformer.layer", layer, *parts[1:-1],
+                     suffix]), layout
 
 
 def torch_key(path: tuple) -> tuple[str, str | None]:
     """Map one flax path to (reference key, layout), or raise KeyError."""
     top, rest = path[0], list(path[1:])
-    if top in ("image_projection", "logit_scale") and not rest:
+    if top in ("image_projection", "text_projection",
+               "logit_scale") and not rest:
         return top, None
+    if top in _PROJECTION_FC:
+        suffix, layout = _LEAF[rest[0]]
+        return f"{_PROJECTION_FC[top]}.{suffix}", layout
     if top == "vision_model":
         parts = [_block_index(p, "blocks") for p in rest]
         if parts[0] == "patch_embed":
-            suffix = {"kernel": "weight", "bias": "bias"}[parts[1]]
-            return f"visual.patch_embed.proj.{suffix}", "conv"
+            if parts[1] == "bias":  # the CLIP_HF towers' conv
+                return "visual.patch_embed.proj.bias", None
+            return "visual.patch_embed.proj.weight", {"kernel": "conv"}[
+                parts[1]]
         if len(parts) == 1:  # cls_token, pos_embed, temporal_embed
             return f"visual.{parts[0]}", None
         suffix, layout = _LEAF[parts[-1]]
         return ".".join(["visual", *parts[:-1], suffix]), layout
+    if top == "text_model" and (rest[0] in _BERT_EMBEDDINGS
+                                or rest[0].startswith("layer_")):
+        return _distilbert_key(rest)
     if top == "text_model":
         if rest == ["token_embedding", "embedding"]:
             return "token_embedding.weight", None
@@ -101,7 +141,8 @@ def torch_key(path: tuple) -> tuple[str, str | None]:
 
 
 def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """``lavila_tpu`` ``VideoCLIP`` or ``VCLM`` params (a nested dict of
+    """``lavila_tpu`` ``VideoCLIP``, ``VideoCLIPHF`` or ``VCLM`` params (a
+    nested dict of
     arrays, the ``'params'`` collection) → the port's fp32 state dict. Raises
     ``KeyError`` naming every leaf that has no counterpart."""
     out, leftover = {}, []
@@ -143,15 +184,17 @@ def load_reference_checkpoint(path: str, num_frames: int | None = None
                               ) -> dict[str, torch.Tensor]:
     """Read a released LaViLa ``.pt``/``.pth`` checkpoint into a state
     dict for the port: take ``'state_dict'`` when present, strip the DDP
-    ``module.`` prefix, cast to fp32, and fit ``visual.temporal_embed``
-    to ``num_frames`` when given."""
+    ``module.`` prefix, drop HF's ``position_ids`` buffer (the CLIP_HF
+    checkpoints' ``textual.embeddings.position_ids``, ``arange(512)``),
+    cast to fp32, and fit ``visual.temporal_embed`` to ``num_frames``
+    when given."""
     # released checkpoints pickle their argparse namespace beside the
     # weights, which weights_only=True refuses
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     sd = {k.removeprefix("module."): torch.as_tensor(v).float()
-          for k, v in ckpt.items()}
+          for k, v in ckpt.items() if not k.endswith("position_ids")}
     if num_frames is not None and "visual.temporal_embed" in sd:
         sd["visual.temporal_embed"] = inflate_temporal_embed(
             sd["visual.temporal_embed"], num_frames)

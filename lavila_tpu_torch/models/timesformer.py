@@ -21,9 +21,13 @@ the reference LaViLa state-dict keys (``blocks.{i}.timeattn.qkv.weight``,
     temporal PE; the CLS row takes ``pos_embed[0]``.
   * Time attention starts at zero: qkv weight and bias 0, proj weight 1,
     so a fresh block is a pure ViT block.
-  * The configuration of every LaViLa TimeSformer: ``ln_pre`` after the
-    embeddings and a bias-free patch-embed conv (CLIP-compatible), qkv
-    bias, MLP ratio 4 with QuickGELU, RGB input.
+  * The configuration of the CLIP-initialised LaViLa TimeSformers (the
+    defaults): ``ln_pre`` after the embeddings and a bias-free
+    patch-embed conv, qkv bias, MLP ratio 4 with QuickGELU, RGB input.
+    The CLIP_HF towers (``ln_pre=False``, ``act="gelu"``) have no
+    ``ln_pre``, a patch-embed bias and the erf GELU, as the JAX
+    ``SpaceTimeTransformer`` with ``ln_pre=False`` (its conv takes a bias
+    exactly when there is no ``ln_pre``).
   * Stochastic depth (``drop_path_rate``, linear rule ``rate·i/(depth−1)``
     over the blocks) on the spatial-attention and the MLP residual, in
     ``train()`` mode only. Each of the two draws one mask per sample that
@@ -78,7 +82,8 @@ class DividedAttentionBlock(nn.Module):
 
 
 class SpaceTimeBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, drop_path_rate: float = 0.0):
+    def __init__(self, dim: int, num_heads: int, drop_path_rate: float = 0.0,
+                 act: str = "quick_gelu"):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm3 = LayerNorm(dim, eps=1e-6)
@@ -86,7 +91,7 @@ class SpaceTimeBlock(nn.Module):
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = DividedAttentionBlock(dim, num_heads)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, 4 * dim)
+        self.mlp = Mlp(dim, 4 * dim, act)
 
     def draw_masks(self, batch: int, generator, device, dtype):
         """The block's two stochastic-depth masks (spatial attention, then
@@ -125,13 +130,13 @@ class SpaceTimeBlock(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Per-frame patch embedding, a strided bias-free conv (key
-    ``patch_embed.proj``)."""
+    """Per-frame patch embedding, a strided conv (key
+    ``patch_embed.proj``), bias-free unless ``bias``."""
 
-    def __init__(self, patch_size: int, dim: int):
+    def __init__(self, patch_size: int, dim: int, bias: bool = False):
         super().__init__()
         self.proj = nn.Conv2d(3, dim, patch_size, stride=patch_size,
-                              bias=False)
+                              bias=bias)
 
     def forward(self, x):
         """``(B·T, H, W, C)`` channel-last → ``(B·T, N, D)``."""
@@ -147,23 +152,24 @@ class SpaceTimeTransformer(nn.Module):
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  num_frames: int = 8, drop_path_rate: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, ln_pre: bool = True,
+                 act: str = "quick_gelu"):
         super().__init__()
         D = embed_dim
         self.remat = remat
         self.num_frames = num_frames
         self.embed_dim = D
         self.num_patches = (img_size // patch_size) ** 2
-        self.patch_embed = PatchEmbed(patch_size, D)
+        self.patch_embed = PatchEmbed(patch_size, D, bias=not ln_pre)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(torch.zeros(1, self.num_patches + 1,
                                                   D))
         self.temporal_embed = nn.Parameter(torch.zeros(1, num_frames, D))
-        self.ln_pre = LayerNorm(D)
+        self.ln_pre = LayerNorm(D) if ln_pre else None
         # stochastic depth decay rule: linear 0 → drop_path_rate
         self.blocks = nn.ModuleList(
             SpaceTimeBlock(D, num_heads,
-                           drop_path_rate * i / max(depth - 1, 1))
+                           drop_path_rate * i / max(depth - 1, 1), act)
             for i in range(depth))
         self.norm = LayerNorm(D, eps=1e-6)
 
@@ -172,6 +178,8 @@ class SpaceTimeTransformer(nn.Module):
         """The JAX package's initialisers, drawn from ``generator``."""
         conv = self.patch_embed.proj
         lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
+        if conv.bias is not None:
+            conv.bias.zero_()
         self.cls_token.zero_()
         nn.init.trunc_normal_(self.pos_embed, 0.0, 0.02, -0.04, 0.04,
                               generator=generator)
@@ -201,7 +209,8 @@ class SpaceTimeTransformer(nn.Module):
         patches = patches + pe
         cls = (self.cls_token + self.pos_embed[:, :1]).expand(
             B, 1, D).contiguous()
-        cls, patches = self.ln_pre(cls), self.ln_pre(patches)
+        if self.ln_pre is not None:
+            cls, patches = self.ln_pre(cls), self.ln_pre(patches)
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             masks = blk.draw_masks(B, generator, cls.device, cls.dtype)

@@ -15,7 +15,12 @@ are not ported).
 The dual encoders are the TimeSformer ones with the CLIP text tower:
 TSF-B (224², patch 16; text 512 wide, 8 heads) and TSF-L (patch 14,
 1024 wide, 24 blocks, 16 heads; text 768 wide, 12 heads) at 224² and
-336² (N = 576 patches a frame: the spatial phase runs K6). The
+336² (N = 576 patches a frame: the spatial phase runs K6); the same
+three towers with DistilBERT (``*_DISTILBERT_BASE``, ``VideoCLIPHF``);
+and the two CLIP_HF ones, a TSF-B-shaped tower without ``ln_pre``, with
+a patch-embed bias and the erf GELU, with DistilBERT, under the matrix
+projections (``CLIP_HF_TIMESFORMER``) or, by default, frozen-in-time's
+MLP projections (``CLIP_HF_EGOVLP``). The
 narrators (``VCLM_*``) are the TimeSformer ones: MINI (CI), TSF-B or
 TSF-L with GPT-2 (12 layers, cross-attention on every layer), TSF-B or
 TSF-L with GPT-2 XL (48 layers, cross-attention on every second), and
@@ -31,7 +36,8 @@ from typing import Callable
 import torch
 from torch import nn
 
-from lavila_tpu_torch.models.dual_encoder import VideoCLIP
+from lavila_tpu_torch.models.distilbert import DistilBertModel
+from lavila_tpu_torch.models.dual_encoder import VideoCLIP, VideoCLIPHF
 from lavila_tpu_torch.models.gpt2 import (PRESETS, GPT2Config, GPT2LMHead,
                                           augment_config)
 from lavila_tpu_torch.models.narrator import VCLM
@@ -133,6 +139,67 @@ def CLIP_OPENAI_TIMESFORMER_LARGE_336PX(**kw):
     """TSF-L at 336² (N = 576 patches a frame, K6), the high-resolution
     dual encoder, with the CLIP text tower (768 wide, 12 heads)."""
     return _clip_timesformer("large", 336, **kw)
+
+
+def _clip_timesformer_distilbert(size: str, img_size: int,
+                                 num_frames: int = 4,
+                                 project_embed_dim: int = 256,
+                                 temperature_init: float = 0.07,
+                                 projection: str = "default",
+                                 drop_path_rate: float = 0.0,
+                                 remat: bool = False) -> VideoCLIPHF:
+    vision = _timesformer(size, img_size, num_frames,
+                          drop_path_rate=drop_path_rate, remat=remat)
+    return VideoCLIPHF(vision, DistilBertModel(), project_embed_dim,
+                       projection, temperature_init)
+
+
+@register
+def CLIP_OPENAI_TIMESFORMER_BASE_DISTILBERT_BASE(**kw):
+    """TSF-B video tower with DistilBERT (6 layers, 768 wide, 12 heads,
+    ``[CLS]`` pooling)."""
+    return _clip_timesformer_distilbert("base", 224, **kw)
+
+
+@register
+def CLIP_OPENAI_TIMESFORMER_LARGE_DISTILBERT_BASE(**kw):
+    """TSF-L@224 video tower with DistilBERT."""
+    return _clip_timesformer_distilbert("large", 224, **kw)
+
+
+@register
+def CLIP_OPENAI_TIMESFORMER_LARGE_336PX_DISTILBERT_BASE(**kw):
+    """TSF-L@336 (N = 576, K6) with DistilBERT: LaViLa's TSF-L@HR
+    recipe (docs/TRAINING.md)."""
+    return _clip_timesformer_distilbert("large", 336, **kw)
+
+
+def _clip_hf_timesformer(projection: str, num_frames: int = 4,
+                         project_embed_dim: int = 256,
+                         temperature_init: float = 0.07,
+                         drop_path_rate: float = 0.0,
+                         remat: bool = False) -> VideoCLIPHF:
+    vision = SpaceTimeTransformer(
+        img_size=224, num_frames=num_frames, drop_path_rate=drop_path_rate,
+        remat=remat, ln_pre=False, act="gelu", **_TSF["base"])
+    return VideoCLIPHF(vision, DistilBertModel(), project_embed_dim,
+                       projection, temperature_init)
+
+
+@register
+def CLIP_HF_EGOVLP_DISTILBERT_BASE(projection: str = "frozen_in_time",
+                                   **kw):
+    """EgoVLP's configuration: the CLIP_HF tower (TSF-B shape, no
+    ``ln_pre``, a patch-embed bias, erf GELU) with DistilBERT, under
+    frozen-in-time's MLP projections unless ``projection`` says
+    otherwise."""
+    return _clip_hf_timesformer(projection, **kw)
+
+
+@register
+def CLIP_HF_TIMESFORMER_DISTILBERT_BASE(**kw):
+    """The CLIP_HF tower with DistilBERT under the matrix projections."""
+    return _clip_hf_timesformer("default", **kw)
 
 
 def _vclm(vision: SpaceTimeTransformer, gpt2: GPT2Config,

@@ -5,7 +5,8 @@ piece and none of the TPU layout variants:
 
   * :func:`attention`: multi-head attention over ``(B, L, H, d)`` with an
     additive mask and fp32 scores and softmax (GPT-2's self- and
-    cross-attention).
+    cross-attention, DistilBERT's self-attention under the key-padding
+    bias of :func:`padding_bias`).
   * :func:`causal_attention`: causal multi-head self-attention over
     ``(B, L, H, d)`` views (the CLIP text tower's), through
     :func:`kernels.flash.flash_attention`, its single dispatch site: K8
@@ -43,6 +44,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def padding_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """A ``(B, L)`` {0, 1} key-padding mask → the additive fp32 bias
+    ``(B, 1, 1, L)``: 0 where the mask is set, fp32's lowest value
+    elsewhere (``lavila_tpu/ops/attention.py:padding_bias``)."""
+    neg = torch.finfo(torch.float32).min
+    bias = torch.where(attention_mask > 0, 0.0, neg).to(torch.float32)
+    return bias[:, None, None, :]
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor,

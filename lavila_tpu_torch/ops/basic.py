@@ -11,9 +11,11 @@ Counterpart of ``lavila_tpu/ops/basic.py``:
     for any shape. :class:`BiasFreeLayerNorm` (CoCa's, ``use_bias=False``
     in the JAX package) goes through K3 with a zero bias.
   * :func:`quick_gelu` is CLIP's ``x · sigmoid(1.702 x)``;
-    :func:`gelu_new` GPT-2's tanh-approximated GELU; :func:`squared_relu`
-    Primer's ``relu(x)²`` (the narrator's cross-attention MLP).
-  * :class:`Mlp` is fc1 → QuickGELU → fc2.
+    :func:`gelu_exact` the erf GELU (DistilBERT's FFN, the CLIP_HF video
+    towers' MLP); :func:`gelu_new` GPT-2's tanh-approximated GELU;
+    :func:`squared_relu` Primer's ``relu(x)²`` (the narrator's
+    cross-attention MLP).
+  * :class:`Mlp` is fc1 → QuickGELU (or the erf GELU) → fc2.
   * :func:`drop_path` is timm's stochastic depth, ``x / keep · mask``
     with one 0/1 draw per sample (:func:`drop_path_mask`).
 """
@@ -30,6 +32,11 @@ from lavila_tpu_torch.kernels.layernorm import add_layer_norm, layer_norm
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The erf GELU (JAX ``gelu_exact``, HF 'gelu')."""
+    return torch.nn.functional.gelu(x, approximate="none")
 
 
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
@@ -82,16 +89,21 @@ class BiasFreeLayerNorm(nn.Module):
         return layer_norm(x, self.gamma, self.beta, self.eps)
 
 
-class Mlp(nn.Module):
-    """Transformer MLP: fc1 → QuickGELU → fc2."""
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu_exact}
 
-    def __init__(self, dim: int, hidden_dim: int):
+
+class Mlp(nn.Module):
+    """Transformer MLP: fc1 → ``act`` (a key of :data:`ACTIVATIONS`) →
+    fc2."""
+
+    def __init__(self, dim: int, hidden_dim: int, act: str = "quick_gelu"):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
+        self.act = ACTIVATIONS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 def drop_path_mask(batch: int, rate: float,

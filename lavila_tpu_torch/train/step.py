@@ -118,8 +118,10 @@ def make_clip_train_step(norm_embed: bool = False,
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: ``frames`` (B, T, H, W, C) and ``text`` (B, L) on the
-    model's device. One step: forward, ``loss_fn``, backward, the
-    optimizer's update of the fp32 masters, ``logit_scale`` clamped,
+    model's device, and the text's {0, 1} ``mask`` (B, L) where the
+    batch has one (the DistilBERT dual encoders). One step: forward,
+    ``loss_fn``, backward, the optimizer's update of the fp32 masters,
+    ``logit_scale`` clamped,
     ``step += 1``. ``metrics`` are the loss function's, as detached fp32
     tensors (reading them synchronises; the step itself does not).
     """
@@ -144,12 +146,14 @@ def make_clip_train_step(norm_embed: bool = False,
 
 
 def _forward(state: TrainState, batch: dict, norm_embed: bool) -> dict:
-    """The working copy's forward on ``batch``, its gradients cleared."""
+    """The working copy's forward on ``batch``, its gradients cleared;
+    the batch's ``mask``, where it has one, goes to the text tower."""
     model = state.model
     for p in model.parameters():
         p.grad = None
+    kwargs = {"mask": batch["mask"]} if "mask" in batch else {}
     return model(batch["frames"], batch["text"], norm_embed=norm_embed,
-                 generator=state.generator)
+                 generator=state.generator, **kwargs)
 
 
 def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:

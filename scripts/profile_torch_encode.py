@@ -111,6 +111,15 @@ def main():
                          generator=gen, device="cuda")
     text = torch.randint(1, 49408, (args.batch, 77), generator=gen,
                          device="cuda")
+    # a DistilBERT text tower (*_DISTILBERT_BASE) takes WordPiece ids,
+    # [CLS] first, and a mask (here every one of the 77 positions)
+    masked = "DISTILBERT" in args.model
+    if masked:
+        text = torch.randint(1000, 30522, (args.batch, 77), generator=gen,
+                             device="cuda")
+        text[:, 0] = 101
+    text_args = (text, torch.ones(text.shape, device="cuda")) if masked \
+        else (text,)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -123,7 +132,7 @@ def main():
         state = TrainState.create(
             model, lambda params: make_optimizer(params, 3e-5), dtype=dtype)
         step = make_clip_train_step()
-        batch = {"frames": frames, "text": text}
+        batch = dict(zip(("frames", "text", "mask"), (frames, *text_args)))
         out["train_step"] = profile(lambda: step(state, batch), args.iters)
         out["train_step"]["clips_per_s"] = (
             args.batch / out["train_step"]["ms_per_call"] * 1e3)
@@ -132,8 +141,8 @@ def main():
         with torch.inference_mode():
             out["encode_image"] = profile(
                 lambda: model.encode_image(frames), args.iters)
-            out["encode_text"] = profile(lambda: model.encode_text(text),
-                                         args.iters)
+            out["encode_text"] = profile(
+                lambda: model.encode_text(*text_args), args.iters)
         out["encode_image"]["clips_per_s"] = (
             args.batch / out["encode_image"]["ms_per_call"] * 1e3)
     text_out = json.dumps(out, indent=1)

@@ -632,3 +632,50 @@ def test_flash_kernels_raise(gen):
     with pytest.raises(ValueError, match="contiguous"):
         KF.flash_bwd(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2),
                      q, lse)
+
+
+@pytest.mark.parametrize("dtype,wdtype", LN_DTYPES)
+@pytest.mark.parametrize("kernel", ["K3", "K5"])
+def test_distilbert_layernorms_eps_1e12(gen, kernel, dtype, wdtype):
+    """DistilBERT's norms at 16 captions of 77 tokens, 768 wide, eps 1e-12
+    (a runtime float in the Triton forward and the CUDA backward): K3
+    (``emb_layer_norm``) and K5 (``sa_layer_norm``, ``output_layer_norm``),
+    forward and backward, against their plain versions in fp32 on the
+    same values. The first 16 rows are constant at multiples of 1/16,
+    whose fp32 sums are exact: their variance is 0, so rstd = 1e6 in
+    every version and the output is the bias."""
+    shape, eps = (16 * 77, 768), 1e-12
+    D = shape[-1]
+    a, b, dy = (torch.randn(*shape, generator=gen, device="cuda")
+                for _ in range(3))
+    k = torch.arange(16, device="cuda")[:, None]
+    a[:16], b[:16] = k / 8, k / 16
+    a, b, dy = (t.to(dtype) for t in (a, b, dy))
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(wdtype)
+    bias = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(wdtype)
+    if kernel == "K3":
+        name, fwd_args = "layernorm", (a, w, bias, eps)
+        fwd, fwd_ref = KL.layer_norm, KL.layer_norm_reference
+        bwd_args = (a, w, dy, eps)
+        bwd, bwd_ref = KL.layer_norm_bwd, KL.layer_norm_bwd_reference
+    else:
+        name, fwd_args = "add_layernorm_nosum", (a, b, w, bias, eps, False)
+        fwd, fwd_ref = KL.add_layer_norm, KL.add_layer_norm_reference
+        bwd_args = (a, b, w, dy, None, eps)
+        bwd, bwd_ref = KL.add_layer_norm_bwd, KL.add_layer_norm_bwd_reference
+    before = dict(KL.launches)
+    y = fwd(*fwd_args)
+    ref = fwd_ref(*(t.float() if isinstance(t, torch.Tensor) else t
+                    for t in fwd_args))
+    assert KL.launches[name] == before[name] + 1
+    torch.testing.assert_close(y.float(), ref, rtol=0, atol=TOL[dtype])
+    assert torch.equal(y[:16].float(), bias.to(dtype).float().expand(16, D))
+    grads = bwd(*bwd_args)
+    assert KL.launches[f"{name}_bwd"] == before[f"{name}_bwd"] + 1
+    again = bwd(*bwd_args)
+    want = bwd_ref(*(t.float() if isinstance(t, torch.Tensor) else t
+                     for t in bwd_args))
+    torch.cuda.synchronize()
+    for g, x, r in zip(grads, again, want):
+        assert torch.equal(g, x) and torch.isfinite(g).all()
+        assert _rel_err(g, r) <= TOL[dtype]

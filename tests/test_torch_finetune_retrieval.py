@@ -5,7 +5,8 @@ optax, three MINI retrieval steps against JAX's
 ``make_retrieval_train_step`` from the same weights, and the CLI end to
 end: against the JAX CLI on the synthetic dataset, and on the
 CharadesEgo fixture of ``tests/test_finetune_cli.py`` (train and
-validate, ``--evaluate``, auto-resume, ``logit_scale`` frozen)."""
+validate, ``--evaluate``, auto-resume, ``logit_scale`` frozen), and with
+a DistilBERT dual encoder at MINI size, its masks reaching the step."""
 
 import json
 import math
@@ -31,6 +32,8 @@ from lavila_tpu_torch.models.convert import state_dict_from_jax, torch_key
 from lavila_tpu_torch.train import freeze as F
 from lavila_tpu_torch.train import optim as O
 from lavila_tpu_torch.train.step import TrainState, make_retrieval_train_step
+from test_torch_eval_zeroshot_cli import bert_mini  # noqa: F401  (fixture)
+from test_torch_pretrain_cli import _spy_masks
 
 torch.set_num_threads(1)
 
@@ -366,3 +369,28 @@ def test_cli_options_that_raise(tmp_path):
         args.device = "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args)
+
+
+def test_cli_gated_xattn_names_its_roadmap_subject(tmp_path):
+    """A pretrain checkpoint whose config asks for
+    timesformer_gated_xattn is refused, naming ROADMAP queue 1 item
+    7a."""
+    ckpt = tmp_path / "gated.pt"
+    (tmp_path / "gated.pt.json").write_text(json.dumps({"config": {
+        "model": MINI, "timesformer_gated_xattn": True}}))
+    args = _synthetic_args(tmp_path, "--pretrain-model", str(ckpt))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1: timesformer_gated_xattn"):
+        cli.build_finetune_model(args, torch.device("cpu"))
+
+
+def test_cli_fine_tunes_a_distilbert_model(tmp_path, bert_mini, monkeypatch):
+    """A DistilBERT dual encoder (MINI size, fixture vocabulary)
+    fine-tunes through the CLI, each step's forward given the batch's
+    mask, logit_scale frozen."""
+    seen = _spy_masks(monkeypatch)
+    args = _synthetic_args(tmp_path, "--model", bert_mini)
+    state = cli.main(args)
+    assert state.step == 2 and len(seen) == 2
+    assert all(m is not None and m.shape == (4, 77) for m in seen)
+    assert torch.equal(state.params["logit_scale"], LOG_SCALE)

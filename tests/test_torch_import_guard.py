@@ -25,7 +25,8 @@ for name in names:
 for entry in ("cli.eval_zeroshot", "cli.main_pretrain",
               "cli.main_infer_narrator", "cli.demo_narrator",
               "utils.meters", "config", "data.loader", "utils.random",
-              "eval.metrics", "kernels.decode", "models.narrator"):
+              "eval.metrics", "kernels.decode", "models.narrator",
+              "models.distilbert"):
     assert f"lavila_tpu_torch.{entry}" in names, entry
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",

@@ -14,9 +14,9 @@ from lavila_tpu.models import build_model as jax_build_model
 from lavila_tpu.models.dual_encoder import VideoCLIP as JaxVideoCLIP
 from lavila_tpu.models.openai_clip import TextTransformer as JaxText
 from lavila_tpu.models.timesformer import SpaceTimeTransformer as JaxTSF
-from lavila_tpu_torch.models import build_model
+from lavila_tpu_torch.models import build_model, zoo
 from lavila_tpu_torch.models.convert import state_dict_from_jax
-from lavila_tpu_torch.models.dual_encoder import VideoCLIP
+from lavila_tpu_torch.models.dual_encoder import VideoCLIP, VideoCLIPHF
 from lavila_tpu_torch.models.openai_clip import TextTransformer
 from lavila_tpu_torch.models.timesformer import SpaceTimeTransformer
 
@@ -144,6 +144,12 @@ def test_build_model_is_seeded_and_strict():
     with pytest.raises(TypeError):  # an unknown keyword argument
         build_model("CLIP_OPENAI_TIMESFORMER_MINI", device="cpu",
                     projection="default")
-    with pytest.raises(KeyError):  # the DistilBERT towers: not ported yet
-        build_model("CLIP_OPENAI_TIMESFORMER_LARGE_DISTILBERT_BASE",
-                    device="cpu")
+    with pytest.raises(KeyError):  # a name the zoo does not know
+        build_model("CLIP_OPENAI_TIMESFORMER_HUGE", device="cpu")
+    # the DistilBERT towers are in the zoo (built on the meta device: a
+    # CPU init of TSF-L's 0.5 B parameters would take most of a minute)
+    with torch.device("meta"):
+        hf = zoo._REGISTRY["CLIP_OPENAI_TIMESFORMER_LARGE_DISTILBERT_BASE"]()
+    assert isinstance(hf, VideoCLIPHF) and hf.textual.dim == 768
+    assert len(hf.textual.transformer.layer) == 6
+    assert hf.visual.embed_dim == 1024 and hf.visual.ln_pre is not None

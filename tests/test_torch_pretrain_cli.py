@@ -1,7 +1,8 @@
 """The port's pretraining CLI on the CPU: MINI for 2 steps on the
 synthetic dataset writes a checkpoint that the port's zero-shot loader
 serves, resumes from its output directory, and refuses every option
-that is not ported yet."""
+that is not ported yet; a DistilBERT dual encoder at MINI size trains
+through it with its masks."""
 
 import json
 
@@ -11,6 +12,8 @@ import torch
 from lavila_tpu.config import parse_config
 from lavila_tpu_torch.cli import eval_zeroshot as ez
 from lavila_tpu_torch.cli import main_pretrain as cli
+from test_torch_eval_zeroshot_cli import BERT_MINI
+from test_torch_eval_zeroshot_cli import bert_mini  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
 
@@ -156,3 +159,49 @@ def test_cli_cuda_without_card_raises(tmp_path):
     assert cfg.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(cfg)
+
+
+def _spy_masks(monkeypatch):
+    """The ``mask`` each ``VideoCLIPHF`` forward receives."""
+    from lavila_tpu_torch.models.dual_encoder import VideoCLIPHF
+    seen, forward = [], VideoCLIPHF.forward
+
+    def spy(self, image, text, mask=None, **kw):
+        seen.append(mask)
+        return forward(self, image, text, mask, **kw)
+    monkeypatch.setattr(VideoCLIPHF, "forward", spy)
+    return seen
+
+
+def test_cli_trains_a_distilbert_model(tmp_path, bert_mini, monkeypatch):
+    """A DistilBERT dual encoder (MINI size, fixture vocabulary) trains
+    through the CLI, each step's forward given the batch's mask, and the
+    checkpoint serves."""
+    seen = _spy_masks(monkeypatch)
+    state = cli.main(_cfg(tmp_path / "run", "--model", bert_mini))
+    assert state.step == 2 and len(seen) == 2
+    assert all(m is not None and m.shape == (4, 77)
+               and m.dtype == torch.float32 for m in seen)
+    assert all(bool((m[:, 0] == 1).all()) for m in seen)  # [CLS] kept
+    log = json.loads((tmp_path / "run" / "log.txt").read_text()
+                     .splitlines()[-1])
+    assert log["train_loss"] > 0
+    args = ez.get_args_parser().parse_args(
+        ["--checkpoint", str(tmp_path / "run" / "checkpoint_latest.pt"),
+         "--device", "cpu"])
+    model, tokenizer, name = ez.load_model_from_checkpoint(args)
+    assert name == bert_mini
+    ids, mask = tokenizer(["a synthetic clip 7"])
+    with torch.inference_mode():
+        emb = model.encode_text(torch.from_numpy(ids).long(),
+                                torch.from_numpy(mask))
+    assert emb.shape == (1, 256) and torch.isfinite(emb).all()
+
+
+def test_metric_names_name_their_roadmap_subject():
+    from lavila_tpu_torch import losses
+    assert losses.get_metric_names(BERT_MINI) == [
+        "loss", "clip_loss", "clip_acc"]
+    with pytest.raises(NotImplementedError,
+                       match="queue 1: the narrator's training"):
+        losses.get_metric_names("VCLM_OPENAI_TIMESFORMER_BASE_GPT2")
