@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU, through the
 kernels written for Hopper, and check them: the zero-shot dual encoder
-(serving), the dual-encoder pretraining step, the EK-100 MIR retrieval
-fine-tune and the narrator's sampled decoding, at TSF-B width, with the
+(serving), the dual-encoder pretraining step (with the CLIP loss, and
+with the SSL loss over human and pseudo narrations), the EK-100 MIR
+retrieval fine-tune, the EK-100 CLS classification fine-tune and the
+narrator's sampled decoding, at TSF-B width, with the
 TSF-L@224 dual encoder (N = 256: K1's tensor-core kernels) and with the
 336px TSF-L towers (the high-resolution dual encoder and LaViLa's
 flagship narrator).
@@ -70,6 +72,23 @@ and prints no result. Phases, each printing JSON lines:
      memory at batch 8. finetune_cli: the port's
      ``main_finetune_retrieval`` for 3 steps (BASE, 16 frames, bf16,
      batch 8, synthetic data): a finite loss, logit_scale unchanged.
+  7b'. ssl_train_step: phase 6 with the SSL loss (``gt_indicators``
+     human and pseudo in turn, the pseudo scale's gradient among those
+     compared), fp32 at batch 4 and bf16 at batch 16; bf16 clips/s and
+     peak memory at 16 in turns, and the profiler's busy time of the SSL
+     and the CLIP step on the same weights and batch. ssl_pretrain_cli:
+     phase 7 with ``--metadata-aux synthetic_aux`` for 3 steps at batch
+     16: ``logit_scale_pseudo`` moved and saved in the checkpoint, which
+     classify_cli reads. classify_step: ``VideoClassifierMultiHead``
+     over TSF-B at 16 frames with EK-100's 97 verb, 300 noun and 3806
+     action heads (SGD, backbone x 0.1, each group clipped by its own
+     norm, label smoothing 0.1, dropout 0.5, drop-path 0.1), 2 steps
+     kernel path against plain path in fp32 at batch 4 and bf16 at batch
+     16; bf16 clips/s and peak memory at 16 in turns; busy time beside
+     the retrieval fine-tune step's at the same batch. classify_cli: the
+     port's ``main_finetune_classification`` for 3 steps (3806 classes,
+     16 frames, SGD, bf16, batch 16) from ssl_pretrain_cli's checkpoint:
+     the video tower arrives bit-equal, the loss is finite.
   7c. large224_model, large224_train_step, large224_cli:
      CLIP_OPENAI_TIMESFORMER_LARGE (TSF-L@224: 24 blocks 1024 wide, 16
      heads, N = 256, K1 in every block) as phases 4, 6 and 5: embeddings
@@ -124,8 +143,8 @@ and prints no result. Phases, each printing JSON lines:
      bf16 train clips/s, peak memory, busy time and idle share at batch
      16; the pretraining CLI for 3 steps at batch 16.
 
-Every path phase (5, 7, finetune_cli, large224_cli, 9, 10-13, 15, 16's
-CLI) zeroes
+Every path phase (5, 7, finetune_cli, ssl_pretrain_cli, classify_cli,
+large224_cli, 9, 10-13, 15, 16's CLI) zeroes
 the launch counters before it runs and reads them after; the kernel
 summary line sums those runs' counts (K1's, K2's and K6's also by
 branch: every divided-phase launch of a path runs bf16 at head_dim 64
@@ -152,8 +171,10 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from contextlib import contextmanager, nullcontext
@@ -213,6 +234,9 @@ FLAGSHIP = {"name": "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL",
 # outside them); NVIDIA's H100 SXM data sheet, at the 700 W limit
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# where ssl_pretrain_cli leaves its checkpoint for classify_cli: a
+# temporary directory that main() makes, removed at exit
+SSL_CHECKPOINT = ""
 
 
 def emit(phase: str, **fields) -> None:
@@ -507,7 +531,7 @@ def _text_launches(m) -> dict:
 
 
 def _step_launches(m, remat: bool = False,
-                   dtype=torch.bfloat16) -> dict:
+                   dtype=torch.bfloat16, text: bool = True) -> dict:
     """Kernel launches of one train step of dual encoder ``m`` in
     ``dtype``: the encode's, the text tower's LayerNorms (ln_1, ln_2 per
     block, ln_final) and causal attention (K8's forward), and one
@@ -517,10 +541,12 @@ def _step_launches(m, remat: bool = False,
     for its spatial phase or its K4. With remat every video block runs
     its forward again in the backward (the text tower has no remat).
     DistilBERT's norms run K3 and K5 forward and backward, its attention
-    no kernel."""
+    no kernel. The SSL loss adds no launch; without ``text`` (the
+    classifier's step over ``m``'s video tower) the text tower's
+    launches go."""
     depth = m["depth"]
     want = _encode_launches(m)
-    text = _text_launches(m)
+    text = _text_launches(m) if text else dict.fromkeys(COUNTERS, 0)
     r = 2 if remat else 1
     blocks = {k: v * r for k, v in want.items()}
     # ln_pre and the final norm run once, outside the blocks
@@ -1499,10 +1525,12 @@ def phase_cli(m) -> dict:
     return counts
 
 
-def _make_state(model, dtype, seed: int = SEED + 8, frozen=None):
+def _make_state(model, dtype, seed: int = SEED + 8, frozen=None,
+                criterion=None):
     """A TrainState with the CLI's default AdamW recipe (warm-up from
     1e-6 over 100-step epochs); drop-path masks from a seeded generator;
-    the parameters that ``frozen`` names left out of the optimizer."""
+    the parameters that ``frozen`` names left out of the optimizer; the
+    loss's own parameters ``criterion`` (name → initial value)."""
     from lavila_tpu_torch.train.freeze import freeze_by_predicate
     from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
     from lavila_tpu_torch.train.step import TrainState
@@ -1512,40 +1540,99 @@ def _make_state(model, dtype, seed: int = SEED + 8, frozen=None):
         model, lambda params: make_optimizer(
             freeze_by_predicate(params, frozen or (lambda n: False)),
             schedule), dtype=dtype,
+        generator=torch.Generator(device=DEVICE).manual_seed(seed),
+        criterion=criterion)
+
+
+# LaViLa's EK-100 CLS recipe (--use-vn-classifier --num-classes 97 300
+# 3806): the verb, noun and action heads over the video tower at 16
+# frames, SGD with momentum 0.9, the backbone at a tenth of the head's
+# rate, label smoothing 0.1, dropout 0.5 and drop-path 0.1
+EK100_HEADS = [97, 300, 3806]
+# the SSL loss's pseudo temperature at its CLI default, 0.07
+PSEUDO_INIT = math.log(1 / 0.07)
+
+
+def _classify_state(model, dtype, seed: int = SEED + 8):
+    """A TrainState of the classification CLI's recipe: the head and the
+    backbone (at 0.1 times the head's rate) as two SGD groups, each
+    clipped by its own norm, under the CLI's default schedule over
+    100-step epochs."""
+    from lavila_tpu_torch.train.optim import (cosine_schedule,
+                                              lr_multiplier_labels,
+                                              make_multi_optimizer)
+    from lavila_tpu_torch.train.step import TrainState
+    names = [n for n, _ in model.named_parameters()]
+    lrs = {label: cosine_schedule(lr, 1e-5, 100, 100, 2, 1e-6)
+           for label, lr in (("head", 3e-3), ("backbone", 3e-4))}
+    return TrainState.create(
+        model, lambda params: make_multi_optimizer(
+            params, lr_multiplier_labels(names), lrs, weight_decay=1e-4,
+            clip_grad_value=1.0, use_sgd=True), dtype=dtype,
         generator=torch.Generator(device=DEVICE).manual_seed(seed))
+
+
+def _state_and_step(kind: str, model, dtype, norm_embed: bool = True):
+    """The TrainState and the step of a run of ``kind``: ``clip``
+    (pretraining), ``ssl`` (pretraining on human and pseudo narrations),
+    ``retrieval`` (the fine-tune's adaptive max-margin, logit_scale
+    frozen) or ``classify`` (the EK-100 heads' step)."""
+    from lavila_tpu_torch.train.freeze import logit_scale_only
+    from lavila_tpu_torch.train.step import (make_classifier_train_step,
+                                             make_clip_train_step,
+                                             make_retrieval_train_step)
+    if kind == "classify":
+        return (_classify_state(model, dtype),
+                make_classifier_train_step(multihead=True,
+                                           label_smoothing=0.1))
+    if kind == "retrieval":
+        return (_make_state(model, dtype, frozen=logit_scale_only),
+                make_retrieval_train_step(norm_embed=norm_embed))
+    crit = {"logit_scale_pseudo": PSEUDO_INIT} if kind == "ssl" else None
+    return (_make_state(model, dtype, criterion=crit),
+            make_clip_train_step(norm_embed=norm_embed,
+                                 use_ssl=kind == "ssl"))
 
 
 def _train_batch(B, gen, size: int = 224, frames: int = 4,
                  bert: bool = False):
     """A batch of ``B`` clips; ``bert``: DistilBERT captions and their
-    masks (:func:`_bert_text`)."""
+    masks (:func:`_bert_text`). The SSL step reads ``gt_indicators``,
+    human and pseudo narrations in turn."""
     frames, text = _inputs(B, gen, size, frames)
     # the EK-100 relevancy of each clip, for the adaptive margin
     rel = torch.rand(B, generator=gen, device=DEVICE)
-    batch = {"frames": frames, "text": text, "relevancy": rel}
+    ind = (torch.arange(B, device=DEVICE) % 2 == 0).float()
+    batch = {"frames": frames, "text": text, "relevancy": rel,
+             "gt_indicators": ind}
     if bert:
         batch["text"], batch["mask"] = _bert_text(B, gen)
     return batch
 
 
+def _classify_batch(B, gen, size: int, frames: int = 16):
+    """``B`` clips of ``frames`` frames at ``size``² and their verb, noun
+    and action labels in :data:`EK100_HEADS`."""
+    return {"frames": torch.randn(B, frames, size, size, 3, generator=gen,
+                                  device=DEVICE),
+            "labels": tuple(torch.randint(0, n, (B,), generator=gen,
+                                          device=DEVICE)
+                            for n in EK100_HEADS)}
+
+
 def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
-               retrieval: bool = False):
-    """``steps`` train steps from a copy of ``base`` (dual encoder
-    ``m``; pretraining's, or with ``retrieval`` the fine-tune's: adaptive
-    max-margin, logit_scale frozen): the losses, each step's fp32
-    gradients and the launch counts of each step; on the kernels every
+               kind: str = "clip"):
+    """``steps`` train steps of ``kind`` (:func:`_state_and_step`) from a
+    copy of ``base`` (dual encoder ``m``, or a classifier over its video
+    tower): the losses, each step's fp32 gradients (the SSL loss's pseudo
+    scale's too) and the launch counts of each step; on the kernels every
     step's LayerNorm backward is checked by branch, and the first step's
     launches of its kernel on the device (traced) one a call."""
-    from lavila_tpu_torch.train.freeze import logit_scale_only
-    from lavila_tpu_torch.train.step import (make_clip_train_step,
-                                             make_retrieval_train_step)
-    state = _make_state(copy.deepcopy(base).train(), dtype,
-                        frozen=logit_scale_only if retrieval else None)
     # normalised embeddings (--norm-embed) keep the logits within
     # ±logit_scale; raw random-init embeddings give logits in the
     # hundreds, where bf16 rounding alone moves the loss by percents
-    step_fn = (make_retrieval_train_step(norm_embed=True) if retrieval
-               else make_clip_train_step(norm_embed=True))
+    state, step_fn = _state_and_step(kind, copy.deepcopy(base).train(),
+                                     dtype)
     losses, grads, counts = [], [], []
     with plain_path() if plain else nullcontext():
         for _ in range(steps):
@@ -1561,12 +1648,14 @@ def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
                              f"{len(counts)}", m,
                              batch["frames"].shape[0], dtype=dtype,
                              device_launches=traced[0] if traced else None)
-            if dtype == torch.bfloat16 and not plain and not _bert(m):
+            if (dtype == torch.bfloat16 and not plain and not _bert(m)
+                    and kind != "classify"):
                 check_flash_tc(f"bf16 train step {len(counts)}")
                 check_tensor_cores(f"bf16 train step {len(counts)}", "K2",
                                    "K2 bwd")
             losses.append(metrics["loss"].item())
-            grads.append({k: p.grad.clone() for k, p in state.params.items()})
+            grads.append({k: p.grad.clone() for k, p in
+                          {**state.params, **state.criterion}.items()})
     del state
     return losses, grads, counts
 
@@ -1613,10 +1702,12 @@ def _compare_steps(a, b) -> dict:
 
 
 def phase_train_step(m, batches: dict, throughput: tuple,
-                     phase: str = "train_step", seed: int = SEED + 3) -> None:
-    """The train step of dual encoder ``m`` at full depth, kernel path
-    against the plain path from the same weights and batch (``batches``:
-    the batch size of each dtype, one batch drawn per size); then train
+                     phase: str = "train_step", seed: int = SEED + 3,
+                     kind: str = "clip") -> None:
+    """The train step of dual encoder ``m`` at full depth (``kind``
+    ``clip`` or ``ssl``, :func:`_state_and_step`), kernel path against
+    the plain path from the same weights and batch (``batches``: the
+    batch size of each dtype, one batch drawn per size); then train
     clips/s at the ``throughput`` batch sizes."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     base = _clip_model(m)
@@ -1625,10 +1716,14 @@ def phase_train_step(m, batches: dict, throughput: tuple,
         if size not in data:
             data[size] = _train_batch(size, gen, m["img"], bert=_bert(m))
         batch = data[size]
-        k_run = _run_steps(m, base, dtype, batch, False)
-        p_run = _run_steps(m, base, dtype, batch, True)
+        k_run = _run_steps(m, base, dtype, batch, False, kind=kind)
+        p_run = _run_steps(m, base, dtype, batch, True, kind=kind)
         res = _compare_steps(k_run, p_run)
-        name = f"{m['name']} {dname(dtype)}"
+        name = f"{m['name']} {dname(dtype)} {kind}"
+        if kind == "ssl":  # the pseudo scale's gradient, compared in res
+            res["pseudo_grad"] = {
+                path: [g["logit_scale_pseudo"].item() for g in run[1]]
+                for path, run in (("kernels", k_run), ("plain", p_run))}
         emit(phase, model=m["name"], dtype=dname(dtype), batch=size,
              steps=2, loss_kernels=k_run[0], loss_plain=p_run[0],
              launches_per_step=k_run[2], **res)
@@ -1646,7 +1741,8 @@ def phase_train_step(m, batches: dict, throughput: tuple,
                   f"train step {name} kernels vs plain: {res}")
         del k_run, p_run
     del data
-    _train_throughput(base, gen, m, throughput)
+    _train_throughput(base, gen, m, throughput,
+                      iters=5 if kind == "ssl" else 10, kind=kind)
 
 
 def _time_steps(state, step_fn, data, iters: int) -> tuple:
@@ -1664,31 +1760,53 @@ def _time_steps(state, step_fn, data, iters: int) -> tuple:
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def _train_throughput(base, gen, m, batches, iters: int = 10) -> None:
+def _in_turns(state, step_fn, data, iters: int, on_kernels=None) -> tuple:
+    """:func:`_time_steps` on the kernel and the plain path in turns
+    (kernels, plain, plain, kernels): the clips/s and peak memory of each
+    path's two runs; ``on_kernels()`` checks each kernel run's launch
+    counters, zeroed before it."""
+    rates, peaks = {}, {}
+    for path in ("kernels", "plain", "plain", "kernels"):
+        reset_launch_counts()
+        with plain_path() if path == "plain" else nullcontext():
+            rate, peak = _time_steps(state, step_fn, data, iters)
+        if path == "kernels" and on_kernels is not None:
+            on_kernels()
+        rates.setdefault(path, []).append(rate)
+        peaks.setdefault(path, []).append(peak)
+    return rates, peaks
+
+
+def _train_throughput(base, gen, m, batches, iters: int = 10,
+                      kind: str = "clip") -> None:
     """Train clips/s and peak memory, bf16, kernel and plain path in
     alternating order, at each of ``batches``: for TSF-B 16 (bench.py's
     TSF-B batch), where the host's issue time bounds the step, and 48,
     where the device does; for TSF-L@224 8; for TSF-B + DistilBERT 16,
     with the kernel path's step profiled (device busy time, idle
-    share)."""
-    from lavila_tpu_torch.train.step import make_clip_train_step
-    state = _make_state(base.train(), torch.bfloat16)
-    step_fn = make_clip_train_step()
+    share), as for TSF-B's SSL step at 16."""
+    state, step_fn = _state_and_step(kind, base.train(), torch.bfloat16,
+                                     norm_embed=False)
     for batch in batches:
         data = _train_batch(batch, gen, m["img"], bert=_bert(m))
-        rates, peaks = {}, {}
-        for path in ("kernels", "plain", "plain", "kernels"):
-            with plain_path() if path == "plain" else nullcontext():
-                rate, peak = _time_steps(state, step_fn, data, iters)
-            rates.setdefault(path, []).append(rate)
-            peaks.setdefault(path, []).append(peak)
-        emit("train_throughput", what="train step clips/s",
+        rates, peaks = _in_turns(state, step_fn, data, iters)
+        emit("train_throughput", what=f"{kind} train step clips/s",
              model=m["name"], dtype="bfloat16", batch=batch, frames=4,
              iters=iters, remat=False, order="kernels, plain, plain, "
              "kernels", clips_per_s=rates, peak_memory_gib=peaks)
         if _bert(m):
             emit("train_profile", model=m["name"], dtype="bfloat16",
                  batch=batch, **_profile(lambda: step_fn(state, data)))
+        if kind == "ssl":  # the CLIP step beside it: same weights, batch
+            clip_state, clip_fn = _state_and_step(
+                "clip", copy.deepcopy(base), torch.bfloat16,
+                norm_embed=False)
+            for k, st, fn in (("ssl", state, step_fn),
+                              ("clip", clip_state, clip_fn)):
+                emit("train_profile", model=m["name"], dtype="bfloat16",
+                     batch=batch, kind=k,
+                     **_profile(lambda: fn(st, data), iters=3))
+            del clip_state
         del data
 
 
@@ -1795,6 +1913,7 @@ def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
     from lavila_tpu_torch.config import parse_config
     from lavila_tpu_torch.cli import eval_zeroshot as ez
     from lavila_tpu_torch.cli import main_pretrain as cli
+    ssl = "--metadata-aux" in flags
     with tempfile.TemporaryDirectory() as out:
         cfg = parse_config(cli.TorchPretrainConfig, [
             "--dataset", "synthetic", "--model", m["name"], "--steps",
@@ -1811,13 +1930,26 @@ def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
         with open(os.path.join(out, "log.txt")) as f:
             log = json.loads(f.readlines()[-1])
         files = sorted(os.listdir(out))
+        ckpt = os.path.join(out, "checkpoint_latest.pt")
+        if ssl:  # the classification CLI's --pretrain-model
+            for suffix in ("", ".json"):
+                shutil.copy(ckpt + suffix, SSL_CHECKPOINT + suffix)
+            saved = torch.load(ckpt, map_location="cpu",
+                               weights_only=True)["criterion"]
         args = ez.get_args_parser().parse_args(
-            ["--checkpoint", os.path.join(out, "checkpoint_latest.pt"),
-             "--device", DEVICE, "--bf16"])
+            ["--checkpoint", ckpt, "--device", DEVICE, "--bf16"])
         with bert_vocab() if _bert(m) else nullcontext():
             model, _, name = ez.load_model_from_checkpoint(args)
     same = all(torch.equal(p, state.params[k].to(p.dtype))
                for k, p in model.named_parameters())
+    if ssl:  # learnt, unclamped, and in the checkpoint
+        pseudo = state.criterion["logit_scale_pseudo"].detach().cpu()
+        emit("pretrain_cli", model=m["name"], logit_scale_pseudo=[
+            PSEUDO_INIT, pseudo.item()])
+        check(pseudo.item() != PSEUDO_INIT
+              and torch.equal(saved["logit_scale_pseudo"], pseudo),
+              f"SSL pretrain CLI: logit_scale_pseudo {pseudo.item()} "
+              f"(from {PSEUDO_INIT}), checkpoint {saved}")
     del state
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     frames, text = _inputs(2, gen, m["img"])
@@ -1851,15 +1983,13 @@ def phase_finetune_step() -> None:
     kernel path against plain path from the same weights and batch, held
     to the pretraining step's limits; then bf16 clips/s and peak memory
     at batch 8, kernels/plain/plain/kernels."""
-    from lavila_tpu_torch.train.freeze import logit_scale_only
-    from lavila_tpu_torch.train.step import make_retrieval_train_step
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     base = _clip_model(MODEL, num_frames=16)
     batch = _train_batch(4, gen, MODEL["img"], 16)
     k_run = _run_steps(MODEL, base, torch.float32, batch, False,
-                       retrieval=True)
+                       kind="retrieval")
     p_run = _run_steps(MODEL, base, torch.float32, batch, True,
-                       retrieval=True)
+                       kind="retrieval")
     res = _compare_steps(k_run, p_run)
     emit("finetune_step", model=MODEL["name"], dtype="float32", batch=4,
          frames=16, steps=2, loss="adaptive_max_margin",
@@ -1872,19 +2002,14 @@ def phase_finetune_step() -> None:
     check(all(c == want for c in k_run[2]),
           f"fine-tune step launches {k_run[2]}, want {want}")
     del k_run, p_run
-    state = _make_state(base.train(), torch.bfloat16, frozen=logit_scale_only)
-    step_fn = make_retrieval_train_step(norm_embed=True)
+    state, step_fn = _state_and_step("retrieval", base.train(),
+                                     torch.bfloat16)
     data = _train_batch(8, gen, MODEL["img"], 16)
-    rates, peaks = {}, {}
-    for path in ("kernels", "plain", "plain", "kernels"):
-        reset_launch_counts()
-        with plain_path() if path == "plain" else nullcontext():
-            rate, peak = _time_steps(state, step_fn, data, 5)
-        if path == "kernels":  # K2 over 16 frames on the tensor cores
-            check_tensor_cores("fine-tune bf16 step", "K2", "K2 bwd")
-            check_ln_bwd("fine-tune bf16 step", MODEL, 8, 7)
-        rates.setdefault(path, []).append(rate)
-        peaks.setdefault(path, []).append(peak)
+
+    def on_kernels():  # K2 over 16 frames on the tensor cores
+        check_tensor_cores("fine-tune bf16 step", "K2", "K2 bwd")
+        check_ln_bwd("fine-tune bf16 step", MODEL, 8, 7)
+    rates, peaks = _in_turns(state, step_fn, data, 5, on_kernels)
     emit("train_throughput", what="retrieval fine-tune step clips/s",
          model=MODEL["name"], dtype="bfloat16", batch=8, frames=16, iters=5,
          loss="adaptive_max_margin", order="kernels, plain, plain, kernels",
@@ -1928,6 +2053,134 @@ def phase_finetune_cli(m) -> dict:
     check("checkpoint_latest.pt" in files, f"fine-tune CLI wrote {files}")
     check(counts == {k: steps * n for k, n in _step_launches(m).items()},
           f"fine-tune CLI launches {counts} for {steps} steps")
+    del state
+    return counts
+
+
+def _classifier(m, frames: int = 16):
+    """A ``VideoClassifierMultiHead`` with :data:`EK100_HEADS` over dual
+    encoder ``m``'s video tower (seeded as :func:`_clip_model`, at
+    ``frames`` frames, drop-path 0.1), dropout 0.5, its heads seeded on
+    the card; and the dual encoder it came from."""
+    from lavila_tpu_torch.models.dual_encoder import VideoClassifierMultiHead
+    base = _clip_model(m, num_frames=frames, drop_path_rate=0.1)
+    clf = VideoClassifierMultiHead(base.visual, EK100_HEADS, 0.5).to(DEVICE)
+    clf.init_weights(torch.Generator(device=DEVICE).manual_seed(SEED + 15),
+                     backbone=False)
+    return clf, base
+
+
+def phase_classify_step() -> None:
+    """The classification fine-tune's step: EK-100's verb, noun and
+    action heads over TSF-B at 16 frames (SGD, backbone at 0.1 times the
+    head's rate, each group clipped by its own norm, label smoothing 0.1,
+    dropout and drop-path from one seeded generator): 2 steps kernel path
+    against plain path in fp32 at batch 4 and bf16 at batch 16 (the JAX
+    CLI's default batch), held to the pretraining step's limits; bf16
+    clips/s and peak memory at batch 16 in turns; the profiler's busy
+    time of the classify step and of the retrieval fine-tune's step on
+    the same tower and batch size."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    clf, dual = _classifier(MODEL)
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 16)):
+        batch = _classify_batch(size, gen, MODEL["img"])
+        k_run = _run_steps(MODEL, clf, dtype, batch, False, kind="classify")
+        p_run = _run_steps(MODEL, clf, dtype, batch, True, kind="classify")
+        res = _compare_steps(k_run, p_run)
+        name = f"classify step {dname(dtype)}"
+        emit("classify_step", model=MODEL["name"], heads=EK100_HEADS,
+             dtype=dname(dtype), batch=size, frames=16, steps=2,
+             loss_kernels=k_run[0], loss_plain=p_run[0],
+             launches_per_step=k_run[2], **res)
+        check(all(math.isfinite(x) for x in k_run[0] + p_run[0]),
+              f"{name}: non-finite loss {k_run[0]} {p_run[0]}")
+        want = _step_launches(MODEL, dtype=dtype, text=False)
+        check(all(c == want for c in k_run[2]),
+              f"{name}: launches {k_run[2]}, want {want}")
+        if dtype == torch.float32:
+            check(res["loss_rel_err"] <= 1e-5
+                  and res["grad_rel_err_max"] <= 1e-4,
+                  f"{name} kernels vs plain: {res}")
+        else:
+            check(res["loss_rel_err"] <= 1e-2 and res["grad_cos_min"] >= 0.99,
+                  f"{name} kernels vs plain: {res}")
+        del k_run, p_run, batch
+    state, step_fn = _state_and_step("classify", clf, torch.bfloat16)
+    data = _classify_batch(16, gen, MODEL["img"])
+
+    def on_kernels():  # K2 over 16 frames on the tensor cores
+        check_tensor_cores("classify bf16 step", "K1", "K1 bwd", "K2",
+                           "K2 bwd")
+        check_ln_bwd("classify bf16 step", MODEL, 16, 7)
+    rates, peaks = _in_turns(state, step_fn, data, 5, on_kernels)
+    emit("train_throughput", what="classify step clips/s",
+         model=MODEL["name"], heads=EK100_HEADS, dtype="bfloat16", batch=16,
+         frames=16, iters=5, order="kernels, plain, plain, kernels",
+         clips_per_s=rates, peak_memory_gib=peaks)
+    emit("train_profile", model=MODEL["name"], dtype="bfloat16", batch=16,
+         frames=16, kind="classify",
+         **_profile(lambda: step_fn(state, data), iters=3))
+    del state, clf
+    r_state, r_fn = _state_and_step("retrieval", dual.train(),
+                                    torch.bfloat16)
+    r_data = _train_batch(16, gen, MODEL["img"], 16)
+    emit("train_profile", model=MODEL["name"], dtype="bfloat16", batch=16,
+         frames=16, kind="retrieval",
+         **_profile(lambda: r_fn(r_state, r_data), iters=3))
+
+
+def phase_classify_cli(m) -> dict:
+    """The port's ``main_finetune_classification`` for 3 steps (``m`` at
+    16 frames, one head of 3806 classes, SGD, backbone x 0.1, label
+    smoothing 0.1, bf16, batch 16, synthetic data) from the SSL
+    pretraining CLI's checkpoint: the video tower arrives bit-equal to
+    the checkpoint's (its temporal embedding fitted to 16 frames), the
+    loss is finite. Returns the launch counts of the run, the
+    classification path's."""
+    import tempfile
+
+    from lavila_tpu_torch.cli import main_finetune_classification as cli
+    from lavila_tpu_torch.models.convert import load_reference_checkpoint
+    steps, arrived = 3, []
+    build = cli.build_classifier
+
+    def spy(*args, **kw):  # the tower as the run built it
+        clf, config = build(*args, **kw)
+        arrived.append({k: v.detach().cpu().clone()
+                        for k, v in clf.vision_model.state_dict().items()})
+        return clf, config
+    with tempfile.TemporaryDirectory() as out, \
+            mock.patch.object(cli, "build_classifier", spy):
+        args = cli.get_args_parser().parse_args(
+            ["--dataset", "synthetic", "--model", m["name"],
+             "--num-classes", "3806", "--clip-length", "16", "--use-sgd",
+             "--lr-multiplier-on-backbone", "0.1", "--label-smoothing",
+             "0.1", "--bf16", "--batch-size", "16", "--steps", str(steps),
+             "--pretrain-model", SSL_CHECKPOINT, "--workers", "4",
+             "--print-freq", "1", "--device", DEVICE, "--output-dir", out])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = path_counts()
+        with open(os.path.join(out, "log.txt")) as f:
+            log = json.loads(f.readlines()[-1])
+    want = {k.removeprefix("visual."): v for k, v in load_reference_checkpoint(
+        SSL_CHECKPOINT, num_frames=16).items() if k.startswith("visual.")}
+    same = (len(arrived) == 1 and set(arrived[0]) == set(want)
+            and all(torch.equal(arrived[0][k], v) for k, v in want.items()))
+    emit("classify_cli", model=m["name"], dtype="bfloat16", batch=16,
+         frames=16, steps=steps, seconds=seconds,
+         train_loss=log["train_loss"], tower_arrived_equal=same,
+         launches=counts)
+    check(math.isfinite(log["train_loss"]) and state.step == steps,
+          f"classify CLI: loss {log['train_loss']}, {state.step} steps")
+    check(same, "classify CLI: the video tower differs from the "
+          "pretraining checkpoint's")
+    want_counts = _step_launches(m, text=False)
+    check(counts == {k: steps * n for k, n in want_counts.items()},
+          f"classify CLI launches {counts} for {steps} steps")
     del state
     return counts
 
@@ -2276,6 +2529,13 @@ PHASES = (
     ("pretrain_cli", lambda: phase_pretrain_cli(MODEL, 5, 16)),
     ("finetune_step", phase_finetune_step),
     ("finetune_cli", lambda: phase_finetune_cli(MODEL)),
+    ("ssl_train_step", lambda: phase_train_step(
+        MODEL, {torch.float32: 4, torch.bfloat16: 16}, (16,),
+        "ssl_train_step", SEED + 14, kind="ssl")),
+    ("ssl_pretrain_cli", lambda: phase_pretrain_cli(
+        MODEL, 3, 16, ("--metadata-aux", "synthetic_aux"))),
+    ("classify_step", phase_classify_step),
+    ("classify_cli", lambda: phase_classify_cli(MODEL)),
     ("large224_model", lambda: phase_model(LARGE224)),
     ("large224_train_step", lambda: phase_train_step(
         LARGE224, {torch.float32: 2, torch.bfloat16: 4}, (8,),
@@ -2300,7 +2560,8 @@ PHASES = (
     ("distilbert_pretrain_cli",
      lambda: phase_pretrain_cli(DISTIL_BASE, 3, 16)),
 )
-PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "large224_cli",
+PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
+               "classify_cli", "large224_cli",
                "infer_narrator_cli", "large_cli", "large_pretrain_cli",
                "flagship_infer_narrator_cli", "distilbert_cli",
                "distilbert_pretrain_cli")
@@ -2320,6 +2581,9 @@ def main() -> int:
         return 2
     device = phase_device()
     phase_build()
+    global SSL_CHECKPOINT
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    SSL_CHECKPOINT = os.path.join(tmp.name, "ssl_pretrain.pt")
     summary, counts = {}, dict.fromkeys(COUNTERS, 0)
     for name, phase in PHASES:
         t0 = time.perf_counter()

@@ -28,8 +28,9 @@ Run without data:
         --clip-length 4 --batch-size 4 --steps 2 --device cpu \\
         --output-dir /tmp/ft
 
-``--wandb`` and the remat policies other than ``full`` raise, naming
-their ROADMAP queue 1 subject.
+``--wandb`` logs to Weights & Biases where it can start. The remat
+policies other than ``full`` raise, naming their ROADMAP queue 1
+subject.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from lavila_tpu_torch.utils.checkpoints import CheckpointManager, \
     resolve_resume
 from lavila_tpu_torch.utils.meters import AverageMeter, Timer
 from lavila_tpu_torch.utils.random import random_seed
+from lavila_tpu_torch.utils.tracking import init_wandb
 
 
 def get_args_parser():
@@ -136,10 +138,6 @@ def get_args_parser():
 
 
 def _check_ported(args) -> None:
-    if args.wandb:
-        raise NotImplementedError(
-            "--wandb is not ported to lavila_tpu_torch yet: ROADMAP queue "
-            "1: --wandb")
     if args.use_checkpoint and args.remat_policy != "full":
         raise NotImplementedError(
             f"--remat-policy {args.remat_policy} is not ported to "
@@ -264,6 +262,7 @@ def main(args):
           f"{iters} iters/epoch")
 
     mgr = CheckpointManager(args.output_dir)
+    wandb_run = init_wandb(vars(args)) if args.wandb else None
     start_epoch = args.start_epoch
     best_metric = float("-inf")
     # auto-resume: a checkpoint in output_dir wins over --resume
@@ -306,6 +305,8 @@ def main(args):
                 print(f"Epoch [{epoch}][{it}/{len(loader)}] "
                       f"loss {loss_m.val:.4f} ({loss_m.avg:.4f}) "
                       f"t {timer.lap():.2f}s", flush=True)
+                if wandb_run is not None:
+                    wandb_run.log({"loss": loss_m.val})
             total += 1
             if args.steps and total >= args.steps:
                 break
@@ -328,6 +329,8 @@ def main(args):
         log = {"train_loss": loss_m.avg, **val_metrics, "epoch": epoch}
         with open(osp.join(args.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(log) + "\n")
+        if wandb_run is not None and val_metrics:
+            wandb_run.log({**val_metrics, "epoch": epoch})
         if args.steps and total >= args.steps:
             break
     print("=> done")

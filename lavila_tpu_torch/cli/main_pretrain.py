@@ -16,6 +16,16 @@ the run config in a JSON sidecar (``utils/checkpoints.py``), one per
 epoch, auto-resumed from ``--output-dir``. ``--profile-dir`` writes a
 ``torch.profiler`` trace over steps 5-10.
 
+``--metadata-aux`` (comma-separated pseudo-narration metadata) trains
+on the human narrations plus the narrator's, each sample marked by its
+``gt_indicators``, with the two-temperature SSL loss; its pseudo
+temperature starts at ``--pseudo-temperature-init``, learns unless
+``--freeze-pseudo-temperature``, and is saved and resumed with the
+masters. ``--val-metadata`` runs the zero-shot EK-100 MIR probe after
+every epoch (and every ``--eval-in-middle-freq`` iterations), its
+metrics in ``log.txt`` and ``checkpoint_best.pt`` following its
+``mAP_avg``. ``--wandb`` logs to Weights & Biases where it can start.
+
 Run without data: ``python -m lavila_tpu_torch.cli.main_pretrain
 --dataset synthetic --model CLIP_OPENAI_TIMESFORMER_MINI --steps 2
 --batch-size 4 --device cpu --output-dir /tmp/run``.
@@ -40,7 +50,8 @@ from lavila_tpu_torch.cli.eval_zeroshot import crop_shape, resolve_device
 from lavila_tpu_torch.config import (PretrainConfig, model_kwargs_from_config,
                                      parse_config)
 from lavila_tpu_torch.data import transforms as T
-from lavila_tpu_torch.data.datasets import DatasetConfig, get_dataset
+from lavila_tpu_torch.data.datasets import (ConcatDataset, DatasetConfig,
+                                            get_dataset)
 from lavila_tpu_torch.data.loader import DataLoader, device_prefetch
 from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.models import build_model
@@ -52,6 +63,7 @@ from lavila_tpu_torch.utils.checkpoints import (CheckpointManager,
                                                 resolve_resume)
 from lavila_tpu_torch.utils.meters import AverageMeter, ProgressMeter, Timer
 from lavila_tpu_torch.utils.random import random_seed
+from lavila_tpu_torch.utils.tracking import init_wandb
 
 
 @dataclasses.dataclass
@@ -64,8 +76,6 @@ _NOT_PORTED = (
     (lambda c: c.model.startswith("VCLM"),
      "--model VCLM_* (the narrator's caption loss and step)",
      "the narrator's training"),
-    (lambda c: c.metadata_aux is not None, "--metadata-aux (the SSL loss)",
-     "the SSL loss"),
     (lambda c: c.contrastive_use_vissl, "--contrastive-use-vissl",
      "multi-GPU"),
     (lambda c: c.mesh_model > 1, "--mesh-model > 1", "multi-GPU"),
@@ -77,12 +87,6 @@ _NOT_PORTED = (
                     c.freeze_lm_vclm]),
      "the VCLM --freeze-* flags (the narrator's training)",
      "the narrator's training"),
-    (lambda c: c.freeze_pseudo_temperature,
-     "--freeze-pseudo-temperature (the SSL loss)", "the SSL loss"),
-    (lambda c: c.val_metadata is not None,
-     "--val-metadata (the in-training probe)",
-     "the in-training probe"),
-    (lambda c: c.wandb, "--wandb", "--wandb"),
     (lambda c: c.timesformer_gated_xattn, "--timesformer-gated-xattn",
      "timesformer_gated_xattn"),
 )
@@ -97,34 +101,49 @@ def check_ported(cfg) -> None:
 
 
 def build_dataset(cfg, tokenizer, train_transform):
-    dcfg = DatasetConfig(
-        dataset=cfg.dataset, root=cfg.root, metadata=cfg.metadata,
-        clip_length=cfg.clip_length, clip_stride=cfg.clip_stride,
-        sparse_sample=cfg.sparse_sample,
-        narration_selection=cfg.narration_selection)
-    return get_dataset(dcfg, train_transform, tokenizer, is_training=True,
-                       seed=cfg.seed)
+    """The human narrations' dataset; with ``--metadata-aux``, each aux
+    metadata's dataset (a random narration of each clip's) after it, the
+    samples marked 1 and 0 in ``gt_indicators``."""
+    def dataset(metadata, narration_selection):
+        dcfg = DatasetConfig(
+            dataset=cfg.dataset, root=cfg.root, metadata=metadata,
+            clip_length=cfg.clip_length, clip_stride=cfg.clip_stride,
+            sparse_sample=cfg.sparse_sample,
+            narration_selection=narration_selection)
+        return get_dataset(dcfg, train_transform, tokenizer,
+                           is_training=True, seed=cfg.seed)
+
+    base = dataset(cfg.metadata, cfg.narration_selection)
+    if cfg.metadata_aux is None:
+        return base
+    aux = [dataset(p, "random") for p in cfg.metadata_aux.split(",")]
+    return ConcatDataset([base, *aux], [1] + [0] * len(aux))
 
 
 # the batch entries a train step reads, and their dtypes on the device
 BATCH_DTYPES = {"frames": torch.float32, "text": torch.long,
-                "relevancy": torch.float32, "mask": torch.float32}
+                "relevancy": torch.float32, "mask": torch.float32,
+                "gt_indicators": torch.float32}
+
+
+def to_device(array, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """A host array as a ``dtype`` tensor on ``device``: through pinned
+    memory and a non-blocking copy on CUDA, so the copy of batch N+1
+    overlaps step N."""
+    t = torch.from_numpy(np.asarray(array)).to(dtype)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def make_place(device: torch.device, keys=("frames", "text")):
     """Host batch → device tensors of ``keys``, and of ``mask`` where the
-    batch has one (the WordPiece tokenizer's, for the DistilBERT towers):
-    pinned memory and a non-blocking copy on CUDA, so the copy of batch
-    N+1 overlaps step N."""
+    batch has one (the WordPiece tokenizer's, for the DistilBERT
+    towers)."""
     def place(batch):
-        out = {}
-        for key in (*keys, *(("mask",) if "mask" in batch else ())):
-            t = torch.from_numpy(np.asarray(batch[key])).to(
-                BATCH_DTYPES[key])
-            if device.type == "cuda":
-                t = t.pin_memory()
-            out[key] = t.to(device, non_blocking=True)
-        return out
+        return {key: to_device(batch[key], BATCH_DTYPES[key], device)
+                for key in (*keys, *(("mask",) if "mask" in batch else ()))}
     return place
 
 
@@ -158,11 +177,17 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         warmup_epochs=cfg.warmup_epochs, start_warmup_lr=cfg.lr_start))
     clip = (None if cfg.clip_grad_value is None
             else float(cfg.clip_grad_value))
-    # --freeze-temperature and --timesformer-freeze-space leave their
-    # parameters out of the optimizer (train/freeze.py)
+    # the freeze flags leave their parameters out of the optimizer
+    # (train/freeze.py)
     frozen = build_freeze_predicate(
         freeze_temperature=cfg.freeze_temperature,
-        timesformer_freeze_space=cfg.timesformer_freeze_space)
+        timesformer_freeze_space=cfg.timesformer_freeze_space,
+        freeze_pseudo_temperature=cfg.freeze_pseudo_temperature)
+    use_ssl = cfg.metadata_aux is not None
+    # the reference passes --pseudo-temperature-init (default 0.07) as
+    # SSLCLIPLoss's scale_init (reference main_pretrain.py:195)
+    criterion = ({"logit_scale_pseudo": math.log(
+        1 / cfg.pseudo_temperature_init)} if use_ssl else None)
     state = TrainState.create(
         model, lambda params: make_optimizer(
             freeze_by_predicate(params, frozen), schedule,
@@ -171,7 +196,8 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
             clip_grad_type=cfg.clip_grad_type,
             update_freq=cfg.update_freq),
         dtype=dtype,
-        generator=torch.Generator(device).manual_seed(cfg.seed))
+        generator=torch.Generator(device).manual_seed(cfg.seed),
+        criterion=criterion)
     n_params = sum(p.numel() for p in state.params.values())
     print(f"=> {n_params/1e6:.1f}M params")
 
@@ -187,10 +213,29 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         best_metric = float(meta.get("metrics", {}).get(
             "best_metric", float("-inf")))
 
-    step_fn = make_clip_train_step(norm_embed=cfg.norm_embed)
+    step_fn = make_clip_train_step(norm_embed=cfg.norm_embed,
+                                   use_ssl=use_ssl)
     metric_names = ["loss", "clip_loss", "clip_acc"]
-    place = make_place(device)
+    place = make_place(device, ("frames", "text", "gt_indicators")
+                       if use_ssl else ("frames", "text"))
+
+    def run_probe() -> dict:
+        """The zero-shot EK-100 MIR probe on the working copy, in eval
+        mode (reference main_pretrain.py:359-379)."""
+        from lavila_tpu_torch.cli.eval_zeroshot import eval_ek100_mir
+        state.model.eval()
+        try:
+            return eval_ek100_mir(
+                state.model, tokenizer, cfg.model,
+                root=cfg.val_root or cfg.root, metadata=cfg.val_metadata,
+                clip_length=cfg.clip_length, clip_stride=cfg.clip_stride,
+                batch_size=cfg.batch_size, workers=cfg.workers,
+                num_clips=cfg.val_num_clips, num_crops=cfg.val_num_crops)
+        finally:
+            state.model.train()
+
     os.makedirs(cfg.output_dir, exist_ok=True)
+    wandb_run = init_wandb(cfg.asdict()) if cfg.wandb else None
 
     total_steps = 0
     profiler = None
@@ -224,22 +269,41 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
                     mem.update(torch.cuda.memory_allocated(device) / 1e9)
                 batch_time.update(timer.lap())
                 progress.display(it)
+                if wandb_run is not None:
+                    wandb_run.log({k: m.val for k, m in meters.items()})
             else:
                 batch_time.update(timer.lap())
             total_steps += 1
+            if (cfg.val_metadata and cfg.eval_in_middle_freq > 0 and it > 0
+                    and it % cfg.eval_in_middle_freq == 0):
+                run_probe()
             if cfg.steps is not None and total_steps >= cfg.steps:
                 break
         if profiler is not None:  # fewer than 10 steps in all
             _stop_profiler(profiler, cfg.profile_dir)
             profiler = None
 
+        probe_metrics = run_probe() if cfg.val_metadata else {}
+        # the best checkpoint follows the probe's mAP (reference
+        # main_pretrain.py:394-403)
+        is_best = probe_metrics.get("mAP_avg", float("-inf")) > best_metric
+        if is_best:
+            best_metric = probe_metrics["mAP_avg"]
+        # best_metric stays out of the sidecar until a probe has run: -inf
+        # would be written as the non-JSON -Infinity
         mgr.save(state.state_dict(), epoch=epoch, config=cfg.asdict(),
-                 metrics={"best_metric": best_metric}, is_best=False,
+                 metrics={**probe_metrics,
+                          **({"best_metric": best_metric}
+                             if math.isfinite(best_metric) else {})},
+                 is_best=is_best,
                  keep_epoch=(epoch + 1) % cfg.save_freq == 0)
         log = {f"train_{k}": m.avg for k, m in meters.items()}
+        log.update(probe_metrics)
         log["epoch"] = epoch
         with open(osp.join(cfg.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(log) + "\n")
+        if wandb_run is not None:
+            wandb_run.log(log)
         if cfg.steps is not None and total_steps >= cfg.steps:
             break
     print("=> done")

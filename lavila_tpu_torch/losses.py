@@ -1,7 +1,8 @@
 """Training losses.
 
 Counterpart of ``lavila_tpu/losses.py``. On one device the global batch
-is the local one, so :func:`clip_loss` is the whole InfoNCE; every
+is the local one, so :func:`clip_loss` is the whole InfoNCE and
+:func:`ssl_clip_loss` the whole two-temperature one; every
 softmax and cross entropy is fp32 whatever the embeddings' dtype, and so
 is :func:`max_margin_loss`, the retrieval fine-tune's ranking loss.
 """
@@ -43,10 +44,41 @@ def clip_loss_local(*args, **kwargs):
         "ROADMAP queue 1: multi-GPU")
 
 
-def ssl_clip_loss(*args, **kwargs):
+def ssl_clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
+                  logit_scale: torch.Tensor, logit_scale_pseudo: torch.Tensor,
+                  gt_indicators: torch.Tensor) -> dict:
+    """Two-temperature InfoNCE over human (indicator 1) and pseudo
+    (indicator 0) narrations (reference loss.py:121-217): a pair of two
+    pseudo narrations takes ``logit_scale_pseudo``, a pair of two human
+    ones ``logit_scale``, a mixed pair their geometric mean. Returns the
+    :func:`clip_loss` keys, the counts ``num_gt``/``num_pseudo`` and the
+    accuracy over each kind's rows, fp32 scalars."""
+    n = image_embed.shape[0]
+    ind = gt_indicators.float()
+    pair = ind[None, :] + ind[:, None]  # (n, n) in {0, 1, 2}
+    scale, pseudo = logit_scale.float(), logit_scale_pseudo.float()
+    scale_mat = torch.where(pair == 0, pseudo,
+                            torch.where(pair == 2, scale,
+                                        torch.sqrt(scale * pseudo)))
+    logits = scale_mat * (image_embed.float() @ text_embed.float().T)
+    labels = torch.arange(n, device=logits.device)
+    loss = 0.5 * (_xent(logits, labels).mean()
+                  + _xent(logits.T, labels).mean())
+    correct = (logits.argmax(dim=-1) == labels).float()
+    num_gt, num_pseudo = ind.sum(), (1.0 - ind).sum()
+    return {"loss": loss, "clip_loss": loss,
+            "clip_acc": 100.0 * correct.mean(),
+            "num_gt": num_gt, "num_pseudo": num_pseudo,
+            "clip_acc_gt": 100.0 * (correct * ind).sum()
+            / num_gt.clamp_min(1.0),
+            "clip_acc_pseudo": 100.0 * (correct * (1.0 - ind)).sum()
+            / num_pseudo.clamp_min(1.0)}
+
+
+def ssl_clip_loss_local(*args, **kwargs):
     raise NotImplementedError(
-        "the SSL loss over pseudo-narrations (--metadata-aux) is not "
-        "ported yet: ROADMAP queue 1: the SSL loss")
+        "the local (all-gather) SSL loss needs several GPUs: ROADMAP "
+        "queue 1: multi-GPU")
 
 
 def _cosine_sim_matrix(a: torch.Tensor, b: torch.Tensor,

@@ -7,7 +7,10 @@ checkpoint loads with ``load_state_dict(strict=True)`` once ``module.``
 is stripped and ``temporal_embed`` fits the clip length.
 
   * :func:`state_dict_from_jax` maps a ``lavila_tpu`` ``VideoCLIP``,
-    ``VideoCLIPHF`` or ``VCLM`` parameter tree onto those keys: Dense
+    ``VideoCLIPHF``, ``VideoClassifier[MultiHead]`` or ``VCLM``
+    parameter tree (and the SSL loss's ``logit_scale_pseudo``) onto
+    those keys (a classifier's tower under ``vision_model.``, its heads
+    ``fc_cls`` / ``fc_cls_{i}``): Dense
     kernels ``(in, out) → (out, in)``, Conv kernels ``(kh, kw, I, O) →
     (O, I, kh, kw)``, ``h_{i}`` → ``h.{i}``, the pooler's LN ``scale`` →
     ``gamma``; DistilBERT's flax names onto HF's under ``textual.``
@@ -85,26 +88,34 @@ def _distilbert_key(rest: list) -> tuple[str, str | None]:
                      suffix]), layout
 
 
-def torch_key(path: tuple) -> tuple[str, str | None]:
-    """Map one flax path to (reference key, layout), or raise KeyError."""
+_FC_CLS = re.compile(r"fc_cls(_\d+)?")
+
+
+def torch_key(path: tuple, tower: str = "visual") -> tuple[str, str | None]:
+    """Map one flax path to (reference key, layout), or raise KeyError.
+    ``tower``: the port's name of the video tower (``visual`` in the dual
+    encoders and narrators, ``vision_model`` in the classifiers)."""
     top, rest = path[0], list(path[1:])
-    if top in ("image_projection", "text_projection",
-               "logit_scale") and not rest:
+    if top in ("image_projection", "text_projection", "logit_scale",
+               "logit_scale_pseudo") and not rest:
         return top, None
     if top in _PROJECTION_FC:
         suffix, layout = _LEAF[rest[0]]
         return f"{_PROJECTION_FC[top]}.{suffix}", layout
+    if _FC_CLS.fullmatch(top) and len(rest) == 1:
+        suffix, layout = _LEAF[rest[0]]
+        return f"{top}.{suffix}", layout
     if top == "vision_model":
         parts = [_block_index(p, "blocks") for p in rest]
         if parts[0] == "patch_embed":
             if parts[1] == "bias":  # the CLIP_HF towers' conv
-                return "visual.patch_embed.proj.bias", None
-            return "visual.patch_embed.proj.weight", {"kernel": "conv"}[
+                return f"{tower}.patch_embed.proj.bias", None
+            return f"{tower}.patch_embed.proj.weight", {"kernel": "conv"}[
                 parts[1]]
         if len(parts) == 1:  # cls_token, pos_embed, temporal_embed
-            return f"visual.{parts[0]}", None
+            return f"{tower}.{parts[0]}", None
         suffix, layout = _LEAF[parts[-1]]
-        return ".".join(["visual", *parts[:-1], suffix]), layout
+        return ".".join([tower, *parts[:-1], suffix]), layout
     if top == "text_model" and (rest[0] in _BERT_EMBEDDINGS
                                 or rest[0].startswith("layer_")):
         return _distilbert_key(rest)
@@ -141,14 +152,18 @@ def torch_key(path: tuple) -> tuple[str, str | None]:
 
 
 def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """``lavila_tpu`` ``VideoCLIP``, ``VideoCLIPHF`` or ``VCLM`` params (a
-    nested dict of
-    arrays, the ``'params'`` collection) → the port's fp32 state dict. Raises
-    ``KeyError`` naming every leaf that has no counterpart."""
+    """``lavila_tpu`` ``VideoCLIP``, ``VideoCLIPHF``,
+    ``VideoClassifier[MultiHead]`` or ``VCLM`` params (a nested dict of
+    arrays, the ``'params'`` collection; an SSL state's
+    ``criterion_params`` may be merged in beside them) → the port's fp32
+    state dict. Raises ``KeyError`` naming every leaf that has no
+    counterpart."""
+    tower = ("vision_model" if any(_FC_CLS.fullmatch(str(k)) for k in params)
+             else "visual")
     out, leftover = {}, []
     for path, arr in _flatten(params).items():
         try:
-            key, layout = torch_key(path)
+            key, layout = torch_key(path, tower)
         except (KeyError, IndexError):
             leftover.append("/".join(path))
             continue

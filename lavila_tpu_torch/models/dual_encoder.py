@@ -1,12 +1,16 @@
-"""CLIP-style dual encoders.
+"""CLIP-style dual encoders and the video classifiers.
 
 Counterpart of ``lavila_tpu/models/dual_encoder.py`` (``VideoCLIP``,
-``VideoCLIPHF``, ``l2_normalize``). As in the reference checkpoints, the
+``VideoCLIPHF``, ``VideoClassifier``, ``VideoClassifierMultiHead``,
+``l2_normalize``). As in the reference checkpoints, the
 video tower sits under ``visual.``; :class:`VideoCLIP` keeps the CLIP
 text tower's modules at the top level (``token_embedding``,
 ``transformer.resblocks.{i}``, ``ln_final``, ``text_projection``),
 :class:`VideoCLIPHF` its DistilBERT under ``textual.``; both beside
-``image_projection`` and ``logit_scale``.
+``image_projection`` and ``logit_scale``. The classifiers hold the
+video tower under ``vision_model.`` (the JAX module's name, which the
+backbone's learning-rate label looks for) beside their heads ``fc_cls``
+or ``fc_cls_{i}``.
 """
 
 from __future__ import annotations
@@ -158,3 +162,86 @@ class VideoCLIPHF(nn.Module):
             text_embed = l2_normalize(text_embed)
         return {"image_embed": image_embed, "text_embed": text_embed,
                 "logit_scale": self.logit_scale.exp()}
+
+
+def _dropout(x: torch.Tensor, rate: float, training: bool,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (``flax.linen.Dropout``): each element kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, the draw
+    from ``generator``; the identity in eval mode or at rate 0."""
+    if not training or rate <= 0:
+        return x
+    where = generator.device if generator is not None else x.device
+    keep = torch.rand(x.shape, generator=generator, device=where) \
+        .to(x.device) < 1.0 - rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+class _Classifier(nn.Module):
+    """Linear heads (name → classes) over the video tower's pooled
+    feature, dropout before them in train mode. Unlike
+    :class:`VideoCLIP`, the tower runs its stochastic depth in train
+    mode, as the JAX classifiers pass ``train=True`` to it."""
+
+    def __init__(self, vision_model: nn.Module, heads: dict[str, int],
+                 dropout: float):
+        super().__init__()
+        self.vision_model = vision_model
+        self.dropout = dropout
+        self.head_names = list(heads)
+        for name, n in heads.items():
+            self.add_module(name, nn.Linear(vision_model.embed_dim, n))
+
+    def heads(self) -> list[nn.Linear]:
+        return [getattr(self, name) for name in self.head_names]
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator,
+                     backbone: bool = True) -> None:
+        """The JAX package's initialisers, drawn from ``generator``:
+        normal(0.01) head weights, zero biases; the tower's too unless
+        ``backbone`` is False (it holds pretrained weights)."""
+        if backbone:
+            self.vision_model.init_weights(generator)
+        for fc in self.heads():
+            nn.init.normal_(fc.weight, 0.0, 0.01, generator=generator)
+            fc.bias.zero_()
+
+    def features(self, image: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """The tower's pooled feature after dropout; ``generator`` draws
+        the drop-path masks and the dropout (train mode only)."""
+        x = self.vision_model(image, generator=generator)
+        return _dropout(x, self.dropout, self.training, generator)
+
+
+class VideoClassifier(_Classifier):
+    """One linear head ``fc_cls`` over the video tower (reference
+    models.py:24-45)."""
+
+    def __init__(self, vision_model: nn.Module, num_classes: int,
+                 dropout: float = 0.0):
+        super().__init__(vision_model, {"fc_cls": num_classes}, dropout)
+
+    def forward(self, image: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.fc_cls(self.features(image, generator))
+
+
+class VideoClassifierMultiHead(_Classifier):
+    """One linear head ``fc_cls_{i}`` per entry of ``num_classes_list``
+    over the same feature (reference models.py:48-72): EK-100's verb,
+    noun and action heads. The forward returns the heads' logits in
+    that order."""
+
+    def __init__(self, vision_model: nn.Module,
+                 num_classes_list: list[int], dropout: float = 0.0):
+        super().__init__(vision_model, {f"fc_cls_{i}": n for i, n in
+                                        enumerate(num_classes_list)},
+                         dropout)
+
+    def forward(self, image: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> list[torch.Tensor]:
+        x = self.features(image, generator)
+        return [fc(x) for fc in self.heads()]

@@ -2,7 +2,7 @@
 
 Counterpart of ``lavila_tpu/train/optim.py`` (the reference recipe,
 main_pretrain.py:199-222, scheduler.py:10-21), with ``torch.optim.AdamW``
-in place of the optax chain:
+(or ``torch.optim.SGD``) in place of the optax chain:
 
   * two parameter groups: weight decay only where :func:`no_decay` is
     False (matrices whose name holds no ``bias``/``ln``/``bn``);
@@ -14,12 +14,20 @@ in place of the optax chain:
     ``optax.MultiSteps``' semantics: the gradients of k micro-steps
     averaged (its running mean), then one clipped update and one schedule
     step every k;
+  * SGD with momentum 0.9 (``use_sgd``), as ``optax.sgd`` after a masked
+    ``add_decayed_weights``: the decay joins the clipped gradient before
+    the momentum trace, whose first value is that gradient (no
+    dampening), which is what ``torch.optim.SGD`` with per-group
+    ``weight_decay`` computes;
   * :func:`clamp_logit_scale` after each update.
 
 Frozen parameters (``train/freeze.py``) are left out of the optimizer
 altogether: no update, no weight decay, no share in the clipping norm,
-as ``optax.multi_transform`` with ``set_to_zero`` leaves them. SGD is not
-ported yet.
+as ``optax.multi_transform`` with ``set_to_zero`` leaves them.
+:class:`MultiTransform` is ``optax.multi_transform`` over labelled
+groups (the classification fine-tune's head and backbone,
+:func:`lr_multiplier_labels`), each an :class:`Optimizer` with its own
+schedule and its own clipping norm.
 """
 
 from __future__ import annotations
@@ -71,17 +79,31 @@ def clamp_logit_scale(named_params: Iterable) -> None:
                 p.clamp_(0.0, LOGIT_SCALE_MAX)
 
 
+# the video tower's names: a classifier's, a dual encoder's
+BACKBONE = ("vision_model", "visual")
+
+
+def lr_multiplier_labels(names: Iterable[str]) -> dict[str, str]:
+    """``'backbone'`` where a dotted component of the name is one of
+    :data:`BACKBONE`, else ``'head'``: the classification fine-tune's
+    groups for --lr-multiplier-on-backbone (reference
+    main_finetune_classification.py:189-209)."""
+    return {n: "backbone" if any(part in BACKBONE for part in n.split("."))
+            else "head" for n in names}
+
+
 class Optimizer:
-    """Clipping, then AdamW at the scheduled rate: one :meth:`step` is
-    one optax update of the JAX chain (with ``update_freq`` k > 1, one
-    micro-step of ``optax.MultiSteps``: k of them make one update).
-    ``adamw``/``scheduler`` are the torch objects; :meth:`state_dict`
-    holds both, and the running mean of the gradients when k > 1."""
+    """Clipping, then AdamW (or SGD) at the scheduled rate: one
+    :meth:`step` is one optax update of the JAX chain (with
+    ``update_freq`` k > 1, one micro-step of ``optax.MultiSteps``: k of
+    them make one update). ``inner``/``scheduler`` are the torch
+    objects; :meth:`state_dict` holds both, and the running mean of the
+    gradients when k > 1."""
 
     def __init__(self, named_params, lr: float | Callable[[int], float],
                  weight_decay: float, betas, eps: float,
                  clip_grad_value: float | None, clip_grad_type: str,
-                 update_freq: int = 1):
+                 update_freq: int = 1, use_sgd: bool = False):
         named = list(named_params)
         self.params = [p for _, p in named]
         self.update_freq = update_freq
@@ -96,10 +118,13 @@ class Optimizer:
                   {"params": [p for n, p in named if not decay[n]],
                    "weight_decay": 0.0}]
         # lr 1.0 scaled by the schedule: the rate is schedule(count)
-        self.adamw = torch.optim.AdamW(groups, lr=1.0, betas=tuple(betas),
-                                       eps=eps)
+        # the JAX make_optimizer's optax.sgd momentum
+        self.inner = (torch.optim.SGD(groups, lr=1.0, momentum=0.9)
+                      if use_sgd else
+                      torch.optim.AdamW(groups, lr=1.0, betas=tuple(betas),
+                                        eps=eps))
         schedule = lr if callable(lr) else (lambda _: lr)
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.adamw,
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.inner,
                                                            schedule)
         self.clip_grad_value = clip_grad_value
         self.clip_grad_type = clip_grad_type
@@ -140,11 +165,11 @@ class Optimizer:
             return
         if self.clip_grad_value is not None:
             self._clip()
-        self.adamw.step()
+        self.inner.step()
         self.scheduler.step()
 
     def state_dict(self) -> dict:
-        state = {"optimizer": self.adamw.state_dict(),
+        state = {"optimizer": self.inner.state_dict(),
                  "scheduler": self.scheduler.state_dict()}
         if self.update_freq > 1:
             state["accumulate"] = {"micro_step": self.micro_step,
@@ -153,7 +178,7 @@ class Optimizer:
         return state
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["optimizer"])
+        self.inner.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         if self.update_freq > 1:
             acc = state["accumulate"]
@@ -169,16 +194,51 @@ def make_optimizer(named_params, lr: float | Callable[[int], float],
                    eps: float = 1e-8, clip_grad_value: float | None = None,
                    clip_grad_type: str = "norm", update_freq: int = 1,
                    use_sgd: bool = False) -> Optimizer:
-    """AdamW over ``named_params`` ((name, tensor) pairs), as the JAX
-    package's ``make_optimizer``; pass the pairs through
+    """AdamW (SGD with momentum 0.9 under ``use_sgd``) over
+    ``named_params`` ((name, tensor) pairs), as the JAX package's
+    ``make_optimizer``; pass the pairs through
     ``train.freeze.freeze_by_predicate`` to freeze some."""
     if clip_grad_type not in ("norm", "value"):
         raise ValueError(clip_grad_type)
-    if use_sgd:
-        raise NotImplementedError(
-            "SGD (--use-sgd) is not ported yet: ROADMAP queue 1: the "
-            "classification fine-tune")
     if update_freq < 1:
         raise ValueError(f"update_freq must be >= 1, got {update_freq}")
     return Optimizer(named_params, lr, weight_decay, betas, eps,
-                     clip_grad_value, clip_grad_type, update_freq)
+                     clip_grad_value, clip_grad_type, update_freq, use_sgd)
+
+
+class MultiTransform:
+    """``optax.multi_transform`` over labelled groups: each label's
+    parameters under their own :class:`Optimizer`, so each group has its
+    own schedule and is clipped by its own global norm, and every
+    :meth:`step` steps them all. Where each group accumulates over the
+    same ``update_freq``, every group's running mean is the one that
+    ``optax.MultiSteps`` outside the multi-transform keeps for its
+    leaves, and all update on the same micro-step."""
+
+    def __init__(self, optimizers: dict[str, Optimizer]):
+        self.optimizers = optimizers
+
+    def step(self) -> None:
+        for opt in self.optimizers.values():
+            opt.step()
+
+    def state_dict(self) -> dict:
+        return {label: opt.state_dict()
+                for label, opt in self.optimizers.items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        for label, opt in self.optimizers.items():
+            opt.load_state_dict(state[label])
+
+
+def make_multi_optimizer(named_params, labels: dict[str, str],
+                         lrs: dict[str, float | Callable[[int], float]],
+                         **kwargs) -> MultiTransform:
+    """One :func:`make_optimizer` per label of ``lrs`` over the
+    parameters that ``labels`` (name → label) gives it, with that
+    label's rate and the shared ``kwargs``."""
+    named = list(named_params)
+    return MultiTransform({
+        label: make_optimizer([(n, p) for n, p in named
+                               if labels[n] == label], lr, **kwargs)
+        for label, lr in lrs.items()})

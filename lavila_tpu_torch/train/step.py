@@ -1,7 +1,10 @@
-"""The dual encoder's train steps: pretraining and retrieval fine-tuning.
+"""The dual encoder's train steps: pretraining (the CLIP loss, or the
+SSL loss over human and pseudo narrations), retrieval fine-tuning, and
+the classification fine-tune of the video tower.
 
 Counterpart of ``lavila_tpu/train/step.py`` (``TrainState``,
-``make_clip_train_step``, ``make_retrieval_train_step``) on one device.
+``make_clip_train_step``, ``make_retrieval_train_step``,
+``make_classifier_train_step``) on one device.
 JAX's step is a pure function of an immutable state; here the step
 updates the state in place (the
 parameters, the optimizer's moments, the step count) and returns it, so
@@ -24,6 +27,12 @@ residual stream to fp32 at the first fp32 add:
     the working copy.
 
 With an fp32 compute dtype the model is its own master: no copy is made.
+
+The SSL loss's own parameter, ``logit_scale_pseudo``, lives in
+:attr:`TrainState.criterion` (the JAX state's ``criterion_params``): an
+fp32 scalar under the model's optimizer (no weight decay, as every
+scalar; a share in the clipping norm), never cast and never clamped,
+since the JAX step clamps only the model's parameters.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from torch import nn
 
 from lavila_tpu_torch import losses
 from lavila_tpu_torch.ops.basic import LayerNorm
-from lavila_tpu_torch.train.optim import Optimizer, clamp_logit_scale
+from lavila_tpu_torch.train.optim import (MultiTransform, Optimizer,
+                                          clamp_logit_scale)
 
 
 def working_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -54,33 +64,44 @@ def working_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 class TrainState:
     """What one step reads and writes: the working copy ``model``, the
-    fp32 masters ``params`` (by parameter name), ``optimizer`` over the
-    masters, the step count, and the generator of the drop-path masks."""
+    fp32 masters ``params`` (by parameter name), the loss's own fp32
+    parameters ``criterion`` (by name; empty but for the SSL loss),
+    ``optimizer`` over the masters and ``criterion``, the step count,
+    and the generator of the drop-path masks (and of the classifier's
+    dropout)."""
 
     def __init__(self, model: nn.Module, params: dict[str, torch.Tensor],
-                 optimizer: Optimizer, step: int = 0,
-                 generator: torch.Generator | None = None):
+                 optimizer: Optimizer | MultiTransform, step: int = 0,
+                 generator: torch.Generator | None = None,
+                 criterion: dict[str, torch.Tensor] | None = None):
         self.model = model
         self.params = params
         self.optimizer = optimizer
         self.step = step
         self.generator = generator
+        self.criterion = criterion or {}
 
     @classmethod
     def create(cls, model: nn.Module,
-               make_optimizer: Callable[..., Optimizer],
+               make_optimizer: Callable[..., Optimizer | MultiTransform],
                dtype: torch.dtype = torch.bfloat16,
-               generator: torch.Generator | None = None) -> "TrainState":
-        """``model`` in fp32 becomes the masters; ``make_optimizer`` takes
-        the masters' (name, parameter) pairs."""
+               generator: torch.Generator | None = None,
+               criterion: dict[str, float] | None = None) -> "TrainState":
+        """``model`` in fp32 becomes the masters; ``criterion`` (name →
+        initial value) the loss's fp32 parameters on the model's device;
+        ``make_optimizer`` takes the (name, parameter) pairs of both."""
         params = dict(model.named_parameters())
         if any(p.dtype != torch.float32 for p in params.values()):
             raise TypeError("TrainState.create takes an fp32 model: its "
                             "parameters become the fp32 masters")
+        device = next(iter(params.values())).device
+        crit = {k: nn.Parameter(torch.tensor(float(v), device=device))
+                for k, v in (criterion or {}).items()}
         work = model if dtype == torch.float32 else working_copy(model,
                                                                  dtype)
-        return cls(work, params, make_optimizer(params.items()), 0,
-                   generator)
+        return cls(work, params,
+                   make_optimizer([*params.items(), *crit.items()]), 0,
+                   generator, crit)
 
     @property
     def has_copy(self) -> bool:
@@ -91,17 +112,24 @@ class TrainState:
         """What a checkpoint holds: the fp32 masters under the model's
         parameter names, the optimizer and schedule states (and the
         running mean of the gradients under ``update_freq`` > 1), the
-        step."""
+        step, and the loss's parameters under ``criterion`` where it has
+        any."""
         opt = self.optimizer.state_dict()
+        crit = ({"criterion": {k: p.detach()
+                               for k, p in self.criterion.items()}}
+                if self.criterion else {})
         return {"state_dict": {k: p.detach() for k, p in self.params.items()},
-                **opt, "step": self.step}
+                **opt, **crit, "step": self.step}
 
     @torch.no_grad()
     def load_state_dict(self, ckpt: dict) -> None:
         for k, p in self.params.items():
             p.copy_(ckpt["state_dict"][k])
+        for k, p in self.criterion.items():
+            p.copy_(ckpt["criterion"][k])
         self.optimizer.load_state_dict(
-            {k: v for k, v in ckpt.items() if k not in ("state_dict", "step")})
+            {k: v for k, v in ckpt.items()
+             if k not in ("state_dict", "criterion", "step")})
         self.step = int(ckpt["step"])
         self._copy_masters()
 
@@ -124,20 +152,27 @@ def make_clip_train_step(norm_embed: bool = False,
     ``logit_scale`` clamped,
     ``step += 1``. ``metrics`` are the loss function's, as detached fp32
     tensors (reading them synchronises; the step itself does not).
+
+    ``use_ssl``: the loss is :func:`losses.ssl_clip_loss` at the pseudo
+    scale ``exp(state.criterion["logit_scale_pseudo"])``, over the
+    batch's ``gt_indicators`` (B,) (1 for a human narration, 0 for a
+    pseudo one).
     """
-    if use_ssl:
-        raise NotImplementedError(
-            "the SSL step (--metadata-aux) is not ported yet: ROADMAP "
-            "queue 1: the SSL loss")
     if local_loss_mesh is not None:
         raise NotImplementedError(
-            "the local loss over a mesh is not ported yet: ROADMAP queue "
+            "the local loss over a mesh needs several GPUs: ROADMAP queue "
             "1: multi-GPU")
 
     def train_step(state: TrainState, batch: dict):
         out = _forward(state, batch, norm_embed)
-        metrics = loss_fn(out["image_embed"], out["text_embed"],
-                          out["logit_scale"])
+        if use_ssl:
+            metrics = losses.ssl_clip_loss(
+                out["image_embed"], out["text_embed"], out["logit_scale"],
+                state.criterion["logit_scale_pseudo"].exp(),
+                batch["gt_indicators"])
+        else:
+            metrics = loss_fn(out["image_embed"], out["text_embed"],
+                              out["logit_scale"])
         metrics["loss"].backward()
         _update(state)
         return state, {k: v.detach() for k, v in metrics.items()}
@@ -145,12 +180,17 @@ def make_clip_train_step(norm_embed: bool = False,
     return train_step
 
 
-def _forward(state: TrainState, batch: dict, norm_embed: bool) -> dict:
-    """The working copy's forward on ``batch``, its gradients cleared;
-    the batch's ``mask``, where it has one, goes to the text tower."""
-    model = state.model
-    for p in model.parameters():
+def _clear_grads(state: TrainState) -> None:
+    for p in (*state.model.parameters(), *state.criterion.values()):
         p.grad = None
+
+
+def _forward(state: TrainState, batch: dict, norm_embed: bool) -> dict:
+    """The working copy's forward on ``batch``, its gradients (and the
+    criterion's) cleared; the batch's ``mask``, where it has one, goes
+    to the text tower."""
+    model = state.model
+    _clear_grads(state)
     kwargs = {"mask": batch["mask"]} if "mask" in batch else {}
     return model(batch["frames"], batch["text"], norm_embed=norm_embed,
                  generator=state.generator, **kwargs)
@@ -159,13 +199,17 @@ def _forward(state: TrainState, batch: dict, norm_embed: bool) -> dict:
 def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:
     """After backward: the working copy's gradients (those named in
     ``zero`` zeroed) onto the fp32 masters, the optimizer's update,
-    ``logit_scale`` clamped, the masters copied back, ``step += 1``."""
+    ``logit_scale`` clamped (not the criterion's parameters), the masters
+    copied back, ``step += 1``."""
     for name, p in state.model.named_parameters():
         master = state.params[name]
         # a parameter the loss did not reach still decays, as in optax
         master.grad = (torch.zeros_like(master)
                        if p.grad is None or name in zero
                        else p.grad.float() if state.has_copy else p.grad)
+    for p in state.criterion.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     state.optimizer.step()
     clamp_logit_scale(state.params.items())
     state._copy_masters()
@@ -203,5 +247,53 @@ def make_retrieval_train_step(loss_type: str = "adaptive_max_margin",
         metrics["loss"].backward()
         _update(state, zero=("logit_scale",))
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def _xent_smoothed(logits: torch.Tensor, labels: torch.Tensor,
+                   smoothing: float) -> torch.Tensor:
+    """Mean cross entropy of fp32 ``log_softmax(logits)`` against the
+    one-hot of class ids ``labels`` (B,), or against ``labels`` itself
+    where it is already a (B, C) target (multi-hot), smoothed towards
+    uniform by ``smoothing``."""
+    n_cls = logits.shape[-1]
+    target = (nn.functional.one_hot(labels.long(), n_cls).float()
+              if labels.dim() == 1 else labels.float())
+    if smoothing > 0:
+        target = target * (1 - smoothing) + smoothing / n_cls
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(target * logp).sum(-1).mean()
+
+
+def make_classifier_train_step(multihead: bool = False,
+                               label_smoothing: float = 0.0):
+    """The classification fine-tune's step (reference
+    main_finetune_classification.py:453-464): cross entropy with label
+    smoothing over a ``VideoClassifier``'s logits and ``batch["label"]``
+    (class ids (B,), or a (B, C) multi-hot for the multi-label case,
+    whose ``acc1`` is 0), or with ``multihead`` the sum of the verb, noun
+    and action heads' terms over ``batch["labels"]`` (three (B,) id
+    tensors; ``acc1`` is the action head's). The tower's drop-path masks
+    and the head's dropout draw from ``state.generator``. Returns
+    ``train_step(state, batch) -> (state, metrics)``, as
+    :func:`make_clip_train_step`."""
+
+    def train_step(state: TrainState, batch: dict):
+        _clear_grads(state)
+        outs = state.model(batch["frames"], generator=state.generator)
+        if multihead:
+            labels = batch["labels"]
+            loss = sum(_xent_smoothed(o, lab, label_smoothing)
+                       for o, lab in zip(outs, labels))
+            top1 = 100.0 * (outs[-1].argmax(-1) == labels[-1]).float().mean()
+        else:
+            lab = batch["label"]
+            loss = _xent_smoothed(outs, lab, label_smoothing)
+            top1 = (torch.zeros((), device=loss.device) if lab.dim() > 1
+                    else 100.0 * (outs.argmax(-1) == lab).float().mean())
+        loss.backward()
+        _update(state)
+        return state, {"loss": loss.detach(), "acc1": top1.detach()}
 
     return train_step

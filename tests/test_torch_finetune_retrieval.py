@@ -359,8 +359,6 @@ def test_cli_accumulation_keeps_logit_scale_frozen(tmp_path,
 
 
 def test_cli_options_that_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="wandb"):
-        cli.main(_synthetic_args(tmp_path, "--wandb"))
     with pytest.raises(NotImplementedError, match="remat"):
         cli.main(_synthetic_args(tmp_path, "--use-checkpoint",
                                  "--remat-policy", "dots"))

@@ -23,6 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(lavila_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for entry in ("cli.eval_zeroshot", "cli.main_pretrain",
+              "cli.main_finetune_retrieval",
+              "cli.main_finetune_classification", "utils.tracking",
               "cli.main_infer_narrator", "cli.demo_narrator",
               "utils.meters", "config", "data.loader", "utils.random",
               "eval.metrics", "kernels.decode", "models.narrator",

@@ -1,7 +1,8 @@
 """The port's pretraining CLI on the CPU: MINI for 2 steps on the
 synthetic dataset writes a checkpoint that the port's zero-shot loader
 serves, resumes from its output directory, and refuses every option
-that is not ported yet; a DistilBERT dual encoder at MINI size trains
+that is not ported yet (the SSL options, the probe and --wandb are
+tested in tests/test_torch_ssl.py); a DistilBERT dual encoder at MINI size trains
 through it with its masks."""
 
 import json
@@ -134,16 +135,12 @@ def test_cli_freeze_and_accumulation_as_the_jax_cli(tmp_path, flags):
 @pytest.mark.parametrize("flags,match", [
     (["--model", "VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI"],
      "queue 1: the narrator's training"),
-    (["--metadata-aux", "aux.pkl"], "queue 1: the SSL loss"),
     (["--contrastive-use-vissl"], "queue 1: multi-GPU"),
     (["--mesh-model", "2"], "queue 1: multi-GPU"),
     (["--mesh-data", "4"], "queue 1: multi-GPU"),
     (["--use-checkpoint", "--remat-policy", "dots"], "remat"),
     (["--freeze-visual-vclm"], "freeze"),
     (["--freeze-lm-vclm"], "freeze"),
-    (["--val-metadata", "val.csv"], "probe"),
-    (["--wandb"], "wandb"),
-    (["--freeze-pseudo-temperature"], "freeze"),
     (["--timesformer-gated-xattn"], "gated"),
 ])
 def test_cli_options_not_ported_raise(tmp_path, flags, match):

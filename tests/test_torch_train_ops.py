@@ -71,10 +71,10 @@ def test_clip_loss_value_and_grad_match_jax():
 
 
 def test_other_losses_raise():
-    with pytest.raises(NotImplementedError, match="queue 1: the SSL loss"):
-        L.ssl_clip_loss()
     with pytest.raises(NotImplementedError, match="queue 1: multi-GPU"):
         L.clip_loss_local()
+    with pytest.raises(NotImplementedError, match="queue 1: multi-GPU"):
+        L.ssl_clip_loss_local()
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 25, 39, 40])
@@ -122,8 +122,6 @@ def test_optimizer_options_that_raise():
     p = [("w", torch.nn.Parameter(torch.zeros(2, 2)))]
     with pytest.raises(ValueError, match="update_freq"):
         O.make_optimizer(p, 1e-3, update_freq=0)
-    with pytest.raises(NotImplementedError, match="SGD"):
-        O.make_optimizer(p, 1e-3, use_sgd=True)
     with pytest.raises(ValueError):
         O.make_optimizer(p, 1e-3, clip_grad_type="max")
 

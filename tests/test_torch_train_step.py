@@ -128,7 +128,7 @@ def test_bf16_step_dtypes(monkeypatch):
                     "ln_w": {torch.float32}}
     assert torch.isfinite(m["loss"])
     assert state.has_copy
-    opt_params = [p for g in state.optimizer.adamw.param_groups
+    opt_params = [p for g in state.optimizer.inner.param_groups
                   for p in g["params"]]
     assert len(opt_params) == len(state.params)
     assert all(p.dtype == torch.float32 for p in opt_params)
