@@ -3,8 +3,9 @@
 kernels written for Hopper, and check them: the zero-shot dual encoder
 (serving), the dual-encoder pretraining step (with the CLIP loss, and
 with the SSL loss over human and pseudo narrations), the EK-100 MIR
-retrieval fine-tune, the EK-100 CLS classification fine-tune and the
-narrator's sampled decoding, at TSF-B width, with the
+retrieval fine-tune, the EK-100 CLS classification fine-tune, the
+narrator's sampled and beam decoding, its caption step and its
+evaluation, at TSF-B width, with the
 TSF-L@224 dual encoder (N = 256: K1's tensor-core kernels) and with the
 336px TSF-L towers (the high-resolution dual encoder and LaViLa's
 flagship narrator).
@@ -39,7 +40,13 @@ and prints no result. Phases, each printing JSON lines:
      their plain PyTorch versions on seeded inputs, fp32 and bf16, with
      errors, tolerances, CUDA-event times, the card's bound for the same
      work and the time of one PyTorch library call computing it
-     (``scripts/time_library_calls.py``). kernel_bwd: the same for the
+     (``scripts/time_library_calls.py``); GPT-2 XL's K3 rows (8·76,
+     1600) and its two attentions in the caption step, 8 captions × 25
+     heads: causal 76 × 76 and 76 queries over 256 image tokens (K7, K8
+     forward and backward, the split backward past 128 keys), from
+     their own generator after the other cases; and the launch floor,
+     the profiler's device time of an empty kernel, beside the short K3
+     calls and K9 (``launch_floor`` line). kernel_bwd: the same for the
      backward kernels (K8's whole backward: the fused kernel up to 128
      tokens, dq then dk/dv past it and in fp32; K1 also at
      TSF-L@224's N = 256, bf16 at batch 8 and fp32 at batch 1; the
@@ -108,7 +115,19 @@ and prints no result. Phases, each printing JSON lines:
      kernels/plain/plain/kernels.
   9. infer_narrator_cli: the port's ``main_infer_narrator`` on one batch
      of the synthetic dataset (GPT-2 XL narrator, bf16); checks
-     ``total.pkl``.
+     ``total.pkl``. The narrator phase also holds GPT-2's full forward
+     under inference (K7 at its 72 attentions) against the plain one.
+ 9b. narrator_train_step: LaViLa's narrator recipe (``--gated-xattn
+     --freeze-lm-vclm --freeze-visual-vclm``) on the TSF-B narrator at
+     full width and depth, 2 AdamW caption steps kernels vs plain (fp32
+     at batch 2, bf16 at 4; every trainable gradient; frozen parameters
+     bit-equal without a gradient), remat vs none, launches by kernel
+     and branch as ``_caption_launches`` predicts, bf16 clips/s and peak
+     memory at batch 16 in turns, busy time and idle share.
+ 9c. eval_narrator_cli: the port's ``eval_narrator`` (bf16, 8 clips)
+     with each ``--decoding`` (3 beams; 6 in 3 groups): finite
+     teacher-forced perplexities, the NLG scores, launches against the
+     decode steps run; one-beam ``beam_search`` against greedy (fp32).
  10. large_model, large_cli: phases 4 and 5 with
      CLIP_OPENAI_TIMESFORMER_LARGE_336PX (24 blocks 1024 wide, 576
      patches a frame: K6, K4, K5 in every block), encode_image clips/s
@@ -124,6 +143,13 @@ and prints no result. Phases, each printing JSON lines:
  13. flagship_narrator, flagship_infer_narrator_cli: phases 8 and 9 with
      VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL (cross-attention on 16
      of the 48 layers, 4·576 + 1 image tokens into the pooler).
+ 13b. vclm_pretrain_cli: the port's ``main_pretrain`` with the flagship
+     and LaViLa's recipe (fp32, ``--disable-amp``) plus
+     ``--use-checkpoint``, 2 steps at batch 8 on the synthetic dataset
+     and a fixture GPT-2 vocabulary: a finite loss, the gates moved,
+     frozen tensors bit-equal in the checkpoint; then
+     ``main_infer_narrator`` narrates a batch from that checkpoint. Its
+     launches by branch (SIMT) are on their own line.
  14. distilbert_model: CLIP_OPENAI_TIMESFORMER_LARGE_336PX_DISTILBERT_BASE
      (LaViLa's TSF-L@HR recipe: TSF-L@336 with DistilBERT, 6 post-LN
      layers 768 wide, plain masked attention, K3 on the embeddings and
@@ -144,7 +170,7 @@ and prints no result. Phases, each printing JSON lines:
      16; the pretraining CLI for 3 steps at batch 16.
 
 Every path phase (5, 7, finetune_cli, ssl_pretrain_cli, classify_cli,
-large224_cli, 9, 10-13, 15, 16's CLI) zeroes
+large224_cli, 9, 9c, 10-13b, 15, 16's CLI) zeroes
 the launch counters before it runs and reads them after; the kernel
 summary line sums those runs' counts (K1's, K2's and K6's also by
 branch: every divided-phase launch of a path runs bf16 at head_dim 64
@@ -155,10 +181,12 @@ LayerNorm backward's by branch, one launch a call: the one-block branch
 for the CLS rows of a batch that one block's rings hold, the cooperative
 grid for the rest, which every train step on the kernels checks; K7's
 and K8's by branch as well: the bf16 text towers take the tensor-core
-forward and the fused backward only, which the bf16 encodes and steps
-check too). The text tower runs K7 under inference_mode (serving) and
-K8's forward and backward (one fused launch a layer in bf16) in every
-train step.
+forward and the fused backward only, GPT-2's cross-attention the split
+backward past 128 keys, which the bf16 encodes and steps check too).
+The path run of the flagship's fp32 recipe (13b) runs SIMT: its
+launches by branch go to their own line and out of that check. The
+text tower runs K7 under inference_mode (serving) and K8's forward and
+backward (one fused launch a layer in bf16) in every train step.
 TF32 is off for matmuls and cuDNN convolutions, so fp32 comparisons are
 fp32. Any failed check exits non-zero without the final line; the final
 line is ``{"ok": true, "device": {...}}``.
@@ -225,10 +253,20 @@ FAILURES: list[str] = []
 # cross-attention); BOS = EOS = GPT-2's <|endoftext|>
 NARRATOR = {"name": "VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL", "layers": 48,
             "cross": 24, "bos": 50256, "eos": 50256, "img": 224,
-            "depth": 12, "space": "K1"}
+            "depth": 12, "width": 768, "space": "K1"}
 FLAGSHIP = {"name": "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL",
             "layers": 48, "cross": 16, "bos": 50256, "eos": 50256,
-            "img": 336, "depth": 24, "space": "K6"}
+            "img": 336, "depth": 24, "width": 1024, "space": "K6"}
+# GPT-2 XL's attentions in the narrator's caption step at 8 captions of
+# 76 tokens (77 less the shifted label), 25 heads of 64: the causal
+# self-attention on c_attn's row views and the cross-attention over the
+# 256 pooled image tokens (B, H, Lq, Lk, d); its norms' rows
+GPT2_SELF = (8, 25, 76, 76, 64)
+GPT2_CROSS = (8, 25, 76, 256, 64)
+GPT2_ROWS = (8 * 76, 1600)
+# the K3 rows timed by the profiler beside F.layer_norm (as DistilBERT's):
+# a decode step's and the caption step's
+LN_DEVICE_ROWS = ((160, 1, 1600), GPT2_ROWS)
 # the least time the card could take: bytes over HBM3's 3.35 TB/s, or
 # operations over the dense peak of their type (bf16 tensor cores, fp32
 # outside them); NVIDIA's H100 SXM data sheet, at the 700 W limit
@@ -317,6 +355,8 @@ def plain_path():
                     KD.divided_phase_reference), \
             mock.patch("lavila_tpu_torch.ops.attention.flash_attention",
                        KF.flash_attention_reference), \
+            mock.patch("lavila_tpu_torch.models.gpt2.flash_attention",
+                       KF.flash_attention_reference), \
             mock.patch("lavila_tpu_torch.ops.basic.layer_norm",
                        KL.layer_norm_reference), \
             mock.patch("lavila_tpu_torch.ops.basic.add_layer_norm",
@@ -362,8 +402,9 @@ BRANCHES = ("tc", "simt")
 FLASH_BRANCHES = {"flash": BRANCHES, "flash_fwd": BRANCHES,
                   "flash_bwd": ("fused",), "flash_dq": ("split", "simt"),
                   "flash_dkv": ("split", "simt")}
-# the branches a bf16 path at head_dim 64 may take: the tensor cores
-TC_BRANCHES = ("tc", "fused")
+# the branches a bf16 path at head_dim 64 may take: the tensor cores (K8's
+# split backward past 128 keys, GPT-2's cross-attention's, too)
+TC_BRANCHES = ("tc", "fused", "split")
 # K1's, K2's, K6's, K7's and K8's launches on the path runs by branch,
 # filled by path_counts()
 PATH_BRANCHES = {k: dict.fromkeys(BRANCHES, 0)
@@ -371,6 +412,10 @@ PATH_BRANCHES = {k: dict.fromkeys(BRANCHES, 0)
                            "K7", "K8 fwd")}
 PATH_BRANCHES.update({k: dict.fromkeys(("fused", "split", "simt"), 0)
                       for k in ("K8 dq", "K8 dkv")})
+# the same for the path run of LaViLa's fp32 narrator recipe
+# (vclm_pretrain_cli: SIMT), reported on its own line and kept out of the
+# tensor-core check
+RECIPE_BRANCHES = copy.deepcopy(PATH_BRANCHES)
 
 
 def _counter_keys(m: str, key: str) -> list:
@@ -388,11 +433,12 @@ def launch_counts() -> dict:
             for name, (m, key) in COUNTERS.items()}
 
 
-def path_counts() -> dict:
+def path_counts(branches=None) -> dict:
     """:func:`launch_counts` at the end of a path run, whose K1, K2, K6,
-    K7 and K8 launches by branch are added to PATH_BRANCHES (K8 dq's and
-    dkv's with the fused kernel's)."""
-    for name, by in PATH_BRANCHES.items():
+    K7 and K8 launches by branch are added to ``branches`` (PATH_BRANCHES
+    by default; K8 dq's and dkv's with the fused kernel's)."""
+    for name, by in (PATH_BRANCHES if branches is None
+                     else branches).items():
         m, key = COUNTERS[name]
         for b in by:
             by[b] += _counter(m).get(f"{key}_{b}", 0)
@@ -581,15 +627,16 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build() -> float:
     from lavila_tpu_torch.kernels import build
     t0 = time.perf_counter()
     build.library()
+    seconds = time.perf_counter() - t0
     ptxas = [ln for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
-    emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=build.build_seconds, so=build.library_path().name,
-         ptxas=ptxas)
+    emit("build", seconds=seconds, nvcc_seconds=build.build_seconds,
+         so=build.library_path().name, ptxas=ptxas)
+    return seconds
 
 
 def _keys(axis, F, N) -> int:
@@ -604,10 +651,25 @@ def _phase_extras(args, run, library_call, out=None, do=None) -> dict:
     beside their event times."""
     from lavila_tpu_torch.kernels import divided as KD
     q, k, v, ck, cv, axis, H, _ = args
-    ts = spatial()
     return {"branch": KD.phase_branch(q, k, v, ck, cv, axis, H, do, out),
-            "device_ms": ts.measure(run, 20)["device_ms"],
-            "library_device_ms": ts.measure(library_call, 20)["device_ms"]}
+            "device_ms": profiled_ms(run),
+            "library_device_ms": profiled_ms(library_call)}
+
+
+def measure(fn, iters: int = 20, tries: int = 3) -> dict:
+    """``scripts/time_spatial_phase.py``'s measure of ``fn`` (the
+    profiler's device ms per call under ``device_ms``), taken again, up
+    to ``tries`` times, while its trace comes back with no kernel in it
+    (``device_ms`` "not measured")."""
+    for _ in range(tries):
+        m = spatial().measure(fn, iters)
+        if isinstance(m["device_ms"], float):
+            break
+    return m
+
+
+def profiled_ms(fn):
+    return measure(fn)["device_ms"]
 
 
 def _branch_ok(branch: str, dtype, d: int) -> bool:
@@ -663,7 +725,8 @@ def _ln_case(shape, dtype, gen, bias: bool = True, bert: bool = False
              ) -> dict:
     """One K3 case; ``bias=False`` hands the kernel a zero bias, as
     ``BiasFreeLayerNorm`` (the pooler's norms) does; ``bert``:
-    DistilBERT's eps and flat rows (:func:`_flat_rows`)."""
+    DistilBERT's eps and flat rows (:func:`_flat_rows`). DistilBERT's and
+    the :data:`LN_DEVICE_ROWS` cases have the profiler's device times."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
@@ -678,7 +741,7 @@ def _ln_case(shape, dtype, gen, bias: bool = True, bert: bool = False
     err, tol = max_err(y, ref), TOL[dtype]
     lib = library().layer_norm_call(x, w, b, eps)
     extras = _device_extras(lambda: KL.layer_norm(x, w, b, eps), lib,
-                            dtype) if bert else {}
+                            dtype) if bert or shape in LN_DEVICE_ROWS else {}
     # ~8 fp32 operations per element (statistics, normalise, scale, shift)
     return {"out_err": err, "tol": tol, "ok": err <= tol, **extras,
             "ms": time_ms(lambda: KL.layer_norm(x, w, b, eps)),
@@ -737,14 +800,19 @@ def _decode_case(B, K, D, H, nv, dtype, gen) -> dict:
     err, tol = max_err(out, ref), TOL[dtype]
     exact = nv > 0 or torch.equal(out, vn)  # an empty cache returns v_new
     it = q.element_size()
+    lib = library().decode_call(*args)
+    # the main case by the profiler too, beside the launch floor
+    extras = (_device_extras(lambda: KDec.decode_attention(*args), lib,
+                             dtype)
+              if (B, K, D, H, nv) == MAIN_CASE["K9"] else {})
     return {"out_err": err, "tol": tol, "v_new_exact": exact,
-            "ok": err <= tol and exact,
+            "ok": err <= tol and exact, **extras,
             "ms": time_ms(lambda: KDec.decode_attention(*args)),
             "plain_ms": time_ms(
                 lambda: KDec.decode_attention_reference(*args)),
             **bound((2 * B * nv * D + 4 * B * D) * it, 4 * B * (nv + 1) * D,
                     dtype),
-            "library_ms": time_ms(library().decode_call(*args))}
+            "library_ms": time_ms(lib)}
 
 
 def _flash_qkv(B, H, Lq, Lk, d, dtype, gen):
@@ -774,9 +842,8 @@ def _device_extras(run, library_call, dtype) -> dict:
     short, and their event times carry the wrapper's host cost."""
     if dtype != torch.bfloat16:
         return {}
-    ts = spatial()
-    return {"device_ms": ts.measure(run, 20)["device_ms"],
-            "library_device_ms": ts.measure(library_call, 20)["device_ms"]}
+    return {"device_ms": profiled_ms(run),
+            "library_device_ms": profiled_ms(library_call)}
 
 
 def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
@@ -816,8 +883,8 @@ def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
 
 
 def _flash_bwd_case(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
-    """K8's whole backward on the forward kernel's out and lse against
-    the plain backward in fp32 on the same values (errors relative to the
+    """K8's whole backward on the forward kernel's lse against the plain
+    backward in fp32 on the same values (errors relative to the
     reference's largest value), bit-identical over two calls, with the
     branch it took: in bf16 the fused kernel up to 128 tokens (one
     launch), the split past it (dq, then dk/dv); in fp32 the SIMT dq and
@@ -826,13 +893,13 @@ def _flash_bwd_case(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
     from lavila_tpu_torch.kernels import flash as KF
     q, k, v = _flash_qkv(B, H, Lq, Lk, d, dtype, gen)
     scale = d ** -0.5
-    out, lse = KF._forward(q, k, v, causal, scale, with_lse=True)
+    _, lse = KF._forward(q, k, v, causal, scale, with_lse=True)
     do = torch.randn(B, Lq, H, d, generator=gen, device=DEVICE).to(dtype)
-    args = (q, k, v, do, out, lse, causal, scale)
-    branch = KF.flash_branch(q, k, v, do, out)
+    args = (q, k, v, do, lse, causal, scale)
+    branch = KF.flash_branch(q, k, v, do)
     got = KF.flash_bwd(*args)
     again = KF.flash_bwd(*args)
-    ref = KF.flash_bwd_reference(*(t.float() for t in args[:5]), lse,
+    ref = KF.flash_bwd_reference(*(t.float() for t in args[:4]), lse,
                                  causal, scale)
     torch.cuda.synchronize()
     tol, it, D = TOL[dtype], q.element_size(), H * d
@@ -845,8 +912,9 @@ def _flash_bwd_case(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
     def run():
         return KF.flash_bwd(*args)
     lib = library().flash_bwd_call(q, k, v, do, causal)
-    # reads q, k, v, do, out, lse; writes dq, dk, dv; five products (S,
-    # dP, dV, dQ, dK) over the pairs the mask lets through
+    # reads q, k, v, do, lse; writes dq, dk, dv; five products (S, dP,
+    # dV, dQ, dK) over the pairs the mask lets through (the kernels also
+    # recompute S and dP for delta: 7 products fused, 9 split)
     return {"rel_err": errs, "abs_err_dq": max_err(got[0], ref[0]),
             "abs_err_dkv": max(max_err(got[1], ref[1]),
                                max_err(got[2], ref[2])),
@@ -855,7 +923,7 @@ def _flash_bwd_case(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
             and branch == want,
             **_device_extras(run, lib, dtype), "ms": time_ms(run),
             "plain_ms": time_ms(lambda: KF.flash_bwd_reference(*args)),
-            **bound((4 * B * Lq * D + 4 * B * Lk * D) * it + B * Lq * H * 4,
+            **bound((3 * B * Lq * D + 4 * B * Lk * D) * it + B * Lq * H * 4,
                     10 * B * H * _pairs(Lq, Lk, causal) * d, dtype),
             "library_ms": time_ms(lib)}
 
@@ -877,20 +945,28 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
 # at TSF-L@336
 SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),
                      ("finetune", (8 * 16 * 196, 768)), ("cls", (8, 1024)),
-                     ("text", (8, 77, 512)), ("distilbert", BERT_ROWS)),
+                     ("text", (8, 77, 512)), ("distilbert", BERT_ROWS),
+                     ("gpt2", GPT2_ROWS)),
               "K5": (("distilbert", BERT_ROWS),),
               "K1": (("tsf_l_224", (8, 4, 256, 1024, 16)),
                      ("b32", (32, 4, 196, 768, 12))),
               "K6": (("b32", (32, 4, 576, 1024, 16)),),
               "K2": (("f16", (8, 16, 196, 768, 12)),
                      ("tsf_l_336", (8, 4, 576, 1024, 16))),
+              # GPT-2 XL's self- and cross-attention (K8 at both in the
+              # caption step: the fused backward, and the split past 128
+              # keys)
               **dict.fromkeys(("K7", "K8 fwd"),
-                              (("b256", (256, 8, 77, 77, 64)),)),
+                              (("b256", (256, 8, 77, 77, 64)),
+                               ("gpt2_self", GPT2_SELF),
+                               ("gpt2_cross", GPT2_CROSS))),
               # K8's backward at 256 captions (fused) and past 128 tokens
               # (the split dq and dk/dv)
               **dict.fromkeys(("K8 dq", "K8 dkv"),
                               (("b256", (256, 8, 77, 77, 64)),
-                               ("split", (4, 8, 130, 260, 64))))}
+                               ("split", (4, 8, 130, 260, 64)),
+                               ("gpt2_self", GPT2_SELF),
+                               ("gpt2_cross", GPT2_CROSS)))}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # K1's, K2's, K6's, K7's and K8's further measured numbers
 # (_phase_extras, _device_extras), where a case has them; the split's
@@ -919,6 +995,8 @@ def _summarise(summary, name, shape, dtype, res, err_keys) -> None:
 FLASH_CASES = (("causal", (16, 8, 77, 77, 64)),
                ("causal", (16, 12, 77, 77, 64)),
                ("full", (4, 8, 130, 260, 64)))
+# GPT-2 XL's two attentions in the caption step
+GPT2_FLASH_CASES = (("causal", GPT2_SELF), ("full", GPT2_CROSS))
 
 
 def phase_kernels() -> dict:
@@ -961,22 +1039,33 @@ def phase_kernels() -> dict:
                   for kind, shape in FLASH_CASES]
     cases += [(k, "causal", (256, 8, 77, 77, 64), bf16)
               for k in ("K7", "K8 fwd")]
+    # GPT-2 XL's norms and attentions in the caption step, after the
+    # earlier cases and from their own generator, so that those keep
+    # their inputs
+    gen_gpt2 = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    cases += [(k, kind, shape, dtype, gen_gpt2)
+              for dtype in (torch.float32, bf16)
+              for k, kind, shape in (("K3", "ln", GPT2_ROWS),
+                                     *((k, kind, shape)
+                                       for k in ("K7", "K8 fwd")
+                                       for kind, shape in GPT2_FLASH_CASES))]
     summary = {}
     with torch.inference_mode():
-        for name, kind, shape, dtype in cases:
+        for name, kind, shape, dtype, *own in cases:
+            g = own[0] if own else gen
             if kind.startswith("add_ln"):
-                res = _add_ln_case(shape, dtype, gen, kind == "add_ln",
+                res = _add_ln_case(shape, dtype, g, kind == "add_ln",
                                    kind.endswith("_bert"))
             elif kind.startswith("ln"):
-                res = _ln_case(shape, dtype, gen, kind != "ln_nobias",
+                res = _ln_case(shape, dtype, g, kind != "ln_nobias",
                                kind.endswith("_bert"))
             elif kind == "decode":
-                res = _decode_case(*shape, dtype, gen)
+                res = _decode_case(*shape, dtype, g)
             elif kind in ("causal", "full"):
-                res = _flash_case(name, *shape, kind == "causal", dtype, gen)
+                res = _flash_case(name, *shape, kind == "causal", dtype, g)
             else:
                 res = _phase_case(kind, *shape[:3], shape[3], shape[4],
-                                  dtype, gen)
+                                  dtype, g)
             emit("kernel", kernel=name, case=kind, shape=list(shape),
                  dtype=dname(dtype), **res)
             check(res["ok"], f"{name} {kind} {shape} {dtype}: error "
@@ -985,7 +1074,36 @@ def phase_kernels() -> dict:
             _summarise(summary, name, shape, dtype, res,
                        ("out_err", "lse_err"))
             torch.cuda.empty_cache()
+    emit("launch_floor", **_launch_floor(summary))
     return summary
+
+
+def _launch_floor(summary) -> dict:
+    """The card's launch floor: the profiler's device time of an empty
+    kernel (``torch.cuda._sleep(0)``), and the event time per call of 50
+    issued back to back; beside it the short bf16 calls' device times,
+    their byte bounds and their share of max(bound, floor). Fails when
+    the floor or a row has no measured device time."""
+    sleep = measure(lambda: torch.cuda._sleep(0), 50)
+    floor = sleep["device_ms"]
+    rows = {"K3 decode (160, 1, 1600)": summary["K3"].get("narrator"),
+            "K3 DistilBERT (1232, 768)": summary["K3"].get("distilbert"),
+            "K3 GPT-2 (608, 1600)": summary["K3"].get("gpt2"),
+            "K9 (160, 77, 1600, nv 15)": summary.get("K9")}
+    shares, missing = {}, []
+    for name, r in rows.items():
+        dev = (r or {}).get("device_ms")
+        if not (isinstance(dev, float) and isinstance(floor, float)):
+            missing.append(name)
+            continue
+        b = max(r["bound_ms"], floor)
+        shares[name] = {"device_ms": dev, "bound_ms": r["bound_ms"],
+                        "max_bound_floor_ms": b, "share": b / dev}
+    check(not missing, f"launch floor: no device time for {missing} "
+          f"(empty kernel: {floor})")
+    return {"empty_kernel_device_ms": floor,
+            "empty_kernel_event_ms": sleep["event_ms"],
+            "empty_kernel": sleep["kernels"], "rows": shares}
 
 
 def _rel_err(got, ref) -> float:
@@ -1058,7 +1176,7 @@ def _ln_bwd_branch(call) -> tuple:
 def _ln_bwd_case(shape, dtype, gen, wdtype=None, bert: bool = False
                  ) -> dict:
     """K3 bwd; ``wdtype``: γ's dtype where it is not the rows' (the bf16
-    step's fp32 γ); ``bert`` as :func:`_ln_case`."""
+    step's fp32 γ); ``bert`` and the device times as :func:`_ln_case`."""
     from lavila_tpu_torch.kernels import layernorm as KL
     D = shape[-1]
     x = torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
@@ -1077,7 +1195,7 @@ def _ln_bwd_case(shape, dtype, gen, wdtype=None, bert: bool = False
     b = torch.zeros_like(wl)
     lib = library().layer_norm_bwd_call(x, wl, b, dy, eps)
     extras = _device_extras(lambda: KL.layer_norm_bwd(x, w, dy, eps), lib,
-                            dtype) if bert else {}
+                            dtype) if bert or shape in LN_DEVICE_ROWS else {}
     # reads x, dy, w; writes dx, dw, db; ~12 fp32 operations per element
     return {"rel_err": errs, "abs_err": max(map(max_err, got, ref)),
             "tol": tol, "deterministic": _all_equal(got, again),
@@ -1172,13 +1290,24 @@ def phase_kernels_bwd() -> dict:
               ("K1 bwd", "space", (8, 4, 256, 1024, 16), torch.bfloat16),
               ("K1 bwd", "space", (32, 4, 196, 768, 12), torch.bfloat16),
               ("K1 bwd", "space", (1, 2, 256, 1024, 16), torch.float32)]
+    # GPT-2 XL's attentions and norms in the caption step, after the
+    # earlier cases and from their own generator, so that those keep
+    # their inputs
+    gen_gpt2 = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    cases += [("K3 bwd", "ln", GPT2_ROWS, dtype, gen_gpt2)
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases.append(("K3 bwd", "ln+f32w", GPT2_ROWS, torch.bfloat16, gen_gpt2))
     summary = {}
     flash = [(kind, shape, dtype) for dtype in (torch.float32, torch.bfloat16)
              for kind, shape in FLASH_CASES]
     flash.append(("causal", (256, 8, 77, 77, 64), torch.bfloat16))
-    for kind, shape, dtype in flash:
+    flash += [(kind, shape, dtype, gen_gpt2)
+              for dtype in (torch.float32, torch.bfloat16)
+              for kind, shape in GPT2_FLASH_CASES]
+    for kind, shape, dtype, *own in flash:
         with torch.no_grad():
-            res = _flash_bwd_case(*shape, kind == "causal", dtype, gen)
+            res = _flash_bwd_case(*shape, kind == "causal", dtype,
+                                  own[0] if own else gen)
         emit("kernel_bwd", kernel="K8 bwd", case=kind, shape=list(shape),
              dtype=dname(dtype), **res)
         check(res["ok"], f"K8 bwd {kind} {shape} {dtype}: relative errors "
@@ -1189,20 +1318,21 @@ def phase_kernels_bwd() -> dict:
         _summarise(summary, "K8 dq", shape, dtype, res, ("abs_err_dq",))
         _summarise(summary, "K8 dkv", shape, dtype, res, ("abs_err_dkv",))
         torch.cuda.empty_cache()
-    for name, kind, shape, dtype in cases:
+    for name, kind, shape, dtype, *own in cases:
         # "+f32w": fp32 γ beside the rows' dtype
         wdtype = torch.float32 if kind.endswith("+f32w") else None
+        g = own[0] if own else gen
         with torch.no_grad():
             bert = kind.endswith("_bert")
             if kind.startswith("add_ln"):
-                res = _add_ln_bwd_case(shape, dtype, gen,
+                res = _add_ln_bwd_case(shape, dtype, g,
                                        kind.startswith("add_ln+")
                                        or kind == "add_ln", wdtype, bert)
             elif kind.startswith("ln"):
-                res = _ln_bwd_case(shape, dtype, gen, wdtype, bert)
+                res = _ln_bwd_case(shape, dtype, g, wdtype, bert)
             else:
                 res = _phase_bwd_case(kind, *shape[:3], shape[3], shape[4],
-                                      dtype, gen)
+                                      dtype, g)
         emit("kernel_bwd", kernel=name, case=kind, shape=list(shape),
              dtype=dname(dtype), **res)
         check(res["ok"], f"{name} {shape} {dtype}: relative errors "
@@ -1655,7 +1785,8 @@ def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
                                    "K2 bwd")
             losses.append(metrics["loss"].item())
             grads.append({k: p.grad.clone() for k, p in
-                          {**state.params, **state.criterion}.items()})
+                          {**state.params, **state.criterion}.items()
+                          if p.grad is not None})
     del state
     return losses, grads, counts
 
@@ -1676,6 +1807,7 @@ def _compare_steps(a, b) -> dict:
     (a_loss, a_grads, _), (b_loss, b_grads, _) = a, b
     rel_loss = max(abs(x - y) / abs(y) for x, y in zip(a_loss, b_loss))
     worst_err = zero_grad = 0.0
+    worst_at = None
     worst = {"matrices": (1.0, None), "embeddings": (1.0, None)}
     for step, (ag, bg) in enumerate(zip(a_grads, b_grads)):
         for name, g in bg.items():
@@ -1685,8 +1817,9 @@ def _compare_steps(a, b) -> dict:
                                 x.abs().max().item())
                 continue
             scale = g.abs().max().item()
-            if scale > 0:
-                worst_err = max(worst_err, max_err(x, g) / scale)
+            if scale > 0 and max_err(x, g) / scale > worst_err:
+                worst_err, worst_at = max_err(x, g) / scale, \
+                    f"step {step}: {name}"
             if g.dim() >= 2 and scale > 0:
                 cos = torch.nn.functional.cosine_similarity(
                     x.flatten(), g.flatten(), dim=0).item()
@@ -1694,6 +1827,7 @@ def _compare_steps(a, b) -> dict:
                 if cos < worst[kind][0]:
                     worst[kind] = (cos, f"step {step}: {name}")
     return {"loss_rel_err": rel_loss, "grad_rel_err_max": worst_err,
+            "grad_rel_err_max_at": worst_at,
             "grad_cos_min": worst["matrices"][0],
             "grad_cos_min_at": worst["matrices"][1],
             "embed_grad_cos_min": worst["embeddings"][0],
@@ -2268,6 +2402,11 @@ def phase_narrator(n) -> None:
                 check_tensor_cores(f"narrator {n['name']} bf16 "
                                    "encode_image", n["space"], "K2")
             cached, per_step = _cached_logits(model, tokens, text, 8)
+            # the full forward under inference: K7 at every attention
+            reset_launch_counts()
+            full_k = model.text_decoder(text, encoder_states=tokens)
+            torch.cuda.synchronize()
+            per_full = launch_counts()
             ids, ppl = _greedy(model, tokens, n, L)
             with plain_path():
                 tokens_ref = model.encode_image(frames)
@@ -2277,6 +2416,8 @@ def phase_narrator(n) -> None:
         name = dname(dtype)
         res = {"logits_err": max_err(cached, full),
                "plain_cached_err": max_err(cached_ref, full),
+               "full_k7_err": max_err(full_k, full),
+               "full_k7_cos_min": _cos_min(full_k, full),
                "logits_cos_min": _cos_min(cached, full),
                "image_tokens_err": max_err(tokens, tokens_ref),
                "ids_equal": bool(torch.equal(ids, ids_ref)),
@@ -2288,7 +2429,8 @@ def phase_narrator(n) -> None:
         emit("narrator", model=n["name"], dtype=name, clips=2,
              return_sequences=2, init_seconds=init_s,
              launches_per_encode_image=per_image,
-             launches_per_decode_step=per_step, ids=ids.tolist(),
+             launches_per_decode_step=per_step,
+             launches_per_full_forward=per_full, ids=ids.tolist(),
              ids_plain=ids_ref.tolist(), **res)
         check(res["finite"] and tokens.shape == (2, 256, 1600),
               f"narrator {n['name']} {name}: non-finite or misshapen "
@@ -2299,6 +2441,12 @@ def phase_narrator(n) -> None:
         check(per_step == want_step,
               f"narrator {n['name']} {name}: launches per decode step "
               f"{per_step}")
+        want_full = dict.fromkeys(COUNTERS, 0)
+        want_full.update({"K7": n["layers"] + n["cross"],
+                          "K3": 2 * (n["layers"] + n["cross"]) + 1})
+        check(per_full == want_full,
+              f"narrator {n['name']} {name}: launches per full forward "
+              f"{per_full}")
         # the pooler reads the joint sequence: the final norm and the
         # pooler's three bias-free norms are K3 too
         want_image = _encode_launches(n)
@@ -2310,10 +2458,12 @@ def phase_narrator(n) -> None:
             # 48 layers; the cached steps' (B, 1, D) products and the full
             # forward's (B, 8, D) ones sum in other orders
             check(res["logits_err"] <= 1e-3 and res["ids_equal"]
-                  and res["ppl_rel_err"] <= 1e-4,
+                  and res["ppl_rel_err"] <= 1e-4
+                  and res["full_k7_err"] <= 1e-3,
                   f"narrator {n['name']} fp32 kernels vs plain: {res}")
         else:
             check(res["logits_cos_min"] >= 0.99
+                  and res["full_k7_cos_min"] >= 0.99
                   and res["ids_agree_steps"] >= 4,
                   f"narrator {n['name']} bf16 kernels vs plain: {res}")
     _decode_profile(model, gen, n)
@@ -2466,6 +2616,520 @@ def phase_infer_narrator_cli(n) -> dict:
     return counts
 
 
+@contextmanager
+def gpt2_vocab():
+    """A byte-level GPT-2 vocabulary (the 256 byte symbols, a few merges,
+    ``<|endoftext|>``) under ``gpt2`` and ``gpt2-xl`` in a temporary
+    directory named by ``LAVILA_TOKENIZER_DIR`` while the block runs; no
+    GPT-2 BPE files are in the repo."""
+    import tempfile
+
+    from lavila_tpu_torch.data.tokenizers import byte_unicode_table
+    vocab = {u: i for i, u in enumerate(byte_unicode_table().values())}
+    merges = ["Ġ t", "Ġt h", "Ġth e", "h e", "l l", "he ll", "hell o"]
+    for m in merges:
+        vocab["".join(m.split())] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    with tempfile.TemporaryDirectory() as root:
+        for sub in ("gpt2", "gpt2-xl"):
+            os.makedirs(os.path.join(root, sub))
+            with open(os.path.join(root, sub, "vocab.json"), "w") as f:
+                json.dump(vocab, f)
+            with open(os.path.join(root, sub, "merges.txt"), "w") as f:
+                f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+        with mock.patch.dict(os.environ, {"LAVILA_TOKENIZER_DIR": root}):
+            yield
+
+
+# The caption step's comparison scales the pooler's to_q weight by 16:
+# at the init's spread its scores are ~N(0, 1) over 1 + 4·196 context
+# tokens, the 256 pooled image tokens come out near-copies of each other
+# (mean cosine 0.9986), so every cross-attention's query gradient cancels
+# (‖dS·K‖ ~4e-3 of ‖|dS|·|K|‖) and keeps the rounding of its inputs: in
+# fp32, K8 and its plain version, which recompute P from the saved lse,
+# land 1.4e-3 from fp64 and autograd through the plain forward 7e-5, past
+# the 1e-4 limit apart (H100; PERF.md §6). At 16 the tokens' mean cosine
+# is 0.69, the pooler's own gradients staying as well conditioned. The
+# unscaled start is recorded beside it (:func:`_unscaled_reading`), each
+# side's cross-attention gradients against an fp64 witness.
+POOL_SPREAD = 16.0
+# LaViLa's narrator recipe (docs/TRAINING.md:31-42): --gated-xattn
+# --freeze-lm-vclm --freeze-visual-vclm (--disable-amp: fp32)
+RECIPE = ("--gated-xattn", "--freeze-lm-vclm", "--freeze-visual-vclm",
+          "--disable-amp")
+
+
+def _caption_batch(B, gen, n):
+    """``B`` clips and GPT-2 captions of 77 ids: BOS, 10 to 40 tokens,
+    EOS, then padding (0)."""
+    frames, _ = _inputs(B, gen, n["img"])
+    lens = torch.randint(10, 40, (B,), generator=gen, device=DEVICE)
+    body = torch.randint(1, 50256, (B, 77), generator=gen, device=DEVICE)
+    text = torch.where(torch.arange(77, device=DEVICE)[None] < lens[:, None],
+                       body, 0)
+    text[:, 0] = n["bos"]
+    text[torch.arange(B, device=DEVICE), lens] = n["eos"]
+    return {"frames": frames, "text": text}
+
+
+def _caption_state(base, dtype, remat: bool = False):
+    """A TrainState of LaViLa's recipe over a copy of narrator ``base``
+    (the CLI's AdamW, the LM and the video tower but its temporal branch
+    frozen; remat on both towers with ``remat``) and the caption step."""
+    import dataclasses
+
+    from lavila_tpu_torch.train.freeze import build_freeze_predicate
+    from lavila_tpu_torch.train.step import make_caption_train_step
+    model = copy.deepcopy(base).train()
+    model.visual.remat = remat
+    model.text_decoder.cfg = dataclasses.replace(model.text_decoder.cfg,
+                                                 remat=remat)
+    frozen = build_freeze_predicate(freeze_lm_vclm=True,
+                                    freeze_visual_vclm=True)
+    return (_make_state(model, dtype, frozen=frozen),
+            make_caption_train_step(pad_id=0))
+
+
+def _caption_launches(n, dtype) -> dict:
+    """Kernel launches of one caption step of narrator ``n`` under the
+    recipe's freezing: the encode's (the pooler's three bias-free norms
+    are K3 too); GPT-2's norms (ln_1, ln_2 a layer, ln_cross_attn and
+    ln_2_crossattention a cross layer, ln_f) and its two attentions on K8
+    (every attention's q, k or v takes a trainable projection); one
+    backward each, except the CLS half of ``ln_pre``, whose rows and
+    weights are all frozen. In bf16 the self-attention's backward is the
+    fused kernel and the cross-attention's (256 keys) the split dq and
+    dk/dv; in fp32 both are SIMT dq and dk/dv."""
+    depth, layers, cross = n["depth"], n["layers"], n["cross"]
+    gpt2_ln = 2 * (layers + cross) + 1
+    want = _encode_launches(n)
+    want["K3"] += 3 + gpt2_ln
+    want.update({f"{n['space']} bwd": depth, "K2 bwd": depth,
+                 "K4 bwd": depth, "K5 bwd": depth,
+                 "K3 bwd": want["K3"] - 1, "K8 fwd": layers + cross})
+    if dtype == torch.bfloat16:
+        want.update({"K8 bwd": layers, "K8 dq": cross, "K8 dkv": cross})
+    else:
+        want.update({"K8 dq": layers + cross, "K8 dkv": layers + cross})
+    return want
+
+
+def _caption_steps(n, base, dtype, batch, plain: bool, steps: int = 2,
+                   remat: bool = False):
+    """``steps`` caption steps of the recipe from a copy of ``base``: the
+    losses, each step's fp32 gradients (the trainable parameters') and
+    launch counts; on the kernels each step's branches are checked (bf16:
+    the tensor cores only; the LayerNorm backward's one-block branch for
+    the video tower's CLS rows exactly), and after the steps every frozen
+    parameter is bit-equal to ``base``'s, without a gradient."""
+    from lavila_tpu_torch.kernels import layernorm as KL
+    state, step_fn = _caption_state(base, dtype, remat)
+    B = batch["frames"].shape[0]
+    plan = KL.bwd_shape(n["width"], torch.empty((), dtype=dtype)
+                        .element_size(), 2)
+    cls_block = 3 * n["depth"] if B <= plan.warps * plan.slots else 0
+    losses, grads, counts = [], [], []
+    what = f"caption step {n['name']} {dname(dtype)} remat {remat}"
+    with plain_path() if plain else nullcontext():
+        for _ in range(steps):
+            reset_launch_counts()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            counts.append(launch_counts())
+            if not plain:
+                check_ln_bwd(what)
+                check(KL.launches["ln_bwd_block"] == cls_block,
+                      f"{what}: {KL.launches['ln_bwd_block']} one-block "
+                      f"LayerNorm backward launches, want {cls_block}")
+                if dtype == torch.bfloat16:
+                    check_flash_tc(what)
+                    check_tensor_cores(what, n["space"], "K2",
+                                       f"{n['space']} bwd", "K2 bwd")
+            losses.append(metrics["loss"].item())
+            grads.append({k: p.grad.clone() for k, p in state.params.items()
+                          if p.grad is not None})
+    ref = dict(base.named_parameters())
+    work = dict(state.model.named_parameters())
+    still = all(torch.equal(state.params[k], ref[k])
+                and state.params[k].grad is None and work[k].grad is None
+                for k in state.frozen)
+    check(still and len(state.frozen) > 0
+          and set(grads[-1]) == set(state.params) - state.frozen,
+          f"{what}: frozen parameters moved or have a gradient, or a "
+          "trainable one has none")
+    frozen = sum(state.params[k].numel() for k in state.frozen)
+    del state
+    return losses, grads, counts, frozen
+
+
+@contextmanager
+def _record_cross(calls: list):
+    """While the block runs, every differentiated cross-attention call of
+    GPT-2 (non-causal ``flash_attention``) appends ``[q, k, v, dO]`` to
+    ``calls``, copies of its inputs and, once backward reaches it, of its
+    output's gradient."""
+    from lavila_tpu_torch.models import gpt2
+    real = gpt2.flash_attention
+
+    def record(q, k, v, causal=False, scale=None):
+        out = real(q, k, v, causal=causal, scale=scale)
+        if not causal and out.requires_grad:
+            entry = [t.detach().clone() for t in (q, k, v)]
+            calls.append(entry)
+            out.register_hook(lambda g: entry.append(g.detach().clone()))
+        return out
+
+    with mock.patch.object(gpt2, "flash_attention", record):
+        yield
+
+
+def _attention_grads(fn, q, k, v, do):
+    """(dq, dk, dv) of ``fn(q, k, v)`` (non-causal) by autograd."""
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(*ins), ins, do)
+
+
+def _attention_fp64(q, k, v):
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+def _pallas_delta_grads(q, k, v, do):
+    """dq and dk of a non-causal attention with the Pallas kernels'
+    delta, rowsum(dO·O) from the output rounded to the compute dtype,
+    which K8 does not take (``csrc/flash_attention.cu``'s header says
+    why); otherwise ``flash_bwd_reference``'s numerics."""
+    from lavila_tpu_torch.kernels import flash as KF
+    out, lse = KF.flash_fwd_reference(q, k, v)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return dq * scale, torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+
+
+def _cross_witness(calls) -> dict:
+    """Each recorded cross-attention's dq and dk from K8 (its kernels'
+    backward through ``flash_attention``), from K8's plain version
+    (``flash_bwd_reference``), from autograd through the plain forward in
+    the compute dtype (``flash_attention_reference``, what the plain path
+    differentiates) and with the Pallas kernels' delta
+    (:func:`_pallas_delta_grads`), each as its L2 error relative to an
+    fp64 witness on the same inputs; the largest and the median over the
+    calls, and the median cancellation of dq in fp64, ‖dS·K‖ /
+    ‖|dS|·|K|‖."""
+    from lavila_tpu_torch.kernels import flash as KF
+    errs = {"k8": [], "plain_version": [], "autograd": [],
+            "pallas_delta": []}
+    cancel = []
+    for q, k, v, do in calls:
+        truth = _attention_grads(_attention_fp64, q.double(), k.double(),
+                                 v.double(), do.double())
+        sides = {"k8": _attention_grads(KF.flash_attention, q, k, v, do),
+                 "plain_version": KF.flash_bwd_reference(
+                     q, k, v, do, KF.flash_fwd_reference(q, k, v)[1]),
+                 "autograd": _attention_grads(KF.flash_attention_reference,
+                                              q, k, v, do),
+                 "pallas_delta": _pallas_delta_grads(q, k, v, do)}
+        for side, got in sides.items():
+            errs[side].append([((a.double() - t).norm() / t.norm()).item()
+                               for a, t in zip(got[:2], truth[:2])])
+        k64 = k.double()
+        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q.double(), k64)
+                          * q.shape[-1] ** -0.5, -1)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double())
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        terms = torch.einsum("bhqk,bkhd->bqhd", ds.abs(), k64.abs())
+        cancel.append((torch.einsum("bhqk,bkhd->bqhd", ds, k64).norm()
+                       / terms.norm()).item())
+    out = {"calls": len(calls), "dq_cancellation_median": sorted(cancel)[
+        len(cancel) // 2] if cancel else None}
+    for side, rows in errs.items():
+        for i, g in enumerate(("dq", "dk")):
+            col = sorted(r[i] for r in rows)
+            out[f"{side}_{g}_rel_err_max"] = col[-1]
+            out[f"{side}_{g}_rel_err_median"] = col[len(col) // 2]
+    return out
+
+
+def _unscaled_reading(n, base, dtype, batch) -> dict:
+    """The caption step at the recipe's own starting weights (no
+    :data:`POOL_SPREAD`), recorded: one step, kernels against plain, and
+    :func:`_cross_witness` over the cross-attentions that the kernels'
+    step ran. Held only to K8's errors against fp64 staying within 1.25×
+    of its plain version's on the same inputs, plus the dtype's epsilon
+    (the kernels round dS to bf16 before dSᵀ·Q, the plain version does
+    not)."""
+    calls = []
+    with _record_cross(calls):
+        k_run = _caption_steps(n, base, dtype, batch, False, steps=1)
+    p_run = _caption_steps(n, base, dtype, batch, True, steps=1)
+    res = _compare_steps(k_run[:3], p_run[:3])
+    del k_run, p_run
+    torch.cuda.empty_cache()
+    check(all(len(c) == 4 for c in calls) and len(calls) == n["cross"],
+          f"unscaled caption step {dname(dtype)}: {len(calls)} recorded "
+          f"cross-attentions, want {n['cross']} with their gradients")
+    witness = _cross_witness(calls)
+    check(all(math.isfinite(x) for x in witness.values()
+              if isinstance(x, float))
+          and all(witness[k] <= 1.25 * witness[k.replace(
+              "k8", "plain_version", 1)] + torch.finfo(dtype).eps
+              for k in witness if k.startswith("k8_")),
+          f"unscaled caption step {dname(dtype)}: K8 against fp64 beyond "
+          f"its plain version's: {witness}")
+    return {"step": res, "cross_attention_vs_fp64": witness}
+
+
+def phase_narrator_train_step(n) -> None:
+    """LaViLa's narrator recipe on ``n`` at full width and depth (gates
+    and time attention seeded non-zero): 2 AdamW caption steps kernels
+    against plain from the same weights and batch, fp32 at batch 2 and
+    bf16 at batch 4, every trainable gradient compared, frozen ones
+    unmoved; remat on against off (fp32, kernels); launches per step
+    against :func:`_caption_launches`; bf16 clips/s and peak memory at
+    batch 16 in turns, and the step's busy time and idle share. The
+    comparison runs at :data:`POOL_SPREAD`; the recipe's own start is
+    recorded first (:func:`_unscaled_reading`)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    base, _ = _narrator_model(n)
+    base.train()
+    batches = {dtype: _caption_batch(size, gen, n)
+               for dtype, size in ((torch.float32, 2), (torch.bfloat16, 4))}
+    for dtype, batch in batches.items():
+        emit("narrator_train_step_unscaled", model=n["name"],
+             dtype=dname(dtype), batch=batch["frames"].shape[0], steps=1,
+             **_unscaled_reading(n, base, dtype, batch))
+    with torch.no_grad():
+        base.img_attn_pool.to_q.weight.mul_(POOL_SPREAD)
+    for dtype, batch in batches.items():
+        size = batch["frames"].shape[0]
+        k_run = _caption_steps(n, base, dtype, batch, False)
+        p_run = _caption_steps(n, base, dtype, batch, True)
+        res = _compare_steps(k_run[:3], p_run[:3])
+        name = f"caption step {n['name']} {dname(dtype)}"
+        want = _caption_launches(n, dtype)
+        extra = {}
+        if dtype == torch.float32:
+            r_run = _caption_steps(n, base, dtype, batch, False, remat=True)
+            extra = {"remat_vs_no_remat": _compare_steps(r_run[:3],
+                                                         k_run[:3]),
+                     "loss_remat": r_run[0]}
+            check(extra["remat_vs_no_remat"]["loss_rel_err"] <= 1e-5
+                  and extra["remat_vs_no_remat"]["grad_rel_err_max"]
+                  <= 1e-4, f"{name}: remat against none {extra}")
+            del r_run
+        emit("narrator_train_step", model=n["name"], dtype=dname(dtype),
+             batch=size, steps=2, recipe=list(RECIPE[:3]),
+             frozen_parameters=k_run[3], loss_kernels=k_run[0],
+             loss_plain=p_run[0], launches_per_step=k_run[2],
+             launches_want=want, **res, **extra)
+        check(all(math.isfinite(x) for x in k_run[0] + p_run[0]),
+              f"{name}: non-finite loss {k_run[0]} {p_run[0]}")
+        check(all(c == want for c in k_run[2]),
+              f"{name}: launches {k_run[2]}, want {want}")
+        if dtype == torch.float32:
+            check(res["loss_rel_err"] <= 1e-5
+                  and res["grad_rel_err_max"] <= 1e-4,
+                  f"{name} kernels vs plain: {res}")
+        else:
+            check(res["loss_rel_err"] <= 1e-2 and res["grad_cos_min"] >= 0.99,
+                  f"{name} kernels vs plain: {res}")
+        del k_run, p_run
+        torch.cuda.empty_cache()
+    state, step_fn = _caption_state(base, torch.bfloat16)
+    del base
+    torch.cuda.empty_cache()
+    data = _caption_batch(16, gen, n)
+    rates, peaks = _in_turns(state, step_fn, data, 5)
+    emit("train_throughput", what="caption train step clips/s",
+         model=n["name"], dtype="bfloat16", batch=16, frames=4, iters=5,
+         remat=False, recipe=list(RECIPE[:3]),
+         order="kernels, plain, plain, kernels", clips_per_s=rates,
+         peak_memory_gib=peaks)
+    emit("train_profile", model=n["name"], dtype="bfloat16", batch=16,
+         kind="caption", **_profile(lambda: step_fn(state, data), iters=3))
+    del state, data
+
+
+def phase_vclm_pretrain_cli(n, steps: int = 2, batch: int = 8) -> dict:
+    """The port's pretraining CLI with narrator ``n`` and LaViLa's recipe
+    (fp32) plus ``--use-checkpoint`` for ``steps`` steps on the synthetic
+    dataset, the fixture GPT-2 vocabulary: a finite loss, the gates
+    moved, every frozen tensor bit-equal in the checkpoint to the init;
+    then the port's ``main_infer_narrator`` loads that checkpoint (bf16)
+    and narrates one batch. Returns the launch counts of both runs; their
+    K1-K8 launches by branch go to RECIPE_BRANCHES."""
+    import pickle
+    import tempfile
+
+    from lavila_tpu_torch.cli import main_infer_narrator as infer
+    from lavila_tpu_torch.cli import main_pretrain as cli
+    from lavila_tpu_torch.config import parse_config
+    init = {}
+    create = cli.TrainState.create
+
+    def spy(model, *args, **kw):  # the weights the CLI starts from, on
+        # the host, so that the device's peak is the run's own
+        init.update({k: p.detach().cpu()
+                     for k, p in model.named_parameters()})
+        return create(model, *args, **kw)
+
+    with tempfile.TemporaryDirectory() as out, gpt2_vocab(), \
+            mock.patch.object(cli.TrainState, "create", spy):
+        cfg = parse_config(cli.TorchPretrainConfig, [
+            "--dataset", "synthetic", "--model", n["name"], *RECIPE,
+            "--use-checkpoint", "--steps", str(steps), "--batch-size",
+            str(batch), "--workers", "4", "--print-freq", "1", "--device",
+            DEVICE, "--output-dir", out])
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = cli.main(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = path_counts(RECIPE_BRANCHES)
+        frozen = set(state.frozen)
+        del state
+        torch.cuda.empty_cache()
+        with open(os.path.join(out, "log.txt")) as f:
+            log = json.loads(f.readlines()[-1])
+        ckpt_path = os.path.join(out, "checkpoint_latest.pt")
+        ckpt_gib = os.path.getsize(ckpt_path) / 2**30
+        saved = torch.load(ckpt_path, map_location="cpu", weights_only=True,
+                           mmap=True)["state_dict"]
+        unmoved = all(torch.equal(saved[k], init[k]) for k in frozen)
+        gates = [k for k in saved if k.endswith(("alpha_cattn",
+                                                 "alpha_dense"))]
+        moved = all(not torch.equal(saved[k], init[k]) for k in gates)
+        del saved, init
+        args = infer.get_args_parser().parse_args(
+            ["--dataset", "synthetic", "--model", n["name"], "--bf16",
+             "--device", DEVICE, "--checkpoint", ckpt_path,
+             "--batch-size", "4", "--max-samples", "4",
+             "--num-return-sequences", "2", "--max-text-length", "20",
+             "--workers", "4", "--output-dir", os.path.join(out, "narr")])
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        records = infer.main(args)
+        torch.cuda.synchronize()
+        narrate_seconds = time.perf_counter() - t1
+        narrate = path_counts(RECIPE_BRANCHES)
+    ok = len(records) == 4 and all(
+        len(r[3]) == len(r[4]) == 2 and all(math.isfinite(x) for x in r[4])
+        for r in records)
+    layers = n["layers"] + n["cross"]
+    emit("vclm_pretrain_cli", model=n["name"], dtype="float32",
+         batch=batch, steps=steps, flags=[*RECIPE, "--use-checkpoint"],
+         seconds=seconds, peak_memory_gib=peak, checkpoint_gib=ckpt_gib,
+         train_loss=log["train_loss"], train_ppl=log.get("train_ppl"),
+         frozen_tensors=len(frozen), frozen_unmoved=unmoved,
+         gates=len(gates), gates_moved=moved, launches=counts,
+         narrate_seconds=narrate_seconds, narrate_launches=narrate,
+         first_record=[*records[0][:3], records[0][3], records[0][4]]
+         if records else None)
+    check(math.isfinite(log["train_loss"]) and unmoved and moved
+          and len(frozen) > 0 and len(gates) == 2 * n["cross"],
+          f"VCLM pretrain CLI {n['name']}: loss {log['train_loss']}, "
+          f"frozen unmoved {unmoved}, {len(gates)} gates moved {moved}")
+    # remat: every attention's forward twice a step
+    check(counts["K8 fwd"] == steps * 2 * layers
+          and counts["K8 dq"] == counts["K8 dkv"] == steps * layers
+          and counts["K8 bwd"] == 0
+          and all(counts[k] > 0 for k in (n["space"], f"{n['space']} bwd",
+                                           "K2", "K2 bwd", "K3", "K3 bwd",
+                                           "K4 bwd", "K5 bwd")),
+          f"VCLM pretrain CLI {n['name']}: launches {counts}")
+    check(ok and narrate["K9"] > 0 and narrate["K9"] % n["layers"] == 0,
+          f"narration from the VCLM checkpoint: {len(records)} records, "
+          f"launches {narrate}")
+    return {k: counts[k] + narrate[k] for k in counts}
+
+
+def phase_eval_narrator_cli(n) -> dict:
+    """The port's ``eval_narrator`` on narrator ``n`` (bf16, seeded
+    random weights, the fixture GPT-2 vocabulary) over 8 synthetic clips
+    with each ``--decoding``: finite teacher-forced perplexities, the NLG
+    scores present, the launches of every decode step (K9 a layer, K3 on
+    GPT-2's norms) counted against ``decode_step``'s calls; then, fp32,
+    ``beam_search`` with one beam against the greedy decode token for
+    token. Returns the launch counts of the four runs."""
+    from lavila_tpu_torch.cli import eval_narrator as ev
+    from lavila_tpu_torch.models.beam import BeamDecoder
+    from lavila_tpu_torch.models.narrator import VCLM
+    total = dict.fromkeys(COUNTERS, 0)
+    step_k3 = 2 * (n["layers"] + n["cross"]) + 1
+    runs = (("sample", ()), ("beam", ("--num-beams", "3")),
+            ("beam_sample", ("--num-beams", "3")),
+            ("group_beam", ("--num-beams", "6", "--num-beam-groups", "3")))
+    calls = [0]
+    decode_step = VCLM.decode_step
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return decode_step(self, *args, **kw)
+
+    with gpt2_vocab(), mock.patch.object(VCLM, "decode_step", counted):
+        for decoding, flags in runs:
+            args = ev.get_args_parser().parse_args(
+                ["--dataset", "synthetic", "--model", n["name"], "--bf16",
+                 "--device", DEVICE, "--batch-size", "8", "--max-samples",
+                 "8", "--eval-freq", "1", "--workers", "4", "--decoding",
+                 decoding, *flags])
+            reset_launch_counts()
+            calls[0] = 0
+            t0 = time.perf_counter()
+            out = ev.main(args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = path_counts()
+            for k, v in counts.items():
+                total[k] += v
+            want = _encode_launches(n)
+            want["K3"] += 3 + calls[0] * step_k3
+            want["K9"] = calls[0] * n["layers"]
+            emit("eval_narrator_cli", model=n["name"], dtype="bfloat16",
+                 clips=8, decoding=decoding, flags=list(flags),
+                 seconds=seconds, decode_steps=calls[0],
+                 k9_per_step=counts["K9"] / max(calls[0], 1),
+                 launches=counts, **out)
+            check(math.isfinite(out["teacher_ppl"])
+                  and {"Bleu_4", "METEOR", "ROUGE_L", "CIDEr"} <= out.keys(),
+                  f"eval_narrator {decoding}: {out}")
+            # the teacher-forced pass runs all 76 steps, the decode <= 76
+            check(counts == want and 76 < calls[0] <= 152,
+                  f"eval_narrator {decoding}: launches {counts} for "
+                  f"{calls[0]} decode steps, want {want}")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    model, _ = _narrator_model(n)
+    frames, _ = _inputs(2, gen, n["img"])
+    L = 16
+    with torch.inference_mode():
+        tokens = model.encode_image(frames)
+        beam, _ = BeamDecoder(model, n["bos"], n["eos"],
+                              max_text_length=L).beam_search(tokens,
+                                                             num_beams=1)
+        greedy, _ = model.generate(tokens, generator=None, bos_id=n["bos"],
+                                   eos_id=n["eos"], max_text_length=L,
+                                   top_k=1)
+    greedy = greedy.cpu().numpy()
+    same = all((row[:e] == g[:e]).all() for row, g in zip(beam, greedy)
+               for hit in [(g[1:] == n["eos"]).nonzero()[0]]
+               for e in [hit[0] + 2 if hit.size else L])
+    emit("eval_narrator_cli", model=n["name"], dtype="float32",
+         what="beam_search, one beam, against greedy", clips=2,
+         max_text_length=L, equal=same, beam=beam.tolist(),
+         greedy=greedy.tolist())
+    check(same, "beam_search with one beam differs from the greedy decode")
+    del model
+    return total
+
+
 KERNELS = [
     ("K1", "divided_space_fwd", "cuda", "lavila_tpu_torch/csrc/divided_fwd.cu",
      "lavila_tpu/ops/pallas/divided.py:47"),
@@ -2543,6 +3207,8 @@ PHASES = (
     ("large224_cli", lambda: phase_cli(LARGE224)),
     ("narrator", lambda: phase_narrator(NARRATOR)),
     ("infer_narrator_cli", lambda: phase_infer_narrator_cli(NARRATOR)),
+    ("narrator_train_step", lambda: phase_narrator_train_step(NARRATOR)),
+    ("eval_narrator_cli", lambda: phase_eval_narrator_cli(NARRATOR)),
     ("large_model", lambda: phase_model(LARGE)),
     ("large_cli", lambda: phase_cli(LARGE)),
     ("large_train_step", phase_large_train_step),
@@ -2551,6 +3217,7 @@ PHASES = (
     ("flagship_narrator", lambda: phase_narrator(FLAGSHIP)),
     ("flagship_infer_narrator_cli",
      lambda: phase_infer_narrator_cli(FLAGSHIP)),
+    ("vclm_pretrain_cli", lambda: phase_vclm_pretrain_cli(FLAGSHIP)),
     ("distilbert_model", lambda: phase_distilbert_model(DISTIL_LARGE)),
     ("hf_model", lambda: phase_distilbert_model(HF_MODEL)),
     ("distilbert_cli", lambda: phase_cli(DISTIL_LARGE)),
@@ -2562,8 +3229,9 @@ PHASES = (
 )
 PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
                "classify_cli", "large224_cli",
-               "infer_narrator_cli", "large_cli", "large_pretrain_cli",
-               "flagship_infer_narrator_cli", "distilbert_cli",
+               "infer_narrator_cli", "eval_narrator_cli", "large_cli",
+               "large_pretrain_cli", "flagship_infer_narrator_cli",
+               "vclm_pretrain_cli", "distilbert_cli",
                "distilbert_pretrain_cli")
 
 
@@ -2579,8 +3247,9 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = phase_device()
-    phase_build()
+    build_seconds = phase_build()
     global SSL_CHECKPOINT
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     SSL_CHECKPOINT = os.path.join(tmp.name, "ssl_pretrain.pt")
@@ -2634,6 +3303,11 @@ def main() -> int:
     check(sum(PATH_LN_BWD.values()) == ln_bwd,
           f"LayerNorm backward: {ln_bwd} calls on the paths, launches by "
           f"branch {PATH_LN_BWD}")
+    emit("recipe_launches_by_branch", run="vclm_pretrain_cli",
+         dtype="float32 (the narration from its checkpoint bfloat16)",
+         launches_by_branch=RECIPE_BRANCHES)
+    emit("total", seconds=time.perf_counter() - t_start,
+         build_seconds=build_seconds)
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n  "

@@ -1,10 +1,13 @@
 """Narrator inference with the PyTorch port: pseudo-label clips.
 
-Counterpart of ``cli/main_infer_narrator.py`` with its flags for sampled
-decoding plus ``--device`` (default ``cuda``; with ``cuda`` and no card
-it raises).
+Counterpart of ``cli/main_infer_narrator.py`` with its flags plus
+``--device`` (default ``cuda``; with ``cuda`` and no card it raises).
 Each batch of clips is encoded, then captioned by sampled decoding
-(``VCLM.generate``: KV cache, K9 for the decoder's self-attention), and
+(``VCLM.generate``: KV cache, K9 for the decoder's self-attention) or,
+with ``--decoding beam_sample`` / ``group_beam``, by the beam decoders
+(``models/beam.py``, ``--num-beams``, ``--num-beam-groups``,
+``--length-penalty``; the stored scores are then the beams' joint
+scores, as the JAX CLI and the reference store them), and
 the records ``(video_uid, t_start, t_end, captions, ppls)`` are written
 to ``cache.0.pkl`` and, merged, to ``total.pkl``: the output contract
 of the JAX CLI and of the reference, which the pretraining's SSL path
@@ -13,14 +16,12 @@ CLI's sharding across processes and its round-robin merge are ROADMAP
 queue 1: multi-GPU.
 
 Weights are seeded random (``--seed``, drawn on ``--device``) unless
-``--checkpoint`` names a released narrator ``.pt``/``.pth``, whose tower
+``--checkpoint`` names a narrator ``.pt``/``.pth``: a released one, or
+one the port's ``main_pretrain`` wrote (``--gated-xattn``); its tower
 depths must match ``--model``. Without the GPT-2 BPE files (looked up
 under ``$LAVILA_TOKENIZER_DIR``) captions are printed as raw token ids,
-as the JAX CLI does. ``--decoding beam_sample`` and ``group_beam`` are
-not ported yet and raise; their flags (``--num-beams``,
-``--num-beam-groups``, ``--length-penalty``) are not taken, nor is
-``--early-stop``, which changes nothing in the JAX CLI (decoding always
-stops once every row has sampled EOS).
+as the JAX CLI does. ``--early-stop`` is not taken: it changes nothing
+in the JAX CLI (decoding always stops once every row has sampled EOS).
 
     python -m lavila_tpu_torch.cli.main_infer_narrator --dataset synthetic \\
         --model VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL --bf16
@@ -47,12 +48,11 @@ from lavila_tpu_torch.data.loader import DataLoader
 from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.kernels.decode import HEAD_DIM
 from lavila_tpu_torch.models import build_model
-from lavila_tpu_torch.models.convert import (count_layers,
-                                             load_reference_checkpoint,
+from lavila_tpu_torch.models.beam import BeamDecoder
+from lavila_tpu_torch.models.convert import (checkpoint_state_dict,
+                                             count_layers,
+                                             is_port_checkpoint,
                                              narrator_state_dict)
-
-BEAMS_NOT_PORTED = ("beam decoding (models/beam.py BeamDecoder) is not "
-                    "ported yet: ROADMAP queue 1: the beams")
 
 
 def get_args_parser():
@@ -74,6 +74,14 @@ def get_args_parser():
     p.add_argument("--decoding", default="sample",
                    choices=["sample", "beam_sample", "group_beam"])
     p.add_argument("--num-return-sequences", type=int, default=10)
+    p.add_argument("--num-beams", type=int, default=3,
+                   help="reference --caption-num-beams")
+    p.add_argument("--num-beam-groups", type=int, default=3,
+                   help="for --decoding group_beam (reference "
+                        "--caption-num-beam-groups); must be > 1 and "
+                        "divide --num-beams")
+    p.add_argument("--length-penalty", type=float, default=1.0,
+                   help="reference --caption-length-penalty")
     p.add_argument("--temperature", type=float, default=0.7)
     p.add_argument("--top-p", type=float, default=0.95)
     p.add_argument("--top-k", type=int, default=0)
@@ -103,11 +111,29 @@ def check_decode_device(model_name: str, head_dim: int,
             "narrator)")
 
 
+def narrator_checkpoint(path: str, num_frames: int) -> dict:
+    """A narrator checkpoint's weights in the port's names: the port's
+    own (``main_pretrain``'s ``checkpoint_*.pt``, already in them) or a
+    released one (:func:`narrator_state_dict`), ``temporal_embed`` fitted
+    to ``num_frames``. The file is mapped, not read whole: a train
+    checkpoint also holds the optimizer's moments."""
+    if not path.endswith((".pt", ".pth")):
+        raise NotImplementedError(
+            f"{path}: only .pt/.pth checkpoints load into the port: "
+            "ROADMAP queue 1: Orbax checkpoints")
+    # released checkpoints pickle their argparse namespace beside the
+    # weights, which weights_only=True refuses
+    ckpt = torch.load(path, map_location="cpu", weights_only=False,
+                      mmap=True)
+    sd = checkpoint_state_dict(ckpt, num_frames)
+    return sd if is_port_checkpoint(ckpt) else narrator_state_dict(sd)
+
+
 def load_narrator(args):
     """Build ``--model`` (gated cross-attention, as the JAX CLI builds
     it) on ``--device`` from a generator seeded ``--seed`` there, load
-    ``--checkpoint`` when given (strict), cast to bf16 with ``--bf16``.
-    Returns the model in eval mode."""
+    ``--checkpoint`` when given (strict; :func:`narrator_checkpoint`),
+    cast to bf16 with ``--bf16``. Returns the model in eval mode."""
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(args.model, device=device,
@@ -116,12 +142,7 @@ def load_narrator(args):
                         gated_xattn=True)
     check_decode_device(args.model, model.text_decoder.cfg.head_dim, device)
     if args.checkpoint:
-        if not args.checkpoint.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                f"{args.checkpoint}: only reference .pt/.pth checkpoints "
-                "load into the port: ROADMAP queue 1: Orbax checkpoints")
-        sd = narrator_state_dict(load_reference_checkpoint(
-            args.checkpoint, num_frames=args.clip_length))
+        sd = narrator_checkpoint(args.checkpoint, args.clip_length)
         # depths come from the checkpoint, never from the model name
         depths = {"visual.blocks.": len(model.visual.blocks),
                   "text_decoder.transformer.h.":
@@ -157,10 +178,19 @@ def captions(ids: np.ndarray, eos: int, decode) -> list[str]:
     return out
 
 
+def check_beam_groups(args) -> None:
+    """``--decoding group_beam`` needs ``--num-beam-groups`` > 1 dividing
+    ``--num-beams`` (reference main_infer_narrator.py:203)."""
+    if args.decoding == "group_beam" and not (
+            args.num_beam_groups > 1
+            and args.num_beams % args.num_beam_groups == 0):
+        raise SystemExit(
+            "--decoding group_beam needs --num-beam-groups > 1 dividing "
+            "--num-beams (reference main_infer_narrator.py:203)")
+
+
 def main(args):
-    if args.decoding != "sample":
-        raise NotImplementedError(f"--decoding {args.decoding}: "
-                                  + BEAMS_NOT_PORTED)
+    check_beam_groups(args)
     os.makedirs(args.output_dir, exist_ok=True)
     model = load_narrator(args)
     device = next(model.parameters()).device
@@ -181,19 +211,31 @@ def main(args):
                         num_workers=args.workers, with_indices=True)
     decode, bos, eos, pad = tokenizer_ids(args.model)
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    dec = BeamDecoder(model, bos_id=bos, eos_id=eos, pad_id=pad,
+                      max_text_length=args.max_text_length)
+    beam_rng = np.random.default_rng(args.seed)
     nrs = args.num_return_sequences
+    warp = dict(temperature=args.temperature, top_p=args.top_p,
+                top_k=args.top_k or None)
+    beams = dict(num_beams=args.num_beams, num_return_sequences=nrs,
+                 length_penalty=args.length_penalty, **warp)
     records = []
     t0 = time.perf_counter()
     for bi, batch in enumerate(loader):
         frames = torch.from_numpy(np.ascontiguousarray(batch["frames"]))
         with torch.inference_mode():
             toks = model.encode_image(frames.to(device))
-            ids, ppls = model.generate(
-                toks, generator=gen, bos_id=bos, eos_id=eos, pad_id=pad,
-                max_text_length=args.max_text_length,
-                temperature=args.temperature, top_k=args.top_k or None,
-                top_p=args.top_p, num_return_sequences=nrs)
-        ids, ppls = ids.cpu().numpy(), ppls.float().cpu().numpy()
+            if args.decoding == "sample":
+                ids, ppls = model.generate(
+                    toks, generator=gen, bos_id=bos, eos_id=eos,
+                    pad_id=pad, max_text_length=args.max_text_length,
+                    num_return_sequences=nrs, **warp)
+                ids, ppls = ids.cpu().numpy(), ppls.float().cpu().numpy()
+            elif args.decoding == "beam_sample":
+                ids, ppls = dec.beam_sample(toks, rng=beam_rng, **beams)
+            else:
+                ids, ppls = dec.group_beam_search(
+                    toks, num_beam_groups=args.num_beam_groups, **beams)
         for j in range(frames.shape[0]):
             meta = samples_meta[int(batch["index"][j])]
             rows = slice(j * nrs, (j + 1) * nrs)

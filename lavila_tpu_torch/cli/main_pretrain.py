@@ -1,4 +1,5 @@
-"""Dual-encoder pretraining with the PyTorch port, on one device.
+"""Pretraining with the PyTorch port, on one device: the dual encoder
+and, with ``--model VCLM_*``, the narrator.
 
 Counterpart of ``cli/main_pretrain.py`` with the same flags
 (``lavila_tpu_torch.config.PretrainConfig``) plus ``--device`` (default
@@ -26,6 +27,25 @@ every epoch (and every ``--eval-in-middle-freq`` iterations), its
 metrics in ``log.txt`` and ``checkpoint_best.pt`` following its
 ``mAP_avg``. ``--wandb`` logs to Weights & Biases where it can start.
 
+A ``VCLM_*`` model trains the narrator (LaViLa's step 1,
+``docs/TRAINING.md:31-42``): the caption step
+(``make_caption_train_step``: teacher-forced cross entropy over the
+GPT-2 tokenizer's ids, its padding masked out), the metrics ``loss
+caption_loss caption_acc ppl``, ``--gated-xattn`` and the VCLM freeze
+flags (``--freeze-lm-vclm``: GPT-2 but its cross-attention insertions;
+``--freeze-visual-vclm``: the video tower but its temporal branch;
+``--freeze-visual-vclm-temporal``: that branch), whose parameters get
+no gradient (``TrainState``); ``--use-checkpoint`` recomputes GPT-2's
+blocks too. No SSL loss (``--metadata-aux`` only adds the aux
+narrations as captions) and no EK-100 probe, as in the JAX CLI; the
+JAX narrators take no drop-path, so ``--drop-path-rate`` is not passed
+to them either. Its ``checkpoint_*.pt`` loads in the port's
+``main_infer_narrator``, ``demo_narrator`` and ``eval_narrator``.
+LaViLa's recipe on the synthetic dataset (the GPT-2 vocabulary under
+``$LAVILA_TOKENIZER_DIR/gpt2-xl``):
+``--model VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL --gated-xattn
+--freeze-lm-vclm --freeze-visual-vclm --disable-amp``.
+
 Run without data: ``python -m lavila_tpu_torch.cli.main_pretrain
 --dataset synthetic --model CLIP_OPENAI_TIMESFORMER_MINI --steps 2
 --batch-size 4 --device cpu --output-dir /tmp/run``.
@@ -47,6 +67,7 @@ import numpy as np
 import torch
 
 from lavila_tpu_torch.cli.eval_zeroshot import crop_shape, resolve_device
+from lavila_tpu_torch import losses
 from lavila_tpu_torch.config import (PretrainConfig, model_kwargs_from_config,
                                      parse_config)
 from lavila_tpu_torch.data import transforms as T
@@ -58,7 +79,8 @@ from lavila_tpu_torch.models import build_model
 from lavila_tpu_torch.train.freeze import (build_freeze_predicate,
                                            freeze_by_predicate)
 from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
-from lavila_tpu_torch.train.step import TrainState, make_clip_train_step
+from lavila_tpu_torch.train.step import (TrainState, make_caption_train_step,
+                                         make_clip_train_step)
 from lavila_tpu_torch.utils.checkpoints import (CheckpointManager,
                                                 resolve_resume)
 from lavila_tpu_torch.utils.meters import AverageMeter, ProgressMeter, Timer
@@ -73,9 +95,6 @@ class TorchPretrainConfig(PretrainConfig):
 
 # option → (is it set, the ROADMAP queue 1 subject that ports it)
 _NOT_PORTED = (
-    (lambda c: c.model.startswith("VCLM"),
-     "--model VCLM_* (the narrator's caption loss and step)",
-     "the narrator's training"),
     (lambda c: c.contrastive_use_vissl, "--contrastive-use-vissl",
      "multi-GPU"),
     (lambda c: c.mesh_model > 1, "--mesh-model > 1", "multi-GPU"),
@@ -83,10 +102,6 @@ _NOT_PORTED = (
     (lambda c: c.use_checkpoint and c.remat_policy != "full",
      "--remat-policy other than full (remat)",
      "the remat policies"),
-    (lambda c: any([c.freeze_visual_vclm, c.freeze_visual_vclm_temporal,
-                    c.freeze_lm_vclm]),
-     "the VCLM --freeze-* flags (the narrator's training)",
-     "the narrator's training"),
     (lambda c: c.timesformer_gated_xattn, "--timesformer-gated-xattn",
      "timesformer_gated_xattn"),
 )
@@ -151,15 +166,20 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     check_ported(cfg)
     device = resolve_device(cfg.device)
     random_seed(cfg.seed, 0)
+    is_vclm = cfg.model.startswith("VCLM")
     dtype = torch.float32 if cfg.disable_amp else torch.bfloat16
     print(f"=> building model {cfg.model} (compute dtype "
           f"{str(dtype).removeprefix('torch.')})")
     kw = model_kwargs_from_config(cfg)
     kw.pop("timesformer_gated_xattn")  # raises above when set
     kw.pop("remat_policy")  # only 'full' passes check_ported
+    if is_vclm:  # the JAX narrators ignore it
+        kw.pop("drop_path_rate")
+    # the weights are drawn on the device: seconds there for the 2.4 B
+    # parameters of the flagship narrator, minutes on the host
     model = build_model(cfg.model, device=device, train=True,
-                        generator=torch.Generator().manual_seed(cfg.seed),
-                        **kw)
+                        generator=torch.Generator(device).manual_seed(
+                            cfg.seed), **kw)
     tokenizer = generate_tokenizer(cfg.model)
 
     mean, std = T.normalization_for_model(cfg.model)
@@ -182,8 +202,11 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     frozen = build_freeze_predicate(
         freeze_temperature=cfg.freeze_temperature,
         timesformer_freeze_space=cfg.timesformer_freeze_space,
+        freeze_visual_vclm=cfg.freeze_visual_vclm,
+        freeze_visual_vclm_temporal=cfg.freeze_visual_vclm_temporal,
+        freeze_lm_vclm=cfg.freeze_lm_vclm,
         freeze_pseudo_temperature=cfg.freeze_pseudo_temperature)
-    use_ssl = cfg.metadata_aux is not None
+    use_ssl = cfg.metadata_aux is not None and not is_vclm
     # the reference passes --pseudo-temperature-init (default 0.07) as
     # SSLCLIPLoss's scale_init (reference main_pretrain.py:195)
     criterion = ({"logit_scale_pseudo": math.log(
@@ -199,7 +222,8 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         generator=torch.Generator(device).manual_seed(cfg.seed),
         criterion=criterion)
     n_params = sum(p.numel() for p in state.params.values())
-    print(f"=> {n_params/1e6:.1f}M params")
+    n_frozen = sum(state.params[n].numel() for n in state.frozen)
+    print(f"=> {n_params/1e6:.1f}M params, {n_frozen/1e6:.1f}M frozen")
 
     mgr = CheckpointManager(cfg.output_dir)
     start_epoch = cfg.start_epoch
@@ -213,9 +237,12 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         best_metric = float(meta.get("metrics", {}).get(
             "best_metric", float("-inf")))
 
-    step_fn = make_clip_train_step(norm_embed=cfg.norm_embed,
-                                   use_ssl=use_ssl)
-    metric_names = ["loss", "clip_loss", "clip_acc"]
+    step_fn = (make_caption_train_step(pad_id=tokenizer.pad_token_id)
+               if is_vclm else
+               make_clip_train_step(norm_embed=cfg.norm_embed,
+                                    use_ssl=use_ssl))
+    metric_names = losses.get_metric_names(cfg.model)
+    probe = bool(cfg.val_metadata) and not is_vclm
     place = make_place(device, ("frames", "text", "gt_indicators")
                        if use_ssl else ("frames", "text"))
 
@@ -274,7 +301,7 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
             else:
                 batch_time.update(timer.lap())
             total_steps += 1
-            if (cfg.val_metadata and cfg.eval_in_middle_freq > 0 and it > 0
+            if (probe and cfg.eval_in_middle_freq > 0 and it > 0
                     and it % cfg.eval_in_middle_freq == 0):
                 run_probe()
             if cfg.steps is not None and total_steps >= cfg.steps:
@@ -283,7 +310,7 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
             _stop_profiler(profiler, cfg.profile_dir)
             profiler = None
 
-        probe_metrics = run_probe() if cfg.val_metadata else {}
+        probe_metrics = run_probe() if probe else {}
         # the best checkpoint follows the probe's mAP (reference
         # main_pretrain.py:394-403)
         is_best = probe_metrics.get("mAP_avg", float("-inf")) > best_metric

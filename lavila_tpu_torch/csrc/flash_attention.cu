@@ -12,9 +12,21 @@
 // sum are fp32; the forward rounds the unnormalised probabilities
 // exp(s - m) to the input dtype before P V and divides by their sum at the
 // end, as the Pallas kernels do. It writes out (B, Lq, H*d) contiguous and,
-// for K8, lse (B, Lq, H) fp32. The backward takes dO and O contiguous with
-// lse and writes dq (B, Lq, H*d) and dk/dv (B, Lk, H*d) contiguous. No
+// for K8, lse (B, Lq, H) fp32. The backward takes dO contiguous with lse
+// and writes dq (B, Lq, H*d) and dk/dv (B, Lk, H*d) contiguous. No
 // atomics: two calls give the same bits.
+//
+// The backward's delta (dS = P (dP - delta)) is rowsum(P * dP) over the P
+// it recomputes from lse, in a pass over the keys before dS, where the
+// Pallas kernels take rowsum(dO * O) from the forward's O. The two agree
+// in exact arithmetic, but dq = dS K cancels wherever the keys share a
+// large common part (GPT-2's cross-attention over the narrator's 256
+// pooled image tokens at initialisation), so it keeps
+// whatever sum(dS) != 0 the delta leaves times that common part. From the
+// forward's O, rounded to bf16 and normalised with the forward's own sum,
+// that residue made dq 12.7x the fp64 gradient's norm there (bf16, H100);
+// from the same P it is fp32 rounding. The pass costs two more products
+// in dq (S and dP again), none in dk/dv.
 //
 // What bounds it on the H100: at the text towers' shape (L = 77, d = 64,
 // causal) attention does ~2*L*d FLOPs per query against ~8*d bytes of
@@ -57,23 +69,25 @@
 //      16-row box (2-4% less device time than 16-byte stores at 16 x 8,
 //      32 x 12 and 256 x 8 captions x heads; a 64-row wgmma version was
 //      8% faster at 16 x 8 and 7-11% slower at the other two).
-//    - Backward at Lq, Lk <= 128 (every text tower): one launch, one
-//      block per (head, caption) owning the whole score matrix. TMA brings
-//      Q, K, V, dO and O; then warp w (a) takes its 16 queries: delta =
-//      rowsum(dO * O) in registers, per 16-key chunk S = Q K^T and dP = dO
-//      V^T, P = exp2(S scale log2(e) - lse2), dS = P (dP - delta), dq +=
+//    - Backward at Lq, Lk <= 128 (every text tower, GPT-2's self-attention):
+//      one launch, one block per (head, caption) owning the whole score
+//      matrix. TMA brings Q, K, V and dO; then warp w (a) takes its 16
+//      queries: per 8-key chunk S = Q K^T, dP = dO V^T and P = exp2(S
+//      scale log2(e) - lse2) into delta = rowsum(P * dP) in registers;
+//      then per 16-key chunk S, dP and P again, dS = P (dP - delta), dq +=
 //      dS K (dS rounded to bf16 as the A fragment, K read transposed), P
 //      and dS rounded to bf16 into shared memory; after one block barrier
 //      (b) its 16 keys: dV += P^T dO and dK += dS^T Q, P^T and dS^T by
-//      ldmatrix.trans from the query-major P and dS. 5 products against
-//      the split's 7, one launch against two, no delta or reduction in
-//      device memory. dq/dk/dv leave through the O/K/V tiles' rows.
-//    - Backward past 128 tokens (no path runs it; the ViT towers would):
-//      the split of FlashAttention-2, two launches. dq: the forward's
-//      layout over 64-key tiles in two cp.async stages, writing delta for
-//      dk/dv: one block per 64 keys, 16 key rows a warp, streaming 64-query
-//      tiles of Q and dO with their lse and delta. P and dS rounded to bf16
-//      as in the fused kernel.
+//      ldmatrix.trans from the query-major P and dS. 7 products against
+//      the split's 9, one launch against two, no delta or reduction in
+//      device memory. dq/dk/dv leave through their tiles' rows.
+//    - Backward past 128 tokens (GPT-2's cross-attention over 256 image
+//      tokens): the split of FlashAttention-2, two launches. dq: the
+//      forward's layout over 64-key tiles in two cp.async stages, walked
+//      twice (delta, then dS and dq), writing delta for dk/dv: one block
+//      per 64 keys, 16 key rows a warp, streaming 64-query tiles of Q and
+//      dO with their lse and delta. P and dS rounded to bf16 as in the
+//      fused kernel.
 //  * everything else (fp32, whose 1e-4 limit rules out bf16 or TF32
 //    tensor cores; head sizes other than 64, up to 128; unaligned rows):
 //    SIMT fp32 FMA, 64 rows a block, 8 a warp, tiles staged as fp32 rows
@@ -91,13 +105,11 @@ using lavila::cp_async16;
 using lavila::cp_async_commit;
 using lavila::cp_async_wait_prev;
 using lavila::from_float;
-using lavila::ld32;
 using lavila::mma_16816;
 using lavila::pack_bf16;
 using lavila::quad_max;
 using lavila::quad_sum;
 using lavila::to_float;
-using lavila::unpack_bf16;
 using lavila::warp_max;
 using lavila::warp_sum;
 using namespace lavila::d64;  // kD, kRow, kChunks and the fragment helpers
@@ -406,14 +418,14 @@ size_t fwd_tc_smem_bytes(int nq, int kt, int stages) {
 }
 
 size_t bwd_fused_smem_bytes(int QR, int KR) {
-  // Q, dO, O (QR rows) and K, V (KR rows) swizzled; P and dS (QR x (KR +
+  // Q, dO, dq (QR rows) and K, V (KR rows) swizzled; P and dS (QR x (KR +
   // 8) bf16: the padding puts ldmatrix's 8 rows on distinct banks); slack
   return (size_t)(3 * QR + 2 * KR) * kRowBytes +
          2 * (size_t)QR * (KR + 8) * sizeof(bf16) + 1024;
 }
 
 // Backward at Lq, Lk <= 128: grid (H, B), 32 * max(QR, KR) / 16 threads
-// (QR, KR = Lq, Lk rounded up to 16). tq/tk/tv/tdo/tout: tensor maps with
+// (QR, KR = Lq, Lk rounded up to 16). tq/tk/tv/tdo: tensor maps with
 // boxes of QR (queries) and KR (keys) rows. Warp w takes queries 16w..
 // (dq), then, after one block barrier, keys 16w.. (dk, dv).
 __global__ void __launch_bounds__(kMaxWarps * 32)
@@ -421,7 +433,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo,
-                           const __grid_constant__ CUtensorMap tout,
                            const float* __restrict__ lse,
                            bf16* __restrict__ dq, bf16* __restrict__ dk,
                            bf16* __restrict__ dv, int H, int Lq, int Lk,
@@ -433,7 +444,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int h = blockIdx.x, b = blockIdx.y, col = h * kD;
   bf16* qs = sm::align1024(smem_raw);
   bf16* gs = qs + QR * kD;   // dO
-  bf16* os = gs + QR * kD;   // O, then dq on its way out
+  bf16* os = gs + QR * kD;   // dq on its way out
   bf16* ks = os + QR * kD;   // K, then dk
   bf16* vs = ks + KR * kD;   // V, then dv
   bf16* ps = vs + KR * kD;   // P [query][key]
@@ -447,12 +458,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    sm::mbar_expect_tx(&bar, (3 * QR + 2 * KR) * kRowBytes);
+    sm::mbar_expect_tx(&bar, (2 * QR + 2 * KR) * kRowBytes);
     sm::tma_load_3d(qs, &tq, &bar, col, 0, b);
     sm::tma_load_3d(ks, &tk, &bar, col, 0, b);
     sm::tma_load_3d(gs, &tdo, &bar, col, 0, b);
     sm::tma_load_3d(vs, &tv, &bar, col, 0, b);
-    sm::tma_load_3d(os, &tout, &bar, col, 0, b);
   }
   const long long D = (long long)H * kD;
   const float sl2 = scale * kLog2e;
@@ -467,30 +477,36 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     unsigned qa[kD / 16][4], ga[kD / 16][4];
     sw_rows_a(qa, qb, r0, lane);
     sw_rows_a(ga, gb, r0, lane);
-    // delta over this lane's 16 columns of rows n0 and n1 (the columns of
-    // its dO fragments), then over the quad; padded rows: dO = O = 0
-    float d0 = 0.f, d1 = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = kk * 16 + 8 * half + 2 * t4;
-        const float2 x0 = unpack_bf16(ga[kk][2 * half]);
-        const float2 y0 = sm::tile_pair(os, n0, c);
-        const float2 x1 = unpack_bf16(ga[kk][2 * half + 1]);
-        const float2 y1 = sm::tile_pair(os, n1, c);
-        d0 = fmaf(x0.y, y0.y, fmaf(x0.x, y0.x, d0));
-        d1 = fmaf(x1.y, y1.y, fmaf(x1.x, y1.x, d1));
-      }
-    }
-    d0 = quad_sum(d0);
-    d1 = quad_sum(d1);
     // log2 domain; a padded row's +inf makes its P (and dS) zero
     const long long row = (long long)b * Lq;
     const float l0 = n0 < Lq ? lse[(row + n0) * H + h] * kLog2e : INFINITY;
     const float l1 = n1 < Lq ? lse[(row + n1) * H + h] * kLog2e : INFINITY;
     const int lim = causal ? min(Lk, r0 + 16) : Lk;
     const int all = causal ? min(Lk, r0 + 1) : Lk;
+    // delta = rowsum(P * dP) over the P of the loop below, bit for bit:
+    // a first pass over this lane's keys of rows n0 and n1, then over the
+    // quad (the header says why not rowsum(dO * O))
+    float d0 = 0.f, d1 = 0.f;
+    for (int j = 0; j < lim; j += 8) {
+      float s[4], dp[4];
+      sw_scores(s, qa, kb, j, lane);
+      sw_scores(dp, ga, vb, j, lane);
+      const bool edge = j + 8 > all;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int jj = j + 2 * t4 + e;
+        float p0 = sm::fast_exp2(fmaf(s[e], sl2, -l0));
+        float p1 = sm::fast_exp2(fmaf(s[2 + e], sl2, -l1));
+        if (edge) {
+          if (!attends(n0, jj, Lk, causal)) p0 = 0.f;
+          if (!attends(n1, jj, Lk, causal)) p1 = 0.f;
+        }
+        d0 = fmaf(p0, dp[e], d0);
+        d1 = fmaf(p1, dp[2 + e], d1);
+      }
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
     float acc[kD / 8][4];
     zero(acc);
     for (int j16 = 0; j16 < lim; j16 += 16) {
@@ -530,7 +546,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                               pack_bf16(ds[1][2], ds[1][3])};
       sw_mma_rows(acc, da, kb, j16, lane);
     }
-    // dq = scale dS K, through the warp's rows of the O tile
+    // dq = scale dS K, through the warp's rows of the dq tile
     store_rows_sw(os, r0, acc, scale, scale, dq + (row + r0) * D + col, D,
                   Lq - r0, lane);
   }
@@ -576,17 +592,16 @@ __device__ __forceinline__ void async_rows(bf16* dst, const bf16* x,
 }
 
 // dq: grid (ceil(Lq / (16 * warps)), H, B), warps * 32 threads. Each
-// warp's 16 query rows first take delta = rowsum(dO * O) (written out for
-// the dk/dv kernel), then walk the 64-key tiles (two stages) of K and V
-// [key][d]: S = Q K^T and dP = dO V^T on the tensor cores, dS = P (dP -
-// delta) in registers, then dS (rounded to bf16 as the A operand) times K
-// into dq.
+// warp's 16 query rows walk the 64-key tiles (two stages) of K and V
+// [key][d] twice, S = Q K^T and dP = dO V^T on the tensor cores each
+// time: the first pass sums delta = rowsum(P * dP) (written out for the
+// dk/dv kernel), the second forms dS = P (dP - delta) in registers and
+// multiplies dS (rounded to bf16 as the A operand) by K into dq.
 __global__ void __launch_bounds__(kMaxWarps * 32)
     flash_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ dout,
-                        const bf16* __restrict__ out,
                         const float* __restrict__ lse,
                         float* __restrict__ delta, bf16* __restrict__ dq,
                         int H, int Lq, int Lk, long long q_rs, long long k_rs,
@@ -604,9 +619,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const bool ok0 = n0 < Lq, ok1 = n1 < Lq;
   const float sl2 = scale * kLog2e;
   const int keys = keys_needed(q_base, nq, Lq, Lk, causal);
+  const int n_tiles = (keys + kTile - 1) / kTile;
 
-  auto stage = [&](int kt) {
-    bf16* ks = tiles + (kt & 1) * 2 * kTileElems;
+  // step it of the two passes reads key tile it % n_tiles into stage it & 1
+  auto stage = [&](int it) {
+    const int kt = it < n_tiles ? it : it - n_tiles;
+    bf16* ks = tiles + (it & 1) * 2 * kTileElems;
     async_rows<kTile>(ks, k, k_rs, krow0, col, kt * kTile, keys);
     async_rows<kTile>(ks + kTileElems, v, v_rs, krow0, col, kt * kTile,
                       keys);
@@ -619,46 +637,30 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             ok0, ok1, t);
   load_rows(ga, dout + (qrow0 + n0) * D + col, dout + (qrow0 + n1) * D + col,
             ok0, ok1, t);
-  // delta over this lane's 16 columns of rows n0 and n1 (the columns of
-  // its dO fragments), then over the quad; padded rows: dO = 0, delta = 0
-  float d0 = 0.f, d1 = 0.f;
-  const bf16* o0 = out + (qrow0 + n0) * D + col;
-  const bf16* o1 = out + (qrow0 + n1) * D + col;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = kk * 16 + 2 * t + 8 * half;
-      if (ok0) {
-        const float2 gv = unpack_bf16(ga[kk][2 * half]);
-        const float2 ov = unpack_bf16(ld32(o0 + c));
-        d0 = fmaf(gv.y, ov.y, fmaf(gv.x, ov.x, d0));
-      }
-      if (ok1) {
-        const float2 gv = unpack_bf16(ga[kk][2 * half + 1]);
-        const float2 ov = unpack_bf16(ld32(o1 + c));
-        d1 = fmaf(gv.y, ov.y, fmaf(gv.x, ov.x, d1));
-      }
-    }
-  }
-  d0 = quad_sum(d0);
-  d1 = quad_sum(d1);
-  if (t == 0) {
-    if (ok0) delta[(qrow0 + n0) * H + h] = d0;
-    if (ok1) delta[(qrow0 + n1) * H + h] = d1;
-  }
   const float l0 = ok0 ? lse[(qrow0 + n0) * H + h] * kLog2e : 0.f;
   const float l1 = ok1 ? lse[(qrow0 + n1) * H + h] * kLog2e : 0.f;
 
+  // delta over this lane's keys of rows n0 and n1, then over the quad;
+  // padded rows: q = dO = 0, so dP = 0, delta = 0 and dS = 0
+  float d0 = 0.f, d1 = 0.f;
   float acc[kD / 8][4];
   zero(acc);
-  const int n_tiles = (keys + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) stage(kt + 1);
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    if (it + 1 < 2 * n_tiles) stage(it + 1);
     else cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
-    const bf16* ks = tiles + (kt & 1) * 2 * kTileElems;
+    const bool first = it < n_tiles;  // the delta pass
+    const int kt = first ? it : it - n_tiles;
+    if (it == n_tiles) {
+      d0 = quad_sum(d0);
+      d1 = quad_sum(d1);
+      if (t == 0) {
+        if (ok0) delta[(qrow0 + n0) * H + h] = d0;
+        if (ok1) delta[(qrow0 + n1) * H + h] = d1;
+      }
+    }
+    const bf16* ks = tiles + (it & 1) * 2 * kTileElems;
     const bf16* vs = ks + kTileElems;
 #pragma unroll
     for (int st = 0; st < kTile / 16; ++st) {
@@ -675,17 +677,24 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           const float p1 = attends(n1, j, Lk, causal)
                                ? exp2f(s[half][2 + e] * sl2 - l1)
                                : 0.f;
-          s[half][e] = p0 * (dp[half][e] - d0);          // dS, row n0
-          s[half][2 + e] = p1 * (dp[half][2 + e] - d1);  // dS, row n1
+          if (first) {
+            d0 = fmaf(p0, dp[half][e], d0);
+            d1 = fmaf(p1, dp[half][2 + e], d1);
+          } else {
+            s[half][e] = p0 * (dp[half][e] - d0);          // dS, row n0
+            s[half][2 + e] = p1 * (dp[half][2 + e] - d1);  // dS, row n1
+          }
         }
       }
-      const unsigned da[4] = {pack_bf16(s[0][0], s[0][1]),
-                              pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]),
-                              pack_bf16(s[1][2], s[1][3])};
-      mma_rows(acc, da, ks, st * 16, lane);
+      if (!first) {
+        const unsigned da[4] = {pack_bf16(s[0][0], s[0][1]),
+                                pack_bf16(s[0][2], s[0][3]),
+                                pack_bf16(s[1][0], s[1][1]),
+                                pack_bf16(s[1][2], s[1][3])};
+        mma_rows(acc, da, ks, st * 16, lane);
+      }
     }
-    __syncthreads();  // this stage is refilled two tiles on
+    __syncthreads();  // this stage is refilled two steps on
   }
   store_rows(dq + (qrow0 + n0) * D + col, dq + (qrow0 + n1) * D + col, ok0,
              ok1, acc, scale, scale, t);
@@ -928,12 +937,13 @@ size_t dq_smem_bytes(int d) {
 }
 
 // dq: grid (ceil(Lq/64), H, B), kWarps*32 threads; warp w owns query rows
-// 8w..8w+7 of the block, and writes their delta = rowsum(dO * O).
+// 8w..8w+7 of the block. Two passes over the key tiles: the first sums
+// (and writes) their delta = rowsum(P * dP), the second forms dS and dq.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
-                    const T* __restrict__ out, const float* __restrict__ lse,
+                    const float* __restrict__ lse,
                     float* __restrict__ delta, T* __restrict__ dq, int H,
                     int Lq, int Lk, int d, long long q_rs, long long k_rs,
                     long long v_rs, float scale, int causal) {
@@ -955,60 +965,66 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   stage_f32<T>(qs, d, q, q_rs, qrow0, col, d, n_base, Lq, scale);
   stage_f32<T>(gs, d, dout, D, qrow0, col, d, n_base, Lq, 1.f);
-  // padded rows: q = dO = 0 and delta = 0, so dS = 0 there
+  // padded rows: q = dO = 0, so dP = 0, delta = 0 and dS = 0 there
   float lr[kRowsPerWarp], dr[kRowsPerWarp], acc[kRowsPerWarp][kMaxDimsPerLane];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int n = n_base + warp * kRowsPerWarp + r;
-    float part = 0.f;
-    if (n < Lq) {
-      const long long row = (qrow0 + n) * D + col;
-      for (int c = lane; c < d; c += 32)
-        part = fmaf(to_float(dout[row + c]), to_float(out[row + c]), part);
-    }
-    dr[r] = warp_sum(part);
-    if (n < Lq && lane == 0) delta[(qrow0 + n) * H + h] = dr[r];
     lr[r] = n < Lq ? lse[(qrow0 + n) * H + h] : 0.f;
+    dr[r] = 0.f;
 #pragma unroll
     for (int i = 0; i < kMaxDimsPerLane; ++i) acc[r][i] = 0.f;
   }
 
-  for (int kt = 0; kt * kTile < keys; ++kt) {
-    __syncthreads();
-    stage_f32<T>(ks, ld, k, k_rs, krow0, col, d, kt * kTile, keys, 1.f);
-    stage_f32<T>(vs, ld, v, v_rs, krow0, col, d, kt * kTile, keys, 1.f);
-    __syncthreads();
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int kt = 0; kt * kTile < keys; ++kt) {
+      __syncthreads();
+      stage_f32<T>(ks, ld, k, k_rs, krow0, col, d, kt * kTile, keys, 1.f);
+      stage_f32<T>(vs, ld, v, v_rs, krow0, col, d, kt * kTile, keys, 1.f);
+      __syncthreads();
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int n = n_base + warp * kRowsPerWarp + r;
+        const float* qr = qs + (warp * kRowsPerWarp + r) * d;
+        const float* gr = gs + (warp * kRowsPerWarp + r) * d;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jj = lane + 32 * e;
+          const float* kr = ks + jj * ld;
+          const float* vr = vs + jj * ld;
+          float s = 0.f, dp = 0.f;
+          for (int c = 0; c < d; ++c) {
+            s = fmaf(qr[c], kr[c], s);
+            dp = fmaf(gr[c], vr[c], dp);
+          }
+          const float p =
+              attends(n, kt * kTile + jj, Lk, causal) ? expf(s - lr[r]) : 0.f;
+          if (pass == 0)
+            dr[r] = fmaf(p, dp, dr[r]);  // this lane's keys
+          else
+            sw[jj] = p * (dp - dr[r]);
+        }
+        if (pass == 0) continue;
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < kMaxDimsPerLane; ++i) {
+          const int c = lane + 32 * i;
+          if (c < d) {
+            float a = acc[r][i];
+            for (int jj = 0; jj < kTile; ++jj)
+              a = fmaf(sw[jj], ks[jj * ld + c], a);
+            acc[r][i] = a;
+          }
+        }
+        __syncwarp();  // sw is rewritten by the next row
+      }
+    }
+    if (pass == 1) break;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {  // delta over the warp
       const int n = n_base + warp * kRowsPerWarp + r;
-      const float* qr = qs + (warp * kRowsPerWarp + r) * d;
-      const float* gr = gs + (warp * kRowsPerWarp + r) * d;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int jj = lane + 32 * e;
-        const float* kr = ks + jj * ld;
-        const float* vr = vs + jj * ld;
-        float s = 0.f, dp = 0.f;
-        for (int c = 0; c < d; ++c) {
-          s = fmaf(qr[c], kr[c], s);
-          dp = fmaf(gr[c], vr[c], dp);
-        }
-        sw[jj] = attends(n, kt * kTile + jj, Lk, causal)
-                     ? expf(s - lr[r]) * (dp - dr[r])
-                     : 0.f;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < kMaxDimsPerLane; ++i) {
-        const int c = lane + 32 * i;
-        if (c < d) {
-          float a = acc[r][i];
-          for (int jj = 0; jj < kTile; ++jj)
-            a = fmaf(sw[jj], ks[jj * ld + c], a);
-          acc[r][i] = a;
-        }
-      }
-      __syncwarp();  // sw is rewritten by the next row
+      dr[r] = warp_sum(dr[r]);
+      if (n < Lq && lane == 0) delta[(qrow0 + n) * H + h] = dr[r];
     }
   }
 
@@ -1230,18 +1246,16 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
 }
 
 cudaError_t launch_bwd_fused(const void* q, const void* k, const void* v,
-                             const void* dout, const void* out,
-                             const void* lse, void* dq, void* dk, void* dv,
-                             int B, int H, int Lq, int Lk, long long q_rs,
-                             long long k_rs, long long v_rs, float scale,
-                             int causal, cudaStream_t stream) {
+                             const void* dout, const void* lse, void* dq,
+                             void* dk, void* dv, int B, int H, int Lq, int Lk,
+                             long long q_rs, long long k_rs, long long v_rs,
+                             float scale, int causal, cudaStream_t stream) {
   const int QR = round16(Lq), KR = round16(Lk), D = H * kD;
-  CUtensorMap tq, tk, tv, tdo, tout;
+  CUtensorMap tq, tk, tv, tdo;
   if (!sm::rows_map(&tq, q, q_rs, D, Lq, B, QR) ||
       !sm::rows_map(&tk, k, k_rs, D, Lk, B, KR) ||
       !sm::rows_map(&tv, v, v_rs, D, Lk, B, KR) ||
-      !sm::rows_map(&tdo, dout, D, D, Lq, B, QR) ||
-      !sm::rows_map(&tout, out, D, D, Lq, B, QR))
+      !sm::rows_map(&tdo, dout, D, D, Lq, B, QR))
     return cudaErrorInvalidValue;
   static SmemOptIn opt_in;
   cudaError_t err = opt_in.ensure(flash_bwd_fused_kernel,
@@ -1250,8 +1264,8 @@ cudaError_t launch_bwd_fused(const void* q, const void* k, const void* v,
   const int warps = (QR > KR ? QR : KR) / 16;
   flash_bwd_fused_kernel<<<dim3(H, B), 32 * warps,
                            bwd_fused_smem_bytes(QR, KR), stream>>>(
-      tq, tk, tv, tdo, tout, (const float*)lse, (bf16*)dq, (bf16*)dk,
-      (bf16*)dv, H, Lq, Lk, scale, causal);
+      tq, tk, tv, tdo, (const float*)lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, H,
+      Lq, Lk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1276,15 +1290,15 @@ bool shape_ok(int B, int H, int Lq, int Lk, int d) {
 
 template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* out, const void* lse,
-                      void* delta, void* dq, int B, int H, int Lq, int Lk,
-                      int d, long long q_rs, long long k_rs, long long v_rs,
+                      const void* dout, const void* lse, void* delta,
+                      void* dq, int B, int H, int Lq, int Lk, int d,
+                      long long q_rs, long long k_rs, long long v_rs,
                       float scale, int causal, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes(d);
   cudaError_t err = allow_smem(flash_dq_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   flash_dq_kernel<T><<<grid(Lq, kTile, H, B), kWarps * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const T*)out,
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
       (const float*)lse, (float*)delta, (T*)dq, H, Lq, Lk, d, q_rs, k_rs,
       v_rs, scale, causal);
   return cudaGetLastError();
@@ -1361,46 +1375,46 @@ int lavila_flash_fwd(const void* q, const void* k, const void* v, void* out,
 
 // K8 backward in one launch (tensor cores, Lq and Lk <= 128)
 int lavila_flash_bwd_fused(const void* q, const void* k, const void* v,
-                           const void* dout, const void* out, const void* lse,
-                           void* dq, void* dk, void* dv, int B, int H, int Lq,
-                           int Lk, int d, long long q_rs, long long k_rs,
-                           long long v_rs, float scale, int causal,
-                           int dtype, void* stream) {
+                           const void* dout, const void* lse, void* dq,
+                           void* dk, void* dv, int B, int H, int Lq, int Lk,
+                           int d, long long q_rs, long long k_rs,
+                           long long v_rs, float scale, int causal, int dtype,
+                           void* stream) {
   if (!shape_ok(B, H, Lq, Lk, d) || !fused_fits(Lq, Lk) ||
-      !tc_fits(dtype, d, {q, k, v, dout, out, dq, dk, dv}, q_rs, k_rs, v_rs))
+      !tc_fits(dtype, d, {q, k, v, dout, dq, dk, dv}, q_rs, k_rs, v_rs))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_bwd_fused(q, k, v, dout, out, lse, dq, dk, dv, B, H, Lq,
-                               Lk, q_rs, k_rs, v_rs, scale, causal,
+  return (int)launch_bwd_fused(q, k, v, dout, lse, dq, dk, dv, B, H, Lq, Lk,
+                               q_rs, k_rs, v_rs, scale, causal,
                                (cudaStream_t)stream);
 }
 
 // K8 dq of the split backward; writes delta (B, Lq, H) fp32 for
 // lavila_flash_bwd_dkv
 int lavila_flash_bwd_dq(const void* q, const void* k, const void* v,
-                        const void* dout, const void* out, const void* lse,
-                        void* delta, void* dq, int B, int H, int Lq, int Lk,
-                        int d, long long q_rs, long long k_rs, long long v_rs,
+                        const void* dout, const void* lse, void* delta,
+                        void* dq, int B, int H, int Lq, int Lk, int d,
+                        long long q_rs, long long k_rs, long long v_rs,
                         float scale, int causal, int dtype, int tc,
                         void* stream) {
   if (!shape_ok(B, H, Lq, Lk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (tc) {
     if (fused_fits(Lq, Lk) ||
-        !tc_fits(dtype, d, {q, k, v, dout, out, dq}, q_rs, k_rs, v_rs))
+        !tc_fits(dtype, d, {q, k, v, dout, dq}, q_rs, k_rs, v_rs))
       return (int)cudaErrorInvalidValue;
     const int warps = query_warps(Lq);
     flash_dq_mma_kernel<<<grid(Lq, 16 * warps, H, B), warps * 32, 0, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const bf16*)out, (const float*)lse, (float*)delta, (bf16*)dq, H, Lq,
-        Lk, q_rs, k_rs, v_rs, scale, causal);
+        (const float*)lse, (float*)delta, (bf16*)dq, H, Lq, Lk, q_rs, k_rs,
+        v_rs, scale, causal);
     return (int)cudaGetLastError();
   }
   if (dtype == 0)
-    return (int)launch_dq<float>(q, k, v, dout, out, lse, delta, dq, B, H, Lq,
-                                 Lk, d, q_rs, k_rs, v_rs, scale, causal, s);
+    return (int)launch_dq<float>(q, k, v, dout, lse, delta, dq, B, H, Lq, Lk,
+                                 d, q_rs, k_rs, v_rs, scale, causal, s);
   if (dtype == 1)
-    return (int)launch_dq<bf16>(q, k, v, dout, out, lse, delta, dq, B, H, Lq,
-                                Lk, d, q_rs, k_rs, v_rs, scale, causal, s);
+    return (int)launch_dq<bf16>(q, k, v, dout, lse, delta, dq, B, H, Lq, Lk,
+                                d, q_rs, k_rs, v_rs, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

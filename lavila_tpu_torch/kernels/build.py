@@ -54,8 +54,8 @@ _SIGNATURES = {
         [_P] * 6 + [_I] * 4 + [_LL] * 3 + [_F, _I, _P], ctypes.c_int),
     "lavila_flash_attention": ([_P] * 4 + _FLASH_TC_TAIL, ctypes.c_int),
     "lavila_flash_fwd": ([_P] * 5 + _FLASH_TC_TAIL, ctypes.c_int),
-    "lavila_flash_bwd_fused": ([_P] * 9 + _FLASH_TAIL, ctypes.c_int),
-    "lavila_flash_bwd_dq": ([_P] * 8 + _FLASH_TC_TAIL, ctypes.c_int),
+    "lavila_flash_bwd_fused": ([_P] * 8 + _FLASH_TAIL, ctypes.c_int),
+    "lavila_flash_bwd_dq": ([_P] * 7 + _FLASH_TC_TAIL, ctypes.c_int),
     "lavila_flash_bwd_dkv": ([_P] * 8 + _FLASH_TC_TAIL, ctypes.c_int),
     # D, dtype, has_res, has_dsum, vec, per_lane, warps; out:
     # blocks an SM, shared memory

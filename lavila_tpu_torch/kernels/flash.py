@@ -11,7 +11,10 @@ and, with ``causal``, ``j <= i`` (the Pallas kernels' absolute mask).
 Scores, softmax and every sum in fp32; the forward rounds the
 unnormalised probabilities ``exp(s - m)`` to v's dtype before P·V and
 divides by their sum at the end; the backward recomputes P from the
-saved per-row log-sum-exp and rounds dS to k's dtype before dS·K.
+saved per-row log-sum-exp, takes delta = rowsum(P·dP) over that P (not
+the Pallas kernels' rowsum(dO·O): ``csrc/flash_attention.cu``'s header
+says why) and rounds dS to k's dtype before dS·K. It does not read the
+forward's output.
 
 q/k/v may be views with any row stride (the column blocks of one
 ``(B, L, 3D)`` in_proj output reshaped to heads), so the attention block
@@ -20,7 +23,7 @@ and the heads adjacent.
 
 :func:`flash_attention` dispatches: when autograd needs it (grad enabled
 and an input requires grad), :class:`_FlashAttention` runs K8's forward
-(saving ``out`` and the log-sum-exp) and its backward; otherwise K7.
+(saving the log-sum-exp) and its backward; otherwise K7.
 :func:`flash_branch` says which kernels a call takes: bf16 at head_dim
 64 on rows that TMA can copy runs the tensor cores ("tc"; the backward
 "fused", one launch, up to 128 queries and keys, or "split", dq then
@@ -94,13 +97,14 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     return _fwd_reference(q, k, v, causal, scale)[0]
 
 
-def flash_bwd_reference(q, k, v, do, out, lse, causal: bool = False,
+def flash_bwd_reference(q, k, v, do, lse, causal: bool = False,
                         scale: float | None = None):
     """K8 backward's plain version: P recomputed in fp32 from ``lse``,
-    dP = dO·Vᵀ in fp32, dS = P·(dP − delta) with delta = rowsum(dO·O),
+    dP = dO·Vᵀ in fp32, dS = P·(dP − delta) with delta = rowsum(P·dP),
     dq = dS (rounded to k's dtype)·K·scale, dk = dSᵀ·Q·scale,
-    dv = Pᵀ·dO in fp32 (the Pallas kernels' numerics). Returns
-    ``(dq, dk, dv)`` in the inputs' dtypes."""
+    dv = Pᵀ·dO in fp32 (the Pallas kernels' numerics but for delta,
+    which they take as rowsum(dO·O)). Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = _scores(q, k, causal, scale)
     p = torch.exp(s - lse.transpose(1, 2)[..., None].float())
@@ -109,8 +113,7 @@ def flash_bwd_reference(q, k, v, do, out, lse, causal: bool = False,
         p = p.masked_fill(~mask, 0.0)
     g = do.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", g, v.float())
-    delta = (g * out.float()).sum(-1).transpose(1, 2)        # (B, H, Lq)
-    ds = p * (dp - delta[..., None])
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
                       k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
@@ -161,17 +164,17 @@ def _branch(q, k, strides, tensors, backward: bool) -> str:
         else "split"
 
 
-def flash_branch(q, k, v, do=None, out=None) -> str:
+def flash_branch(q, k, v, do=None) -> str:
     """The kernels a call takes. Forward (no ``do``): "tc", the TMA
     tensor-core kernel (bf16, head_dim 64, q/k/v rows on 16-byte
     boundaries with row strides of whole 16-byte chunks), else "simt".
-    Backward (``do``/``out`` given, contiguous; they must sit on 16-byte
-    boundaries too): "fused", one tensor-core launch for Lq and Lk up to
-    128, "split" (dq, then dk/dv, on the tensor cores) past it, else
-    "simt" (dq, then dk/dv). The C entry points refuse a tensor-core call
+    Backward (``do`` given, contiguous; it must sit on a 16-byte boundary
+    too): "fused", one tensor-core launch for Lq and Lk up to 128,
+    "split" (dq, then dk/dv, on the tensor cores) past it, else "simt"
+    (dq, then dk/dv). The C entry points refuse a tensor-core call
     outside these conditions (``tc_fits``, ``fused_fits`` in
     ``csrc/flash_attention.cu``)."""
-    tensors = [t for t in (q, k, v, do, out) if t is not None]
+    tensors = [t for t in (q, k, v, do) if t is not None]
     return _branch(q, k, _strides(q, k, v), tensors, do is not None)
 
 
@@ -222,53 +225,50 @@ def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
     return (out, lse) if with_lse else out
 
 
-def flash_bwd(q, k, v, do, out, lse, causal: bool = False,
+def flash_bwd(q, k, v, do, lse, causal: bool = False,
               scale: float | None = None):
     """K8's backward on the tensors' device: ``(dq, dk, dv)``, contiguous.
-    q/k/v as the forward took them; do and out ``(B, Lq, H, d)``
-    contiguous in the inputs' dtype, lse ``(B, Lq, H)`` fp32 as the
-    forward wrote it. On CUDA the branch of :func:`flash_branch`: one
-    launch ("fused"), or dq (which also writes delta = rowsum(dO·O)) then
-    dk/dv (which reads it)."""
+    q/k/v as the forward took them; do ``(B, Lq, H, d)`` contiguous in
+    the inputs' dtype, lse ``(B, Lq, H)`` fp32 as the forward wrote it.
+    On CUDA the branch of :func:`flash_branch`: one launch ("fused"), or
+    dq (which also writes delta = rowsum(P·dP)) then dk/dv (which reads
+    it)."""
     _check(q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     B, Lq, H, d = q.shape
-    if do.shape != q.shape or out.shape != q.shape \
-            or lse.shape != (B, Lq, H):
-        raise ValueError(f"do/out must be {tuple(q.shape)} and lse "
+    if do.shape != q.shape or lse.shape != (B, Lq, H):
+        raise ValueError(f"do must be {tuple(q.shape)} and lse "
                          f"{(B, Lq, H)}, got {tuple(do.shape)} "
-                         f"{tuple(out.shape)} {tuple(lse.shape)}")
-    if do.dtype != q.dtype or out.dtype != q.dtype \
-            or lse.dtype != torch.float32:
-        raise TypeError(f"do/out must be {q.dtype} and lse float32, got "
-                        f"{do.dtype} {out.dtype} {lse.dtype}")
-    if any(t.device != q.device for t in (do, out, lse)):
-        raise ValueError("do/out/lse must be on the inputs' device")
+                         f"{tuple(lse.shape)}")
+    if do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"do must be {q.dtype} and lse float32, got "
+                        f"{do.dtype} {lse.dtype}")
+    if any(t.device != q.device for t in (do, lse)):
+        raise ValueError("do/lse must be on the inputs' device")
     if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, do, out, lse, causal, scale)
+        return flash_bwd_reference(q, k, v, do, lse, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
-    if not (do.is_contiguous() and out.is_contiguous()
-            and lse.is_contiguous()):
-        raise ValueError("do/out/lse must be contiguous")
+    if not (do.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("do/lse must be contiguous")
     strides = _strides(q, k, v)
     tail = _tail(q, k, strides) + [float(scale), int(causal),
                                    _DTYPES[q.dtype]]
-    branch = _branch(q, k, strides, (q, k, v, do, out), True)
+    branch = _branch(q, k, strides, (q, k, v, do), True)
     lib = build.library()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=q.device)
               for _ in range(2))
     if branch == "fused":
         err = _launch(lib.lavila_flash_bwd_fused, q, *(t.data_ptr() for t in (
-            q, k, v, do, out, lse, dq, dk, dv)), *tail)
+            q, k, v, do, lse, dq, dk, dv)), *tail)
         build.check(err, "flash_bwd_fused")
         launches["flash_bwd_fused"] += 1
         return dq, dk, dv
     tc = int(branch == "split")
     delta = torch.empty_like(lse)
     err = _launch(lib.lavila_flash_bwd_dq, q, *(t.data_ptr() for t in (
-        q, k, v, do, out, lse, delta, dq)), *tail, tc)
+        q, k, v, do, lse, delta, dq)), *tail, tc)
     build.check(err, "flash_dq")
     launches[f"flash_dq_{branch}"] += 1
     err = _launch(lib.lavila_flash_bwd_dkv, q, *(t.data_ptr() for t in (
@@ -280,19 +280,19 @@ def flash_bwd(q, k, v, do, out, lse, causal: bool = False,
 
 class _FlashAttention(torch.autograd.Function):
     """K8: the forward with the log-sum-exp and its backward kernels
-    (the Pallas custom VJP)."""
+    (the Pallas custom VJP, which also saves the output)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         out, lse = _forward(q, k, v, causal, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.attn = (causal, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        grads = flash_bwd(q, k, v, dout.contiguous(), out, lse, *ctx.attn)
+        q, k, v, lse = ctx.saved_tensors
+        grads = flash_bwd(q, k, v, dout.contiguous(), lse, *ctx.attn)
         return (*grads, None, None)
 
 

@@ -4,7 +4,8 @@ Counterpart of ``lavila_tpu/losses.py``. On one device the global batch
 is the local one, so :func:`clip_loss` is the whole InfoNCE and
 :func:`ssl_clip_loss` the whole two-temperature one; every
 softmax and cross entropy is fp32 whatever the embeddings' dtype, and so
-is :func:`max_margin_loss`, the retrieval fine-tune's ranking loss.
+is :func:`max_margin_loss`, the retrieval fine-tune's ranking loss, and
+:func:`caption_loss`, the narrator's teacher-forced cross entropy.
 """
 
 from __future__ import annotations
@@ -114,20 +115,43 @@ def max_margin_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     return {"loss": loss, "max_margin_loss": loss}
 
 
+def caption_loss(logits: torch.Tensor, labels: torch.Tensor,
+                 pad_id: int = 0) -> dict:
+    """The narrator's teacher-forced next-token cross entropy (reference
+    loss.py:220-253): logits ``(B, L, V)`` against labels ``(B, L)``,
+    per token in fp32 over the vocabulary, the ``pad_id`` labels masked
+    out; ``loss`` (= ``caption_loss``) is the sum over the kept tokens
+    over their count, ``caption_acc`` the kept tokens' top-1 accuracy in
+    %, ``ppl`` the mean over samples of exp(the sample's NLL / its kept
+    count)."""
+    B, L, V = logits.shape
+    per_tok = _xent(logits.reshape(B * L, V),
+                    labels.reshape(B * L).long()).reshape(B, L)
+    keep = (labels != pad_id).float()
+    kept = keep.sum()
+    per_sample = (per_tok * keep).sum(1)
+    loss = per_sample.sum() / kept.clamp_min(1.0)
+    correct = ((logits.argmax(-1) == labels).float() * keep).sum()
+    ppl = torch.exp(per_sample / keep.sum(1).clamp_min(1.0)).mean()
+    return {"loss": loss, "caption_loss": loss,
+            "caption_acc": 100.0 * correct / kept.clamp_min(1e-8),
+            "ppl": ppl}
+
+
 def get_loss(model_name: str):
     """The loss of a model family (reference models.py:293-304): CLIP_*
-    → InfoNCE; the VCLM_* caption loss is not ported yet."""
+    → InfoNCE, VCLM_* → the caption loss."""
     if model_name.startswith("CLIP"):
         return clip_loss
-    raise NotImplementedError(
-        f"{model_name}: only the CLIP family's loss is ported: ROADMAP "
-        "queue 1: the narrator's training (the caption loss)")
+    if model_name.startswith("VCLM"):
+        return caption_loss
+    raise NotImplementedError(model_name)
 
 
 def get_metric_names(model_name: str) -> list[str]:
     """The metric keys of a model family (reference models.py:307-313)."""
     if model_name.startswith("CLIP"):
         return ["loss", "clip_loss", "clip_acc"]
-    raise NotImplementedError(
-        f"{model_name}: only the CLIP family's metrics are ported: ROADMAP "
-        "queue 1: the narrator's training (the caption loss)")
+    if model_name.startswith("VCLM"):
+        return ["loss", "caption_loss", "caption_acc", "ppl"]
+    raise NotImplementedError(model_name)

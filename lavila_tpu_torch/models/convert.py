@@ -21,7 +21,9 @@ is stripped and ``temporal_embed`` fits the clip length.
     consumed; a leftover raises.
   * :func:`load_reference_checkpoint` reads a reference ``.pt``/``.pth``
     (HF's ``position_ids`` buffer dropped, as the JAX importer ignores
-    it);
+    it), :func:`checkpoint_state_dict` does the same to a loaded one and
+    :func:`is_port_checkpoint` tells the port's own checkpoints from
+    released ones;
     :func:`narrator_state_dict` turns a released narrator's keys into
     the port's (HF Conv1D ``(in, out)`` weights transposed, the tied
     ``lm_head`` and the attention-mask buffers dropped, the CoCa norms'
@@ -198,14 +200,20 @@ def inflate_temporal_embed(te: torch.Tensor,
 def load_reference_checkpoint(path: str, num_frames: int | None = None
                               ) -> dict[str, torch.Tensor]:
     """Read a released LaViLa ``.pt``/``.pth`` checkpoint into a state
-    dict for the port: take ``'state_dict'`` when present, strip the DDP
-    ``module.`` prefix, drop HF's ``position_ids`` buffer (the CLIP_HF
-    checkpoints' ``textual.embeddings.position_ids``, ``arange(512)``),
-    cast to fp32, and fit ``visual.temporal_embed`` to ``num_frames``
-    when given."""
+    dict for the port (:func:`checkpoint_state_dict`)."""
     # released checkpoints pickle their argparse namespace beside the
     # weights, which weights_only=True refuses
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return checkpoint_state_dict(torch.load(
+        path, map_location="cpu", weights_only=False), num_frames)
+
+
+def checkpoint_state_dict(ckpt, num_frames: int | None = None
+                          ) -> dict[str, torch.Tensor]:
+    """A loaded checkpoint's weights: ``'state_dict'`` when present, the
+    DDP ``module.`` prefix stripped, HF's ``position_ids`` buffer dropped
+    (the CLIP_HF checkpoints' ``textual.embeddings.position_ids``,
+    ``arange(512)``), cast to fp32, and ``visual.temporal_embed`` fitted
+    to ``num_frames`` when given."""
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     sd = {k.removeprefix("module."): torch.as_tensor(v).float()
@@ -214,6 +222,14 @@ def load_reference_checkpoint(path: str, num_frames: int | None = None
         sd["visual.temporal_embed"] = inflate_temporal_embed(
             sd["visual.temporal_embed"], num_frames)
     return sd
+
+
+def is_port_checkpoint(ckpt) -> bool:
+    """Whether a loaded checkpoint is the port's own (a train CLI's
+    ``checkpoint_*.pt``: ``TrainState.state_dict``, the fp32 masters in
+    the port's layout under ``'state_dict'`` beside the ``'step'``), not
+    a released LaViLa one (which holds no ``'step'``)."""
+    return isinstance(ckpt, dict) and "state_dict" in ckpt and "step" in ckpt
 
 
 # HF GPT-2 Conv1D projections: weights stored (in, out)

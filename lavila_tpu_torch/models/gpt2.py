@@ -22,12 +22,26 @@ weights are ``(in, out)``; here every projection is an ``nn.Linear``
     dispatch site: K9 on a CUDA tensor, the plain version on a CPU
     tensor. Positions ``>= cache_index`` are never read, so writing the
     new row after the call is safe.
-  * The cross-attention K/V is computed once per sequence
+  * The cross-attention K/V of a decode is computed once per sequence
     (:meth:`GPT2LMHead.precompute_cross_kv`), heads-major ``(B, H, S,
     d)`` so each step's single-query product reads it without a copy.
-    That product, the multi-token prefill over the cache and the full
-    teacher-forced forward are plain PyTorch, as they are XLA code in
-    the JAX package. The causal mask is the most negative fp32 value.
+    That product and the multi-token prefill over the cache (whose mask
+    is offset by ``cache_index``) are plain PyTorch, as they are XLA
+    code in the JAX package; the prefill's causal mask is the most
+    negative fp32 value.
+  * Without a cache (training, the teacher-forced forward) both
+    attentions go through :func:`kernels.flash.flash_attention`, on the
+    token-major row views of their packed projections: the
+    self-attention with the absolute causal mask, the cross-attention
+    over every image token. That is K8 (forward and backward) when
+    autograd needs the gradient and K7 otherwise, on a CUDA tensor; the
+    plain versions on a CPU tensor. The JAX package computes these in
+    XLA (``lavila_tpu/models/gpt2.py:281-292``, :330-338): the port
+    routes each kernel wherever it is legal.
+  * Remat (``cfg.remat``, the JAX ``nn.remat`` per block when no cache
+    is passed): each block runs under ``torch.utils.checkpoint``
+    (non-reentrant), so the backward runs its forward again; the blocks
+    draw no random numbers.
 """
 
 from __future__ import annotations
@@ -36,8 +50,10 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lavila_tpu_torch.kernels.decode import decode_attention
+from lavila_tpu_torch.kernels.flash import flash_attention
 from lavila_tpu_torch.ops.attention import attention
 from lavila_tpu_torch.ops.basic import (LayerNorm, gelu_new, init_linear_,
                                         squared_relu)
@@ -110,8 +126,8 @@ class SelfAttention(nn.Module):
         H = self.n_head
         q, k, v = self.c_attn(x).chunk(3, dim=-1)  # row views, stride 3D
         if cache is None:
-            mask = torch.full((L, L), NEG_INF, device=x.device).triu(1)
-            out = attention(_heads(q, H), _heads(k, H), _heads(v, H), mask)
+            out = flash_attention(_heads(q, H), _heads(k, H), _heads(v, H),
+                                  causal=True)
             return self.c_proj(out.reshape(B, L, D))
         k_cache, v_cache = cache
         if L == 1:
@@ -152,10 +168,19 @@ class CrossAttention(nn.Module):
                      for t in (k, v))
 
     def forward(self, x, encoder_states=None, cross_kv=None):
+        """With ``encoder_states``: flash attention over the token-major
+        chunks of ``c_attn``'s output, each token's heads adjacent (K7/K8
+        read them so). With a decode's ``cross_kv``: the plain product
+        over the heads-major K/V."""
         B, L, D = x.shape
-        k, v = cross_kv if cross_kv is not None else self.compute_kv(
-            encoder_states)
-        q = _heads(self.q_attn(x), self.n_head).transpose(1, 2)  # (B,H,L,d)
+        H = self.n_head
+        if cross_kv is None:
+            k, v = self.c_attn(encoder_states).chunk(2, dim=-1)
+            out = flash_attention(_heads(self.q_attn(x), H), _heads(k, H),
+                                  _heads(v, H))
+            return self.c_proj(out.reshape(B, L, D))
+        k, v = cross_kv
+        q = _heads(self.q_attn(x), H).transpose(1, 2)  # (B, H, L, d)
         scores = (q @ k.transpose(-1, -2)).float() * q.shape[-1] ** -0.5
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = (probs @ v).transpose(1, 2).reshape(B, L, D)
@@ -231,10 +256,6 @@ class GPT2LMHead(nn.Module):
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat of the narrator's decoder is not ported yet: ROADMAP "
-                "queue 1: the narrator's training")
         self.cfg = cfg
         self.transformer = GPT2Model(cfg)
 
@@ -267,10 +288,16 @@ class GPT2LMHead(nn.Module):
         start = 0 if cache_index is None else cache_index
         positions = torch.arange(start, start + L, device=input_ids.device)
         x = t.wte(input_ids) + t.wpe(positions)[None]
+        remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(t.h):
-            x = blk(x, encoder_states,
+            args = (x, encoder_states,
                     cross_kv[i] if cross_kv is not None else None,
                     cache[i] if cache is not None else None, cache_index)
+            if remat:
+                x = checkpoint(blk, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk(*args)
         x = t.ln_f(x)
         return x @ t.wte.weight.T.to(x.dtype)
 

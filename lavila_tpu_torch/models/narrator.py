@@ -18,8 +18,10 @@ reference state-dict names (``visual.*``, ``img_queries``,
     ``target``, else the entropy of the unwarped logits, masked after
     EOS). The step loop is Python, with one host sync per step to stop
     once every row has sampled EOS (full length when ``target`` is
-    given); positions after the exit hold ``pad_id``. Beam decoders are
-    a later slice.
+    given); positions after the exit hold ``pad_id``. With
+    ``teacher_forcing`` (and a ``target``) each step is fed the target's
+    token instead of the sample: ``eval_narrator``'s teacher-forced
+    perplexity. The beam decoders are ``models/beam.py``.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ class VCLM(nn.Module):
                  eos_id: int, pad_id: int = 0, max_text_length: int = 77,
                  temperature: float = 1.0, top_k: int | None = None,
                  top_p: float | None = None, num_return_sequences: int = 1,
-                 target: torch.Tensor | None = None) -> tuple:
+                 target: torch.Tensor | None = None,
+                 teacher_forcing: bool = False) -> tuple:
         """Multinomial sampling with perplexity tracking. Returns
         ``(ids (B·nrs, max_text_length) int64, ppl (B·nrs,) fp32)``; see
         the module docstring. ``generator`` draws the samples (on the
@@ -131,6 +134,7 @@ class VCLM(nn.Module):
                 logits, temperature, top_k, top_p))
             reached |= nxt == eos_id
             out[:, i + 1] = nxt
-            cur = nxt
+            cur = (target[:, i + 1].long()
+                   if teacher_forcing and target is not None else nxt)
         ppl = torch.exp(nlls / counts.clamp_min(1.0))
         return out, ppl

@@ -6,7 +6,9 @@ gpt2_gated.py:1019-1028, models.py:334-345, main_pretrain.py:176); the
 JAX package routes frozen leaves to ``optax.set_to_zero``. Here a frozen
 parameter is left out of the optimizer (:func:`freeze_by_predicate`): it
 gets no update, no weight decay and no share in the clipping norm, and
-it stays in the fp32 masters and in every checkpoint.
+it stays in the fp32 masters and in every checkpoint. ``TrainState``
+then turns its ``requires_grad`` off, so its gradient is never computed
+(as XLA drops what ``set_to_zero`` never reads).
 
 The predicates read the port's parameter names (``visual.blocks.0.
 timeattn.qkv.weight``, ``logit_scale``, ``text_decoder.transformer.h.3.

@@ -1,10 +1,12 @@
-"""The dual encoder's train steps: pretraining (the CLIP loss, or the
-SSL loss over human and pseudo narrations), retrieval fine-tuning, and
-the classification fine-tune of the video tower.
+"""The train steps: the dual encoder's pretraining (the CLIP loss, or
+the SSL loss over human and pseudo narrations), retrieval fine-tuning,
+the classification fine-tune of the video tower, and the narrator's
+caption step.
 
 Counterpart of ``lavila_tpu/train/step.py`` (``TrainState``,
 ``make_clip_train_step``, ``make_retrieval_train_step``,
-``make_classifier_train_step``) on one device.
+``make_classifier_train_step``, ``make_caption_train_step``) on one
+device.
 JAX's step is a pure function of an immutable state; here the step
 updates the state in place (the
 parameters, the optimizer's moments, the step count) and returns it, so
@@ -20,13 +22,22 @@ residual stream to fp32 at the first fp32 add:
     optimizer sees;
   * :attr:`TrainState.model` is the working copy that runs forward and
     backward: every parameter in the compute dtype except the LayerNorm
-    weights/biases and ``logit_scale``, which stay fp32 as flax keeps
-    them (the LayerNorm kernels read fp32 γ/β beside bf16 rows);
+    weights/biases (the narrator's bias-free pooler norms' γ too) and
+    the scalars (``logit_scale``, the narrator's ``alpha_cattn`` and
+    ``alpha_dense`` gates), which stay fp32 as flax keeps them (the
+    LayerNorm kernels read fp32 γ/β beside bf16 rows);
   * after backward the gradients are cast to fp32 onto the masters, the
     optimizer updates the masters, and the masters are copied back into
     the working copy.
 
 With an fp32 compute dtype the model is its own master: no copy is made.
+
+A parameter the optimizer does not hold (``train.freeze``) is frozen:
+it gets ``requires_grad_(False)`` in the masters and in the working
+copy, so autograd computes no gradient for it (the JAX package's
+``optax.set_to_zero`` never reads one, and XLA drops its computation),
+it gets no ``.grad``, and it is never copied back after an update, since
+it never changes.
 
 The SSL loss's own parameter, ``logit_scale_pseudo``, lives in
 :attr:`TrainState.criterion` (the JAX state's ``criterion_params``): an
@@ -44,22 +55,30 @@ import torch
 from torch import nn
 
 from lavila_tpu_torch import losses
-from lavila_tpu_torch.ops.basic import LayerNorm
+from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm, LayerNorm
 from lavila_tpu_torch.train.optim import (MultiTransform, Optimizer,
                                           clamp_logit_scale)
 
 
 def working_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """A copy of ``model`` in ``dtype``, LayerNorm γ/β and ``logit_scale``
-    kept fp32."""
+    """A copy of ``model`` in ``dtype``, the LayerNorms' parameters (γ/β,
+    and the bias-free norms' γ) and the scalar parameters kept fp32."""
     work = copy.deepcopy(model)
     keep = {f"{m_name}.{p_name}".lstrip(".")
-            for m_name, m in work.named_modules() if isinstance(m, LayerNorm)
+            for m_name, m in work.named_modules()
+            if isinstance(m, (LayerNorm, BiasFreeLayerNorm))
             for p_name, _ in m.named_parameters(recurse=False)}
     for name, p in work.named_parameters():
-        if name not in keep and not name.endswith("logit_scale"):
+        if name not in keep and p.dim() > 0:
             p.data = p.data.to(dtype)
     return work
+
+
+def _held(optimizer: Optimizer | MultiTransform) -> set[int]:
+    """The ids of the tensors ``optimizer`` updates."""
+    opts = (optimizer.optimizers.values()
+            if isinstance(optimizer, MultiTransform) else (optimizer,))
+    return {id(p) for opt in opts for p in opt.params}
 
 
 class TrainState:
@@ -67,8 +86,9 @@ class TrainState:
     fp32 masters ``params`` (by parameter name), the loss's own fp32
     parameters ``criterion`` (by name; empty but for the SSL loss),
     ``optimizer`` over the masters and ``criterion``, the step count,
-    and the generator of the drop-path masks (and of the classifier's
-    dropout)."""
+    the generator of the drop-path masks (and of the classifier's
+    dropout), and the names of the ``frozen`` parameters, those the
+    optimizer does not hold."""
 
     def __init__(self, model: nn.Module, params: dict[str, torch.Tensor],
                  optimizer: Optimizer | MultiTransform, step: int = 0,
@@ -80,6 +100,14 @@ class TrainState:
         self.step = step
         self.generator = generator
         self.criterion = criterion or {}
+        held = _held(optimizer)
+        self.frozen = {n for n, p in params.items() if id(p) not in held}
+        for name, p in model.named_parameters():
+            if name in self.frozen:
+                p.requires_grad_(False)
+                params[name].requires_grad_(False)
+        for p in self.criterion.values():
+            p.requires_grad_(id(p) in held)
 
     @classmethod
     def create(cls, model: nn.Module,
@@ -131,13 +159,16 @@ class TrainState:
             {k: v for k, v in ckpt.items()
              if k not in ("state_dict", "criterion", "step")})
         self.step = int(ckpt["step"])
-        self._copy_masters()
+        self._copy_masters(frozen=True)
 
     @torch.no_grad()
-    def _copy_masters(self) -> None:
+    def _copy_masters(self, frozen: bool = False) -> None:
+        """The masters into the working copy; the frozen ones only with
+        ``frozen`` (they never change after the first copy)."""
         if self.has_copy:
             for name, p in self.model.named_parameters():
-                p.copy_(self.params[name])
+                if frozen or name not in self.frozen:
+                    p.copy_(self.params[name])
 
 
 def make_clip_train_step(norm_embed: bool = False,
@@ -199,16 +230,19 @@ def _forward(state: TrainState, batch: dict, norm_embed: bool) -> dict:
 def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:
     """After backward: the working copy's gradients (those named in
     ``zero`` zeroed) onto the fp32 masters, the optimizer's update,
-    ``logit_scale`` clamped (not the criterion's parameters), the masters
-    copied back, ``step += 1``."""
+    ``logit_scale`` clamped (not the criterion's parameters), the trained
+    masters copied back, ``step += 1``. A frozen parameter gets no
+    gradient."""
     for name, p in state.model.named_parameters():
+        if name in state.frozen:
+            continue
         master = state.params[name]
         # a parameter the loss did not reach still decays, as in optax
         master.grad = (torch.zeros_like(master)
                        if p.grad is None or name in zero
                        else p.grad.float() if state.has_copy else p.grad)
     for p in state.criterion.values():
-        if p.grad is None:
+        if p.grad is None and p.requires_grad:
             p.grad = torch.zeros_like(p)
     state.optimizer.step()
     clamp_logit_scale(state.params.items())
@@ -295,5 +329,27 @@ def make_classifier_train_step(multihead: bool = False,
         loss.backward()
         _update(state)
         return state, {"loss": loss.detach(), "acc1": top1.detach()}
+
+    return train_step
+
+
+def make_caption_train_step(pad_id: int = 0):
+    """The narrator's step (reference CaptionLoss, loss.py:220-253; the
+    JAX ``make_caption_train_step``): the teacher-forced forward of a
+    ``VCLM`` on ``batch["frames"]`` and ``batch["text"]`` (the logits of
+    ``text[:, :-1]`` against ``text[:, 1:]``), :func:`losses.caption_loss`
+    with ``pad_id`` masked out, backward and the optimizer's update
+    (``--update-freq`` through its accumulation); a VCLM has no
+    ``logit_scale`` to clamp. Returns ``train_step(state, batch) -> (state,
+    metrics)``, as :func:`make_clip_train_step`."""
+
+    def train_step(state: TrainState, batch: dict):
+        _clear_grads(state)
+        out = state.model(batch["frames"], batch["text"])
+        metrics = losses.caption_loss(out["logits"], out["labels"],
+                                      pad_id=pad_id)
+        metrics["loss"].backward()
+        _update(state)
+        return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step

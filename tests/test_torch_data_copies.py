@@ -14,6 +14,7 @@ import lavila_tpu.data.sampling as jax_sampling
 import lavila_tpu.data.tokenizers as jax_tokenizers
 import lavila_tpu.data.transforms as jax_transforms
 import lavila_tpu.eval.metrics as jax_metrics
+import lavila_tpu.eval.nlg as jax_nlg
 import lavila_tpu.utils.meters as jax_meters
 import lavila_tpu.utils.random as jax_random
 import lavila_tpu_torch.config as port_config
@@ -23,6 +24,7 @@ import lavila_tpu_torch.data.sampling as port_sampling
 import lavila_tpu_torch.data.tokenizers as port_tokenizers
 import lavila_tpu_torch.data.transforms as port_transforms
 import lavila_tpu_torch.eval.metrics as port_metrics
+import lavila_tpu_torch.eval.nlg as port_nlg
 import lavila_tpu_torch.utils.meters as port_meters
 import lavila_tpu_torch.utils.random as port_random
 
@@ -105,6 +107,18 @@ def _synthetic(m):
     return [len(ds)] + [ds[i] for i in (0, 1, 37)]
 
 
+def _nlg(m):
+    hyps = ["C opens the fridge door", "a person slices a tomato",
+            "picks up 3 cups", ""]
+    refs = [["#C C opens the fridge."], ["A person slices the tomato!",
+                                         "someone cuts a tomato"],
+            ["#O man X picks up 3 cups from the table."], ["empty"]]
+    norm = [m.bert_style_normalize(h) for h in hyps]
+    return [norm, m.nlg_scores(norm, refs), m.bleu(hyps, refs, max_n=2),
+            m.meteor(hyps, refs, use_stem=False), m.rouge_l(hyps, refs),
+            m.cider(hyps, refs)]
+
+
 def _label_map(m):
     return m.actions_to_parts({"1:2": 0, "0:5": 1, "3:2": 2})
 
@@ -131,6 +145,7 @@ CASES = {
     "config": (jax_config, port_config, _config),
     "synthetic_dataset": (jax_datasets, port_datasets, _synthetic),
     "label_maps": (jax_label_maps, port_label_maps, _label_map),
+    "nlg": (jax_nlg, port_nlg, _nlg),
     "meters": (jax_meters, port_meters, _meters),
     "random": (jax_random, port_random, _random),
 }

@@ -66,8 +66,9 @@ def test_max_margin_loss_matches_jax(weighted):
 def test_loss_selectors():
     assert L.get_loss("CLIP_OPENAI_TIMESFORMER_BASE") is L.clip_loss
     assert L.get_metric_names(MINI) == JL.get_metric_names(MINI)
-    with pytest.raises(NotImplementedError, match="caption"):
-        L.get_loss("VCLM_OPENAI_TIMESFORMER_BASE_GPT2")
+    assert L.get_loss("VCLM_OPENAI_TIMESFORMER_BASE_GPT2") is L.caption_loss
+    with pytest.raises(NotImplementedError, match="RESNET"):
+        L.get_loss("RESNET50")
 
 
 def _jax_names(model_name):

@@ -143,15 +143,6 @@ def test_infer_cli_matches_jax_cli(checkpoint, tmp_path):
             np.testing.assert_allclose(g[4], w[4], rtol=1e-4)
 
 
-@pytest.mark.parametrize("decoding", ["beam_sample", "group_beam"])
-def test_infer_cli_beams_not_ported(tmp_path, decoding):
-    args = main_infer_narrator.get_args_parser().parse_args(
-        ["--decoding", decoding, "--device", "cpu",
-         "--output-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="queue 1: the beams"):
-        main_infer_narrator.main(args)
-
-
 def test_cli_defaults_on_cuda_name_the_way_out():
     """The CLIs' default narrator (MINI, heads 16 wide) cannot decode on
     the card: the check names --device cpu and a GPT-2 narrator; the
@@ -177,7 +168,3 @@ def test_demo_captions_a_clip(tmp_path, capsys):
     assert ids.shape == (3, 77) and (ids[:, 0] == 50256).all()
     out = capsys.readouterr().out
     assert "image tokens: (1, 16, 64)" in out and "[2] (score" in out
-    with pytest.raises(NotImplementedError, match="queue 1: the beams"):
-        demo_narrator.main(demo_narrator.get_args_parser().parse_args(
-            ["--video-path", str(video), "--device", "cpu",
-             "--decoding", "beam"]))

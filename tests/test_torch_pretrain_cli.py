@@ -13,7 +13,6 @@ import torch
 from lavila_tpu.config import parse_config
 from lavila_tpu_torch.cli import eval_zeroshot as ez
 from lavila_tpu_torch.cli import main_pretrain as cli
-from test_torch_eval_zeroshot_cli import BERT_MINI
 from test_torch_eval_zeroshot_cli import bert_mini  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
@@ -133,14 +132,10 @@ def test_cli_freeze_and_accumulation_as_the_jax_cli(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI"],
-     "queue 1: the narrator's training"),
     (["--contrastive-use-vissl"], "queue 1: multi-GPU"),
     (["--mesh-model", "2"], "queue 1: multi-GPU"),
     (["--mesh-data", "4"], "queue 1: multi-GPU"),
     (["--use-checkpoint", "--remat-policy", "dots"], "remat"),
-    (["--freeze-visual-vclm"], "freeze"),
-    (["--freeze-lm-vclm"], "freeze"),
     (["--timesformer-gated-xattn"], "gated"),
 ])
 def test_cli_options_not_ported_raise(tmp_path, flags, match):
@@ -193,12 +188,3 @@ def test_cli_trains_a_distilbert_model(tmp_path, bert_mini, monkeypatch):
         emb = model.encode_text(torch.from_numpy(ids).long(),
                                 torch.from_numpy(mask))
     assert emb.shape == (1, 256) and torch.isfinite(emb).all()
-
-
-def test_metric_names_name_their_roadmap_subject():
-    from lavila_tpu_torch import losses
-    assert losses.get_metric_names(BERT_MINI) == [
-        "loss", "clip_loss", "clip_acc"]
-    with pytest.raises(NotImplementedError,
-                       match="queue 1: the narrator's training"):
-        losses.get_metric_names("VCLM_OPENAI_TIMESFORMER_BASE_GPT2")

@@ -203,7 +203,15 @@ def test_drop_path_rate_rule_is_linear_and_model_uses_it():
     assert r.visual.remat
     torch.testing.assert_close(
         r.encode_image(frames, torch.Generator().manual_seed(0)), a)
-    # the narrators' caption step is not ported: their remat raises
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI", device="cpu",
-                    remat=True)
+    # a narrator with remat (both towers) builds and gives the same
+    # teacher-forced logits as without, the same weights loaded
+    kw = dict(device="cpu", gated_xattn=True, train=True)
+    plain = build_model("VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI", **kw)
+    vr = build_model("VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI", remat=True,
+                     **kw)
+    assert vr.visual.remat and vr.text_decoder.cfg.remat
+    vr.load_state_dict(plain.state_dict())
+    text = torch.randint(1, 50257, (8, 6), generator=torch.Generator()
+                         .manual_seed(2))
+    torch.testing.assert_close(vr(frames, text)["logits"],
+                               plain(frames, text)["logits"])
