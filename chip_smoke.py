@@ -6,9 +6,11 @@ with the SSL loss over human and pseudo narrations), the EK-100 MIR
 retrieval fine-tune, the EK-100 CLS classification fine-tune, the
 narrator's sampled and beam decoding, its caption step and its
 evaluation, at TSF-B width, with the
-TSF-L@224 dual encoder (N = 256: K1's tensor-core kernels) and with the
+TSF-L@224 dual encoder (N = 256: K1's tensor-core kernels), with the
 336px TSF-L towers (the high-resolution dual encoder and LaViLa's
-flagship narrator).
+flagship narrator), and with the CLIP ViT towers (ViT-L/14@336 and
+ViT-B/16 dual encoders, the ViT-L/14@336 + GPT-2 XL and ViT-B/16 +
+GPT-2 large narrators).
 
     python3 chip_smoke.py
 
@@ -170,9 +172,27 @@ result. Phases, each printing JSON lines:
      2 steps kernels vs plain in fp32 at batch 4 and bf16 at batch 16,
      bf16 train clips/s, peak memory, busy time and idle share at batch
      16; the pretraining CLI for 3 steps at batch 16.
+ 17. vit_model: CLIP_OPENAI_VITL14_336PX (577 tokens, K7 without the
+     causal mask in every block, K3 at every norm) serving at batch 8 x 4
+     frames and CLIP_OPENAI_VITB16 (197 tokens) at batch 32 x 4, as
+     phase 4, plus the kernel path's busy time, idle share and peak
+     memory (``serve_profile``). The kernels phase holds K7 and K8 at the
+     ViTs' shapes (32 images x 16 heads x 577² and 257², 128 x 12 x 197²
+     and 50², non-causal) and K9 at GPT-2 large's 20 heads.
+ 18. vit_train_step: phase 6 with CLIP_OPENAI_VITB16 (fp32 at batch 2,
+     bf16 at 8; K8's split backward at 197 tokens, launches by branch),
+     bf16 clips/s, peak memory, busy time and idle share at batch 16.
+ 19. vit_cli: phase 5 with ViT-L/14@336 reading a ``.pt`` written in
+     OpenAI's layout (seeded fp16 weights, the three metadata entries),
+     which must arrive as written.
+ 20. vit_narrator: phase 8 with VCLM_OPENAI_VITL14_336PX_GPT2_XL (4·576
+     patch tokens into the pooler), then the kernels-vs-plain checks
+     alone with VCLM_OPENAI_VITB16_GPT2_LARGE (K9 at 1280 wide).
+     vit_infer_narrator_cli: phase 9 with the ViT-L/14@336 narrator.
 
 Every path phase (5, 7, finetune_cli, ssl_pretrain_cli, classify_cli,
-large224_cli, 9, 9c, 10-13b, 15, 16's CLI) zeroes
+large224_cli, 9, 9c, 10-13b, 15, 16's CLI, 19, vit_infer_narrator_cli)
+zeroes
 the launch counters before it runs and reads them after; the kernel
 summary line sums those runs' counts (K1's, K2's and K6's also by
 branch: every divided-phase launch of a path runs bf16 at head_dim 64
@@ -238,6 +258,17 @@ HF_MODEL = dict(MODEL, name="CLIP_HF_TIMESFORMER_DISTILBERT_BASE",
                 text="distilbert", text_depth=6, ln_pre=False, serve_batch=8)
 DISTIL_BASE = dict(MODEL, name="CLIP_OPENAI_TIMESFORMER_BASE_DISTILBERT_BASE",
                    text="distilbert", text_depth=6, serve_batch=8)
+# the CLIP ViT dual encoders (the ViT per frame, its projected CLS feature
+# mean-pooled over 4 frames; no image projection; self-attention over
+# every token, K7/K8 without the causal mask): ViT-L/14@336 (577 tokens,
+# 24 blocks 1024 wide, 16 heads; text 768 wide, 12 heads) and ViT-B/16
+# (197 tokens, 12 blocks 768 wide, 12 heads; text 512 wide, 8 heads)
+VIT_L336 = {"name": "CLIP_OPENAI_VITL14_336PX", "img": 336, "depth": 24,
+            "width": 1024, "text_depth": 12, "embed": 768, "tower": "vit",
+            "tokens": 577, "serve_batch": 8}
+VIT_B16 = {"name": "CLIP_OPENAI_VITB16", "img": 224, "depth": 12,
+           "width": 768, "text_depth": 12, "embed": 512, "tower": "vit",
+           "tokens": 197, "serve_batch": 32}
 # DistilBERT's special ids in the distilbert-base-uncased vocabulary
 BERT_PAD, BERT_CLS, BERT_SEP, BERT_VOCAB = 0, 101, 102, 30522
 # DistilBERT's LayerNorm eps, a runtime float in the K3/K5 kernels
@@ -259,6 +290,17 @@ NARRATOR = {"name": "VCLM_OPENAI_TIMESFORMER_BASE_GPT2_XL", "layers": 48,
 FLAGSHIP = {"name": "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL",
             "layers": 48, "cross": 16, "bos": 50256, "eos": 50256,
             "img": 336, "depth": 24, "width": 1024, "space": "K6"}
+# the ViT narrators: ViT-L/14@336's patch tokens (4·576 a clip) into
+# GPT-2 XL, and ViT-B/16's (4·196) into GPT-2 large (36 layers, 20 heads
+# of 64 = 1280: K9 at that width), cross-attention on every second layer
+VIT_NARRATOR = {"name": "VCLM_OPENAI_VITL14_336PX_GPT2_XL", "layers": 48,
+                "cross": 24, "bos": 50256, "eos": 50256, "img": 336,
+                "depth": 24, "width": 1024, "tower": "vit",
+                "text_width": 1600}
+VIT_NARRATOR_LARGE = {"name": "VCLM_OPENAI_VITB16_GPT2_LARGE", "layers": 36,
+                      "cross": 18, "bos": 50256, "eos": 50256, "img": 224,
+                      "depth": 12, "width": 768, "tower": "vit",
+                      "text_width": 1280}
 # GPT-2 XL's attentions in the narrator's caption step at 8 captions of
 # 76 tokens (77 less the shifted label), 25 heads of 64: the causal
 # self-attention on c_attn's row views and the cross-attention over the
@@ -266,6 +308,15 @@ FLAGSHIP = {"name": "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL",
 GPT2_SELF = (8, 25, 76, 76, 64)
 GPT2_CROSS = (8, 25, 76, 256, 64)
 GPT2_ROWS = (8 * 76, 1600)
+# the CLIP ViTs' self-attention (B·T images, heads, Lq, Lk, head_dim):
+# ViT-L/14@336 and ViT-L/14 at 8 clips x 4 frames, ViT-B/16 and ViT-B/32
+# at 32 clips x 4 frames
+VIT_FLASH_CASES = (("full", (32, 16, 577, 577, 64)),
+                   ("full", (32, 16, 257, 257, 64)),
+                   ("full", (128, 12, 197, 197, 64)),
+                   ("full", (128, 12, 50, 50, 64)))
+# K9 at GPT-2 large's width: the ViT-B/16 narrator's 160 decode rows
+GPT2_LARGE_K9 = (160, 77, 1280, 20, 15)
 # the K3 backward rows timed by the profiler beside F.layer_norm's (as
 # DistilBERT's): a decode step's and the caption step's (every forward
 # case has its device time)
@@ -501,6 +552,12 @@ def _bert(m) -> bool:
     return m.get("text") == "distilbert"
 
 
+def _vit(m) -> bool:
+    """Whether ``m``'s image tower is a CLIP ViT (every LayerNorm K3, the
+    blocks' attention K7/K8 over every token, no divided phase)."""
+    return m.get("tower") == "vit"
+
+
 def _ln_pre(m) -> int:
     """1 where tower ``m`` has ``ln_pre`` (every tower but the CLIP_HF
     one's), else 0."""
@@ -512,10 +569,14 @@ def _ln_bwd_block_calls(m, batch: int, dtype) -> int:
     at ``batch`` clips whose rows one block's rings hold at once: the CLS
     rows' (norm3, norm1, norm2 a block, ln_pre's CLS half and the final
     norm), where ``batch`` rows fit; the patches', the text tower's (77
-    rows a caption) and K4's/K5's take the grid."""
+    rows a caption) and K4's/K5's take the grid. A ViT's one CLS call is
+    ``ln_post``'s, a row a frame (4 a clip); its other norms take the
+    whole token sequence."""
     from lavila_tpu_torch.kernels import layernorm as KL
     plan = KL.bwd_shape(m["width"], torch.empty((), dtype=dtype)
                         .element_size(), 2)
+    if _vit(m):  # ln_post's CLS rows, one a frame of each clip
+        return int(4 * batch <= plan.warps * plan.slots)
     return (3 * m["depth"] + 1 + _ln_pre(m)
             if batch <= plan.warps * plan.slots else 0)
 
@@ -562,9 +623,15 @@ def _encode_launches(m) -> dict:
     """Kernel launches of one ``encode_image`` of tower ``m``: per block
     the two phases, K3 on norm3 (both halves), norm1 and norm2 (CLS
     half), K5 (norm1) and K4 (norm2) on the patch half; ln_pre on both
-    halves (where the tower has it) and the final norm."""
+    halves (where the tower has it) and the final norm. A ViT: K7 and
+    K3 on ln_1 and ln_2 a block, ln_pre, and ln_post but in a narrator
+    (which reads the patch tokens before it)."""
     depth = m["depth"]
     want = dict.fromkeys(COUNTERS, 0)
+    if _vit(m):
+        want.update({"K7": depth,
+                     "K3": 2 * depth + 1 + int("layers" not in m)})
+        return want
     want.update({m["space"]: depth, "K2": depth,
                  "K3": 4 * depth + 1 + 2 * _ln_pre(m), "K4": depth,
                  "K5": depth})
@@ -598,10 +665,24 @@ def _step_launches(m, remat: bool = False,
     DistilBERT's norms run K3 and K5 forward and backward, its attention
     no kernel. The SSL loss adds no launch; without ``text`` (the
     classifier's step over ``m``'s video tower) the text tower's
-    launches go."""
+    launches go. A ViT returns one tensor, so every norm and attention
+    of its forward runs its backward: K8's in bf16 fused up to 128
+    tokens, split past it."""
     depth = m["depth"]
     want = _encode_launches(m)
     text = _text_launches(m) if text else dict.fromkeys(COUNTERS, 0)
+    if _vit(m):
+        steps = dict.fromkeys(COUNTERS, 0)
+        steps["K3"] = steps["K3 bwd"] = want["K3"] + text["K3"]
+        steps["K8 fwd"] = want["K7"] + text["K7"]
+        if dtype != torch.bfloat16:
+            steps["K8 dq"] = steps["K8 dkv"] = steps["K8 fwd"]
+        else:
+            steps["K8 bwd"] = text["K7"]
+            for k in (("K8 bwd",) if m["tokens"] <= 128
+                      else ("K8 dq", "K8 dkv")):
+                steps[k] += depth
+        return steps
     r = 2 if remat else 1
     blocks = {k: v * r for k, v in want.items()}
     # ln_pre and the final norm run once, outside the blocks
@@ -840,10 +921,12 @@ def _decode_case(B, K, D, H, nv, dtype, gen) -> dict:
     exact = nv > 0 or torch.equal(out, vn)  # an empty cache returns v_new
     it = q.element_size()
     lib = library().decode_call(*args)
-    # the main case by the profiler too, beside the launch floor
+    # the main case and GPT-2 large's by the profiler too, beside the
+    # launch floor
     extras = (_device_extras(lambda: KDec.decode_attention(*args), lib,
                              dtype)
-              if (B, K, D, H, nv) == MAIN_CASE["K9"] else {})
+              if (B, K, D, H, nv) in (MAIN_CASE["K9"], GPT2_LARGE_K9)
+              else {})
     return {"out_err": err, "tol": tol, "v_new_exact": exact,
             "ok": err <= tol and exact, **extras,
             "ms": time_ms(lambda: KDec.decode_attention(*args)),
@@ -899,9 +982,12 @@ def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
     def run():
         return KF._forward(q, k, v, causal, scale, with_lse)
     got = run()
+    again = run()
     ref, ref_lse = KF.flash_fwd_reference(q.float(), k.float(), v.float(),
                                           causal)
     torch.cuda.synchronize()
+    same = _all_equal(got, again) if with_lse else torch.equal(got, again)
+    del again
     out, lse = got if with_lse else (got, None)
     err = max_err(out, ref)
     lse_err = max_err(lse, ref_lse) if with_lse else 0.0
@@ -911,7 +997,8 @@ def _flash_case(name, B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
     want = "tc" if dtype == torch.bfloat16 else "simt"
     # reads q, k, v; writes out (and lse); QKᵀ and PV over the pairs
     return {"out_err": err, "lse_err": lse_err, "tol": tol, "branch": branch,
-            "ok": err <= tol and lse_err <= tol and branch == want,
+            "bit_identical": same,
+            "ok": err <= tol and lse_err <= tol and branch == want and same,
             **_device_extras(run, lib, dtype), "ms": time_ms(run),
             "plain_ms": time_ms(lambda: (
                 KF.flash_fwd_reference if with_lse
@@ -978,6 +1065,8 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
              # and dkv: the fused backward there
              **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
                              (16, 8, 77, 77, 64))}
+# the ViT shapes under their sequence length: vit_577, ..., vit_50
+VIT_SIDES = tuple((f"vit_{shape[2]}", shape) for _, shape in VIT_FLASH_CASES)
 # further cases a kernel's summary keeps under a name: K3 on the
 # narrator's decode path (one decode step's 160 GPT-2 XL rows), K1 at
 # TSF-L@224 (N = 256) and at TSF-B's serving batch 32, K6 at the
@@ -999,14 +1088,15 @@ SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),
               **dict.fromkeys(("K7", "K8 fwd"),
                               (("b256", (256, 8, 77, 77, 64)),
                                ("gpt2_self", GPT2_SELF),
-                               ("gpt2_cross", GPT2_CROSS))),
+                               ("gpt2_cross", GPT2_CROSS), *VIT_SIDES)),
               # K8's backward at 256 captions (fused) and past 128 tokens
               # (the split dq and dk/dv)
               **dict.fromkeys(("K8 dq", "K8 dkv"),
                               (("b256", (256, 8, 77, 77, 64)),
                                ("split", (4, 8, 130, 260, 64)),
                                ("gpt2_self", GPT2_SELF),
-                               ("gpt2_cross", GPT2_CROSS)))}
+                               ("gpt2_cross", GPT2_CROSS), *VIT_SIDES)),
+              "K9": (("gpt2_large", GPT2_LARGE_K9),)}
 _SUMMARY_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # K1's, K2's, K6's, K7's and K8's further measured numbers
 # (_phase_extras, _device_extras), where a case has them; the split's
@@ -1063,9 +1153,11 @@ def phase_kernels() -> dict:
         cases += [(k, kind, shape, dtype)
                   for k, kind in (("K4", "add_ln"), ("K5", "add_ln_nosum"))
                   for shape in ((8 * 4 * 576, 1024), (32 * 4 * 196, 768))]
-        # K9: the narrator's 160 rows of GPT-2 XL, and TSF-B width
+        # K9: the narrator's 160 rows of GPT-2 XL, TSF-B width, and
+        # GPT-2 large's (the ViT-B/16 narrator's)
         cases += [("K9", "decode", (B, 77, D, H, nv), dtype)
-                  for B, D, H in ((160, 1600, 25), (16, 768, 12))
+                  for B, D, H in ((160, 1600, 25), (16, 768, 12),
+                                  (160, 1280, 20))
                   for nv in (0, 1, 15, 77)]
     # the 336px path's main cases, K1 at TSF-L@224 and at TSF-B's
     # serving batch
@@ -1076,7 +1168,7 @@ def phase_kernels() -> dict:
               ("K1", "space", (32, 4, 196, 768, 12), bf16)]
     for dtype in (torch.float32, bf16):
         cases += [(k, kind, shape, dtype) for k in ("K7", "K8 fwd")
-                  for kind, shape in FLASH_CASES]
+                  for kind, shape in FLASH_CASES + VIT_FLASH_CASES]
     cases += [(k, "causal", (256, 8, 77, 77, 64), bf16)
               for k in ("K7", "K8 fwd")]
     # GPT-2 XL's norms and attentions in the caption step, after the
@@ -1341,7 +1433,7 @@ def phase_kernels_bwd() -> dict:
     cases.append(("K3 bwd", "ln+f32w", GPT2_ROWS, torch.bfloat16, gen_gpt2))
     summary = {}
     flash = [(kind, shape, dtype) for dtype in (torch.float32, torch.bfloat16)
-             for kind, shape in FLASH_CASES]
+             for kind, shape in FLASH_CASES + VIT_FLASH_CASES]
     flash.append(("causal", (256, 8, 77, 77, 64), torch.bfloat16))
     flash += [(kind, shape, dtype, gen_gpt2)
               for dtype in (torch.float32, torch.bfloat16)
@@ -1391,12 +1483,12 @@ def phase_kernels_bwd() -> dict:
 
 def _clip_model(m, **kw):
     """Dual encoder ``m`` initialised on the card from a seeded generator,
-    its time attention given seeded noise."""
+    its time attention (a TimeSformer's) given seeded noise."""
     from lavila_tpu_torch.models import build_model
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     model = build_model(m["name"], device=DEVICE, generator=gen, **kw)
     with torch.no_grad():
-        for blk in model.visual.blocks:
+        for blk in getattr(model.visual, "blocks", ()):
             for lin in (blk.timeattn.qkv, blk.timeattn.proj):
                 lin.weight.normal_(0.0, lin.in_features ** -0.5,
                                    generator=gen)
@@ -1462,7 +1554,9 @@ def phase_model(m) -> None:
             img = model.encode_image(frames)
             torch.cuda.synchronize()
             per_image = launch_counts()
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and _vit(m):
+                check_flash_tc(f"{m['name']} bf16 encode_image")
+            elif dtype == torch.bfloat16:
                 check_tensor_cores(f"{m['name']} bf16 encode_image",
                                    m["space"], "K2")
             reset_launch_counts()
@@ -1501,6 +1595,9 @@ def phase_model(m) -> None:
 
 
 def _throughput(model, gen, m, iters: int = 5) -> None:
+    """bf16 encode_image clips/s at ``m``'s serving batch of 4 frames,
+    kernels/plain/plain/kernels; for a ViT also the kernel path's busy
+    time, idle share and peak memory per call."""
     batch = m["serve_batch"]
     frames = torch.randn(batch, 4, m["img"], m["img"], 3, generator=gen,
                          device=DEVICE)
@@ -1521,6 +1618,15 @@ def _throughput(model, gen, m, iters: int = 5) -> None:
          dtype="bfloat16", batch=batch,
          frames=4, iters=iters, order="kernels, plain, plain, kernels",
          clips_per_s=rates)
+    if _vit(m):
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            model.encode_image(frames)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            emit("serve_profile", model=m["name"], dtype="bfloat16",
+                 batch=batch, frames=4, peak_memory_gib=peak,
+                 **_profile(lambda: model.encode_image(frames)))
 
 
 def _profile(fn, iters: int = 5) -> dict:
@@ -1639,9 +1745,25 @@ def _serve_rates(model, frames, text, mask, m, iters: int = 5) -> None:
          peak_memory_gib=peak, profile=profiles)
 
 
+def _openai_checkpoint(m, path: str) -> dict:
+    """Dual encoder ``m``'s seeded weights (:func:`_clip_model`) written
+    to ``path`` as OpenAI releases its CLIP ViTs: fp16, under OpenAI's
+    names, beside the three metadata entries. Returns the weights."""
+    model = _clip_model(m)
+    sd = {k: v.half().cpu() for k, v in model.state_dict().items()}
+    del model
+    meta = {"input_resolution": m["img"], "context_length": 77,
+            "vocab_size": 49408}
+    torch.save({**sd, **{k: torch.tensor(v) for k, v in meta.items()}},
+               path)
+    return sd
+
+
 def phase_cli(m) -> dict:
-    """The port CLI's functions on the synthetic dataset. Returns the
-    launch counts of this run, the serving path's."""
+    """The port CLI's functions on the synthetic dataset; a CLIP ViT reads
+    a ``.pt`` in OpenAI's layout (:func:`_openai_checkpoint`), which must
+    arrive as written. Returns the launch counts of this run, the
+    serving path's."""
     import numpy as np
 
     from lavila_tpu_torch.data import transforms as T
@@ -1651,14 +1773,25 @@ def phase_cli(m) -> dict:
     from lavila_tpu_torch.eval import metrics as M
     from lavila_tpu_torch.cli import eval_zeroshot as cli
 
-    args = cli.get_args_parser().parse_args(
-        ["--model", m["name"], "--bf16", "--device",
-         DEVICE, "--clip-length", "4", "--batch-size", "8", "--workers",
-         "4"])
-    t0 = time.perf_counter()
-    with bert_vocab() if _bert(m) else nullcontext():
-        model, tokenizer, name = cli.load_model_from_checkpoint(args)
-    load_seconds = time.perf_counter() - t0
+    argv = ["--model", m["name"], "--bf16", "--device", DEVICE,
+            "--clip-length", "4", "--batch-size", "8", "--workers", "4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        if _vit(m):
+            path = os.path.join(tmp, f"{m['name']}.pt")
+            written = _openai_checkpoint(m, path)
+            argv += ["--checkpoint", path]
+        args = cli.get_args_parser().parse_args(argv)
+        t0 = time.perf_counter()
+        with bert_vocab() if _bert(m) else nullcontext():
+            model, tokenizer, name = cli.load_model_from_checkpoint(args)
+        load_seconds = time.perf_counter() - t0
+    if _vit(m):
+        sd = model.state_dict()
+        same = set(sd) == set(written) and all(
+            torch.equal(v, written[k].to(v)) for k, v in sd.items())
+        check(same, f"CLI {name}: the OpenAI-layout weights did not arrive "
+              "as written")
+        del written
     mean, std = T.normalization_for_model(name)
     transform = T.EvalTransform(cli.crop_shape(name)[0], mean, std)
     ds = VideoCaptionDataset(
@@ -1792,14 +1925,25 @@ def _classify_batch(B, gen, size: int, frames: int = 16):
                             for n in EK100_HEADS)}
 
 
+def _branch_counts() -> dict:
+    """The flash kernels' and the LayerNorm backward's launches since the
+    counters were zeroed, by branch (the ones that launched)."""
+    from lavila_tpu_torch.kernels import flash as KF
+    from lavila_tpu_torch.kernels import layernorm as KL
+    return {k: n for k, n in {**KF.launches, **{
+        b: KL.launches[b] for b in LN_BWD_BRANCHES}}.items() if n}
+
+
 def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
-               kind: str = "clip"):
+               kind: str = "clip", branches: list | None = None):
     """``steps`` train steps of ``kind`` (:func:`_state_and_step`) from a
     copy of ``base`` (dual encoder ``m``, or a classifier over its video
     tower): the losses, each step's fp32 gradients (the SSL loss's pseudo
     scale's too) and the launch counts of each step; on the kernels every
     step's LayerNorm backward is checked by branch, and the first step's
-    launches of its kernel on the device (traced) one a call."""
+    launches of its kernel on the device (traced) one a call; each
+    kernel step's launches by branch (:func:`_branch_counts`) are
+    appended to ``branches`` when given."""
     # normalised embeddings (--norm-embed) keep the logits within
     # ±logit_scale; raw random-init embeddings give logits in the
     # hundreds, where bf16 rounding alone moves the loss by percents
@@ -1823,8 +1967,11 @@ def _run_steps(m, base, dtype, batch, plain: bool, steps: int = 2,
             if (dtype == torch.bfloat16 and not plain and not _bert(m)
                     and kind != "classify"):
                 check_flash_tc(f"bf16 train step {len(counts)}")
-                check_tensor_cores(f"bf16 train step {len(counts)}", "K2",
-                                   "K2 bwd")
+                if not _vit(m):
+                    check_tensor_cores(f"bf16 train step {len(counts)}",
+                                       "K2", "K2 bwd")
+            if branches is not None and not plain:
+                branches.append(_branch_counts())
             losses.append(metrics["loss"].item())
             grads.append({k: p.grad.clone() for k, p in
                           {**state.params, **state.criterion}.items()
@@ -1892,9 +2039,13 @@ def phase_train_step(m, batches: dict, throughput: tuple,
         if size not in data:
             data[size] = _train_batch(size, gen, m["img"], bert=_bert(m))
         batch = data[size]
-        k_run = _run_steps(m, base, dtype, batch, False, kind=kind)
+        branches = []
+        k_run = _run_steps(m, base, dtype, batch, False, kind=kind,
+                           branches=branches)
         p_run = _run_steps(m, base, dtype, batch, True, kind=kind)
         res = _compare_steps(k_run, p_run)
+        if _vit(m):
+            res["launches_by_branch"] = branches
         name = f"{m['name']} {dname(dtype)} {kind}"
         if kind == "ssl":  # the pseudo scale's gradient, compared in res
             res["pseudo_grad"] = {
@@ -1970,7 +2121,7 @@ def _train_throughput(base, gen, m, batches, iters: int = 10,
              model=m["name"], dtype="bfloat16", batch=batch, frames=4,
              iters=iters, remat=False, order="kernels, plain, plain, "
              "kernels", clips_per_s=rates, peak_memory_gib=peaks)
-        if _bert(m):
+        if _bert(m) or _vit(m):
             emit("train_profile", model=m["name"], dtype="bfloat16",
                  batch=batch, **_profile(lambda: step_fn(state, data)))
         if kind == "ssl":  # the CLIP step beside it: same weights, batch
@@ -2363,10 +2514,10 @@ def phase_classify_cli(m) -> dict:
 
 def _narrator_model(n):
     """Narrator ``n`` (fp32) initialised on the card from a seeded
-    generator, its cross-attention gates and its time attention given
-    seeded non-zero values (zero gates would make the cross-attention
-    check vacuous, as zero time attention would K2's). Returns it and the
-    init's seconds."""
+    generator, its cross-attention gates and its time attention (a
+    TimeSformer's) given seeded non-zero values (zero gates would make the
+    cross-attention check vacuous, as zero time attention would K2's).
+    Returns it and the init's seconds."""
     from lavila_tpu_torch.models import build_model
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     t0 = time.perf_counter()
@@ -2379,7 +2530,7 @@ def _narrator_model(n):
             if blk.has_cross:
                 for a in (blk.alpha_cattn, blk.alpha_dense):
                     a.uniform_(0.3, 0.9, generator=gen)
-        for blk in model.visual.blocks:
+        for blk in getattr(model.visual, "blocks", ()):
             for lin in (blk.timeattn.qkv, blk.timeattn.proj):
                 lin.weight.normal_(0.0, lin.in_features ** -0.5,
                                    generator=gen)
@@ -2418,15 +2569,45 @@ def _greedy(model, tokens, n, L: int):
                           top_k=1, num_return_sequences=2)
 
 
+def _partings(model, tokens_ref, ids, ids_ref, nrs: int = 2) -> list:
+    """Where a row of the kernel path's greedy ids first parts from the
+    plain path's: the row, the step, and the plain path's logit gap
+    between the two tokens there (its teacher-forced forward over the
+    shared prefix, from the plain path's image tokens of the row's clip;
+    ``nrs`` rows a clip)."""
+    out = []
+    for r in range(ids.shape[0]):
+        apart = (ids[r] != ids_ref[r]).nonzero()
+        if not len(apart):
+            continue
+        s = int(apart[0])
+        with plain_path():
+            logits = model.text_decoder(
+                ids_ref[r:r + 1, :s], encoder_states=tokens_ref[
+                    r // nrs:r // nrs + 1])[0, -1].float()
+        out.append({"row": r, "step": s, "tokens": [int(ids_ref[r, s]),
+                                                    int(ids[r, s])],
+                    "gap": (logits[ids_ref[r, s]]
+                            - logits[ids[r, s]]).abs().item()})
+    return out
+
+
 def _cos_min(a, b) -> float:
     """The smallest cosine between matching rows (last axis)."""
     a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
     return torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
 
 
-def phase_narrator(n) -> None:
+def phase_narrator(n, measure: bool = True) -> None:
     """Narrator ``n``, kernel path against plain path on the same weights
-    (fp32, then bf16), a profile of decode steps and narrations/s."""
+    (fp32, then bf16); with ``measure``, a profile of decode steps and
+    narrations/s. In bf16 every narrator is held to one rule: the kernel
+    path's cached-decode logits part from the full forward by at most
+    1.25x what the plain path's do (the margin narrator_train_step gives
+    K8), and each row's greedy ids agree with the plain path's for 4
+    steps, or part earlier only at a tie: where the plain path's logits
+    of the two tokens lie within the plain path's own cached-decode
+    error, a reading the kernels cannot move."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
     model, init_s = _narrator_model(n)
     frames, _ = _inputs(2, gen, n["img"])
@@ -2440,7 +2621,9 @@ def phase_narrator(n) -> None:
             tokens = model.encode_image(frames)
             torch.cuda.synchronize()
             per_image = launch_counts()
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and _vit(n):
+                check_flash_tc(f"narrator {n['name']} bf16 encode_image")
+            elif dtype == torch.bfloat16:
                 check_tensor_cores(f"narrator {n['name']} bf16 "
                                    "encode_image", n["space"], "K2")
             cached, per_step = _cached_logits(model, tokens, text, 8)
@@ -2455,6 +2638,7 @@ def phase_narrator(n) -> None:
                 full = model.text_decoder(text, encoder_states=tokens_ref)
                 cached_ref, _ = _cached_logits(model, tokens_ref, text, 8)
                 ids_ref, ppl_ref = _greedy(model, tokens_ref, n, L)
+            partings = _partings(model, tokens_ref, ids, ids_ref)
         name = dname(dtype)
         res = {"logits_err": max_err(cached, full),
                "plain_cached_err": max_err(cached_ref, full),
@@ -2466,6 +2650,7 @@ def phase_narrator(n) -> None:
                "ids_agree_steps": int((ids == ids_ref).all(0).long()
                                       .cumprod(0).sum()) - 1,
                "ppl_rel_err": ((ppl - ppl_ref).abs() / ppl_ref).max().item(),
+               "partings": partings,
                "finite": bool(torch.isfinite(cached).all()
                               and torch.isfinite(ppl).all())}
         emit("narrator", model=n["name"], dtype=name, clips=2,
@@ -2474,7 +2659,8 @@ def phase_narrator(n) -> None:
              launches_per_decode_step=per_step,
              launches_per_full_forward=per_full, ids=ids.tolist(),
              ids_plain=ids_ref.tolist(), **res)
-        check(res["finite"] and tokens.shape == (2, 256, 1600),
+        check(res["finite"]
+              and tokens.shape == (2, 256, n.get("text_width", 1600)),
               f"narrator {n['name']} {name}: non-finite or misshapen "
               "outputs")
         want_step = dict.fromkeys(COUNTERS, 0)
@@ -2504,12 +2690,17 @@ def phase_narrator(n) -> None:
                   and res["full_k7_err"] <= 1e-3,
                   f"narrator {n['name']} fp32 kernels vs plain: {res}")
         else:
+            # a row parting at column s <= 4 agreed for fewer than 4 steps
+            noise = res["plain_cached_err"]
             check(res["logits_cos_min"] >= 0.99
                   and res["full_k7_cos_min"] >= 0.99
-                  and res["ids_agree_steps"] >= 4,
+                  and res["logits_err"] <= 1.25 * noise
+                  and all(p["gap"] <= noise for p in partings
+                          if p["step"] <= 4),
                   f"narrator {n['name']} bf16 kernels vs plain: {res}")
-    _decode_profile(model, gen, n)
-    _narration_throughput(model, gen, n)
+    if measure:
+        _decode_profile(model, gen, n)
+        _narration_throughput(model, gen, n)
 
 
 def _timed_steps(model, cur, kv, cache, first: int, steps: int):
@@ -2652,7 +2843,7 @@ def phase_infer_narrator_cli(n) -> dict:
     encode = _encode_launches(n)
     check(counts["K9"] > 0 and counts["K9"] % layers == 0 and steps <= 76
           and all(counts[k] == encode[k]
-                  for k in ("K1", "K2", "K4", "K5", "K6"))
+                  for k in ("K1", "K2", "K4", "K5", "K6", "K7"))
           and counts["K3"] >= steps * (2 * (layers + n["cross"]) + 1),
           f"infer CLI {n['name']} launches {counts}")
     return counts
@@ -3268,13 +3459,23 @@ PHASES = (
         "distilbert_train_step", SEED + 13)),
     ("distilbert_pretrain_cli",
      lambda: phase_pretrain_cli(DISTIL_BASE, 3, 16)),
+    ("vit_model", lambda: (phase_model(VIT_L336), phase_model(VIT_B16))),
+    ("vit_train_step", lambda: phase_train_step(
+        VIT_B16, {torch.float32: 2, torch.bfloat16: 8}, (16,),
+        "vit_train_step", SEED + 19)),
+    ("vit_cli", lambda: phase_cli(VIT_L336)),
+    ("vit_narrator", lambda: (
+        phase_narrator(VIT_NARRATOR),
+        phase_narrator(VIT_NARRATOR_LARGE, measure=False))),
+    ("vit_infer_narrator_cli",
+     lambda: phase_infer_narrator_cli(VIT_NARRATOR)),
 )
 PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
                "classify_cli", "large224_cli",
                "infer_narrator_cli", "eval_narrator_cli", "large_cli",
                "large_pretrain_cli", "flagship_infer_narrator_cli",
                "vclm_pretrain_cli", "distilbert_cli",
-               "distilbert_pretrain_cli")
+               "distilbert_pretrain_cli", "vit_cli", "vit_infer_narrator_cli")
 
 
 def main() -> int:

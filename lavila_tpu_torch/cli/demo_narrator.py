@@ -44,8 +44,8 @@ def get_args_parser():
     p.add_argument("--checkpoint", default="")
     p.add_argument("--model",
                    default="VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI",
-                   help="a VCLM_OPENAI_TIMESFORMER_* narrator; LaViLa's "
-                        "Ego4D narrator is "
+                   help="a VCLM_OPENAI_* narrator (TimeSformer or CLIP "
+                        "ViT tower); LaViLa's Ego4D narrator is "
                         "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL")
     p.add_argument("--clip-length", type=int, default=4)
     p.add_argument("--num-return-sequences", type=int, default=5)

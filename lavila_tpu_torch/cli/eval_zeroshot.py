@@ -26,7 +26,9 @@ narrations), the label prompts' tokenizer mask, EgoMCQ's
 
 The TSF-L models (``CLIP_OPENAI_TIMESFORMER_LARGE``, ``..._LARGE_336PX``,
 the high-resolution one, whose frames are cropped to 336) serve the
-same way.
+same way, as do the CLIP ViTs (``CLIP_OPENAI_VIT{B32,B16,L14,
+L14_336PX}``), whose ``--checkpoint`` may be OpenAI's released ``.pt``
+(``models/convert.py:load_reference_checkpoint``).
 """
 
 from __future__ import annotations

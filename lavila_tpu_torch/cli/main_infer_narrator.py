@@ -27,7 +27,10 @@ in the JAX CLI (decoding always stops once every row has sampled EOS).
         --model VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL --bf16
 
 (``VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL`` is the narrator LaViLa
-used to narrate Ego4D: TSF-L at 336², its frames cropped to 336.)
+used to narrate Ego4D: TSF-L at 336², its frames cropped to 336. The
+CLIP ViT narrators, ``VCLM_OPENAI_VIT*``, condition on every frame's
+patch tokens; a checkpoint's ViT depth is read under
+``visual.transformer.resblocks.``.)
 """
 
 from __future__ import annotations
@@ -64,8 +67,8 @@ def get_args_parser():
                    default="", help="released narrator .pt/.pth")
     p.add_argument("--model",
                    default="VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI",
-                   help="a VCLM_OPENAI_TIMESFORMER_* narrator; LaViLa's "
-                        "Ego4D narrator is "
+                   help="a VCLM_OPENAI_* narrator (TimeSformer or CLIP "
+                        "ViT tower); LaViLa's Ego4D narrator is "
                         "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL")
     p.add_argument("--clip-length", type=int, default=4)
     p.add_argument("--clip-stride", type=int, default=16)
@@ -129,6 +132,16 @@ def narrator_checkpoint(path: str, num_frames: int) -> dict:
     return sd if is_port_checkpoint(ckpt) else narrator_state_dict(sd)
 
 
+def tower_depth(visual) -> dict[str, int]:
+    """The video tower's block prefix in a narrator's state dict and its
+    depth: a TimeSformer's ``visual.blocks.``, a CLIP ViT's
+    ``visual.transformer.resblocks.``."""
+    if hasattr(visual, "blocks"):
+        return {"visual.blocks.": len(visual.blocks)}
+    return {"visual.transformer.resblocks.":
+            len(visual.transformer.resblocks)}
+
+
 def load_narrator(args):
     """Build ``--model`` (gated cross-attention, as the JAX CLI builds
     it) on ``--device`` from a generator seeded ``--seed`` there, load
@@ -144,7 +157,7 @@ def load_narrator(args):
     if args.checkpoint:
         sd = narrator_checkpoint(args.checkpoint, args.clip_length)
         # depths come from the checkpoint, never from the model name
-        depths = {"visual.blocks.": len(model.visual.blocks),
+        depths = {**tower_depth(model.visual),
                   "text_decoder.transformer.h.":
                       len(model.text_decoder.transformer.h)}
         for prefix, want in depths.items():

@@ -8,7 +8,8 @@ is stripped and ``temporal_embed`` fits the clip length.
 
   * :func:`state_dict_from_jax` maps a ``lavila_tpu`` ``VideoCLIP``,
     ``VideoCLIPHF``, ``VideoClassifier[MultiHead]`` or ``VCLM``
-    parameter tree (and the SSL loss's ``logit_scale_pseudo``) onto
+    parameter tree, with a TimeSformer or a CLIP ViT (``vit``) as its
+    video tower (and the SSL loss's ``logit_scale_pseudo``), onto
     those keys (a classifier's tower under ``vision_model.``, its heads
     ``fc_cls`` / ``fc_cls_{i}``): Dense
     kernels ``(in, out) → (out, in)``, Conv kernels ``(kh, kw, I, O) →
@@ -21,7 +22,11 @@ is stripped and ``temporal_embed`` fits the clip length.
     consumed; a leftover raises.
   * :func:`load_reference_checkpoint` reads a reference ``.pt``/``.pth``
     (HF's ``position_ids`` buffer dropped, as the JAX importer ignores
-    it), :func:`checkpoint_state_dict` does the same to a loaded one and
+    it) or OpenAI's CLIP ViT ``.pt`` (a TorchScript archive; the
+    counterpart of ``import_clip_vit``: OpenAI's names are the
+    ``CLIP_OPENAI_VIT*`` models' own, so it loads strict once its three
+    metadata entries are dropped), :func:`checkpoint_state_dict` does
+    the same to a loaded one and
     :func:`is_port_checkpoint` tells the port's own checkpoints from
     released ones;
     :func:`narrator_state_dict` turns a released narrator's keys into
@@ -62,7 +67,7 @@ def _block_index(name: str, stem: str) -> str:
 # last path element → (torch suffix, how the array is laid out)
 _LEAF = {"kernel": ("weight", "dense"), "bias": ("bias", None),
          "scale": ("weight", None)}
-# renames inside the text tower (the reference's MLP names)
+# renames inside the CLIP towers (the reference's MLP names)
 _TEXT_RENAMES = {"fc1": "c_fc", "fc2": "c_proj"}
 # DistilBERT: flax module names → HF's (lavila_tpu import_distilbert)
 _BERT_EMBEDDINGS = {"word_embeddings": "embeddings.word_embeddings",
@@ -93,6 +98,27 @@ def _distilbert_key(rest: list) -> tuple[str, str | None]:
 _FC_CLS = re.compile(r"fc_cls(_\d+)?")
 
 
+def _clip_tower_key(rest: list, prefix: str = "") -> tuple[str, str | None]:
+    """A path inside an OpenAI-CLIP tower (the text tower, or the ViT
+    under ``vit``) → (``prefix`` + OpenAI's key, layout): top-level
+    arrays keep their names (``positional_embedding``,
+    ``text_projection``, ``class_embedding``, ``proj``), the blocks'
+    ``in_proj`` becomes torch MultiheadAttention's packed
+    ``in_proj_weight``/``in_proj_bias`` and the MLP's ``fc1``/``fc2``
+    ``c_fc``/``c_proj``."""
+    if len(rest) == 1:
+        return prefix + rest[0], None
+    parts = [_block_index(p, "resblocks") for p in rest]
+    if parts[-2] == "in_proj":  # torch MultiheadAttention's packing
+        name = {"kernel": "in_proj_weight", "bias": "in_proj_bias"}[
+            parts[-1]]
+        return prefix + ".".join([*parts[:-2], name]), (
+            "dense" if parts[-1] == "kernel" else None)
+    parts = [_TEXT_RENAMES.get(p, p) for p in parts]
+    suffix, layout = _LEAF[parts[-1]]
+    return prefix + ".".join([*parts[:-1], suffix]), layout
+
+
 def torch_key(path: tuple, tower: str = "visual") -> tuple[str, str | None]:
     """Map one flax path to (reference key, layout), or raise KeyError.
     ``tower``: the port's name of the video tower (``visual`` in the dual
@@ -107,6 +133,10 @@ def torch_key(path: tuple, tower: str = "visual") -> tuple[str, str | None]:
     if _FC_CLS.fullmatch(top) and len(rest) == 1:
         suffix, layout = _LEAF[rest[0]]
         return f"{top}.{suffix}", layout
+    if top == "vision_model" and rest[0] == "vit":  # the CLIP ViTs
+        if rest[1:] == ["conv1", "kernel"]:
+            return f"{tower}.conv1.weight", "conv"
+        return _clip_tower_key(rest[1:], f"{tower}.")
     if top == "vision_model":
         parts = [_block_index(p, "blocks") for p in rest]
         if parts[0] == "patch_embed":
@@ -124,17 +154,7 @@ def torch_key(path: tuple, tower: str = "visual") -> tuple[str, str | None]:
     if top == "text_model":
         if rest == ["token_embedding", "embedding"]:
             return "token_embedding.weight", None
-        if len(rest) == 1:  # positional_embedding, text_projection
-            return rest[0], None
-        parts = [_block_index(p, "resblocks") for p in rest]
-        if parts[-2] == "in_proj":  # torch MultiheadAttention's packing
-            name = {"kernel": "in_proj_weight", "bias": "in_proj_bias"}[
-                parts[-1]]
-            return ".".join([*parts[:-2], name]), (
-                "dense" if parts[-1] == "kernel" else None)
-        parts = [_TEXT_RENAMES.get(p, p) for p in parts]
-        suffix, layout = _LEAF[parts[-1]]
-        return ".".join([*parts[:-1], suffix]), layout
+        return _clip_tower_key(rest)
     if top == "img_queries" and not rest:
         return top, None
     if top in ("img_attn_pool", "img_attn_pool_norm"):
@@ -199,25 +219,40 @@ def inflate_temporal_embed(te: torch.Tensor,
 
 def load_reference_checkpoint(path: str, num_frames: int | None = None
                               ) -> dict[str, torch.Tensor]:
-    """Read a released LaViLa ``.pt``/``.pth`` checkpoint into a state
-    dict for the port (:func:`checkpoint_state_dict`)."""
-    # released checkpoints pickle their argparse namespace beside the
-    # weights, which weights_only=True refuses
-    return checkpoint_state_dict(torch.load(
-        path, map_location="cpu", weights_only=False), num_frames)
+    """Read a released LaViLa ``.pt``/``.pth`` checkpoint, or OpenAI's
+    CLIP ``.pt`` (a TorchScript archive, else a pickled model or state
+    dict, as ``lavila_tpu/models/openai_weights.py`` reads it), from a
+    local path into a state dict for the port
+    (:func:`checkpoint_state_dict`). No download and no lookup by
+    name."""
+    try:
+        ckpt = torch.jit.load(path, map_location="cpu").state_dict()
+    except (RuntimeError, ValueError):  # not a TorchScript archive
+        # released checkpoints pickle their argparse namespace beside the
+        # weights, which weights_only=True refuses
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return checkpoint_state_dict(ckpt, num_frames)
+
+
+# OpenAI's CLIP archives hold three metadata entries beside the weights
+OPENAI_METADATA = ("input_resolution", "context_length", "vocab_size")
 
 
 def checkpoint_state_dict(ckpt, num_frames: int | None = None
                           ) -> dict[str, torch.Tensor]:
-    """A loaded checkpoint's weights: ``'state_dict'`` when present, the
-    DDP ``module.`` prefix stripped, HF's ``position_ids`` buffer dropped
-    (the CLIP_HF checkpoints' ``textual.embeddings.position_ids``,
-    ``arange(512)``), cast to fp32, and ``visual.temporal_embed`` fitted
-    to ``num_frames`` when given."""
+    """A loaded checkpoint's weights: ``'state_dict'`` when present (a
+    pickled module's ``state_dict()``), the DDP ``module.`` prefix
+    stripped, HF's ``position_ids`` buffer (the CLIP_HF checkpoints'
+    ``textual.embeddings.position_ids``, ``arange(512)``) and OpenAI's
+    :data:`OPENAI_METADATA` dropped, cast to fp32, and
+    ``visual.temporal_embed`` fitted to ``num_frames`` when given."""
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
+    elif isinstance(ckpt, torch.nn.Module):
+        ckpt = ckpt.state_dict()
     sd = {k.removeprefix("module."): torch.as_tensor(v).float()
-          for k, v in ckpt.items() if not k.endswith("position_ids")}
+          for k, v in ckpt.items()
+          if not k.endswith("position_ids") and k not in OPENAI_METADATA}
     if num_frames is not None and "visual.temporal_embed" in sd:
         sd["visual.temporal_embed"] = inflate_temporal_embed(
             sd["visual.temporal_embed"], num_frames)

@@ -34,10 +34,14 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 class VideoCLIP(nn.Module):
     """Video tower + OpenAI CLIP text tower, matrix projections and a
-    learnable logit scale initialised at ``log(1 / temperature_init)``."""
+    learnable logit scale initialised at ``log(1 / temperature_init)``.
+    Without ``use_image_projection`` (the raw OpenAI CLIP ViTs, which
+    project their own feature) there is no ``image_projection`` and
+    ``encode_image`` returns the tower's output."""
 
     def __init__(self, vision_model: nn.Module, text_model: TextTransformer,
-                 embed_dim: int = 256, temperature_init: float = 0.07):
+                 embed_dim: int = 256, temperature_init: float = 0.07,
+                 use_image_projection: bool = True):
         super().__init__()
         self.visual = vision_model
         # adopt the text tower's modules at the top level
@@ -46,8 +50,9 @@ class VideoCLIP(nn.Module):
         self.transformer = text_model.transformer
         self.ln_final = text_model.ln_final
         self.text_projection = text_model.text_projection
-        self.image_projection = nn.Parameter(
+        self.image_projection = (nn.Parameter(
             torch.zeros(vision_model.embed_dim, embed_dim))
+            if use_image_projection else None)
         self.logit_scale = nn.Parameter(
             torch.tensor(math.log(1.0 / temperature_init)))
 
@@ -56,17 +61,19 @@ class VideoCLIP(nn.Module):
         """The JAX package's initialisers, drawn from ``generator``."""
         self.visual.init_weights(generator)
         init_text_weights(self, generator)
-        width = self.image_projection.shape[0]
-        nn.init.normal_(self.image_projection, 0.0, width ** -0.5,
-                        generator=generator)
+        if self.image_projection is not None:
+            width = self.image_projection.shape[0]
+            nn.init.normal_(self.image_projection, 0.0, width ** -0.5,
+                            generator=generator)
 
     def encode_image(self, image: torch.Tensor,
                      generator: torch.Generator | None = None
                      ) -> torch.Tensor:
         """``generator`` draws the video tower's drop-path masks (train
         mode only)."""
-        return self.visual(image, generator=generator) @ \
-            self.image_projection
+        x = self.visual(image, generator=generator)
+        return x if self.image_projection is None else \
+            x @ self.image_projection
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         return encode_text(self, text)

@@ -27,6 +27,22 @@ TSF-L with GPT-2 XL (48 layers, cross-attention on every second), and
 the flagship TSF-L@336 with GPT-2 XL (cross-attention on every third,
 16 layers), the narrator LaViLa used to narrate Ego4D. As in the JAX
 CLIs, the narrator CLIs build them with ``gated_xattn=True``.
+
+The raw OpenAI CLIP ViTs (``CLIP_OPENAI_VIT{B32,B16,L14,L14_336PX}``,
+JAX ``_VIT_GEOM``) are dual encoders of a :class:`FrameMeanViT` (the
+ViT per frame, its projected CLS feature mean-pooled over time) and the
+CLIP text tower (512 wide with 8 heads when the ViT projects to 512,
+else 768 wide with 12), with no image projection; the ViT narrators
+(``VCLM_OPENAI_{VITB16,VITL14,VITL14_336PX}_GPT2_{LARGE,XL}``) condition
+GPT-2 on a :class:`FrameTokensViT` (every frame's patch tokens before
+``ln_post``) with cross-attention on every second layer. The JAX
+factories swallow every keyword (``**_unused``); these accept the ones
+the CLIs pass and give them the JAX meaning: ``num_frames``,
+``project_embed_dim``, ``temperature_init``, ``drop_path_rate`` and
+``remat`` change nothing in a ViT dual encoder (the ViT has no remat and
+no drop path, the logit scale starts at log(1 / 0.07), the embedding is
+the ViT's ``output_dim``); a ViT narrator hands ``remat`` to GPT-2 only
+and ignores ``num_frames`` and ``timesformer_gated_xattn``.
 """
 
 from __future__ import annotations
@@ -41,7 +57,9 @@ from lavila_tpu_torch.models.dual_encoder import VideoCLIP, VideoCLIPHF
 from lavila_tpu_torch.models.gpt2 import (PRESETS, GPT2Config, GPT2LMHead,
                                           augment_config)
 from lavila_tpu_torch.models.narrator import VCLM
-from lavila_tpu_torch.models.openai_clip import TextTransformer
+from lavila_tpu_torch.models.openai_clip import (FrameMeanViT,
+                                                FrameTokensViT,
+                                                TextTransformer)
 from lavila_tpu_torch.models.timesformer import SpaceTimeTransformer
 
 _REGISTRY: dict[str, Callable[..., nn.Module]] = {}
@@ -202,7 +220,7 @@ def CLIP_HF_TIMESFORMER_DISTILBERT_BASE(**kw):
     return _clip_hf_timesformer("default", **kw)
 
 
-def _vclm(vision: SpaceTimeTransformer, gpt2: GPT2Config,
+def _vclm(vision: nn.Module, gpt2: GPT2Config,
           cross_attn_freq: int, gated_xattn: bool, remat: bool,
           heads: int, num_img_queries: int = 256, dim_head: int = 64):
     cfg = augment_config(gpt2, cross_attn_freq=cross_attn_freq,
@@ -259,3 +277,71 @@ def VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI(num_frames: int = 4,
                       n_layer=2, n_head=4)
     return _vclm(vision, gpt2, 1, gated_xattn, remat, heads=4,
                  num_img_queries=16, dim_head=16)
+
+
+# the raw OpenAI CLIP ViTs' geometry (lavila_tpu/models/zoo.py:358-367)
+_VIT_GEOM = {
+    "B32": dict(patch_size=32, width=768, layers=12, heads=12,
+                output_dim=512, input_resolution=224),
+    "B16": dict(patch_size=16, width=768, layers=12, heads=12,
+                output_dim=512, input_resolution=224),
+    "L14": dict(patch_size=14, width=1024, layers=24, heads=16,
+                output_dim=768, input_resolution=224),
+    "L14_336PX": dict(patch_size=14, width=1024, layers=24, heads=16,
+                      output_dim=768, input_resolution=336),
+}
+
+
+def _register_clip_vit(geom: str) -> None:
+    g = _VIT_GEOM[geom]
+
+    def factory(num_frames: int = 4, project_embed_dim: int = 256,
+                temperature_init: float = 0.07, drop_path_rate: float = 0.0,
+                remat: bool = False):
+        # every keyword is ignored, as the JAX factory swallows it
+        text_width = 512 if g["output_dim"] == 512 else 768
+        text = TextTransformer(width=text_width,
+                               heads=8 if text_width == 512 else 12,
+                               layers=12, embed_dim=g["output_dim"])
+        return VideoCLIP(FrameMeanViT(**g), text, g["output_dim"],
+                         use_image_projection=False)
+
+    factory.__name__ = f"CLIP_OPENAI_VIT{geom}"
+    factory.__doc__ = (f"OpenAI's CLIP ViT-{geom} ({g['layers']} blocks "
+                       f"{g['width']} wide, patch {g['patch_size']}, "
+                       f"{g['input_resolution']}²) per frame, mean-pooled, "
+                       f"with the CLIP text tower; embeddings of "
+                       f"{g['output_dim']}.")
+    register(factory)
+
+
+for _geom in _VIT_GEOM:
+    _register_clip_vit(_geom)
+
+# the ViT narrators (lavila_tpu/models/zoo.py:277-299): (geometry, GPT-2
+# preset, pooler heads); cross-attention on every second layer
+_VIT_NARRATORS = {
+    "VITB16_GPT2_LARGE": ("B16", "gpt2-large", 20),
+    "VITB16_GPT2_XL": ("B16", "gpt2-xl", 25),
+    "VITL14_GPT2_XL": ("L14", "gpt2-xl", 25),
+    "VITL14_336PX_GPT2_XL": ("L14_336PX", "gpt2-xl", 25),
+}
+
+
+def _register_vit_narrator(suffix: str) -> None:
+    geom, preset, heads = _VIT_NARRATORS[suffix]
+
+    def factory(num_frames: int = 4, gated_xattn: bool = False,
+                timesformer_gated_xattn: bool = False, remat: bool = False):
+        return _vclm(FrameTokensViT(**_VIT_GEOM[geom]), PRESETS[preset], 2,
+                     gated_xattn, remat, heads=heads)
+
+    factory.__name__ = f"VCLM_OPENAI_{suffix}"
+    factory.__doc__ = (f"OpenAI's CLIP ViT-{geom} patch tokens of every "
+                       f"frame into {preset.upper()}, cross-attention "
+                       f"every 2 layers, a {heads}-head attention pooler.")
+    register(factory)
+
+
+for _suffix in _VIT_NARRATORS:
+    _register_vit_narrator(_suffix)

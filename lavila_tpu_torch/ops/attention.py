@@ -7,11 +7,14 @@ piece and none of the TPU layout variants:
     additive mask and fp32 scores and softmax (GPT-2's self- and
     cross-attention, DistilBERT's self-attention under the key-padding
     bias of :func:`padding_bias`).
-  * :func:`causal_attention`: causal multi-head self-attention over
-    ``(B, L, H, d)`` views (the CLIP text tower's), through
-    :func:`kernels.flash.flash_attention`, its single dispatch site: K8
+  * :func:`causal_attention` and :func:`full_attention`: multi-head
+    self-attention over ``(B, L, H, d)`` views, causal (the CLIP text
+    tower's) or over every key (the CLIP ViT's), through
+    :func:`kernels.flash.flash_attention`, their single dispatch site: K8
     when autograd needs the gradient, K7 otherwise, on a CUDA tensor;
-    their plain versions on a CPU tensor.
+    their plain versions on a CPU tensor. The JAX package computes the
+    ViT's attention in XLA (``lavila_tpu/ops/attention.py:attention``);
+    the port takes the kernels wherever they are legal.
   * :func:`cls_row_attention`: the CLS token's global attention row over
     ``[itself; all F·N patches]``. The JAX package writes it in XLA ops,
     not Pallas, so it is plain PyTorch here too, and autograd gives its
@@ -62,6 +65,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     query i attends keys 0..i, as the JAX package's additive mask of
     fp32's lowest value above the diagonal. Returns ``(B, L, H, d)``."""
     return flash_attention(q, k, v, causal=True)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Multi-head self-attention of every query over every key, on
+    ``(B, L, H, d)`` views as :func:`causal_attention` takes them, scaled
+    by ``d ** -0.5``. Returns ``(B, L, H, d)``."""
+    return flash_attention(q, k, v, causal=False)
 
 
 def cls_row_attention(cls_q, cls_k, cls_v, kp, vp):

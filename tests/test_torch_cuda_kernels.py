@@ -624,7 +624,10 @@ def test_add_layernorm_kernels(gen, shape, return_sum, dtype, wdtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,K,H", [(160, 77, 25), (16, 77, 12), (3, 9, 2)])
+# GPT-2 XL's 160 decode rows (25 heads), GPT-2 large's (20 heads of 64 =
+# 1280, the ViT-B/16 narrator's), TSF-B's width, a ragged small case
+@pytest.mark.parametrize("B,K,H", [(160, 77, 25), (160, 77, 20), (16, 77, 12),
+                                   (3, 9, 2)])
 @pytest.mark.parametrize("nv", [0, 1, 15, -1])
 def test_decode_attention_kernel(gen, B, K, H, nv, dtype):
     """K9 on q/k_new/v_new as the column blocks of one (B, 3D) c_attn
@@ -699,6 +702,14 @@ FLASH_CASES = [
     # the tile edges, on in_proj views
     *[(2, L, L, H, 64, causal, 0) for L in (1, 16, 77, 80, 112, 128, 129)
       for H in (8, 12) for causal in (True, False)],
+    # the CLIP ViTs' self-attention over every token: B/32's 50 (one key
+    # tile; the fused backward), B/16's 197, L/14's 257 and L/14@336's
+    # 577 = 9·64 + 1 (several 128-query blocks, the producer's ring of
+    # 64-key tiles, its last tile one valid key; the split backward)
+    (4, 50, 50, 12, 64, False, 0),
+    (2, 197, 197, 12, 64, False, 0),
+    (2, 257, 257, 16, 64, False, 0),
+    (2, 577, 577, 16, 64, False, 0),
 ]
 
 
@@ -907,3 +918,39 @@ def test_distilbert_layernorms_eps_1e12(gen, kernel, dtype, wdtype):
     for g, x, r in zip(grads, again, want):
         assert torch.equal(g, x) and torch.isfinite(g).all()
         assert _rel_err(g, r) <= TOL[dtype]
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_takes_k7_and_k8(gen, dtype):
+    """A ViT's blocks go through the flash kernels without the causal
+    mask: K7 a block under inference, K8's forward and backward a block in
+    training (197 tokens: the split backward in bf16), and every
+    LayerNorm (ln_pre, ln_1, ln_2, ln_post) through K3."""
+    from lavila_tpu_torch.kernels import layernorm as KL
+    from lavila_tpu_torch.models.openai_clip import VisionTransformer
+    with torch.device("cuda"):
+        vit = VisionTransformer(224, 16, width=128, layers=2, heads=2,
+                                output_dim=32)
+    vit.init_weights(gen)
+    vit = vit.to(dtype)
+    x = torch.randn(2, 224, 224, 3, generator=gen, device="cuda")
+
+    def counted(fn):
+        before = {**{f"KF.{n}": c for n, c in KF.launches.items()},
+                  "K3": KL.launches["layernorm"],
+                  "K3 bwd": KL.launches["layernorm_bwd"]}
+        fn()
+        torch.cuda.synchronize()
+        after = {**{f"KF.{n}": c for n, c in KF.launches.items()},
+                 "K3": KL.launches["layernorm"],
+                 "K3 bwd": KL.launches["layernorm_bwd"]}
+        return {n: c - before[n] for n, c in after.items() if c != before[n]}
+    fwd = "tc" if dtype == torch.bfloat16 else "simt"
+    bwd = "split" if dtype == torch.bfloat16 else "simt"
+    with torch.inference_mode():
+        assert counted(lambda: vit(x)) == {f"KF.flash_{fwd}": 2, "K3": 6}
+    assert counted(lambda: vit(x).float().sum().backward()) == {
+        f"KF.flash_fwd_{fwd}": 2, f"KF.flash_dq_{bwd}": 2,
+        f"KF.flash_dkv_{bwd}": 2, "K3": 6, "K3 bwd": 6}
+    assert torch.isfinite(vit.conv1.weight.grad).all()
