@@ -8,9 +8,11 @@ narrator's sampled and beam decoding, its caption step and its
 evaluation, at TSF-B width, with the
 TSF-L@224 dual encoder (N = 256: K1's tensor-core kernels), with the
 336px TSF-L towers (the high-resolution dual encoder and LaViLa's
-flagship narrator), and with the CLIP ViT towers (ViT-L/14@336 and
+flagship narrator), with the CLIP ViT towers (ViT-L/14@336 and
 ViT-B/16 dual encoders, the ViT-L/14@336 + GPT-2 XL and ViT-B/16 +
-GPT-2 large narrators).
+GPT-2 large narrators), and with the single-device options: the gated
+time attention, the remat policies, the OpenAI-CLIP init of the
+TimeSformer and CLIP's ModifiedResNet.
 
     python3 chip_smoke.py
 
@@ -59,8 +61,13 @@ result. Phases, each printing JSON lines:
      768), D = 1600 and bf16 rows with fp32 γ, each with the branch it
      took), on strided qkv views, errors relative to the reference's
      largest value, and two calls checked bit-identical; K1's and K6's
-     with the floor of their tensor-core split (7 products against the
-     bound's 5).
+     with the floor of their tensor-core split (9 products against the
+     bound's 5: S and dP twice in dq for delta = rowsum(P·dP)); and K1,
+     K2 (TSF-B, F = 4) and K6 (N = 576) at keys and values sharing a
+     common part 20x their spread, fp32 and bf16, dq, dck and dcv against
+     an fp64 autograd witness within 1% and 10% of its norm beside the
+     Pallas kernels' form's error, delta from the output as written
+     (``near_copy_keys``).
   4. model: CLIP_OPENAI_TIMESFORMER_BASE from a seeded generator, time
      attention given seeded noise (its zero init would make K2's check
      vacuous), embeddings on the kernel path against the plain functions
@@ -189,10 +196,29 @@ result. Phases, each printing JSON lines:
      patch tokens into the pooler), then the kernels-vs-plain checks
      alone with VCLM_OPENAI_VITB16_GPT2_LARGE (K9 at 1280 wide).
      vit_infer_narrator_cli: phase 9 with the ViT-L/14@336 narrator.
+ 21. gated_timesformer: TSF-B with ``timesformer_gated_xattn`` (the tanh
+     gate on the time attention, each block's ``alpha_timeattn`` and
+     time attention seeded): phase 4's checks at batch 8, two bf16 train
+     steps kernels vs plain at batch 8, the gates' gradients nonzero and
+     their parameters fp32 in the bf16 working copy, then
+     ``main_pretrain --timesformer-gated-xattn`` for 2 steps.
+ 22. remat_policies: TSF-L@336's bf16 train step at batch 32 under the
+     remat policies ``full``, ``dots``, ``save_attn`` and ``dots_attn``
+     from one set of weights: gradients against ``full``'s, launches (K6
+     and K2 forward 24 a step where the policy keeps the phases' outputs,
+     48 where the recompute runs them), step ms, busy ms, idle share and
+     peak memory (batch 16 where 32 does not fit).
+ 23. openai_init: a synthetic ViT-B/16 checkpoint in OpenAI's layout,
+     fetched from a ``file://`` URL into a temporary cache, loaded by
+     ``load_into_timesformer_dual_encoder`` into TSF-B, which then serves
+     as phase 4 at batch 8.
+ 24. resnet: ModifiedResNet RN50 at 224² (seeded weights and running
+     statistics) encoding batch 8 kernels vs plain, its attention pool
+     on K7, and images/s.
 
 Every path phase (5, 7, finetune_cli, ssl_pretrain_cli, classify_cli,
-large224_cli, 9, 9c, 10-13b, 15, 16's CLI, 19, vit_infer_narrator_cli)
-zeroes
+large224_cli, 9, 9c, 10-13b, 15, 16's CLI, 19, vit_infer_narrator_cli,
+21's CLI, 22's gradient steps, 23's and 24's bf16 encodes) zeroes
 the launch counters before it runs and reads them after; the kernel
 summary line sums those runs' counts (K1's, K2's and K6's also by
 branch: every divided-phase launch of a path runs bf16 at head_dim 64
@@ -733,15 +759,15 @@ def _keys(axis, F, N) -> int:
     return N + 1 if axis == "space" else F + 1
 
 
-def _phase_extras(args, run, library_call, out=None, do=None) -> dict:
+def _phase_extras(args, run, library_call, do=None) -> dict:
     """For a divided-phase case, K1's, K2's or K6's (``args`` the
-    forward's): the branch it took (with ``do`` and ``out`` the
-    backward's), and the profiler's device time of ``run`` and of the
+    forward's): the branch it took (with ``do`` the backward's), and the
+    profiler's device time of ``run`` and of the
     library call on the same input (``scripts/time_spatial_phase.py``),
     beside their event times."""
     from lavila_tpu_torch.kernels import divided as KD
     q, k, v, ck, cv, axis, H, _ = args
-    return {"branch": KD.phase_branch(q, k, v, ck, cv, axis, H, do, out),
+    return {"branch": KD.phase_branch(q, k, v, ck, cv, axis, H, do),
             "device_ms": profiled_ms(run),
             "library_device_ms": profiled_ms(library_call)}
 
@@ -1254,7 +1280,8 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     kernel, against the plain backward in fp32 on the same values, with
     :func:`_phase_extras`; K1's and K6's beside the bound with the floor
     of the tensor-core split, which recomputes S and dP in both of its
-    kernels (7 products against 5)."""
+    kernels, and twice in dq for delta = rowsum(P·dP) (9 products against
+    5)."""
     from lavila_tpu_torch.kernels import divided as KD
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
         dtype)
@@ -1279,12 +1306,12 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
     it, rows = q.element_size(), B * F * N
     lib = library().divided_bwd_call(q, k, v, ck, cv, do, axis, H)
     extras = _phase_extras(args[:5] + args[8:],
-                           lambda: KD.divided_phase_bwd(*args), lib, out, do)
+                           lambda: KD.divided_phase_bwd(*args), lib, do)
     if axis == "space":
-        extras["split_floor_ms"] = (14 * rows * _keys(axis, F, N) * D
+        extras["split_floor_ms"] = (18 * rows * _keys(axis, F, N) * D
                                     / PEAK_FLOPS[dtype] * 1e3)
-    # reads q, k, v, do, out, ck, cv, lse; writes dq, dk, dv, dck, dcv;
-    # five products (S, dP, dV, dQ, dK) of 2 operations per term
+    # reads q, k, v, do, ck, cv, lse (O is not needed); writes dq, dk, dv,
+    # dck, dcv; five products (S, dP, dV, dQ, dK) of 2 operations per term
     return {"rel_err": errs, "abs_err": abs_err, "tol": tol,
             "deterministic": deterministic,
             "ok": max(errs.values()) <= tol and deterministic
@@ -1292,9 +1319,61 @@ def _phase_bwd_case(axis, B, F, N, D, H, dtype, gen) -> dict:
             "ms": time_ms(lambda: KD.divided_phase_bwd(*args)),
             "plain_ms": time_ms(
                 lambda: KD.divided_phase_bwd_reference(*args)),
-            **bound((8 * rows * D + 4 * B * D) * it + rows * H * 4,
+            **bound((7 * rows * D + 4 * B * D) * it + rows * H * 4,
                     10 * rows * _keys(axis, F, N) * D, dtype),
             "library_ms": time_ms(lib)}
+
+
+def _near_copy_case(axis, B, F, N, D, H, dtype, gen) -> dict:
+    """K1/K2/K6 bwd at keys and values (the CLS rows among them) that
+    share a common part 20x their spread, against fp64 autograd through
+    the plain version on the same values: dq, dck and dcv within 10%
+    (bf16) or 1% (fp32) of the fp64 gradient's norm, the limits K8 is
+    held to there (``tests/test_torch_cuda_kernels.py``
+    ``test_divided_bwd_near_copy_keys``), beside the error of the Pallas
+    kernels' form (delta = rowsum(dO·O) from the output as the kernel wrote
+    it, the plain version in fp32)."""
+    from lavila_tpu_torch.kernels import divided as KD
+
+    def near_copies():
+        common = torch.randn(B, 1, 1, D, generator=gen, device=DEVICE)
+        return common + 0.05 * torch.randn(B, F, N, D, generator=gen,
+                                           device=DEVICE)
+    q = torch.randn(B, F, N, D, generator=gen, device=DEVICE).to(dtype)
+    kv = [near_copies() for _ in range(2)]
+    ck, cv = ((t[:, 0, 0] + 0.05 * torch.randn(B, D, generator=gen,
+                                                device=DEVICE)).to(dtype)
+              for t in kv)
+    k, v = (t.to(dtype) for t in kv)
+    do = torch.randn(B, F, N, D, generator=gen, device=DEVICE).to(dtype)
+    scale = (D // H) ** -0.5
+    ins = [t.double().requires_grad_() for t in (q, k, v, ck, cv)]
+    with torch.enable_grad():
+        ref, _ = KD.divided_phase_reference(*ins, axis, H, scale)
+        want = torch.autograd.grad(ref, ins, do.double())
+    del ref, ins
+    out, lse = KD.divided_phase(q, k, v, ck, cv, axis, H, scale)
+    got = KD.divided_phase_bwd(q, k, v, ck, cv, do, out, lse, axis, H,
+                               scale)
+    # the plain version on the same values in fp32: delta = rowsum(dO·O)
+    # from the output as the kernel wrote it (in bf16 rounded), the Pallas
+    # kernels' form
+    pallas_form = KD.divided_phase_bwd_reference(
+        *(t.float() for t in (q, k, v, ck, cv, do, out)), lse, axis, H,
+        scale)
+    names = {"dq": 0, "dck": 3, "dcv": 4}
+
+    def rel(gs):
+        return {n: ((gs[i].double() - want[i]).norm()
+                    / want[i].norm()).item() for n, i in names.items()}
+    errs = rel(got)
+    tol = 0.1 if dtype == torch.bfloat16 else 0.01
+    branch = KD.phase_branch(q, k, v, ck, cv, axis, H, do)
+    return {"rel_err_fp64": errs,
+            "pallas_form_rel_err_fp64": rel(pallas_form), "tol": tol,
+            "branch": branch,
+            "ok": max(errs.values()) <= tol
+            and _branch_ok(branch, dtype, D // H)}
 
 
 def _ln_bwd_branch(call) -> tuple:
@@ -1478,22 +1557,48 @@ def phase_kernels_bwd() -> dict:
             s = summary.setdefault(name, {"max_abs_err": 0.0})
             s["max_abs_err"] = max(s["max_abs_err"], res["abs_err"])
         torch.cuda.empty_cache()
+    # K1, K2 and K6 at near-copy keys, from their own generator
+    gen_copies = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, axis, shape in (("K1 bwd", "space", (8, 4, 196, 768, 12)),
+                                  ("K2 bwd", "time", (8, 4, 196, 768, 12)),
+                                  ("K6 bwd", "space",
+                                   (2, 4, 576, 1024, 16))):
+            res = _near_copy_case(axis, *shape, dtype, gen_copies)
+            emit("kernel_bwd", kernel=name, case="near_copy_keys",
+                 shape=list(shape), dtype=dname(dtype), **res)
+            check(res["ok"], f"{name} near-copy keys {shape} {dtype}: "
+                  f"errors against fp64 {res['rel_err_fp64']} > "
+                  f"{res['tol']} or branch {res['branch']}")
+            torch.cuda.empty_cache()
     return summary
 
 
 def _clip_model(m, **kw):
-    """Dual encoder ``m`` initialised on the card from a seeded generator,
-    its time attention (a TimeSformer's) given seeded noise."""
+    """Dual encoder ``m`` (with ``m["kw"]``, its zoo options)
+    initialised on the card from a seeded generator, its time attention
+    (a TimeSformer's) given seeded noise (:func:`_seed_time_attention`)."""
     from lavila_tpu_torch.models import build_model
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    model = build_model(m["name"], device=DEVICE, generator=gen, **kw)
-    with torch.no_grad():
-        for blk in getattr(model.visual, "blocks", ()):
-            for lin in (blk.timeattn.qkv, blk.timeattn.proj):
-                lin.weight.normal_(0.0, lin.in_features ** -0.5,
-                                   generator=gen)
-                lin.bias.normal_(0.0, 0.02, generator=gen)
+    model = build_model(m["name"], device=DEVICE, generator=gen,
+                        **m.get("kw", {}), **kw)
+    _seed_time_attention(model.visual, gen)
     return model
+
+
+@torch.no_grad()
+def _seed_time_attention(visual, gen) -> None:
+    """A TimeSformer's time attention given seeded noise, and each
+    block's tanh gate (where it has one) 0.5 + noise: at their zero init
+    the time attention's output is constant across channels, which the
+    norm after it removes, and the gate is tanh(0) = 0, so K2's and the
+    gate's checks would be vacuous."""
+    for blk in getattr(visual, "blocks", ()):
+        for lin in (blk.timeattn.qkv, blk.timeattn.proj):
+            lin.weight.normal_(0.0, lin.in_features ** -0.5, generator=gen)
+            lin.bias.normal_(0.0, 0.02, generator=gen)
+        if blk.alpha_timeattn is not None:
+            blk.alpha_timeattn.uniform_(0.4, 0.6, generator=gen)
 
 
 def _inputs(B, gen, size: int = 224, frames: int = 4):
@@ -1539,14 +1644,16 @@ def bert_vocab():
             yield
 
 
-def phase_model(m) -> None:
-    """Dual encoder ``m``: embeddings on the kernel path against the plain
-    path on the same weights (fp32, then bf16), launches per call, then
-    encode_image clips/s."""
+def phase_model(m, model=None) -> None:
+    """Dual encoder ``m`` (``model`` when given, else
+    :func:`_clip_model`'s): embeddings on the kernel path against the
+    plain path on the same weights (fp32, then bf16) at ``m["batch"]``
+    clips (4 by default), launches per call, then encode_image clips/s."""
     from lavila_tpu_torch.models.dual_encoder import l2_normalize
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    frames, text = _inputs(4, gen, m["img"])
-    model = _clip_model(m)
+    batch = m.get("batch", 4)
+    frames, text = _inputs(batch, gen, m["img"])
+    model = _clip_model(m) if model is None else model
     for dtype in (torch.float32, torch.bfloat16):
         model = model.to(dtype)
         with torch.inference_mode():
@@ -1574,7 +1681,8 @@ def phase_model(m) -> None:
             res[f"{name}_max_err"] = max_err(a, b)
             res[f"{name}_cos_min"] = (a * b).sum(-1).min().item()
             res[f"{name}_finite"] = bool(torch.isfinite(a).all())
-        emit("model", model=m["name"], dtype=dname(dtype), batch=4,
+        emit("model", model=m["name"], dtype=dname(dtype), batch=batch,
+             **({"kw": m["kw"]} if "kw" in m else {}),
              launches_per_encode_image=per_image,
              launches_per_encode_text=per_text, **res)
         check(res["image_finite"] and res["text_finite"],
@@ -2068,8 +2176,9 @@ def phase_train_step(m, batches: dict, throughput: tuple,
                   f"train step {name} kernels vs plain: {res}")
         del k_run, p_run
     del data
-    _train_throughput(base, gen, m, throughput,
-                      iters=5 if kind == "ssl" else 10, kind=kind)
+    if throughput:
+        _train_throughput(base, gen, m, throughput,
+                          iters=5 if kind == "ssl" else 10, kind=kind)
 
 
 def _time_steps(state, step_fn, data, iters: int) -> tuple:
@@ -3363,6 +3472,296 @@ def phase_eval_narrator_cli(n) -> dict:
     return total
 
 
+# ---- the single-device leftovers: the time gate, the remat policies,
+# the OpenAI-CLIP init, ModifiedResNet
+
+# TSF-B with the tanh gate on its time attention, served and trained at
+# batch 8
+GATED = dict(MODEL, kw={"timesformer_gated_xattn": True}, batch=8,
+             serve_batch=8)
+# the remat policies, and the forward launches of the divided phases a
+# policy's step makes per block: twice where the recompute runs them
+# again (full, dots), once where it keeps their outputs
+POLICY_PHASE_RUNS = {"full": 2, "dots": 2, "save_attn": 1, "dots_attn": 1}
+# RN50 (JAX lavila_tpu/models/resnet_clip.py defaults): 224², encoded at
+# batch 8
+RESNET = {"name": "ModifiedResNet RN50", "img": 224, "batch": 8,
+          "output": 1024}
+
+
+def phase_gated_timesformer() -> dict:
+    """TSF-B with ``timesformer_gated_xattn``, its gates and time
+    attention seeded: embeddings kernels vs plain at batch 8 (fp32 ≤
+    1e-3, bf16 cosine ≥ 0.999) and clips/s; two bf16 train steps kernels
+    vs plain at batch 8; the gate's gradient nonzero, its parameter fp32
+    in the bf16 working copy; then ``main_pretrain
+    --timesformer-gated-xattn`` for 2 steps, whose launches it returns."""
+    phase_model(GATED)
+    phase_train_step(GATED, {torch.bfloat16: 8}, (), "gated_train_step",
+                     SEED + 21)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    state, step_fn = _state_and_step("clip", _clip_model(GATED).train(),
+                                     torch.bfloat16)
+    state, metrics = step_fn(state, _train_batch(8, gen))
+    names = [f"visual.blocks.{i}.alpha_timeattn"
+             for i in range(GATED["depth"])]
+    work = dict(state.model.named_parameters())
+    grads = [state.params[n].grad for n in names]
+    emit("gated_timesformer", model=GATED["name"], dtype="bfloat16",
+         batch=8, loss=metrics["loss"].item(),
+         gate_dtype_working_copy=str(work[names[0]].dtype),
+         gate_grads=[g.item() for g in grads])
+    check(all(work[n].dtype == torch.float32 for n in names)
+          and all(g is not None and g.dtype == torch.float32
+                  and torch.isfinite(g) and g.item() != 0.0 for g in grads),
+          f"gated TSF-B: the gates' working-copy dtypes or gradients "
+          f"{[None if g is None else g.item() for g in grads]}")
+    del state
+    return phase_pretrain_cli(MODEL, 2, 8, ("--timesformer-gated-xattn",))
+
+
+def phase_remat_policies() -> dict:
+    """TSF-L@336's bf16 train step at batch 32 under each remat policy:
+    from the same weights and batch, one step's gradients against
+    ``full``'s (their largest difference, within the bf16 train-step
+    limits), its launches (K6 and K2 forward once a block where the
+    policy keeps the phases' outputs, twice where the recompute runs
+    them), then step ms by CUDA events over 2 steps, the profiler's busy
+    time and idle share, and the first step's peak memory. A policy that
+    does not fit at batch 32 runs at 16, and its line says so. Returns
+    the launches of the four gradient steps."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    base = _clip_model(LARGE).cpu()  # each policy's copy goes to the card
+    data = {b: _train_batch(b, gen, LARGE["img"]) for b in (32, 16)}
+    counts = dict.fromkeys(COUNTERS, 0)
+    ref = None
+    for policy in POLICY_PHASE_RUNS:
+        for batch in (32, 16):
+            model = copy.deepcopy(base).to(DEVICE)
+            model.visual.remat, model.visual.remat_policy = True, policy
+            state, step_fn = _state_and_step("clip", model.train(),
+                                             torch.bfloat16)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            try:
+                state, metrics = step_fn(state, data[batch])
+                torch.cuda.synchronize()
+                fits = True
+            except torch.cuda.OutOfMemoryError:
+                fits = False
+            if fits:
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                break
+            emit("remat_policies", policy=policy, batch=batch,
+                 out_of_memory=True)
+            del state, model
+        else:
+            check(False, f"remat policy {policy}: out of memory at 16")
+            continue
+        step = path_counts()
+        for k, n in step.items():
+            counts[k] += n
+        want = _step_launches(LARGE, remat=True)
+        want["K6"] = want["K2"] = POLICY_PHASE_RUNS[policy] * LARGE["depth"]
+        check_tensor_cores(f"TSF-L@336 bf16 step, remat {policy}", "K6",
+                           "K6 bwd", "K2", "K2 bwd")
+        check(step == want, f"remat {policy}: launches {step}, want {want}")
+        grads = {k: p.grad.float() for k, p in state.params.items()
+                 if p.grad is not None}
+        loss = metrics["loss"].item()
+        if policy == "full":
+            ref = (batch, loss, grads)
+            diff = {"loss_rel_err": 0.0, "grad_max_abs_diff": 0.0,
+                    "grad_cos_min": 1.0}
+        elif ref is not None and ref[0] == batch:
+            diff = {"loss_rel_err": abs(loss - ref[1]) / abs(ref[1]),
+                    "grad_max_abs_diff": max(
+                        max_err(g, ref[2][k]) for k, g in grads.items()),
+                    "grad_cos_min": min(
+                        torch.nn.functional.cosine_similarity(
+                            g.flatten(), ref[2][k].flatten(), dim=0).item()
+                        for k, g in grads.items() if g.dim() >= 2)}
+            check(diff["loss_rel_err"] <= 1e-2
+                  and diff["grad_cos_min"] >= 0.99,
+                  f"remat {policy} against full: {diff}")
+        else:
+            diff = {"against_full": "not compared: another batch"}
+        del grads
+        # 3 warm-up steps, 2 timed by CUDA events (step ms), 2 traced
+        prof = _profile(lambda: step_fn(state, data[batch]), iters=2)
+        emit("remat_policies", model=LARGE["name"], dtype="bfloat16",
+             policy=policy, batch=batch, step_ms=prof["ms_per_call"],
+             clips_per_s=batch * 1e3 / prof["ms_per_call"],
+             peak_memory_gib=peak, launches_per_step={
+                 k: step[k] for k in ("K6", "K2", "K6 bwd", "K2 bwd")},
+             **diff, **{k: prof[k] for k in (
+                 "device_busy_ms_per_call", "idle_share",
+                 "launches_per_call")})
+        del state, model
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _openai_vit_b16(gen) -> dict:
+    """A state dict in OpenAI's ViT-B/16 layout at its published widths,
+    seeded: the port's ``CLIP_OPENAI_VITB16`` (which keeps OpenAI's
+    names) drawn from ``gen``, with the three metadata entries of
+    OpenAI's archives beside it."""
+    from lavila_tpu_torch.models import build_model
+    sd = build_model("CLIP_OPENAI_VITB16", device=DEVICE,
+                     generator=gen).state_dict()
+    sd = {k: v.cpu() for k, v in sd.items()}
+    sd.update(input_resolution=torch.tensor(224),
+              context_length=torch.tensor(77), vocab_size=torch.tensor(49408))
+    return sd
+
+
+def phase_openai_init() -> dict:
+    """A synthetic OpenAI ViT-B/16 checkpoint saved into a temporary
+    ``LAVILA_CLIP_CACHE`` through the download path (``MODELS`` pointed
+    at a ``file://`` URL whose sha component is its digest), then
+    ``load_into_timesformer_dual_encoder`` into TSF-B: the visual weights
+    remapped, the text tower copied, the time attention left at its zero
+    init. With the time attention then seeded, TSF-B serves at batch 8
+    kernels vs plain (fp32 ≤ 1e-3, bf16 cosine ≥ 0.999) with clips/s.
+    Returns the launches of one bf16 encode_image at batch 8."""
+    import hashlib
+    import tempfile
+
+    from lavila_tpu_torch.models import build_model
+    from lavila_tpu_torch.models import openai_weights as OW
+    from lavila_tpu_torch.models.convert import count_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    sd = _openai_vit_b16(gen)
+    with tempfile.TemporaryDirectory() as root:
+        src = os.path.join(root, "src.pt")
+        torch.save(sd, src)
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        os.makedirs(os.path.join(root, digest))
+        os.replace(src, os.path.join(root, digest, "ViT-B-16.pt"))
+        url = f"file://{root}/{digest}/ViT-B-16.pt"
+        with mock.patch.dict(OW.MODELS, {"ViT-B/16": url}), \
+                mock.patch.object(OW, "CACHE_DIR",
+                                  os.path.join(root, "cache")):
+            model = build_model(MODEL["name"], device=DEVICE, generator=gen)
+            OW.load_into_timesformer_dual_encoder("ViT-B/16", model,
+                                                  layers=12, text_layers=12)
+            cached = os.path.exists(os.path.join(root, "cache",
+                                                 "ViT-B-16.pt"))
+    got = model.state_dict()
+    # the last video block and the last text block, 11 each
+    i = len(model.visual.blocks) - 1
+    j = count_layers(got, "transformer.resblocks.") - 1
+    blk = model.visual.blocks[i]
+    copied = {
+        "qkv": torch.equal(got[f"visual.blocks.{i}.attn.qkv.weight"].cpu(),
+                           sd[f"visual.transformer.resblocks.{i}.attn."
+                              "in_proj_weight"]),
+        "norm2": torch.equal(got[f"visual.blocks.{i}.norm2.bias"].cpu(),
+                             sd[f"visual.transformer.resblocks.{i}.ln_2."
+                                "bias"]),
+        "pos_embed": torch.equal(got["visual.pos_embed"][0].cpu(),
+                                 sd["visual.positional_embedding"]),
+        "text": torch.equal(got[f"transformer.resblocks.{j}.mlp.c_fc."
+                                "weight"].cpu(),
+                            sd[f"transformer.resblocks.{j}.mlp.c_fc."
+                               "weight"]),
+        "time_attention_zero": bool(
+            (blk.timeattn.qkv.weight == 0).all()
+            and (blk.timeattn.proj.weight == 1).all())}
+    emit("openai_init", model=MODEL["name"],
+         checkpoint="ViT-B/16 (synthetic, OpenAI's layout)",
+         downloaded_into_cache=cached, **copied)
+    check(cached and all(copied.values()),
+          f"OpenAI init of TSF-B: cached {cached}, copied {copied}")
+    _seed_time_attention(model.visual, gen)
+    phase_model(dict(MODEL, batch=8, serve_batch=8), model)
+    frames, _ = _inputs(8, gen)
+    with torch.inference_mode():
+        reset_launch_counts()
+        model.encode_image(frames)
+        torch.cuda.synchronize()
+    return path_counts()
+
+
+def _resnet(gen):
+    """RN50 on the card from ``gen``: the JAX initialisers, then its
+    norms' scales, shifts and running statistics seeded away from 1, 0,
+    0, 1."""
+    from lavila_tpu_torch.models.resnet_clip import BatchNorm, ModifiedResNet
+    with torch.device(DEVICE):
+        model = ModifiedResNet()
+    model.init_weights(gen)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, BatchNorm):
+                bn.weight.uniform_(0.8, 1.2, generator=gen)
+                bn.bias.normal_(0.0, 0.1, generator=gen)
+                bn.running_mean.normal_(0.0, 0.1, generator=gen)
+                bn.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model.eval()
+
+
+def phase_resnet() -> dict:
+    """RN50 (``models/resnet_clip.py``) at 224² with seeded weights and
+    running statistics: images encoded at batch 8 on the kernel path
+    against the plain path (fp32 ≤ 1e-3, bf16 cosine ≥ 0.999 on the
+    normalised features), the attention pool's K7 launch counted, then
+    images/s kernels/plain/plain/kernels in bf16. Returns the launches
+    of one bf16 encode."""
+    from lavila_tpu_torch.models.dual_encoder import l2_normalize
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    model = _resnet(gen)
+    B = RESNET["batch"]
+    size = RESNET["img"]
+    images = torch.randn(B, size, size, 3, generator=gen, device=DEVICE)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = model.to(dtype)
+        with torch.inference_mode():
+            reset_launch_counts()
+            got = model(images)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                counts = path_counts()
+                check_flash_tc("RN50 bf16 attention pool")
+            else:
+                counts = launch_counts()
+            with plain_path():
+                ref = model(images)
+        a, b = l2_normalize(got.float()), l2_normalize(ref.float())
+        res = {"max_err": max_err(a, b),
+               "cos_min": (a * b).sum(-1).min().item(),
+               "finite": bool(torch.isfinite(got).all()),
+               "shape": list(got.shape)}
+        emit("resnet", model=RESNET["name"], dtype=dname(dtype), batch=B,
+             launches_per_encode=counts, **res)
+        check(res["finite"] and res["shape"] == [B, RESNET["output"]]
+              and counts == {**dict.fromkeys(COUNTERS, 0), "K7": 1},
+              f"RN50 {dtype}: {res}, launches {counts}")
+        check(res["max_err"] <= 1e-3 if dtype == torch.float32
+              else res["cos_min"] >= 0.999,
+              f"RN50 {dtype} kernels vs plain: {res}")
+    rates = {}
+    with torch.inference_mode():
+        for run in ("kernels", "plain", "plain", "kernels"):
+            with plain_path() if run == "plain" else nullcontext():
+                for _ in range(2):
+                    model(images)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    model(images)
+                torch.cuda.synchronize()
+            rates.setdefault(run, []).append(
+                B * 10 / (time.perf_counter() - t0))
+    emit("throughput", what="images/s", model=RESNET["name"],
+         dtype="bfloat16", batch=B, iters=10,
+         order="kernels, plain, plain, kernels", images_per_s=rates)
+    return counts
+
+
 KERNELS = [
     ("K1", "divided_space_fwd", "cuda", "lavila_tpu_torch/csrc/divided_fwd.cu",
      "lavila_tpu/ops/pallas/divided.py:47"),
@@ -3469,13 +3868,19 @@ PHASES = (
         phase_narrator(VIT_NARRATOR_LARGE, measure=False))),
     ("vit_infer_narrator_cli",
      lambda: phase_infer_narrator_cli(VIT_NARRATOR)),
+    ("gated_timesformer", phase_gated_timesformer),
+    ("remat_policies", phase_remat_policies),
+    ("openai_init", phase_openai_init),
+    ("resnet", phase_resnet),
 )
 PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
                "classify_cli", "large224_cli",
                "infer_narrator_cli", "eval_narrator_cli", "large_cli",
                "large_pretrain_cli", "flagship_infer_narrator_cli",
                "vclm_pretrain_cli", "distilbert_cli",
-               "distilbert_pretrain_cli", "vit_cli", "vit_infer_narrator_cli")
+               "distilbert_pretrain_cli", "vit_cli", "vit_infer_narrator_cli",
+               "gated_timesformer", "remat_policies", "openai_init",
+               "resnet")
 
 
 def main() -> int:

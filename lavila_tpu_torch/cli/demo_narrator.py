@@ -8,8 +8,7 @@ sampling (``VCLM.generate``) or a beam decoder of ``models/beam.py``:
 ``beam``, ``beam_sample`` or ``group_beam``. ``--checkpoint`` reads a
 narrator ``.pt``/``.pth``, released or written by the port's
 ``main_pretrain``; without one the weights are seeded random.
-``--third-person``, which the JAX demo takes and never reads, is not
-taken.
+``--third-person`` is taken and, as in the JAX demo, never read.
 Without ``--video-path`` a synthetic clip is written to the temporary
 directory and captioned. Without the GPT-2 BPE files captions print as
 raw token ids.
@@ -59,6 +58,9 @@ def get_args_parser():
                         "JAX demo's)")
     p.add_argument("--num-beam-groups", type=int, default=3)
     p.add_argument("--length-penalty", type=float, default=1.0)
+    p.add_argument("--third-person", action="store_true",
+                   help="accepted as the JAX demo takes it, unread there "
+                        "too")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--device", default="cuda",

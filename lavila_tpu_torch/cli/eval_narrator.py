@@ -25,7 +25,10 @@ the mean teacher-forced perplexity print as one JSON line and go to
 
 Weights are seeded random (``--seed``) unless ``--checkpoint`` (else
 ``checkpoint_best.pt`` under ``--output-dir``) names a narrator
-``.pt``/``.pth``, released or written by the port's ``main_pretrain``.
+``.pt``/``.pth``, released, written by the port's ``main_pretrain`` or
+exported from a JAX run by ``scripts/export_jax_checkpoint.py``.
+``--early-stop`` and ``--sparse-sample`` are taken and change nothing,
+as in the JAX CLI.
 
     python -m lavila_tpu_torch.cli.eval_narrator --dataset ego4d \\
         --root datasets/Ego4D/video_288px \\
@@ -103,6 +106,12 @@ def get_args_parser():
                         "reference's multi-view branch cannot be scored")
     p.add_argument("--num-crops", type=int, default=1,
                    help="see --num-clips")
+    p.add_argument("--early-stop", action="store_true",
+                   help="accepted as the JAX CLI takes it: decoding always "
+                        "stops once every row has sampled EOS")
+    p.add_argument("--sparse-sample", action="store_true",
+                   help="accepted as the JAX CLI takes it, unread there "
+                        "too (the reference evaluates dense clips)")
     p.add_argument("--print-freq", type=int, default=10)
     p.add_argument("--max-samples", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)

@@ -11,8 +11,9 @@ Everything runs under ``torch.inference_mode()``.
 ``--device`` (default ``cuda``) names the device; with ``cuda`` and no
 card it raises. ``--bf16`` casts the model to bf16. Checkpoints are
 reference ``.pt``/``.pth`` files or the port's own from
-``main_pretrain`` (their JSON sidecar names the model); the JAX
-package's Orbax checkpoints are not ported yet (ROADMAP).
+``main_pretrain`` (their JSON sidecar names the model); a JAX run's
+Orbax checkpoint loads once ``scripts/export_jax_checkpoint.py`` has
+written it as such a ``.pt`` and sidecar.
 
 The DistilBERT dual encoders (``*_DISTILBERT_BASE``) take each caption's
 attention mask beside its ids, where the JAX CLI passes it: the
@@ -127,8 +128,9 @@ def load_model_from_checkpoint(args):
     if args.checkpoint:
         if not args.checkpoint.endswith((".pt", ".pth")):
             raise NotImplementedError(
-                f"{args.checkpoint}: only reference .pt/.pth checkpoints "
-                "load into the port: ROADMAP queue 1: Orbax checkpoints")
+                f"{args.checkpoint}: only .pt/.pth checkpoints load into "
+                "the port; write a JAX run's Orbax checkpoint as one with "
+                "scripts/export_jax_checkpoint.py")
         meta_path = args.checkpoint + ".json"
         if osp.exists(meta_path):
             with open(meta_path) as f:
@@ -137,10 +139,6 @@ def load_model_from_checkpoint(args):
     config.setdefault("model", model_name)
     config.setdefault("clip_length", args.clip_length)
     kw = model_kwargs_from_config(argparse.Namespace(**config))
-    if kw.pop("timesformer_gated_xattn"):
-        raise NotImplementedError(
-            "timesformer_gated_xattn is not ported: ROADMAP queue 1: "
-            "timesformer_gated_xattn")
     for name in ("drop_path_rate", "remat", "remat_policy"):
         kw.pop(name)  # training-only: no effect on an eval forward
     dtype = torch.bfloat16 if getattr(args, "bf16", False) else \

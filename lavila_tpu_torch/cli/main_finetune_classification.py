@@ -29,8 +29,11 @@ Run without data:
         --clip-length 4 --batch-size 4 --steps 2 --device cpu \\
         --output-dir /tmp/cls
 
-The remat policies other than ``full`` raise, naming their ROADMAP
-queue 1 subject.
+``--use-checkpoint`` recomputes the video tower's blocks under
+``--remat-policy`` (``full``, ``dots``, ``save_attn``, ``dots_attn``:
+``models/timesformer.py``). A JAX run's Orbax checkpoint serves as
+``--pretrain-model`` once ``scripts/export_jax_checkpoint.py`` has written
+it as a ``.pt``.
 """
 
 from __future__ import annotations
@@ -145,14 +148,6 @@ def get_args_parser():
     return p
 
 
-def _check_ported(args) -> None:
-    if args.use_checkpoint and args.remat_policy != "full":
-        raise NotImplementedError(
-            f"--remat-policy {args.remat_policy} is not ported to "
-            "lavila_tpu_torch yet (remat policy full only): ROADMAP queue "
-            "1: the remat policies")
-
-
 class SyntheticClassDataset(VideoCaptionDataset):
     """The synthetic clips, clip ``i`` of class ``i % num_classes``."""
 
@@ -204,11 +199,6 @@ def build_classifier(args, heads, device: torch.device):
     config["use_checkpoint"] = args.use_checkpoint
     config["remat_policy"] = args.remat_policy
     kw = model_kwargs_from_config(argparse.Namespace(**config))
-    if kw.pop("timesformer_gated_xattn"):
-        raise NotImplementedError(
-            "timesformer_gated_xattn is not ported: ROADMAP queue 1: "
-            "timesformer_gated_xattn")
-    kw.pop("remat_policy")  # only 'full' passes _check_ported
     gen = torch.Generator().manual_seed(args.seed)
     vision = build_model(config["model"], device=device, generator=gen,
                          **kw).visual
@@ -303,7 +293,6 @@ def make_place(device: torch.device, multihead_parts, multihead: bool):
 
 
 def main(args):
-    _check_ported(args)
     device = ez.resolve_device(args.device)
     random_seed(args.seed, 0)
     labels, mapping, num_classes, multihead_parts, heads = label_space(args)

@@ -28,9 +28,12 @@ Run without data:
         --clip-length 4 --batch-size 4 --steps 2 --device cpu \\
         --output-dir /tmp/ft
 
-``--wandb`` logs to Weights & Biases where it can start. The remat
-policies other than ``full`` raise, naming their ROADMAP queue 1
-subject.
+``--wandb`` logs to Weights & Biases where it can start.
+``--use-checkpoint`` recomputes the video tower's blocks under
+``--remat-policy`` (``full``, ``dots``, ``save_attn``, ``dots_attn``:
+``models/timesformer.py``). ``--pretrain-model`` reads a reference or
+port ``.pt``; a JAX run's Orbax checkpoint loads once
+``scripts/export_jax_checkpoint.py`` has written it as one.
 """
 
 from __future__ import annotations
@@ -137,14 +140,6 @@ def get_args_parser():
     return p
 
 
-def _check_ported(args) -> None:
-    if args.use_checkpoint and args.remat_policy != "full":
-        raise NotImplementedError(
-            f"--remat-policy {args.remat_policy} is not ported to "
-            "lavila_tpu_torch yet (remat policy full only): ROADMAP queue "
-            "1: the remat policies")
-
-
 def build_finetune_model(args, device: torch.device):
     """The dual encoder of the run (fp32, train mode): its config from
     the pretrain checkpoint's sidecar (else ``--model``), the fine-tune's
@@ -160,11 +155,6 @@ def build_finetune_model(args, device: torch.device):
     config["use_checkpoint"] = args.use_checkpoint
     config["remat_policy"] = args.remat_policy
     kw = model_kwargs_from_config(argparse.Namespace(**config))
-    if kw.pop("timesformer_gated_xattn"):
-        raise NotImplementedError(
-            "timesformer_gated_xattn is not ported: ROADMAP queue 1: "
-            "timesformer_gated_xattn")
-    kw.pop("remat_policy")  # only 'full' passes _check_ported
     model = build_model(config["model"], device=device, train=True,
                         generator=torch.Generator().manual_seed(args.seed),
                         **kw)
@@ -216,7 +206,6 @@ def validate(args, model, tokenizer, model_name) -> tuple[dict, float]:
 
 
 def main(args):
-    _check_ported(args)
     device = ez.resolve_device(args.device)
     random_seed(args.seed, 0)
     model, config = build_finetune_model(args, device)

@@ -17,11 +17,13 @@ queue 1: multi-GPU.
 
 Weights are seeded random (``--seed``, drawn on ``--device``) unless
 ``--checkpoint`` names a narrator ``.pt``/``.pth``: a released one, or
-one the port's ``main_pretrain`` wrote (``--gated-xattn``); its tower
+one the port's ``main_pretrain`` wrote (``--gated-xattn``), or a JAX
+run's written as one by ``scripts/export_jax_checkpoint.py``; its tower
 depths must match ``--model``. Without the GPT-2 BPE files (looked up
 under ``$LAVILA_TOKENIZER_DIR``) captions are printed as raw token ids,
-as the JAX CLI does. ``--early-stop`` is not taken: it changes nothing
-in the JAX CLI (decoding always stops once every row has sampled EOS).
+as the JAX CLI does. ``--early-stop`` is taken and changes nothing, as
+in the JAX CLI (decoding always stops once every row has sampled
+EOS).
 
     python -m lavila_tpu_torch.cli.main_infer_narrator --dataset synthetic \\
         --model VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL --bf16
@@ -89,6 +91,9 @@ def get_args_parser():
     p.add_argument("--top-p", type=float, default=0.95)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--max-text-length", type=int, default=77)
+    p.add_argument("--early-stop", action="store_true",
+                   help="accepted as the JAX CLI takes it: decoding always "
+                        "stops once every row has sampled EOS")
     p.add_argument("--print-freq", type=int, default=10)
     p.add_argument("--max-samples", type=int, default=0)
     p.add_argument("--output-dir", default="narrator_out")
@@ -122,8 +127,9 @@ def narrator_checkpoint(path: str, num_frames: int) -> dict:
     checkpoint also holds the optimizer's moments."""
     if not path.endswith((".pt", ".pth")):
         raise NotImplementedError(
-            f"{path}: only .pt/.pth checkpoints load into the port: "
-            "ROADMAP queue 1: Orbax checkpoints")
+            f"{path}: only .pt/.pth checkpoints load into the port; write "
+            "a JAX run's Orbax checkpoint as one with "
+            "scripts/export_jax_checkpoint.py")
     # released checkpoints pickle their argparse namespace beside the
     # weights, which weights_only=True refuses
     ckpt = torch.load(path, map_location="cpu", weights_only=False,

@@ -9,7 +9,10 @@ modules of ``lavila_tpu``; each host batch is staged one step ahead by
 ``device_prefetch`` into pinned memory and copied without blocking. The
 step is ``lavila_tpu_torch.train.step`` (bf16 compute on fp32 masters,
 ``--disable-amp`` for fp32 throughout; ``--use-checkpoint`` recomputes
-each video block in the backward, remat policy ``full``; a DistilBERT
+each video block in the backward under ``--remat-policy``: ``full``,
+``dots``, ``save_attn`` or ``dots_attn``, ``models/timesformer.py``;
+``--timesformer-gated-xattn`` puts the tanh gate on the TimeSformer's
+time attention; a DistilBERT
 model's text mask is placed beside its ids, as the JAX CLI does);
 checkpoints
 are torch files with
@@ -99,11 +102,6 @@ _NOT_PORTED = (
      "multi-GPU"),
     (lambda c: c.mesh_model > 1, "--mesh-model > 1", "multi-GPU"),
     (lambda c: c.mesh_data not in (-1, 1), "--mesh-data > 1", "multi-GPU"),
-    (lambda c: c.use_checkpoint and c.remat_policy != "full",
-     "--remat-policy other than full (remat)",
-     "the remat policies"),
-    (lambda c: c.timesformer_gated_xattn, "--timesformer-gated-xattn",
-     "timesformer_gated_xattn"),
 )
 
 
@@ -171,8 +169,6 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     print(f"=> building model {cfg.model} (compute dtype "
           f"{str(dtype).removeprefix('torch.')})")
     kw = model_kwargs_from_config(cfg)
-    kw.pop("timesformer_gated_xattn")  # raises above when set
-    kw.pop("remat_policy")  # only 'full' passes check_ported
     if is_vclm:  # the JAX narrators ignore it
         kw.pop("drop_path_rate")
     # the weights are drawn on the device: seconds there for the 2.4 B

@@ -17,6 +17,7 @@
 #include <dlfcn.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace lavila {
 
@@ -24,6 +25,14 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+// The divided phases' SIMT backward (divided_bwd.cu, divided_big.cu) takes
+// delta = rowsum(dO * O) from the forward's O where O is fp32, the Pallas
+// kernels' form, and rowsum(P * dP) over the P it recomputes in bf16,
+// where O's rounding leaves a residue that dq = dS K keeps at near-copy
+// keys (divided_bwd.cu says how large).
+template <typename T>
+constexpr bool kDeltaFromOut = std::is_same<T, float>::value;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -875,13 +884,12 @@ cudaError_t launch_space_tc(const void* q, const void* k, const void* v,
                             cudaStream_t stream);
 bool space_bwd_tc_fits(const void* q, const void* k, const void* v,
                        const void* ck, const void* cv, const void* dout,
-                       const void* out, int N, int d, long long q_rs,
-                       long long k_rs, long long v_rs, long long ck_rs,
-                       long long cv_rs);
+                       int N, int d, long long q_rs, long long k_rs,
+                       long long v_rs, long long ck_rs, long long cv_rs);
 cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
                                 const void* ck, const void* cv,
-                                const void* dout, const void* out,
-                                const void* lse, void* stats, void* dq,
+                                const void* dout, const void* lse,
+                                void* stats, void* dq,
                                 void* dk, void* dv, void* dck, void* dcv,
                                 void* part_k, void* part_v, int B, int F,
                                 int N, int H, long long q_rs, long long k_rs,

@@ -8,9 +8,10 @@
 // (divided_fwd.cu): q/k/v (B, F, N, D = H*d) as row views with a row
 // stride, the CLS key/value rows ck/cv (B, D) folded into every frame's
 // softmax; the forward writes out (B, F, N, D) contiguous and the per-row
-// log-sum-exp lse (B, F, N, H) fp32; the backward takes dO, O and lse
-// contiguous and writes dq/dk/dv (B, F, N, D) contiguous and dck/dcv
-// (B, D). Inputs are fp32 or bf16; scores, softmax and sums are fp32.
+// log-sum-exp lse (B, F, N, H) fp32; the backward takes dO, O (read in
+// fp32 only) and lse contiguous and writes dq/dk/dv (B, F, N, D)
+// contiguous and dck/dcv (B, D). Inputs are fp32 or bf16; scores, softmax
+// and sums are fp32.
 //
 // The caller picks one of two routes (kernels/divided.py asks for the
 // tensor cores by the `tc` argument; the entry points refuse a call they
@@ -33,13 +34,15 @@
 //    0 of the first tile is the CLS key and the last tile (577 = 9*64 + 1)
 //    masks its tail, so no row is ever fully masked.
 //
-// SIMT backward: FlashAttention-2's split. A delta pass writes
-// rowsum(dO*O) per (row, head); a dq kernel walks the key tiles for 64
-// queries; a dk/dv kernel walks the query tiles for 64 keys, P recomputed
-// from the saved lse. Key 0 of the dk/dv kernel is the CLS key: its rows
-// are written as fp32 per-(clip, frame) partials and a second pass adds
-// them over the frames in a fixed order. No atomics: two calls give the
-// same bits.
+// SIMT backward: FlashAttention-2's split. delta per (row, head) is
+// rowsum(dO*O) in fp32, from a pass over the rows (the Pallas kernels'
+// form), and rowsum(P*dP) in bf16, from a first walk of the dq kernel
+// over the key tiles (divided_bwd.cu says why); the dq kernel walks the
+// key tiles for 64 queries, the dk/dv kernel the query tiles for 64 keys,
+// P recomputed from the saved lse. Key 0 of the dk/dv kernel is the CLS
+// key: its rows are written as fp32 per-(clip, frame) partials and a
+// second pass adds them over the frames in a fixed order. No atomics: two
+// calls give the same bits.
 
 #include <math.h>
 
@@ -49,6 +52,7 @@ namespace {
 
 using lavila::allow_smem;
 using lavila::from_float;
+using lavila::kDeltaFromOut;
 using lavila::launch_sum_groups;
 using lavila::to_float;
 using lavila::warp_max;
@@ -197,18 +201,17 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// delta[i] = sum over the d dims of row i of dO * O (one row = one token's
-// head): one thread per (token, head).
-template <typename T>
-__global__ void delta_kernel(const T* __restrict__ dout,
-                             const T* __restrict__ out,
+// fp32: delta[i] = sum over the d dims of row i of dO * O (one row = one
+// token's head), one thread per (token, head).
+__global__ void delta_kernel(const float* __restrict__ dout,
+                             const float* __restrict__ out,
                              float* __restrict__ delta, long long n, int d) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const T* g = dout + i * d;
-  const T* o = out + i * d;
+  const float* g = dout + i * d;
+  const float* o = out + i * d;
   float s = 0.f;
-  for (int c = 0; c < d; ++c) s = fmaf(to_float(g[c]), to_float(o[c]), s);
+  for (int c = 0; c < d; ++c) s = fmaf(g[c], o[c], s);
   delta[i] = s;
 }
 
@@ -221,14 +224,16 @@ size_t dq_smem_bytes(int d) {
 }
 
 // dq: grid (ceil(N/64), H, B*F), kWarps*32 threads; warp w owns query rows
-// 8w..8w+7 of the block.
+// 8w..8w+7 of the block. fp32 reads delta; bf16 walks the key tiles twice:
+// the first sums (and writes) their delta = rowsum(P * dP), the second
+// forms dS and dq.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     big_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ ck,
                       const T* __restrict__ cv, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dq,
+                      float* __restrict__ delta, T* __restrict__ dq,
                       int F, int N, int H, int d, long long q_rs,
                       long long k_rs, long long v_rs, long long ck_rs,
                       long long cv_rs, float scale) {
@@ -252,52 +257,66 @@ __global__ void __launch_bounds__(kWarps * 32)
                N - n_base, scale);
   stage_f32<T>(gs, d, nullptr, 0, dout, D, b, frame_row + n_base, col, d, 0,
                N - n_base, 1.f);
-  // padded rows: q = dO = 0 and delta = 0, so dS = 0 there
+  // padded rows: q = dO = 0, so dP = 0, delta = 0 and dS = 0 there
   float lr[kRowsPerWarp], dr[kRowsPerWarp], acc[kRowsPerWarp][kMaxDimsPerLane];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int n = n_base + warp * kRowsPerWarp + r;
     lr[r] = n < N ? lse[(frame_row + n) * H + h] : 0.f;
-    dr[r] = n < N ? delta[(frame_row + n) * H + h] : 0.f;
+    dr[r] = kDeltaFromOut<T> && n < N ? delta[(frame_row + n) * H + h] : 0.f;
 #pragma unroll
     for (int i = 0; i < kMaxDimsPerLane; ++i) acc[r][i] = 0.f;
   }
 
-  for (int kt = 0; kt * kTile < L; ++kt) {
-    __syncthreads();
-    stage_f32<T>(ks, ld, ck, ck_rs, k, k_rs, b, frame_row, col, d,
-                 kt * kTile, L, 1.f);
-    stage_f32<T>(vs, ld, cv, cv_rs, v, v_rs, b, frame_row, col, d,
-                 kt * kTile, L, 1.f);
-    __syncthreads();
+  for (int pass = kDeltaFromOut<T> ? 1 : 0; pass < 2; ++pass) {
+    for (int kt = 0; kt * kTile < L; ++kt) {
+      __syncthreads();
+      stage_f32<T>(ks, ld, ck, ck_rs, k, k_rs, b, frame_row, col, d,
+                   kt * kTile, L, 1.f);
+      stage_f32<T>(vs, ld, cv, cv_rs, v, v_rs, b, frame_row, col, d,
+                   kt * kTile, L, 1.f);
+      __syncthreads();
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float* qr = qs + (warp * kRowsPerWarp + r) * d;
-      const float* gr = gs + (warp * kRowsPerWarp + r) * d;
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float* qr = qs + (warp * kRowsPerWarp + r) * d;
+        const float* gr = gs + (warp * kRowsPerWarp + r) * d;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int jj = lane + 32 * e;
-        const float* kr = ks + jj * ld;
-        const float* vr = vs + jj * ld;
-        float s = 0.f, dp = 0.f;
-        for (int c = 0; c < d; ++c) {
-          s = fmaf(qr[c], kr[c], s);
-          dp = fmaf(gr[c], vr[c], dp);
+        for (int e = 0; e < 2; ++e) {
+          const int jj = lane + 32 * e;
+          const float* kr = ks + jj * ld;
+          const float* vr = vs + jj * ld;
+          float s = 0.f, dp = 0.f;
+          for (int c = 0; c < d; ++c) {
+            s = fmaf(qr[c], kr[c], s);
+            dp = fmaf(gr[c], vr[c], dp);
+          }
+          const float p = kt * kTile + jj < L ? expf(s - lr[r]) : 0.f;
+          if (pass == 0)
+            dr[r] = fmaf(p, dp, dr[r]);  // this lane's keys
+          else
+            sw[jj] = p * (dp - dr[r]);
         }
-        sw[jj] = kt * kTile + jj < L ? expf(s - lr[r]) * (dp - dr[r]) : 0.f;
-      }
-      __syncwarp();
+        if (pass == 0) continue;
+        __syncwarp();
 #pragma unroll
-      for (int i = 0; i < kMaxDimsPerLane; ++i) {
-        const int c = lane + 32 * i;
-        if (c < d) {
-          float a = acc[r][i];
-          for (int jj = 0; jj < kTile; ++jj)
-            a = fmaf(sw[jj], ks[jj * ld + c], a);
-          acc[r][i] = a;
+        for (int i = 0; i < kMaxDimsPerLane; ++i) {
+          const int c = lane + 32 * i;
+          if (c < d) {
+            float a = acc[r][i];
+            for (int jj = 0; jj < kTile; ++jj)
+              a = fmaf(sw[jj], ks[jj * ld + c], a);
+            acc[r][i] = a;
+          }
         }
+        __syncwarp();  // sw is rewritten by the next row
       }
-      __syncwarp();  // sw is rewritten by the next row
+    }
+    if (pass == 1) break;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {  // delta over the warp
+      const int n = n_base + warp * kRowsPerWarp + r;
+      dr[r] = warp_sum(dr[r]);
+      if (n < N && lane == 0) delta[(frame_row + n) * H + h] = dr[r];
     }
   }
 
@@ -469,19 +488,21 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        int d, long long q_rs, long long k_rs, long long v_rs,
                        long long ck_rs, long long cv_rs, float scale,
                        cudaStream_t stream) {
-  const long long rows = (long long)B * F * N * H;
-  delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
-      (const T*)dout, (const T*)out, (float*)delta, rows, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
+  if constexpr (kDeltaFromOut<T>) {
+    const long long rows = (long long)B * F * N * H;
+    delta_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
+        (const float*)dout, (const float*)out, (float*)delta, rows, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   size_t smem = dq_smem_bytes(d);
   if ((err = allow_smem(big_bwd_dq_kernel<T>, smem)) != cudaSuccess)
     return err;
   big_bwd_dq_kernel<T><<<grid(N, kTile, H, B, F), kWarps * 32, smem,
                           stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)ck, (const T*)cv,
-      (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, F, N,
-      H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
+      (const T*)dout, (const float*)lse, (float*)delta, (T*)dq, F, N, H, d,
+      q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = dkv_smem_bytes(d);
   if ((err = allow_smem(big_bwd_dkv_kernel<T>, smem)) != cudaSuccess)
@@ -551,11 +572,11 @@ int lavila_divided_space_big_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (tc) {
     if (dtype != 1 ||
-        !lavila::space_bwd_tc_fits(q, k, v, ck, cv, dout, out, N, d, q_rs,
-                                   k_rs, v_rs, ck_rs, cv_rs))
+        !lavila::space_bwd_tc_fits(q, k, v, ck, cv, dout, N, d, q_rs, k_rs,
+                                   v_rs, ck_rs, cv_rs))
       return (int)cudaErrorInvalidValue;
     return (int)lavila::launch_space_bwd_tc(
-        q, k, v, ck, cv, dout, out, lse, stats, dq, dk, dv, dck, dcv, part_k,
+        q, k, v, ck, cv, dout, lse, stats, dq, dk, dv, dck, dcv, part_k,
         part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
   }
   if (dtype == 0)

@@ -5,15 +5,32 @@
 // _phase_bwd. Same contract as the forward (divided_fwd.cu): q/k/v
 // (B, F, N, D = H*d) as row views with a row stride, the CLS key/value
 // rows ck/cv (B, D) folded into every group's softmax; plus dO, the
-// forward's O and its per-row log-sum-exp lse (B, F, N, H) fp32, all
-// contiguous. Outputs dq/dk/dv (B, F, N, D) contiguous in the input dtype
-// and dck/dcv (B, D): the CLS key/value rows get a gradient from every
-// group. Inputs are fp32 or bf16; every product and sum is fp32.
+// forward's O (read by the fp32 kernels only) and its per-row
+// log-sum-exp lse (B, F, N, H) fp32, all contiguous. Outputs dq/dk/dv
+// (B, F, N, D) contiguous in the input dtype and dck/dcv (B, D): the CLS
+// key/value rows get a gradient from every group. Inputs are fp32 or
+// bf16; every product and sum is fp32.
 //
 // Per query row, with P = exp(scale*q.K^T - lse) recomputed from the
-// saved lse (no probability was kept), dP = dO.V^T and
-// delta = rowsum(dO*O): dS = P*(dP - delta), dq = scale*dS.K,
-// dK = scale*dS^T.Q, dV = P^T.dO.
+// saved lse (no probability was kept), dP = dO.V^T and delta: dS = P*(dP
+// - delta), dq = scale*dS.K, dK = scale*dS^T.Q, dV = P^T.dO.
+//
+// delta: in bf16, rowsum(P*dP) over the CLS key and the group's keys,
+// summed from the same P that forms dS in a pass over the keys before dS;
+// in fp32, rowsum(dO*O) from the forward's O, the Pallas kernels' form
+// (lavila::kDeltaFromOut). The two agree in exact arithmetic, but dq =
+// dS.K cancels wherever the keys share a large common part, and keeps
+// whatever sum(dS) != 0 the delta leaves times that part. From the
+// forward's O rounded to bf16, that residue made the plain version's bf16
+// dq 9.0x (space, N = 196) and 1.3x (time, F = 4) the fp64 gradient's norm
+// at keys and values that share a part 20x their spread (as K8's, which
+// took rowsum(P*dP) first, flash_attention.cu); from the same P it is fp32
+// rounding. From an fp32 O the residue is fp32 rounding too (dq 1.2e-3 of
+// the fp64 norm there, against P*dP's 1.1e-3), so fp32 keeps the form,
+// and the bits, that the fp32 recipes were checked with. The pass costs
+// the spatial phase's dq kernels two more products a key tile (S and dP
+// again); K2's tensor-core kernel holds a row's keys at once and sums it
+// in registers.
 //
 // Determinism: blocks run in no order, so nothing is summed across blocks
 // with atomics. The CLS rows' gradient of each group (or tile of groups)
@@ -46,15 +63,17 @@
 //    other side's 64-row tiles through a ring of kTcStages slots that it
 //    refills once every live warpgroup released a slot
 //    (lavila::sm90::Ring).
-//    - dq kernel (a warpgroup owns 64 queries; Q, dO and O stay in shared
-//      memory): per row delta = rowsum(dO*O), P_cls and dS_cls from the
-//      CLS key; the tile's lse (log2 domain; +inf on padded rows) and
-//      delta go to the fp32 scratch `stats` for the dk/dv kernel (no
-//      separate delta pass), its share of dck = scale sum dS_cls q and
-//      dcv = sum P_cls dO to the partials (B, F*ceil(N/64), D). Per key
-//      tile: S = Q K^T and dP = dO V^T (SS, K and V K-major), dS = P (dP -
-//      delta) in registers, dq += dS K (RS: dS rounded to bf16 is the A
-//      fragment, K read MN-major); dq = scale (dS K + dS_cls ck). In
+//    - dq kernel (a warpgroup owns 64 queries; Q and dO stay in shared
+//      memory): per row P_cls and dP_cls from the CLS key; then two walks
+//      over the frame's key tiles, which the producer streams twice. The
+//      first sums delta = P_cls dP_cls + rowsum(P dP) (S = Q K^T and dP =
+//      dO V^T, SS, K and V K-major); the tile's lse (log2 domain; +inf on
+//      padded rows) and delta then go to the fp32 scratch `stats` for the
+//      dk/dv kernel, its share of dck = scale sum dS_cls q and dcv = sum
+//      P_cls dO to the partials (B, F*ceil(N/64), D). The second, per key
+//      tile: S and dP again, dS = P (dP - delta) in registers, dq += dS K
+//      (RS: dS rounded to bf16 is the A fragment, K read MN-major); dq =
+//      scale (dS K + dS_cls ck). In
 //      FlashAttention-3's order: S and dP of tile t are issued before dS K
 //      of tile t-1, and dS of tile t is formed while that product runs
 //      (measured 1.2x faster than in turn; the same order spilled in the
@@ -67,7 +86,7 @@
 //      keys and their columns queries, which index lse and delta. P^T and
 //      dS^T, rounded to bf16, are the A fragments of dV += P^T dO and dK
 //      += dS^T Q (RS, dO and Q read MN-major); dK = scale dS^T Q.
-//    Padded queries are zero rows of Q, dO and O (TMA's fill) with lse =
+//    Padded queries are zero rows of Q and dO (TMA's fill) with lse =
 //    +inf in the dk/dv kernel, so their P^T and dS^T are zero; padded
 //    keys are never stored.
 //  * everything else (fp32, whose 1e-4 bound rules out bf16 or TF32
@@ -75,9 +94,10 @@
 //    by FMA issue and shared-memory loads (~7*d FMAs per query-key pair
 //    against the forward's 2*d). space_bwd_dq_kernel stages K and V in
 //    fp32 (~100 KB, rows padded to d+1 floats so lane j reading row j hits
-//    its own bank); each warp takes one query row, computes its delta,
-//    then dS over the N+1 keys and dq. space_bwd_dkv_kernel stages Q, dO,
-//    lse and delta (recomputed from dO and O while staging; ~120 KB); each
+//    its own bank); each warp takes one query row: P and dP over the N+1
+//    keys, delta (bf16: from them; fp32: from dO and O), then dS and dq;
+//    delta goes to the scratch `stats` (B, F, N, H).
+//    space_bwd_dkv_kernel stages Q, dO, lse and delta (~120 KB); each
 //    warp takes one key row (row 0 the CLS key: its dK/dV rows are this
 //    frame's share of dck/dcv, partials (B, F, D)), P and dS against all N
 //    queries, then dK, dV.
@@ -92,12 +112,13 @@
 //    time_bwd_tc, one pass over the forward's slab tiles (the first
 //    version swept twice, re-reading K and V for every (query, key) pair
 //    and Q and dO for every key, with two warp reductions a pair):
-//    - q/k/v/dO/O of a tile come in by cp.async into five slabs, one
-//      block per tile, as the forward.
-//    - One warp per head, on mma.sync: delta = rowsum(dO O) from the
-//      fragments; S = Q K^T and dP = dO V^T; P = exp2(S - lse) from the
-//      saved lse (+inf on rows past the tile, whose P and dS are then
-//      zero) under the block-diagonal mask; dS = P (dP - delta). P and
+//    - q/k/v/dO of a tile come in by cp.async into four slabs, one
+//      block per tile, as the forward; a fifth takes dK.
+//    - One warp per head, on mma.sync: S = Q K^T and dP = dO V^T; P =
+//      exp2(S - lse) from the saved lse (+inf on rows past the tile, whose
+//      P and dS are then zero) under the block-diagonal mask; delta =
+//      P_cls dP_cls + rowsum(P dP), the row's 16 keys held by a quad of
+//      lanes; dS = P (dP - delta). P and
 //      dS go to a per-warp scratch (bf16, rows padded to 48 bytes) and
 //      come back transposed by ldmatrix as the A fragments of dV = P^T dO
 //      and dK = dS^T Q; dq = dS K (dS from registers) + dS_cls ck. Each
@@ -117,7 +138,9 @@
 //  * everything else (fp32, other head sizes, unaligned rows, F > 16):
 //    time_bwd_kernel, SIMT, one warp per (clip, position, head) with each
 //    lane holding d/32 dims: a first sweep over the queries computes the
-//    scores as warp reductions, dq and the CLS rows' share (per position:
+//    scores as warp reductions, per query P and dP over its F+1 keys,
+//    delta (bf16: from them; fp32: from dO and O), then dS, dq and the
+//    CLS rows' share (per position:
 //    partials (B, N, D)), leaving P and dS (F x F per warp) in shared
 //    memory for a second sweep over the keys that forms dK and dV.
 
@@ -130,6 +153,7 @@ namespace {
 using lavila::allow_smem;
 using lavila::cp_async_commit;
 using lavila::from_float;
+using lavila::kDeltaFromOut;
 using lavila::launch_sum_groups;
 using lavila::ld32;
 using lavila::pack_bf16;
@@ -144,7 +168,8 @@ constexpr int kMaxDimsPerLane = 4;  // head_dim <= 128
 
 size_t space_dq_smem_bytes(int N, int d) {
   const size_t L = (size_t)N + 1;
-  return (2 * L * (d + 1) + (size_t)kWarps * (2 * d + L)) * sizeof(float);
+  return (2 * L * (d + 1) + (size_t)kWarps * (2 * d + 2 * L)) *
+         sizeof(float);
 }
 
 size_t space_dkv_smem_bytes(int N, int d) {
@@ -153,14 +178,16 @@ size_t space_dkv_smem_bytes(int N, int d) {
          sizeof(float);
 }
 
-// grid (H, F, B), kWarps*32 threads.
+// grid (H, F, B), kWarps*32 threads. delta: fp32 (B, F, N, H), written
+// for space_bwd_dkv_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     space_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ ck,
                         const T* __restrict__ cv, const T* __restrict__ dout,
                         const T* __restrict__ out,
-                        const float* __restrict__ lse, T* __restrict__ dq,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, T* __restrict__ dq,
                         int F, int N, int H, int d, long long q_rs,
                         long long k_rs, long long v_rs, long long ck_rs,
                         long long cv_rs, float scale) {
@@ -172,7 +199,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* vs = ks + (size_t)L * ld;
   float* qbuf = vs + (size_t)L * ld;  // per warp: one scaled query row
   float* gbuf = qbuf + kWarps * d;    // per warp: its dO row
-  float* sbuf = gbuf + kWarps * d;    // per warp: dS over the L keys
+  float* sbuf = gbuf + kWarps * d;    // per warp: P, then dS, over L keys
+  float* pbuf = sbuf + kWarps * L;    // per warp: dP over the L keys
   const long long frame_row = ((long long)b * F + f) * N;
   const int col = h * d;
   const long long D = (long long)H * d;
@@ -197,19 +225,21 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* qw = qbuf + warp * d;
   float* gw = gbuf + warp * d;
   float* sw = sbuf + warp * L;
+  float* pw = pbuf + warp * L;
   for (int n = warp; n < N; n += kWarps) {
     const long long row = frame_row + n;
-    float part = 0.f;
+    float part_o = 0.f;  // fp32: rowsum(dO O) over this lane's dims
     for (int c = lane; c < d; c += 32) {
       qw[c] = to_float(q[row * q_rs + col + c]) * scale;
       const float g = to_float(dout[row * D + col + c]);
       gw[c] = g;
-      part = fmaf(g, to_float(out[row * D + col + c]), part);
+      if constexpr (kDeltaFromOut<T>)
+        part_o = fmaf(g, to_float(out[row * D + col + c]), part_o);
     }
-    const float delta = warp_sum(part);
     const float l = lse[row * H + h];
     __syncwarp();
 
+    float part = 0.f;  // bf16: rowsum(P dP) over this lane's keys
     for (int j = lane; j < L; j += 32) {
       const float* kr = ks + j * ld;
       const float* vr = vs + j * ld;
@@ -218,8 +248,14 @@ __global__ void __launch_bounds__(kWarps * 32)
         s = fmaf(qw[c], kr[c], s);
         dp = fmaf(gw[c], vr[c], dp);
       }
-      sw[j] = expf(s - l) * (dp - delta);
+      const float p = expf(s - l);
+      sw[j] = p;
+      pw[j] = dp;
+      part = fmaf(p, dp, part);
     }
+    const float dl = warp_sum(kDeltaFromOut<T> ? part_o : part);
+    if (lane == 0) delta[row * H + h] = dl;
+    for (int j = lane; j < L; j += 32) sw[j] = sw[j] * (pw[j] - dl);
     __syncwarp();
 
     for (int c = lane; c < d; c += 32) {
@@ -238,8 +274,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     space_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ ck,
                          const T* __restrict__ cv, const T* __restrict__ dout,
-                         const T* __restrict__ out,
-                         const float* __restrict__ lse, T* __restrict__ dk,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, float* __restrict__ dcls_k,
                          float* __restrict__ dcls_v, int F, int N, int H,
                          int d, long long q_rs, long long k_rs,
@@ -252,7 +288,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* qs = smem;                    // the frame's queries, unscaled
   float* gs = qs + (size_t)N * ld;     // their dO rows
   float* lses = gs + (size_t)N * ld;   // per query: lse
-  float* deltas = lses + N;            // per query: rowsum(dO*O)
+  float* deltas = lses + N;            // per query: rowsum(P*dP)
   float* kbuf = deltas + N;            // per warp: one scaled key row
   float* vbuf = kbuf + kWarps * d;     // per warp: its value row
   float* pbuf = vbuf + kWarps * d;     // per warp: P over the N queries
@@ -267,20 +303,12 @@ __global__ void __launch_bounds__(kWarps * 32)
     qs[n * ld + c] = to_float(q[r * q_rs + col + c]);
     gs[n * ld + c] = to_float(dout[r * D + col + c]);
   }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int n = warp; n < N; n += kWarps) {
-    const long long r = frame_row + n;
-    float part = 0.f;
-    for (int c = lane; c < d; c += 32)
-      part = fmaf(gs[n * ld + c], to_float(out[r * D + col + c]), part);
-    part = warp_sum(part);
-    if (lane == 0) {
-      deltas[n] = part;
-      lses[n] = lse[r * H + h];
-    }
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    deltas[n] = delta[(frame_row + n) * H + h];
+    lses[n] = lse[(frame_row + n) * H + h];
   }
   __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   float* kw = kbuf + warp * d;
   float* vw = vbuf + warp * d;
@@ -351,20 +379,20 @@ constexpr int kTimeScratchLd = 24;
 
 // dq: grid (ceil(N / (64 WG)), H, B*F), 128 WG + 32 threads: warpgroup
 // w < WG owns queries 64 (WG blockIdx.x + w) .. +63 (its query tile
-// qt), the last warp is the producer. Its Q, dO and O tiles come in
-// first; then the frame's K and V tiles stream through the ring. Per
-// row: delta = rowsum(dO*O), P_cls and dS_cls; the tile's lse (log2) and
-// delta go to `stats` for the dk/dv kernel, its share of dck/dcv to the
-// partials. Per key tile: S = Q K^T and dP = dO V^T (wgmma SS, K and V
-// K-major), dS = P (dP - delta) in registers, dq += dS K (wgmma RS, K
-// read MN-major). dq = scale (dS K + dS_cls ck).
+// qt), the last warp is the producer. Its Q and dO tiles come in first;
+// then the frame's K and V tiles stream through the ring twice. Per row:
+// P_cls and dP_cls from the CLS key. First walk, per key tile: S = Q K^T
+// and dP = dO V^T (wgmma SS, K and V K-major), delta += rowsum(P dP).
+// Then the tile's lse (log2) and delta go to `stats` for the dk/dv
+// kernel, its share of dck/dcv to the partials. Second walk, per key
+// tile: S and dP again, dS = P (dP - delta) in registers, dq += dS K
+// (wgmma RS, K read MN-major). dq = scale (dS K + dS_cls ck).
 template <int WG, int S>
 __global__ void __launch_bounds__(128 * WG + 32)
     space_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo,
-                           const __grid_constant__ CUtensorMap tout,
                            const __nv_bfloat16* __restrict__ ck,
                            const __nv_bfloat16* __restrict__ cv,
                            const float* __restrict__ lse,
@@ -377,8 +405,8 @@ __global__ void __launch_bounds__(128 * WG + 32)
   __shared__ __align__(8) unsigned long long bar_q[WG];
   __shared__ __align__(8) Ring<S> ring;
   __shared__ float cls[WG][2][4][kD];  // per warp: its dck, dcv shares
-  __nv_bfloat16* rows0 = align1024(smem_raw);      // Q, dO, O per WG
-  __nv_bfloat16* kv = rows0 + 3 * WG * kTileElems;  // K, V per slot
+  __nv_bfloat16* rows0 = align1024(smem_raw);      // Q, dO per WG
+  __nv_bfloat16* kv = rows0 + 2 * WG * kTileElems;  // K, V per slot
   const int tiles = (N + kTile - 1) / kTile;
   const int h = blockIdx.y, bf = blockIdx.z, b = bf / F;
   const int col = h * kD;
@@ -395,27 +423,27 @@ __global__ void __launch_bounds__(128 * WG + 32)
   if (wg == WG) {  // the producer
     if (threadIdx.x == 128 * WG) {
       for (int w = 0; w < live; ++w) {
-        __nv_bfloat16* dst = rows0 + 3 * w * kTileElems;
+        __nv_bfloat16* dst = rows0 + 2 * w * kTileElems;
         const int r = (first + w) * kTile;
-        mbar_expect_tx(&bar_q[w], 3 * kTileBytes);
+        mbar_expect_tx(&bar_q[w], 2 * kTileBytes);
         tma_load_3d(dst, &tq, &bar_q[w], col, r, bf);
         tma_load_3d(dst + kTileElems, &tdo, &bar_q[w], col, r, bf);
-        tma_load_3d(dst + 2 * kTileElems, &tout, &bar_q[w], col, r, bf);
       }
-      for (int t = 0; t < tiles; ++t) {
+      // step t of the two walks reads key tile t % tiles into slot t % S
+      for (int t = 0; t < 2 * tiles; ++t) {
         unsigned long long* full = ring.acquire(t);
         __nv_bfloat16* dst = kv + 2 * (t % S) * kTileElems;
         mbar_expect_tx(full, 2 * kTileBytes);
-        tma_load_3d(dst, &tk, full, col, t * kTile, bf);
-        tma_load_3d(dst + kTileElems, &tv, full, col, t * kTile, bf);
+        tma_load_3d(dst, &tk, full, col, (t % tiles) * kTile, bf);
+        tma_load_3d(dst + kTileElems, &tv, full, col, (t % tiles) * kTile,
+                    bf);
       }
     }
     return;
   }
   if (wg >= live) return;  // not counted on the ring's `empty` barriers
-  const __nv_bfloat16* qs = rows0 + 3 * wg * kTileElems;
+  const __nv_bfloat16* qs = rows0 + 2 * wg * kTileElems;
   const __nv_bfloat16* gs = qs + kTileElems;
-  const __nv_bfloat16* os = gs + kTileElems;
   const int qt = first + wg, row0 = qt * kTile;
   const long long frame_row = (long long)bf * N;
   const long long D = (long long)H * kD;
@@ -425,12 +453,12 @@ __global__ void __launch_bounds__(128 * WG + 32)
   const int n0 = row0 + r0, n1 = n0 + 8;
   const float sl2 = scale * kLog2e;
 
-  // per row, over this lane's dims 16 t4 .. 16 t4 + 15 (quad sums):
-  // delta, q.ck and dO.cv. Padded rows (past N) are zeros in Q, dO and O
-  // and read lse = 0: P_cls = 1 and dS_cls = 0, every dS of theirs 0.
+  // per row, over this lane's dims 16 t4 .. 16 t4 + 15 (quad sums): q.ck
+  // and dO.cv. Padded rows (past N) are zeros in Q and dO and read lse =
+  // 0: P_cls = 1, every dP of theirs 0, so delta = 0 and their dS are 0.
   mbar_wait(&bar_q[wg], 0);
   __syncwarp();
-  float e0 = 0.f, e1 = 0.f, s0 = 0.f, s1 = 0.f, p0 = 0.f, p1 = 0.f;
+  float s0 = 0.f, s1 = 0.f, p0 = 0.f, p1 = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = 16 * t4 + 2 * i;
@@ -438,21 +466,55 @@ __global__ void __launch_bounds__(128 * WG + 32)
     const float2 vc = unpack_bf16(ld32(cv + b * cv_rs + col + c));
     const float2 qx = tile_pair(qs, r0, c), qy = tile_pair(qs, r0 + 8, c);
     const float2 gx = tile_pair(gs, r0, c), gy = tile_pair(gs, r0 + 8, c);
-    const float2 ox = tile_pair(os, r0, c), oy = tile_pair(os, r0 + 8, c);
-    e0 += gx.x * ox.x + gx.y * ox.y;
-    e1 += gy.x * oy.x + gy.y * oy.y;
     s0 += qx.x * kc.x + qx.y * kc.y;
     s1 += qy.x * kc.x + qy.y * kc.y;
     p0 += gx.x * vc.x + gx.y * vc.y;
     p1 += gy.x * vc.x + gy.y * vc.y;
   }
-  const float dl0 = quad_sum(e0), dl1 = quad_sum(e1);
   const float l0 = n0 < N ? lse[(frame_row + n0) * H + h] * kLog2e : 0.f;
   const float l1 = n1 < N ? lse[(frame_row + n1) * H + h] * kLog2e : 0.f;
   const float pc0 = exp2f(quad_sum(s0) * sl2 - l0);
   const float pc1 = exp2f(quad_sum(s1) * sl2 - l1);
-  const float dc0 = pc0 * (quad_sum(p0) - dl0);
-  const float dc1 = pc1 * (quad_sum(p1) - dl1);
+  const float dpc0 = quad_sum(p0), dpc1 = quad_sum(p1);
+
+  float acc[32], sc[32], dp[32];
+  // first walk: delta = P_cls dP_cls + rowsum(P dP) over the frame's keys,
+  // with the P and dP of the second walk, bit for bit
+  float e0 = 0.f, e1 = 0.f;
+  for (int kt = 0; kt < tiles; ++kt) {
+    ring.wait(kt);
+    const __nv_bfloat16* ks = kv + 2 * (kt % S) * kTileElems;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    hold(sc);
+    hold(dp);
+    wgmma_fence();
+    wgmma_tile_ss(sc, qs, ks);
+    wgmma_tile_ss(dp, gs, ks + kTileElems);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(sc);
+    hold(dp);
+    ring.release(kt);
+    const bool full = (kt + 1) * kTile <= N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = full || kt * kTile + 8 * j + 2 * t4 + e < N;
+        const float pa = valid ? fast_exp2(fmaf(sc[4 * j + e], sl2, -l0))
+                               : 0.f;
+        const float pb =
+            valid ? fast_exp2(fmaf(sc[4 * j + 2 + e], sl2, -l1)) : 0.f;
+        e0 = fmaf(pa, dp[4 * j + e], e0);
+        e1 = fmaf(pb, dp[4 * j + 2 + e], e1);
+      }
+    }
+  }
+  const float dl0 = quad_sum(e0) + pc0 * dpc0;
+  const float dl1 = quad_sum(e1) + pc1 * dpc1;
+  const float dc0 = pc0 * (dpc0 - dl0);
+  const float dc1 = pc1 * (dpc1 - dl1);
   if (t4 == 0) {
     // the dk/dv kernel's per-query lse and delta; a padded query's lse is
     // +inf there, so its P is 0
@@ -484,16 +546,16 @@ __global__ void __launch_bounds__(128 * WG + 32)
     }
   }
 
-  // FlashAttention-3's order: S and dP of key tile kt are issued before
-  // dq += dS K of tile kt - 1, and dS of tile kt is formed while that
-  // product runs; da holds the dS in flight as bf16
-  float acc[32], sc[32], dp[32];
+  // second walk, ring steps tiles .. 2 tiles - 1. FlashAttention-3's
+  // order: S and dP of key tile kt are issued before dq += dS K of tile
+  // kt - 1, and dS of tile kt is formed while that product runs; da holds
+  // the dS in flight as bf16
   unsigned da[kD / 16][4];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < tiles; ++kt) {
-    ring.wait(kt);
-    const __nv_bfloat16* ks = kv + 2 * (kt % S) * kTileElems;
+    ring.wait(tiles + kt);
+    const __nv_bfloat16* ks = kv + 2 * ((tiles + kt) % S) * kTileElems;
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
     hold(sc);
@@ -503,7 +565,7 @@ __global__ void __launch_bounds__(128 * WG + 32)
     wgmma_tile_ss(dp, gs, ks + kTileElems);
     wgmma_commit();
     if (kt > 0) {
-      wgmma_tile_rs(acc, da, kv + 2 * ((kt - 1) % S) * kTileElems);
+      wgmma_tile_rs(acc, da, kv + 2 * ((tiles + kt - 1) % S) * kTileElems);
       wgmma_commit();
       wgmma_wait<1>();
     } else {
@@ -529,19 +591,19 @@ __global__ void __launch_bounds__(128 * WG + 32)
     hold(acc);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) hold(da[kk]);
-    if (kt > 0) ring.release(kt - 1);
+    if (kt > 0) ring.release(tiles + kt - 1);
     acc_to_a(da, sc);
   }
   {
-    const int kt = tiles - 1;
+    const int t = 2 * tiles - 1;
     wgmma_fence();
-    wgmma_tile_rs(acc, da, kv + 2 * (kt % S) * kTileElems);
+    wgmma_tile_rs(acc, da, kv + 2 * (t % S) * kTileElems);
     wgmma_commit();
     wgmma_wait<0>();
     hold(acc);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) hold(da[kk]);
-    ring.release(kt);
+    ring.release(t);
   }
   // the CLS key's term, then dq = scale * acc through the Q tile
 #pragma unroll
@@ -718,7 +780,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int col = h * d;
   const long long D = (long long)H * d;
   float* pw = smem + (size_t)warp * 2 * F * F;  // P[f][g]
-  float* sw = pw + F * F;                       // dS[f][g]
+  float* sw = pw + F * F;                       // dP, then dS[f][g]
 
   float ckr[kMaxDimsPerLane], cvr[kMaxDimsPerLane];
   float gck[kMaxDimsPerLane], gcv[kMaxDimsPerLane];
@@ -740,15 +802,40 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int c = lane + 32 * i;
       qr[i] = c < d ? to_float(q[row * q_rs + col + c]) : 0.f;
       gr[i] = c < d ? to_float(dout[row * D + col + c]) : 0.f;
-      const float o = c < d ? to_float(out[row * D + col + c]) : 0.f;
-      part = fmaf(gr[i], o, part);
+      if constexpr (kDeltaFromOut<T>) {
+        const float o = c < d ? to_float(out[row * D + col + c]) : 0.f;
+        part = fmaf(gr[i], o, part);
+      }
       sc = fmaf(qr[i], ckr[i], sc);
       dpc = fmaf(gr[i], cvr[i], dpc);
     }
-    const float delta = warp_sum(part);
     const float l = lse[row * H + h];
     const float pc = expf(warp_sum(sc) * scale - l);
-    const float dsc = pc * (warp_sum(dpc) - delta);
+    const float dpcs = warp_sum(dpc);
+    // P and dP over the frame keys, and delta: fp32 rowsum(dO O), bf16
+    // rowsum(P dP) (every lane holds the warp sums)
+    float delta = kDeltaFromOut<T> ? warp_sum(part) : pc * dpcs;
+    for (int g = 0; g < F; ++g) {
+      const long long krow = ((long long)b * F + g) * N + n;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxDimsPerLane; ++i) {
+        const int c = lane + 32 * i;
+        const float kv = c < d ? to_float(k[krow * k_rs + col + c]) : 0.f;
+        const float vv = c < d ? to_float(v[krow * v_rs + col + c]) : 0.f;
+        s = fmaf(qr[i], kv, s);
+        dp = fmaf(gr[i], vv, dp);
+      }
+      const float p = expf(warp_sum(s) * scale - l);
+      dp = warp_sum(dp);
+      if constexpr (!kDeltaFromOut<T>) delta = fmaf(p, dp, delta);
+      if (lane == 0) {
+        pw[f * F + g] = p;
+        sw[f * F + g] = dp;
+      }
+    }
+    __syncwarp();  // P and dP, written by lane 0, are read by every lane
+    const float dsc = pc * (dpcs - delta);
 #pragma unroll
     for (int i = 0; i < kMaxDimsPerLane; ++i) {
       acc[i] = dsc * ckr[i];
@@ -757,25 +844,18 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     for (int g = 0; g < F; ++g) {
       const long long krow = ((long long)b * F + g) * N + n;
-      float kv[kMaxDimsPerLane];
-      float s = 0.f, dp = 0.f;
+      const float ds = pw[f * F + g] * (sw[f * F + g] - delta);
 #pragma unroll
       for (int i = 0; i < kMaxDimsPerLane; ++i) {
         const int c = lane + 32 * i;
-        kv[i] = c < d ? to_float(k[krow * k_rs + col + c]) : 0.f;
-        const float vv = c < d ? to_float(v[krow * v_rs + col + c]) : 0.f;
-        s = fmaf(qr[i], kv[i], s);
-        dp = fmaf(gr[i], vv, dp);
-      }
-      const float p = expf(warp_sum(s) * scale - l);
-      const float ds = p * (warp_sum(dp) - delta);
-#pragma unroll
-      for (int i = 0; i < kMaxDimsPerLane; ++i) acc[i] = fmaf(ds, kv[i], acc[i]);
-      if (lane == 0) {
-        pw[f * F + g] = p;
-        sw[f * F + g] = ds;
+        const float kv = c < d ? to_float(k[krow * k_rs + col + c]) : 0.f;
+        acc[i] = fmaf(ds, kv, acc[i]);
       }
     }
+    __syncwarp();  // every lane has read this query's dP
+    if (lane == 0)
+      for (int g = 0; g < F; ++g)
+        sw[f * F + g] = pw[f * F + g] * (sw[f * F + g] - delta);
 #pragma unroll
     for (int i = 0; i < kMaxDimsPerLane; ++i) {
       const int c = lane + 32 * i;
@@ -835,7 +915,6 @@ __global__ void __launch_bounds__(G * 32)
                        const __nv_bfloat16* __restrict__ ck,
                        const __nv_bfloat16* __restrict__ cv,
                        const __nv_bfloat16* __restrict__ dout,
-                       const __nv_bfloat16* __restrict__ out,
                        const float* __restrict__ lse,
                        __nv_bfloat16* __restrict__ dq,
                        __nv_bfloat16* __restrict__ dk,
@@ -853,7 +932,7 @@ __global__ void __launch_bounds__(G * 32)
   bf16* ks = qs + E;
   bf16* vs = qs + 2 * E;
   bf16* gs = qs + 3 * E;  // dO
-  bf16* os = qs + 4 * E;  // O
+  bf16* os = qs + 4 * E;  // dK, once formed
   const tslab::Tile tile(F, N, blockIdx.y, blockIdx.z);
   const tslab::Rows<G> rows(tile);
   const int col0 = blockIdx.x * Geo::kCols;
@@ -862,7 +941,6 @@ __global__ void __launch_bounds__(G * 32)
   tslab::load<G>(ks, k, k_rs, rows, col0);
   tslab::load<G>(vs, v, v_rs, rows, col0);
   tslab::load<G>(gs, dout, D, rows, col0);
-  tslab::load<G>(os, out, D, rows, col0);
   cp_async_commit();
 
   // while the copies land: this warp's head, its CLS rows, its rows' lse
@@ -889,34 +967,18 @@ __global__ void __launch_bounds__(G * 32)
   unsigned qa[4][4], ga[4][4];
   tslab::rows_a<ld>(qa, qs + hw, lane);
   tslab::rows_a<ld>(ga, gs + hw, lane);
-  float delta0 = 0.f, delta1 = 0.f;  // rowsum(dO * O)
-  {
-    unsigned oa[4][4];
-    tslab::rows_a<ld>(oa, os + hw, lane);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; i += 2) {
-        const float2 a0 = unpack_bf16(ga[kk][i]),
-                     b0 = unpack_bf16(oa[kk][i]);
-        const float2 a1 = unpack_bf16(ga[kk][i + 1]),
-                     b1 = unpack_bf16(oa[kk][i + 1]);
-        delta0 = fmaf(a0.x, b0.x, fmaf(a0.y, b0.y, delta0));
-        delta1 = fmaf(a1.x, b1.x, fmaf(a1.y, b1.y, delta1));
-      }
-  }
-  delta0 = quad_sum(delta0);
-  delta1 = quad_sum(delta1);
   const float c2 = scale * kLog2e;
-  // the CLS key: P, dP = dO . cv, dS
+  // the CLS key: P and dP = dO . cv
   const float pc0 = fast_exp2(tslab::row_dot(qa, ckf, 0) * c2 - l0);
   const float pc1 = fast_exp2(tslab::row_dot(qa, ckf, 1) * c2 - l1);
-  const float dsc0 = pc0 * (tslab::row_dot(ga, cvf, 0) - delta0);
-  const float dsc1 = pc1 * (tslab::row_dot(ga, cvf, 1) - delta1);
-  // the frame keys: S = Q K^T, dP = dO V^T, then P and dS in place
+  const float dpc0 = tslab::row_dot(ga, cvf, 0);
+  const float dpc1 = tslab::row_dot(ga, cvf, 1);
+  // the frame keys: S = Q K^T, dP = dO V^T, then P in place and delta =
+  // rowsum(P dP) over the CLS key and the row's 16 keys (a quad's)
   float p[2][4], ds[2][4];
   tslab::scores<ld>(p, qa, ks + hw, lane);
   tslab::scores<ld>(ds, ga, vs + hw, lane);
+  float delta0 = 0.f, delta1 = 0.f;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -925,10 +987,21 @@ __global__ void __launch_bounds__(G * 32)
           allowed[0][nt][e] ? fast_exp2(p[nt][e] * c2 - l0) : 0.f;
       const float p1 =
           allowed[1][nt][e] ? fast_exp2(p[nt][2 + e] * c2 - l1) : 0.f;
-      ds[nt][e] = p0 * (ds[nt][e] - delta0);
-      ds[nt][2 + e] = p1 * (ds[nt][2 + e] - delta1);
+      delta0 = fmaf(p0, ds[nt][e], delta0);
+      delta1 = fmaf(p1, ds[nt][2 + e], delta1);
       p[nt][e] = p0;
       p[nt][2 + e] = p1;
+    }
+  delta0 = quad_sum(delta0) + pc0 * dpc0;
+  delta1 = quad_sum(delta1) + pc1 * dpc1;
+  const float dsc0 = pc0 * (dpc0 - delta0);
+  const float dsc1 = pc1 * (dpc1 - delta1);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ds[nt][e] = p[nt][e] * (ds[nt][e] - delta0);
+      ds[nt][2 + e] = p[nt][2 + e] * (ds[nt][2 + e] - delta1);
     }
 
   // this tile's share of dck = scale sum dS_cls q and dcv = sum P_cls dO:
@@ -1016,7 +1089,8 @@ __global__ void __launch_bounds__(G * 32)
 template <typename T>
 cudaError_t launch_space_bwd(const void* q, const void* k, const void* v,
                              const void* ck, const void* cv, const void* dout,
-                             const void* out, const void* lse, void* dq,
+                             const void* out, const void* lse, void* delta,
+                             void* dq,
                              void* dk, void* dv, void* dck, void* dcv,
                              void* part_k, void* part_v, int B, int F, int N,
                              int H, int d, long long q_rs, long long k_rs,
@@ -1028,8 +1102,8 @@ cudaError_t launch_space_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   space_bwd_dq_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)ck, (const T*)cv,
-      (const T*)dout, (const T*)out, (const float*)lse, (T*)dq, F, N, H, d,
-      q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
+      (const T*)dout, (const T*)out, (const float*)lse, (float*)delta,
+      (T*)dq, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   smem = space_dkv_smem_bytes(N, d);
@@ -1037,9 +1111,9 @@ cudaError_t launch_space_bwd(const void* q, const void* k, const void* v,
     return err;
   space_bwd_dkv_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)ck, (const T*)cv,
-      (const T*)dout, (const T*)out, (const float*)lse, (T*)dk, (T*)dv,
-      (float*)part_k, (float*)part_v, F, N, H, d, q_rs, k_rs, v_rs, ck_rs,
-      cv_rs, scale);
+      (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
+      (T*)dv, (float*)part_k, (float*)part_v, F, N, H, d, q_rs, k_rs, v_rs,
+      ck_rs, cv_rs, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_groups<T>((const float*)part_k, (const float*)part_v,
                               dck, dcv, B, F, (long long)H * d, stream);
@@ -1072,8 +1146,8 @@ cudaError_t launch_time_bwd(const void* q, const void* k, const void* v,
 template <int G>
 cudaError_t launch_time_bwd_tc(const void* q, const void* k, const void* v,
                                const void* ck, const void* cv,
-                               const void* dout, const void* out,
-                               const void* lse, void* dq, void* dk, void* dv,
+                               const void* dout, const void* lse, void* dq,
+                               void* dk, void* dv,
                                void* dck, void* dcv, void* part_k,
                                void* part_v, int B, int F, int N, int H,
                                long long q_rs, long long k_rs, long long v_rs,
@@ -1087,9 +1161,9 @@ cudaError_t launch_time_bwd_tc(const void* q, const void* k, const void* v,
   const int span = tslab::kRows / F, tiles = (N + span - 1) / span;
   time_bwd_tc_kernel<G><<<dim3(H / G, tiles, B), G * 32, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ck,
-      (const bf16*)cv, (const bf16*)dout, (const bf16*)out, (const float*)lse,
-      (bf16*)dq, (bf16*)dk, (bf16*)dv, (float*)part_k, (float*)part_v, F, N,
-      H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale);
+      (const bf16*)cv, (const bf16*)dout, (const float*)lse, (bf16*)dq,
+      (bf16*)dk, (bf16*)dv, (float*)part_k, (float*)part_v, F, N, H, q_rs,
+      k_rs, v_rs, ck_rs, cv_rs, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_sum_groups<bf16>((const float*)part_k, (const float*)part_v,
                                  dck, dcv, B, tiles,
@@ -1099,19 +1173,19 @@ cudaError_t launch_time_bwd_tc(const void* q, const void* k, const void* v,
 template <int WG>
 cudaError_t launch_dq(const CUtensorMap& tq, const CUtensorMap& tk,
                       const CUtensorMap& tv, const CUtensorMap& tdo,
-                      const CUtensorMap& tout, const void* ck, const void* cv,
+                      const void* ck, const void* cv,
                       const void* lse, void* stats, void* dq, void* part_k,
                       void* part_v, int B, int F, int N, int H,
                       long long ck_rs, long long cv_rs, float scale,
                       cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   auto kernel = space_bwd_dq_tc_kernel<WG, kTcStages>;
-  const size_t smem = (size_t)(3 * WG + 2 * kTcStages) * kTileBytes + 1024;
+  const size_t smem = (size_t)(2 * WG + 2 * kTcStages) * kTileBytes + 1024;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (N + kTile - 1) / kTile;
   kernel<<<dim3((tiles + WG - 1) / WG, H, B * F), 128 * WG + 32, smem,
-           stream>>>(tq, tk, tv, tdo, tout, (const bf16*)ck, (const bf16*)cv,
+           stream>>>(tq, tk, tv, tdo, (const bf16*)ck, (const bf16*)cv,
                      (const float*)lse, (float*)stats, (bf16*)dq,
                      (float*)part_k, (float*)part_v, F, N, H, ck_rs, cv_rs,
                      scale);
@@ -1124,22 +1198,21 @@ namespace lavila {
 
 // What the tensor-core backward takes (kernels/divided.py mirrors it):
 // the forward's conditions (space_tc_fits: head_dim 64, N >= 1, q/k/v
-// rows on 16-byte boundaries, ck/cv as bf16 pairs), and dO and O, which
-// TMA reads too, on 16-byte boundaries.
+// rows on 16-byte boundaries, ck/cv as bf16 pairs), and dO, which TMA
+// reads too, on a 16-byte boundary.
 bool space_bwd_tc_fits(const void* q, const void* k, const void* v,
                        const void* ck, const void* cv, const void* dout,
-                       const void* out, int N, int d, long long q_rs,
-                       long long k_rs, long long v_rs, long long ck_rs,
-                       long long cv_rs) {
+                       int N, int d, long long q_rs, long long k_rs,
+                       long long v_rs, long long ck_rs, long long cv_rs) {
   return space_tc_fits(q, k, v, ck, cv, N, d, q_rs, k_rs, v_rs, ck_rs,
                        cv_rs) &&
-         sm90::aligned16({dout, out});
+         sm90::aligned16({dout});
 }
 
 cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
                                 const void* ck, const void* cv,
-                                const void* dout, const void* out,
-                                const void* lse, void* stats, void* dq,
+                                const void* dout, const void* lse,
+                                void* stats, void* dq,
                                 void* dk, void* dv, void* dck, void* dcv,
                                 void* part_k, void* part_v, int B, int F,
                                 int N, int H, long long q_rs, long long k_rs,
@@ -1148,12 +1221,11 @@ cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
                                 cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const int D = H * sm90::kD;
-  CUtensorMap tq, tk, tv, tdo, tout;
+  CUtensorMap tq, tk, tv, tdo;
   if (!sm90::rows_map(&tq, q, q_rs, D, N, B * F) ||
       !sm90::rows_map(&tk, k, k_rs, D, N, B * F) ||
       !sm90::rows_map(&tv, v, v_rs, D, N, B * F) ||
-      !sm90::rows_map(&tdo, dout, D, D, N, B * F) ||
-      !sm90::rows_map(&tout, out, D, D, N, B * F))
+      !sm90::rows_map(&tdo, dout, D, D, N, B * F))
     return cudaErrorInvalidValue;
   const int tiles = (N + sm90::kTile - 1) / sm90::kTile;
   // dq blocks of 3 warpgroups where a frame has at least 9 query tiles and
@@ -1164,10 +1236,10 @@ cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
   // against 0.073 ms). Fewer tiles keep 2, the form timed there.
   cudaError_t err =
       tiles >= 9 && tiles % 3 == 0
-          ? launch_dq<3>(tq, tk, tv, tdo, tout, ck, cv, lse, stats, dq,
+          ? launch_dq<3>(tq, tk, tv, tdo, ck, cv, lse, stats, dq,
                          part_k, part_v, B, F, N, H, ck_rs, cv_rs, scale,
                          stream)
-          : launch_dq<2>(tq, tk, tv, tdo, tout, ck, cv, lse, stats, dq,
+          : launch_dq<2>(tq, tk, tv, tdo, ck, cv, lse, stats, dq,
                          part_k, part_v, B, F, N, H, ck_rs, cv_rs, scale,
                          stream);
   if (err != cudaSuccess) return err;
@@ -1192,9 +1264,9 @@ cudaError_t launch_space_bwd_tc(const void* q, const void* k, const void* v,
 // ones, (B, ceil(N / (16 / F)), D) for the temporal phase's tensor-core
 // kernel, (B, N, D) for its SIMT one; stats: fp32 scratch (B, F, H,
 // ceil(N/64), 2, 64) for the spatial phase's tensor-core kernels (each
-// 64-query tile's lse, then its delta), unread by the SIMT ones (may be
-// NULL). Returns the cudaError_t of
-// the launches (0 on success).
+// 64-query tile's lse, then its delta), (B, F, N, H) for its SIMT ones
+// (delta). `out`, the forward's O, is read by the fp32 kernels only.
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" {
 
 // tc: 1 runs the tensor-core kernels (bf16; refused with
@@ -1213,21 +1285,21 @@ int lavila_divided_space_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (tc) {
     if (dtype != 1 ||
-        !lavila::space_bwd_tc_fits(q, k, v, ck, cv, dout, out, N, d, q_rs,
-                                   k_rs, v_rs, ck_rs, cv_rs))
+        !lavila::space_bwd_tc_fits(q, k, v, ck, cv, dout, N, d, q_rs, k_rs,
+                                   v_rs, ck_rs, cv_rs))
       return (int)cudaErrorInvalidValue;
     return (int)lavila::launch_space_bwd_tc(
-        q, k, v, ck, cv, dout, out, lse, stats, dq, dk, dv, dck, dcv, part_k,
+        q, k, v, ck, cv, dout, lse, stats, dq, dk, dv, dck, dcv, part_k,
         part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
   }
   if (dtype == 0)
     return (int)launch_space_bwd<float>(
-        q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k, part_v,
-        B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+        q, k, v, ck, cv, dout, out, lse, stats, dq, dk, dv, dck, dcv, part_k,
+        part_v, B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
   if (dtype == 1)
     return (int)launch_space_bwd<__nv_bfloat16>(
-        q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k, part_v,
-        B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+        q, k, v, ck, cv, dout, out, lse, stats, dq, dk, dv, dck, dcv, part_k,
+        part_v, B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1244,33 +1316,33 @@ int lavila_divided_time_bwd(const void* q, const void* k, const void* v,
   if (d < 1 || d > 32 * kMaxDimsPerLane) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (tc) {
-    if (dtype != 1 || !lavila::time_tc_fits({q, k, v, dout, out}, ck, cv, F,
+    if (dtype != 1 || !lavila::time_tc_fits({q, k, v, dout}, ck, cv, F,
                                             d, q_rs, k_rs, v_rs, ck_rs,
                                             cv_rs))
       return (int)cudaErrorInvalidValue;
     switch (tslab::heads_per_block(H)) {
       case 4:
         return (int)launch_time_bwd_tc<4>(
-            q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+            q, k, v, ck, cv, dout, lse, dq, dk, dv, dck, dcv, part_k,
             part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
       case 2:
         return (int)launch_time_bwd_tc<2>(
-            q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+            q, k, v, ck, cv, dout, lse, dq, dk, dv, dck, dcv, part_k,
             part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
       default:
         return (int)launch_time_bwd_tc<1>(
-            q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+            q, k, v, ck, cv, dout, lse, dq, dk, dv, dck, dcv, part_k,
             part_v, B, F, N, H, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
     }
   }
   if (dtype == 0)
     return (int)launch_time_bwd<float>(
-        q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k, part_v,
-        B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+        q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+        part_v, B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
   if (dtype == 1)
     return (int)launch_time_bwd<__nv_bfloat16>(
-        q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k, part_v,
-        B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
+        q, k, v, ck, cv, dout, out, lse, dq, dk, dv, dck, dcv, part_k,
+        part_v, B, F, N, H, d, q_rs, k_rs, v_rs, ck_rs, cv_rs, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,11 +28,19 @@ q/k/v may be row views with any row stride (the column blocks of one
 ``(B, F, N, 3D)`` qkv projection output), so the attention block makes
 no ``.contiguous()`` copies.
 
-When autograd needs it, :func:`divided_phase` runs through
-:class:`_DividedPhase`: the forward saves ``(q, k, v, ck, cv, out, lse)``
-and the backward recomputes the probabilities from ``lse``, as the Pallas
-VJP does, returning contiguous ``dq/dk/dv`` and the CLS rows' ``dck/dcv``
-summed over every group.
+:func:`divided_phase` calls the operator ``lavila::divided_phase``
+(``torch.library.custom_op``), whose autograd formula is the backward
+kernel: it saves ``(q, k, v, ck, cv, out, lse)`` and recomputes the
+probabilities from ``lse``, as the Pallas VJP does, returning contiguous
+``dq/dk/dv`` and the CLS rows' ``dck/dcv`` summed over every group. The
+backward's delta is rowsum(P·dP) over the P it recomputes in bf16, and
+the Pallas kernels' rowsum(dO·O) in fp32 (``csrc/divided_bwd.cu`` says
+why); only the fp32 kernels read the forward's output. The phase is an
+operator, not an
+``autograd.Function``, so that a selective-checkpoint policy sees it: the
+remat policies ``save_attn`` and ``dots_attn``
+(``models/timesformer.py``) keep its outputs instead of launching it
+again in the recompute.
 
 Each direction takes its plain PyTorch version
 (:func:`divided_phase_reference`, :func:`divided_phase_bwd_reference`)
@@ -92,8 +100,10 @@ def divided_phase_bwd_reference(qp, kp, vp, ck, cv, do, out, lse,
                                 axis: str, heads: int, scale: float):
     """Plain PyTorch backward with the kernel's signature: P recomputed in
     fp32 from the saved ``lse`` (as the Pallas kernel does), dS = P·(dP −
-    delta) with delta = rowsum(dO·O). Returns ``(dq, dk, dv)`` in the
-    input dtype and ``(dck, dcv)`` summed over the groups, in ck's."""
+    delta), delta as the kernels take it: rowsum(dO·O) from an fp32
+    ``out``, rowsum(P·dP) over the CLS key and the group's from a bf16
+    one. Returns ``(dq, dk, dv)`` in the input dtype and ``(dck, dcv)``
+    summed over the groups, in ck's."""
     B, F, N, D = qp.shape
     d = D // heads
 
@@ -115,8 +125,11 @@ def divided_phase_bwd_reference(qp, kp, vp, ck, cv, do, out, lse,
     s = torch.einsum("bgqhd,bgkhd->bhgqk", q, kg) * scale
     p = torch.exp(s - lse_g[..., None])
     dp = torch.einsum("bgqhd,bgkhd->bhgqk", g, vg)
-    delta = (g * o).sum(-1).permute(0, 3, 1, 2)             # (B, H, G, S)
-    ds = p * (dp - delta[..., None])
+    if out.dtype == torch.float32:
+        delta = (g * o).sum(-1).permute(0, 3, 1, 2)[..., None]
+    else:
+        delta = (p * dp).sum(-1, keepdim=True)              # (B, H, G, S, 1)
+    ds = p * (dp - delta)
     dq = torch.einsum("bhgqk,bgkhd->bgqhd", ds, kg) * scale
     dkg = torch.einsum("bhgqk,bgqhd->bgkhd", ds, q) * scale
     dvg = torch.einsum("bhgqk,bgqhd->bgkhd", p, g)
@@ -166,8 +179,8 @@ def _strides(qp, kp, vp, ck, cv) -> list[int]:
             ((qp, "q"), (kp, "k"), (vp, "v"), (ck, "ck"), (cv, "cv"))]
 
 
-def _tc_rows_fit(qp, kp, vp, ck, cv, heads: int, do, out, rs=None) -> bool:
-    """bf16 at head_dim 64 with q/k/v rows (and dO, O where given) on
+def _tc_rows_fit(qp, kp, vp, ck, cv, heads: int, do, rs=None) -> bool:
+    """bf16 at head_dim 64 with q/k/v rows (and dO where given) on
     16-byte boundaries and ck/cv readable as bf16 pairs: what every
     tensor-core kernel of the divided phases copies. ``rs``: the five
     row strides, where the caller has them."""
@@ -175,45 +188,43 @@ def _tc_rows_fit(qp, kp, vp, ck, cv, heads: int, do, out, rs=None) -> bool:
     if qp.dtype != torch.bfloat16 or D // heads != 64 or qp.shape[2] < 1:
         return False
     rs = rs or _strides(qp, kp, vp, ck, cv)
-    wide = [t for t in (qp, kp, vp, do, out) if t is not None]
+    wide = [t for t in (qp, kp, vp, do) if t is not None]
     return not (any(t.data_ptr() % 16 for t in wide)
                 or any(s % 8 for s in rs[:3])
                 or any(t.data_ptr() % 4 for t in (ck, cv))
                 or any(s % 2 for s in rs[3:]))
 
 
-def space_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None,
-                 rs=None) -> str:
+def space_branch(qp, kp, vp, ck, cv, heads: int, do=None, rs=None) -> str:
     """The spatial-phase kernels a call takes, K1's and K6's alike: "tc",
-    the tensor-core ones (bf16, head_dim 64, q/k/v rows, dO and O on
-    16-byte boundaries for TMA, ck/cv read as bf16 pairs), or "simt".
-    The C entry points refuse a "tc" call outside these conditions
-    (``space_tc_fits``, ``space_bwd_tc_fits`` in ``csrc/``); pass
-    ``do``/``out`` for the backward's."""
-    return "tc" if _tc_rows_fit(qp, kp, vp, ck, cv, heads, do, out, rs) \
+    the tensor-core ones (bf16, head_dim 64, q/k/v rows and dO on 16-byte
+    boundaries for TMA, ck/cv read as bf16 pairs), or "simt". The C entry
+    points refuse a "tc" call outside these conditions (``space_tc_fits``,
+    ``space_bwd_tc_fits`` in ``csrc/``); pass ``do`` for the
+    backward's."""
+    return "tc" if _tc_rows_fit(qp, kp, vp, ck, cv, heads, do, rs) \
         else "simt"
 
 
-def time_branch(qp, kp, vp, ck, cv, heads: int, do=None, out=None,
-                rs=None) -> str:
+def time_branch(qp, kp, vp, ck, cv, heads: int, do=None, rs=None) -> str:
     """The temporal-phase (K2) kernels a call takes: "tc", the slab
     kernels on the tensor cores (the spatial ones' row conditions, for
     cp.async, and at most 16 frames: a tile's 16 rows hold every frame of
     16 // F positions), or "simt" (fp32, other head sizes, unaligned
     rows, more frames). The C entry points refuse a "tc" call outside
     these conditions (``time_tc_fits`` in ``csrc/common.cuh``); pass
-    ``do``/``out`` for the backward's."""
+    ``do`` for the backward's."""
     fits = qp.shape[1] <= _TIME_ROWS and _tc_rows_fit(qp, kp, vp, ck, cv,
-                                                      heads, do, out, rs)
+                                                      heads, do, rs)
     return "tc" if fits else "simt"
 
 
 def phase_branch(qp, kp, vp, ck, cv, axis: str, heads: int, do=None,
-                 out=None, rs=None) -> str:
+                 rs=None) -> str:
     """:func:`space_branch` or :func:`time_branch` by ``axis`` (``rs``:
     the row strides, where the caller has them)."""
     pick = space_branch if axis == "space" else time_branch
-    return pick(qp, kp, vp, ck, cv, heads, do, out, rs)
+    return pick(qp, kp, vp, ck, cv, heads, do, rs)
 
 
 def _partials_shape(name: str, branch: str, B: int, F: int, N: int,
@@ -237,16 +248,15 @@ def _stats_shape(name: str, branch, B: int, F: int, N: int,
     """The fp32 scratch a spatial backward hands between its kernels, or
     None where no kernel reads one: on the tensor cores per (frame, head,
     64-query tile) the tile's 64 lse (log2 domain) then its 64 delta =
-    rowsum(dO·O), written by the dq kernel and read by the dk/dv kernel in
-    one copy; for K6's SIMT kernels delta per (row, head), written by its
-    own pass; K1's SIMT kernels and K2 compute delta where they use it."""
+    rowsum(P·dP), written by the dq kernel and read by the dk/dv kernel in
+    one copy; for the SIMT kernels (K1's and K6's) delta per (row, head),
+    written by the dq kernel (in fp32 K6's by a pass over dO and O of its
+    own); K2 computes delta where it uses it."""
     if name == "time":
         return None
     if branch == "tc":
         return (B, F, H, -(-N // _TC_TILE), 2, _TC_TILE)
-    if name == "space_big":
-        return (B, F, N, H)
-    return None
+    return (B, F, N, H)
 
 
 def _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale):
@@ -304,7 +314,7 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
             and lse.is_contiguous()):
         raise ValueError("do/out/lse must be contiguous")
     rs = _strides(qp, kp, vp, ck, cv)
-    branch = phase_branch(qp, kp, vp, ck, cv, axis, heads, do, out, rs)
+    branch = phase_branch(qp, kp, vp, ck, cv, axis, heads, do, rs)
     fn = getattr(build.library(), f"lavila_divided_{name}_bwd")
     grads = [torch.empty((B, F, N, D), dtype=qp.dtype, device=qp.device)
              for _ in range(3)]
@@ -314,13 +324,12 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     parts = [torch.empty(_partials_shape(name, branch, B, F, N, D),
                          dtype=torch.float32, device=qp.device)
              for _ in range(2)]
-    # the spatial kernels take one scratch pointer (NULL where unread)
+    # the spatial kernels take one scratch tensor
     stats = _stats_shape(name, branch, B, F, N, heads)
-    scratch = [] if axis == "time" else [
-        None if stats is None
-        else torch.empty(stats, dtype=torch.float32, device=qp.device)]
+    scratch = [] if stats is None else [
+        torch.empty(stats, dtype=torch.float32, device=qp.device)]
     with torch.cuda.device(qp.device):
-        err = fn(*(None if t is None else t.data_ptr() for t in (
+        err = fn(*(t.data_ptr() for t in (
             qp, kp, vp, ck, cv, do, out, lse, *scratch, *grads, *parts)),
                  B, F, N, heads, D // heads, *rs,
                  float(scale), _DTYPES[qp.dtype], int(branch == "tc"),
@@ -330,23 +339,30 @@ def divided_phase_bwd(qp, kp, vp, ck, cv, do, out, lse, axis: str,
     return tuple(grads)
 
 
-class _DividedPhase(torch.autograd.Function):
-    """The phase with its backward kernel (the Pallas custom VJP)."""
+@torch.library.custom_op("lavila::divided_phase", mutates_args=())
+def phase_op(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+             ck: torch.Tensor, cv: torch.Tensor, axis: str, heads: int,
+             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The phase as an operator (the Pallas custom VJP): the kernel, or
+    its plain version on a CPU tensor."""
+    return _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale)
 
-    @staticmethod
-    def forward(ctx, qp, kp, vp, ck, cv, axis, heads, scale):
-        out, lse = _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale)
-        ctx.save_for_backward(qp, kp, vp, ck, cv, out, lse)
-        ctx.phase = (axis, heads, scale)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        qp, kp, vp, ck, cv, out, lse = ctx.saved_tensors
-        grads = divided_phase_bwd(qp, kp, vp, ck, cv, dout.contiguous(), out,
-                                  lse, *ctx.phase)
-        return (*grads, None, None, None)
+def _phase_setup(ctx, inputs, output):
+    qp, kp, vp, ck, cv, axis, heads, scale = inputs
+    ctx.save_for_backward(qp, kp, vp, ck, cv, *output)
+    ctx.phase = (axis, heads, scale)
+    ctx.mark_non_differentiable(output[1])
+
+
+def _phase_backward(ctx, dout, _dlse):
+    qp, kp, vp, ck, cv, out, lse = ctx.saved_tensors
+    grads = divided_phase_bwd(qp, kp, vp, ck, cv, dout.contiguous(), out,
+                              lse, *ctx.phase)
+    return (*grads, None, None, None)
+
+
+phase_op.register_autograd(_phase_backward, setup_context=_phase_setup)
 
 
 def divided_phase(qp, kp, vp, ck, cv, axis: str, heads: int, scale: float):
@@ -358,7 +374,4 @@ def divided_phase(qp, kp, vp, ck, cv, axis: str, heads: int, scale: float):
     differentiable in q/k/v/ck/cv through the backward kernel.
     """
     _check(qp, kp, vp, ck, cv, axis, heads)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (qp, kp, vp, ck, cv)):
-        return _DividedPhase.apply(qp, kp, vp, ck, cv, axis, heads, scale)
-    return _phase_fwd(qp, kp, vp, ck, cv, axis, heads, scale)
+    return phase_op(qp, kp, vp, ck, cv, axis, heads, float(scale))

@@ -29,6 +29,9 @@ is stripped and ``temporal_embed`` fits the clip length.
     the same to a loaded one and
     :func:`is_port_checkpoint` tells the port's own checkpoints from
     released ones;
+    :func:`remap_clip_visual_to_timesformer` renames an OpenAI ViT's
+    weights into the TimeSformer's (``models/openai_weights.py``) and
+    :func:`import_resnet_clip` reads an OpenAI ModifiedResNet's;
     :func:`narrator_state_dict` turns a released narrator's keys into
     the port's (HF Conv1D ``(in, out)`` weights transposed, the tied
     ``lm_head`` and the attention-mask buffers dropped, the CoCa norms'
@@ -146,6 +149,8 @@ def torch_key(path: tuple, tower: str = "visual") -> tuple[str, str | None]:
                 parts[1]]
         if len(parts) == 1:  # cls_token, pos_embed, temporal_embed
             return f"{tower}.{parts[0]}", None
+        if parts[-1] == "alpha_timeattn":  # the time gate, a scalar
+            return ".".join([tower, *parts]), None
         suffix, layout = _LEAF[parts[-1]]
         return ".".join([tower, *parts[:-1], suffix]), layout
     if top == "text_model" and (rest[0] in _BERT_EMBEDDINGS
@@ -215,6 +220,58 @@ def inflate_temporal_embed(te: torch.Tensor,
     hi = (lo + 1).clamp(max=f - 1)
     w = (pos - lo).clamp(0.0, 1.0).to(te.dtype)[None, :, None]
     return te[:, lo] * (1 - w) + te[:, hi] * w
+
+
+def remap_clip_visual_to_timesformer(sd: Mapping[str, torch.Tensor],
+                                     layers: int,
+                                     prefix: str = "visual.") -> dict:
+    """An OpenAI-CLIP ViT state dict → the TimeSformer's names (without
+    the tower's prefix), the counterpart of JAX
+    ``import_torch.remap_clip_visual_to_timesformer`` (reference
+    models/utils.py:74-108): the class embedding and positional
+    embedding become ``cls_token`` and ``pos_embed``, ``conv1`` the patch
+    embedding, ``ln_post`` the final ``norm``, and each of the first
+    ``layers`` residual blocks' attention, ``ln_1``, MLP and ``ln_2`` the
+    block's spatial ``attn``, ``norm1``, ``mlp`` and ``norm2``. The time
+    attention, ``norm3`` and ``temporal_embed`` have no counterpart."""
+    def p(n):
+        return prefix + n
+    out = {
+        "cls_token": sd[p("class_embedding")].reshape(1, 1, -1),
+        "pos_embed": sd[p("positional_embedding")][None],
+        "patch_embed.proj.weight": sd[p("conv1.weight")],
+        "ln_pre.weight": sd[p("ln_pre.weight")],
+        "ln_pre.bias": sd[p("ln_pre.bias")],
+        "norm.weight": sd[p("ln_post.weight")],
+        "norm.bias": sd[p("ln_post.bias")],
+    }
+    renames = (("attn.in_proj_weight", "attn.qkv.weight"),
+               ("attn.in_proj_bias", "attn.qkv.bias"),
+               ("attn.out_proj.weight", "attn.proj.weight"),
+               ("attn.out_proj.bias", "attn.proj.bias"),
+               ("ln_1.weight", "norm1.weight"), ("ln_1.bias", "norm1.bias"),
+               ("mlp.c_fc.weight", "mlp.fc1.weight"),
+               ("mlp.c_fc.bias", "mlp.fc1.bias"),
+               ("mlp.c_proj.weight", "mlp.fc2.weight"),
+               ("mlp.c_proj.bias", "mlp.fc2.bias"),
+               ("ln_2.weight", "norm2.weight"), ("ln_2.bias", "norm2.bias"))
+    for i in range(layers):
+        for a, b in renames:
+            out[f"blocks.{i}.{b}"] = sd[p(f"transformer.resblocks.{i}.{a}")]
+    return out
+
+
+def import_resnet_clip(sd: Mapping[str, torch.Tensor],
+                       prefix: str = "visual.") -> dict[str, torch.Tensor]:
+    """An OpenAI CLIP ModifiedResNet's weights and running statistics
+    (the ``prefix`` entries of a released RN50/RN101 state dict) → the
+    port's ``models/resnet_clip.ModifiedResNet`` state dict, the
+    counterpart of JAX ``import_torch.import_resnet_clip``. The port keeps
+    OpenAI's names, so this strips the prefix and drops the norms'
+    ``num_batches_tracked``, which the frozen towers never read."""
+    return {k[len(prefix):]: torch.as_tensor(v).float()
+            for k, v in sd.items()
+            if k.startswith(prefix) and not k.endswith("num_batches_tracked")}
 
 
 def load_reference_checkpoint(path: str, num_frames: int | None = None

@@ -21,6 +21,10 @@ the reference LaViLa state-dict keys (``blocks.{i}.timeattn.qkv.weight``,
     temporal PE; the CLS row takes ``pos_embed[0]``.
   * Time attention starts at zero: qkv weight and bias 0, proj weight 1,
     so a fresh block is a pure ViT block.
+  * ``is_tanh_gating`` (the zoo's ``timesformer_gated_xattn``): a 0-dim
+    ``alpha_timeattn`` per block, 0 at init, whose ``tanh`` (cast to the
+    compute dtype) multiplies both halves of the time attention's output,
+    as JAX ``timesformer.py:113-116``.
   * The configuration of the CLIP-initialised LaViLa TimeSformers (the
     defaults): ``ln_pre`` after the embeddings and a bias-free
     patch-embed conv, qkv bias, MLP ratio 4 with QuickGELU, RGB input.
@@ -34,21 +38,45 @@ the reference LaViLa state-dict keys (``blocks.{i}.timeattn.qkv.weight``,
     the CLS row and the patches share, from the ``generator`` given to
     ``forward``; a block's masks are drawn before it runs and handed in.
   * Remat (``remat=True``, the JAX package's ``--use-checkpoint``): each
-    block runs under ``torch.utils.checkpoint`` (non-reentrant), so only
-    its inputs are kept and the backward runs its forward again, the
-    JAX ``nn.remat`` per block with policy ``full``. The recompute
-    reuses the masks drawn before the block (the checkpoint restores
-    only torch's default generators, not the explicit one), so remat
-    changes no gradient. The JAX policies that save some of the block
-    (``dots``, ``save_attn``, ``dots_attn``) are not ported: the
-    pretraining CLI refuses them.
+    block runs under ``torch.utils.checkpoint`` (non-reentrant), the JAX
+    ``nn.remat`` per block, with ``remat_policy`` (JAX
+    ``timesformer.py:225-246``):
+
+    - ``full``: only the block's inputs are kept; the backward runs its
+      forward again.
+    - ``dots`` (JAX ``dots_with_no_batch_dims_saveable``): the outputs of
+      ``aten.mm``/``aten.addmm``, the block's Linears, are kept;
+      everything else is recomputed, the batched products (the plain CLS
+      row's ``bmm``) and the attention kernels among it.
+    - ``save_attn`` (JAX ``save_only_these_names("attn_out")``): only the
+      two divided-attention phases' outputs are kept, so the recompute
+      launches no K1/K2/K6 forward; the CLS row, the norms, the Linears
+      and the elementwise ops run again.
+    - ``dots_attn``: both.
+
+    The last three are selective activation checkpointing
+    (``torch.utils.checkpoint.create_selective_checkpoint_contexts``),
+    whose policy sees dispatcher operators only. The phase is therefore
+    the operator ``lavila::divided_phase`` (``kernels/divided.py``, a
+    ``torch.library.custom_op`` whose autograd formula is the backward
+    kernel; its body on a CPU tensor the plain version), which the
+    policy can name. Splitting the block into checkpointed segments
+    with the phase outputs held outside would name nothing, but would
+    cut the block in four around the two phases and give ``dots`` no
+    way to reach them. The recompute reuses the masks drawn before the
+    block (the checkpoint restores only torch's default generators, not
+    the explicit one), so no policy changes a gradient.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from lavila_tpu_torch.ops.attention import divided_attention_split
 from lavila_tpu_torch.ops.basic import (LayerNorm, Mlp, drop_path,
@@ -81,13 +109,26 @@ class DividedAttentionBlock(nn.Module):
                 self.proj(p_out.reshape(B, F, N, D)))
 
 
+REMAT_POLICIES = ("full", "dots", "save_attn", "dots_attn")
+
+
+def _saved_ops(policy: str) -> list:
+    """The operators whose outputs the recompute of a policy other than
+    ``full`` keeps."""
+    mm = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+    phase = [torch.ops.lavila.divided_phase.default]
+    return {"dots": mm, "save_attn": phase, "dots_attn": mm + phase}[policy]
+
+
 class SpaceTimeBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, drop_path_rate: float = 0.0,
-                 act: str = "quick_gelu"):
+                 act: str = "quick_gelu", is_tanh_gating: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm3 = LayerNorm(dim, eps=1e-6)
         self.timeattn = DividedAttentionBlock(dim, num_heads)
+        self.alpha_timeattn = (nn.Parameter(torch.zeros(()))
+                               if is_tanh_gating else None)
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = DividedAttentionBlock(dim, num_heads)
         self.norm2 = LayerNorm(dim, eps=1e-6)
@@ -115,6 +156,9 @@ class SpaceTimeBlock(nn.Module):
         space_mask, mlp_mask = masks if masks is not None else (None, None)
         t_cls, t_pat = self.timeattn(self.norm3(cls), self.norm3(patches),
                                      "time")
+        if self.alpha_timeattn is not None:
+            gate = torch.tanh(self.alpha_timeattn).to(cls.dtype)
+            t_cls, t_pat = gate * t_cls, gate * t_pat
         # the time residual feeds only norm1: K5 on the patch half
         s_cls, s_pat = self._drop_path(
             self.attn(self.norm1(cls + t_cls),
@@ -152,11 +196,16 @@ class SpaceTimeTransformer(nn.Module):
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  num_frames: int = 8, drop_path_rate: float = 0.0,
-                 remat: bool = False, ln_pre: bool = True,
-                 act: str = "quick_gelu"):
+                 remat: bool = False, remat_policy: str = "full",
+                 ln_pre: bool = True, act: str = "quick_gelu",
+                 is_tanh_gating: bool = False):
         super().__init__()
+        if remat and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={remat_policy!r} unknown; one of "
+                             f"{sorted(REMAT_POLICIES)}")
         D = embed_dim
         self.remat = remat
+        self.remat_policy = remat_policy
         self.num_frames = num_frames
         self.embed_dim = D
         self.num_patches = (img_size // patch_size) ** 2
@@ -169,7 +218,8 @@ class SpaceTimeTransformer(nn.Module):
         # stochastic depth decay rule: linear 0 → drop_path_rate
         self.blocks = nn.ModuleList(
             SpaceTimeBlock(D, num_heads,
-                           drop_path_rate * i / max(depth - 1, 1), act)
+                           drop_path_rate * i / max(depth - 1, 1), act,
+                           is_tanh_gating)
             for i in range(depth))
         self.norm = LayerNorm(D, eps=1e-6)
 
@@ -194,6 +244,8 @@ class SpaceTimeTransformer(nn.Module):
             blk.timeattn.qkv.bias.zero_()
             blk.timeattn.proj.weight.fill_(1.0)
             blk.timeattn.proj.bias.zero_()
+            if blk.alpha_timeattn is not None:
+                blk.alpha_timeattn.zero_()
 
     def forward(self, x: torch.Tensor, cls_at_last: bool = True,
                 generator: torch.Generator | None = None):
@@ -212,14 +264,18 @@ class SpaceTimeTransformer(nn.Module):
         if self.ln_pre is not None:
             cls, patches = self.ln_pre(cls), self.ln_pre(patches)
         remat = self.remat and torch.is_grad_enabled()
+        context = (functools.partial(create_selective_checkpoint_contexts,
+                                     _saved_ops(self.remat_policy))
+                   if remat and self.remat_policy != "full"
+                   else noop_context_fn)
         for blk in self.blocks:
             masks = blk.draw_masks(B, generator, cls.device, cls.dtype)
             if remat:
                 # the block draws no random numbers itself: nothing of
                 # torch's generators needs stashing for the recompute
-                cls, patches = checkpoint(blk, cls, patches, masks,
-                                          use_reentrant=False,
-                                          preserve_rng_state=False)
+                cls, patches = checkpoint(
+                    blk, cls, patches, masks, use_reentrant=False,
+                    preserve_rng_state=False, context_fn=context)
             else:
                 cls, patches = blk(cls, patches, masks)
         if cls_at_last:

@@ -7,10 +7,12 @@ it to ``device`` in ``dtype``. A CPU generator (the default) gives the
 same weights whatever the target device; a generator on the target
 device initialises a GPT-2 XL narrator there in seconds instead of
 minutes on the host, with other (equally seeded) values. Unlike the JAX
-zoo, an unknown keyword argument raises. The dual encoders take the
-training options ``drop_path_rate`` and ``remat`` (the JAX policy
-``full``); a narrator raises on ``remat`` (its caption loss and step
-are not ported).
+zoo, an unknown keyword argument raises. The TimeSformer models take the
+training options ``drop_path_rate`` (the dual encoders), ``remat`` and
+``remat_policy`` (``full``, ``dots``, ``save_attn``, ``dots_attn``:
+``models/timesformer.py``) and ``timesformer_gated_xattn`` (the tanh gate
+on the time attention); as in the JAX zoo, the MINI and CLIP_HF towers
+take the gate's keyword and build no gate.
 
 The dual encoders are the TimeSformer ones with the CLIP text tower:
 TSF-B (224², patch 16; text 512 wide, 8 heads) and TSF-L (patch 14,
@@ -38,11 +40,13 @@ GPT-2 on a :class:`FrameTokensViT` (every frame's patch tokens before
 ``ln_post``) with cross-attention on every second layer. The JAX
 factories swallow every keyword (``**_unused``); these accept the ones
 the CLIs pass and give them the JAX meaning: ``num_frames``,
-``project_embed_dim``, ``temperature_init``, ``drop_path_rate`` and
-``remat`` change nothing in a ViT dual encoder (the ViT has no remat and
-no drop path, the logit scale starts at log(1 / 0.07), the embedding is
-the ViT's ``output_dim``); a ViT narrator hands ``remat`` to GPT-2 only
-and ignores ``num_frames`` and ``timesformer_gated_xattn``.
+``project_embed_dim``, ``temperature_init``, ``drop_path_rate``,
+``remat``, ``remat_policy`` and ``timesformer_gated_xattn`` change
+nothing in a ViT dual encoder (the ViT has no remat and no drop path,
+the logit scale starts at log(1 / 0.07), the embedding is the ViT's
+``output_dim``); a ViT narrator hands ``remat`` to GPT-2 only and
+ignores ``num_frames``, ``remat_policy`` and
+``timesformer_gated_xattn``.
 """
 
 from __future__ import annotations
@@ -96,12 +100,15 @@ def CLIP_OPENAI_TIMESFORMER_MINI(num_frames: int = 4,
                                  project_embed_dim: int = 64,
                                  temperature_init: float = 0.07,
                                  drop_path_rate: float = 0.0,
-                                 remat: bool = False):
+                                 remat: bool = False,
+                                 remat_policy: str = "full",
+                                 timesformer_gated_xattn: bool = False):
     """Tiny debug/CI configuration (not in the reference zoo): 64px,
-    2-layer towers 64 wide."""
+    2-layer towers 64 wide; no time gate, as the JAX MINI."""
     vision = SpaceTimeTransformer(
         img_size=64, patch_size=16, embed_dim=64, depth=2, num_heads=4,
-        num_frames=num_frames, drop_path_rate=drop_path_rate, remat=remat)
+        num_frames=num_frames, drop_path_rate=drop_path_rate, remat=remat,
+        remat_policy=remat_policy)
     text = TextTransformer(width=64, heads=4, layers=2,
                            embed_dim=project_embed_dim)
     return VideoCLIP(vision, text, project_embed_dim, temperature_init)
@@ -117,11 +124,8 @@ _TEXT = {"base": (512, 8), "large": (768, 12)}
 def _timesformer(size: str, img_size: int, num_frames: int,
                  timesformer_gated_xattn: bool = False, **train_kw
                  ) -> SpaceTimeTransformer:
-    if timesformer_gated_xattn:
-        raise NotImplementedError(
-            "timesformer_gated_xattn is not ported: ROADMAP queue 1: "
-            "timesformer_gated_xattn")
     return SpaceTimeTransformer(img_size=img_size, num_frames=num_frames,
+                                is_tanh_gating=timesformer_gated_xattn,
                                 **_TSF[size], **train_kw)
 
 
@@ -129,9 +133,12 @@ def _clip_timesformer(size: str, img_size: int, num_frames: int = 4,
                       project_embed_dim: int = 256,
                       temperature_init: float = 0.07,
                       drop_path_rate: float = 0.0,
-                      remat: bool = False) -> VideoCLIP:
+                      remat: bool = False, remat_policy: str = "full",
+                      timesformer_gated_xattn: bool = False) -> VideoCLIP:
     vision = _timesformer(size, img_size, num_frames,
-                          drop_path_rate=drop_path_rate, remat=remat)
+                          timesformer_gated_xattn,
+                          drop_path_rate=drop_path_rate, remat=remat,
+                          remat_policy=remat_policy)
     width, heads = _TEXT[size]
     text = TextTransformer(width=width, heads=heads, layers=12,
                            embed_dim=project_embed_dim)
@@ -165,9 +172,14 @@ def _clip_timesformer_distilbert(size: str, img_size: int,
                                  temperature_init: float = 0.07,
                                  projection: str = "default",
                                  drop_path_rate: float = 0.0,
-                                 remat: bool = False) -> VideoCLIPHF:
+                                 remat: bool = False,
+                                 remat_policy: str = "full",
+                                 timesformer_gated_xattn: bool = False
+                                 ) -> VideoCLIPHF:
     vision = _timesformer(size, img_size, num_frames,
-                          drop_path_rate=drop_path_rate, remat=remat)
+                          timesformer_gated_xattn,
+                          drop_path_rate=drop_path_rate, remat=remat,
+                          remat_policy=remat_policy)
     return VideoCLIPHF(vision, DistilBertModel(), project_embed_dim,
                        projection, temperature_init)
 
@@ -196,10 +208,14 @@ def _clip_hf_timesformer(projection: str, num_frames: int = 4,
                          project_embed_dim: int = 256,
                          temperature_init: float = 0.07,
                          drop_path_rate: float = 0.0,
-                         remat: bool = False) -> VideoCLIPHF:
+                         remat: bool = False, remat_policy: str = "full",
+                         timesformer_gated_xattn: bool = False
+                         ) -> VideoCLIPHF:
+    # the JAX CLIP_HF towers take no gate either
     vision = SpaceTimeTransformer(
         img_size=224, num_frames=num_frames, drop_path_rate=drop_path_rate,
-        remat=remat, ln_pre=False, act="gelu", **_TSF["base"])
+        remat=remat, remat_policy=remat_policy, ln_pre=False, act="gelu",
+        **_TSF["base"])
     return VideoCLIPHF(vision, DistilBertModel(), project_embed_dim,
                        projection, temperature_init)
 
@@ -246,9 +262,11 @@ def _register_narrator(suffix: str) -> None:
     size, img, preset, freq, heads = _NARRATORS[suffix]
 
     def factory(num_frames: int = 4, gated_xattn: bool = False,
-                timesformer_gated_xattn: bool = False, remat: bool = False):
+                timesformer_gated_xattn: bool = False, remat: bool = False,
+                remat_policy: str = "full"):
         vision = _timesformer(size, img, num_frames,
-                              timesformer_gated_xattn, remat=remat)
+                              timesformer_gated_xattn, remat=remat,
+                              remat_policy=remat_policy)
         return _vclm(vision, PRESETS[preset], freq, gated_xattn, remat,
                      heads=heads)
 
@@ -266,13 +284,16 @@ for _suffix in _NARRATORS:
 @register
 def VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI(num_frames: int = 4,
                                            gated_xattn: bool = False,
-                                           remat: bool = False):
+                                           remat: bool = False,
+                                           remat_policy: str = "full",
+                                           timesformer_gated_xattn:
+                                           bool = False):
     """Tiny debug/CI narrator (not in the reference zoo): the MINI video
-    tower, a 2-layer GPT-2 64 wide with cross-attention on every layer,
-    16 image queries of 4 heads × 16."""
+    tower (no time gate, as the JAX MINI), a 2-layer GPT-2 64 wide with
+    cross-attention on every layer, 16 image queries of 4 heads × 16."""
     vision = SpaceTimeTransformer(
         img_size=64, patch_size=16, embed_dim=64, depth=2, num_heads=4,
-        num_frames=num_frames, remat=remat)
+        num_frames=num_frames, remat=remat, remat_policy=remat_policy)
     gpt2 = GPT2Config(vocab_size=50257, n_positions=128, n_embd=64,
                       n_layer=2, n_head=4)
     return _vclm(vision, gpt2, 1, gated_xattn, remat, heads=4,
@@ -297,7 +318,8 @@ def _register_clip_vit(geom: str) -> None:
 
     def factory(num_frames: int = 4, project_embed_dim: int = 256,
                 temperature_init: float = 0.07, drop_path_rate: float = 0.0,
-                remat: bool = False):
+                remat: bool = False, remat_policy: str = "full",
+                timesformer_gated_xattn: bool = False):
         # every keyword is ignored, as the JAX factory swallows it
         text_width = 512 if g["output_dim"] == 512 else 768
         text = TextTransformer(width=text_width,
@@ -332,7 +354,8 @@ def _register_vit_narrator(suffix: str) -> None:
     geom, preset, heads = _VIT_NARRATORS[suffix]
 
     def factory(num_frames: int = 4, gated_xattn: bool = False,
-                timesformer_gated_xattn: bool = False, remat: bool = False):
+                timesformer_gated_xattn: bool = False, remat: bool = False,
+                remat_policy: str = "full"):
         return _vclm(FrameTokensViT(**_VIT_GEOM[geom]), PRESETS[preset], 2,
                      gated_xattn, remat, heads=heads)
 

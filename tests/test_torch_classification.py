@@ -551,10 +551,21 @@ def test_cli_use_checkpoint_trains_with_remat(tmp_path):
     assert state.step == 2 and state.model.vision_model.remat
 
 
+@pytest.mark.parametrize("policy", ["dots", "save_attn", "dots_attn"])
+def test_cli_remat_policy_trains_as_no_remat(tmp_path, policy):
+    """``--use-checkpoint --remat-policy`` reaches the backbone, and the
+    classifier trained under it (drop-path and dropout drawn from one
+    seeded generator) ends at the masters of a run without remat, bit
+    for bit."""
+    state = cli.main(_synthetic(tmp_path / policy, "--use-checkpoint",
+                                "--remat-policy", policy))
+    assert state.model.vision_model.remat_policy == policy
+    plain = cli.main(_synthetic(tmp_path / "none"))
+    for name, p in plain.params.items():
+        assert torch.equal(state.params[name], p), name
+
+
 def test_cli_options_that_raise(tmp_path, egtea_fixture):
-    with pytest.raises(NotImplementedError, match="remat"):
-        cli.main(_synthetic(tmp_path, "--use-checkpoint", "--remat-policy",
-                            "dots"))
     with pytest.raises(ValueError, match="ek100_cls"):
         cli.main(_cli_args(tmp_path, egtea_fixture, "--use-vn-classifier"))
     if not torch.cuda.is_available():

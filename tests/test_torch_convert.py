@@ -56,8 +56,10 @@ def test_state_dict_from_jax_loads_strict(mini_params):
     assert sd["logit_scale"].shape == ()
 
 
+# (the time gate, blocks_0/alpha_timeattn, maps to the port's
+# visual.blocks.0.alpha_timeattn: tests/test_torch_gate_remat.py)
 @pytest.mark.parametrize("extra", [
-    ("vision_model", "blocks_0", "alpha_timeattn"),
+    ("vision_model", "blocks_0", "alpha_spaceattn"),
     ("vision_model", "patch_embed", "scale"),
     ("text_model", "transformer", "resblocks_0", "ln_1", "gamma"),
     ("extra_head",),

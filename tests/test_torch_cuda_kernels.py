@@ -224,7 +224,7 @@ def test_divided_phase_bwd_kernel(gen, axis, B, F, N, H, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_divided_phase_autograd_uses_bwd_kernel(gen, dtype):
     """On CUDA tensors that require grad, the phase runs through its
-    Function: the forward and backward kernels, no fallback."""
+    operator: the forward and backward kernels, no fallback."""
     B, F, N, H, d = 2, 4, 196, 12, 64
     D = H * d
     qkv = torch.randn(B, F, N, 3 * D, generator=gen, device="cuda").to(
@@ -791,6 +791,56 @@ def test_flash_bwd_near_copy_keys(gen, Lk, dtype):
     got = torch.autograd.grad(KF.flash_attention(qg, k, v), qg, do)[0]
     err = ((got.double() - want).norm() / want.norm()).item()
     assert err <= (0.1 if dtype == torch.bfloat16 else 0.01), err
+
+
+def near_copy_phase(gen, axis, B, F, N, H, dtype, device="cuda"):
+    """Inputs of one divided phase whose keys and values (the CLS rows
+    among them) share a common part 20x their spread, and their q/k/v/ck/
+    cv gradients by fp64 autograd through the plain version: dq = dS·K
+    cancels there, and keeps whatever sum(dS) != 0 the backward's delta
+    leaves times the common part."""
+    d = 64
+    D = H * d
+
+    def near_copies(*shape):
+        common = torch.randn(B, *[1] * (len(shape) - 1), D, generator=gen,
+                             device=device)
+        return common + 0.05 * torch.randn(B, *shape[1:], D, generator=gen,
+                                           device=device)
+    q = torch.randn(B, F, N, D, generator=gen, device=device).to(dtype)
+    kv = [near_copies(B, F, N) for _ in range(2)]
+    k, v = (t.to(dtype) for t in kv)
+    ck, cv = ((t[:, 0, 0] + 0.05 * torch.randn(B, D, generator=gen,
+                                                device=device)).to(dtype)
+              for t in kv)
+    do = torch.randn(B, F, N, D, generator=gen, device=device).to(dtype)
+    ins = [t.double().requires_grad_() for t in (q, k, v, ck, cv)]
+    out, _ = KD.divided_phase_reference(*ins, axis, H, d ** -0.5)
+    want = torch.autograd.grad(out, ins, do.double())
+    return (q, k, v, ck, cv), do, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis,N", [("space", 196), ("time", 196),
+                                    ("space", 576)])
+def test_divided_bwd_near_copy_keys(gen, axis, N, dtype):
+    """K1 (TSF-B's N = 196), K2 (F = 4) and K6 (N = 576) at keys and
+    values that share a large common part: dq, dck and dcv stay within
+    10% (bf16: the tensor cores, delta = rowsum(P·dP)) or 1% (fp32: SIMT,
+    delta = rowsum(dO·O) from the fp32 O) of the fp64 gradient's norm.
+    With rowsum(dO·O) from the O rounded to bf16 the plain version's bf16
+    dq read 9.0x (space) and 1.3x (time) that norm."""
+    ins, do, want = near_copy_phase(gen, axis, 2, 4, N, 4, dtype)
+    d = ins[0].shape[-1] // 4
+    out, lse = KD.divided_phase(*ins, axis, 4, d ** -0.5)
+    key = _counter("space_big" if N > 256 else axis, dtype, d, bwd=True)
+    before = KD.launches[key]
+    got = KD.divided_phase_bwd(*ins, do, out, lse, axis, 4, d ** -0.5)
+    assert KD.launches[key] == before + 1
+    limit = 0.1 if dtype == torch.bfloat16 else 0.01
+    for name, i in (("dq", 0), ("dck", 3), ("dcv", 4)):
+        err = ((got[i].double() - want[i]).norm() / want[i].norm()).item()
+        assert err <= limit, (name, err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

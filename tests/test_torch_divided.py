@@ -158,8 +158,8 @@ def test_space_routing_and_partials(N, dtype, d, pad, name, branch):
     phase takes (K1 up to N = 256, K6 past it), its branch (one rule for
     both), and the scratch the backward allocates: dck/dcv partials one
     per (frame, 64-query tile) on the tensor cores, one per frame
-    otherwise; per-tile lse and delta on the tensor cores, K6's SIMT
-    delta per (row, head), none for K1's SIMT kernels."""
+    otherwise; per-tile lse and delta on the tensor cores, delta per
+    (row, head) for the SIMT kernels, K1's and K6's."""
     B, F, H = 2, 3, 2
     q, k, v, ck, cv = _space_views(N, dtype, d, H, B, F, pad)
     D = H * d
@@ -169,22 +169,19 @@ def test_space_routing_and_partials(N, dtype, d, pad, name, branch):
     want = (B, F * tiles, D) if branch == "tc" else (B, F, D)
     assert K._partials_shape(name, branch, B, F, N, D) == want
     assert K._partials_shape("time", "simt", B, F, N, D) == (B, N, D)
-    stats = {"tc": (B, F, H, tiles, 2, 64)}.get(
-        branch, (B, F, N, H) if name == "space_big" else None)
+    stats = {"tc": (B, F, H, tiles, 2, 64)}.get(branch, (B, F, N, H))
     assert K._stats_shape(name, branch, B, F, N, H) == stats
     assert K._stats_shape("time", None, B, F, N, H) is None
 
 
 @pytest.mark.parametrize("N", [196, 576])
 def test_space_branch_backward_needs_aligned_do(N):
-    """The backward's tensor cores also read dO and O by TMA: a dO or an
-    O off a 16-byte boundary takes the SIMT kernels, K1's and K6's."""
+    """The backward's tensor cores also read dO by TMA: a dO off a
+    16-byte boundary takes the SIMT kernels, K1's and K6's."""
     q, k, v, ck, cv = _space_views(N, torch.bfloat16)
     do = torch.zeros(2, 3, N, 129, dtype=torch.bfloat16)[..., 1:]
-    out = torch.zeros(2, 3, N, 128, dtype=torch.bfloat16)
-    assert K.space_branch(q, k, v, ck, cv, 2, do.contiguous(), out) == "tc"
-    assert K.space_branch(q, k, v, ck, cv, 2, do, out) == "simt"
-    assert K.space_branch(q, k, v, ck, cv, 2, out, do) == "simt"
+    assert K.space_branch(q, k, v, ck, cv, 2, do.contiguous()) == "tc"
+    assert K.space_branch(q, k, v, ck, cv, 2, do) == "simt"
 
 
 @pytest.mark.parametrize("F,N,dtype,d,pad,H,branch", [
@@ -201,8 +198,8 @@ def test_space_branch_backward_needs_aligned_do(N):
 ])
 def test_time_routing_and_partials(F, N, dtype, d, pad, H, branch):
     """K2's branch (the slab kernels on the tensor cores up to 16 frames
-    of aligned bf16 rows at head_dim 64, else SIMT; dO and O must be
-    aligned too for the backward's) and the dck/dcv partials its backward
+    of aligned bf16 rows at head_dim 64, else SIMT; dO must be aligned
+    too for the backward's) and the dck/dcv partials its backward
     allocates: one per tile of 16 // F positions on the tensor cores, one
     per position on SIMT; no scratch."""
     B = 2
@@ -221,5 +218,5 @@ def test_time_routing_and_partials(F, N, dtype, d, pad, H, branch):
     if branch == "tc":
         do = torch.zeros(B, F, N, D + 1, dtype=dtype)[..., 1:]
         out = torch.zeros(B, F, N, D, dtype=dtype)
-        assert K.time_branch(q, k, v, ck, cv, H, out, out) == "tc"
-        assert K.time_branch(q, k, v, ck, cv, H, do, out) == "simt"
+        assert K.time_branch(q, k, v, ck, cv, H, out) == "tc"
+        assert K.time_branch(q, k, v, ck, cv, H, do) == "simt"

@@ -72,12 +72,13 @@ def test_eval_cli_matches_jax_cli(ego4d_val, gpt2_vocab_dir,  # noqa: F811
                                   checkpoint, monkeypatch, decoding, extra):
     """Greedy sampling, beam search and group beam search: the JAX CLI's
     hypotheses, references and NLG scores; teacher-forced perplexity
-    within 1e-4 relative."""
+    within 1e-4 relative. Both command lines carry ``--early-stop`` and
+    ``--sparse-sample``, which both CLIs take and neither reads."""
     import cli.eval_narrator as jax_eval
     monkeypatch.setenv("LAVILA_TOKENIZER_DIR", gpt2_vocab_dir)
     root, meta = ego4d_val
     argv = _eval_argv(root, meta, checkpoint, "--decoding", decoding,
-                      *extra)
+                      "--early-stop", "--sparse-sample", *extra)
     want, want_hyps, want_refs = _run_eval(jax_eval, argv, monkeypatch)
     got, hyps, refs = _run_eval(port_eval, argv + ["--device", "cpu"],
                                 monkeypatch)
@@ -175,9 +176,11 @@ def video(tmp_path_factory):
                                             ("beam_sample", False)])
 def test_demo_beams(checkpoint, video, capsys, decoding, exact):
     """The demo's beam modes (5 beams, or 6 in 3 groups) on one clip:
-    the JAX demo's ids for the deterministic ones."""
+    the JAX demo's ids for the deterministic ones, from a command line
+    with ``--third-person``, which both demos take and neither reads."""
     argv = ["--video-path", video, "--checkpoint", checkpoint,
-            "--decoding", decoding, "--num-return-sequences", "2"]
+            "--decoding", decoding, "--num-return-sequences", "2",
+            "--third-person"]
     ids = demo_narrator.main(demo_narrator.get_args_parser().parse_args(
         argv + ["--device", "cpu"]))
     assert ids.shape == (2, 77) and (ids[:, 0] == 50256).all()
@@ -190,11 +193,12 @@ def test_demo_beams(checkpoint, video, capsys, decoding, exact):
 
 def test_demo_3rd_person(checkpoint, video, capsys):
     """The third-person demo is the demo with the JAX script's default
-    model, and captions a clip from a checkpoint."""
+    model and ``third_person`` set, and captions a clip from a
+    checkpoint."""
     args = demo_narrator_3rd_person.get_args().parse_args(
         ["--video-path", video, "--device", "cpu",
          "--num-return-sequences", "2", "--checkpoint", checkpoint])
-    assert args.model == MINI
+    assert args.model == MINI and args.third_person
     ids = demo_narrator_3rd_person.main(args)
     assert ids.shape == (2, 77)
     assert "image tokens: (1, 16, 64)" in capsys.readouterr().out

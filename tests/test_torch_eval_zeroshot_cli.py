@@ -4,7 +4,9 @@ JAX CLI builds from ``jax.random.key(0)``, saved as a reference ``.pt``,
 the port must score the same mAP/nDCG as the JAX CLI (within 1e-4). A
 DistilBERT dual encoder at MINI size (:func:`bert_mini`, with a fixture
 WordPiece vocabulary) runs the CLI end to end, its masks reaching the
-text tower."""
+text tower. A checkpoint of the MINI dual encoder with the time gate
+(:func:`gated_mini`, registered in both zoos) serves the JAX model's
+embeddings."""
 
 import json
 
@@ -79,11 +81,14 @@ def test_port_cli_cuda_without_card_raises():
 
 
 def test_port_cli_rejects_orbax_checkpoint(tmp_path):
+    """An Orbax checkpoint directory is refused, naming the exporter that
+    writes it as a ``.pt``."""
     from lavila_tpu_torch.cli import eval_zeroshot as port_cli
     args = port_cli.get_args_parser().parse_args(
         ["--checkpoint", str(tmp_path / "checkpoint_best"), "--device",
          "cpu"])
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(NotImplementedError,
+                       match="Orbax.*scripts/export_jax_checkpoint.py"):
         port_cli.load_model_from_checkpoint(args)
 
 
@@ -99,13 +104,15 @@ BERT_VOCAB = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "synthetic",
 
 
 def _bert_mini(num_frames=4, project_embed_dim=64, temperature_init=0.07,
-               drop_path_rate=0.0, remat=False):
+               drop_path_rate=0.0, remat=False, remat_policy="full",
+               timesformer_gated_xattn=False):
     from lavila_tpu_torch.models.distilbert import DistilBertModel
     from lavila_tpu_torch.models.dual_encoder import VideoCLIPHF
     from lavila_tpu_torch.models.timesformer import SpaceTimeTransformer
     vision = SpaceTimeTransformer(
         img_size=64, patch_size=16, embed_dim=64, depth=2, num_heads=4,
-        num_frames=num_frames, drop_path_rate=drop_path_rate, remat=remat)
+        num_frames=num_frames, drop_path_rate=drop_path_rate, remat=remat,
+        remat_policy=remat_policy, is_tanh_gating=timesformer_gated_xattn)
     text = DistilBertModel(vocab_size=len(BERT_VOCAB), dim=64, num_heads=4,
                            hidden_dim=256, n_layers=2,
                            max_position_embeddings=77)
@@ -183,16 +190,114 @@ def test_port_cli_passes_the_distilbert_mask(bert_mini):
     np.testing.assert_allclose(want, padded, rtol=0, atol=1e-6)
 
 
-def test_port_cli_gated_xattn_names_its_roadmap_subject(tmp_path):
-    """A checkpoint whose config asks for timesformer_gated_xattn is
-    refused, naming ROADMAP queue 1 item 7a."""
+# the MINI dual encoder with the tanh gate on its time attention, which
+# the zoos' TSF-B/L factories build under timesformer_gated_xattn (their
+# MINI takes the keyword and builds none); registered in both zoos by
+# the fixture below
+GATED_MINI = "CLIP_OPENAI_TIMESFORMER_MINI_GATED"
+
+
+def _gated_mini(num_frames=4, project_embed_dim=64, temperature_init=0.07,
+                drop_path_rate=0.0, remat=False, remat_policy="full",
+                timesformer_gated_xattn=False):
+    from lavila_tpu_torch.models.dual_encoder import VideoCLIP
+    from lavila_tpu_torch.models.openai_clip import TextTransformer
+    from lavila_tpu_torch.models.timesformer import SpaceTimeTransformer
+    vision = SpaceTimeTransformer(
+        img_size=64, patch_size=16, embed_dim=64, depth=2, num_heads=4,
+        num_frames=num_frames, drop_path_rate=drop_path_rate, remat=remat,
+        remat_policy=remat_policy, is_tanh_gating=timesformer_gated_xattn)
+    text = TextTransformer(width=64, heads=4, layers=2,
+                           embed_dim=project_embed_dim)
+    return VideoCLIP(vision, text, project_embed_dim, temperature_init)
+
+
+def _jax_gated_mini(num_frames=4, project_embed_dim=64,
+                    timesformer_gated_xattn=False, remat=False,
+                    remat_policy="full", **_unused):
+    from lavila_tpu.models.dual_encoder import VideoCLIP
+    from lavila_tpu.models.openai_clip import TextTransformer
+    from lavila_tpu.models.timesformer import SpaceTimeTransformer
+    vision = SpaceTimeTransformer(
+        img_size=64, patch_size=16, embed_dim=64, depth=2, num_heads=4,
+        num_frames=num_frames, ln_pre=True, act="quick_gelu",
+        is_tanh_gating=timesformer_gated_xattn, remat=remat,
+        remat_policy=remat_policy)
+    return VideoCLIP(vision_model=vision,
+                     text_model=TextTransformer(width=64, heads=4, layers=2,
+                                                embed_dim=project_embed_dim),
+                     vision_width=64, embed_dim=project_embed_dim)
+
+
+@pytest.fixture()
+def gated_mini(monkeypatch):
+    """:data:`GATED_MINI` in the port's zoo and in the JAX package's."""
+    from lavila_tpu.models import zoo as jax_zoo
+    from lavila_tpu_torch.models import zoo
+    monkeypatch.setitem(zoo._REGISTRY, GATED_MINI, _gated_mini)
+    monkeypatch.setitem(jax_zoo._REGISTRY, GATED_MINI, _jax_gated_mini)
+    return GATED_MINI
+
+
+def gated_checkpoint(path, seed=0):
+    """The JAX gated MINI dual encoder's params, its gates and time
+    attention seeded (at their zero init both are vacuous), written to
+    ``path`` as a ``.pt`` in the port's names with a sidecar whose config
+    asks for the gate. Returns ``(jax_model, params)``."""
+    import jax
+    import jax.numpy as jnp
+
+    from lavila_tpu.models import build_model as jax_build_model
+    from lavila_tpu_torch.models.convert import state_dict_from_jax
+    jm = jax_build_model(GATED_MINI, project_embed_dim=256,
+                         timesformer_gated_xattn=True)
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.key(seed), jnp.zeros((1, 4, 64, 64, 3)),
+        jnp.zeros((1, 77), jnp.int32))["params"])
+    rng = np.random.default_rng(seed + 1)
+    for name, blk in params["vision_model"].items():
+        if name.startswith("blocks_"):
+            for lin in blk["timeattn"].values():
+                for k, v in lin.items():
+                    lin[k] = (rng.normal(size=v.shape) * 0.1).astype(
+                        np.float32)
+            blk["alpha_timeattn"] = np.float32(rng.uniform(0.3, 0.9))
+    torch.save({"state_dict": state_dict_from_jax(params)}, path)
+    with open(f"{path}.json", "w") as f:
+        json.dump({"config": {"model": GATED_MINI, "clip_length": 4,
+                              "project_embed_dim": 256,
+                              "timesformer_gated_xattn": True}}, f)
+    return jm, params
+
+
+def test_port_cli_serves_a_gated_checkpoint(gated_mini, tmp_path):
+    """A checkpoint whose config asks for timesformer_gated_xattn builds
+    the gated tower, loads strict, and serves the JAX model's image and
+    text embeddings on the same params (atol 1e-5)."""
+    import jax.numpy as jnp
+
     from lavila_tpu_torch.cli import eval_zeroshot as port_cli
     ckpt = tmp_path / "gated.pt"
-    (tmp_path / "gated.pt.json").write_text(json.dumps({"config": {
-        "model": "CLIP_OPENAI_TIMESFORMER_MINI",
-        "timesformer_gated_xattn": True}}))
+    jm, params = gated_checkpoint(ckpt)
     args = port_cli.get_args_parser().parse_args(
         ["--checkpoint", str(ckpt), "--device", "cpu"])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: timesformer_gated_xattn"):
-        port_cli.load_model_from_checkpoint(args)
+    model, _, name = port_cli.load_model_from_checkpoint(args)
+    assert name == gated_mini
+    assert model.visual.blocks[1].alpha_timeattn.item() == pytest.approx(
+        float(params["vision_model"]["blocks_1"]["alpha_timeattn"]))
+    rng = np.random.default_rng(2)
+    frames = rng.normal(size=(2, 4, 64, 64, 3)).astype(np.float32)
+    text = rng.integers(1, 49407, size=(2, 77)).astype(np.int32)
+    text[:, 5] = 49407
+    v = {"params": params}
+    with torch.inference_mode():
+        got_i = model.encode_image(torch.from_numpy(frames))
+        got_t = model.encode_text(torch.from_numpy(text))
+    np.testing.assert_allclose(
+        got_i.numpy(), np.asarray(jm.apply(v, jnp.asarray(frames),
+                                           method="encode_image")),
+        atol=1e-5, rtol=0)
+    np.testing.assert_allclose(
+        got_t.numpy(), np.asarray(jm.apply(v, jnp.asarray(text),
+                                           method="encode_text")),
+        atol=1e-5, rtol=0)

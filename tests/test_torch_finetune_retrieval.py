@@ -33,6 +33,8 @@ from lavila_tpu_torch.train import freeze as F
 from lavila_tpu_torch.train import optim as O
 from lavila_tpu_torch.train.step import TrainState, make_retrieval_train_step
 from test_torch_eval_zeroshot_cli import bert_mini  # noqa: F401  (fixture)
+from test_torch_eval_zeroshot_cli import gated_mini  # noqa: F401  (fixture)
+from test_torch_eval_zeroshot_cli import gated_checkpoint
 from test_torch_pretrain_cli import _spy_masks
 
 torch.set_num_threads(1)
@@ -359,10 +361,20 @@ def test_cli_accumulation_keeps_logit_scale_frozen(tmp_path,
     assert moved and "logit_scale" not in moved
 
 
+@pytest.mark.parametrize("policy", ["dots", "save_attn", "dots_attn"])
+def test_cli_remat_policy_fine_tunes_as_no_remat(tmp_path, policy):
+    """``--use-checkpoint --remat-policy`` reaches the video tower, and
+    the fine-tune under it ends at the masters of a run without remat,
+    bit for bit."""
+    state = cli.main(_synthetic_args(tmp_path / policy, "--use-checkpoint",
+                                     "--remat-policy", policy))
+    assert state.model.visual.remat_policy == policy
+    plain = cli.main(_synthetic_args(tmp_path / "none"))
+    for name, p in plain.params.items():
+        assert torch.equal(state.params[name], p), name
+
+
 def test_cli_options_that_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="remat"):
-        cli.main(_synthetic_args(tmp_path, "--use-checkpoint",
-                                 "--remat-policy", "dots"))
     if not torch.cuda.is_available():
         args = _synthetic_args(tmp_path)
         args.device = "cuda"
@@ -370,17 +382,22 @@ def test_cli_options_that_raise(tmp_path):
             cli.main(args)
 
 
-def test_cli_gated_xattn_names_its_roadmap_subject(tmp_path):
+def test_cli_fine_tunes_a_gated_pretrain_checkpoint(tmp_path, gated_mini):
     """A pretrain checkpoint whose config asks for
-    timesformer_gated_xattn is refused, naming ROADMAP queue 1 item
-    7a."""
+    timesformer_gated_xattn (the JAX gated tower's weights): the
+    fine-tune builds the gated tower from its sidecar, loads it strict
+    (each block's gate the JAX one), and trains the gates."""
     ckpt = tmp_path / "gated.pt"
-    (tmp_path / "gated.pt.json").write_text(json.dumps({"config": {
-        "model": MINI, "timesformer_gated_xattn": True}}))
-    args = _synthetic_args(tmp_path, "--pretrain-model", str(ckpt))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: timesformer_gated_xattn"):
-        cli.build_finetune_model(args, torch.device("cpu"))
+    _, params = gated_checkpoint(ckpt)
+    args = _synthetic_args(tmp_path / "run", "--pretrain-model", str(ckpt))
+    model, config = cli.build_finetune_model(args, torch.device("cpu"))
+    assert config["model"] == gated_mini and config["timesformer_gated_xattn"]
+    for i, blk in enumerate(model.visual.blocks):
+        assert blk.alpha_timeattn.item() == pytest.approx(float(
+            params["vision_model"][f"blocks_{i}"]["alpha_timeattn"]))
+    state = cli.main(args)
+    gate = "visual.blocks.0.alpha_timeattn"
+    assert state.params[gate].item() != model.state_dict()[gate].item()
 
 
 def test_cli_fine_tunes_a_distilbert_model(tmp_path, bert_mini, monkeypatch):

@@ -29,7 +29,8 @@ for entry in ("cli.eval_zeroshot", "cli.main_pretrain",
               "utils.meters", "config", "data.loader", "utils.random",
               "eval.metrics", "kernels.decode", "models.narrator",
               "models.distilbert", "eval.nlg", "models.beam",
-              "cli.eval_narrator", "cli.demo_narrator_3rd_person"):
+              "cli.eval_narrator", "cli.demo_narrator_3rd_person",
+              "models.openai_weights", "models.resnet_clip"):
     assert f"lavila_tpu_torch.{entry}" in names, entry
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",

@@ -126,13 +126,14 @@ def _argv(out, ckpt, *extra):
 def test_infer_cli_matches_jax_cli(checkpoint, tmp_path):
     """The port's CLI on the synthetic dataset, --device cpu, greedy: the
     JAX CLI's records (uid, times, captions as raw ids) in cache.0.pkl
-    and total.pkl, perplexities within 1e-4 relative."""
+    and total.pkl, perplexities within 1e-4 relative. Both command lines
+    carry ``--early-stop``, which both CLIs take and neither reads."""
     import cli.main_infer_narrator as jax_cli
     _, _, ckpt = checkpoint
     jax_cli.main(jax_cli.get_args_parser().parse_args(
-        _argv(tmp_path / "jax", ckpt)))
+        _argv(tmp_path / "jax", ckpt, "--early-stop")))
     main_infer_narrator.main(main_infer_narrator.get_args_parser().parse_args(
-        _argv(tmp_path / "port", ckpt, "--device", "cpu")))
+        _argv(tmp_path / "port", ckpt, "--early-stop", "--device", "cpu")))
     for name in ("cache.0.pkl", "total.pkl"):
         want = pickle.loads((tmp_path / "jax" / name).read_bytes())
         got = pickle.loads((tmp_path / "port" / name).read_bytes())

@@ -1,7 +1,8 @@
 """The port's pretraining CLI on the CPU: MINI for 2 steps on the
 synthetic dataset writes a checkpoint that the port's zero-shot loader
-serves, resumes from its output directory, and refuses every option
-that is not ported yet (the SSL options, the probe and --wandb are
+serves, resumes from its output directory, trains under each remat
+policy and with the time gate, and refuses every option that is not
+ported yet (the SSL options, the probe and --wandb are
 tested in tests/test_torch_ssl.py); a DistilBERT dual encoder at MINI size trains
 through it with its masks."""
 
@@ -14,6 +15,7 @@ from lavila_tpu.config import parse_config
 from lavila_tpu_torch.cli import eval_zeroshot as ez
 from lavila_tpu_torch.cli import main_pretrain as cli
 from test_torch_eval_zeroshot_cli import bert_mini  # noqa: F401  (fixture)
+from test_torch_eval_zeroshot_cli import gated_mini  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
 
@@ -135,12 +137,46 @@ def test_cli_freeze_and_accumulation_as_the_jax_cli(tmp_path, flags):
     (["--contrastive-use-vissl"], "queue 1: multi-GPU"),
     (["--mesh-model", "2"], "queue 1: multi-GPU"),
     (["--mesh-data", "4"], "queue 1: multi-GPU"),
-    (["--use-checkpoint", "--remat-policy", "dots"], "remat"),
-    (["--timesformer-gated-xattn"], "gated"),
 ])
 def test_cli_options_not_ported_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(_cfg(tmp_path, *flags))
+
+
+@pytest.mark.parametrize("policy", ["dots", "save_attn", "dots_attn"])
+def test_cli_remat_policy_trains_as_no_remat(tmp_path, policy):
+    """``--use-checkpoint --remat-policy`` (the JAX CLI's options) reaches
+    the video tower, and training under it gives the masters of a run
+    without remat bit for bit (a policy only chooses what the recompute
+    keeps)."""
+    state = cli.main(_cfg(tmp_path / policy, "--use-checkpoint",
+                          "--remat-policy", policy))
+    assert state.model.visual.remat
+    assert state.model.visual.remat_policy == policy
+    plain = cli.main(_cfg(tmp_path / "none"))
+    for name, p in plain.params.items():
+        assert torch.equal(state.params[name], p), name
+
+
+def test_cli_timesformer_gated_xattn_trains_and_serves(tmp_path,
+                                                      gated_mini):
+    """``--timesformer-gated-xattn`` builds the time gate (a TimeSformer
+    dual encoder's; the MINI one of the zoo takes the flag and builds
+    none, as the JAX MINI); the checkpoint holds each block's
+    ``alpha_timeattn`` and the zero-shot loader serves it strict."""
+    state = cli.main(_cfg(tmp_path, "--model", gated_mini,
+                          "--timesformer-gated-xattn"))
+    gates = [f"visual.blocks.{i}.alpha_timeattn" for i in range(2)]
+    assert all(g in state.params for g in gates)
+    ckpt = tmp_path / "checkpoint_latest.pt"
+    saved = torch.load(ckpt, weights_only=True)["state_dict"]
+    assert all(saved[g].shape == () for g in gates)
+    args = ez.get_args_parser().parse_args(
+        ["--checkpoint", str(ckpt), "--device", "cpu"])
+    model, _, _ = ez.load_model_from_checkpoint(args)
+    assert model.visual.blocks[0].alpha_timeattn is not None
+    plain = cli.main(_cfg(tmp_path / "mini", "--timesformer-gated-xattn"))
+    assert not any(k.endswith("alpha_timeattn") for k in plain.params)
 
 
 def test_cli_cuda_without_card_raises(tmp_path):

@@ -72,7 +72,7 @@ def test_space_big_reference_matches_pallas(B, F, N, H, d):
 def test_space_big_public_vjp_matches(pallas_backend):
     """Through the public entry points: JAX's custom VJP of
     ``spatial_phase_big`` against autograd of the port's phase (its
-    Function, plain versions on the CPU)."""
+    operator, plain versions on the CPU)."""
     B, F, N, H, d = 1, 2, 576, 2, 64
     ins, do = _inputs(B, F, N, H, d, seed=3)
     scale = d ** -0.5

@@ -69,7 +69,7 @@ def test_phase_bwd_reference_matches_autograd(axis, B, F, N, H, d):
 def test_divided_phase_grad_through_function_on_strided_views(axis):
     """``divided_phase`` on row views of one qkv output (row stride 3D),
     as the attention block calls it, differentiates through the
-    Function: the same gradients as autograd of the plain forward."""
+    operator: the same gradients as autograd of the plain forward."""
     B, F, N, H, d = 2, 3, 5, 2, 8
     D = H * d
     gen = torch.Generator().manual_seed(0)

@@ -68,7 +68,8 @@ OPENAI_METADATA = {"input_resolution": 64, "context_length": 77,
 
 
 def _vit_mini(num_frames=4, project_embed_dim=256, temperature_init=0.07,
-              drop_path_rate=0.0, remat=False):
+              drop_path_rate=0.0, remat=False, remat_policy="full",
+              timesformer_gated_xattn=False):
     """A ViT dual encoder as the zoo's CLIP_OPENAI_VIT* factories build
     one, at MINI size."""
     text = TextTransformer(width=64, heads=4, layers=2, embed_dim=32)
@@ -77,7 +78,8 @@ def _vit_mini(num_frames=4, project_embed_dim=256, temperature_init=0.07,
 
 
 def _vclm_vit_mini(num_frames=4, gated_xattn=False,
-                   timesformer_gated_xattn=False, remat=False):
+                   timesformer_gated_xattn=False, remat=False,
+                   remat_policy="full"):
     """A ViT narrator as the zoo's VCLM_OPENAI_VIT* factories build one,
     at MINI size (cross-attention on every layer)."""
     return zoo._vclm(FrameTokensViT(**MINI_GEOM), GPT2Config(**GPT2_MINI),
