@@ -15,6 +15,7 @@ time attention, the remat policies, the OpenAI-CLIP init of the
 TimeSformer and CLIP's ModifiedResNet.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl-ranks 4   # only NCCL across 4 cards
 
 Needs one CUDA device and ``nvcc`` (PATH or $CUDA_HOME, default
 /usr/local/cuda); with no CUDA device it exits non-zero and prints no
@@ -215,10 +216,36 @@ result. Phases, each printing JSON lines:
  24. resnet: ModifiedResNet RN50 at 224² (seeded weights and running
      statistics) encoding batch 8 kernels vs plain, its attention pool
      on K7, and images/s.
+ 25. Data parallelism (``lavila_tpu_torch/parallel/mesh.py``), each
+     phase's ranks in processes of their own under a timeout, each
+     line with the card's name and power limit. The machine shows one
+     card: two ranks share it through gloo (NCCL refuses two ranks on
+     one device), and NCCL runs at a world of one; no line is a scaling
+     number. ddp_nccl_world1: ``main_pretrain`` on TSF-B (bf16, batch
+     16, 3 steps) directly and through ``cli.launch --num-processes 1``
+     (NCCL), in turns: every loss and the final masters bit-identical,
+     the same launches, the step ms of each run. ddp_two_ranks: two
+     ranks each stepping 8 rows of a batch of 16 (bf16 on fp32 masters,
+     2 AdamW steps) with the global CLIP loss, the local one
+     (``--contrastive-use-vissl``) and the local SSL loss: the ranks'
+     masters bit-identical and losses equal, against one process on
+     the 16 rows (loss within 1e-2, gradient cosines at least 0.99, the
+     global gradient norm within 1 ± 0.1 of one process's, the masters
+     within 2.5·Σ lr), each rank's launches a step the single-process
+     step's. ddp_infer_narrator: ``main_infer_narrator``
+     over two ranks on the TSF-B + GPT-2 XL narrator (bf16, greedy, 6
+     clips): ``cache.{0,1}.pkl`` the sampler's shards and ``total.pkl``
+     their merge in dataset order, against a one-process run clip by
+     clip; K9 on each rank. With ``--nccl-ranks N`` (N cards) only
+     ddp_nccl_cards runs: ddp_two_ranks's checks at N NCCL ranks, one a
+     card, then ``main_pretrain`` through ``cli.launch --num-processes N
+     --process-id i``: each rank's masters on its card, bit-identical
+     over the ranks, equal losses, 3 steps' launches on each rank.
 
 Every path phase (5, 7, finetune_cli, ssl_pretrain_cli, classify_cli,
 large224_cli, 9, 9c, 10-13b, 15, 16's CLI, 19, vit_infer_narrator_cli,
-21's CLI, 22's gradient steps, 23's and 24's bf16 encodes) zeroes
+21's CLI, 22's gradient steps, 23's and 24's bf16 encodes, 25's first
+launcher run and rank 0 of the narration) zeroes
 the launch counters before it runs and reads them after; the kernel
 summary line sums those runs' counts (K1's, K2's and K6's also by
 branch: every divided-phase launch of a path runs bf16 at head_dim 64
@@ -248,6 +275,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2177,8 +2205,7 @@ def phase_train_step(m, batches: dict, throughput: tuple,
         del k_run, p_run
     del data
     if throughput:
-        _train_throughput(base, gen, m, throughput,
-                          iters=5 if kind == "ssl" else 10, kind=kind)
+        _train_throughput(base, gen, m, throughput, iters=5, kind=kind)
 
 
 def _time_steps(state, step_fn, data, iters: int) -> tuple:
@@ -2213,7 +2240,7 @@ def _in_turns(state, step_fn, data, iters: int, on_kernels=None) -> tuple:
     return rates, peaks
 
 
-def _train_throughput(base, gen, m, batches, iters: int = 10,
+def _train_throughput(base, gen, m, batches, iters: int = 5,
                       kind: str = "clip") -> None:
     """Train clips/s and peak memory, bf16, kernel and plain path in
     alternating order, at each of ``batches``: for TSF-B 16 (bench.py's
@@ -3526,9 +3553,10 @@ def phase_remat_policies() -> dict:
     ``full``'s (their largest difference, within the bf16 train-step
     limits), its launches (K6 and K2 forward once a block where the
     policy keeps the phases' outputs, twice where the recompute runs
-    them), then step ms by CUDA events over 2 steps, the profiler's busy
-    time and idle share, and the first step's peak memory. A policy that
-    does not fit at batch 32 runs at 16, and its line says so. Returns
+    them), then step ms by CUDA events over 1 step (after 3 warm-up
+    steps), the profiler's busy time and idle share over 1 traced step,
+    and the first step's peak memory. A policy that does not fit at
+    batch 32 runs at 16, and its line says so. Returns
     the launches of the four gradient steps."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
     base = _clip_model(LARGE).cpu()  # each policy's copy goes to the card
@@ -3588,8 +3616,9 @@ def phase_remat_policies() -> dict:
         else:
             diff = {"against_full": "not compared: another batch"}
         del grads
-        # 3 warm-up steps, 2 timed by CUDA events (step ms), 2 traced
-        prof = _profile(lambda: step_fn(state, data[batch]), iters=2)
+        # 3 warm-up steps, 1 timed by CUDA events (step ms), 1 traced:
+        # the trace of a step's ~9,000 launches is most of the phase's time
+        prof = _profile(lambda: step_fn(state, data[batch]), iters=1)
         emit("remat_policies", model=LARGE["name"], dtype="bfloat16",
              policy=policy, batch=batch, step_ms=prof["ms_per_call"],
              clips_per_s=batch * 1e3 / prof["ms_per_call"],
@@ -3762,6 +3791,535 @@ def phase_resnet() -> dict:
     return counts
 
 
+# ------------------------------------------------- data parallelism
+
+# the card's machine shows one H100: two ranks share it through gloo
+# (which stages CUDA tensors through host memory; NCCL refuses two ranks
+# on one device), and NCCL runs at a world of one
+DDP_TIMEOUT = 300  # seconds for a phase's processes, start-up included
+# the two-rank variants: the global CLIP loss, --contrastive-use-vissl
+# (the local CLIP loss) and the local SSL loss
+DDP_VARIANTS = {"clip": {}, "vissl": {"local_loss": True},
+                "ssl_local": {"local_loss": True, "use_ssl": True}}
+# the SSL variant's pseudo temperature, 0.05: at the CLI's 0.07, that of
+# logit_scale, the two-temperature loss is the CLIP loss, and AdamW's
+# first update moves both scales by the same lr
+DDP_PSEUDO_INIT = math.log(1 / 0.05)
+# the largest |r - 1| of r, the averaged gradients' global norm over one
+# process's: in bf16 the ranks' gradients read a cosine of at least
+# 0.9991 and a leaf's largest error within 7.2% of its largest value
+# against one process's (H100); a factor of the world either way is 0.5
+DDP_NORM_RATIO = 0.1
+
+
+def _smi() -> str:
+    """``nvidia-smi``'s name and power limit of the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return out[0] if out else "nvidia-smi: no output"
+
+
+def _child_setup() -> None:
+    """A child process of a data-parallel phase: the port importable,
+    TF32 off as in this process (:func:`phase_device`), the kernel
+    library this process built loaded."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lavila_tpu_torch.kernels import build
+    build.library()
+
+
+def _child_result(path: str, result: dict) -> None:
+    """A child's result and its failed checks, as JSON at ``path``."""
+    with open(path, "w") as f:
+        json.dump({**result, "failures": FAILURES}, f)
+
+
+def _spawn(calls: list, tmp: str, meanwhile=None) -> list:
+    """Each ``(function name, args)`` of this module in a process of its
+    own, all at once, ``meanwhile()`` (when given) run here while they
+    run; their results (:func:`_child_result`) once every one ended. A
+    process that fails or outlives :data:`DDP_TIMEOUT` fails the phase,
+    every process killed."""
+    procs, logs = [], []
+    for i, (fn, args) in enumerate(calls):
+        logs.append(open(os.path.join(tmp, f"child_{i}.log"), "w+"))
+        code = (f"import sys; sys.path.insert(0, {REPO!r}); "
+                f"import chip_smoke; chip_smoke.{fn}(*{args!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                      stdout=logs[-1],
+                                      stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.monotonic() + DDP_TIMEOUT
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    results = []
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            print(text[-6000:], file=sys.stderr, flush=True)
+            raise RuntimeError(f"{calls[i][0]} {calls[i][1]} exited "
+                               f"{p.returncode}")
+        with open(calls[i][1][-1]) as f:
+            results.append(json.load(f))
+    for res in results:
+        for failure in res["failures"]:
+            check(False, failure)
+    return results
+
+
+def _merge_path_counts(res: dict) -> dict:
+    """A child's path run (:func:`path_counts` there) into this
+    process's launches by branch; returns its launch counts."""
+    for name, by in res["by_branch"].items():
+        for b, n in by.items():
+            PATH_BRANCHES[name][b] += n
+    for b, n in res["ln_bwd"].items():
+        PATH_LN_BWD[b] += n
+    return res["launches"]
+
+
+def _digest(params: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# TSF-B pretraining on synthetic clips, global batch 16, 3 steps
+DDP_PRETRAIN = ["--dataset", "synthetic", "--model", MODEL["name"],
+                "--steps", "3", "--batch-size", "16", "--workers", "4",
+                "--print-freq", "1", "--device", DEVICE]
+
+
+def _time_cli_steps(cli) -> dict:
+    """Wrap ``cli.make_clip_train_step`` so that each step's loss and ms
+    (host clock to the loss read) go into the returned record's
+    ``losses`` and ``ms``."""
+    real, record = cli.make_clip_train_step, {"losses": [], "ms": []}
+
+    def timed(**kw):
+        step_fn = real(**kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            record["losses"].append(metrics["loss"].item())
+            record["ms"].append((time.perf_counter() - t0) * 1e3)
+            return state, metrics
+        return run
+
+    cli.make_clip_train_step = timed
+    return record
+
+
+def ddp_world1_child(work: str, out: str) -> None:
+    """``main_pretrain`` on TSF-B (bf16, batch 16, 3 steps, synthetic
+    data) without the launcher, through ``cli.launch --num-processes 1``
+    (an NCCL group of one: the loss's all-gather, the gradients'
+    all-reduce, the broadcast), again through it, then without: each
+    run's losses, step ms (host clock to the loss read, the first step
+    a warm-up), launches and the digest of its masters."""
+    _child_setup()
+    from lavila_tpu_torch.cli import launch
+    from lavila_tpu_torch.cli import main_pretrain as cli
+    from lavila_tpu_torch.config import parse_config
+    record = _time_cli_steps(cli)
+    runs, path = [], {}
+    for i, how in enumerate(("direct", "launcher", "launcher", "direct")):
+        argv = [*DDP_PRETRAIN, "--output-dir", os.path.join(work, f"run{i}")]
+        record.update(losses=[], ms=[])
+        reset_launch_counts()
+        if how == "launcher":
+            state = launch.main(["--num-processes", "1", "pretrain", *argv])
+        else:
+            state = cli.main(parse_config(cli.TorchPretrainConfig, argv))
+        torch.cuda.synchronize()
+        if i == 1:  # the path run of the summary
+            counts = path_counts()
+            path = {"by_branch": PATH_BRANCHES, "ln_bwd": PATH_LN_BWD}
+        else:
+            counts = launch_counts()
+        runs.append({"how": how, "losses": record["losses"],
+                     "step_ms": record["ms"], "launches": counts,
+                     "digest": _digest(state.params)})
+        del state
+        shutil.rmtree(os.path.join(work, f"run{i}"))
+        torch.cuda.empty_cache()
+    _child_result(out, {"runs": runs, "launches": runs[1]["launches"],
+                        **path})
+
+
+def phase_ddp_nccl_world1() -> dict:
+    """The launcher at a world of one (NCCL) against the same pretraining
+    command without it (:func:`ddp_world1_child`, in turns): every
+    step's loss and the final masters bit-identical, the same launches
+    (3 steps' worth), the step time in turns. Returns the launches of
+    the first launcher run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        (res,) = _spawn([("ddp_world1_child",
+                          (tmp, os.path.join(tmp, "out.json")))], tmp)
+    runs = res["runs"]
+    want = {k: 3 * n for k, n in _step_launches(MODEL).items()}
+    ms = {how: [statistics.median(r["step_ms"][1:]) for r in runs
+                if r["how"] == how] for how in ("direct", "launcher")}
+    emit("ddp_nccl_world1", card=_smi(), model=MODEL["name"],
+         dtype="bfloat16", batch=16, steps=3,
+         order=[r["how"] for r in runs],
+         losses=[r["losses"] for r in runs],
+         digests_equal=len({r["digest"] for r in runs}) == 1,
+         launches=runs[1]["launches"])
+    emit("ddp_nccl_world1_step_ms", card=_smi(),
+         what="median ms of steps 2-3 (host clock to the loss read), "
+              "direct, launcher, launcher, direct; one card, a world of "
+              "one: the collectives' cost, not a scaling number",
+         step_ms=[statistics.median(r["step_ms"][1:]) for r in runs],
+         direct=ms["direct"], launcher=ms["launcher"])
+    check(all(len(r["losses"]) == 3 and all(map(math.isfinite, r["losses"]))
+              for r in runs)
+          and all(r["losses"] == runs[0]["losses"] for r in runs),
+          f"ddp_nccl_world1: losses {[r['losses'] for r in runs]}")
+    check(len({r["digest"] for r in runs}) == 1,
+          "ddp_nccl_world1: the masters differ between the runs")
+    check(all(r["launches"] == want for r in runs),
+          f"ddp_nccl_world1: launches {[r['launches'] for r in runs]}, "
+          f"want {want}")
+    return _merge_path_counts(res)
+
+
+def _ddp_steps(base, variant: str, batch: dict, steps: int = 2) -> dict:
+    """``steps`` bf16 AdamW steps (the CLI's recipe, :func:`_make_state`)
+    of a copy of ``base`` on ``batch`` under ``variant``
+    (:data:`DDP_VARIANTS`), rank 0's weights broadcast first in a group:
+    the losses, each step's fp32 master gradients (averaged over the
+    ranks), launches and ms, the final masters."""
+    from lavila_tpu_torch.parallel import mesh
+    from lavila_tpu_torch.train.step import make_clip_train_step
+    kw = DDP_VARIANTS[variant]
+    crit = ({"logit_scale_pseudo": DDP_PSEUDO_INIT} if kw.get("use_ssl")
+            else None)
+    state = _make_state(copy.deepcopy(base).train(), torch.bfloat16,
+                        criterion=crit)
+    mesh.broadcast_params(state)
+    step_fn = make_clip_train_step(norm_embed=True, **kw)
+    out = {"losses": [], "grads": [], "launches": [], "ms": []}
+    for _ in range(steps):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        out["losses"].append(metrics["loss"].item())
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(launch_counts())
+        check_flash_tc(f"ddp {variant} bf16 step")
+        check_tensor_cores(f"ddp {variant} bf16 step", "K1", "K2",
+                           "K1 bwd", "K2 bwd")
+        out["grads"].append({k: p.grad.clone() for k, p in
+                             {**state.params, **state.criterion}.items()
+                             if p.grad is not None})
+    out["params"] = {k: p.detach().clone() for k, p in
+                     {**state.params, **state.criterion}.items()}
+    del state
+    return out
+
+
+def _grad_norm_ratios(got: list, want: list) -> list:
+    """Each step's global norm of ``got``'s gradients (averaged over the
+    ranks) over that of ``want``'s (one process), every leaf of both."""
+    def norm(grads):
+        return math.sqrt(sum(g.double().square().sum().item()
+                             for g in grads.values()))
+    return [norm(g) / norm(w) for g, w in zip(got, want)]
+
+
+def ddp_rank_child(rank: int, port: int, world: int, backend: str,
+                   out: str) -> None:
+    """One of ``world`` ranks: two gloo ranks on the one card, or one
+    NCCL rank a card (``cuda:{rank}``). TSF-B from the seed (the other
+    ranks' weights perturbed, which the broadcast replaces), its
+    ``16 / world`` rows of a batch of 16, two steps of each
+    :data:`DDP_VARIANTS`. Rank 0 first runs each variant in one process
+    on the 16 rows (no group) and holds the ranks' losses, gradients
+    (their cosines and the ratio of their global norms) and masters
+    against it."""
+    _child_setup()
+    from lavila_tpu_torch.parallel import mesh
+    local_rank = rank if backend == "nccl" else 0
+    torch.cuda.set_device(local_rank)
+    base = _clip_model(MODEL)
+    batch = _train_batch(16, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 31), MODEL["img"])
+    b = 16 // world
+    local = {k: batch[k][b * rank:b * (rank + 1)]
+             for k in ("frames", "text", "gt_indicators")}
+    if rank:
+        with torch.no_grad():
+            for p in base.parameters():
+                p.add_(0.01)
+    ref = {v: _ddp_steps(base, v, batch) for v in DDP_VARIANTS} \
+        if rank == 0 else {}
+    mesh.init_process_group(backend, f"tcp://localhost:{port}", world, rank,
+                            local_rank=local_rank, timeout=DDP_TIMEOUT)
+    result = {}
+    try:
+        for variant in DDP_VARIANTS:
+            got = _ddp_steps(base, variant, local)
+            line = {"losses": got["losses"], "step_ms": got["ms"],
+                    "launches": got["launches"],
+                    "digest": _digest(got["params"])}
+            if rank == 0:
+                want = ref.pop(variant)
+                cmp = _compare_steps(
+                    (got["losses"], got["grads"], None),
+                    (want["losses"], want["grads"], None))
+                # AdamW moves an element by about lr a step at most,
+                # whatever rounding decides for a near-zero gradient (the
+                # MINI parity tests' 2·Σ lr; 2.5 for the weight decay and
+                # the masters' fp32 rounding)
+                lr = 1.25 * sum(_make_state_lr(t) for t in range(2))
+                diff = max(max_err(p, want["params"][k])
+                           for k, p in got["params"].items())
+                # AdamW hides the gradient's scale, so it is held apart:
+                # a gather's backward or an average off by the world gives
+                # a ratio of world or 1/world
+                ratios = _grad_norm_ratios(got["grads"], want["grads"])
+                line.update(single_process={
+                    "losses": want["losses"], "launches": want["launches"],
+                    "step_ms": want["ms"], **cmp,
+                    "grad_norm_ratio": ratios,
+                    "grad_norm_ratio_bound": DDP_NORM_RATIO,
+                    "params_max_abs_diff": diff, "params_bound": 2 * lr})
+                check(cmp["loss_rel_err"] <= 1e-2
+                      and cmp["grad_cos_min"] >= 0.99 and diff <= 2 * lr,
+                      f"ddp {variant}: {world} ranks against one process "
+                      f"{cmp}, masters {diff} (bound {2 * lr})")
+                check(all(abs(r - 1) <= DDP_NORM_RATIO for r in ratios),
+                      f"ddp {variant}: gradient norm over one process's "
+                      f"{ratios}, bound 1 ± {DDP_NORM_RATIO}")
+                check(got["launches"] == want["launches"],
+                      f"ddp {variant}: rank launches {got['launches']}, "
+                      f"one process {want['launches']}")
+            result[variant] = line
+            del got
+            torch.cuda.empty_cache()
+    finally:
+        mesh.destroy_process_group()
+    _child_result(out, {"variants": result, "batch_digest": _digest(batch),
+                        "device": f"cuda:{torch.cuda.current_device()}"})
+
+
+def _make_state_lr(step: int) -> float:
+    """The rate of :func:`_make_state`'s schedule at ``step``."""
+    from lavila_tpu_torch.train.optim import cosine_schedule
+    return cosine_schedule(3e-5, 1e-5, 5, 100, warmup_epochs=1,
+                           start_warmup_lr=1e-6)(step)
+
+
+def _ddp_ranks(world: int, backend: str, phase: str) -> None:
+    """``world`` ranks of :func:`ddp_rank_child` under ``backend``: the
+    ranks' masters bit-identical and their losses equal, each against
+    one process on the whole batch (rank 0's checks), each rank's
+    launches a step those of the one-process step."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = _spawn([("ddp_rank_child",
+                       (r, port, world, backend,
+                        os.path.join(tmp, f"rank{r}.json")))
+                      for r in range(world)], tmp)
+    want = _step_launches(MODEL)
+    where = ("gloo (both ranks on cuda:0)" if backend == "gloo" else
+             f"nccl ({', '.join(r['device'] for r in res)})")
+    check(len({r["batch_digest"] for r in res}) == 1,
+          f"{phase}: the ranks drew different batches")
+    for variant in DDP_VARIANTS:
+        lines = [r["variants"][variant] for r in res]
+        emit(phase, card=_smi(), model=MODEL["name"], variant=variant,
+             dtype="bfloat16", batch=f"16 = {world} ranks x {16 // world}",
+             steps=2, backend=where,
+             losses=[r["losses"] for r in lines],
+             digests_equal=len({r["digest"] for r in lines}) == 1,
+             step_ms=[r["step_ms"] for r in lines],
+             step_ms_note=("two processes on one card, their gradients "
+                           "staged through host memory: not a scaling "
+                           "number" if backend == "gloo" else
+                           "one card a rank, 16 / world rows each"),
+             launches=lines[0]["launches"][0],
+             single_process=lines[0]["single_process"])
+        check(len({r["digest"] for r in lines}) == 1,
+              f"ddp {variant}: the ranks' masters differ")
+        check(all(r["losses"] == lines[0]["losses"] for r in lines),
+              f"ddp {variant}: rank losses {[r['losses'] for r in lines]}")
+        check(all(c == want for r in lines for c in r["launches"]),
+              f"ddp {variant}: launches {[r['launches'] for r in lines]},"
+              f" want {want}")
+
+
+def phase_ddp_two_ranks() -> None:
+    """Two gloo ranks sharing the card (:func:`_ddp_ranks`)."""
+    _ddp_ranks(2, "gloo", "ddp_two_ranks")
+
+
+def ddp_cards_cli_child(rank: int, world: int, port: int, work: str,
+                        out: str) -> None:
+    """One of ``world`` NCCL ranks of ``cli.launch --coordinator
+    --num-processes --process-id pretrain`` (:data:`DDP_PRETRAIN`, the
+    global batch 16 split over the ranks): its losses, step ms, launches,
+    the card its masters live on and their digest."""
+    _child_setup()
+    from lavila_tpu_torch.cli import launch
+    from lavila_tpu_torch.cli import main_pretrain as cli
+    record = _time_cli_steps(cli)
+    reset_launch_counts()
+    state = launch.main(["--coordinator", f"localhost:{port}",
+                         "--num-processes", str(world), "--process-id",
+                         str(rank), "pretrain", *DDP_PRETRAIN,
+                         "--output-dir", work])
+    torch.cuda.synchronize()
+    _child_result(out, {"losses": record["losses"], "step_ms": record["ms"],
+                        "launches": launch_counts(),
+                        "devices": sorted({str(p.device) for p in
+                                           state.params.values()}),
+                        "digest": _digest(state.params)})
+
+
+def phase_ddp_nccl_cards(world: int) -> None:
+    """NCCL across ``world`` cards, one rank a card: the library step
+    (:func:`_ddp_ranks`) against one process, then ``main_pretrain``
+    through the launcher (:func:`ddp_cards_cli_child`): every rank's
+    masters on ``cuda:{rank}``, bit-identical over the ranks, equal
+    losses, 3 steps' launches on each rank, the checkpoint written."""
+    _ddp_ranks(world, "nccl", "ddp_nccl_cards")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "run")
+        res = _spawn([("ddp_cards_cli_child",
+                       (r, world, port, work,
+                        os.path.join(tmp, f"rank{r}.json")))
+                      for r in range(world)], tmp)
+        files = sorted(os.listdir(work))
+    want = {k: 3 * n for k, n in _step_launches(MODEL).items()}
+    emit("ddp_nccl_cards_cli", card=_smi(), model=MODEL["name"],
+         dtype="bfloat16", batch=f"16 = {world} ranks x {16 // world}",
+         steps=3, devices=[r["devices"] for r in res],
+         losses=[r["losses"] for r in res],
+         digests_equal=len({r["digest"] for r in res}) == 1,
+         step_ms=[r["step_ms"] for r in res], files=files,
+         launches=res[0]["launches"])
+    check(all(r["devices"] == [f"cuda:{i}"] for i, r in enumerate(res)),
+          f"ddp_nccl_cards_cli: masters on {[r['devices'] for r in res]}")
+    check(len({r["digest"] for r in res}) == 1,
+          "ddp_nccl_cards_cli: the ranks' masters differ")
+    check(all(len(r["losses"]) == 3 and r["losses"] == res[0]["losses"]
+              and all(map(math.isfinite, r["losses"])) for r in res),
+          f"ddp_nccl_cards_cli: losses {[r['losses'] for r in res]}")
+    check(all(r["launches"] == want for r in res),
+          f"ddp_nccl_cards_cli: launches {[r['launches'] for r in res]}, "
+          f"want {want}")
+    check("checkpoint_latest.pt" in files,
+          f"ddp_nccl_cards_cli wrote {files}")
+
+
+def _free_port() -> int:
+    from lavila_tpu_torch.cli.launch import free_port
+    return free_port()
+
+
+DDP_NARRATE = ["--dataset", "synthetic", "--model", NARRATOR["name"],
+               "--bf16", "--device", DEVICE, "--batch-size", "3",
+               "--max-samples", "6", "--num-return-sequences", "2",
+               "--max-text-length", "20", "--top-k", "1", "--workers", "2"]
+
+
+def ddp_narrator_child(rank: int, port: int, work: str, out: str) -> None:
+    """One of two gloo ranks on the one card running the port's
+    ``main_infer_narrator.main`` (:data:`DDP_NARRATE`, greedy) into the
+    shared ``work`` directory; its launches."""
+    _child_setup()
+    from lavila_tpu_torch.cli import main_infer_narrator as cli
+    from lavila_tpu_torch.parallel import mesh
+    mesh.init_process_group("gloo", f"tcp://localhost:{port}", 2, rank,
+                            local_rank=0, timeout=DDP_TIMEOUT)
+    try:
+        reset_launch_counts()
+        cli.main(cli.get_args_parser().parse_args(
+            [*DDP_NARRATE, "--output-dir", work]))
+        torch.cuda.synchronize()
+        counts = path_counts()
+    finally:
+        mesh.destroy_process_group()
+    _child_result(out, {"launches": counts, "by_branch": PATH_BRANCHES,
+                        "ln_bwd": PATH_LN_BWD})
+
+
+def phase_ddp_infer_narrator() -> dict:
+    """``main_infer_narrator`` over two gloo ranks on the card
+    (:func:`ddp_narrator_child`): ``cache.0.pkl``, ``cache.1.pkl`` and
+    ``total.pkl`` written, rank 0 holding clips 0, 2, 4 and rank 1 clips
+    1, 3, 5, ``total.pkl`` their round-robin merge, in dataset order:
+    each record the captions of a one-process run of the same command
+    (this process, while the ranks run), clip by clip, with (video_uid,
+    t_start, t_end); K9 launched on each rank. Returns rank 0's
+    launches."""
+    import pickle
+
+    from lavila_tpu_torch.cli import main_infer_narrator as cli
+    port, want = _free_port(), []
+    with tempfile.TemporaryDirectory() as tmp:
+        work, one = os.path.join(tmp, "two"), os.path.join(tmp, "one")
+        res = _spawn([("ddp_narrator_child",
+                       (r, port, work, os.path.join(tmp, f"rank{r}.json")))
+                      for r in range(2)], tmp,
+                     lambda: want.extend(cli.main(
+                         cli.get_args_parser().parse_args(
+                             [*DDP_NARRATE, "--output-dir", one]))))
+        files = sorted(os.listdir(work))
+        shards = []
+        for r in range(2):
+            with open(os.path.join(work, f"cache.{r}.pkl"), "rb") as f:
+                shards.append(pickle.load(f))
+        with open(os.path.join(work, "total.pkl"), "rb") as f:
+            total = pickle.load(f)
+    order = [[2 * i + r for i in range(3)] for r in range(2)]
+    same = lambda got, w: got[:4] == w[:4]  # noqa: E731
+    shards_ok = all(same(rec, want[i]) for r in range(2)
+                    for rec, i in zip(shards[r], order[r]))
+    total_ok = (len(total) == len(want) == 6
+                and all(same(g, w) for g, w in zip(total, want)))
+    k9 = [r["launches"]["K9"] for r in res]
+    emit("ddp_infer_narrator", card=_smi(), model=NARRATOR["name"],
+         dtype="bfloat16", clips=6, ranks=2,
+         backend="gloo (both ranks on cuda:0)", files=files,
+         shard_records=[len(s) for s in shards], total_records=len(total),
+         shards_in_sampler_order=shards_ok, total_in_dataset_order=total_ok,
+         first_record=[*total[0][:3], total[0][3]] if total else None,
+         launches=[r["launches"] for r in res])
+    check({"cache.0.pkl", "cache.1.pkl", "total.pkl"} <= set(files),
+          f"ddp_infer_narrator wrote {files}")
+    check(shards_ok and total_ok,
+          "ddp_infer_narrator: the shards or total.pkl are not the "
+          "one-process records in sampler and dataset order")
+    check(all(n > 0 and n % NARRATOR["layers"] == 0 for n in k9),
+          f"ddp_infer_narrator: K9 launches by rank {k9}")
+    return _merge_path_counts(res[0])
+
+
 KERNELS = [
     ("K1", "divided_space_fwd", "cuda", "lavila_tpu_torch/csrc/divided_fwd.cu",
      "lavila_tpu/ops/pallas/divided.py:47"),
@@ -3872,6 +4430,9 @@ PHASES = (
     ("remat_policies", phase_remat_policies),
     ("openai_init", phase_openai_init),
     ("resnet", phase_resnet),
+    ("ddp_nccl_world1", phase_ddp_nccl_world1),
+    ("ddp_two_ranks", phase_ddp_two_ranks),
+    ("ddp_infer_narrator", phase_ddp_infer_narrator),
 )
 PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
                "classify_cli", "large224_cli",
@@ -3880,13 +4441,24 @@ PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
                "vclm_pretrain_cli", "distilbert_cli",
                "distilbert_pretrain_cli", "vit_cli", "vit_infer_narrator_cli",
                "gated_timesformer", "remat_policies", "openai_init",
-               "resnet")
+               "resnet", "ddp_nccl_world1", "ddp_infer_narrator")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    parser.add_argument("--nccl-ranks", type=int, default=None,
+                        help="run only the data-parallel phase across this "
+                             "many cards, one NCCL rank a card")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
+        return 2
+    if args.nccl_ranks is not None and \
+            torch.cuda.device_count() < args.nccl_ranks:
+        print(f"chip_smoke: --nccl-ranks {args.nccl_ranks} needs as many "
+              f"cards, found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     try:
@@ -3901,6 +4473,9 @@ def main() -> int:
     global SSL_CHECKPOINT
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     SSL_CHECKPOINT = os.path.join(tmp.name, "ssl_pretrain.pt")
+    if args.nccl_ranks is not None:
+        return _main_nccl_cards(args.nccl_ranks, device, t_start,
+                                build_seconds)
     summary, counts = {}, dict.fromkeys(COUNTERS, 0)
     for name, phase in PHASES:
         t0 = time.perf_counter()
@@ -3957,6 +4532,30 @@ def main() -> int:
     emit("total", seconds=time.perf_counter() - t_start,
          build_seconds=build_seconds)
     print(json.dumps({"kernels": rows}), flush=True)
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n  "
+              + "\n  ".join(FAILURES), file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": device["kind"],
+                                             "count": device["count"]}}))
+    return 0
+
+
+def _main_nccl_cards(world: int, device: dict, t_start: float,
+                     build_seconds: float) -> int:
+    """``--nccl-ranks``: :func:`phase_ddp_nccl_cards` alone, then the
+    same last line as the whole run."""
+    t0 = time.perf_counter()
+    try:
+        phase_ddp_nccl_cards(world)
+    except Exception:
+        traceback.print_exc()
+        check(False, "phase ddp_nccl_cards raised")
+    emit("phase_done", name="ddp_nccl_cards",
+         seconds=time.perf_counter() - t0)
+    emit("total", seconds=time.perf_counter() - t_start,
+         build_seconds=build_seconds)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:\n  "
               + "\n  ".join(FAILURES), file=sys.stderr)

@@ -12,12 +12,14 @@ same layout:
                dual encoder, the model zoo and the weight bridge.
   * losses.py — the contrastive loss.
   * train/   — AdamW, the LR schedule and the dual-encoder train step.
-  * utils/   — checkpoints, meters, seeding.
+  * parallel/ — data parallelism over processes: the process group, the
+               differentiable all-gather, the gradients' average.
+  * utils/   — checkpoints, meters, seeding, master-only printing.
   * data/, eval/, config.py — copies of the framework-free data, metric
                and config modules of ``lavila_tpu`` (imports rewritten;
                ``utils/meters.py`` syncs through ``torch.distributed``).
   * cli/     — entry points (zero-shot evaluation, pretraining, narrator
-               inference and demo).
+               inference and demo) and their data-parallel launcher.
 
 It imports ``torch`` and never jax, flax, optax or orbax, and no module
 of ``lavila_tpu``.

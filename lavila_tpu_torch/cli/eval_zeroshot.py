@@ -52,6 +52,7 @@ from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.eval import metrics as M
 from lavila_tpu_torch.models import build_model
 from lavila_tpu_torch.models.convert import load_reference_checkpoint
+from lavila_tpu_torch.parallel import mesh
 
 
 def get_args_parser():
@@ -102,8 +103,10 @@ def get_args_parser():
 
 
 def resolve_device(name: str) -> torch.device:
-    """``name`` as a device; a CUDA device without a card raises."""
-    device = torch.device(name)
+    """``name`` as this rank's device (a bare ``cuda`` is the rank's
+    card in a process group: ``parallel/mesh.py:rank_device``); a CUDA
+    device without a card raises."""
+    device = mesh.rank_device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")

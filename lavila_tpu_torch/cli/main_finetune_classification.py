@@ -1,6 +1,7 @@
 """Classification fine-tuning of the video tower with the PyTorch port, on
-one device: EK-100 CLS (with ``--use-vn-classifier`` the verb, noun and
-action heads), EGTEA and CharadesEgo (multi-label).
+one device or data-parallel over a process group: EK-100 CLS (with
+``--use-vn-classifier`` the verb, noun and action heads), EGTEA and
+CharadesEgo (multi-label).
 
 Counterpart of ``cli/main_finetune_classification.py`` with the same
 flags, plus ``--device`` (default ``cuda``; with ``cuda`` and no card it
@@ -28,6 +29,12 @@ Run without data:
         --dataset synthetic --model CLIP_OPENAI_TIMESFORMER_MINI \\
         --clip-length 4 --batch-size 4 --steps 2 --device cpu \\
         --output-dir /tmp/cls
+
+In a process group (``parallel/mesh.py``; ``lavila_tpu_torch.cli.launch
+finetune_classification``) ``--batch-size`` is each rank's, as in the JAX
+CLI, each rank's loader its shard (``shard_index=rank``), the gradients
+averaged over the ranks; every rank validates, rank 0 writes the
+checkpoints and ``log.txt``.
 
 ``--use-checkpoint`` recomputes the video tower's blocks under
 ``--remat-policy`` (``full``, ``dots``, ``save_attn``, ``dots_attn``:
@@ -62,6 +69,7 @@ from lavila_tpu_torch.models import build_model
 from lavila_tpu_torch.models.convert import load_reference_checkpoint
 from lavila_tpu_torch.models.dual_encoder import (VideoClassifier,
                                                   VideoClassifierMultiHead)
+from lavila_tpu_torch.parallel import mesh
 from lavila_tpu_torch.train.optim import (cosine_schedule,
                                           lr_multiplier_labels,
                                           make_multi_optimizer)
@@ -293,8 +301,9 @@ def make_place(device: torch.device, multihead_parts, multihead: bool):
 
 
 def main(args):
+    world, rank = mesh.world(), mesh.rank()
     device = ez.resolve_device(args.device)
-    random_seed(args.seed, 0)
+    random_seed(args.seed, rank)
     labels, mapping, num_classes, multihead_parts, heads = label_space(args)
     clf, config = build_classifier(args, heads, device)
     model_name = config["model"]
@@ -317,7 +326,8 @@ def main(args):
         ds = VideoClassyDataset(dcfg, train_transform, mapping,
                                 is_training=True, seed=args.seed)
     loader = DataLoader(ds, args.batch_size, shuffle=True, drop_last=True,
-                        num_workers=args.workers, seed=args.seed)
+                        num_workers=args.workers, shard_index=rank,
+                        num_shards=world, seed=args.seed)
     iters = max(len(loader), 1)
 
     # the head and the backbone as two groups (reference
@@ -337,13 +347,14 @@ def main(args):
             clip_grad_type=args.clip_grad_type,
             update_freq=args.update_freq, use_sgd=args.use_sgd),
         dtype=dtype,
-        generator=torch.Generator(device).manual_seed(args.seed + 7))
+        generator=torch.Generator(device).manual_seed(args.seed + 7 + rank))
     print(f"=> {model_name} classifier ({heads} classes) on {device}, "
           f"compute dtype {str(dtype).removeprefix('torch.')}, {len(ds)} "
           f"clips, {iters} iters/epoch")
 
     mgr = CheckpointManager(args.output_dir)
-    wandb_run = init_wandb(vars(args)) if args.wandb else None
+    wandb_run = (init_wandb(vars(args)) if args.wandb and rank == 0
+                 else None)
     start_epoch = args.start_epoch
     best_metric = float("-inf")
     # auto-resume: a checkpoint in output_dir wins over --resume
@@ -357,6 +368,7 @@ def main(args):
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_metric = float(meta.get("metrics", {}).get(
             "best_metric", float("-inf")))
+    mesh.broadcast_params(state)
 
     def run_validation() -> dict:
         return validate(args, state.model, mapping, num_classes,
@@ -415,8 +427,9 @@ def main(args):
                  keep_epoch=(epoch + 1) % args.save_freq == 0)
         log = {"train_loss": loss_m.avg, "train_acc1": acc_m.avg,
                **val_metrics, "epoch": epoch}
-        with open(osp.join(args.output_dir, "log.txt"), "a") as f:
-            f.write(json.dumps(log) + "\n")
+        if rank == 0:
+            with open(osp.join(args.output_dir, "log.txt"), "a") as f:
+                f.write(json.dumps(log) + "\n")
         if wandb_run is not None and val_metrics:
             wandb_run.log({**val_metrics, "epoch": epoch})
         if args.steps and total >= args.steps:

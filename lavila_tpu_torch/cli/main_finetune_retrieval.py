@@ -1,4 +1,5 @@
-"""Retrieval fine-tuning with the PyTorch port, on one device: EK-100 MIR
+"""Retrieval fine-tuning with the PyTorch port, on one device or
+data-parallel over a process group: EK-100 MIR
 (adaptive max-margin with relevancy weights) or CharadesEgo (the CLIP
 loss on trimmed clips, validated by multilabel classification mAP on the
 untrimmed val set).
@@ -28,6 +29,12 @@ Run without data:
         --clip-length 4 --batch-size 4 --steps 2 --device cpu \\
         --output-dir /tmp/ft
 
+In a process group (``parallel/mesh.py``; ``lavila_tpu_torch.cli.launch
+finetune_retrieval``) ``--batch-size`` is each rank's, as in the JAX CLI,
+each rank's loader its shard (``shard_index=rank``), the ranking and CLIP
+losses over the gathered global batch; every rank validates, rank 0
+writes the checkpoints and ``log.txt``.
+
 ``--wandb`` logs to Weights & Biases where it can start.
 ``--use-checkpoint`` recomputes the video tower's blocks under
 ``--remat-policy`` (``full``, ``dots``, ``save_attn``, ``dots_attn``:
@@ -55,6 +62,7 @@ from lavila_tpu_torch.data.loader import DataLoader, device_prefetch
 from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.models import build_model
 from lavila_tpu_torch.models.convert import load_reference_checkpoint
+from lavila_tpu_torch.parallel import mesh
 from lavila_tpu_torch.train.freeze import freeze_by_predicate, \
     logit_scale_only
 from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
@@ -206,8 +214,9 @@ def validate(args, model, tokenizer, model_name) -> tuple[dict, float]:
 
 
 def main(args):
+    world, rank = mesh.world(), mesh.rank()
     device = ez.resolve_device(args.device)
-    random_seed(args.seed, 0)
+    random_seed(args.seed, rank)
     model, config = build_finetune_model(args, device)
     model_name = config["model"]
     tokenizer = generate_tokenizer(model_name)
@@ -227,7 +236,8 @@ def main(args):
     ds = VideoCaptionDataset(dcfg, train_transform, tokenizer,
                              is_training=True, seed=args.seed)
     loader = DataLoader(ds, args.batch_size, shuffle=True, drop_last=True,
-                        num_workers=args.workers, seed=args.seed)
+                        num_workers=args.workers, shard_index=rank,
+                        num_shards=world, seed=args.seed)
     iters = max(len(loader), 1)
 
     optim_iters = max(iters // args.update_freq, 1)
@@ -245,13 +255,14 @@ def main(args):
             clip_grad_type=args.clip_grad_type,
             update_freq=args.update_freq),
         dtype=dtype,
-        generator=torch.Generator(device).manual_seed(args.seed))
+        generator=torch.Generator(device).manual_seed(args.seed + rank))
     print(f"=> {model_name} on {device}, compute dtype "
           f"{str(dtype).removeprefix('torch.')}, {len(ds)} clips, "
           f"{iters} iters/epoch")
 
     mgr = CheckpointManager(args.output_dir)
-    wandb_run = init_wandb(vars(args)) if args.wandb else None
+    wandb_run = (init_wandb(vars(args)) if args.wandb and rank == 0
+                 else None)
     start_epoch = args.start_epoch
     best_metric = float("-inf")
     # auto-resume: a checkpoint in output_dir wins over --resume
@@ -264,6 +275,7 @@ def main(args):
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_metric = float(meta.get("metrics", {}).get(
             "best_metric", float("-inf")))
+    mesh.broadcast_params(state)
 
     if args.evaluate:
         out, _ = validate(args, state.model, tokenizer, model_name)
@@ -316,8 +328,9 @@ def main(args):
                  is_best=is_best,
                  keep_epoch=(epoch + 1) % args.save_freq == 0)
         log = {"train_loss": loss_m.avg, **val_metrics, "epoch": epoch}
-        with open(osp.join(args.output_dir, "log.txt"), "a") as f:
-            f.write(json.dumps(log) + "\n")
+        if rank == 0:
+            with open(osp.join(args.output_dir, "log.txt"), "a") as f:
+                f.write(json.dumps(log) + "\n")
         if wandb_run is not None and val_metrics:
             wandb_run.log({**val_metrics, "epoch": epoch})
         if args.steps and total >= args.steps:

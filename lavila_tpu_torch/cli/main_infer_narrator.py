@@ -9,11 +9,18 @@ with ``--decoding beam_sample`` / ``group_beam``, by the beam decoders
 ``--length-penalty``; the stored scores are then the beams' joint
 scores, as the JAX CLI and the reference store them), and
 the records ``(video_uid, t_start, t_end, captions, ppls)`` are written
-to ``cache.0.pkl`` and, merged, to ``total.pkl``: the output contract
-of the JAX CLI and of the reference, which the pretraining's SSL path
-reads. One process, so ``total.pkl`` holds rank 0's records; the JAX
-CLI's sharding across processes and its round-robin merge are ROADMAP
-queue 1: multi-GPU.
+to ``cache.{rank}.pkl`` and, merged, to ``total.pkl``: the output
+contract of the JAX CLI and of the reference, which the pretraining's
+SSL path reads. In a process group (``parallel/mesh.py``, started by
+``lavila_tpu_torch.cli.launch infer_narrator`` or by a caller that
+joined one) each rank narrates its shard of the clips (the sampler's
+round-robin slice, padded to a multiple of the world size with the first
+clips again, as the JAX CLI's and the reference's), its draws seeded
+``--seed`` + rank, and writes its ``cache.{rank}.pkl``; after a barrier
+rank 0 merges the shards round-robin into ``total.pkl``: the clips in
+dataset order, then the padding's repeats (the JAX CLI's
+``total.pkl``). One process writes ``cache.0.pkl`` and ``total.pkl``
+with the same records.
 
 Weights are seeded random (``--seed``, drawn on ``--device``) unless
 ``--checkpoint`` names a narrator ``.pt``/``.pth``: a released one, or
@@ -58,6 +65,7 @@ from lavila_tpu_torch.models.convert import (checkpoint_state_dict,
                                              count_layers,
                                              is_port_checkpoint,
                                              narrator_state_dict)
+from lavila_tpu_torch.parallel import mesh
 
 
 def get_args_parser():
@@ -208,8 +216,17 @@ def check_beam_groups(args) -> None:
             "--num-beams (reference main_infer_narrator.py:203)")
 
 
+def merge_shards(shards: list[list]) -> list:
+    """The ranks' records round-robin: record i of every rank in rank
+    order, then record i + 1 (JAX :221-240, reference :232-251), which
+    puts the sampler's round-robin shards back in dataset order."""
+    return [s[i] for i in range(max(map(len, shards), default=0))
+            for s in shards if i < len(s)]
+
+
 def main(args):
     check_beam_groups(args)
+    world, rank = mesh.world(), mesh.rank()
     os.makedirs(args.output_dir, exist_ok=True)
     model = load_narrator(args)
     device = next(model.parameters()).device
@@ -227,12 +244,13 @@ def main(args):
     # each batch carries the global indices of its samples, so the
     # (video_uid, captions) pairing does not depend on the sampler
     loader = DataLoader(ds, args.batch_size, shuffle=False, drop_last=False,
-                        num_workers=args.workers, with_indices=True)
+                        num_workers=args.workers, shard_index=rank,
+                        num_shards=world, with_indices=True)
     decode, bos, eos, pad = tokenizer_ids(args.model)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed + rank)
     dec = BeamDecoder(model, bos_id=bos, eos_id=eos, pad_id=pad,
                       max_text_length=args.max_text_length)
-    beam_rng = np.random.default_rng(args.seed)
+    beam_rng = np.random.default_rng(args.seed + rank)
     nrs = args.num_return_sequences
     warp = dict(temperature=args.temperature, top_p=args.top_p,
                 top_k=args.top_k or None)
@@ -262,15 +280,25 @@ def main(args):
                             captions(ids[rows], eos, decode),
                             ppls[rows].tolist()))
         if bi % args.print_freq == 0:
-            print(f"{bi}/{len(loader)} {time.perf_counter() - t0:.1f}s",
-                  flush=True)
+            print(f"[rank {rank}] {bi}/{len(loader)} "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    # rank 0's shard, and the merge of the one shard: the same records
-    for name in ("cache.0.pkl", "total.pkl"):
-        with open(osp.join(args.output_dir, name), "wb") as f:
-            pickle.dump(records, f)
-    print(f"wrote {len(records)} records -> {args.output_dir}/"
-          "{cache.0,total}.pkl")
+    shard_path = osp.join(args.output_dir, f"cache.{rank}.pkl")
+    with open(shard_path, "wb") as f:
+        pickle.dump(records, f)
+    print(f"[rank {rank}] wrote {len(records)} records -> {shard_path}")
+    mesh.barrier()
+    if rank == 0:
+        shards = []
+        for r in range(world):
+            with open(osp.join(args.output_dir, f"cache.{r}.pkl"),
+                      "rb") as f:
+                shards.append(pickle.load(f))
+        merged = merge_shards(shards)
+        total = osp.join(args.output_dir, "total.pkl")
+        with open(total, "wb") as f:
+            pickle.dump(merged, f)
+        print(f"merged {len(merged)} records -> {total}")
     return records
 
 

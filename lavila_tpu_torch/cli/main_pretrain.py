@@ -1,5 +1,6 @@
-"""Pretraining with the PyTorch port, on one device: the dual encoder
-and, with ``--model VCLM_*``, the narrator.
+"""Pretraining with the PyTorch port: the dual encoder and, with
+``--model VCLM_*``, the narrator, on one device or data-parallel over
+the ranks of a process group.
 
 Counterpart of ``cli/main_pretrain.py`` with the same flags
 (``lavila_tpu_torch.config.PretrainConfig``) plus ``--device`` (default
@@ -53,8 +54,19 @@ Run without data: ``python -m lavila_tpu_torch.cli.main_pretrain
 --dataset synthetic --model CLIP_OPENAI_TIMESFORMER_MINI --steps 2
 --batch-size 4 --device cpu --output-dir /tmp/run``.
 
-Options of the JAX CLI that are not ported yet raise, each naming its
-ROADMAP queue 1 subject; none is silently ignored.
+Data parallelism (``parallel/mesh.py``; started by
+``lavila_tpu_torch.cli.launch`` or by a caller that joined a group
+itself, else a world of one): ``--batch-size`` is the global batch, each
+rank's loader yielding its ``batch / world`` rows of its shard
+(``shard_index=rank``, as the JAX CLI's per-process loaders); the
+generators are seeded ``--seed`` + rank, rank 0's weights are broadcast
+after the build or the restore, the gradients are averaged over the
+ranks (``train/step.py``), ``--contrastive-use-vissl`` takes the local
+losses (each rank's rows of the logits only; at a world of one too),
+``--mesh-data`` must be -1 or the world size; rank 0 writes the
+checkpoints, ``log.txt`` and wandb. ``--mesh-model`` > 1 (tensor
+parallelism) raises, naming its ROADMAP queue 1 subject; no option is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -79,6 +91,7 @@ from lavila_tpu_torch.data.datasets import (ConcatDataset, DatasetConfig,
 from lavila_tpu_torch.data.loader import DataLoader, device_prefetch
 from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.models import build_model
+from lavila_tpu_torch.parallel import mesh
 from lavila_tpu_torch.train.freeze import (build_freeze_predicate,
                                            freeze_by_predicate)
 from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
@@ -98,10 +111,7 @@ class TorchPretrainConfig(PretrainConfig):
 
 # option → (is it set, the ROADMAP queue 1 subject that ports it)
 _NOT_PORTED = (
-    (lambda c: c.contrastive_use_vissl, "--contrastive-use-vissl",
-     "multi-GPU"),
-    (lambda c: c.mesh_model > 1, "--mesh-model > 1", "multi-GPU"),
-    (lambda c: c.mesh_data not in (-1, 1), "--mesh-data > 1", "multi-GPU"),
+    (lambda c: c.mesh_model > 1, "--mesh-model > 1", "tensor parallelism"),
 )
 
 
@@ -162,8 +172,12 @@ def make_place(device: torch.device, keys=("frames", "text")):
 
 def main(cfg: TorchPretrainConfig) -> TrainState:
     check_ported(cfg)
+    world, rank = mesh.check_mesh_data(cfg.mesh_data), mesh.rank()
+    if cfg.batch_size % world:
+        raise ValueError(f"--batch-size {cfg.batch_size} must be divisible "
+                         f"by the {world} processes of the group")
     device = resolve_device(cfg.device)
-    random_seed(cfg.seed, 0)
+    random_seed(cfg.seed, rank)
     is_vclm = cfg.model.startswith("VCLM")
     dtype = torch.float32 if cfg.disable_amp else torch.bfloat16
     print(f"=> building model {cfg.model} (compute dtype "
@@ -181,9 +195,11 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     mean, std = T.normalization_for_model(cfg.model)
     train_transform = T.TrainTransform(crop_shape(cfg.model)[0], mean, std)
     dataset = build_dataset(cfg, tokenizer, train_transform)
-    loader = DataLoader(dataset, cfg.batch_size, shuffle=True,
+    # --batch-size is the global batch: each rank's loader yields its
+    # 1/world slice of its shard
+    loader = DataLoader(dataset, cfg.batch_size // world, shuffle=True,
                         num_workers=cfg.workers, drop_last=True,
-                        seed=cfg.seed)
+                        shard_index=rank, num_shards=world, seed=cfg.seed)
     iters_per_epoch = max(len(loader) // cfg.update_freq, 1)
     print(f"=> dataset {cfg.dataset}: {len(dataset)} samples, "
           f"{iters_per_epoch} optim iters/epoch")
@@ -215,7 +231,7 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
             clip_grad_type=cfg.clip_grad_type,
             update_freq=cfg.update_freq),
         dtype=dtype,
-        generator=torch.Generator(device).manual_seed(cfg.seed),
+        generator=torch.Generator(device).manual_seed(cfg.seed + rank),
         criterion=criterion)
     n_params = sum(p.numel() for p in state.params.values())
     n_frozen = sum(state.params[n].numel() for n in state.frozen)
@@ -232,11 +248,13 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_metric = float(meta.get("metrics", {}).get(
             "best_metric", float("-inf")))
+    mesh.broadcast_params(state)
 
     step_fn = (make_caption_train_step(pad_id=tokenizer.pad_token_id)
                if is_vclm else
                make_clip_train_step(norm_embed=cfg.norm_embed,
-                                    use_ssl=use_ssl))
+                                    use_ssl=use_ssl,
+                                    local_loss=cfg.contrastive_use_vissl))
     metric_names = losses.get_metric_names(cfg.model)
     probe = bool(cfg.val_metadata) and not is_vclm
     place = make_place(device, ("frames", "text", "gt_indicators")
@@ -258,7 +276,8 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
             state.model.train()
 
     os.makedirs(cfg.output_dir, exist_ok=True)
-    wandb_run = init_wandb(cfg.asdict()) if cfg.wandb else None
+    wandb_run = (init_wandb(cfg.asdict()) if cfg.wandb and rank == 0
+                 else None)
 
     total_steps = 0
     profiler = None
@@ -323,8 +342,9 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         log = {f"train_{k}": m.avg for k, m in meters.items()}
         log.update(probe_metrics)
         log["epoch"] = epoch
-        with open(osp.join(cfg.output_dir, "log.txt"), "a") as f:
-            f.write(json.dumps(log) + "\n")
+        if rank == 0:
+            with open(osp.join(cfg.output_dir, "log.txt"), "a") as f:
+                f.write(json.dumps(log) + "\n")
         if wandb_run is not None:
             wandb_run.log(log)
         if cfg.steps is not None and total_steps >= cfg.steps:

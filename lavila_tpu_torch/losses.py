@@ -1,16 +1,36 @@
 """Training losses.
 
-Counterpart of ``lavila_tpu/losses.py``. On one device the global batch
-is the local one, so :func:`clip_loss` is the whole InfoNCE and
-:func:`ssl_clip_loss` the whole two-temperature one; every
-softmax and cross entropy is fp32 whatever the embeddings' dtype, and so
-is :func:`max_margin_loss`, the retrieval fine-tune's ranking loss, and
+Counterpart of ``lavila_tpu/losses.py``. Every softmax and cross entropy
+is fp32 whatever the embeddings' dtype, and so is
+:func:`max_margin_loss`, the retrieval fine-tune's ranking loss, and
 :func:`caption_loss`, the narrator's teacher-forced cross entropy.
+
+Each function takes this rank's rows of the global batch. In a process
+group (``parallel/mesh.py``) the global losses are the JAX functions on
+the global batch, which GSPMD partitions there:
+
+  * :func:`clip_loss`, :func:`ssl_clip_loss` and :func:`max_margin_loss`
+    gather the ranks' embeddings (and their indicators and relevancy
+    weights) with the differentiable all-gather and compute the whole
+    ``B_global²`` matrix on every rank;
+  * :func:`caption_loss` divides the sum over every rank's kept tokens by
+    their global count;
+  * the local losses (:func:`clip_loss_local`, :func:`ssl_clip_loss_local`;
+    ``--contrastive-use-vissl``) compute only this rank's ``B_local ×
+    B_global`` rows against the gathered embeddings and average the
+    ranks' losses, as ``pmean`` does.
+
+Each returns the global loss on every rank; its gradient, summed over
+the ranks by the collectives' backward and averaged over them by
+``train.step``, is the global batch's. Outside a group the global batch
+is this process's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from lavila_tpu_torch.parallel import mesh
 
 # logit_scale is clamped to [0, LOGIT_SCALE_MAX] after every update:
 # exp(4.6052) ≈ 100 (reference main_pretrain.py:529)
@@ -29,6 +49,8 @@ def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     """Symmetric InfoNCE over the batch with diagonal labels (reference
     loss.py:46-118). Returns ``loss`` (= ``clip_loss``) and ``clip_acc``
     (top-1 video→text accuracy in %), fp32 scalars."""
+    image_embed = mesh.all_gather(image_embed)
+    text_embed = mesh.all_gather(text_embed)
     n = image_embed.shape[0]
     logits = logit_scale.float() * (image_embed.float()
                                     @ text_embed.float().T)
@@ -39,10 +61,43 @@ def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     return {"loss": loss, "clip_loss": loss, "clip_acc": acc}
 
 
-def clip_loss_local(*args, **kwargs):
-    raise NotImplementedError(
-        "the local (all-gather) contrastive loss needs several GPUs: "
-        "ROADMAP queue 1: multi-GPU")
+def _local_labels(b: int, device) -> torch.Tensor:
+    """This rank's rows of the global diagonal: ``rank·b + arange(b)``."""
+    return mesh.rank() * b + torch.arange(b, device=device)
+
+
+def _pmean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the ranks (differentiable, as ``pmean``)."""
+    return mesh.all_reduce(x) / mesh.world()
+
+
+def clip_loss_local(local_image: torch.Tensor, local_text: torch.Tensor,
+                    logit_scale: torch.Tensor) -> dict:
+    """:func:`clip_loss` as this rank's ``B_local × B_global`` rows
+    against the gathered embeddings (``lavila_tpu/losses.py:53``; open_clip's
+    ``local_loss``): the memory-scalable form, equal to the global loss
+    and its gradients. ``loss`` and ``clip_acc`` are the ranks' mean."""
+    all_image = mesh.all_gather(local_image)
+    all_text = mesh.all_gather(local_text)
+    labels = _local_labels(local_image.shape[0], local_image.device)
+    scale = logit_scale.float()
+    logits_i = scale * (local_image.float() @ all_text.float().T)
+    logits_t = scale * (local_text.float() @ all_image.float().T)
+    loss = _pmean(0.5 * (_xent(logits_i, labels).mean()
+                         + _xent(logits_t, labels).mean()))
+    acc = _pmean(100.0 * (logits_i.argmax(dim=-1) == labels).float().mean())
+    return {"loss": loss, "clip_loss": loss, "clip_acc": acc.detach()}
+
+
+def _pair_scale(ind_rows, ind_cols, logit_scale, logit_scale_pseudo):
+    """The two-temperature scale of each (row, column) pair: the pseudo
+    scale for two pseudo narrations, ``logit_scale`` for two human ones,
+    their geometric mean for a mixed pair."""
+    pair = ind_rows[:, None] + ind_cols[None, :]  # in {0, 1, 2}
+    scale, pseudo = logit_scale.float(), logit_scale_pseudo.float()
+    return torch.where(pair == 0, pseudo,
+                       torch.where(pair == 2, scale,
+                                   torch.sqrt(scale * pseudo)))
 
 
 def ssl_clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
@@ -54,14 +109,12 @@ def ssl_clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     ones ``logit_scale``, a mixed pair their geometric mean. Returns the
     :func:`clip_loss` keys, the counts ``num_gt``/``num_pseudo`` and the
     accuracy over each kind's rows, fp32 scalars."""
+    image_embed = mesh.all_gather(image_embed)
+    text_embed = mesh.all_gather(text_embed)
+    ind = mesh.all_gather(gt_indicators.float())
     n = image_embed.shape[0]
-    ind = gt_indicators.float()
-    pair = ind[None, :] + ind[:, None]  # (n, n) in {0, 1, 2}
-    scale, pseudo = logit_scale.float(), logit_scale_pseudo.float()
-    scale_mat = torch.where(pair == 0, pseudo,
-                            torch.where(pair == 2, scale,
-                                        torch.sqrt(scale * pseudo)))
-    logits = scale_mat * (image_embed.float() @ text_embed.float().T)
+    logits = (_pair_scale(ind, ind, logit_scale, logit_scale_pseudo)
+              * (image_embed.float() @ text_embed.float().T))
     labels = torch.arange(n, device=logits.device)
     loss = 0.5 * (_xent(logits, labels).mean()
                   + _xent(logits.T, labels).mean())
@@ -76,10 +129,35 @@ def ssl_clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
             / num_pseudo.clamp_min(1.0)}
 
 
-def ssl_clip_loss_local(*args, **kwargs):
-    raise NotImplementedError(
-        "the local (all-gather) SSL loss needs several GPUs: ROADMAP "
-        "queue 1: multi-GPU")
+def ssl_clip_loss_local(local_image: torch.Tensor, local_text: torch.Tensor,
+                        logit_scale: torch.Tensor,
+                        logit_scale_pseudo: torch.Tensor,
+                        local_gt_indicators: torch.Tensor) -> dict:
+    """:func:`ssl_clip_loss` as this rank's ``B_local × B_global`` rows
+    against the gathered embeddings and indicators
+    (``lavila_tpu/losses.py:113``): ``loss`` is the ranks' mean, the
+    counts and accuracies are over the global batch."""
+    all_image = mesh.all_gather(local_image)
+    all_text = mesh.all_gather(local_text)
+    ind_l = local_gt_indicators.float()
+    ind_g = mesh.all_gather(ind_l)
+    labels = _local_labels(local_image.shape[0], local_image.device)
+    scale_mat = _pair_scale(ind_l, ind_g, logit_scale, logit_scale_pseudo)
+    logits_i = scale_mat * (local_image.float() @ all_text.float().T)
+    logits_t = scale_mat * (local_text.float() @ all_image.float().T)
+    loss = _pmean(0.5 * (_xent(logits_i, labels).mean()
+                         + _xent(logits_t, labels).mean()))
+    correct = (logits_i.argmax(dim=-1) == labels).float()
+    num_gt, num_pseudo, n_correct, corr_gt, corr_pseudo = mesh.all_reduce(
+        torch.stack([ind_l.sum(), (1.0 - ind_l).sum(), correct.sum(),
+                     (correct * ind_l).sum(),
+                     (correct * (1.0 - ind_l)).sum()]).detach())
+    return {"loss": loss, "clip_loss": loss,
+            "clip_acc": 100.0 * n_correct / (num_gt + num_pseudo),
+            "num_gt": num_gt, "num_pseudo": num_pseudo,
+            "clip_acc_gt": 100.0 * corr_gt / num_gt.clamp_min(1.0),
+            "clip_acc_pseudo": 100.0 * corr_pseudo
+            / num_pseudo.clamp_min(1.0)}
 
 
 def _cosine_sim_matrix(a: torch.Tensor, b: torch.Tensor,
@@ -99,6 +177,10 @@ def max_margin_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     mean: reference MaxMarginRankingLoss / AdaptiveMaxMarginRankingLoss
     with fix_norm=True (reference loss.py:267-367). ``weights`` (per text
     row, the EK-100 relevancy) scale the margin: the adaptive variant."""
+    image_embed = mesh.all_gather(image_embed)
+    text_embed = mesh.all_gather(text_embed)
+    if weights is not None:
+        weights = mesh.all_gather(weights.float())
     x = _cosine_sim_matrix(text_embed, image_embed)
     n = x.shape[0]
     diag = x.diagonal()
@@ -123,19 +205,23 @@ def caption_loss(logits: torch.Tensor, labels: torch.Tensor,
     out; ``loss`` (= ``caption_loss``) is the sum over the kept tokens
     over their count, ``caption_acc`` the kept tokens' top-1 accuracy in
     %, ``ppl`` the mean over samples of exp(the sample's NLL / its kept
-    count)."""
+    count). In a group the sums and counts are the global batch's: the
+    ranks' kept tokens differ with their padding, so a mean of the
+    ranks' losses would not be the global one."""
     B, L, V = logits.shape
     per_tok = _xent(logits.reshape(B * L, V),
                     labels.reshape(B * L).long()).reshape(B, L)
     keep = (labels != pad_id).float()
-    kept = keep.sum()
     per_sample = (per_tok * keep).sum(1)
-    loss = per_sample.sum() / kept.clamp_min(1.0)
     correct = ((logits.argmax(-1) == labels).float() * keep).sum()
-    ppl = torch.exp(per_sample / keep.sum(1).clamp_min(1.0)).mean()
+    ppls = torch.exp(per_sample / keep.sum(1).clamp_min(1.0))
+    kept, correct, ppl_sum, samples = mesh.all_reduce(torch.stack([
+        keep.sum(), correct, ppls.sum(),
+        keep.new_full((), float(B))]).detach())
+    loss = mesh.all_reduce(per_sample.sum()) / kept.clamp_min(1.0)
     return {"loss": loss, "caption_loss": loss,
             "caption_acc": 100.0 * correct / kept.clamp_min(1e-8),
-            "ppl": ppl}
+            "ppl": ppl_sum / samples}
 
 
 def get_loss(model_name: str):

@@ -5,8 +5,7 @@ caption step.
 
 Counterpart of ``lavila_tpu/train/step.py`` (``TrainState``,
 ``make_clip_train_step``, ``make_retrieval_train_step``,
-``make_classifier_train_step``, ``make_caption_train_step``) on one
-device.
+``make_classifier_train_step``, ``make_caption_train_step``).
 JAX's step is a pure function of an immutable state; here the step
 updates the state in place (the
 parameters, the optimizer's moments, the step count) and returns it, so
@@ -44,6 +43,16 @@ The SSL loss's own parameter, ``logit_scale_pseudo``, lives in
 fp32 scalar under the model's optimizer (no weight decay, as every
 scalar; a share in the clipping norm), never cast and never clamped,
 since the JAX step clamps only the model's parameters.
+
+Data parallelism (``parallel/mesh.py``): in a process group each rank
+steps on its rows of the global batch, the losses take the ranks'
+embeddings through the differentiable all-gather, and before the
+optimizer (its clipping and accumulation included) every rank's fp32
+master gradients are averaged over the ranks in a few coalesced
+buffers, in the same order on every rank (the frozen parameters, which
+have none, skipped alike), so that every rank updates by the global
+batch's gradient, as the JAX step on the ``data`` axis does. The
+averaging runs at a world of one too; outside a group there is none.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from torch import nn
 
 from lavila_tpu_torch import losses
 from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm, LayerNorm
+from lavila_tpu_torch.parallel import mesh
 from lavila_tpu_torch.train.optim import (MultiTransform, Optimizer,
                                           clamp_logit_scale)
 
@@ -173,7 +183,7 @@ class TrainState:
 
 def make_clip_train_step(norm_embed: bool = False,
                          loss_fn: Callable = losses.clip_loss,
-                         use_ssl: bool = False, local_loss_mesh=None):
+                         use_ssl: bool = False, local_loss: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: ``frames`` (B, T, H, W, C) and ``text`` (B, L) on the
@@ -188,16 +198,22 @@ def make_clip_train_step(norm_embed: bool = False,
     scale ``exp(state.criterion["logit_scale_pseudo"])``, over the
     batch's ``gt_indicators`` (B,) (1 for a human narration, 0 for a
     pseudo one).
+
+    ``local_loss`` (``--contrastive-use-vissl``; the JAX
+    ``local_loss_mesh``): the loss is :func:`losses.clip_loss_local` (or
+    :func:`losses.ssl_clip_loss_local`), each rank computing only its own
+    rows of the logits against the gathered embeddings; the loss and the
+    gradients are the global ones.
     """
-    if local_loss_mesh is not None:
-        raise NotImplementedError(
-            "the local loss over a mesh needs several GPUs: ROADMAP queue "
-            "1: multi-GPU")
+    ssl_loss = (losses.ssl_clip_loss_local if local_loss
+                else losses.ssl_clip_loss)
+    if local_loss:
+        loss_fn = losses.clip_loss_local
 
     def train_step(state: TrainState, batch: dict):
         out = _forward(state, batch, norm_embed)
         if use_ssl:
-            metrics = losses.ssl_clip_loss(
+            metrics = ssl_loss(
                 out["image_embed"], out["text_embed"], out["logit_scale"],
                 state.criterion["logit_scale_pseudo"].exp(),
                 batch["gt_indicators"])
@@ -229,10 +245,11 @@ def _forward(state: TrainState, batch: dict, norm_embed: bool) -> dict:
 
 def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:
     """After backward: the working copy's gradients (those named in
-    ``zero`` zeroed) onto the fp32 masters, the optimizer's update,
-    ``logit_scale`` clamped (not the criterion's parameters), the trained
-    masters copied back, ``step += 1``. A frozen parameter gets no
-    gradient."""
+    ``zero`` zeroed) onto the fp32 masters, averaged over the ranks of a
+    process group, the optimizer's update, ``logit_scale`` clamped (not
+    the criterion's parameters), the trained masters copied back,
+    ``step += 1``. A frozen parameter gets no gradient."""
+    grads = []
     for name, p in state.model.named_parameters():
         if name in state.frozen:
             continue
@@ -241,9 +258,13 @@ def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:
         master.grad = (torch.zeros_like(master)
                        if p.grad is None or name in zero
                        else p.grad.float() if state.has_copy else p.grad)
+        grads.append(master.grad)
     for p in state.criterion.values():
-        if p.grad is None and p.requires_grad:
-            p.grad = torch.zeros_like(p)
+        if p.requires_grad:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    mesh.average_grads(grads)
     state.optimizer.step()
     clamp_logit_scale(state.params.items())
     state._copy_masters()
@@ -328,7 +349,10 @@ def make_classifier_train_step(multihead: bool = False,
                     else 100.0 * (outs.argmax(-1) == lab).float().mean())
         loss.backward()
         _update(state)
-        return state, {"loss": loss.detach(), "acc1": top1.detach()}
+        # the global batch's mean (equal rows on every rank)
+        loss, top1 = mesh.all_reduce(
+            torch.stack([loss, top1]).detach()) / mesh.world()
+        return state, {"loss": loss, "acc1": top1}
 
     return train_step
 

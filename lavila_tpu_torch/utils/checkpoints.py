@@ -1,8 +1,8 @@
 """Checkpoint manager: torch files, an embedded run config, auto-resume.
 
 Counterpart of ``lavila_tpu/utils/checkpoints.py`` with the same contract
-(reference distributed.py:61-73, main_pretrain.py:224-256, 394-403), on
-one process, with torch files in place of orbax directories:
+(reference distributed.py:61-73, main_pretrain.py:224-256, 394-403), with
+torch files in place of orbax directories:
 
   * :meth:`CheckpointManager.save` writes ``checkpoint_{epoch:04d}.pt``
     and its JSON sidecar ``checkpoint_{epoch:04d}.pt.json`` (epoch,
@@ -13,7 +13,11 @@ one process, with torch files in place of orbax directories:
   * the run config rides in the sidecar, so a checkpoint alone rebuilds
     its model (``lavila_tpu_torch.cli.eval_zeroshot`` reads it);
   * :func:`resolve_resume`: a checkpoint in ``output_dir`` wins over
-    ``--resume``.
+    ``--resume``;
+  * in a process group (``parallel/mesh.py``) every rank calls
+    :meth:`CheckpointManager.save`: rank 0 alone writes (the replicas are
+    equal), then every rank waits at a barrier, so that no rank reads or
+    requeues past a half-written file; every rank restores the same file.
 
 What a file holds is the caller's; the pretraining CLI saves
 ``TrainState.state_dict()``: ``{"state_dict", "optimizer", "scheduler",
@@ -30,6 +34,8 @@ import shutil
 from typing import Any, Optional
 
 import torch
+
+from lavila_tpu_torch.parallel import mesh
 
 _EPOCH_FILE = re.compile(r"^checkpoint_(\d{4})\.pt$")
 
@@ -57,8 +63,15 @@ class CheckpointManager:
              is_best: bool = False, metrics: Optional[dict] = None,
              keep_epoch: bool = True) -> str:
         """Write ``tree`` once, with ``torch.save``, as the epoch file
-        plus its sidecar, and link 'latest' (and 'best') to it. Returns
-        the path of 'latest'."""
+        plus its sidecar, and link 'latest' (and 'best') to it: rank 0
+        writes, every rank waits for it. Returns the path of 'latest'."""
+        if mesh.rank() == 0:
+            self._write(tree, epoch, config, is_best, metrics, keep_epoch)
+        mesh.barrier()
+        return self.path("latest")
+
+    def _write(self, tree, epoch, config, is_best, metrics,
+               keep_epoch) -> None:
         meta = {"epoch": epoch, "config": config or {},
                 "metrics": metrics or {}}
         primary = self.path(f"{epoch:04d}")
@@ -74,7 +87,6 @@ class CheckpointManager:
             os.remove(primary)
             os.remove(primary + ".json")
         self._prune()
-        return self.path("latest")
 
     def _prune(self) -> None:
         """Keep only the newest ``max_to_keep`` epoch files ('latest' and

@@ -39,7 +39,9 @@ rows, a decode step's (160, 1, 1600), GPT-2 XL's caption rows (608,
 1600) and DistilBERT's (1232, 768) at eps 1e-12 with 16 flat rows. K7
 and K8 run at the text towers' shapes: 16 captions x 8 heads
 (TSF-B's b16 step), 32 x 12 (TSF-L@336's b32 remat step) and 256 x 8, on
-in_proj views; K8's backward is ``flash_bwd``, whichever kernels it
+in_proj views, and K7 at CLIP RN50's attention pool (8 images x 32 heads,
+one query over 50 keys, not causal, with its bound and its plain
+version's time); K8's backward is ``flash_bwd``, whichever kernels it
 launches, beside SDPA's backward by autograd. K2 runs at TSF-B's (8, 4,
 196, 768, 12 heads), the fine-tune's 16 frames (8, 16, 196, 768, 12),
 TSF-L@336's (8, 4, 576, 1024, 16) and TSF-L@224's (8, 4, 256, 1024, 16),
@@ -231,7 +233,8 @@ def kernel_device_times(gen) -> list:
     (:data:`LN_BWD_CASES`), K4 and K5 forward and backward
     (:data:`ADD_LN_CASES`), K7 and K8's forward and backward (the text
     towers' causal attention: 16 captions x 8 heads, 32 x 12 and 256 x
-    8, 77 tokens of 64) and K9 (160 GPT-2 XL rows, 15 valid of 77),
+    8, 77 tokens of 64; K7 also at RN50's attention pool) and K9 (160
+    GPT-2 XL rows, 15 valid of 77),
     bf16: the port's kernel and the library call, kernel, library,
     library, kernel, each by the profiler's device time and by CUDA
     events."""
@@ -308,6 +311,23 @@ def kernel_device_times(gen) -> list:
         cases.append(("K8 bwd", [B, H, 77, 77, 64],
                       lambda args=args: KF.flash_bwd(*args),
                       flash_bwd_call(q, k, v, do, True)))
+    # CLIP RN50's attention pool (models/resnet_clip.py) at 8 images: one
+    # query over the 7·7 + 1 tokens, 32 heads of 64, not causal
+    qp, kp, vp = rand(8, 1, 32, 64), rand(8, 50, 32, 64), rand(8, 50, 32, 64)
+    cases.append(("K7", [8, 32, 1, 50, 64],
+                  lambda: KF._forward(qp, kp, vp, False, scale, False),
+                  flash_fwd_call(qp, kp, vp, False)))
+    # its bound: q, k, v read and the output written once (bf16), the two
+    # products' operations at the bf16 peak (989 TFLOP/s; 3.35 TB/s)
+    pool_bytes = 2 * (2 * qp.numel() + kp.numel() + vp.numel())
+    pool_flops = 4 * 8 * 32 * 1 * 50 * 64
+    bounds = {("K7", (8, 32, 1, 50, 64)): {
+        "bound_ms": max(pool_bytes / 3.35e12, pool_flops / 989e12) * 1e3,
+        "bound_by": "bytes" if pool_bytes / 3.35e12 >= pool_flops / 989e12
+        else "operations"}}
+    # and its plain version (the port's reference path, several launches)
+    plains = {("K7", (8, 32, 1, 50, 64)):
+              lambda: KF.flash_attention_reference(qp, kp, vp, False, scale)}
     qd, kn, vn = rand(160, 3 * 1600).chunk(3, dim=-1)
     kc, vc = rand(160, 77, 1600), rand(160, 77, 1600)
     dec = (qd, kc, vc, kn, vn, 15, 25)
@@ -326,13 +346,17 @@ def kernel_device_times(gen) -> list:
             for who in ("kernel", "library", "library", "kernel"):
                 runs[who].append(measure(kernel if who == "kernel" else lib,
                                          50))
+            plain = plains.get((name, tuple(shape)))
+            if plain is not None:
+                runs["plain"] = [measure(plain, 50) for _ in range(2)]
             lines.append({"kernel": name, "shape": shape, "dtype": "bfloat16",
                           "counter": bumped,
                           **{f"{who}_{k}": [r[k] for r in rs]
                              for who, rs in runs.items()
                              for k in ("device_ms", "event_ms")},
                           "kernels": runs["kernel"][0]["kernels"],
-                          "library_kernels": runs["library"][0]["kernels"]})
+                          "library_kernels": runs["library"][0]["kernels"],
+                          **bounds.get((name, tuple(shape)), {})})
     return lines
 
 

@@ -1,12 +1,14 @@
 """The port's pretraining CLI on the CPU: MINI for 2 steps on the
 synthetic dataset writes a checkpoint that the port's zero-shot loader
 serves, resumes from its output directory, trains under each remat
-policy and with the time gate, and refuses every option that is not
-ported yet (the SSL options, the probe and --wandb are
-tested in tests/test_torch_ssl.py); a DistilBERT dual encoder at MINI size trains
-through it with its masks."""
+policy and with the time gate, trains with --contrastive-use-vissl,
+refuses the one option not ported yet (--mesh-model > 1) and holds
+--mesh-data to the world size (the SSL options, the probe and --wandb
+are tested in tests/test_torch_ssl.py); a DistilBERT dual encoder at MINI
+size trains through it with its masks."""
 
 import json
+import math
 
 import pytest
 import torch
@@ -133,14 +135,31 @@ def test_cli_freeze_and_accumulation_as_the_jax_cli(tmp_path, flags):
         assert ckpt["accumulate"]["micro_step"] == 1
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--contrastive-use-vissl"], "queue 1: multi-GPU"),
-    (["--mesh-model", "2"], "queue 1: multi-GPU"),
-    (["--mesh-data", "4"], "queue 1: multi-GPU"),
-])
-def test_cli_options_not_ported_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(_cfg(tmp_path, *flags))
+@pytest.mark.parametrize("flags,error,match", [
+    (["--contrastive-use-vissl"], None, None),
+    (["--mesh-model", "2"], NotImplementedError,
+     "ROADMAP queue 1: tensor parallelism"),
+    (["--mesh-data", "4"], ValueError, "--mesh-data 4 does not match"),
+], ids=["vissl_trains", "mesh_model_2", "mesh_data_4"])
+def test_cli_options_not_ported_raise(tmp_path, monkeypatch, flags, error,
+                                      match):
+    """Of the JAX CLI's multi-device options only tensor parallelism
+    (``--mesh-model`` > 1) is left: it raises, naming its ROADMAP
+    subject. ``--contrastive-use-vissl`` trains at a world of one, on
+    the local loss; ``--mesh-data`` other than -1 or the world size (1
+    here) raises ``ValueError``, as ``create_mesh`` does."""
+    if error is not None:
+        with pytest.raises(error, match=match):
+            cli.main(_cfg(tmp_path, *flags))
+        return
+    made = []
+    real = cli.make_clip_train_step
+    monkeypatch.setattr(cli, "make_clip_train_step",
+                        lambda **kw: made.append(kw) or real(**kw))
+    state = cli.main(_cfg(tmp_path, *flags))
+    assert state.step == 2 and made[0]["local_loss"] is True
+    log = json.loads((tmp_path / "log.txt").read_text().splitlines()[-1])
+    assert math.isfinite(log["train_loss"])
 
 
 @pytest.mark.parametrize("policy", ["dots", "save_attn", "dots_attn"])

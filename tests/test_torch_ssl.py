@@ -277,9 +277,42 @@ def test_bridge_maps_the_criterion():
         build_model(MINI, device="cpu").named_parameters()))
 
 
+def _without_momentum(opt):
+    """``opt`` (``use_sgd``) as plain SGD."""
+    for group in opt.inner.param_groups:
+        group["momentum"] = 0.0
+    return opt
+
+
 def test_local_loss_still_refuses_naming_multi_gpu():
-    with pytest.raises(NotImplementedError, match="queue 1: multi-GPU"):
-        make_clip_train_step(use_ssl=True, local_loss_mesh=object())
+    """The local SSL loss (``--contrastive-use-vissl``) is ported: at a
+    world of one (no process group) its step is the global step's, the
+    loss within 1e-6 relative and the masters within 1e-5; its
+    multi-rank parity is tests/test_torch_distributed.py's."""
+    _, params = _jax_params()
+    states = []
+    for local in (False, True):
+        model = build_model(MINI, device="cpu", train=True)
+        model.load_state_dict(state_dict_from_jax(params), strict=True)
+        state = TrainState.create(
+            model, lambda p: _without_momentum(O.make_optimizer(
+                p, 1e-2, weight_decay=0.0, use_sgd=True)),
+            dtype=torch.float32, criterion={PSEUDO: math.log(1 / 0.07)})
+        step = make_clip_train_step(use_ssl=True, local_loss=local)
+        frames, text, ind = _ssl_batches(1)[0]
+        state, met = step(state, {
+            "frames": torch.from_numpy(frames),
+            "text": torch.from_numpy(text.astype(np.int64)),
+            "gt_indicators": torch.from_numpy(ind).float()})
+        states.append((state, met))
+    (glob, gmet), (loc, lmet) = states
+    assert lmet.keys() == gmet.keys()
+    for k in gmet:
+        assert lmet[k].item() == pytest.approx(gmet[k].item(), rel=1e-6), k
+    for name, p in {**glob.params, **glob.criterion}.items():
+        want = p.detach()
+        got = {**loc.params, **loc.criterion}[name].detach()
+        assert (got - want).abs().max().item() <= 1e-5, name
 
 
 # ----------------------------------------------------------------- the CLI

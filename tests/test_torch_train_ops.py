@@ -71,10 +71,32 @@ def test_clip_loss_value_and_grad_match_jax():
 
 
 def test_other_losses_raise():
-    with pytest.raises(NotImplementedError, match="queue 1: multi-GPU"):
-        L.clip_loss_local()
-    with pytest.raises(NotImplementedError, match="queue 1: multi-GPU"):
-        L.ssl_clip_loss_local()
+    """The local losses no longer raise: at a world of one (no process
+    group) each is its global loss, values and gradients within 1e-6
+    (their multi-rank parity is tests/test_torch_distributed.py's)."""
+    rng = np.random.default_rng(2)
+    img = rng.normal(size=(6, 16)).astype(np.float32)
+    txt = rng.normal(size=(6, 16)).astype(np.float32)
+    txt[1] = img[1]
+    ind = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0, 0.0])
+    cases = ((L.clip_loss, L.clip_loss_local, ()),
+             (L.ssl_clip_loss, L.ssl_clip_loss_local,
+              (torch.tensor(2.0), ind)))
+    for glob, local, extra in cases:
+        outs = []
+        for fn in (glob, local):
+            leaves = [torch.from_numpy(img).requires_grad_(),
+                      torch.from_numpy(txt).requires_grad_(),
+                      torch.tensor(4.0, requires_grad=True)]
+            m = fn(*leaves, *extra)
+            outs.append((m, torch.autograd.grad(m["loss"], leaves)))
+        (gm, gg), (lm, lg) = outs
+        assert lm.keys() == gm.keys()
+        for k in gm:
+            assert lm[k].item() == pytest.approx(gm[k].item(), rel=1e-6), k
+        for a, b in zip(lg, gg):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
+                                       rtol=0)
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 25, 39, 40])
