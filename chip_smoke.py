@@ -241,6 +241,37 @@ result. Phases, each printing JSON lines:
      card, then ``main_pretrain`` through ``cli.launch --num-processes N
      --process-id i``: each rank's masters on its card, bit-identical
      over the ranks, equal losses, 3 steps' launches on each rank.
+ 26. Tensor parallelism and the ring attention (``parallel/sharding.py``,
+     ``parallel/tensor.py``, ``ops/ring_attention.py``), two gloo ranks
+     on the one card, each line with the card's name and power limit, no
+     line a scaling number. tp_two_ranks: TSF-B at full width and depth,
+     its wide layers sharded at model=2 (6 heads a rank, the text tower
+     4), 2 bf16 AdamW steps on a batch of 16 against one process (loss
+     within 1e-2, the gathered gradients' cosine at least 0.99 and global
+     norm within 1 ± 0.1, masters within 2.5·Σ lr), the ranks'
+     replicated masters bit-identical, each rank's launches a step the
+     one-process step's, on the tensor cores only. tp_narrator: TSF-B +
+     GPT-2 XL at full width (25 heads 13/12: K9 at 832 and 768 wide), 16
+     of its 48 layers, bf16: encode, 8 teacher-fed cached steps and
+     greedy generation against one process by the bf16 narrator rule,
+     the ranks' ids equal, K9 a layer a decode step. ring_two_ranks: the
+     time phase at TSF-B width (2 clips, 16 frames over the two ranks),
+     fp32 with gradients and bf16, against K2's time phase in one
+     process, then a TSF-B encode at 16 frames with the ring group set
+     (no K2 launch) against one process's. With ``--nccl-ranks N`` the
+     phases tp_nccl_cards (the TSF-B step at model=N and at data=N/2 x
+     model=2; ``main_pretrain --mesh-model 2`` through the launcher:
+     each rank's shards on its card, the checkpoint the whole layout)
+     and ring_nccl_cards (the ring over N cards) run after
+     ddp_nccl_cards.
+
+For the time limit the phases that build their models here run them cut
+in depth, never in width (the ``depth_cuts`` line; PERF.md §4): TSF-B's
+SSL, fine-tune, classify, DistilBERT, gated and data-parallel steps at 4
+of 12 blocks, TSF-L's steps and remat policies at 8 of 24, ViT-B/16's
+step at 4 of 12, the GPT-2 XL narrators' decode and caption phases at 16
+of 48 layers. The serving phases, TSF-B's train step, tp_two_ranks and
+every CLI run at full depth.
 
 Every path phase (5, 7, finetune_cli, ssl_pretrain_cli, classify_cli,
 large224_cli, 9, 9c, 10-13b, 15, 16's CLI, 19, vit_infer_narrator_cli,
@@ -270,6 +301,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -1605,13 +1637,41 @@ def phase_kernels_bwd() -> dict:
 def _clip_model(m, **kw):
     """Dual encoder ``m`` (with ``m["kw"]``, its zoo options)
     initialised on the card from a seeded generator, its time attention
-    (a TimeSformer's) given seeded noise (:func:`_seed_time_attention`)."""
+    (a TimeSformer's) given seeded noise (:func:`_seed_time_attention`),
+    its video tower cut to ``m["depth"]`` blocks where that is fewer than
+    the zoo's (:func:`_cut`)."""
     from lavila_tpu_torch.models import build_model
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     model = build_model(m["name"], device=DEVICE, generator=gen,
                         **m.get("kw", {}), **kw)
     _seed_time_attention(model.visual, gen)
+    v = model.visual
+    blocks = v.blocks if hasattr(v, "blocks") else v.transformer.resblocks
+    del blocks[m["depth"]:]
     return model
+
+
+def _cut(m, **depths) -> dict:
+    """Configuration ``m`` with fewer blocks (``depth``) or GPT-2 layers
+    (``layers``, ``cross``), its widths as published: the phases that
+    build their models here run cut so that the script keeps inside its
+    time limit (PERF.md §4 lists each cut)."""
+    return dict(m, **depths, cut={k: f"{m[k]} -> {v}"
+                                  for k, v in depths.items()})
+
+
+# the cut configurations (widths as published): TSF-B's steps at 4 of 12
+# blocks, TSF-L's at 8 of 24, ViT-B/16's at 4 of 12, the GPT-2 XL
+# narrators at 16 of 48 layers (their cross-attention on every second,
+# the flagship's every third, layer of those)
+MODEL_CUT = _cut(MODEL, depth=4)
+DISTIL_BASE_CUT = _cut(DISTIL_BASE, depth=4)
+LARGE224_CUT = _cut(LARGE224, depth=8)
+LARGE_CUT = _cut(LARGE, depth=8)
+VIT_B16_CUT = _cut(VIT_B16, depth=4)
+NARRATOR_CUT = _cut(NARRATOR, layers=16, cross=8)
+FLAGSHIP_CUT = _cut(FLAGSHIP, layers=16, cross=6)
+VIT_NARRATOR_CUT = _cut(VIT_NARRATOR, layers=16, cross=8)
 
 
 @torch.no_grad()
@@ -2273,25 +2333,25 @@ def _train_throughput(base, gen, m, batches, iters: int = 5,
         del data
 
 
-def phase_large_train_step() -> None:
+def phase_large_train_step(m=LARGE) -> None:
     """TSF-L@336's train step: kernels against plain (fp32, batch 2),
     remat against no remat with drop-path 0.1 (fp32, batch 2, both on the
     kernels), then bf16 clips/s and peak memory with and without remat."""
     from lavila_tpu_torch.train.step import make_clip_train_step
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
-    batch = _train_batch(2, gen, LARGE["img"])
+    batch = _train_batch(2, gen, m["img"])
     fp32 = torch.float32
-    base = _clip_model(LARGE)
-    k_run = _run_steps(LARGE, base, fp32, batch, False)
-    p_run = _run_steps(LARGE, base, fp32, batch, True)
+    base = _clip_model(m)
+    k_run = _run_steps(m, base, fp32, batch, False)
+    p_run = _run_steps(m, base, fp32, batch, True)
     res = _compare_steps(k_run, p_run)
-    emit("large_train_step", model=LARGE["name"], dtype="float32", batch=2,
+    emit("large_train_step", model=m["name"], dtype="float32", batch=2,
          steps=2, what="kernels vs plain", loss_kernels=k_run[0],
          loss_plain=p_run[0], launches_per_step=k_run[2], **res)
     check(all(math.isfinite(x) for x in k_run[0] + p_run[0])
           and res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
           f"TSF-L@336 train step fp32 kernels vs plain: {res}")
-    want = _step_launches(LARGE, dtype=fp32)
+    want = _step_launches(m, dtype=fp32)
     check(all(c == want for c in k_run[2]),
           f"TSF-L@336 train step launches {k_run[2]}, want {want}")
     del k_run, p_run
@@ -2300,18 +2360,18 @@ def phase_large_train_step() -> None:
     # generator (the TrainState's), remat off against on
     runs = {}
     for remat in (False, True):
-        model = _clip_model(LARGE, drop_path_rate=0.1, remat=remat)
+        model = _clip_model(m, drop_path_rate=0.1, remat=remat)
         model.load_state_dict(base.state_dict())
-        runs[remat] = _run_steps(LARGE, model, fp32, batch, False)
+        runs[remat] = _run_steps(m, model, fp32, batch, False)
         del model
     res = _compare_steps(runs[True], runs[False])
-    emit("large_train_step", model=LARGE["name"], dtype="float32", batch=2,
+    emit("large_train_step", model=m["name"], dtype="float32", batch=2,
          steps=2, what="remat vs no remat, drop_path_rate 0.1",
          loss_remat=runs[True][0], loss_no_remat=runs[False][0],
          launches_per_step_remat=runs[True][2], **res)
     check(res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
           f"TSF-L@336 train step remat vs no remat: {res}")
-    want = _step_launches(LARGE, remat=True, dtype=fp32)
+    want = _step_launches(m, remat=True, dtype=fp32)
     check(all(c == want for c in runs[True][2]),
           f"TSF-L@336 remat step launches {runs[True][2]}, want {want}")
     del runs
@@ -2324,7 +2384,7 @@ def phase_large_train_step() -> None:
     step_fn = make_clip_train_step()
     state = _make_state(base.train(), torch.bfloat16)
     del base
-    data = _train_batch(8, gen, LARGE["img"])
+    data = _train_batch(8, gen, m["img"])
     rates, peaks = {}, {}
     for remat, path in ((False, "kernels"), (True, "kernels"),
                         (True, "plain"), (True, "plain"), (True, "kernels"),
@@ -2340,27 +2400,27 @@ def phase_large_train_step() -> None:
             check_tensor_cores(f"TSF-L@336 bf16 step ({key})", "K6",
                                "K6 bwd", "K2", "K2 bwd")
             check_flash_tc(f"TSF-L@336 bf16 step ({key})")
-            check_ln_bwd(f"TSF-L@336 bf16 step ({key})", LARGE, 8, 7)
+            check_ln_bwd(f"TSF-L@336 bf16 step ({key})", m, 8, 7)
         rates.setdefault(key, []).append(rate)
         peaks.setdefault(key, []).append(peak)
-    emit("train_throughput", what="train step clips/s", model=LARGE["name"],
+    emit("train_throughput", what="train step clips/s", model=m["name"],
          dtype="bfloat16", batch=8, frames=4, iters=5,
          order="kernels, kernels+remat, plain+remat, plain+remat, "
          "kernels+remat, kernels", clips_per_s=rates, peak_memory_gib=peaks)
     del data
     state.model.visual.remat = True
     for batch_size in (32, 16):
-        data = _train_batch(batch_size, gen, LARGE["img"])
+        data = _train_batch(batch_size, gen, m["img"])
         try:
             rate, peak = _time_steps(state, step_fn, data, 5)
         except torch.cuda.OutOfMemoryError:
-            emit("train_throughput", model=LARGE["name"], remat=True,
+            emit("train_throughput", model=m["name"], remat=True,
                  batch=batch_size, out_of_memory=True)
             del data
             torch.cuda.empty_cache()
             continue
         emit("train_throughput", what="train step clips/s",
-             model=LARGE["name"], dtype="bfloat16", batch=batch_size,
+             model=m["name"], dtype="bfloat16", batch=batch_size,
              frames=4, iters=5, remat=True, clips_per_s=rate,
              peak_memory_gib=peak)
         break  # the largest of 32 and 16 that fits
@@ -2440,41 +2500,41 @@ def phase_pretrain_cli(m, steps: int, batch: int, flags=()) -> dict:
     return counts
 
 
-def phase_finetune_step() -> None:
+def phase_finetune_step(m=MODEL) -> None:
     """The retrieval fine-tune's step on BASE at 16 frames (adaptive
     max-margin with relevancy weights, logit_scale frozen): 2 fp32 steps,
     kernel path against plain path from the same weights and batch, held
     to the pretraining step's limits; then bf16 clips/s and peak memory
     at batch 8, kernels/plain/plain/kernels."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
-    base = _clip_model(MODEL, num_frames=16)
-    batch = _train_batch(4, gen, MODEL["img"], 16)
-    k_run = _run_steps(MODEL, base, torch.float32, batch, False,
+    base = _clip_model(m, num_frames=16)
+    batch = _train_batch(4, gen, m["img"], 16)
+    k_run = _run_steps(m, base, torch.float32, batch, False,
                        kind="retrieval")
-    p_run = _run_steps(MODEL, base, torch.float32, batch, True,
+    p_run = _run_steps(m, base, torch.float32, batch, True,
                        kind="retrieval")
     res = _compare_steps(k_run, p_run)
-    emit("finetune_step", model=MODEL["name"], dtype="float32", batch=4,
+    emit("finetune_step", model=m["name"], dtype="float32", batch=4,
          frames=16, steps=2, loss="adaptive_max_margin",
          loss_kernels=k_run[0], loss_plain=p_run[0],
          launches_per_step=k_run[2], **res)
     check(all(math.isfinite(x) for x in k_run[0] + p_run[0])
           and res["loss_rel_err"] <= 1e-5 and res["grad_rel_err_max"] <= 1e-4,
           f"fine-tune step fp32 kernels vs plain: {res}")
-    want = _step_launches(MODEL, dtype=torch.float32)
+    want = _step_launches(m, dtype=torch.float32)
     check(all(c == want for c in k_run[2]),
           f"fine-tune step launches {k_run[2]}, want {want}")
     del k_run, p_run
     state, step_fn = _state_and_step("retrieval", base.train(),
                                      torch.bfloat16)
-    data = _train_batch(8, gen, MODEL["img"], 16)
+    data = _train_batch(8, gen, m["img"], 16)
 
     def on_kernels():  # K2 over 16 frames on the tensor cores
         check_tensor_cores("fine-tune bf16 step", "K2", "K2 bwd")
-        check_ln_bwd("fine-tune bf16 step", MODEL, 8, 7)
+        check_ln_bwd("fine-tune bf16 step", m, 8, 7)
     rates, peaks = _in_turns(state, step_fn, data, 5, on_kernels)
     emit("train_throughput", what="retrieval fine-tune step clips/s",
-         model=MODEL["name"], dtype="bfloat16", batch=8, frames=16, iters=5,
+         model=m["name"], dtype="bfloat16", batch=8, frames=16, iters=5,
          loss="adaptive_max_margin", order="kernels, plain, plain, kernels",
          clips_per_s=rates, peak_memory_gib=peaks)
 
@@ -2533,7 +2593,7 @@ def _classifier(m, frames: int = 16):
     return clf, base
 
 
-def phase_classify_step() -> None:
+def phase_classify_step(m=MODEL) -> None:
     """The classification fine-tune's step: EK-100's verb, noun and
     action heads over TSF-B at 16 frames (SGD, backbone at 0.1 times the
     head's rate, each group clipped by its own norm, label smoothing 0.1,
@@ -2544,20 +2604,20 @@ def phase_classify_step() -> None:
     time of the classify step and of the retrieval fine-tune's step on
     the same tower and batch size."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
-    clf, dual = _classifier(MODEL)
+    clf, dual = _classifier(m)
     for dtype, size in ((torch.float32, 4), (torch.bfloat16, 16)):
-        batch = _classify_batch(size, gen, MODEL["img"])
-        k_run = _run_steps(MODEL, clf, dtype, batch, False, kind="classify")
-        p_run = _run_steps(MODEL, clf, dtype, batch, True, kind="classify")
+        batch = _classify_batch(size, gen, m["img"])
+        k_run = _run_steps(m, clf, dtype, batch, False, kind="classify")
+        p_run = _run_steps(m, clf, dtype, batch, True, kind="classify")
         res = _compare_steps(k_run, p_run)
         name = f"classify step {dname(dtype)}"
-        emit("classify_step", model=MODEL["name"], heads=EK100_HEADS,
+        emit("classify_step", model=m["name"], heads=EK100_HEADS,
              dtype=dname(dtype), batch=size, frames=16, steps=2,
              loss_kernels=k_run[0], loss_plain=p_run[0],
              launches_per_step=k_run[2], **res)
         check(all(math.isfinite(x) for x in k_run[0] + p_run[0]),
               f"{name}: non-finite loss {k_run[0]} {p_run[0]}")
-        want = _step_launches(MODEL, dtype=dtype, text=False)
+        want = _step_launches(m, dtype=dtype, text=False)
         check(all(c == want for c in k_run[2]),
               f"{name}: launches {k_run[2]}, want {want}")
         if dtype == torch.float32:
@@ -2569,25 +2629,25 @@ def phase_classify_step() -> None:
                   f"{name} kernels vs plain: {res}")
         del k_run, p_run, batch
     state, step_fn = _state_and_step("classify", clf, torch.bfloat16)
-    data = _classify_batch(16, gen, MODEL["img"])
+    data = _classify_batch(16, gen, m["img"])
 
     def on_kernels():  # K2 over 16 frames on the tensor cores
         check_tensor_cores("classify bf16 step", "K1", "K1 bwd", "K2",
                            "K2 bwd")
-        check_ln_bwd("classify bf16 step", MODEL, 16, 7)
+        check_ln_bwd("classify bf16 step", m, 16, 7)
     rates, peaks = _in_turns(state, step_fn, data, 5, on_kernels)
     emit("train_throughput", what="classify step clips/s",
-         model=MODEL["name"], heads=EK100_HEADS, dtype="bfloat16", batch=16,
+         model=m["name"], heads=EK100_HEADS, dtype="bfloat16", batch=16,
          frames=16, iters=5, order="kernels, plain, plain, kernels",
          clips_per_s=rates, peak_memory_gib=peaks)
-    emit("train_profile", model=MODEL["name"], dtype="bfloat16", batch=16,
+    emit("train_profile", model=m["name"], dtype="bfloat16", batch=16,
          frames=16, kind="classify",
          **_profile(lambda: step_fn(state, data), iters=3))
     del state, clf
     r_state, r_fn = _state_and_step("retrieval", dual.train(),
                                     torch.bfloat16)
-    r_data = _train_batch(16, gen, MODEL["img"], 16)
-    emit("train_profile", model=MODEL["name"], dtype="bfloat16", batch=16,
+    r_data = _train_batch(16, gen, m["img"], 16)
+    emit("train_profile", model=m["name"], dtype="bfloat16", batch=16,
          frames=16, kind="retrieval",
          **_profile(lambda: r_fn(r_state, r_data), iters=3))
 
@@ -2661,6 +2721,12 @@ def _narrator_model(n):
                         gated_xattn=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    dec = model.text_decoder
+    del dec.transformer.h[n["layers"]:]  # a cut narrator (:func:`_cut`)
+    dec.cfg = dataclasses.replace(dec.cfg, n_layer=n["layers"])
+    check(sum(b.has_cross for b in dec.transformer.h) == n["cross"],
+          f"{n['name']}: {n['cross']} cross-attention layers expected in "
+          f"{n['layers']}")
     with torch.no_grad():
         for blk in model.text_decoder.transformer.h:
             if blk.has_cross:
@@ -2690,7 +2756,8 @@ def _cached_logits(model, tokens, text, steps: int):
     from lavila_tpu_torch.models.gpt2 import init_cache
     kv = model.prepare_decode(tokens)
     cache = init_cache(model.text_decoder.cfg, text.shape[0], steps,
-                       dtype=tokens.dtype, device=DEVICE)
+                       dtype=tokens.dtype, device=DEVICE,
+                       width=model.text_decoder.cache_width())
     out = []
     for i in range(steps):
         reset_launch_counts()
@@ -3041,15 +3108,19 @@ def _caption_batch(B, gen, n):
     return {"frames": frames, "text": text}
 
 
-def _caption_state(base, dtype, remat: bool = False):
+def _caption_state(base, dtype, remat: bool = False, shard: bool = False):
     """A TrainState of LaViLa's recipe over a copy of narrator ``base``
     (the CLI's AdamW, the LM and the video tower but its temporal branch
-    frozen; remat on both towers with ``remat``) and the caption step."""
+    frozen; remat on both towers with ``remat``; with ``shard`` its wide
+    layers sharded over the model group) and the caption step."""
     import dataclasses
 
+    from lavila_tpu_torch.parallel import sharding
     from lavila_tpu_torch.train.freeze import build_freeze_predicate
     from lavila_tpu_torch.train.step import make_caption_train_step
     model = copy.deepcopy(base).train()
+    if shard:
+        sharding.shard_model(model)
     model.visual.remat = remat
     model.text_decoder.cfg = dataclasses.replace(model.text_decoder.cfg,
                                                  remat=remat)
@@ -3506,6 +3577,7 @@ def phase_eval_narrator_cli(n) -> dict:
 # batch 8
 GATED = dict(MODEL, kw={"timesformer_gated_xattn": True}, batch=8,
              serve_batch=8)
+GATED_CUT = _cut(GATED, depth=4)
 # the remat policies, and the forward launches of the divided phases a
 # policy's step makes per block: twice where the recompute runs them
 # again (full, dots), once where it keeps their outputs
@@ -3516,25 +3588,25 @@ RESNET = {"name": "ModifiedResNet RN50", "img": 224, "batch": 8,
           "output": 1024}
 
 
-def phase_gated_timesformer() -> dict:
+def phase_gated_timesformer(m=GATED) -> dict:
     """TSF-B with ``timesformer_gated_xattn``, its gates and time
     attention seeded: embeddings kernels vs plain at batch 8 (fp32 ≤
     1e-3, bf16 cosine ≥ 0.999) and clips/s; two bf16 train steps kernels
     vs plain at batch 8; the gate's gradient nonzero, its parameter fp32
     in the bf16 working copy; then ``main_pretrain
     --timesformer-gated-xattn`` for 2 steps, whose launches it returns."""
-    phase_model(GATED)
-    phase_train_step(GATED, {torch.bfloat16: 8}, (), "gated_train_step",
+    phase_model(m)
+    phase_train_step(m, {torch.bfloat16: 8}, (), "gated_train_step",
                      SEED + 21)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
-    state, step_fn = _state_and_step("clip", _clip_model(GATED).train(),
+    state, step_fn = _state_and_step("clip", _clip_model(m).train(),
                                      torch.bfloat16)
     state, metrics = step_fn(state, _train_batch(8, gen))
     names = [f"visual.blocks.{i}.alpha_timeattn"
-             for i in range(GATED["depth"])]
+             for i in range(m["depth"])]
     work = dict(state.model.named_parameters())
     grads = [state.params[n].grad for n in names]
-    emit("gated_timesformer", model=GATED["name"], dtype="bfloat16",
+    emit("gated_timesformer", model=m["name"], dtype="bfloat16",
          batch=8, loss=metrics["loss"].item(),
          gate_dtype_working_copy=str(work[names[0]].dtype),
          gate_grads=[g.item() for g in grads])
@@ -3547,7 +3619,7 @@ def phase_gated_timesformer() -> dict:
     return phase_pretrain_cli(MODEL, 2, 8, ("--timesformer-gated-xattn",))
 
 
-def phase_remat_policies() -> dict:
+def phase_remat_policies(m=LARGE) -> dict:
     """TSF-L@336's bf16 train step at batch 32 under each remat policy:
     from the same weights and batch, one step's gradients against
     ``full``'s (their largest difference, within the bf16 train-step
@@ -3559,8 +3631,8 @@ def phase_remat_policies() -> dict:
     batch 32 runs at 16, and its line says so. Returns
     the launches of the four gradient steps."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
-    base = _clip_model(LARGE).cpu()  # each policy's copy goes to the card
-    data = {b: _train_batch(b, gen, LARGE["img"]) for b in (32, 16)}
+    base = _clip_model(m).cpu()  # each policy's copy goes to the card
+    data = {b: _train_batch(b, gen, m["img"]) for b in (32, 16)}
     counts = dict.fromkeys(COUNTERS, 0)
     ref = None
     for policy in POLICY_PHASE_RUNS:
@@ -3590,8 +3662,8 @@ def phase_remat_policies() -> dict:
         step = path_counts()
         for k, n in step.items():
             counts[k] += n
-        want = _step_launches(LARGE, remat=True)
-        want["K6"] = want["K2"] = POLICY_PHASE_RUNS[policy] * LARGE["depth"]
+        want = _step_launches(m, remat=True)
+        want["K6"] = want["K2"] = POLICY_PHASE_RUNS[policy] * m["depth"]
         check_tensor_cores(f"TSF-L@336 bf16 step, remat {policy}", "K6",
                            "K6 bwd", "K2", "K2 bwd")
         check(step == want, f"remat {policy}: launches {step}, want {want}")
@@ -3619,7 +3691,7 @@ def phase_remat_policies() -> dict:
         # 3 warm-up steps, 1 timed by CUDA events (step ms), 1 traced:
         # the trace of a step's ~9,000 launches is most of the phase's time
         prof = _profile(lambda: step_fn(state, data[batch]), iters=1)
-        emit("remat_policies", model=LARGE["name"], dtype="bfloat16",
+        emit("remat_policies", model=m["name"], dtype="bfloat16",
              policy=policy, batch=batch, step_ms=prof["ms_per_call"],
              clips_per_s=batch * 1e3 / prof["ms_per_call"],
              peak_memory_gib=peak, launches_per_step={
@@ -3810,6 +3882,8 @@ DDP_PSEUDO_INIT = math.log(1 / 0.05)
 # 0.9991 and a leaf's largest error within 7.2% of its largest value
 # against one process's (H100); a factor of the world either way is 0.5
 DDP_NORM_RATIO = 0.1
+# the ranks' steps run TSF-B cut to 4 of its 12 blocks (PERF.md §4)
+DDP_MODEL = MODEL_CUT
 
 
 def _smi() -> str:
@@ -4063,7 +4137,7 @@ def ddp_rank_child(rank: int, port: int, world: int, backend: str,
     from lavila_tpu_torch.parallel import mesh
     local_rank = rank if backend == "nccl" else 0
     torch.cuda.set_device(local_rank)
-    base = _clip_model(MODEL)
+    base = _clip_model(DDP_MODEL)
     batch = _train_batch(16, torch.Generator(device=DEVICE).manual_seed(
         SEED + 31), MODEL["img"])
     b = 16 // world
@@ -4143,7 +4217,7 @@ def _ddp_ranks(world: int, backend: str, phase: str) -> None:
                        (r, port, world, backend,
                         os.path.join(tmp, f"rank{r}.json")))
                       for r in range(world)], tmp)
-    want = _step_launches(MODEL)
+    want = _step_launches(DDP_MODEL)
     where = ("gloo (both ranks on cuda:0)" if backend == "gloo" else
              f"nccl ({', '.join(r['device'] for r in res)})")
     check(len({r["batch_digest"] for r in res}) == 1,
@@ -4151,6 +4225,7 @@ def _ddp_ranks(world: int, backend: str, phase: str) -> None:
     for variant in DDP_VARIANTS:
         lines = [r["variants"][variant] for r in res]
         emit(phase, card=_smi(), model=MODEL["name"], variant=variant,
+             depth=DDP_MODEL["depth"],
              dtype="bfloat16", batch=f"16 = {world} ranks x {16 // world}",
              steps=2, backend=where,
              losses=[r["losses"] for r in lines],
@@ -4320,6 +4395,609 @@ def phase_ddp_infer_narrator() -> dict:
     return _merge_path_counts(res[0])
 
 
+# ------------------------------------------------ tensor parallelism, ring
+# The model axis (parallel/sharding.py, parallel/tensor.py) and the ring
+# attention (ops/ring_attention.py). One card: two gloo ranks share it, as
+# ddp_two_ranks; --nccl-ranks 4: a NCCL rank a card. No line is a scaling
+# number: the ranks' collectives go through host memory (gloo) or NVLink,
+# and the work a rank does is half or a quarter of one process's.
+# the narrator's cached decode at model=2: 8 teacher-fed steps, then
+# greedy generation of 16 tokens (2 clips x 2 return sequences)
+TP_DECODE_STEPS = 8
+# the narrator at model=2: GPT-2 XL at full width (25 heads, 13/12), cut to
+# 16 of its 48 layers for the time limit
+TP_NARRATOR = NARRATOR_CUT
+# the time phase at TSF-B width: batch 2, 16 frames of 196 patches, 12
+# heads of 64
+RING_SHAPE = (2, 16, 196, 12, 64)
+
+
+def _tp_steps(base, batch: dict, what: str, steps: int = 2,
+              path: bool = False) -> dict:
+    """``steps`` bf16 AdamW steps (the CLI's recipe, :func:`_make_state`)
+    of a copy of ``base`` sharded over the model group (whole outside
+    one) on ``batch``: the losses, each step's fp32 master gradients and
+    the final masters (their digest), both gathered to the whole
+    layout; launches and
+    ms a step (with ``path``, the last step's read by
+    :func:`path_counts`); the digest of the replicated masters."""
+    from lavila_tpu_torch.parallel import mesh, sharding
+    from lavila_tpu_torch.train.step import make_clip_train_step
+    model = sharding.shard_model(copy.deepcopy(base).train())
+    state = _make_state(model, torch.bfloat16)
+    mesh.broadcast_params(state)
+    splits = sharding.layout(state.params)
+    step_fn = make_clip_train_step(norm_embed=True)
+    out = {"losses": [], "grads": [], "launches": [], "ms": []}
+    for _ in range(steps):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        out["losses"].append(metrics["loss"].item())
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        last = path and len(out["ms"]) == steps
+        out["launches"].append(path_counts() if last else launch_counts())
+        check_flash_tc(f"{what} bf16 step")
+        check_tensor_cores(f"{what} bf16 step", "K1", "K2", "K1 bwd",
+                           "K2 bwd")
+        out["grads"].append(sharding.gather_state_dict(
+            {k: p.grad for k, p in state.params.items()
+             if p.grad is not None}, splits))
+    out["params"] = sharding.gather_state_dict(
+        {k: p.detach() for k, p in state.params.items()}, splits)
+    out["replicated"] = _digest({k: p for k, p in state.params.items()
+                                 if k not in splits})
+    out["sharded"] = {k: list(state.params[k].shape) for k in splits}
+    del state
+    return out
+
+
+def tp_rank_child(rank: int, port: int, world: int, model_size: int,
+                  backend: str, out: str) -> None:
+    """One of ``world`` ranks at a model axis of ``model_size``: two gloo
+    ranks on the one card, or a NCCL rank a card. TSF-B from the seed,
+    its data rank's rows of a batch of 16, two bf16 AdamW steps with its
+    wide layers sharded. Rank 0 first runs the steps in one process on
+    the 16 rows and holds the ranks' losses, gathered gradients (their
+    cosines) and masters against it."""
+    _child_setup()
+    from lavila_tpu_torch.parallel import mesh
+    local_rank = rank if backend == "nccl" else 0
+    torch.cuda.set_device(local_rank)
+    base = _clip_model(MODEL)
+    batch = _train_batch(16, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 37), MODEL["img"])
+    what = f"tp model={model_size} x data={world // model_size}"
+    want = _tp_steps(base, batch, f"{what} one process") if rank == 0 \
+        else None
+    mesh.init_process_group(backend, f"tcp://localhost:{port}", world, rank,
+                            local_rank=local_rank, timeout=DDP_TIMEOUT)
+    try:
+        mesh.init_model_parallel(model_size)
+        b = 16 // mesh.data_world()
+        r = mesh.data_rank()
+        local = {k: batch[k][b * r:b * (r + 1)] for k in ("frames", "text")}
+        got = _tp_steps(base, local, what, path=True)
+        line = {"losses": got["losses"], "step_ms": got["ms"],
+                "launches": got["launches"], "replicated": got["replicated"],
+                "by_branch": PATH_BRANCHES, "ln_bwd": PATH_LN_BWD,
+                "digest": _digest(got["params"]),
+                "sharded_qkv": got["sharded"].get(
+                    "visual.blocks.0.attn.qkv.weight"),
+                "model_rank": mesh.model_rank(),
+                "data_rank": mesh.data_rank()}
+        if rank == 0:
+            # the gradients carry the comparison: AdamW moves every
+            # master about its rate a step whatever its gradient, so the
+            # masters' distance says nothing a gradient fault would move
+            cmp = _compare_steps((got["losses"], got["grads"], None),
+                                 (want["losses"], want["grads"], None))
+            ratios = _grad_norm_ratios(got["grads"], want["grads"])
+            line["single_process"] = {
+                "losses": want["losses"], "launches": want["launches"],
+                "step_ms": want["ms"], **cmp, "grad_norm_ratio": ratios}
+            check(cmp["loss_rel_err"] <= 1e-2
+                  and cmp["grad_cos_min"] >= 0.99,
+                  f"{what}: against one process {cmp}")
+            check(all(abs(x - 1) <= DDP_NORM_RATIO for x in ratios),
+                  f"{what}: gradient norm over one process's {ratios}")
+            check(got["launches"] == want["launches"],
+                  f"{what}: rank launches {got['launches']}, one process "
+                  f"{want['launches']}")
+        del got
+    finally:
+        mesh.destroy_process_group()
+    _child_result(out, line)
+
+
+def _tp_ranks(world: int, model_size: int, backend: str,
+              phase: str) -> dict:
+    """``world`` ranks of :func:`tp_rank_child` under ``backend``: the
+    ranks' replicated masters bit-identical (and the gathered masters
+    over the whole world), equal losses, each rank's launches a step the
+    one-process step's (rank 0's checks against one process). Returns
+    rank 0's launches of its last step, its branches merged into the
+    path's (:func:`_merge_path_counts`)."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = _spawn([("tp_rank_child",
+                       (r, port, world, model_size, backend,
+                        os.path.join(tmp, f"rank{r}.json")))
+                      for r in range(world)], tmp)
+    where = ("gloo (both ranks on cuda:0)" if backend == "gloo"
+             else f"nccl, {world} cards")
+    emit(phase, card=_smi(), model=MODEL["name"], dtype="bfloat16",
+         mesh=f"data={world // model_size} x model={model_size}",
+         batch=f"16 = {world // model_size} replicas x "
+               f"{16 // (world // model_size)}", steps=2, backend=where,
+         heads_a_rank=[MODEL["width"] // 64 // model_size],
+         sharded_qkv=[r["sharded_qkv"] for r in res],
+         losses=[r["losses"] for r in res],
+         replicated_equal=len({r["replicated"] for r in res}) == 1,
+         digests_equal=len({r["digest"] for r in res}) == 1,
+         step_ms=[r["step_ms"] for r in res],
+         step_ms_note=("two processes on one card, every activation "
+                       "all-reduce staged through host memory: not a "
+                       "scaling number" if backend == "gloo" else
+                       "a card a rank: not a scaling number"),
+         launches=res[0]["launches"][0],
+         single_process=res[0]["single_process"])
+    check(len({r["replicated"] for r in res}) == 1,
+          f"{phase}: the ranks' replicated masters differ")
+    check(len({r["digest"] for r in res}) == 1,
+          f"{phase}: the ranks' gathered masters differ")
+    check(all(r["losses"] == res[0]["losses"] for r in res),
+          f"{phase}: rank losses {[r['losses'] for r in res]}")
+    check(all(c == res[0]["launches"][0] for r in res
+              for c in r["launches"]),
+          f"{phase}: launches {[r['launches'] for r in res]}")
+    return _merge_path_counts({**res[0], "launches": res[0]["launches"][-1]})
+
+
+def phase_tp_two_ranks() -> dict:
+    """Two gloo ranks sharing the card at model=2 (:func:`_tp_ranks`):
+    TSF-B's 12 heads 6 a rank."""
+    return _tp_ranks(2, 2, "gloo", "tp_two_ranks")
+
+
+def _tp_partings(model, tokens, ids, ids_ref, nrs: int = 2) -> list:
+    """Where a row of the tensor-parallel greedy ids first parts from one
+    process's: the row, the step, and one process's logit gap between
+    the two tokens there (``model``: one process's, ``tokens`` its image
+    tokens)."""
+    out = []
+    for r in range(ids.shape[0]):
+        apart = (ids[r] != ids_ref[r]).nonzero()
+        if not len(apart):
+            continue
+        s = int(apart[0])
+        logits = model.text_decoder(
+            ids_ref[r:r + 1, :s],
+            encoder_states=tokens[r // nrs:r // nrs + 1])[0, -1].float()
+        out.append({"row": r, "step": s, "tokens": [int(ids_ref[r, s]),
+                                                    int(ids[r, s])],
+                    "gap": (logits[ids_ref[r, s]]
+                            - logits[ids[r, s]]).abs().item()})
+    return out
+
+
+def _tp_caption_step(n, base, batch, what: str) -> dict:
+    """One bf16 caption step of LaViLa's recipe (:func:`_caption_state`)
+    on a copy of narrator ``base`` sharded over the model group (whole
+    outside one): the loss, the trainable masters' fp32 gradients
+    gathered to the whole layout, and the launches, on the tensor cores
+    only."""
+    from lavila_tpu_torch.parallel import sharding
+    state, step_fn = _caption_state(base, torch.bfloat16, shard=True)
+    reset_launch_counts()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    out = {"losses": [metrics["loss"].item()], "launches": launch_counts()}
+    check_flash_tc(what)
+    check_tensor_cores(what, n["space"], "K2", f"{n['space']} bwd",
+                       "K2 bwd")
+    out["grads"] = [sharding.gather_state_dict(
+        {k: p.grad for k, p in state.params.items() if p.grad is not None},
+        sharding.layout(state.params))]
+    del state
+    return out
+
+
+def tp_narrator_child(rank: int, port: int, world: int, backend: str,
+                      out: str) -> None:
+    """One of ``world`` ranks at a model axis of the world: the TSF-B +
+    GPT-2 XL narrator (bf16, seeded) with its wide layers sharded (25
+    heads: 13/12 at two ranks), encode_image, :data:`TP_DECODE_STEPS`
+    teacher-fed cached steps and greedy generation; then one bf16 caption
+    step of LaViLa's recipe at batch 4 (:func:`_tp_caption_step`, the
+    backward through the sharded GPT-2, the pooler's gathered K/V head
+    and the video tower's time attention). Rank 0 first runs them in one
+    process, keeps that model for the partings, and holds the ranks'
+    outputs against it by the bf16 narrator rule and the step's
+    gradients by their cosines and norm."""
+    _child_setup()
+    from lavila_tpu_torch.parallel import mesh, sharding
+    n = TP_NARRATOR
+    local_rank = rank if backend == "nccl" else 0
+    torch.cuda.set_device(local_rank)
+    base, _ = _narrator_model(n)
+    model = copy.deepcopy(base).to(torch.bfloat16).eval()
+    with torch.no_grad():  # as narrator_train_step compares the pooler
+        base.img_attn_pool.to_q.weight.mul_(POOL_SPREAD)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    frames, _ = _inputs(2, gen, n["img"])
+    text = torch.randint(0, 50257, (2, TP_DECODE_STEPS), generator=gen,
+                         device=DEVICE)
+    text[:, 0] = n["bos"]
+    caption = _caption_batch(4, gen, n)
+    L = 16
+    ref = {}
+    if rank == 0:
+        ref["step"] = _tp_caption_step(n, base, caption,
+                                       "tp_narrator one process caption step")
+    with torch.inference_mode():
+        if rank == 0:
+            ref["tokens"] = model.encode_image(frames)
+            ref["full"] = model.text_decoder(text,
+                                             encoder_states=ref["tokens"])
+            ref["cached"], _ = _cached_logits(model, ref["tokens"], text,
+                                              TP_DECODE_STEPS)
+            ref["ids"], _ = _greedy(model, ref["tokens"], n, L)
+            one = model
+            model = copy.deepcopy(one)
+    mesh.init_process_group(backend, f"tcp://localhost:{port}", world, rank,
+                            local_rank=local_rank, timeout=DDP_TIMEOUT)
+    try:
+        mesh.init_model_parallel(world)
+        sharding.shard_model(model)
+        attn = model.text_decoder.transformer.h[0].attn
+        with torch.inference_mode():
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            tokens = model.encode_image(frames)
+            torch.cuda.synchronize()
+            encode_ms = (time.perf_counter() - t0) * 1e3
+            per_image = launch_counts()
+            check_tensor_cores(f"tp_narrator rank {rank} bf16 encode_image",
+                               n["space"], "K2")
+            cached, per_step = _cached_logits(model, tokens, text,
+                                              TP_DECODE_STEPS)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            ids, ppl = _greedy(model, tokens, n, L)
+            torch.cuda.synchronize()
+            greedy_ms = (time.perf_counter() - t0) * 1e3
+            greedy = path_counts()
+            line = {"heads": attn.c_proj.in_features // attn.head_dim,
+                    "width": model.text_decoder.cache_width(),
+                    "launches_per_encode_image": per_image,
+                    "launches_per_decode_step": per_step,
+                    "launches": greedy, "encode_ms": encode_ms,
+                    "greedy_ms": greedy_ms, "ids": ids.tolist(),
+                    "by_branch": PATH_BRANCHES, "ln_bwd": PATH_LN_BWD,
+                    "finite": bool(torch.isfinite(cached).all()
+                                   and torch.isfinite(ppl).all())}
+            if rank == 0:
+                noise = max_err(ref["cached"], ref["full"])
+                partings = _tp_partings(one, ref["tokens"], ids, ref["ids"])
+                line["single_process"] = {
+                    "logits_err": max_err(cached, ref["full"]),
+                    "one_process_cached_err": noise,
+                    "logits_cos_min": _cos_min(cached, ref["full"]),
+                    "image_tokens_err": max_err(tokens, ref["tokens"]),
+                    "ids_one_process": ref["ids"].tolist(),
+                    "ids_agree_steps": int((ids == ref["ids"]).all(0).long()
+                                           .cumprod(0).sum()) - 1,
+                    "partings": partings}
+                sp = line["single_process"]
+                check(sp["logits_cos_min"] >= 0.99
+                      and sp["logits_err"] <= 1.25 * noise
+                      and all(p["gap"] <= noise for p in partings
+                              if p["step"] <= 4),
+                      f"tp_narrator: {world} ranks against one process "
+                      f"by the bf16 narrator rule: {sp}")
+        want_step = dict.fromkeys(COUNTERS, 0)
+        want_step.update({"K9": n["layers"],
+                          "K3": 2 * (n["layers"] + n["cross"]) + 1})
+        check(per_step == want_step,
+              f"tp_narrator rank {rank}: launches per decode step "
+              f"{per_step}")
+        check(line["finite"], f"tp_narrator rank {rank}: non-finite")
+        del model
+        what = f"tp_narrator rank {rank} caption step"
+        got = _tp_caption_step(n, base, caption, what)
+        line["caption_loss"] = got["losses"][0]
+        if rank == 0:
+            want = ref["step"]
+            cmp = _compare_steps((got["losses"], got["grads"], None),
+                                 (want["losses"], want["grads"], None))
+            pool = "img_attn_pool.to_kv.weight"
+            cmp["to_kv_grad_cos"] = torch.nn.functional.cosine_similarity(
+                got["grads"][0][pool].flatten(),
+                want["grads"][0][pool].flatten(), dim=0).item()
+            cmp["grad_norm_ratio"] = _grad_norm_ratios(got["grads"],
+                                                       want["grads"])
+            cmp["launches"], cmp["launches_one_process"] = \
+                got["launches"], want["launches"]
+            line["caption_step"] = cmp
+            check(cmp["loss_rel_err"] <= 1e-2
+                  and cmp["grad_cos_min"] >= 0.99
+                  and cmp["to_kv_grad_cos"] >= 0.99
+                  and all(abs(x - 1) <= DDP_NORM_RATIO
+                          for x in cmp["grad_norm_ratio"]),
+                  f"{what} against one process: {cmp}")
+            check(got["launches"] == want["launches"],
+                  f"{what}: launches {got['launches']}, one process "
+                  f"{want['launches']}")
+        del got
+    finally:
+        mesh.destroy_process_group()
+    _child_result(out, line)
+
+
+def phase_tp_narrator() -> dict:
+    """The narrator over two gloo ranks on the card at model=2
+    (:func:`tp_narrator_child`): GPT-2 XL's 25 heads 13/12, K9 at 832 and
+    768 wide, a layer a decode step on each rank; the ranks' greedy ids
+    equal. Returns rank 0's greedy launches."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = _spawn([("tp_narrator_child",
+                       (r, port, 2, "gloo",
+                        os.path.join(tmp, f"rank{r}.json")))
+                      for r in range(2)], tmp)
+    emit("tp_narrator", card=_smi(), model=TP_NARRATOR["name"],
+         dtype="bfloat16", mesh="model=2", cut=TP_NARRATOR["cut"],
+         backend="gloo (both ranks on cuda:0)", clips=2,
+         return_sequences=2, heads=[r["heads"] for r in res],
+         k9_width=[r["width"] for r in res],
+         launches_per_decode_step=[r["launches_per_decode_step"]
+                                   for r in res],
+         encode_ms=[r["encode_ms"] for r in res],
+         greedy_ms=[r["greedy_ms"] for r in res],
+         ms_note="two processes on one card, each layer's partial sums "
+                 "all-reduced through host memory: not a scaling number",
+         single_process=res[0]["single_process"],
+         caption_batch=4, caption_losses=[r["caption_loss"] for r in res],
+         caption_step=res[0]["caption_step"])
+    check(res[0]["caption_loss"] == res[1]["caption_loss"],
+          "tp_narrator: the ranks' caption losses differ")
+    check([r["heads"] for r in res] == [13, 12]
+          and [r["width"] for r in res] == [832, 768],
+          f"tp_narrator: heads {[r['heads'] for r in res]}")
+    check(res[0]["ids"] == res[1]["ids"],
+          "tp_narrator: the ranks' greedy ids differ")
+    return _merge_path_counts(res[0])
+
+
+def _ring_inputs(dtype):
+    """Seeded CLS-separate q/k/v of the time phase at :data:`RING_SHAPE`
+    (qp/kp/vp frame-major row views of one packed tensor, as the model's
+    qkv gives them) and the weights of the compared scalar."""
+    B, F, N, H, d = RING_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 43)
+    packed = torch.randn(B, F, N, 3 * H * d, generator=gen, device=DEVICE)
+    cls = torch.randn(B, 1, 3 * H * d, generator=gen, device=DEVICE)
+    qp, kp, vp = (t.reshape(B, F, N, H, d) for t in
+                  packed.to(dtype).chunk(3, -1))
+    cq, ck, cv = (t.reshape(B, 1, H, d) for t in cls.to(dtype).chunk(3, -1))
+    w = (torch.randn(B, 1, H, d, generator=gen, device=DEVICE),
+         torch.randn(B, F, N, H, d, generator=gen, device=DEVICE))
+    return (cq, ck, cv, qp, kp, vp), w
+
+
+def _time_phase(fn, dtype, grads: bool):
+    """``fn`` (the one-process time phase or the ring) on
+    :func:`_ring_inputs`: the whole output (CLS row first), its ms, and
+    with ``grads`` the gradients of the weighted sum."""
+    ins, (wc, wp) = _ring_inputs(dtype)
+    ins = [t.detach().clone().requires_grad_(grads) for t in ins]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cls, pat = fn(*ins)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    B, F, N, H, d = RING_SHAPE
+    whole = torch.cat([cls, pat.reshape(B, F * N, H, d)], 1).detach()
+    out = {"out": whole, "ms": ms}
+    if grads:
+        ((cls.float() * wc).sum() + (pat.float() * wp).sum()).backward()
+        out["grads"] = [t.grad for t in ins]
+    return out
+
+
+def _ring_encode(frames):
+    """TSF-B at 16 frames (seeded) encoding ``frames`` in bf16, and the
+    launches of the encode."""
+    model = _clip_model(MODEL, num_frames=RING_SHAPE[1]).to(
+        torch.bfloat16).eval()
+    with torch.inference_mode():
+        reset_launch_counts()
+        emb = model.encode_image(frames)
+        torch.cuda.synchronize()
+    return emb.float(), launch_counts()
+
+
+def ring_rank_child(rank: int, port: int, world: int, backend: str,
+                    out: str) -> None:
+    """One of ``world`` ranks of the ring: the time phase at TSF-B width
+    with its 16 frames over the ranks (fp32 with gradients, bf16), then a
+    TSF-B encode at 16 frames with the ring group set. Rank 0 first runs
+    the one-process time phase (K2 and its backward) and encode, and
+    holds the ranks' results against them."""
+    _child_setup()
+    from lavila_tpu_torch.ops import ring_attention as R
+    from lavila_tpu_torch.ops.attention import divided_attention_split
+    from lavila_tpu_torch.parallel import mesh
+    local_rank = rank if backend == "nccl" else 0
+    torch.cuda.set_device(local_rank)
+
+    def one(*ins):
+        return divided_attention_split(*ins, "time")
+
+    frames, _ = _inputs(2, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 47), MODEL["img"], RING_SHAPE[1])
+    ref = {}
+    if rank == 0:
+        ref = {"fp32": _time_phase(one, torch.float32, True),
+               "bf16": _time_phase(one, torch.bfloat16, False),
+               "encode": _ring_encode(frames)}
+    mesh.init_process_group(backend, f"tcp://localhost:{port}", world, rank,
+                            local_rank=local_rank, timeout=DDP_TIMEOUT)
+    try:
+        group = mesh.world_group()
+
+        def ring(*ins):
+            return R.divided_time_ring(*ins, group)
+
+        reset_launch_counts()
+        got = {"fp32": _time_phase(ring, torch.float32, True),
+               "bf16": _time_phase(ring, torch.bfloat16, False)}
+        R.set_ring_group(group)
+        try:
+            emb, launches = _ring_encode(frames)
+        finally:
+            R.set_ring_group(None)
+        counts = path_counts()
+        line = {"ms": {k: got[k]["ms"] for k in ("fp32", "bf16")},
+                "encode_launches": launches, "launches": counts,
+                "by_branch": PATH_BRANCHES, "ln_bwd": PATH_LN_BWD,
+                "digest": _digest({"emb": emb})}
+        check(launches["K2"] == 0 and launches["K1"] == MODEL["depth"],
+              f"ring rank {rank}: encode launches {launches}")
+        if rank == 0:
+            def rel(a, b):
+                return max_err(a, b) / b.float().abs().max().item()
+            res = {"fp32_rel_err": rel(got["fp32"]["out"],
+                                       ref["fp32"]["out"]),
+                   "fp32_grad_rel_err": max(
+                       rel(a, b) for a, b in zip(got["fp32"]["grads"],
+                                                 ref["fp32"]["grads"])),
+                   "bf16_rel_err": rel(got["bf16"]["out"],
+                                       ref["bf16"]["out"]),
+                   "encode_rel_err": rel(emb, ref["encode"][0]),
+                   "encode_cos_min": _cos_min(emb, ref["encode"][0]),
+                   "one_process_ms": {k: ref[k]["ms"]
+                                      for k in ("fp32", "bf16")},
+                   "one_process_encode_launches": ref["encode"][1]}
+            line["single_process"] = res
+            check(res["fp32_rel_err"] <= TOL[torch.float32]
+                  and res["fp32_grad_rel_err"] <= TOL[torch.float32]
+                  and res["bf16_rel_err"] <= TOL[torch.bfloat16]
+                  and res["encode_rel_err"] <= TOL[torch.bfloat16]
+                  and res["encode_cos_min"] >= 0.999,
+                  f"ring over {world} ranks against one process: {res}")
+    finally:
+        mesh.destroy_process_group()
+    _child_result(out, line)
+
+
+def _ring_ranks(world: int, backend: str, phase: str) -> dict:
+    """``world`` ranks of :func:`ring_rank_child`: their encodes
+    bit-identical; returns rank 0's launches."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = _spawn([("ring_rank_child",
+                       (r, port, world, backend,
+                        os.path.join(tmp, f"rank{r}.json")))
+                      for r in range(world)], tmp)
+    emit(phase, card=_smi(), shape="B, F, N, H, d = "
+         + ", ".join(map(str, RING_SHAPE)), frames_a_rank=RING_SHAPE[1]
+         // world, backend=("gloo (both ranks on cuda:0)"
+                            if backend == "gloo" else f"nccl, {world} cards"),
+         ms=[r["ms"] for r in res],
+         ms_note="host clock of one call, first call of each dtype; "
+                 + ("K/V shards through host memory under gloo"
+                    if backend == "gloo" else "K/V shards sent card to "
+                    "card by NCCL") + ": not a scaling number",
+         encode_model=MODEL["name"], encode_launches=res[0][
+             "encode_launches"],
+         encodes_equal=len({r["digest"] for r in res}) == 1,
+         single_process=res[0]["single_process"])
+    check(len({r["digest"] for r in res}) == 1,
+          f"{phase}: the ranks' encodes differ")
+    return _merge_path_counts(res[0])
+
+
+def phase_ring_two_ranks() -> dict:
+    """The ring over two gloo ranks on the card (:func:`_ring_ranks`)."""
+    return _ring_ranks(2, "gloo", "ring_two_ranks")
+
+
+def tp_cards_cli_child(rank: int, world: int, port: int, work: str,
+                       out: str) -> None:
+    """One of ``world`` NCCL ranks of ``cli.launch --coordinator
+    --num-processes --process-id pretrain --mesh-model 2``
+    (:data:`DDP_PRETRAIN`): its losses, launches, the shape of its first
+    qkv shard and the digest of its replicated masters."""
+    _child_setup()
+    from lavila_tpu_torch.cli import launch
+    from lavila_tpu_torch.cli import main_pretrain as cli
+    from lavila_tpu_torch.parallel import sharding
+    record = _time_cli_steps(cli)
+    reset_launch_counts()
+    state = launch.main(["--coordinator", f"localhost:{port}",
+                         "--num-processes", str(world), "--process-id",
+                         str(rank), "pretrain", *DDP_PRETRAIN,
+                         "--mesh-model", "2", "--output-dir", work])
+    torch.cuda.synchronize()
+    splits = sharding.layout(state.params)
+    _child_result(out, {
+        "losses": record["losses"], "step_ms": record["ms"],
+        "launches": launch_counts(),
+        "qkv": list(state.params["visual.blocks.0.attn.qkv.weight"].shape),
+        "replicated": _digest({k: p for k, p in state.params.items()
+                               if k not in splits}),
+        "devices": sorted({str(p.device) for p in state.params.values()})})
+
+
+def phase_tp_nccl_cards(world: int) -> None:
+    """NCCL across ``world`` cards: the TSF-B step at model=``world`` and
+    at data=2 x model=2 (:func:`_tp_ranks`), ``main_pretrain
+    --mesh-model 2`` through the launcher (replicas of two cards: each
+    rank's masters on its card, the model ranks' qkv halves, the
+    replicated masters and losses equal, the checkpoint the whole
+    layout), and the ring over the ``world`` cards (:func:`_ring_ranks`).
+    """
+    _tp_ranks(world, world, "nccl", "tp_nccl_cards")
+    _tp_ranks(world, 2, "nccl", "tp_nccl_cards")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "run")
+        res = _spawn([("tp_cards_cli_child",
+                       (r, world, port, work,
+                        os.path.join(tmp, f"rank{r}.json")))
+                      for r in range(world)], tmp)
+        files = sorted(os.listdir(work))
+        ckpt = torch.load(os.path.join(work, "checkpoint_latest.pt"),
+                          map_location="cpu", weights_only=True)
+    whole = list(ckpt["state_dict"]["visual.blocks.0.attn.qkv.weight"].shape)
+    want = {k: 3 * n for k, n in _step_launches(MODEL).items()}
+    emit("tp_nccl_cards_cli", card=_smi(), model=MODEL["name"],
+         dtype="bfloat16", mesh=f"data={world // 2} x model=2",
+         steps=3, devices=[r["devices"] for r in res],
+         qkv=[r["qkv"] for r in res], checkpoint_qkv=whole,
+         losses=[r["losses"] for r in res],
+         step_ms=[r["step_ms"] for r in res], files=files,
+         launches=res[0]["launches"])
+    check(all(r["devices"] == [f"cuda:{i}"] for i, r in enumerate(res)),
+          f"tp_nccl_cards_cli: masters on {[r['devices'] for r in res]}")
+    check(all(r["qkv"] == [whole[0] // 2, whole[1]] for r in res)
+          and whole == [3 * MODEL["width"], MODEL["width"]],
+          f"tp_nccl_cards_cli: qkv {[r['qkv'] for r in res]}, "
+          f"checkpoint {whole}")
+    check(len({r["replicated"] for r in res}) == 1
+          and all(len(r["losses"]) == 3 and r["losses"] == res[0]["losses"]
+                  and all(map(math.isfinite, r["losses"])) for r in res),
+          f"tp_nccl_cards_cli: losses {[r['losses'] for r in res]} or "
+          "replicated masters differ")
+    check(all(r["launches"] == want for r in res),
+          f"tp_nccl_cards_cli: launches {[r['launches'] for r in res]}, "
+          f"want {want}")
+    _ring_ranks(world, "nccl", "ring_nccl_cards")
+
+
 KERNELS = [
     ("K1", "divided_space_fwd", "cuda", "lavila_tpu_torch/csrc/divided_fwd.cu",
      "lavila_tpu/ops/pallas/divided.py:47"),
@@ -4381,30 +5059,31 @@ PHASES = (
     ("train_step", lambda: phase_train_step(
         MODEL, {torch.float32: 4, torch.bfloat16: 4}, (16, 48))),
     ("pretrain_cli", lambda: phase_pretrain_cli(MODEL, 5, 16)),
-    ("finetune_step", phase_finetune_step),
+    ("finetune_step", lambda: phase_finetune_step(MODEL_CUT)),
     ("finetune_cli", lambda: phase_finetune_cli(MODEL)),
     ("ssl_train_step", lambda: phase_train_step(
-        MODEL, {torch.float32: 4, torch.bfloat16: 16}, (16,),
+        MODEL_CUT, {torch.float32: 4, torch.bfloat16: 16}, (16,),
         "ssl_train_step", SEED + 14, kind="ssl")),
     ("ssl_pretrain_cli", lambda: phase_pretrain_cli(
         MODEL, 3, 16, ("--metadata-aux", "synthetic_aux"))),
-    ("classify_step", phase_classify_step),
+    ("classify_step", lambda: phase_classify_step(MODEL_CUT)),
     ("classify_cli", lambda: phase_classify_cli(MODEL)),
     ("large224_model", lambda: phase_model(LARGE224)),
     ("large224_train_step", lambda: phase_train_step(
-        LARGE224, {torch.float32: 2, torch.bfloat16: 4}, (8,),
+        LARGE224_CUT, {torch.float32: 2, torch.bfloat16: 4}, (8,),
         "large224_train_step", SEED + 11)),
     ("large224_cli", lambda: phase_cli(LARGE224)),
-    ("narrator", lambda: phase_narrator(NARRATOR)),
+    ("narrator", lambda: phase_narrator(NARRATOR_CUT)),
     ("infer_narrator_cli", lambda: phase_infer_narrator_cli(NARRATOR)),
-    ("narrator_train_step", lambda: phase_narrator_train_step(NARRATOR)),
+    ("narrator_train_step",
+     lambda: phase_narrator_train_step(NARRATOR_CUT)),
     ("eval_narrator_cli", lambda: phase_eval_narrator_cli(NARRATOR)),
     ("large_model", lambda: phase_model(LARGE)),
     ("large_cli", lambda: phase_cli(LARGE)),
-    ("large_train_step", phase_large_train_step),
+    ("large_train_step", lambda: phase_large_train_step(LARGE_CUT)),
     ("large_pretrain_cli",
      lambda: phase_pretrain_cli(LARGE, 3, 8, ("--use-checkpoint",))),
-    ("flagship_narrator", lambda: phase_narrator(FLAGSHIP)),
+    ("flagship_narrator", lambda: phase_narrator(FLAGSHIP_CUT)),
     ("flagship_infer_narrator_cli",
      lambda: phase_infer_narrator_cli(FLAGSHIP)),
     ("vclm_pretrain_cli", lambda: phase_vclm_pretrain_cli(FLAGSHIP)),
@@ -4412,27 +5091,30 @@ PHASES = (
     ("hf_model", lambda: phase_distilbert_model(HF_MODEL)),
     ("distilbert_cli", lambda: phase_cli(DISTIL_LARGE)),
     ("distilbert_train_step", lambda: phase_train_step(
-        DISTIL_BASE, {torch.float32: 4, torch.bfloat16: 16}, (16,),
+        DISTIL_BASE_CUT, {torch.float32: 4, torch.bfloat16: 16}, (16,),
         "distilbert_train_step", SEED + 13)),
     ("distilbert_pretrain_cli",
      lambda: phase_pretrain_cli(DISTIL_BASE, 3, 16)),
     ("vit_model", lambda: (phase_model(VIT_L336), phase_model(VIT_B16))),
     ("vit_train_step", lambda: phase_train_step(
-        VIT_B16, {torch.float32: 2, torch.bfloat16: 8}, (16,),
+        VIT_B16_CUT, {torch.float32: 2, torch.bfloat16: 8}, (16,),
         "vit_train_step", SEED + 19)),
     ("vit_cli", lambda: phase_cli(VIT_L336)),
     ("vit_narrator", lambda: (
-        phase_narrator(VIT_NARRATOR),
+        phase_narrator(VIT_NARRATOR_CUT),
         phase_narrator(VIT_NARRATOR_LARGE, measure=False))),
     ("vit_infer_narrator_cli",
      lambda: phase_infer_narrator_cli(VIT_NARRATOR)),
-    ("gated_timesformer", phase_gated_timesformer),
-    ("remat_policies", phase_remat_policies),
+    ("gated_timesformer", lambda: phase_gated_timesformer(GATED_CUT)),
+    ("remat_policies", lambda: phase_remat_policies(LARGE_CUT)),
     ("openai_init", phase_openai_init),
     ("resnet", phase_resnet),
     ("ddp_nccl_world1", phase_ddp_nccl_world1),
     ("ddp_two_ranks", phase_ddp_two_ranks),
     ("ddp_infer_narrator", phase_ddp_infer_narrator),
+    ("tp_two_ranks", phase_tp_two_ranks),
+    ("tp_narrator", phase_tp_narrator),
+    ("ring_two_ranks", phase_ring_two_ranks),
 )
 PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
                "classify_cli", "large224_cli",
@@ -4441,15 +5123,17 @@ PATH_PHASES = ("cli", "pretrain_cli", "finetune_cli", "ssl_pretrain_cli",
                "vclm_pretrain_cli", "distilbert_cli",
                "distilbert_pretrain_cli", "vit_cli", "vit_infer_narrator_cli",
                "gated_timesformer", "remat_policies", "openai_init",
-               "resnet", "ddp_nccl_world1", "ddp_infer_narrator")
+               "resnet", "ddp_nccl_world1", "ddp_infer_narrator",
+               "tp_two_ranks", "tp_narrator", "ring_two_ranks")
 
 
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--nccl-ranks", type=int, default=None,
-                        help="run only the data-parallel phase across this "
-                             "many cards, one NCCL rank a card")
+                        help="run only the data- and tensor-parallel "
+                             "phases and the ring across this many cards, "
+                             "one NCCL rank a card")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4476,6 +5160,23 @@ def main(argv=None) -> int:
     if args.nccl_ranks is not None:
         return _main_nccl_cards(args.nccl_ranks, device, t_start,
                                 build_seconds)
+    emit("depth_cuts", what="models cut in depth for the time limit, "
+         "widths as published (PERF.md §4)", cuts={
+             "TSF-B: ssl_train_step, finetune_step, classify_step, "
+             "ddp_two_ranks": MODEL_CUT["cut"],
+             "TSF-B + DistilBERT: distilbert_train_step":
+                 DISTIL_BASE_CUT["cut"],
+             "gated TSF-B: gated_timesformer (not its CLI)":
+                 GATED_CUT["cut"],
+             "TSF-L@224: large224_train_step": LARGE224_CUT["cut"],
+             "TSF-L@336: large_train_step, remat_policies":
+                 LARGE_CUT["cut"],
+             "ViT-B/16: vit_train_step": VIT_B16_CUT["cut"],
+             "TSF-B + GPT-2 XL: narrator, narrator_train_step, "
+             "tp_narrator": NARRATOR_CUT["cut"],
+             "flagship: flagship_narrator": FLAGSHIP_CUT["cut"],
+             "ViT-L/14@336 + GPT-2 XL: vit_narrator":
+                 VIT_NARRATOR_CUT["cut"]})
     summary, counts = {}, dict.fromkeys(COUNTERS, 0)
     for name, phase in PHASES:
         t0 = time.perf_counter()
@@ -4544,16 +5245,20 @@ def main(argv=None) -> int:
 
 def _main_nccl_cards(world: int, device: dict, t_start: float,
                      build_seconds: float) -> int:
-    """``--nccl-ranks``: :func:`phase_ddp_nccl_cards` alone, then the
-    same last line as the whole run."""
-    t0 = time.perf_counter()
-    try:
-        phase_ddp_nccl_cards(world)
-    except Exception:
-        traceback.print_exc()
-        check(False, "phase ddp_nccl_cards raised")
-    emit("phase_done", name="ddp_nccl_cards",
-         seconds=time.perf_counter() - t0)
+    """``--nccl-ranks``: :func:`phase_ddp_nccl_cards` and
+    :func:`phase_tp_nccl_cards` alone, then the same last line as the
+    whole run."""
+    for name, phase in (("ddp_nccl_cards", phase_ddp_nccl_cards),
+                        ("tp_nccl_cards", phase_tp_nccl_cards)):
+        t0 = time.perf_counter()
+        try:
+            phase(world)
+        except Exception:
+            traceback.print_exc()
+            check(False, f"phase {name} raised")
+        finally:
+            torch.cuda.empty_cache()
+        emit("phase_done", name=name, seconds=time.perf_counter() - t0)
     emit("total", seconds=time.perf_counter() - t_start,
          build_seconds=build_seconds)
     if FAILURES:

@@ -63,10 +63,24 @@ generators are seeded ``--seed`` + rank, rank 0's weights are broadcast
 after the build or the restore, the gradients are averaged over the
 ranks (``train/step.py``), ``--contrastive-use-vissl`` takes the local
 losses (each rank's rows of the logits only; at a world of one too),
-``--mesh-data`` must be -1 or the world size; rank 0 writes the
-checkpoints, ``log.txt`` and wandb. ``--mesh-model`` > 1 (tensor
-parallelism) raises, naming its ROADMAP queue 1 subject; no option is
+``--mesh-data`` must be -1 or the world size over ``--mesh-model``;
+rank 0 writes the checkpoints, ``log.txt`` and wandb. No option is
 silently ignored.
+
+Tensor parallelism (``--mesh-model`` M > 1, the JAX CLI's
+``param_sharding_rules`` over its ``model`` axis): the world splits into
+``world // M`` replicas of M consecutive ranks (``mesh.
+init_model_parallel``); every rank builds the whole model from the seed,
+the world's rank 0's weights are broadcast, and each rank keeps only its
+slices of the wide layers (``parallel/sharding.py``: column- and
+row-parallel layers on whole heads). The data axis is the replicas:
+the loader's shard, the generators (drop-path, dropout) and the
+gradient average follow the data rank, so the ranks of one replica
+read the same rows and draw the same masks; the optimizer state stays
+sharded like its parameter. A checkpoint is the whole layout, the
+sharded masters and their optimizer state gathered over the model
+group, so it serves in one process and resumes at any ``--mesh-model``;
+a resume shards it again.
 """
 
 from __future__ import annotations
@@ -91,7 +105,7 @@ from lavila_tpu_torch.data.datasets import (ConcatDataset, DatasetConfig,
 from lavila_tpu_torch.data.loader import DataLoader, device_prefetch
 from lavila_tpu_torch.data.tokenizers import generate_tokenizer
 from lavila_tpu_torch.models import build_model
-from lavila_tpu_torch.parallel import mesh
+from lavila_tpu_torch.parallel import mesh, sharding
 from lavila_tpu_torch.train.freeze import (build_freeze_predicate,
                                            freeze_by_predicate)
 from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
@@ -107,20 +121,6 @@ from lavila_tpu_torch.utils.tracking import init_wandb
 @dataclasses.dataclass
 class TorchPretrainConfig(PretrainConfig):
     device: str = "cuda"
-
-
-# option → (is it set, the ROADMAP queue 1 subject that ports it)
-_NOT_PORTED = (
-    (lambda c: c.mesh_model > 1, "--mesh-model > 1", "tensor parallelism"),
-)
-
-
-def check_ported(cfg) -> None:
-    for is_set, what, subject in _NOT_PORTED:
-        if is_set(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported to lavila_tpu_torch yet: ROADMAP "
-                f"queue 1: {subject}")
 
 
 def build_dataset(cfg, tokenizer, train_transform):
@@ -171,11 +171,16 @@ def make_place(device: torch.device, keys=("frames", "text")):
 
 
 def main(cfg: TorchPretrainConfig) -> TrainState:
-    check_ported(cfg)
-    world, rank = mesh.check_mesh_data(cfg.mesh_data), mesh.rank()
+    mesh.check_mesh_data(cfg.mesh_data, cfg.mesh_model)
+    mesh.init_model_parallel(cfg.mesh_model)
+    # the data axis: the replicas (every rank at --mesh-model 1)
+    world, rank = mesh.data_world(), mesh.data_rank()
     if cfg.batch_size % world:
-        raise ValueError(f"--batch-size {cfg.batch_size} must be divisible "
-                         f"by the {world} processes of the group")
+        raise ValueError(
+            f"--batch-size {cfg.batch_size} must be divisible by the "
+            + (f"{world} processes of the group" if cfg.mesh_model == 1
+               else f"{world} data-parallel replicas ({mesh.world()} "
+               f"processes over --mesh-model {cfg.mesh_model})"))
     device = resolve_device(cfg.device)
     random_seed(cfg.seed, rank)
     is_vclm = cfg.model.startswith("VCLM")
@@ -190,6 +195,11 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     model = build_model(cfg.model, device=device, train=True,
                         generator=torch.Generator(device).manual_seed(
                             cfg.seed), **kw)
+    if mesh.model_world() > 1:
+        # the same whole weights on every rank, then this rank's slices
+        mesh.broadcast_tensors([p.detach() for p in model.parameters()],
+                               mesh.world_group())
+        sharding.shard_model(model)
     tokenizer = generate_tokenizer(cfg.model)
 
     mean, std = T.normalization_for_model(cfg.model)
@@ -235,7 +245,9 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         criterion=criterion)
     n_params = sum(p.numel() for p in state.params.values())
     n_frozen = sum(state.params[n].numel() for n in state.frozen)
-    print(f"=> {n_params/1e6:.1f}M params, {n_frozen/1e6:.1f}M frozen")
+    print(f"=> {n_params/1e6:.1f}M params, {n_frozen/1e6:.1f}M frozen"
+          + (f" (rank {mesh.model_rank()}'s shards of {mesh.model_world()})"
+             if mesh.model_world() > 1 else ""))
 
     mgr = CheckpointManager(cfg.output_dir)
     start_epoch = cfg.start_epoch
@@ -244,7 +256,7 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
     if resume:
         print(f"=> resuming from {resume}")
         tree, meta = mgr.restore(resume, map_location=device)
-        state.load_state_dict(tree)
+        state.load_state_dict(sharding.shard_train_state(tree, state))
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_metric = float(meta.get("metrics", {}).get(
             "best_metric", float("-inf")))
@@ -276,7 +288,7 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
             state.model.train()
 
     os.makedirs(cfg.output_dir, exist_ok=True)
-    wandb_run = (init_wandb(cfg.asdict()) if cfg.wandb and rank == 0
+    wandb_run = (init_wandb(cfg.asdict()) if cfg.wandb and mesh.rank() == 0
                  else None)
 
     total_steps = 0
@@ -333,7 +345,9 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
             best_metric = probe_metrics["mAP_avg"]
         # best_metric stays out of the sidecar until a probe has run: -inf
         # would be written as the non-JSON -Infinity
-        mgr.save(state.state_dict(), epoch=epoch, config=cfg.asdict(),
+        # the whole layout (the model group's shards gathered)
+        mgr.save(sharding.gather_train_state(state.state_dict(), state),
+                 epoch=epoch, config=cfg.asdict(),
                  metrics={**probe_metrics,
                           **({"best_metric": best_metric}
                              if math.isfinite(best_metric) else {})},
@@ -342,7 +356,7 @@ def main(cfg: TorchPretrainConfig) -> TrainState:
         log = {f"train_{k}": m.avg for k, m in meters.items()}
         log.update(probe_metrics)
         log["epoch"] = epoch
-        if rank == 0:
+        if mesh.rank() == 0:
             with open(osp.join(cfg.output_dir, "log.txt"), "a") as f:
                 f.write(json.dumps(log) + "\n")
         if wandb_run is not None:

@@ -23,7 +23,9 @@ the global batch, which GSPMD partitions there:
 Each returns the global loss on every rank; its gradient, summed over
 the ranks by the collectives' backward and averaged over them by
 ``train.step``, is the global batch's. Outside a group the global batch
-is this process's.
+is this process's. The ranks are those of the data group (the world at
+``--mesh-model`` 1): the ranks of one model group hold one replica's
+rows, and compute its embeddings alike.
 """
 
 from __future__ import annotations
@@ -62,13 +64,14 @@ def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
 
 
 def _local_labels(b: int, device) -> torch.Tensor:
-    """This rank's rows of the global diagonal: ``rank·b + arange(b)``."""
-    return mesh.rank() * b + torch.arange(b, device=device)
+    """This rank's rows of the global diagonal: ``data_rank·b +
+    arange(b)``."""
+    return mesh.data_rank() * b + torch.arange(b, device=device)
 
 
 def _pmean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the ranks (differentiable, as ``pmean``)."""
-    return mesh.all_reduce(x) / mesh.world()
+    return mesh.all_reduce(x) / mesh.data_world()
 
 
 def clip_loss_local(local_image: torch.Tensor, local_text: torch.Tensor,

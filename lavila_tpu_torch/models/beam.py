@@ -15,6 +15,11 @@ JAX package, on the step's fp32 log-probabilities; the candidates of
 ``beam_sample`` are drawn by a host ``np.random.Generator``. Between
 steps the flat ``(B, max_len, D)`` KV cache is gathered along the beam
 axis on the device (``index_select``).
+
+Under tensor parallelism every rank of the model group selects on model
+rank 0's log-probabilities, so the host bookkeeping is the same on each
+of them where the host generator of ``beam_sample`` is seeded alike (by
+data rank).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from lavila_tpu_torch.models import sampling as S
 from lavila_tpu_torch.models.gpt2 import init_cache
+from lavila_tpu_torch.parallel import mesh
 
 
 class _Hypotheses:
@@ -87,7 +93,8 @@ class BeamDecoder:
             image_tokens.repeat_interleave(num_beams, dim=0))
         # the cache in the tokens' (the model's) dtype
         cache = init_cache(model.text_decoder.cfg, B, self.max_text_length,
-                           dtype=image_tokens.dtype, device=device)
+                           dtype=image_tokens.dtype, device=device,
+                           width=model.text_decoder.cache_width())
 
         ids = np.full((B, 1), self.bos_id, np.int64)
         beam_scores = np.tile(init_beam_scores[None], (batch, 1)).reshape(-1)
@@ -98,7 +105,10 @@ class BeamDecoder:
                          device=device)
         for i in range(self.max_text_length - 1):
             logits = model.decode_step(cur, cross_kv, cache, i)
-            logp = torch.log_softmax(logits.float(), dim=-1).cpu().numpy()
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            # the ranks of a model group all select on model rank 0's
+            mesh.broadcast_from_first(logp, mesh.model_group())
+            logp = logp.cpu().numpy()
 
             groups = select_fn(logp, beam_scores)
 

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm
+from lavila_tpu_torch.parallel.tensor import copy_to
 
 
 class AttentionPooler(nn.Module):
@@ -23,6 +24,7 @@ class AttentionPooler(nn.Module):
                  heads: int = 8, norm_context: bool = False):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.head_dim = dim_head
         inner = heads * dim_head
         self.norm = BiasFreeLayerNorm(dim)
         self.context_norm = (BiasFreeLayerNorm(context_dim) if norm_context
@@ -30,15 +32,23 @@ class AttentionPooler(nn.Module):
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_kv = nn.Linear(context_dim, 2 * dim_head, bias=False)
         self.to_out = nn.Linear(inner, dim, bias=False)
+        # the model group under tensor parallelism (parallel/sharding.py)
+        self.tp = None
 
     def forward(self, queries: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
         """queries ``(B, Nq, dim)``, context ``(B, S, context_dim)`` →
         ``(B, Nq, dim)``."""
         B, Nq, _ = queries.shape
-        H, d = self.heads, self.dim_head
+        d = self.dim_head
+        H = self.to_q.out_features // d  # the heads held here
         q = self.to_q(self.norm(queries)).reshape(B, Nq, H, d) * d ** -0.5
-        k, v = self.to_kv(self.context_norm(context)).chunk(2, dim=-1)
+        kv = self.to_kv(self.context_norm(context))
+        if self.tp is not None:
+            # tensor parallel: every rank's heads read the one K/V head,
+            # so its gradient is the sum of the ranks'
+            kv = copy_to(kv, self.tp.group)
+        k, v = kv.chunk(2, dim=-1)
         sim = torch.einsum("bqhd,bkd->bhqk", q.float(), k.float())
         sim = sim - sim.amax(dim=-1, keepdim=True).detach()
         attn = torch.softmax(sim, dim=-1).to(q.dtype)

@@ -37,6 +37,7 @@ class BertSelfAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.q_lin = nn.Linear(dim, dim)
         self.k_lin = nn.Linear(dim, dim)
         self.v_lin = nn.Linear(dim, dim)
@@ -45,9 +46,10 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, bias=None):
         """Self-attention of ``x`` ``(B, L, D)`` under the additive fp32
         ``bias`` ``(B, 1, 1, L)``, or none."""
-        B, L, D = x.shape
-        H = self.num_heads
-        q, k, v = (lin(x).reshape(B, L, H, D // H)
+        B, L, _ = x.shape
+        D = self.out_lin.in_features  # the heads held here
+        H = D // self.head_dim
+        q, k, v = (lin(x).reshape(B, L, H, self.head_dim)
                    for lin in (self.q_lin, self.k_lin, self.v_lin))
         return self.out_lin(attention(q, k, v, bias).reshape(B, L, D))
 

@@ -97,10 +97,13 @@ def augment_config(cfg: GPT2Config, cross_attn_freq: int = 1,
 
 
 def init_cache(cfg: GPT2Config, batch: int, max_len: int,
-               dtype=torch.float32, device=None) -> list:
+               dtype=torch.float32, device=None,
+               width: int | None = None) -> list:
     """The self-attention cache: one ``(k, v)`` pair of zero ``(batch,
-    max_len, D)`` tensors per layer."""
-    shape = (batch, max_len, cfg.n_embd)
+    max_len, width)`` tensors per layer; ``width`` is ``n_embd``, or the
+    width of the heads a tensor-parallel rank holds
+    (:meth:`GPT2LMHead.cache_width`)."""
+    shape = (batch, max_len, cfg.n_embd if width is None else width)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.n_layer)]
@@ -118,12 +121,14 @@ class SelfAttention(nn.Module):
         super().__init__()
         D = cfg.n_embd
         self.n_head = cfg.n_head
+        self.head_dim = cfg.head_dim
         self.c_attn = nn.Linear(D, 3 * D)
         self.c_proj = nn.Linear(D, D)
 
     def forward(self, x, cache=None, cache_index: int | None = None):
-        B, L, D = x.shape
-        H = self.n_head
+        B, L, _ = x.shape
+        D = self.c_proj.in_features  # the heads held here
+        H = D // self.head_dim
         q, k, v = self.c_attn(x).chunk(3, dim=-1)  # row views, stride 3D
         if cache is None:
             out = flash_attention(_heads(q, H), _heads(k, H), _heads(v, H),
@@ -157,14 +162,21 @@ class CrossAttention(nn.Module):
         super().__init__()
         D = cfg.n_embd
         self.n_head = cfg.n_head
+        self.head_dim = cfg.head_dim
         self.q_attn = nn.Linear(D, D)
         self.c_attn = nn.Linear(D, 2 * D)
         self.c_proj = nn.Linear(D, D)
 
+    @property
+    def local_heads(self) -> int:
+        """The heads its layers hold (this rank's under tensor
+        parallelism)."""
+        return self.c_proj.in_features // self.head_dim
+
     def compute_kv(self, encoder_states):
         """K/V of ``(B, S, D)`` states, heads-major ``(B, H, S, d)``."""
         k, v = self.c_attn(encoder_states).chunk(2, dim=-1)
-        return tuple(_heads(t, self.n_head).transpose(1, 2).contiguous()
+        return tuple(_heads(t, self.local_heads).transpose(1, 2).contiguous()
                      for t in (k, v))
 
     def forward(self, x, encoder_states=None, cross_kv=None):
@@ -172,8 +184,9 @@ class CrossAttention(nn.Module):
         chunks of ``c_attn``'s output, each token's heads adjacent (K7/K8
         read them so). With a decode's ``cross_kv``: the plain product
         over the heads-major K/V."""
-        B, L, D = x.shape
-        H = self.n_head
+        B, L, _ = x.shape
+        H = self.local_heads
+        D = H * self.head_dim
         if cross_kv is None:
             k, v = self.c_attn(encoder_states).chunk(2, dim=-1)
             out = flash_attention(_heads(self.q_attn(x), H), _heads(k, H),
@@ -300,6 +313,11 @@ class GPT2LMHead(nn.Module):
                 x = blk(*args)
         x = t.ln_f(x)
         return x @ t.wte.weight.T.to(x.dtype)
+
+    def cache_width(self) -> int:
+        """The width of the self-attention heads the layers hold: the
+        cache's (``n_embd``, or a tensor-parallel rank's share)."""
+        return self.transformer.h[0].attn.c_proj.in_features
 
     def precompute_cross_kv(self, encoder_states) -> list:
         """Each cross-attention layer's K/V (None for the others),

@@ -18,7 +18,9 @@ reference state-dict names (``visual.*``, ``img_queries``,
     ``target``, else the entropy of the unwarped logits, masked after
     EOS). The step loop is Python, with one host sync per step to stop
     once every row has sampled EOS (full length when ``target`` is
-    given); positions after the exit hold ``pad_id``. With
+    given); positions after the exit hold ``pad_id``. Under tensor
+    parallelism every rank of the model group takes model rank 0's
+    token at each step, so their caches never part. With
     ``teacher_forcing`` (and a ``target``) each step is fed the target's
     token instead of the sample: ``eval_narrator``'s teacher-forced
     perplexity. The beam decoders are ``models/beam.py``.
@@ -33,6 +35,7 @@ from lavila_tpu_torch.models import sampling as S
 from lavila_tpu_torch.models.coca import AttentionPooler
 from lavila_tpu_torch.models.gpt2 import GPT2LMHead, init_cache
 from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm, init_linear_
+from lavila_tpu_torch.parallel import mesh
 
 
 class VCLM(nn.Module):
@@ -106,7 +109,8 @@ class VCLM(nn.Module):
         L = max_text_length
         cross_kv = self.prepare_decode(image_tokens)
         cache = init_cache(self.text_decoder.cfg, B, L,
-                           dtype=image_tokens.dtype, device=device)
+                           dtype=image_tokens.dtype, device=device,
+                           width=self.text_decoder.cache_width())
         out = torch.full((B, L), pad_id, dtype=torch.long, device=device)
         out[:, 0] = bos_id
         cur = out[:, 0].clone()
@@ -132,6 +136,8 @@ class VCLM(nn.Module):
                 counts += live
             nxt = S.sample_token(generator, S.warp_logits(
                 logits, temperature, top_k, top_p))
+            # the ranks of a model group all take model rank 0's draw
+            mesh.broadcast_from_first(nxt, mesh.model_group())
             reached |= nxt == eos_id
             out[:, i + 1] = nxt
             cur = (target[:, i + 1].long()

@@ -30,6 +30,7 @@ from torch.nn import functional as F
 from lavila_tpu_torch.ops.attention import causal_attention, full_attention
 from lavila_tpu_torch.ops.basic import (LayerNorm, init_linear_,
                                         lecun_normal_, quick_gelu)
+from lavila_tpu_torch.parallel.tensor import copy_to
 
 
 class MultiheadAttention(nn.Module):
@@ -39,16 +40,23 @@ class MultiheadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, causal: bool = True):
         super().__init__()
         self.num_heads, self.causal = num_heads, causal
+        self.head_dim = dim // num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
+        # the model group once ``parallel.sharding.shard_model`` has
+        # sliced in_proj to this rank's heads (a ``tensor.GroupRef``)
+        self.tp = None
 
     def forward(self, x):
         """Self-attention of ``x`` ``(B, L, D)``, causal or over every
-        key as the module was built."""
-        B, L, D = x.shape
-        H = self.num_heads
-        q, k, v = (t.reshape(B, L, H, D // H) for t in F.linear(
+        key as the module was built, on the heads ``in_proj`` holds."""
+        B, L, _ = x.shape
+        D = self.in_proj_weight.shape[0] // 3
+        H = D // self.head_dim
+        if self.tp is not None:
+            x = copy_to(x, self.tp.group)
+        q, k, v = (t.reshape(B, L, H, self.head_dim) for t in F.linear(
             x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1))
         attention = causal_attention if self.causal else full_attention
         return self.out_proj(attention(q, k, v).reshape(B, L, D))

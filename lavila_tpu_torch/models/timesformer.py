@@ -85,18 +85,22 @@ from lavila_tpu_torch.ops.basic import (LayerNorm, Mlp, drop_path,
 
 
 class DividedAttentionBlock(nn.Module):
-    """QKV projection, divided attention of one phase, output projection."""
+    """QKV projection, divided attention of one phase, output projection.
+    The heads it runs are those its layers hold: all of them, or this
+    rank's under tensor parallelism (``parallel/sharding.py``)."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, cls, patches, axis: str):
-        B, F, N, D = patches.shape
-        H = self.num_heads
-        d = D // H
+        B, F, N, _ = patches.shape
+        d = self.head_dim
+        D = self.proj.in_features  # the width of the heads held here
+        H = D // d
         # chunks of the qkv output are row views with a row stride of 3D;
         # the kernels take the stride, so no copies are made
         qc, kc, vc = (t.reshape(B, 1, H, d)

@@ -25,7 +25,10 @@ piece and none of the TPU layout variants:
     CLS-separate layout. The patch tokens of each phase go through
     :func:`kernels.divided.divided_phase`, its single dispatch site: the
     CUDA kernel (K1 spatial, K2 temporal) on a CUDA tensor, the plain
-    grouped formulation with the CLS key prepended on a CPU tensor.
+    grouped formulation with the CLS key prepended on a CPU tensor. With
+    a ring group set (``ops/ring_attention.py``, the JAX
+    ``set_ring_mesh``), the time phase is the frame-sharded ring instead
+    (plain products; the JAX ring has no Pallas kernel either).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from lavila_tpu_torch.kernels.divided import divided_phase
 from lavila_tpu_torch.kernels.flash import flash_attention
+from lavila_tpu_torch.ops import ring_attention
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,10 +105,16 @@ def divided_attention_split(cls_q, cls_k, cls_v, qp, kp, vp, axis: str):
     row stride). ``axis``: 'time' (group = position, F+1 keys) or 'space'
     (group = frame, N+1 keys). Returns ``(cls_out (B, 1, H, d),
     patches_out (B, F, N, H, d))``: the CLS row attends over all tokens,
-    each patch within its group plus the CLS key.
+    each patch within its group plus the CLS key. With a ring group set
+    (:func:`ring_attention.set_ring_group`) the time phase runs
+    :func:`ring_attention.divided_time_ring` over its ranks instead.
     """
     B, F, N, H, d = qp.shape
     D = H * d
+    ring = ring_attention.get_ring_group()
+    if axis == "time" and ring is not None:
+        return ring_attention.divided_time_ring(cls_q, cls_k, cls_v, qp, kp,
+                                                vp, ring)
     cls_out = cls_row_attention(cls_q, cls_k, cls_v, kp, vp)
     out, _ = divided_phase(qp.reshape(B, F, N, D), kp.reshape(B, F, N, D),
                            vp.reshape(B, F, N, D), cls_k.reshape(B, D),

@@ -29,10 +29,20 @@ is the process group:
     parameters and the optimizer's state, so that the replicas never
     rest on each device drawing the same initial weights.
 
-The optimizer state stays whole on every rank, as in the JAX package at
-``--mesh-model 1`` (its ``use_zero`` is kept only for parity). The
-tensor-parallel ``model`` axis is not ported (ROADMAP queue 1: tensor
-parallelism).
+The ``(data, model)`` mesh (:func:`init_model_parallel`): at
+``--mesh-model`` M the world splits into ``world // M`` model groups of M
+consecutive ranks (``create_mesh``'s ``reshape(data, model)``,
+``lavila_tpu/parallel/mesh.py:47``), each holding one replica whose wide
+layers are sharded over its ranks (``parallel/sharding.py``,
+``parallel/tensor.py``), and M data groups, the ranks that hold the same
+shard in each replica. The collectives above take a ``group`` and mean
+the data group when given none: at ``--mesh-model 1`` that is the world,
+exactly as before the model axis existed. :func:`data_rank`,
+:func:`data_world`, :func:`model_rank` and :func:`model_world` answer
+for the two axes. The optimizer state follows its parameter: whole where
+the parameter is replicated, this rank's slice where it is sharded, as
+in the JAX package, whose optimizer state follows the parameters'
+shardings (its ``use_zero`` is kept only for parity).
 """
 
 from __future__ import annotations
@@ -42,11 +52,18 @@ import datetime
 import torch
 import torch.distributed as dist
 
+from lavila_tpu_torch.parallel.tensor import copy_to, gather_from, reduce_from
+
 # the bytes of one coalesced buffer of :func:`average_grads` and
 # :func:`broadcast_params`: a few collectives a step, not one a parameter
 BUCKET_BYTES = 1 << 28
 
 _local_rank = 0
+# the model axis: its size, and this rank's model and data groups (None
+# at a model axis of 1: no model group, the data group is the world)
+_model = 1
+_model_group = None
+_data_group = None
 
 
 def is_initialized() -> bool:
@@ -90,8 +107,78 @@ def init_process_group(backend: str, init_method: str, world_size: int,
 
 
 def destroy_process_group() -> None:
+    global _model, _model_group, _data_group
+    _model, _model_group, _data_group = 1, None, None
     if is_initialized():
         dist.destroy_process_group()
+
+
+def check_mesh_model(model: int) -> int:
+    """``--mesh-model``: a positive divisor of the world size, as
+    ``create_mesh`` requires of the devices
+    (``lavila_tpu/parallel/mesh.py:29-46``). Returns the data-parallel
+    size ``world // model``."""
+    n = world()
+    if model < 1 or n % model:
+        raise ValueError(
+            f"--mesh-model {model}: the {n} process(es) of the group are "
+            f"not divisible by model={model}. Pass a model-axis size that "
+            f"divides the process count, or launch a multiple of {model} "
+            "processes (python -m lavila_tpu_torch.cli.launch "
+            "--num-processes ...)")
+    return n // model
+
+
+def init_model_parallel(model: int) -> None:
+    """Split the group into ``world // model`` model groups of
+    ``model`` consecutive ranks and ``model`` data groups (every rank
+    calls it, with the same ``model``). At ``model`` 1 there is no model
+    group and the data group is the world. Raises ``ValueError`` as
+    :func:`check_mesh_model`."""
+    global _model, _model_group, _data_group
+    data = check_mesh_model(model)
+    _model, _model_group, _data_group = 1, None, None
+    if model == 1 or not is_initialized():
+        return
+    r = rank()
+    # every rank creates every group, in the same order
+    for d in range(data):
+        ranks = list(range(d * model, (d + 1) * model))
+        group = dist.new_group(ranks)
+        if r in ranks:
+            _model_group = group
+    for m in range(model):
+        ranks = [d * model + m for d in range(data)]
+        group = dist.new_group(ranks)
+        if r in ranks:
+            _data_group = group
+    _model = model
+
+
+def world_group():
+    """The whole group (torch's ``WORLD``; None outside a group)."""
+    return dist.group.WORLD if is_initialized() else None
+
+
+def model_group():
+    """This rank's model group (None at a model axis of 1)."""
+    return _model_group
+
+
+def model_world() -> int:
+    return _model
+
+
+def model_rank() -> int:
+    return rank() % _model
+
+
+def data_world() -> int:
+    return world() // _model
+
+
+def data_rank() -> int:
+    return rank() // _model
 
 
 def rank_device(name: str) -> torch.device:
@@ -103,18 +190,21 @@ def rank_device(name: str) -> torch.device:
     return device
 
 
-def check_mesh_data(mesh_data: int) -> int:
-    """``--mesh-data``: -1 means the world size; any other value must
-    equal it (``create_mesh``, ``lavila_tpu/parallel/mesh.py:37-46``).
-    Returns the data-parallel size."""
-    n = world()
+def check_mesh_data(mesh_data: int, mesh_model: int = 1) -> int:
+    """``--mesh-data``: -1 means the world size over ``mesh_model``; any
+    other value must equal it (``create_mesh``,
+    ``lavila_tpu/parallel/mesh.py:37-46``). Returns the data-parallel
+    size."""
+    n = check_mesh_model(mesh_model)
     if mesh_data not in (-1, n):
         raise ValueError(
-            f"--mesh-data {mesh_data} does not match the {n} process(es) "
-            f"of the group: the data axis is the world size; pass "
-            f"--mesh-data -1 or {n}, or launch {mesh_data} processes "
+            f"--mesh-data {mesh_data} does not match the {world()} "
+            f"process(es) of the group at --mesh-model {mesh_model}: the "
+            f"data axis is the world size over the model axis; pass "
+            f"--mesh-data -1 or {n}, or launch {mesh_data * mesh_model} "
+            "processes "
             "(python -m lavila_tpu_torch.cli.launch --num-processes "
-            f"{mesh_data} ...)")
+            f"{mesh_data * mesh_model} ...)")
     return n
 
 
@@ -123,47 +213,37 @@ def barrier() -> None:
         dist.barrier()
 
 
-class _AllGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        x = x.contiguous()
-        out = x.new_empty((world() * x.shape[0], *x.shape[1:]))
-        dist.all_gather_into_tensor(out, x)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        rows = grad.shape[0] // world()
-        return grad[rank() * rows:(rank() + 1) * rows]
+def _group(group):
+    """``group`` as torch takes it: the data group where none is
+    given."""
+    return _data_group if group is None else group
 
 
-class _AllReduce(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad
+def _world_if_none(group):
+    # torch's None is the world; parallel/tensor.py's None is no group
+    return dist.group.WORLD if group is None else group
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (equal shapes) concatenated along dim 0, in rank
-    order; differentiable (the module docstring's convention). ``x``
-    itself outside a group."""
-    return _AllGather.apply(x) if is_initialized() else x
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) of ``group`` (default the data
+    group) concatenated along dim 0, in rank order; differentiable (the
+    module docstring's convention: the gradient summed over the ranks by
+    :func:`tensor.copy_to`, then this rank's rows by
+    :func:`tensor.gather_from`). ``x`` itself outside a group."""
+    if not is_initialized():
+        return x
+    group = _world_if_none(_group(group))
+    return copy_to(gather_from(x, group, dim=0), group)
 
 
-def all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """The sum of every rank's ``x``; differentiable, its backward the
-    sum of the ranks' gradients. ``x`` itself outside a group."""
-    return _AllReduce.apply(x) if is_initialized() else x
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group`` (default the data
+    group); differentiable, its backward the sum of the ranks'
+    gradients. ``x`` itself outside a group."""
+    if not is_initialized():
+        return x
+    group = _world_if_none(_group(group))
+    return copy_to(reduce_from(x, group), group)
 
 
 def _comm_device(t: torch.Tensor) -> torch.device:
@@ -205,16 +285,18 @@ def _coalesced(tensors, collective) -> None:
             t.copy_(part.view_as(t))
 
 
-def average_grads(grads) -> None:
-    """Replace each of ``grads`` by its mean over the ranks, in coalesced
-    buffers. Every rank passes the same tensors in the same order. Runs
-    the collectives at a world of one too; a no-op outside a group."""
+def average_grads(grads, group=None) -> None:
+    """Replace each of ``grads`` by its mean over the ranks of ``group``
+    (default the data group), in coalesced buffers. Every rank passes
+    the same tensors in the same order. Runs the collectives at a world
+    of one too; a no-op outside a group."""
     if not is_initialized():
         return
-    n = world()
+    group = _group(group)
+    n = dist.get_world_size(group)
 
     def mean(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(n)
 
     _coalesced(list(grads), mean)
@@ -235,16 +317,37 @@ def _optimizer_tensors(optimizer) -> list:
     return out
 
 
-def broadcast_params(state) -> None:
-    """Rank 0's fp32 masters, the loss's parameters and the optimizer's
-    state to every rank of the group (a ``train.step.TrainState`` after
-    it is built or restored), then the masters into the working copy.
-    A no-op outside a group."""
+def broadcast_tensors(tensors, group=None) -> None:
+    """Rank 0's of ``tensors`` (of ``group``, default the data group) to
+    every rank of it, in place, in coalesced buffers. A no-op outside a
+    group."""
     if not is_initialized():
         return
-    tensors = [*(p.detach() for p in state.params.values()),
-               *(p.detach() for p in state.criterion.values()),
-               *_optimizer_tensors(state.optimizer)]
-    _coalesced(tensors, lambda flat: dist.broadcast(flat, 0))
+    group = _group(group)
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    _coalesced(list(tensors),
+               lambda flat: dist.broadcast(flat, src, group=group))
+
+
+def broadcast_from_first(t: torch.Tensor, group) -> torch.Tensor:
+    """The first rank of ``group``'s ``t`` to every rank of it, in place
+    (the ranks of a model group agreeing on a decode's tokens); ``t``
+    as it is without a group. Returns ``t``."""
+    if group is not None:
+        dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
+    return t
+
+
+def broadcast_params(state, group=None) -> None:
+    """Rank 0's fp32 masters, the loss's parameters and the optimizer's
+    state to every rank of ``group`` (default the data group: each model
+    rank's shards from the first replica's), a ``train.step.TrainState``
+    after it is built or restored, then the masters into the working
+    copy. A no-op outside a group."""
+    if not is_initialized():
+        return
+    broadcast_tensors([*(p.detach() for p in state.params.values()),
+                       *(p.detach() for p in state.criterion.values()),
+                       *_optimizer_tensors(state.optimizer)], group)
     state._copy_masters(frozen=True)
 

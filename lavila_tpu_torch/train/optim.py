@@ -21,6 +21,11 @@ main_pretrain.py:199-222, scheduler.py:10-21), with ``torch.optim.AdamW``
     ``weight_decay`` computes;
   * :func:`clamp_logit_scale` after each update.
 
+Under tensor parallelism (``parallel/sharding.py``) a sharded parameter
+(one with a ``tp_split``) is this rank's slice, and so is its optimizer
+state; the clipping norm sums the sharded gradients' squares over the
+model group and counts each replicated gradient once.
+
 Frozen parameters (``train/freeze.py``) are left out of the optimizer
 altogether: no update, no weight decay, no share in the clipping norm,
 as ``optax.multi_transform`` with ``set_to_zero`` leaves them.
@@ -38,6 +43,7 @@ from typing import Callable, Iterable
 import torch
 
 from lavila_tpu_torch.losses import LOGIT_SCALE_MAX
+from lavila_tpu_torch.parallel import mesh
 
 
 def cosine_schedule(base_lr: float, final_lr: float, epochs: int,
@@ -106,6 +112,7 @@ class Optimizer:
                  update_freq: int = 1, use_sgd: bool = False):
         named = list(named_params)
         self.params = [p for _, p in named]
+        self.names = [n for n, _ in named]
         self.update_freq = update_freq
         # MultiSteps' running mean of the micro-steps' gradients, and how
         # many it holds
@@ -117,6 +124,10 @@ class Optimizer:
                    "weight_decay": weight_decay},
                   {"params": [p for n, p in named if not decay[n]],
                    "weight_decay": 0.0}]
+        # the parameter names in the order of the inner state_dict's
+        # indices (``parallel.sharding`` gathers a sharded one's moments)
+        self.index_names = ([n for n, _ in named if decay[n]]
+                            + [n for n, _ in named if not decay[n]])
         # lr 1.0 scaled by the schedule: the rate is schedule(count)
         # the JAX make_optimizer's optax.sgd momentum
         self.inner = (torch.optim.SGD(groups, lr=1.0, momentum=0.9)
@@ -137,11 +148,32 @@ class Optimizer:
             for g in grads:
                 g.clamp_(-c, c)
             return
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        sharded = [p.grad for p in self.params if p.grad is not None
+                   and getattr(p, "tp_split", None) is not None]
+        if sharded:
+            norm = self._tp_norm(grads, sharded)
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads]))
         factor = c / torch.maximum(norm, torch.as_tensor(c, device=norm.device))
         for g in grads:
             g.mul_(factor.to(g.dtype))
+
+    @staticmethod
+    def _tp_norm(grads: list, sharded: list) -> torch.Tensor:
+        """The global norm under tensor parallelism: the squared norms
+        of the sharded gradients (this rank's slices) summed over the
+        model group, each replicated gradient (the same on every rank
+        of it) counted once."""
+        ids = {id(g) for g in sharded}
+
+        def sq(gs):
+            return torch.stack([g.float().square().sum() for g in gs]).sum()
+        total = mesh.all_reduce(sq(sharded), mesh.model_group())
+        rep = [g for g in grads if id(g) not in ids]
+        if rep:
+            total = total + sq(rep)
+        return total.sqrt()
 
     @torch.no_grad()
     def _accumulate(self) -> bool:

@@ -351,7 +351,7 @@ def make_classifier_train_step(multihead: bool = False,
         _update(state)
         # the global batch's mean (equal rows on every rank)
         loss, top1 = mesh.all_reduce(
-            torch.stack([loss, top1]).detach()) / mesh.world()
+            torch.stack([loss, top1]).detach()) / mesh.data_world()
         return state, {"loss": loss, "acc1": top1}
 
     return train_step

@@ -18,6 +18,10 @@ torch files in place of orbax directories:
     :meth:`CheckpointManager.save`: rank 0 alone writes (the replicas are
     equal), then every rank waits at a barrier, so that no rank reads or
     requeues past a half-written file; every rank restores the same file.
+    Under tensor parallelism the caller hands it the whole layout
+    (``parallel.sharding.gather_train_state``: the model group's shards
+    gathered), so that rank 0 of the world writes one file that serves
+    and resumes at any ``--mesh-model``.
 
 What a file holds is the caller's; the pretraining CLI saves
 ``TrainState.state_dict()``: ``{"state_dict", "optimizer", "scheduler",

@@ -31,7 +31,8 @@ for entry in ("cli.eval_zeroshot", "cli.main_pretrain",
               "models.distilbert", "eval.nlg", "models.beam",
               "cli.eval_narrator", "cli.demo_narrator_3rd_person",
               "models.openai_weights", "models.resnet_clip",
-              "parallel.mesh", "utils.logging", "cli.launch"):
+              "parallel.mesh", "utils.logging", "cli.launch",
+              "parallel.sharding", "parallel.tensor", "ops.ring_attention"):
     assert f"lavila_tpu_torch.{entry}" in names, entry
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
@@ -54,7 +55,8 @@ def _port_sources():
             + sorted(PORT.rglob("*.cuh"))
             + [REPO / "chip_smoke.py", REPO / "scripts/profile_torch_encode.py",
                REPO / "scripts/time_spatial_phase.py",
-               REPO / "tests/torch_dist_worker.py"])
+               REPO / "tests/torch_dist_worker.py",
+               REPO / "tests/torch_tp_worker.py"])
 
 
 @pytest.mark.parametrize("pattern", [

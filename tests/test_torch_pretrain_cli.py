@@ -2,8 +2,8 @@
 synthetic dataset writes a checkpoint that the port's zero-shot loader
 serves, resumes from its output directory, trains under each remat
 policy and with the time gate, trains with --contrastive-use-vissl,
-refuses the one option not ported yet (--mesh-model > 1) and holds
---mesh-data to the world size (the SSL options, the probe and --wandb
+holds --mesh-model and --mesh-data to the world size (the SSL options,
+the probe and --wandb
 are tested in tests/test_torch_ssl.py); a DistilBERT dual encoder at MINI
 size trains through it with its masks."""
 
@@ -137,17 +137,18 @@ def test_cli_freeze_and_accumulation_as_the_jax_cli(tmp_path, flags):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--contrastive-use-vissl"], None, None),
-    (["--mesh-model", "2"], NotImplementedError,
-     "ROADMAP queue 1: tensor parallelism"),
+    (["--mesh-model", "2"], ValueError,
+     "--mesh-model 2: the 1 process"),
     (["--mesh-data", "4"], ValueError, "--mesh-data 4 does not match"),
 ], ids=["vissl_trains", "mesh_model_2", "mesh_data_4"])
 def test_cli_options_not_ported_raise(tmp_path, monkeypatch, flags, error,
                                       match):
-    """Of the JAX CLI's multi-device options only tensor parallelism
-    (``--mesh-model`` > 1) is left: it raises, naming its ROADMAP
-    subject. ``--contrastive-use-vissl`` trains at a world of one, on
-    the local loss; ``--mesh-data`` other than -1 or the world size (1
-    here) raises ``ValueError``, as ``create_mesh`` does."""
+    """The JAX CLI's multi-device options at a world of one:
+    ``--contrastive-use-vissl`` trains, on the local loss; ``--mesh-model
+    2`` (tensor parallelism, which runs over 2 ranks in
+    tests/test_torch_tensor_parallel.py) and ``--mesh-data`` other than
+    -1 or the world size (1 here) raise ``ValueError``, as
+    ``create_mesh`` does for a device count the axes do not divide."""
     if error is not None:
         with pytest.raises(error, match=match):
             cli.main(_cfg(tmp_path, *flags))
