@@ -19,7 +19,9 @@ checkpoints
 are torch files with
 the run config in a JSON sidecar (``utils/checkpoints.py``), one per
 epoch, auto-resumed from ``--output-dir``. ``--profile-dir`` writes a
-``torch.profiler`` trace over steps 5-10.
+``torch.profiler`` trace over steps 5-10, with the port's spans
+(``utils/tracing.py``: the step, its forward, backward and update phases)
+recorded over those steps and in the trace as user annotations.
 
 ``--metadata-aux`` (comma-separated pseudo-narration metadata) trains
 on the human narrations plus the narrator's, each sample marked by its
@@ -111,6 +113,7 @@ from lavila_tpu_torch.train.freeze import (build_freeze_predicate,
 from lavila_tpu_torch.train.optim import cosine_schedule, make_optimizer
 from lavila_tpu_torch.train.step import (TrainState, make_caption_train_step,
                                          make_clip_train_step)
+from lavila_tpu_torch.utils import tracing
 from lavila_tpu_torch.utils.checkpoints import (CheckpointManager,
                                                 resolve_resume)
 from lavila_tpu_torch.utils.meters import AverageMeter, ProgressMeter, Timer
@@ -374,12 +377,14 @@ def _start_profiler(device):
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.start()
+    tracing.enable()  # the spans enter the trace as user annotations
     return prof
 
 
 def _stop_profiler(prof, out_dir: str) -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+    tracing.disable()
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
     path = osp.join(out_dir, "trace.json")

@@ -93,7 +93,7 @@ class PretrainConfig:
     output_dir: str = "./output"
     wandb: bool = False
     save_freq: int = 1
-    profile_dir: Optional[str] = None  # jax.profiler trace output
+    profile_dir: Optional[str] = None  # torch.profiler trace output
     # TPU mesh
     mesh_data: int = -1
     mesh_model: int = 1

@@ -24,6 +24,7 @@ from lavila_tpu_torch.models.distilbert import DistilBertModel
 from lavila_tpu_torch.models.openai_clip import (TextTransformer, encode_text,
                                                 init_text_weights)
 from lavila_tpu_torch.ops.basic import init_linear_
+from lavila_tpu_torch.utils import tracing
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -71,9 +72,10 @@ class VideoCLIP(nn.Module):
                      ) -> torch.Tensor:
         """``generator`` draws the video tower's drop-path masks (train
         mode only)."""
-        x = self.visual(image, generator=generator)
-        return x if self.image_projection is None else \
-            x @ self.image_projection
+        with tracing.span("encode.image"):
+            x = self.visual(image, generator=generator)
+            return x if self.image_projection is None else \
+                x @ self.image_projection
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         return encode_text(self, text)
@@ -144,10 +146,11 @@ class VideoCLIPHF(nn.Module):
                      ) -> torch.Tensor:
         """``generator`` draws the video tower's drop-path masks (train
         mode only)."""
-        x = self.visual(image, generator=generator)
-        if self.projection == "default":
-            return x @ self.image_projection
-        return self.image_projection(x)
+        with tracing.span("encode.image"):
+            x = self.visual(image, generator=generator)
+            if self.projection == "default":
+                return x @ self.image_projection
+            return self.image_projection(x)
 
     def encode_text(self, text: torch.Tensor,
                     attention_mask: torch.Tensor | None = None

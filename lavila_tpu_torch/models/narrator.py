@@ -36,6 +36,7 @@ from lavila_tpu_torch.models.coca import AttentionPooler
 from lavila_tpu_torch.models.gpt2 import GPT2LMHead, init_cache
 from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm, init_linear_
 from lavila_tpu_torch.parallel import mesh
+from lavila_tpu_torch.utils import tracing
 
 
 class VCLM(nn.Module):
@@ -69,9 +70,11 @@ class VCLM(nn.Module):
 
     def encode_image(self, frames: torch.Tensor) -> torch.Tensor:
         """``(B, T, H, W, C)`` → ``(B, num_img_queries, text_width)``."""
-        tokens = self.visual(frames, cls_at_last=False)
-        q = self.img_queries.to(tokens.dtype).repeat(tokens.shape[0], 1, 1)
-        return self.img_attn_pool_norm(self.img_attn_pool(q, tokens))
+        with tracing.span("encode.image"):
+            tokens = self.visual(frames, cls_at_last=False)
+            q = self.img_queries.to(tokens.dtype).repeat(tokens.shape[0], 1,
+                                                          1)
+            return self.img_attn_pool_norm(self.img_attn_pool(q, tokens))
 
     def forward(self, frames: torch.Tensor, text: torch.Tensor) -> dict:
         """Teacher-forced caption logits: ``text`` shifted by one."""
@@ -103,44 +106,55 @@ class VCLM(nn.Module):
         ``(ids (B·nrs, max_text_length) int64, ppl (B·nrs,) fp32)``; see
         the module docstring. ``generator`` draws the samples (on the
         tensors' device)."""
-        image_tokens = image_tokens.repeat_interleave(num_return_sequences,
-                                                      dim=0)
-        B, device = image_tokens.shape[0], image_tokens.device
-        L = max_text_length
-        cross_kv = self.prepare_decode(image_tokens)
-        cache = init_cache(self.text_decoder.cfg, B, L,
-                           dtype=image_tokens.dtype, device=device,
-                           width=self.text_decoder.cache_width())
-        out = torch.full((B, L), pad_id, dtype=torch.long, device=device)
-        out[:, 0] = bos_id
-        cur = out[:, 0].clone()
-        nlls = torch.zeros(B, device=device)
-        counts = torch.zeros(B, device=device)
-        reached = torch.zeros(B, dtype=torch.bool, device=device)
-        early_exit = target is None
-        for i in range(L - 1):
-            if early_exit and i > 0 and bool(reached.all()):
-                break  # the step's one host sync
-            logits = self.decode_step(cur[:, None], cross_kv, cache,
-                                      i).float()
-            if target is not None:
-                tgt = target[:, i + 1].long()
-                logz = torch.logsumexp(logits, dim=-1)
-                picked = logits.gather(-1, tgt[:, None])[:, 0]
-                valid = (tgt != pad_id).float()
-                nlls += (logz - picked) * valid
-                counts += valid
-            else:
-                live = (~reached).float()
-                nlls += S.entropy(logits) * live
-                counts += live
-            nxt = S.sample_token(generator, S.warp_logits(
-                logits, temperature, top_k, top_p))
-            # the ranks of a model group all take model rank 0's draw
-            mesh.broadcast_from_first(nxt, mesh.model_group())
-            reached |= nxt == eos_id
-            out[:, i + 1] = nxt
-            cur = (target[:, i + 1].long()
-                   if teacher_forcing and target is not None else nxt)
-        ppl = torch.exp(nlls / counts.clamp_min(1.0))
-        return out, ppl
+        with tracing.span("narrate.generate"):
+            with tracing.span("narrate.prepare"):
+                image_tokens = image_tokens.repeat_interleave(
+                    num_return_sequences, dim=0)
+                B, device = image_tokens.shape[0], image_tokens.device
+                L = max_text_length
+                cross_kv = self.prepare_decode(image_tokens)
+                cache = init_cache(self.text_decoder.cfg, B, L,
+                                   dtype=image_tokens.dtype, device=device,
+                                   width=self.text_decoder.cache_width())
+                out = torch.full((B, L), pad_id, dtype=torch.long,
+                                 device=device)
+                out[:, 0] = bos_id
+                cur = out[:, 0].clone()
+                nlls = torch.zeros(B, device=device)
+                counts = torch.zeros(B, device=device)
+                reached = torch.zeros(B, dtype=torch.bool, device=device)
+            early_exit = target is None
+            for i in range(L - 1):
+                with tracing.span("narrate.step"):
+                    if early_exit and i > 0:
+                        with tracing.span("narrate.sync"):
+                            done = bool(reached.all())  # the one host sync
+                        if done:
+                            break
+                    with tracing.span("narrate.forward"):
+                        logits = self.decode_step(cur[:, None], cross_kv,
+                                                  cache, i).float()
+                    if target is not None:
+                        tgt = target[:, i + 1].long()
+                        logz = torch.logsumexp(logits, dim=-1)
+                        picked = logits.gather(-1, tgt[:, None])[:, 0]
+                        valid = (tgt != pad_id).float()
+                        nlls += (logz - picked) * valid
+                        counts += valid
+                    else:
+                        live = (~reached).float()
+                        nlls += S.entropy(logits) * live
+                        counts += live
+                    with tracing.span("narrate.sample"):
+                        nxt = S.sample_token(generator, S.warp_logits(
+                            logits, temperature, top_k, top_p))
+                        # the ranks of a model group all take model rank
+                        # 0's draw
+                        mesh.broadcast_from_first(nxt, mesh.model_group())
+                    reached |= nxt == eos_id
+                    out[:, i + 1] = nxt
+                    cur = (target[:, i + 1].long()
+                           if teacher_forcing and target is not None
+                           else nxt)
+            ppl = torch.exp(nlls / counts.clamp_min(1.0))
+            return out, ppl

@@ -68,6 +68,7 @@ from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm, LayerNorm
 from lavila_tpu_torch.parallel import mesh
 from lavila_tpu_torch.train.optim import (MultiTransform, Optimizer,
                                           clamp_logit_scale)
+from lavila_tpu_torch.utils import tracing
 
 
 def working_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -211,20 +212,28 @@ def make_clip_train_step(norm_embed: bool = False,
         loss_fn = losses.clip_loss_local
 
     def train_step(state: TrainState, batch: dict):
-        out = _forward(state, batch, norm_embed)
-        if use_ssl:
-            metrics = ssl_loss(
-                out["image_embed"], out["text_embed"], out["logit_scale"],
-                state.criterion["logit_scale_pseudo"].exp(),
-                batch["gt_indicators"])
-        else:
-            metrics = loss_fn(out["image_embed"], out["text_embed"],
-                              out["logit_scale"])
-        metrics["loss"].backward()
-        _update(state)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        with tracing.span("train.step"):
+            with tracing.span("train.forward"):
+                out = _forward(state, batch, norm_embed)
+                if use_ssl:
+                    metrics = ssl_loss(
+                        out["image_embed"], out["text_embed"],
+                        out["logit_scale"],
+                        state.criterion["logit_scale_pseudo"].exp(),
+                        batch["gt_indicators"])
+                else:
+                    metrics = loss_fn(out["image_embed"], out["text_embed"],
+                                      out["logit_scale"])
+            _backward(metrics["loss"])
+            _update(state)
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def _backward(loss: torch.Tensor) -> None:
+    with tracing.span("train.backward"):
+        loss.backward()
 
 
 def _clear_grads(state: TrainState) -> None:
@@ -249,6 +258,24 @@ def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:
     process group, the optimizer's update, ``logit_scale`` clamped (not
     the criterion's parameters), the trained masters copied back,
     ``step += 1``. A frozen parameter gets no gradient."""
+    with tracing.span("train.update"):
+        with tracing.span("update.grads"):
+            grads = _master_grads(state, zero)
+        with tracing.span("update.average"):
+            mesh.average_grads(grads)
+        with tracing.span("update.optimizer"):
+            state.optimizer.step()
+            clamp_logit_scale(state.params.items())
+        with tracing.span("update.copy"):
+            state._copy_masters()
+        state.step += 1
+
+
+def _master_grads(state: TrainState,
+                  zero: tuple[str, ...]) -> list[torch.Tensor]:
+    """The working copy's gradients cast onto the fp32 masters (and the
+    criterion's own), zeros where none reached a parameter or where it is
+    named in ``zero``; returns them in the order every rank shares."""
     grads = []
     for name, p in state.model.named_parameters():
         if name in state.frozen:
@@ -264,11 +291,7 @@ def _update(state: TrainState, zero: tuple[str, ...] = ()) -> None:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-    mesh.average_grads(grads)
-    state.optimizer.step()
-    clamp_logit_scale(state.params.items())
-    state._copy_masters()
-    state.step += 1
+    return grads
 
 
 RETRIEVAL_LOSSES = ("clip", "max_margin", "adaptive_max_margin")
@@ -289,19 +312,23 @@ def make_retrieval_train_step(loss_type: str = "adaptive_max_margin",
                          f"got {loss_type!r}")
 
     def train_step(state: TrainState, batch: dict):
-        out = _forward(state, batch, norm_embed)
-        if loss_type == "clip":
-            metrics = losses.clip_loss(out["image_embed"], out["text_embed"],
-                                       out["logit_scale"])
-        else:
-            weights = (batch.get("relevancy")
-                       if loss_type == "adaptive_max_margin" else None)
-            metrics = losses.max_margin_loss(
-                out["image_embed"], out["text_embed"], margin=margin,
-                weights=weights)
-        metrics["loss"].backward()
-        _update(state, zero=("logit_scale",))
-        return state, {k: v.detach() for k, v in metrics.items()}
+        with tracing.span("train.step"):
+            with tracing.span("train.forward"):
+                out = _forward(state, batch, norm_embed)
+                if loss_type == "clip":
+                    metrics = losses.clip_loss(
+                        out["image_embed"], out["text_embed"],
+                        out["logit_scale"])
+                else:
+                    weights = (batch.get("relevancy")
+                               if loss_type == "adaptive_max_margin"
+                               else None)
+                    metrics = losses.max_margin_loss(
+                        out["image_embed"], out["text_embed"],
+                        margin=margin, weights=weights)
+            _backward(metrics["loss"])
+            _update(state, zero=("logit_scale",))
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
 
@@ -335,24 +362,30 @@ def make_classifier_train_step(multihead: bool = False,
     :func:`make_clip_train_step`."""
 
     def train_step(state: TrainState, batch: dict):
-        _clear_grads(state)
-        outs = state.model(batch["frames"], generator=state.generator)
-        if multihead:
-            labels = batch["labels"]
-            loss = sum(_xent_smoothed(o, lab, label_smoothing)
-                       for o, lab in zip(outs, labels))
-            top1 = 100.0 * (outs[-1].argmax(-1) == labels[-1]).float().mean()
-        else:
-            lab = batch["label"]
-            loss = _xent_smoothed(outs, lab, label_smoothing)
-            top1 = (torch.zeros((), device=loss.device) if lab.dim() > 1
-                    else 100.0 * (outs.argmax(-1) == lab).float().mean())
-        loss.backward()
-        _update(state)
-        # the global batch's mean (equal rows on every rank)
-        loss, top1 = mesh.all_reduce(
-            torch.stack([loss, top1]).detach()) / mesh.data_world()
-        return state, {"loss": loss, "acc1": top1}
+        with tracing.span("train.step"):
+            with tracing.span("train.forward"):
+                _clear_grads(state)
+                outs = state.model(batch["frames"],
+                                   generator=state.generator)
+                if multihead:
+                    labels = batch["labels"]
+                    loss = sum(_xent_smoothed(o, lab, label_smoothing)
+                               for o, lab in zip(outs, labels))
+                    top1 = 100.0 * (outs[-1].argmax(-1)
+                                    == labels[-1]).float().mean()
+                else:
+                    lab = batch["label"]
+                    loss = _xent_smoothed(outs, lab, label_smoothing)
+                    top1 = (torch.zeros((), device=loss.device)
+                            if lab.dim() > 1
+                            else 100.0 * (outs.argmax(-1)
+                                          == lab).float().mean())
+            _backward(loss)
+            _update(state)
+            # the global batch's mean (equal rows on every rank)
+            loss, top1 = mesh.all_reduce(
+                torch.stack([loss, top1]).detach()) / mesh.data_world()
+            return state, {"loss": loss, "acc1": top1}
 
     return train_step
 
@@ -368,12 +401,14 @@ def make_caption_train_step(pad_id: int = 0):
     metrics)``, as :func:`make_clip_train_step`."""
 
     def train_step(state: TrainState, batch: dict):
-        _clear_grads(state)
-        out = state.model(batch["frames"], batch["text"])
-        metrics = losses.caption_loss(out["logits"], out["labels"],
-                                      pad_id=pad_id)
-        metrics["loss"].backward()
-        _update(state)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        with tracing.span("train.step"):
+            with tracing.span("train.forward"):
+                _clear_grads(state)
+                out = state.model(batch["frames"], batch["text"])
+                metrics = losses.caption_loss(out["logits"], out["labels"],
+                                              pad_id=pad_id)
+            _backward(metrics["loss"])
+            _update(state)
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step

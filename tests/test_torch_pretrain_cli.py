@@ -81,10 +81,17 @@ def test_cli_use_checkpoint_trains_with_remat(tmp_path):
 
 
 def test_cli_profile_dir_writes_a_trace(tmp_path):
-    """--profile-dir traces steps 5-10, as the JAX CLI does."""
+    """--profile-dir traces steps 5-10, as the JAX CLI does, with the
+    port's spans in the trace; recording is off again after it."""
+    from lavila_tpu_torch.utils import tracing
     cli.main(_cfg(tmp_path / "run", "--steps", "11", "--batch-size", "2",
                   "--profile-dir", str(tmp_path / "prof")))
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = [e.get("name") for e in trace["traceEvents"]]
+    for name in ("train.step", "train.forward", "train.backward",
+                 "train.update", "encode.image"):
+        assert names.count(name) == 6, name  # steps 5 to 10
+    assert not tracing.enabled()
 
 
 def _fresh_params(cfg):
