@@ -51,7 +51,12 @@ result. Phases, each printing JSON lines:
      1600) and its two attentions in the caption step, 8 captions × 25
      heads: causal 76 × 76 and 76 queries over 256 image tokens (K7, K8
      forward and backward, the split backward past 128 keys), from
-     their own generator after the other cases; and the launch floor,
+     their own generator after the other cases; the CLS row's forward
+     and backward kernels at TSF-L@336's 16 heads of 64 over 4 × 576
+     patches, 16 and 32 clips, on strided row views, against the plain
+     row in fp32 (the forward's lse within 1e-4; the backward against
+     ``cls_row_bwd_reference``), beside SDPA over head-major copies; and
+     the launch floor,
      the profiler's device time of an empty kernel, beside the short K3
      calls and K9 (``launch_floor`` line). kernel_bwd: the same for the
      backward kernels (K8's whole backward: the fused kernel up to 128
@@ -493,12 +498,15 @@ def dname(dtype) -> str:
 @contextmanager
 def plain_path():
     """Route the model's dispatch sites to the plain versions."""
+    from lavila_tpu_torch.kernels import cls_row as KC
     from lavila_tpu_torch.kernels import decode as KDec
     from lavila_tpu_torch.kernels import divided as KD
     from lavila_tpu_torch.kernels import flash as KF
     from lavila_tpu_torch.kernels import layernorm as KL
     with mock.patch("lavila_tpu_torch.ops.attention.divided_phase",
                     KD.divided_phase_reference), \
+            mock.patch("lavila_tpu_torch.ops.attention.cls_row",
+                       KC.cls_row_attention_reference), \
             mock.patch("lavila_tpu_torch.ops.attention.flash_attention",
                        KF.flash_attention_reference), \
             mock.patch("lavila_tpu_torch.models.gpt2.flash_attention",
@@ -528,19 +536,22 @@ COUNTERS = {"K1": ("divided", "space"), "K2": ("divided", "time"),
             "K9": ("decode", "decode"),
             "K7": ("flash", "flash"), "K8 fwd": ("flash", "flash_fwd"),
             "K8 bwd": ("flash", "flash_bwd"),
-            "K8 dq": ("flash", "flash_dq"), "K8 dkv": ("flash", "flash_dkv")}
+            "K8 dq": ("flash", "flash_dq"), "K8 dkv": ("flash", "flash_dkv"),
+            "CLS row": ("cls_row", "cls_row_fwd"),
+            "CLS row bwd": ("cls_row", "cls_row_bwd")}
 # K8's backward kernels: the fused one ("K8 bwd") does the work of the
 # TPU's dq and dk/dv kernels up to 128 tokens; their rows sum it in
 FUSED_INTO = {"K8 dq": "K8 bwd", "K8 dkv": "K8 bwd"}
 
 
 def _counter(module: str) -> dict:
+    from lavila_tpu_torch.kernels import cls_row as KC
     from lavila_tpu_torch.kernels import decode as KDec
     from lavila_tpu_torch.kernels import divided as KD
     from lavila_tpu_torch.kernels import flash as KF
     from lavila_tpu_torch.kernels import layernorm as KL
     return {"divided": KD, "layernorm": KL, "decode": KDec,
-            "flash": KF}[module].launches
+            "flash": KF, "cls_row": KC}[module].launches
 
 
 BRANCHES = ("tc", "simt")
@@ -620,7 +631,7 @@ def check_flash_tc(what: str) -> None:
 
 
 def reset_launch_counts() -> None:
-    for m in ("divided", "layernorm", "decode", "flash"):
+    for m in ("divided", "layernorm", "decode", "flash", "cls_row"):
         counter = _counter(m)
         for k in counter:
             counter[k] = 0
@@ -708,8 +719,9 @@ def check_ln_bwd(what: str, m=None, batch: int = 0, steps: int = 1,
 def _encode_launches(m) -> dict:
     """Kernel launches of one ``encode_image`` of tower ``m``: per block
     the two phases, K3 on norm3 (both halves), norm1 and norm2 (CLS
-    half), K5 (norm1) and K4 (norm2) on the patch half; ln_pre on both
-    halves (where the tower has it) and the final norm. A ViT: K7 and
+    half), K5 (norm1) and K4 (norm2) on the patch half, and the CLS row
+    of both phases; ln_pre on both halves (where the tower has it) and the
+    final norm. A ViT: K7 and
     K3 on ln_1 and ln_2 a block, ln_pre, and ln_post but in a narrator
     (which reads the patch tokens before it)."""
     depth = m["depth"]
@@ -720,7 +732,7 @@ def _encode_launches(m) -> dict:
         return want
     want.update({m["space"]: depth, "K2": depth,
                  "K3": 4 * depth + 1 + 2 * _ln_pre(m), "K4": depth,
-                 "K5": depth})
+                 "K5": depth, "CLS row": 2 * depth})
     return want
 
 
@@ -746,8 +758,10 @@ def _step_launches(m, remat: bool = False,
     backward each (K8's: one fused launch a layer in bf16, dq and dk/dv
     in fp32), except that the tower returns only the CLS row, so the last
     block's patch outputs never reach the loss: autograd runs no backward
-    for its spatial phase or its K4. With remat every video block runs
-    its forward again in the backward (the text tower has no remat).
+    for its spatial phase or its K4; the CLS row, which the loss reads,
+    runs its backward in both phases of every block. With remat every
+    video block runs its forward again in the backward (the text tower
+    has no remat).
     DistilBERT's norms run K3 and K5 forward and backward, its attention
     no kernel. The SSL loss adds no launch; without ``text`` (the
     classifier's step over ``m``'s video tower) the text tower's
@@ -776,7 +790,7 @@ def _step_launches(m, remat: bool = False,
     blocks["K5"] += text["K5"]
     blocks.update({f"{m['space']} bwd": depth - 1, "K2 bwd": depth,
                    "K3 bwd": want["K3"] + text["K3"], "K4 bwd": depth - 1,
-                   "K5 bwd": depth + text["K5"]})
+                   "K5 bwd": depth + text["K5"], "CLS row bwd": 2 * depth})
     if text["K7"]:  # the CLIP text tower: K8 in training
         blocks["K8 fwd"] = text["K7"]
         text_bwd = ("K8 bwd",) if dtype == torch.bfloat16 else ("K8 dq",
@@ -1141,12 +1155,104 @@ def _flash_bwd_case(B, H, Lq, Lk, d, causal, dtype, gen) -> dict:
             "library_ms": time_ms(lib)}
 
 
+def _cls_row_args(B, F, N, H, d, dtype, gen) -> list:
+    """cls_q/k/v and kp/vp as the attention block hands them to the CLS
+    row: row views of one (B, 1, 3D) and one (B, F, N, 3D) projection
+    output, the rows 3D apart."""
+    D = H * d
+    qkv = torch.randn(B, F, N, 3 * D, generator=gen, device=DEVICE).to(
+        dtype)
+    cls = torch.randn(B, 1, 3 * D, generator=gen, device=DEVICE).to(dtype)
+    _, kp, vp = (t.reshape(B, F, N, H, d) for t in qkv.chunk(3, -1))
+    return [t.reshape(B, 1, H, d) for t in cls.chunk(3, -1)] + [kp, vp]
+
+
+def _cls_row_case(B, F, N, H, d, dtype, gen) -> dict:
+    """The CLS row's forward kernel (``lavila::cls_row``) on strided row
+    views against the plain row (``cls_row_attention_reference``) in fp32
+    on the same values: the output's error relative to its largest value,
+    lse and the fp32 output ``o`` within 1e-4 (summation order alone: a
+    key left out moves lse by ~1/(F·N)), bit-identical over two calls."""
+    from lavila_tpu_torch.kernels import cls_row as KC
+    args = _cls_row_args(B, F, N, H, d, dtype, gen)
+
+    def run():
+        return KC.cls_row_op(*args)
+    got = run()
+    same = _all_equal(got, run())
+    f32 = [a.float() for a in args]
+    ref = KC.cls_row_attention_reference(*f32)
+    _, ref_lse, ref_o = KC.cls_row_fwd_reference(*f32)
+    torch.cuda.synchronize()
+    out, lse, o = got
+    err, abs_err = _rel_err(out, ref), max_err(out, ref)
+    lse_err, o_err = max_err(lse, ref_lse), _rel_err(o, ref_o)
+    del f32, ref, ref_lse, ref_o
+    tol, it, L, D = TOL[dtype], args[3].element_size(), F * N, H * d
+    lib = library().cls_row_call(*args)
+    # reads k and v once, the CLS rows; writes out, lse and o; q·k and
+    # p·v over the 1 + F·N keys in fp32
+    return {"out_err": err, "abs_err": abs_err, "lse_err": lse_err,
+            "o_err": o_err, "tol": tol, "bit_identical": same,
+            "ok": err <= tol and lse_err <= 1e-4 and o_err <= 1e-4 and same,
+            **_device_extras(run, lib, dtype), "ms": time_ms(run),
+            "plain_ms": time_ms(
+                lambda: KC.cls_row_attention_reference(*args)),
+            **bound((2 * L + 4) * B * D * it + B * H * 4 + B * D * 4,
+                    4 * B * (L + 1) * D, torch.float32),
+            "library_ms": time_ms(lib)}
+
+
+def _cls_row_bwd_case(B, F, N, H, d, dtype, gen) -> dict:
+    """The CLS row's backward kernel on strided row views, lse and o from
+    the forward kernel, against the plain backward
+    (``cls_row_bwd_reference``, the one held against the JAX package's
+    ``_cls_row_vjp_bwd``) in fp32 on the same values: each gradient's
+    error relative to its largest value, bit-identical over two calls."""
+    from lavila_tpu_torch.kernels import cls_row as KC
+    args = _cls_row_args(B, F, N, H, d, dtype, gen)
+    _, lse, o = KC.cls_row_op(*args)
+    g = torch.randn(B, 1, H, d, generator=gen, device=DEVICE).to(dtype)
+
+    def run():
+        return KC.cls_row_bwd(*args, g, lse, o)
+    got = run()
+    deterministic = _all_equal(got, run())
+    ref = KC.cls_row_bwd_reference(*(a.float() for a in args), g.float(),
+                                   lse, o)
+    torch.cuda.synchronize()
+    errs = {n: _rel_err(a, b) for n, a, b in
+            zip(("dcls_q", "dcls_k", "dcls_v", "dkp", "dvp"), got, ref)}
+    abs_err = max(map(max_err, got, ref))
+    del ref
+    tol, it, L, D = TOL[dtype], args[3].element_size(), F * N, H * d
+    lib = library().cls_row_bwd_call(*args, g)
+    # reads k, v, the CLS rows, g, lse and o; writes dk, dv and the CLS
+    # rows' gradients; five products (s, dp, dk, dv, dq) in fp32
+    return {"rel_err": errs, "abs_err": abs_err, "tol": tol,
+            "deterministic": deterministic,
+            "ok": max(errs.values()) <= tol and deterministic,
+            **_device_extras(run, lib, dtype), "ms": time_ms(run),
+            "plain_ms": time_ms(
+                lambda: KC.cls_row_bwd_reference(*args, g, lse, o)),
+            **bound((4 * L + 7) * B * D * it + B * H * 4 + B * D * 4,
+                    10 * B * (L + 1) * D, torch.float32),
+            "library_ms": time_ms(lib)}
+
+
+# the CLS row's cases: TSF-L@336's 16 heads of 64 over 4 x 576 patches,
+# at the encode cell's 16 clips and the train cell's 32
+CLS_ROW_ENCODE = (16, 4, 576, 16, 64)
+CLS_ROW_TRAIN = (32, 4, 576, 16, 64)
 # the main-path case of each kernel, whose numbers go into the summary:
 # TSF-B at batch 8 for K1/K2/K3, TSF-L@336 at batch 8 for K4/K5/K6
 MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
              "K3": (8 * 4 * 196, 768), "K4": (8 * 4 * 576, 1024),
              "K5": (8 * 4 * 576, 1024), "K6": (8, 4, 576, 1024, 16),
              "K9": (160, 77, 1600, 25, 15),
+             # the CLS row at the encode cell's 16 clips of TSF-L@336 (B,
+             # F, N, H, d)
+             "CLS row": CLS_ROW_ENCODE,
              # TSF-B's text tower at 16 captions (B, H, Lq, Lk, d); K8 dq
              # and dkv: the fused backward there
              **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
@@ -1166,6 +1272,7 @@ SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),
               "K1": (("tsf_l_224", (8, 4, 256, 1024, 16)),
                      ("b32", (32, 4, 196, 768, 12))),
               "K6": (("b32", (32, 4, 576, 1024, 16)),),
+              "CLS row": (("b32", CLS_ROW_TRAIN),),
               "K2": (("f16", (8, 16, 196, 768, 12)),
                      ("tsf_l_336", (8, 4, 576, 1024, 16))),
               # GPT-2 XL's self- and cross-attention (K8 at both in the
@@ -1267,6 +1374,11 @@ def phase_kernels() -> dict:
                                      *((k, kind, shape)
                                        for k in ("K7", "K8 fwd")
                                        for kind, shape in GPT2_FLASH_CASES))]
+    # the CLS row, from its own generator
+    gen_cls = torch.Generator(device=DEVICE).manual_seed(SEED + 26)
+    cases += [("CLS row", "cls_row", shape, dtype, gen_cls)
+              for dtype in (torch.float32, bf16)
+              for shape in (CLS_ROW_ENCODE, CLS_ROW_TRAIN)]
     summary = {}
     with torch.inference_mode():
         for name, kind, shape, dtype, *own in cases:
@@ -1281,6 +1393,8 @@ def phase_kernels() -> dict:
                 res = _decode_case(*shape, dtype, g)
             elif kind in ("causal", "full"):
                 res = _flash_case(name, *shape, kind == "causal", dtype, g)
+            elif kind == "cls_row":
+                res = _cls_row_case(*shape, dtype, g)
             else:
                 res = _phase_case(kind, *shape[:3], shape[3], shape[4],
                                   dtype, g)
@@ -1291,8 +1405,10 @@ def phase_kernels() -> dict:
                   f"{res['tol']} (LayerNorm: {res.get('limit_ratio')} of "
                   f"the limit, bit-identical {res.get('bit_identical')}) "
                   f"or branch {res.get('branch')}")
+            # the CLS row's out_err is relative to its largest value
             _summarise(summary, name, shape, dtype, res,
-                       ("out_err", "lse_err"))
+                       ("abs_err" if kind == "cls_row" else "out_err",
+                        "lse_err"))
             torch.cuda.empty_cache()
     emit("launch_floor", **_launch_floor(summary))
     return summary
@@ -1570,6 +1686,11 @@ def phase_kernels_bwd() -> dict:
     cases += [("K3 bwd", "ln", GPT2_ROWS, dtype, gen_gpt2)
               for dtype in (torch.float32, torch.bfloat16)]
     cases.append(("K3 bwd", "ln+f32w", GPT2_ROWS, torch.bfloat16, gen_gpt2))
+    # the CLS row, from its own generator
+    gen_cls = torch.Generator(device=DEVICE).manual_seed(SEED + 27)
+    cases += [("CLS row bwd", "cls_row", shape, dtype, gen_cls)
+              for dtype in (torch.float32, torch.bfloat16)
+              for shape in (CLS_ROW_ENCODE, CLS_ROW_TRAIN)]
     summary = {}
     flash = [(kind, shape, dtype) for dtype in (torch.float32, torch.bfloat16)
              for kind, shape in FLASH_CASES + VIT_FLASH_CASES]
@@ -1603,6 +1724,8 @@ def phase_kernels_bwd() -> dict:
                                        or kind == "add_ln", wdtype, bert)
             elif kind.startswith("ln"):
                 res = _ln_bwd_case(shape, dtype, g, wdtype, bert)
+            elif kind == "cls_row":
+                res = _cls_row_bwd_case(*shape, dtype, g)
             else:
                 res = _phase_bwd_case(kind, *shape[:3], shape[3], shape[4],
                                       dtype, g)
@@ -3146,7 +3269,8 @@ def _caption_launches(n, dtype) -> dict:
     want["K3"] += 3 + gpt2_ln
     want.update({f"{n['space']} bwd": depth, "K2 bwd": depth,
                  "K4 bwd": depth, "K5 bwd": depth,
-                 "K3 bwd": want["K3"] - 1, "K8 fwd": layers + cross})
+                 "K3 bwd": want["K3"] - 1, "K8 fwd": layers + cross,
+                 "CLS row bwd": 2 * depth})
     if dtype == torch.bfloat16:
         want.update({"K8 bwd": layers, "K8 dq": cross, "K8 dkv": cross})
     else:
@@ -5048,6 +5172,12 @@ KERNELS = [
     ("K8 dkv", "flash_bwd_fused / flash_bwd_dkv", "cuda",
      "lavila_tpu_torch/csrc/flash_attention.cu",
      "lavila_tpu/ops/pallas/flash_attention.py:242"),
+    # no Pallas kernel: the JAX package's CLS row is XLA ops with a VJP
+    ("CLS row", "cls_row_fwd", "cuda", "lavila_tpu_torch/csrc/cls_row.cu",
+     "none (lavila_tpu/ops/attention.py:_cls_row_attention, XLA)"),
+    ("CLS row bwd", "cls_row_bwd", "cuda",
+     "lavila_tpu_torch/csrc/cls_row.cu",
+     "none (lavila_tpu/ops/attention.py:_cls_row_vjp_bwd, XLA)"),
 ]
 
 # the phases in order; a path phase returns its run's launch counts

@@ -50,6 +50,15 @@ _SIGNATURES = {
     "lavila_divided_space_big_bwd": _SPACE_BWD,
     "lavila_divided_time_bwd": (
         [_P] * 15 + [_I] * 5 + [_LL] * 5 + [_F, _I, _I, _P], ctypes.c_int),
+    # cls_q, cls_k, cls_v, kp, vp, out, lse, o, part; B, L, H, d, S; the
+    # CLS rows' batch strides, the patches' row strides; scale, dtype,
+    # stream
+    "lavila_cls_row_fwd": ([_P] * 9 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P],
+                           ctypes.c_int),
+    # cls_q, cls_k, cls_v, kp, vp, g, o, lse, dkp, dvp, dcls_q, dcls_k,
+    # dcls_v, part; then as the forward
+    "lavila_cls_row_bwd": ([_P] * 14 + [_I] * 5 + [_LL] * 5 + [_F, _I, _P],
+                           ctypes.c_int),
     "lavila_decode_attention": (
         [_P] * 6 + [_I] * 4 + [_LL] * 3 + [_F, _I, _P], ctypes.c_int),
     "lavila_flash_attention": ([_P] * 4 + _FLASH_TC_TAIL, ctypes.c_int),
@@ -144,21 +153,29 @@ def _raise_if_failed(cmd: list[str], code: int, log: str) -> None:
         raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
 
 
-def row_stride(t: torch.Tensor, name: str) -> int:
-    """Row stride of a tensor whose last dim is a row, (..., D), with
-    the rows evenly spaced and a unit stride inside the row (a column
-    block of a wider tensor passes); raise otherwise."""
-    if t.stride(-1) != 1 and t.shape[-1] > 1:
-        raise ValueError(f"{name}: last dim must have stride 1")
-    sized = [i for i in range(t.dim() - 1) if t.shape[i] > 1]
-    rs = t.stride(sized[-1]) if sized else t.shape[-1]
+def row_stride(t: torch.Tensor, name: str, row_dims: int = 1) -> int:
+    """Row stride of a tensor whose last ``row_dims`` dims make a row,
+    (..., D) or (..., H, d), with the rows evenly spaced and the row's
+    elements contiguous (a column block of a wider tensor passes); raise
+    otherwise."""
+    shape, stride = t.shape, t.stride()
+    lead = len(shape) - row_dims
+    width = 1  # the row's elements
+    for i in range(len(shape) - 1, lead - 1, -1):
+        if shape[i] > 1 and stride[i] != width:
+            raise ValueError(f"{name}: a row must be contiguous, its last "
+                             f"dim of stride 1 (shape {tuple(shape)}, "
+                             f"stride {stride})")
+        width *= shape[i]
+    sized = [i for i in range(lead) if shape[i] > 1]
+    rs = stride[sized[-1]] if sized else width
     rows_inside = 1  # rows spanned by one step of leading dim i
-    for i in range(t.dim() - 2, -1, -1):
-        if t.shape[i] > 1 and t.stride(i) != rows_inside * rs:
+    for i in range(lead - 1, -1, -1):
+        if shape[i] > 1 and stride[i] != rows_inside * rs:
             raise ValueError(f"{name}: rows are not evenly strided "
-                             f"(shape {tuple(t.shape)}, stride {t.stride()})")
-        rows_inside *= t.shape[i]
-    if rs < t.shape[-1]:
+                             f"(shape {tuple(shape)}, stride {stride})")
+        rows_inside *= shape[i]
+    if rs < width:
         raise ValueError(f"{name}: rows overlap")
     return rs
 

@@ -15,14 +15,15 @@ piece and none of the TPU layout variants:
     their plain versions on a CPU tensor. The JAX package computes the
     ViT's attention in XLA (``lavila_tpu/ops/attention.py:attention``);
     the port takes the kernels wherever they are legal.
-  * :func:`cls_row_attention`: the CLS token's global attention row over
-    ``[itself; all F·N patches]``. The JAX package writes it in XLA ops,
-    not Pallas, so it is plain PyTorch here too, and autograd gives its
-    gradient (held against the JAX package's hand-written VJP). Autograd
-    keeps its fp32 copies of k/v for the backward (~115 MB per clip over
-    the tower's 24 phases at TSF-B width).
   * :func:`divided_attention_split`: divided space-time attention in the
-    CLS-separate layout. The patch tokens of each phase go through
+    CLS-separate layout. The CLS token's global row over ``[itself; all
+    F·N patches]`` goes through :func:`kernels.cls_row.cls_row`, its
+    single dispatch site: the CUDA kernels (forward and backward, each
+    k/v row read once in the input dtype) on a CUDA tensor, the plain
+    version on a CPU tensor. The JAX package writes that row in XLA ops
+    with a hand-written VJP (``lavila_tpu/ops/attention.py:
+    _cls_row_attention``), which the tests hold both against. The patch
+    tokens of each phase go through
     :func:`kernels.divided.divided_phase`, its single dispatch site: the
     CUDA kernel (K1 spatial, K2 temporal) on a CUDA tensor, the plain
     grouped formulation with the CLS key prepended on a CPU tensor. With
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from lavila_tpu_torch.kernels.cls_row import cls_row
 from lavila_tpu_torch.kernels.divided import divided_phase
 from lavila_tpu_torch.kernels.flash import flash_attention
 from lavila_tpu_torch.ops import ring_attention
@@ -79,24 +81,6 @@ def full_attention(q: torch.Tensor, k: torch.Tensor,
     return flash_attention(q, k, v, causal=False)
 
 
-def cls_row_attention(cls_q, cls_k, cls_v, kp, vp):
-    """The CLS query over ``[cls; all patches]``, fp32 softmax.
-
-    cls_q/cls_k/cls_v: ``(B, 1, H, d)``; kp/vp: ``(B, F, N, H, d)``.
-    Returns ``(B, 1, H, d)`` in the input dtype."""
-    B, F, N, H, d = kp.shape
-    scale = d ** -0.5
-    q = cls_q[:, 0].float() * scale                          # (B, H, d)
-    s_self = (q * cls_k[:, 0].float()).sum(-1)               # (B, H)
-    s_pat = torch.einsum("bhd,bfnhd->bhfn", q, kp.float())
-    scores = torch.cat([s_self[..., None], s_pat.reshape(B, H, F * N)], -1)
-    p = torch.softmax(scores, dim=-1)                        # (B, H, 1+FN)
-    out = p[..., 0, None] * cls_v[:, 0].float()
-    out = out + torch.einsum("bhl,blhd->bhd", p[..., 1:],
-                             vp.reshape(B, F * N, H, d).float())
-    return out[:, None].to(kp.dtype)
-
-
 def divided_attention_split(cls_q, cls_k, cls_v, qp, kp, vp, axis: str):
     """Divided space-time attention, CLS kept apart from the patches.
 
@@ -115,7 +99,7 @@ def divided_attention_split(cls_q, cls_k, cls_v, qp, kp, vp, axis: str):
     if axis == "time" and ring is not None:
         return ring_attention.divided_time_ring(cls_q, cls_k, cls_v, qp, kp,
                                                 vp, ring)
-    cls_out = cls_row_attention(cls_q, cls_k, cls_v, kp, vp)
+    cls_out = cls_row(cls_q, cls_k, cls_v, kp, vp)
     out, _ = divided_phase(qp.reshape(B, F, N, D), kp.reshape(B, F, N, D),
                            vp.reshape(B, F, N, D), cls_k.reshape(B, D),
                            cls_v.reshape(B, D), axis, H, d ** -0.5)

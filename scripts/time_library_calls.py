@@ -19,6 +19,10 @@ and times it on the card (CUDA events):
     is_causal=...)`` on head-major ``(B, H, L, d)`` copies of the
     token-major inputs (made once, outside the timed call); K8's
     backward (dq and dk/dv together): ``torch.autograd.grad`` of it.
+  * The CLS row forward: ``F.scaled_dot_product_attention`` of the
+    ``(B, H, 1, d)`` CLS query over head-major ``(B, H, 1 + F·N, d)``
+    copies of ``[cls; patches]`` (made once, outside the timed call);
+    backward: ``torch.autograd.grad`` of it.
 
 The port never calls these: ``chip_smoke.py`` imports the builders below
 to report ``library_ms`` beside each kernel, and run alone the script
@@ -200,6 +204,35 @@ def flash_bwd_call(q, k, v, do, causal: bool):
     g = _heads_major(do)
     return lambda: torch.autograd.grad(out, (qh, kh, vh), g,
                                        retain_graph=True)
+
+
+def _cls_row_qkv(cls_q, cls_k, cls_v, kp, vp):
+    """The CLS row's inputs (``(B, 1, H, d)`` rows, ``(B, F, N, H, d)``
+    patches) as SDPA's ``(B, H, 1, d)`` query and ``(B, H, 1 + F·N, d)``
+    keys and values, the CLS row first."""
+    B, F_, N, H, d = kp.shape
+
+    def keys(c, p):
+        return torch.cat([c, p.reshape(B, F_ * N, H, d)], 1)
+    return (_heads_major(cls_q), _heads_major(keys(cls_k, kp)),
+            _heads_major(keys(cls_v, vp)))
+
+
+def cls_row_call(cls_q, cls_k, cls_v, kp, vp):
+    """The CLS row's forward as one SDPA call."""
+    q, k, v = _cls_row_qkv(cls_q, cls_k, cls_v, kp, vp)
+    return lambda: F.scaled_dot_product_attention(q, k, v)
+
+
+def cls_row_bwd_call(cls_q, cls_k, cls_v, kp, vp, g):
+    """The CLS row's backward: the gradient of that SDPA call for ``g``
+    ``(B, 1, H, d)``."""
+    q, k, v = (t.detach().requires_grad_()
+               for t in _cls_row_qkv(cls_q, cls_k, cls_v, kp, vp))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(q, k, v)
+    g = _heads_major(g)
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
 
 
 # K2's shapes (B, F, N, D, heads): TSF-B, the fine-tune's 16 frames,

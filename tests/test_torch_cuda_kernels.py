@@ -9,6 +9,7 @@ runs on a machine with an H100 (nvcc installed) with
 import pytest
 import torch
 
+from lavila_tpu_torch.kernels import cls_row as KC
 from lavila_tpu_torch.kernels import decode as KDec
 from lavila_tpu_torch.kernels import divided as KD
 from lavila_tpu_torch.kernels import flash as KF
@@ -241,6 +242,95 @@ def test_divided_phase_autograd_uses_bwd_kernel(gen, dtype):
         assert KD.launches[fwd] == before[fwd] + 1
         assert KD.launches[bwd] == before[bwd] + 1
         assert qkv.grad.dtype == dtype and torch.isfinite(qkv.grad).all()
+
+
+# the CLS row's cases (B, F, N, H, d, pad): TSF-L@336's encode and train
+# batches, TSF-B's, the fine-tunes' 16 frames, MINI's head_dim 16, a
+# tensor-parallel rank's 4 local heads, head_dim 24 (3 chunks of 4 lanes
+# in bf16, one idle); pad > 0 widens the packed rows off 16-byte
+# boundaries (element loads)
+CLS_ROW_CASES = [(16, 4, 576, 16, 64, 0), (32, 4, 576, 16, 64, 0),
+                 (8, 4, 196, 12, 64, 0), (2, 16, 196, 12, 64, 0),
+                 (4, 4, 16, 4, 16, 0), (2, 4, 576, 4, 64, 0),
+                 (3, 2, 50, 3, 24, 0), (2, 4, 196, 12, 64, 1)]
+
+
+def _cls_row_args(gen, B, F, N, H, d, dtype, pad=0):
+    """cls_q/k/v and kp/vp as the attention block passes them: row views
+    of one (B, 1, 3D) and one (B, F, N, 3D) projection output."""
+    D = H * d
+    qkv = torch.randn(B, F, N, 3 * D + pad, generator=gen,
+                      device="cuda").to(dtype)
+    cls = torch.randn(B, 1, 3 * D + pad, generator=gen,
+                      device="cuda").to(dtype)
+    cq, ck, cv = (t.reshape(B, 1, H, d) for t in cls[..., :3 * D].chunk(3, -1))
+    _, kp, vp = (t.reshape(B, F, N, H, d)
+                 for t in qkv[..., :3 * D].chunk(3, -1))
+    return [cq, ck, cv, kp, vp]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,N,H,d,pad", CLS_ROW_CASES)
+def test_cls_row_kernel(gen, B, F, N, H, d, pad, dtype):
+    """The CLS row's forward and backward kernels on strided row views
+    against the plain versions in fp32 on the same values (the forward
+    against ``cls_row_attention_reference``, the backward, on the
+    kernel's lse and o, against ``cls_row_bwd_reference``, which the CPU
+    tests hold against the JAX package's VJP; errors relative to each
+    tensor's largest value), one launch a direction, bit-identical on a
+    second call."""
+    args = _cls_row_args(gen, B, F, N, H, d, dtype, pad)
+    assert args[3].stride(2) == 3 * H * d + pad  # views, no copies
+    before = dict(KC.launches)
+    out, lse, o = KC.cls_row_op(*args)
+    assert KC.launches["cls_row_fwd"] == before["cls_row_fwd"] + 1
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    got = KC.cls_row_bwd(*args, g, lse, o)
+    assert KC.launches["cls_row_bwd"] == before["cls_row_bwd"] + 1
+    again = KC.cls_row_bwd(*args, g, lse, o)
+    ref_in = [a.float() for a in args]
+    ref = KC.cls_row_attention_reference(*ref_in)
+    ref_grads = KC.cls_row_bwd_reference(*ref_in, g.float(), lse, o)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _rel_err(out, ref) <= TOL[dtype]
+    assert torch.equal(KC.cls_row_op(*args)[0], out)
+    _, ref_lse, ref_o = KC.cls_row_fwd_reference(*ref_in)
+    # lse and the fp32 output from the same values: summation order alone
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    assert _rel_err(o, ref_o) <= 1e-4
+    for name, a, b, r in zip(("dcls_q", "dcls_k", "dcls_v", "dkp", "dvp"),
+                             got, again, ref_grads):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        assert torch.equal(a, b), name
+        assert _rel_err(a, r) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cls_row_kernel_refuses(gen, dtype):
+    """head_dim not a multiple of 8, or past 128, raises; no fallback."""
+    for d in (12, 136):
+        args = _cls_row_args(gen, 2, 2, 8, 2, d, dtype)
+        with pytest.raises(ValueError):
+            KC.cls_row(*args)
+
+
+def test_cls_row_tower_launches(gen):
+    """A TSF-L@336 tower pass (bf16) runs the CLS row's kernels in both
+    phases of its 24 blocks: 48 forward launches, and 48 backward ones
+    when the embedding's gradient is taken; no plain path."""
+    from lavila_tpu_torch.models import build_model
+    model = build_model("CLIP_OPENAI_TIMESFORMER_LARGE_336PX",
+                        device="cuda", dtype=torch.bfloat16, generator=gen)
+    frames = torch.randn(1, 4, 336, 336, 3, generator=gen,
+                         device="cuda").bfloat16()
+    before = dict(KC.launches)
+    with torch.inference_mode():
+        model.encode_image(frames)
+    assert KC.launches["cls_row_fwd"] == before["cls_row_fwd"] + 48
+    assert KC.launches["cls_row_bwd"] == before["cls_row_bwd"]
+    model.encode_image(frames).float().square().sum().backward()
+    assert KC.launches["cls_row_fwd"] == before["cls_row_fwd"] + 96
+    assert KC.launches["cls_row_bwd"] == before["cls_row_bwd"] + 48
 
 
 # (rows' dtype, γ's dtype): the bf16 train step hands bf16 rows with fp32 γ

@@ -309,3 +309,29 @@ def test_benchmark_reader_reads_the_port(metric, recorded):
     if hasattr(reader, "SPANS"):
         assert reader.TRACING is tracing and tracing.enabled()
         assert set(reader.SPANS) <= recorded, set(reader.SPANS) - recorded
+
+
+def test_cls_row_kernels_outside_the_roofline_readers():
+    """No kernel of ``csrc/cls_row.cu`` matches a roofline reader's
+    ``PATTERN`` (``benchmark/roofline/*.py``): a reader counts the device
+    time of the kernels its pattern matches against the calls it probes,
+    so a CLS row kernel it took would fail the run as kernels with no
+    probed call."""
+    import re
+    src = (REPO / "lavila_tpu_torch" / "csrc" / "cls_row.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", src)
+    assert set(names) >= {"cls_row_fwd_kernel", "cls_row_bwd_kernel"}
+    patterns = {}
+    for path in sorted((REPO / "benchmark" / "roofline").glob("*.py")):
+        module = importlib.import_module(f"benchmark.roofline.{path.stem}")
+        if hasattr(module, "PATTERN"):
+            patterns[path.stem] = module.PATTERN
+    assert patterns
+    for name in names:
+        # as the profiler names a launch: the namespace, the template
+        # arguments and the parameter list around the kernel's name
+        shown = f"void (anonymous namespace)::{name}<__nv_bfloat16, true>" \
+                f"(__nv_bfloat16 const*, float*, int)"
+        for reader, pattern in patterns.items():
+            assert not re.search(pattern, shown), (name, reader)

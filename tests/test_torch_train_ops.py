@@ -16,35 +16,94 @@ from lavila_tpu.models import build_model as jax_build_model
 from lavila_tpu.ops import attention as JA
 from lavila_tpu.train import optim as JO
 from lavila_tpu_torch import losses as L
+from lavila_tpu_torch.kernels.cls_row import (cls_row,
+                                              cls_row_attention_reference)
 from lavila_tpu_torch.models import build_model
 from lavila_tpu_torch.models.convert import torch_key
 from lavila_tpu_torch.models.timesformer import SpaceTimeBlock
-from lavila_tpu_torch.ops.attention import cls_row_attention
 from lavila_tpu_torch.ops.basic import drop_path, drop_path_mask
 from lavila_tpu_torch.train import optim as O
 
 torch.set_num_threads(1)
 
 
-def test_cls_row_grad_matches_jax_vjp():
-    """Autograd of the port's fp32 CLS row against the JAX package's
-    hand-written VJP (``_cls_row_vjp_bwd``), atol 1e-5."""
-    rng = np.random.default_rng(0)
-    B, F, N, H, d = 2, 4, 6, 3, 16
+# (B, F, N, H, d, packed): packed gives kp/vp as row views of one
+# (B, F, N, 3D) projection output, as the attention block passes them
+CLS_ROW_SHAPES = [
+    (2, 4, 6, 3, 16, False),
+    (2, 4, 5, 12, 64, False),   # TSF-B's heads at a small N
+    (1, 16, 3, 3, 16, False),   # the fine-tunes' 16 frames
+    (2, 4, 6, 4, 16, True),     # a tensor-parallel rank's 4 local heads
+]
+
+
+def _cls_row_inputs(B, F, N, H, d, packed, seed=0):
+    rng = np.random.default_rng(seed)
     cls = [rng.normal(size=(B, 1, H, d)).astype(np.float32)
            for _ in range(3)]
-    pat = [rng.normal(size=(B, F, N, H, d)).astype(np.float32)
-           for _ in range(2)]
+    if packed:
+        qkv = rng.normal(size=(B, F, N, 3 * H * d)).astype(np.float32)
+        pat = [np.ascontiguousarray(a).reshape(B, F, N, H, d)
+               for a in np.split(qkv, 3, axis=-1)[1:]]
+    else:
+        qkv = None
+        pat = [rng.normal(size=(B, F, N, H, d)).astype(np.float32)
+               for _ in range(2)]
     g = rng.normal(size=(B, 1, H, d)).astype(np.float32)
-    _, res = JA._cls_row_vjp_fwd(*map(jnp.asarray, cls + pat))
+    return cls, pat, qkv, g
+
+
+@pytest.mark.parametrize("B,F,N,H,d,packed", CLS_ROW_SHAPES)
+def test_cls_row_grad_matches_jax_vjp(B, F, N, H, d, packed):
+    """The port's fp32 CLS row (the operator ``lavila::cls_row``, its CPU
+    path) against the JAX package's hand-written VJP
+    (``_cls_row_vjp_fwd``, ``_cls_row_vjp_bwd``): value and every
+    gradient, atol 1e-5; packed cases take kp/vp as strided row views.
+    Autograd of the plain row (``cls_row_attention_reference``, which
+    the kernels' tests and the chip's plain path compare with) too."""
+    cls, pat, qkv, g = _cls_row_inputs(B, F, N, H, d, packed)
+    want_out, res = JA._cls_row_vjp_fwd(*map(jnp.asarray, cls + pat))
     want = JA._cls_row_vjp_bwd(res, jnp.asarray(g))
-    leaves = [torch.from_numpy(a).requires_grad_() for a in cls + pat]
-    out = cls_row_attention(*leaves)
-    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
-    for name, a, w in zip(("dcls_q", "dcls_k", "dcls_v", "dkp", "dvp"),
-                          got, want):
-        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-5,
-                                   rtol=0, err_msg=name)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in cls]
+    if packed:
+        full = torch.from_numpy(qkv).requires_grad_()
+        kp, vp = (t.reshape(B, F, N, H, d) for t in full.chunk(3, -1)[1:])
+        assert kp.stride(2) == 3 * H * d  # a row view, not a copy
+    else:
+        full = None
+        kp, vp = (torch.from_numpy(a).requires_grad_() for a in pat)
+    wrt = leaves + ([full] if packed else [kp, vp])
+    for fn in (cls_row, cls_row_attention_reference):
+        out = fn(*leaves, kp, vp)
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   np.asarray(want_out), atol=1e-5, rtol=0)
+        got = list(torch.autograd.grad(out, wrt, torch.from_numpy(g)))
+        if packed:
+            dq, dk, dv = got.pop().chunk(3, -1)
+            assert not dq.any()
+            got += [t.reshape(B, F, N, H, d) for t in (dk, dv)]
+        for name, a, w in zip(("dcls_q", "dcls_k", "dcls_v", "dkp", "dvp"),
+                              got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-5,
+                                       rtol=0, err_msg=f"{fn.__name__} "
+                                                       f"{name}")
+
+
+def test_cls_row_opcheck():
+    """``torch.library.opcheck`` of ``lavila::cls_row`` on the CPU: its
+    schema, autograd registration, fake tensor and AOT dispatch, on
+    contiguous inputs and on row views."""
+    from lavila_tpu_torch.kernels.cls_row import cls_row_op
+    for shape in (CLS_ROW_SHAPES[0], CLS_ROW_SHAPES[3]):
+        cls, pat, qkv, _ = _cls_row_inputs(*shape, seed=1)
+        B, F, N, H, d, packed = shape
+        args = [torch.from_numpy(a).requires_grad_() for a in cls]
+        if packed:
+            kv = torch.from_numpy(qkv).chunk(3, -1)[1:]
+            args += [t.reshape(B, F, N, H, d).requires_grad_() for t in kv]
+        else:
+            args += [torch.from_numpy(a).requires_grad_() for a in pat]
+        torch.library.opcheck(cls_row_op, args)
 
 
 def test_clip_loss_value_and_grad_match_jax():
