@@ -1240,6 +1240,61 @@ def _cls_row_bwd_case(B, F, N, H, d, dtype, gen) -> dict:
             "library_ms": time_ms(lib)}
 
 
+def _moe_case(T, k, E, S, D, I, dtype, gen) -> dict:
+    """The expert layer's kernels (``kernels/moe.py``: routing, sort, the
+    grouped gate/up and down products, the combine) against the plain
+    path on the same bf16 values: the routing's choice exact, the
+    layer's error relative to its largest value (each expert row and h
+    rounded to bf16 on both sides, fp32 sums in another order),
+    bit-identical over two calls. Bound: the weights of the experts that
+    got rows and the rows in and out of the two products
+    (``benchmark/roofline/expert.py``)."""
+    from lavila_tpu_torch.kernels import moe
+
+    def rnd(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device=DEVICE)
+                * scale).to(dtype)
+    x = rnd(T, D, scale=1.0)
+    router, bias = rnd(E, D, scale=D ** -0.5), rnd(E, scale=0.02)
+    w1, w2 = rnd(E, 2 * I, D, scale=D ** -0.5), rnd(E, D, I, scale=I ** -0.5)
+    w1s, w2s = rnd(S, 2 * I, D, scale=D ** -0.5), rnd(S, D, I,
+                                                       scale=I ** -0.5)
+    weights, idx = moe.route(x, router, bias, k, 2.446)
+    same_route = bool(torch.equal(
+        idx, moe.route_reference(x, router, bias, k, 2.446)[1]))
+
+    def run():
+        return (moe.experts(x, weights, idx, w1, w2, w1s, w2s),)
+    got = run()
+    same = _all_equal(got, run())
+    ref = moe.experts_reference(x, weights, idx, w1, w2, w1s, w2s)
+    torch.cuda.synchronize()
+    err, abs_err = _rel_err(got[0], ref), max_err(got[0], ref)
+    del ref
+    tol, it = TOL[dtype], x.element_size()
+    N = T * k + S * T
+    used = len(torch.unique(idx)) + S
+    lib = library().moe_grouped_mm_call(x, weights, idx, w1, w2, w1s, w2s)
+    res = {"out_err": err, "abs_err": abs_err, "tol": tol,
+           "route_exact": same_route, "bit_identical": same,
+           "ok": err <= tol and same and same_route, "ms": time_ms(run),
+           "route_ms": time_ms(lambda: moe.route(x, router, bias, k, 2.446)),
+           "plain_ms": time_ms(lambda: moe.experts_reference(
+               x, weights, idx, w1, w2, w1s, w2s), iters=3, warmup=1),
+           **bound((used * 3 * I * D + 2 * N * (D + I)) * it,
+                   2 * N * 3 * I * D, dtype)}
+    if lib is None:
+        res.update(library_ms=None, device_ms=profiled_ms(run),
+                   library="torch._grouped_mm absent")
+    else:
+        res.update(_device_extras(run, lib, dtype), library_ms=time_ms(lib))
+    return res
+
+
+# the expert layer's cases (T tokens, k of E routed experts, S shared, D,
+# I): Moonlight's decode step at the cell's 160 rows, and at 960
+MOE_DECODE = (160, 6, 64, 2, 2048, 1408)
+MOE_960 = (960, 6, 64, 2, 2048, 1408)
 # the CLS row's cases: TSF-L@336's 16 heads of 64 over 4 x 576 patches,
 # at the encode cell's 16 clips and the train cell's 32
 CLS_ROW_ENCODE = (16, 4, 576, 16, 64)
@@ -1253,6 +1308,8 @@ MAIN_CASE = {"K1": (8, 4, 196, 768, 12), "K2": (8, 4, 196, 768, 12),
              # the CLS row at the encode cell's 16 clips of TSF-L@336 (B,
              # F, N, H, d)
              "CLS row": CLS_ROW_ENCODE,
+             # the Moonlight narrator's expert layer at 160 decode rows
+             "experts": MOE_DECODE,
              # TSF-B's text tower at 16 captions (B, H, Lq, Lk, d); K8 dq
              # and dkv: the fused backward there
              **dict.fromkeys(("K7", "K8 fwd", "K8 dq", "K8 dkv"),
@@ -1273,6 +1330,7 @@ SIDE_CASES = {"K3": (("narrator", (160, 1, 1600)),
                      ("b32", (32, 4, 196, 768, 12))),
               "K6": (("b32", (32, 4, 576, 1024, 16)),),
               "CLS row": (("b32", CLS_ROW_TRAIN),),
+              "experts": (("rows960", MOE_960),),
               "K2": (("f16", (8, 16, 196, 768, 12)),
                      ("tsf_l_336", (8, 4, 576, 1024, 16))),
               # GPT-2 XL's self- and cross-attention (K8 at both in the
@@ -1379,6 +1437,11 @@ def phase_kernels() -> dict:
     cases += [("CLS row", "cls_row", shape, dtype, gen_cls)
               for dtype in (torch.float32, bf16)
               for shape in (CLS_ROW_ENCODE, CLS_ROW_TRAIN)]
+    # the expert layer, bf16 only (its kernels take bf16), from its own
+    # generator
+    gen_moe = torch.Generator(device=DEVICE).manual_seed(SEED + 28)
+    cases += [("experts", "moe", shape, bf16, gen_moe)
+              for shape in (MOE_DECODE, MOE_960)]
     summary = {}
     with torch.inference_mode():
         for name, kind, shape, dtype, *own in cases:
@@ -1395,6 +1458,8 @@ def phase_kernels() -> dict:
                 res = _flash_case(name, *shape, kind == "causal", dtype, g)
             elif kind == "cls_row":
                 res = _cls_row_case(*shape, dtype, g)
+            elif kind == "moe":
+                res = _moe_case(*shape, dtype, g)
             else:
                 res = _phase_case(kind, *shape[:3], shape[3], shape[4],
                                   dtype, g)

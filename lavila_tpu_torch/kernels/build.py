@@ -78,6 +78,18 @@ _SIGNATURES = {
     # wdtype; stream
     "lavila_ln_fwd": ([_P] * 6 + [_LL] + [_I] * 3 + [_F] * 2 + [_I] * 2
                       + [_P], ctypes.c_int),
+    # x, x row stride, w, bias, idx, wts; T, D, E, K; scale; stream
+    "lavila_moe_route": ([_P, _LL] + [_P] * 4 + [_I] * 4 + [_F, _P],
+                         ctypes.c_int),
+    # idx, src, pos, offsets; T, K, E, S; stream
+    "lavila_moe_sort": ([_P] * 4 + [_I] * 4 + [_P], ctypes.c_int),
+    # x, x row stride, src, offsets, w1, w1s, h; E, S, D, I, T; stream
+    "lavila_moe_gate_up": ([_P, _LL] + [_P] * 5 + [_I] * 5 + [_P],
+                           ctypes.c_int),
+    # h, offsets, w2, w2s, y; E, S, D, I, T; stream
+    "lavila_moe_down": ([_P] * 5 + [_I] * 5 + [_P], ctypes.c_int),
+    # y, pos, wts, out; T, K, S, D; stream
+    "lavila_moe_combine": ([_P] * 4 + [_I] * 4 + [_P], ctypes.c_int),
 }
 
 # set by the build in this process: its wall time and nvcc's output

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from lavila_tpu_torch.models import sampling as S
-from lavila_tpu_torch.models.gpt2 import init_cache
+from lavila_tpu_torch.models.gpt2 import GPT2LMHead
 from lavila_tpu_torch.parallel import mesh
 
 
@@ -89,12 +89,16 @@ class BeamDecoder:
         model = self.model
         batch, device = image_tokens.shape[0], image_tokens.device
         B = batch * num_beams
+        if not isinstance(model.text_decoder, GPT2LMHead):
+            raise NotImplementedError(
+                f"beam search reorders a GPT-2 (k, v) cache; it is not "
+                f"implemented for {type(model.text_decoder).__name__}'s "
+                f"cache")
         cross_kv = model.prepare_decode(
             image_tokens.repeat_interleave(num_beams, dim=0))
         # the cache in the tokens' (the model's) dtype
-        cache = init_cache(model.text_decoder.cfg, B, self.max_text_length,
-                           dtype=image_tokens.dtype, device=device,
-                           width=model.text_decoder.cache_width())
+        cache = model.text_decoder.init_cache(
+            B, self.max_text_length, dtype=image_tokens.dtype, device=device)
 
         ids = np.full((B, 1), self.bos_id, np.int64)
         beam_scores = np.tile(init_beam_scores[None], (batch, 1)).reshape(-1)

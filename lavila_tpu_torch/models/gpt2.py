@@ -156,13 +156,12 @@ class SelfAttention(nn.Module):
 
 class CrossAttention(nn.Module):
     """Queries from the hidden states, packed K/V (``c_attn``) from the
-    visual tokens."""
+    visual tokens, ``heads`` heads over the width ``D``."""
 
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, D: int, heads: int):
         super().__init__()
-        D = cfg.n_embd
-        self.n_head = cfg.n_head
-        self.head_dim = cfg.head_dim
+        self.n_head = heads
+        self.head_dim = D // heads
         self.q_attn = nn.Linear(D, D)
         self.c_attn = nn.Linear(D, 2 * D)
         self.c_proj = nn.Linear(D, D)
@@ -201,49 +200,70 @@ class CrossAttention(nn.Module):
 
 
 class GPT2Mlp(nn.Module):
-    def __init__(self, cfg: GPT2Config, act: str):
+    """``c_fc`` (D → 4D) → ``act`` → ``c_proj``, with biases."""
+
+    def __init__(self, D: int, act: str):
         super().__init__()
         self.act = ACTIVATIONS[act]
-        self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd)
-        self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
+        self.c_fc = nn.Linear(D, 4 * D)
+        self.c_proj = nn.Linear(4 * D, D)
 
     def forward(self, x):
         return self.c_proj(self.act(self.c_fc(x)))
 
 
-class GPT2Block(nn.Module):
+class CrossBlock(nn.Module):
+    """A decoder block that may hold LaViLa's gated cross-attention, under
+    GPT-2's names, ahead of its own layers (GPT-2's blocks here, the
+    Moonlight decoder's layers in ``models/moonlight.py``): LN →
+    cross-attention over the visual tokens → × tanh(alpha_cattn), then
+    LN → squared-ReLU MLP (4 × the width) → × tanh(alpha_dense)."""
+
+    def init_cross(self, has_cross: bool, D: int, heads: int, eps: float,
+                   gated: bool) -> None:
+        self.has_cross, self.gated = has_cross, gated
+        if has_cross:
+            self.ln_cross_attn = LayerNorm(D, eps)
+            self.crossattention = CrossAttention(D, heads)
+            self.ln_2_crossattention = LayerNorm(D, eps)
+            self.mlp_crossattention = GPT2Mlp(D, "squared_relu")
+            if gated:
+                self.alpha_cattn = nn.Parameter(torch.zeros(()))
+                self.alpha_dense = nn.Parameter(torch.zeros(()))
+
+    def cross(self, x, encoder_states=None, cross_kv=None):
+        """The gated cross-attention and MLP on the residual stream ``x``,
+        where the block has them and visual tokens (or their K/V) are
+        given; ``x`` otherwise."""
+        if not self.has_cross or (encoder_states is None
+                                  and cross_kv is None):
+            return x
+        att = self.crossattention(self.ln_cross_attn(x), encoder_states,
+                                  cross_kv)
+        if self.gated:
+            att = torch.tanh(self.alpha_cattn).to(x.dtype) * att
+        x = x + att
+        ff = self.mlp_crossattention(self.ln_2_crossattention(x))
+        if self.gated:
+            ff = torch.tanh(self.alpha_dense).to(x.dtype) * ff
+        return x + ff
+
+
+class GPT2Block(CrossBlock):
     def __init__(self, cfg: GPT2Config, layer_idx: int):
         super().__init__()
         eps = cfg.layer_norm_epsilon
-        self.gated = cfg.gated_xattn
-        self.has_cross = (cfg.cross_attn_freq > 0
-                          and layer_idx % cfg.cross_attn_freq == 0)
-        if self.has_cross:
-            self.ln_cross_attn = LayerNorm(cfg.n_embd, eps)
-            self.crossattention = CrossAttention(cfg)
-            self.ln_2_crossattention = LayerNorm(cfg.n_embd, eps)
-            self.mlp_crossattention = GPT2Mlp(cfg, "squared_relu")
-            if self.gated:
-                self.alpha_cattn = nn.Parameter(torch.zeros(()))
-                self.alpha_dense = nn.Parameter(torch.zeros(()))
+        self.init_cross(cfg.cross_attn_freq > 0
+                        and layer_idx % cfg.cross_attn_freq == 0,
+                        cfg.n_embd, cfg.n_head, eps, cfg.gated_xattn)
         self.ln_1 = LayerNorm(cfg.n_embd, eps)
         self.attn = SelfAttention(cfg)
         self.ln_2 = LayerNorm(cfg.n_embd, eps)
-        self.mlp = GPT2Mlp(cfg, cfg.activation)
+        self.mlp = GPT2Mlp(cfg.n_embd, cfg.activation)
 
     def forward(self, x, encoder_states=None, cross_kv=None, cache=None,
                 cache_index=None):
-        if self.has_cross and (encoder_states is not None
-                               or cross_kv is not None):
-            att = self.crossattention(self.ln_cross_attn(x), encoder_states,
-                                      cross_kv)
-            if self.gated:
-                att = torch.tanh(self.alpha_cattn).to(x.dtype) * att
-            x = x + att
-            ff = self.mlp_crossattention(self.ln_2_crossattention(x))
-            if self.gated:
-                ff = torch.tanh(self.alpha_dense).to(x.dtype) * ff
-            x = x + ff
+        x = self.cross(x, encoder_states, cross_kv)
         x = x + self.attn(self.ln_1(x), cache, cache_index)
         return x + self.mlp(self.ln_2(x))
 
@@ -313,6 +333,13 @@ class GPT2LMHead(nn.Module):
                 x = blk(*args)
         x = t.ln_f(x)
         return x @ t.wte.weight.T.to(x.dtype)
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   device=None) -> list:
+        """The decode's self-attention cache (:func:`init_cache` at the
+        width of the heads held here)."""
+        return init_cache(self.cfg, batch, max_len, dtype=dtype,
+                          device=device, width=self.cache_width())
 
     def cache_width(self) -> int:
         """The width of the self-attention heads the layers hold: the

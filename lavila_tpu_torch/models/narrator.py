@@ -1,5 +1,7 @@
-"""VCLM narrator: video tower → attention-pooled image queries → gated
-GPT-2 decoder, with cached sampled decoding.
+"""VCLM narrator: video tower → attention-pooled image queries → a text
+decoder with LaViLa's gated cross-attention (GPT-2, ``models/gpt2.py``,
+or Moonlight-16B-A3B, ``models/moonlight.py``), with cached sampled
+decoding.
 
 Counterpart of ``lavila_tpu/models/narrator.py:VCLM``, with the
 reference state-dict names (``visual.*``, ``img_queries``,
@@ -11,8 +13,10 @@ reference state-dict names (``visual.*``, ``img_queries``,
     ``num_img_queries`` learned queries and applies the bias-free norm.
   * ``forward(frames, text)`` is the teacher-forced pass: logits of
     ``text[:, :-1]`` against the labels ``text[:, 1:]``.
-  * :meth:`VCLM.generate` samples captions with a KV cache, one token per
-    step (the decoder's self-attention step is K9): the image tokens
+  * :meth:`VCLM.generate` samples captions with the decoder's own cache
+    (``text_decoder.init_cache``: GPT-2's (k, v) pairs, whose
+    self-attention step is K9, or Moonlight's latents), one token per
+    step: the image tokens
     repeated ``num_return_sequences`` times, the cross K/V computed once,
     temperature → top-k → top-p, a perplexity per row (NLL against
     ``target``, else the entropy of the unwarped logits, masked after
@@ -33,14 +37,13 @@ from torch import nn
 
 from lavila_tpu_torch.models import sampling as S
 from lavila_tpu_torch.models.coca import AttentionPooler
-from lavila_tpu_torch.models.gpt2 import GPT2LMHead, init_cache
 from lavila_tpu_torch.ops.basic import BiasFreeLayerNorm, init_linear_
 from lavila_tpu_torch.parallel import mesh
 from lavila_tpu_torch.utils import tracing
 
 
 class VCLM(nn.Module):
-    def __init__(self, vision_model: nn.Module, text_decoder: GPT2LMHead,
+    def __init__(self, vision_model: nn.Module, text_decoder: nn.Module,
                  vision_width: int, text_width: int,
                  num_img_queries: int = 256, dim_head: int = 64,
                  heads: int = 8):
@@ -113,9 +116,8 @@ class VCLM(nn.Module):
                 B, device = image_tokens.shape[0], image_tokens.device
                 L = max_text_length
                 cross_kv = self.prepare_decode(image_tokens)
-                cache = init_cache(self.text_decoder.cfg, B, L,
-                                   dtype=image_tokens.dtype, device=device,
-                                   width=self.text_decoder.cache_width())
+                cache = self.text_decoder.init_cache(
+                    B, L, dtype=image_tokens.dtype, device=device)
                 out = torch.full((B, L), pad_id, dtype=torch.long,
                                  device=device)
                 out[:, 0] = bos_id

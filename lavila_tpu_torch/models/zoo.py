@@ -28,7 +28,11 @@ TSF-L with GPT-2 (12 layers, cross-attention on every layer), TSF-B or
 TSF-L with GPT-2 XL (48 layers, cross-attention on every second), and
 the flagship TSF-L@336 with GPT-2 XL (cross-attention on every third,
 16 layers), the narrator LaViLa used to narrate Ego4D. As in the JAX
-CLIs, the narrator CLIs build them with ``gated_xattn=True``.
+CLIs, the narrator CLIs build them with ``gated_xattn=True``. Beyond the
+reference zoo, ``VCLM_OPENAI_TIMESFORMER_LARGE_336PX_MOONLIGHT_16B_A3B``
+puts the same tower and cross-attention in front of Moonlight-16B-A3B
+(``models/moonlight.py``; its MINI sibling for CI); its decoder is made
+in ``param_dtype``, since it does not fit one card in float32.
 
 The raw OpenAI CLIP ViTs (``CLIP_OPENAI_VIT{B32,B16,L14,L14_336PX}``,
 JAX ``_VIT_GEOM``) are dual encoders of a :class:`FrameMeanViT` (the
@@ -60,6 +64,7 @@ from lavila_tpu_torch.models.distilbert import DistilBertModel
 from lavila_tpu_torch.models.dual_encoder import VideoCLIP, VideoCLIPHF
 from lavila_tpu_torch.models.gpt2 import (PRESETS, GPT2Config, GPT2LMHead,
                                           augment_config)
+from lavila_tpu_torch.models.moonlight import MoonlightConfig, MoonlightLM
 from lavila_tpu_torch.models.narrator import VCLM
 from lavila_tpu_torch.models.openai_clip import (FrameMeanViT,
                                                 FrameTokensViT,
@@ -298,6 +303,71 @@ def VCLM_OPENAI_TIMESFORMER_MINI_GPT2_MINI(num_frames: int = 4,
                       n_layer=2, n_head=4)
     return _vclm(vision, gpt2, 1, gated_xattn, remat, heads=4,
                  num_img_queries=16, dim_head=16)
+
+
+def _moonlight_lm(cfg: MoonlightConfig,
+                  param_dtype: torch.dtype) -> MoonlightLM:
+    """The decoder with its parameters in ``param_dtype``, made on the
+    meta device and then allocated on the current one (its weights are
+    drawn by ``init_weights``): the published model's 16 B parameters do
+    not fit one card in float32."""
+    with torch.device("meta"):
+        lm = MoonlightLM(cfg)
+    return lm.to(param_dtype).to_empty(device=torch.get_default_device())
+
+
+@register
+def VCLM_OPENAI_TIMESFORMER_MINI_MOONLIGHT_MINI(num_frames: int = 4,
+                                               gated_xattn: bool = False,
+                                               remat: bool = False,
+                                               remat_policy: str = "full",
+                                               timesformer_gated_xattn:
+                                               bool = False,
+                                               param_dtype: torch.dtype =
+                                               torch.float32):
+    """Tiny debug/CI narrator on a Moonlight-shaped decoder (not in the
+    reference zoo): the MINI video tower, 3 layers 256 wide (layer 0
+    dense, 1-2 of 8 routed experts, top 3, and 2 shared), MLA of 4 heads
+    (32 + 16 query/key dims, 32 value dims, a latent of 64),
+    cross-attention on layers 0 and 2, 16 image queries of 4 heads × 16.
+    The widths are the smallest the expert kernels take, so the card's
+    tests build it too; it takes the published entry's ``param_dtype``,
+    so that one call builds either."""
+    vision = SpaceTimeTransformer(
+        img_size=64, patch_size=16, embed_dim=64, depth=2, num_heads=4,
+        num_frames=num_frames, remat=remat, remat_policy=remat_policy)
+    cfg = MoonlightConfig(
+        vocab_size=1024, hidden_size=256, intermediate_size=512,
+        moe_intermediate_size=128, num_hidden_layers=3,
+        num_attention_heads=4, kv_lora_rank=64, qk_nope_head_dim=32,
+        qk_rope_head_dim=16, v_head_dim=32, n_routed_experts=8,
+        n_shared_experts=2, num_experts_per_tok=3, cross_attn_freq=2,
+        cross_heads=4, gated_xattn=gated_xattn)
+    return VCLM(vision, _moonlight_lm(cfg, param_dtype), vision_width=64,
+                text_width=256, num_img_queries=16, dim_head=16, heads=4)
+
+
+@register
+def VCLM_OPENAI_TIMESFORMER_LARGE_336PX_MOONLIGHT_16B_A3B(
+        num_frames: int = 4, gated_xattn: bool = False,
+        timesformer_gated_xattn: bool = False, remat: bool = False,
+        remat_policy: str = "full",
+        param_dtype: torch.dtype = torch.float32):
+    """The flagship narrator's TSF-L@336 tower and 256-query pooler (16
+    heads × 64) into Moonlight-16B-A3B at its published configuration
+    (``models/moonlight.py``), LaViLa's gated cross-attention before every
+    third layer (9 of 27), as the TSF-L@336 GPT-2 XL narrator. Build it
+    with ``param_dtype=torch.bfloat16`` (and ``dtype`` the same) on a
+    card: the decoder's 16 B parameters do not fit one in float32.
+    ``remat`` reaches the tower only (the expert kernels serve and do not
+    train)."""
+    vision = _timesformer("large", 336, num_frames, timesformer_gated_xattn,
+                          remat=remat, remat_policy=remat_policy)
+    cfg = MoonlightConfig(cross_attn_freq=3, gated_xattn=gated_xattn)
+    return VCLM(vision, _moonlight_lm(cfg, param_dtype),
+                vision_width=vision.embed_dim,
+                text_width=cfg.hidden_size, num_img_queries=256,
+                dim_head=64, heads=16)
 
 
 # the raw OpenAI CLIP ViTs' geometry (lavila_tpu/models/zoo.py:358-367)

@@ -34,6 +34,13 @@ CUDA event, no profiler call. After :func:`enable` each span records
     exit, filled in by :func:`spans`, which synchronises; None on the
     CPU.
 
+Counters: :func:`count` adds a tensor of counts into a named counter kept
+on the counts' device (one in-place add, no copy to the host) while
+recording is on, and does nothing otherwise; :func:`counters` copies them
+to the host. The expert layers of the Moonlight narrator
+(``models/moonlight.py``) count the rows routed to each expert under
+``moe.rows.<layer>``.
+
 While ``torch.profiler`` runs, each span is also a
 ``torch.profiler.record_function`` range of its name, so that it appears
 in the trace among the device's operations, on the profiler's clock.
@@ -61,6 +68,7 @@ _buffer: collections.deque = collections.deque()
 _free_events: list = []
 _dropped = 0
 _count = itertools.count()
+_counters: dict[str, torch.Tensor] = {}
 
 
 class _Stack(threading.local):
@@ -192,6 +200,23 @@ def spans() -> list[Span]:
     return out
 
 
+def count(name: str, values: torch.Tensor) -> None:
+    """Add ``values`` into the counter ``name`` (on their device, without
+    a sync) while recording is on."""
+    if not _on:
+        return
+    held = _counters.get(name)
+    if held is None:
+        _counters[name] = values.detach().clone()
+    else:
+        held += values
+
+
+def counters() -> dict[str, torch.Tensor]:
+    """The counters, copied to the host."""
+    return {name: t.cpu() for name, t in _counters.items()}
+
+
 def dropped() -> int:
     """How many spans the buffer's cap has dropped since the last
     :func:`reset`."""
@@ -199,8 +224,10 @@ def dropped() -> int:
 
 
 def reset() -> None:
-    """Forget the recorded spans and the count of dropped ones."""
+    """Forget the recorded spans, the count of dropped ones and the
+    counters."""
     global _dropped
+    _counters.clear()
     with _lock:
         for s in _buffer:
             _release(s)

@@ -183,6 +183,34 @@ def decode_call(q, k_cache, v_cache, k_new, v_new, num_valid: int,
     return lambda: F.scaled_dot_product_attention(qh, k, v)
 
 
+def moe_grouped_mm_call(x, weights, idx, w1, w2, w1s, w2s):
+    """The expert layer's two grouped products as ``torch._grouped_mm``
+    (its rows sorted by expert by torch ops first, outside the timed
+    call; the routed and shared experts as one group list); None where
+    this PyTorch has no ``_grouped_mm``."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    T, k = idx.shape
+    S = w1s.shape[0]
+    groups = torch.cat([idx.reshape(-1).long(), w1.shape[0] + torch.arange(
+        S, device=x.device).repeat_interleave(T)])
+    order = torch.sort(groups, stable=True).indices
+    tokens = torch.cat([torch.arange(T * k, device=x.device) // k,
+                        torch.arange(T, device=x.device).repeat(S)])
+    xs = x[tokens[order]].contiguous()
+    counts = torch.bincount(groups, minlength=w1.shape[0] + S)
+    offs = counts.cumsum(0).int()
+    up = torch.cat([w1, w1s]).transpose(-2, -1)     # (G, D, 2I)
+    down = torch.cat([w2, w2s]).transpose(-2, -1)   # (G, I, D)
+    inner = w2.shape[2]
+
+    def call():
+        gu = torch._grouped_mm(xs, up, offs=offs)
+        h = F.silu(gu[:, :inner]) * gu[:, inner:]
+        return torch._grouped_mm(h, down, offs=offs)
+    return call
+
+
 def _heads_major(t):
     """(B, L, H, d) → a contiguous (B, H, L, d) copy."""
     return t.transpose(1, 2).contiguous()
